@@ -8,7 +8,9 @@ the JAX package's module names so each counterpart is easy to find:
   per-patch soft labels,
 - exact k-nearest-neighbour retrieval through a hand-written CUDA kernel
   (`ops/csrc/knn_topk.cu`: fused q·bᵀ + streaming top-k, the Q×M score
-  matrix never materialised),
+  matrix never materialised), or approximate retrieval over an IVF tree
+  (`nn_method='ivf'`: k-means leaves, probed-leaf scan in
+  `ops/csrc/ivf_topk.cu`),
 - soft-label cross-attention transfer and confusion-matrix mIoU.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no

@@ -10,9 +10,11 @@ Dataflow on the device (CUDA unless the caller passes device="cpu"):
 - memory step per batch: backbone forward + GT patchify + soft labels
   (+ bounded rarity sampling) + L2 normalisation; the slabs stay on the
   device and are concatenated into the bank after the build;
-- eval step per batch: backbone forward -> K1 kNN search (the fused CUDA
-  kernel, ops/csrc/knn_topk.cu) -> score-based cross-attention -> bilinear
-  upsample -> argmax -> confusion matrix. Only the (C, C) counts and the
+- eval step per batch: backbone forward -> kNN search (K1, the fused CUDA
+  kernel ops/csrc/knn_topk.cu, over the flat bank; or, for 'ivf'/'tree',
+  K2, ops/csrc/ivf_topk.cu, over the probed leaves of the IVF tree) ->
+  score-based cross-attention -> bilinear upsample -> argmax -> confusion
+  matrix. Only the (C, C) counts and the
   (B, H, W) predicted maps come back to the host.
 - ragged last batches are zero-padded to the first batch's size; padded
   images carry ignore-labelled GT and their bank rows are dropped. A later
@@ -26,8 +28,12 @@ Behavioural quirks kept for parity (SURVEY Appendix):
 - features are normalized without an epsilon (hbird_eval.py:324).
 - Hungarian matching is the default scoring mode (hbird_eval.py:253).
 
-Not ported yet (each raises): the IVF tree ('ivf'/'tree'), device meshes,
-and bank persistence (f_mem_p / l_mem_p / load_memory).
+The eval step runs eagerly, but it stands for the JAX engine's jitted
+step, where a tree backend's probe_mode='auto' resolves to tile probing
+(the queries are tracers there): so the step passes 'tile' for 'auto'.
+
+Not ported yet (each raises): device meshes and bank persistence
+(f_mem_p / l_mem_p / load_memory, including .treedir indexes).
 """
 
 from __future__ import annotations
@@ -102,8 +108,12 @@ class HbirdEvaluation:
         device: 'cuda' (the default when None) or 'cpu'; CUDA on a host
             without a GPU raises.
         nn_method: 'faiss'/'exact' or 'scann'/'approx' (default), both the
-            flat bank searched by K1; 'ivf'/'tree' is not ported yet.
-        nn_params: extra backend kwargs (use_fp16, ...).
+            flat bank searched by K1; 'ivf'/'tree', the approx backend's
+            IVF tree searched by K2.
+        nn_params: extra backend kwargs (use_fp16, num_leaves,
+            num_leaves_to_search, recall_target, ...). For the tree, a
+            recall_target without num_leaves_to_search calibrates the probe
+            count after the build.
         memory_size: bank row cap; enables per-image rarity sampling.
         dataset_size: #train images (required with memory_size).
         seed: seed of the sampling-noise generator.
@@ -143,8 +153,6 @@ class HbirdEvaluation:
             raise AssertionError(
                 "Only faiss/exact, scann/approx and ivf/tree are supported"
             )
-        if method == "ivf":
-            raise not_ported(f"nn_method={nn_method!r}", "TPU kernels K2")
         self.device = resolve_device(device)
         self._device_norm = device_norm
         self.nn_params = dict(nn_params or {})
@@ -297,11 +305,16 @@ class HbirdEvaluation:
     # ------------------------------------------------------------------
     def _create_nn(self, n_neighbours: int = 30, nn_method: str = "exact", **kwargs):
         logger.info("Building NN index: method=%s, k=%d", nn_method, n_neighbours)
+        explicit_recall = kwargs.get("recall_target") is not None
+        explicit_probe = "num_leaves_to_search" in kwargs
+        method = _NN_ALIASES.get(nn_method, nn_method)
         cls = (
             NearestNeighborSearchApprox
-            if _NN_ALIASES.get(nn_method, nn_method) == "approx"
+            if method in ("approx", "ivf")
             else NearestNeighborSearchExact
         )
+        if method == "ivf":
+            kwargs.setdefault("use_tree", True)
         # exact: bf16 bank tracks the engine flag (faiss useFloat16);
         # approx: bf16 by default, as in the JAX engine.
         kwargs.setdefault(
@@ -313,6 +326,17 @@ class HbirdEvaluation:
             label_memory=self.label_memory,
             device=self.device,
             **kwargs,
+        )
+        tree = getattr(self.NN_algorithm, "use_tree", False)
+        if tree and explicit_recall and not explicit_probe:
+            # ScaNN's recall-tuned builder, done by measurement.
+            self.NN_algorithm.calibrate_n_probe(self.NN_algorithm.recall_target)
+        # The JAX engine's jitted step sees tracers, for which 'auto'
+        # probing means tile probing.
+        self._search_opts = (
+            {"probe_mode": "tile"}
+            if tree and self.NN_algorithm.probe_mode == "auto"
+            else {}
         )
 
     # ------------------------------------------------------------------
@@ -327,7 +351,7 @@ class HbirdEvaluation:
         d = feats.shape[-1]
         q = feats.reshape(-1, d)
         state = nn.device_state
-        vals, idx, labels = nn.search_with_labels_pure(state, q, k)
+        vals, idx, labels = nn.search_with_labels_pure(state, q, k, **self._search_opts)
         q_norm = torch.linalg.vector_norm(q, dim=-1)
         label_hat = cross_attention_from_scores(
             vals.reshape(b, -1, k), q_norm.reshape(b, -1), labels.reshape(b, -1, k, c)

@@ -6,12 +6,12 @@ hbird/nn/search_base.py:3-31): construction takes the feature memory;
 arrays; `search_with_labels` is the fused path the engine uses (scores and
 neighbour labels without leaving the device).
 
-Only the flat dot-product bank exists in this package so far, and both
-backends (`search_exact`, `search_approx`) store and search it the same
-way: `FlatSearch` below, so the JAX package's abstract base has no
-counterpart yet. Options of the JAX backends that need a later
-slice raise `NotImplementedError` and name their ROADMAP item; none falls
-back silently.
+Both backends (`search_exact`, `search_approx`) store and search the flat
+dot-product bank the same way: `FlatSearch` below, so the JAX package's
+abstract base has no counterpart yet. The approx backend's IVF tree
+(`use_tree=True`) overrides the storage and the search. Options of the JAX
+backends that need a later slice raise `NotImplementedError` and name
+their ROADMAP item; none falls back silently.
 """
 
 from __future__ import annotations

@@ -13,231 +13,21 @@
 // f32 accumulation, fed by ldmatrix from a two-stage cp.async ring. f32
 // inputs keep exact f32 FMAs (the tensor cores would round them to TF32).
 //
-// Design, shared by both score paths:
-// - One CTA (256 threads) owns BQ = 64 queries and walks the bank in tiles
-//   of BM = 128 rows; the grid is ceil(Q / 64) CTAs. Queries are
-//   independent, so no cross-CTA reduction exists (the TPU kernel's
-//   sequential "arbitrary" grid axis becomes the loop over bank tiles).
-//   Tiles at or past `valid_rows` are never visited: their columns would
-//   all score -inf.
-// - The finished 64×128 f32 score tile goes to shared memory. Columns
-//   >= valid_rows score -inf.
-// - Each warp owns 8 queries. A query's running top-(32·S) lives in
-//   registers, S slots per lane (S = ceil(k / 32), 1 for the engine's
-//   k = 30). A candidate is a 64-bit key: the order-preserving bits of its
-//   f32 score above the complement of its column, so "larger key" means
-//   "higher score, then lower bank index". Keys are unique, so the
-//   replace-the-minimum insertion keeps exactly the top set under that
-//   order, whatever order candidates arrive in: ties resolve by lowest
-//   index, as ops/knn.py::exact_knn does.
-// - The TPU kernel's predicate (skip a tile whose max does not beat the
-//   running minimum) is a warp vote: a query's 128 tile scores are
-//   compared with its current minimum key, and the insertion loop runs
-//   only while some lane holds a larger key.
-// - Slots start at (-inf, index 0), the TPU kernel's _init; they stay so
-//   when fewer than k rows are valid.
-// - At the end each warp extracts its queries' k largest keys in order:
-//   values descending, then bank index ascending.
+// Design: one CTA (256 threads) owns BQ = 64 queries and walks the bank in
+// tiles of BM = 128 rows; the grid is ceil(Q / 64) CTAs. Queries are
+// independent, so no cross-CTA reduction exists (the TPU kernel's
+// sequential "arbitrary" grid axis becomes the loop over bank tiles). Tiles
+// at or past `valid_rows` are never visited: their columns would all score
+// -inf. The score tiles and the running top-k merge (ties resolve by lowest
+// index, as ops/knn.py::exact_knn does) are shared with K2, in
+// topk_common.cuh.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (see ../knn_cuda.py, which builds it at first use).
+// -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;     // queries per CTA
-constexpr int BM = 128;    // bank rows per tile
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS_PER_WARP = BQ / WARPS;  // 8 queries per warp
-constexpr int LDS = BM + 1;                // score tile [BQ][LDS] (f32)
-constexpr int CAND = BM / 32;              // tile columns per lane
-constexpr unsigned FULL = 0xffffffffu;
-
-// f32 FMA path: depth chunks of BK staged transposed as f32.
-constexpr int BK = 32;
-constexpr int TM = 4;        // micro-tile rows (queries)
-constexpr int TN = 8;        // micro-tile cols (bank rows)
-constexpr int LDQ = BQ + 4;  // staged query chunk [BK][LDQ]
-constexpr int LDB = BM + 4;  // staged bank chunk  [BK][LDB]
-static_assert((BQ / TM) * (BM / TN) == THREADS, "micro-tiles must cover the tile");
-
-// bf16 tensor-core path: depth chunks of MK staged row-major as bf16, the
-// rows padded by 16 bytes so ldmatrix's eight 16-byte rows hit distinct
-// banks. Warps tile the 64×128 score tile as 2 (queries) × 4 (bank rows),
-// 32×32 each: 2 m16 × 4 n8 mma tiles.
-constexpr int MK = 64;
-constexpr int LDK = MK + 8;
-constexpr int STAGE = (BQ + BM) * LDK;  // bf16 elements per pipeline stage
-constexpr size_t MMA_SMEM = 2 * STAGE * sizeof(__nv_bfloat16) + BQ * LDS * sizeof(float);
-
-typedef unsigned long long u64;
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-// Order-preserving map of f32 bits to u32 (larger float -> larger u32).
-__device__ __forceinline__ unsigned f2ord(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float ord2f(unsigned o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-// (score, column) -> key; -0 and +0 compare equal, as they do in torch.sort.
-__device__ __forceinline__ u64 make_key(float v, int col) {
-  v += 0.0f;
-  return (static_cast<u64>(f2ord(v)) << 32) | static_cast<u64>(~static_cast<unsigned>(col));
-}
-
-__device__ __forceinline__ u64 warp_max(u64 v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const u64 w = __shfl_xor_sync(FULL, v, o);
-    v = w > v ? w : v;
-  }
-  return v;
-}
-
-__device__ __forceinline__ u64 warp_min(u64 v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const u64 w = __shfl_xor_sync(FULL, v, o);
-    v = w < v ? w : v;
-  }
-  return v;
-}
-
-// Insert a query's tile candidates `ck` (CAND keys per lane) into its
-// running top set `keys` (S keys per lane). `thr` is the set's minimum key
-// (warp-uniform) and is kept current.
-template <int S>
-__device__ __forceinline__ void merge_row(u64 (&keys)[S], u64& thr, u64 (&ck)[CAND],
-                                          int lane) {
-  while (true) {
-    u64 best = 0;  // every real key is > 0
-#pragma unroll
-    for (int j = 0; j < CAND; ++j) best = (ck[j] > thr && ck[j] > best) ? ck[j] : best;
-    if (!__any_sync(FULL, best != 0)) break;
-    const u64 g = warp_max(best);
-#pragma unroll
-    for (int j = 0; j < CAND; ++j) ck[j] = (ck[j] == g) ? 0 : ck[j];
-    // Evict one slot holding the minimum (keys are unique except the
-    // identical initial slots, so any holder will do).
-    bool holds = false;
-#pragma unroll
-    for (int s = 0; s < S; ++s) holds |= keys[s] == thr;
-    const unsigned who = __ballot_sync(FULL, holds);
-    if (lane == __ffs(who) - 1) {
-      bool done = false;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (!done && keys[s] == thr) {
-          keys[s] = g;
-          done = true;
-        }
-      }
-    }
-    u64 lmin = keys[0];
-#pragma unroll
-    for (int s = 1; s < S; ++s) lmin = keys[s] < lmin ? keys[s] : lmin;
-    thr = warp_min(lmin);
-  }
-}
-
-// Running top sets of a warp's queries.
-template <int S>
-struct TopK {
-  u64 keys[ROWS_PER_WARP][S];
-  u64 thr[ROWS_PER_WARP];
-
-  __device__ __forceinline__ void init() {
-    const u64 empty = make_key(neg_inf(), 0);
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      thr[r] = empty;
-#pragma unroll
-      for (int s = 0; s < S; ++s) keys[r][s] = empty;
-    }
-  }
-
-  // Merge the score tile `st` (bank rows m0..m0+BM) into the warp's queries.
-  __device__ __forceinline__ void merge_tile(const float* st, int q0, int nq, int m0,
-                                             int warp, int lane) {
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int row = warp * ROWS_PER_WARP + r;
-      if (q0 + row < nq) {  // warp-uniform
-        u64 ck[CAND];
-#pragma unroll
-        for (int j = 0; j < CAND; ++j) {
-          const int c = lane + 32 * j;
-          ck[j] = make_key(st[row * LDS + c], m0 + c);
-        }
-        merge_row<S>(keys[r], thr[r], ck, lane);
-      }
-    }
-  }
-
-  // Emit each query's k best keys: value descending, then index ascending.
-  __device__ __forceinline__ void emit(float* out_vals, long long* out_idx, int q0, int nq,
-                                       int k, int warp, int lane) {
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int qi = q0 + warp * ROWS_PER_WARP + r;
-      if (qi >= nq) continue;  // warp-uniform
-      for (int t = 0; t < k; ++t) {
-        u64 lmax = keys[r][0];
-#pragma unroll
-        for (int s = 1; s < S; ++s) lmax = keys[r][s] > lmax ? keys[r][s] : lmax;
-        const u64 g = warp_max(lmax);
-        const unsigned who = __ballot_sync(FULL, lmax == g);
-        if (lane == __ffs(who) - 1) {
-          bool done = false;
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            if (!done && keys[r][s] == g) {
-              keys[r][s] = 0;
-              done = true;
-            }
-          }
-          const size_t o = static_cast<size_t>(qi) * k + t;
-          out_vals[o] = ord2f(static_cast<unsigned>(g >> 32));
-          out_idx[o] = static_cast<long long>(~static_cast<unsigned>(g & 0xffffffffull));
-        }
-      }
-    }
-  }
-};
-
-// ---------------------------------------------------------------------------
-// f32 inputs: FMA score tile.
-// ---------------------------------------------------------------------------
-
-// Stage rows [row0, row0 + ROWS) x depth [k0, k0 + BK) of a row-major
-// (n_rows, d) f32 matrix into dst[BK][ld], transposed; zeros outside.
-// d is a multiple of 4, so a float4 is wholly in or out.
-template <int ROWS>
-__device__ __forceinline__ void stage_f32(const float* __restrict__ src, int row0,
-                                          int n_rows, int d, int k0, float* dst, int ld) {
-  constexpr int PER_ROW = BK / 4;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 4;
-    const int gr = row0 + r;
-    const int gk = k0 + c;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (gr < n_rows && gk < d) v = *reinterpret_cast<const float4*>(src + static_cast<size_t>(gr) * d + gk);
-    dst[(c + 0) * ld + r] = v.x;
-    dst[(c + 1) * ld + r] = v.y;
-    dst[(c + 2) * ld + r] = v.z;
-    dst[(c + 3) * ld + r] = v.w;
-  }
-}
 
 template <int S>
 __global__ void __launch_bounds__(THREADS)
@@ -245,15 +35,11 @@ __global__ void __launch_bounds__(THREADS)
                  float* __restrict__ out_vals, long long* __restrict__ out_idx, int nq, int m,
                  int d, int valid_rows, int k) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;             // [BK][LDQ]
-  float* bs = smem + BK * LDQ;  // [BK][LDB]
-  float* st = smem;             // [BQ][LDS], aliases the staging buffers
+  float* st = smem;  // [BQ][LDS], aliases the staging buffers
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tx = tid % (BM / TN);  // bank-column group
-  const int ty = tid / (BM / TN);  // query-row group
   const int q0 = blockIdx.x * BQ;
 
   TopK<S> top;
@@ -262,93 +48,13 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = 0; t < n_tiles; ++t) {
     const int m0 = t * BM;
     float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      __syncthreads();  // earlier readers of the shared buffers are done
-      stage_f32<BQ>(q, q0, nq, d, k0, qs, LDQ);
-      stage_f32<BM>(bank, m0, m, d, k0, bs, LDB);
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&qs[kk * LDQ + ty * TM]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk * LDB + tx * TN]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk * LDB + tx * TN + 4]);
-        const float av[TM] = {a.x, a.y, a.z, a.w};
-        const float bv[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-
-    __syncthreads();  // all reads of qs/bs are done before st overwrites them
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = tx * TN + j;
-        st[(ty * TM + i) * LDS + c] = (m0 + c < valid_rows) ? acc[i][j] : neg_inf();
-      }
+    fma_score_tile(q, bank, q0, nq, m0, m, d, smem, acc);
+    __syncthreads();  // all reads of the staged chunks are done before st overwrites them
+    store_fma_tile(st, acc, valid_rows - m0);
     __syncthreads();
     top.merge_tile(st, q0, nq, m0, warp, lane);
   }
   top.emit(out_vals, out_idx, q0, nq, k, warp, lane);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 inputs: tensor-core score tile.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Issue the async copies of one depth chunk: query rows [q0, q0 + BQ) and
-// bank rows [m0, m0 + BM), depth [k0, k0 + MK), into one pipeline stage
-// (rows of LDK bf16). Out-of-range rows and depths are zero-filled; d is a
-// multiple of 8, so a 16-byte vector is wholly in or out.
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* __restrict__ q,
-                                           const __nv_bfloat16* __restrict__ bank,
-                                           __nv_bfloat16* stage, int q0, int nq, int m0, int m,
-                                           int d, int k0) {
-  constexpr int VECS = MK / 8;  // 16-byte vectors per staged row
-  for (int i = threadIdx.x; i < (BQ + BM) * VECS; i += THREADS) {
-    const int r = i / VECS;
-    const int c = (i % VECS) * 8;
-    const bool is_q = r < BQ;
-    const int gr = is_q ? q0 + r : m0 + (r - BQ);
-    const bool ok = (is_q ? gr < nq : gr < m) && k0 + c < d;
-    const __nv_bfloat16* base = is_q ? q : bank;
-    const __nv_bfloat16* src = ok ? base + static_cast<size_t>(gr) * d + k0 + c : base;
-    cp_async16(stage + r * LDK + c, src, ok ? 16 : 0);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 template <int S>
@@ -388,59 +94,12 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();  // this stage's copies are visible to every warp
 
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-    }
-    const __nv_bfloat16* qs = stages + (s & 1) * STAGE;
-    const __nv_bfloat16* bs = qs + BQ * LDK;
-#pragma unroll
-    for (int kk = 0; kk < MK; kk += 16) {
-      unsigned a[2][4];
-      unsigned b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // matrices: rows 0-7 | 8-15 of the m16 tile × depth 0-7 | 8-15
-        const int row = wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(a[i], qs + row * LDK + kk + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // matrices: (n8 tile 2j, depth 0-7 | 8-15), (n8 tile 2j+1, ...)
-        unsigned r[4];
-        const int row = wn + j * 16 + (lane >> 4) * 8 + (lane & 7);
-        ldmatrix_x4(r, bs + row * LDK + kk + ((lane >> 3) & 1) * 8);
-        b[2 * j][0] = r[0];
-        b[2 * j][1] = r[1];
-        b[2 * j + 1][0] = r[2];
-        b[2 * j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
+    if (c == 0) zero_mma_acc(acc);
+    mma_chunk(acc, stages + (s & 1) * STAGE, wm, wn, lane);
     __syncthreads();  // every warp is done with this stage before it is refilled
 
     if (c == n_chunks - 1) {
-      // accumulator layout: (row lane/4, cols 2·(lane%4) + {0,1}), and row + 8
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = wm + i * 16 + (lane >> 2);
-          const int col = wn + j * 8 + (lane & 3) * 2;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int rr = row + (e >> 1) * 8;
-            const int cc = col + (e & 1);
-            st[rr * LDS + cc] = (m0 + cc < valid_rows) ? acc[i][j][e] : neg_inf();
-          }
-        }
+      store_mma_tile(st, acc, wm, wn, lane, valid_rows - m0);
       __syncthreads();
       top.merge_tile(st, q0, nq, m0, warp, lane);
     }
@@ -456,11 +115,8 @@ template <typename Kernel, typename T>
 cudaError_t launch_one(Kernel kernel, size_t smem, const void* q, const void* bank,
                        void* out_vals, void* out_idx, int nq, int m, int d, int valid_rows,
                        int k, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((nq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(bank),
                                           static_cast<float*>(out_vals),
@@ -476,10 +132,8 @@ cudaError_t launch(const void* q, const void* bank, void* out_vals, void* out_id
     return launch_one<decltype(&knn_topk_bf16<S>), __nv_bfloat16>(
         knn_topk_bf16<S>, MMA_SMEM, q, bank, out_vals, out_idx, nq, m, d, valid_rows, k,
         stream);
-  const size_t fma_smem =
-      (BK * LDQ + BK * LDB > BQ * LDS ? BK * LDQ + BK * LDB : BQ * LDS) * sizeof(float);
   return launch_one<decltype(&knn_topk_f32<S>), float>(
-      knn_topk_f32<S>, fma_smem, q, bank, out_vals, out_idx, nq, m, d, valid_rows, k, stream);
+      knn_topk_f32<S>, FMA_SMEM, q, bank, out_vals, out_idx, nq, m, d, valid_rows, k, stream);
 }
 
 }  // namespace

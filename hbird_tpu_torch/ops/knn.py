@@ -76,6 +76,51 @@ def exact_knn(
     return out_v, out_i
 
 
+def rerank_exact(
+    queries: torch.Tensor,
+    bank: torch.Tensor,
+    cand_idx: torch.Tensor,
+    k: int,
+    *,
+    cand_valid: Optional[torch.Tensor] = None,
+    query_block: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-scoring of candidate rows (ScaNN `reorder` semantics).
+
+    Counterpart of hbird_tpu/ops/knn.py::rerank_exact.
+
+    Args:
+        queries: (Q, D) full-precision queries.
+        bank: (M, D) the re-scoring table (rows are cast to the queries'
+            dtype).
+        cand_idx: (Q, C) candidate row ids, k <= C.
+        cand_valid: optional (Q, C) bool mask; invalid candidates (the
+            first pass's -inf fillers) score -inf.
+
+    Returns:
+        (values (Q, k), row ids (Q, k)), by value descending, then
+        candidate position (a stable sort, lax.top_k's order). Streamed
+        over query blocks, so the (block, C, D) gather stays small.
+    """
+    vals_out, idx_out = [], []
+    for q0 in range(0, queries.shape[0], query_block):
+        q_blk = queries[q0 : q0 + query_block]
+        idx_blk = cand_idx[q0 : q0 + query_block]
+        cand = bank[idx_blk].to(q_blk.dtype)  # (qb, C, D)
+        scores = torch.einsum("qd,qcd->qc", q_blk.float(), cand.float())
+        if cand_valid is not None:
+            scores = scores.masked_fill(~cand_valid[q0 : q0 + query_block], NEG_INF)
+        sv, order = torch.sort(scores, dim=1, descending=True, stable=True)
+        vals_out.append(sv[:, :k])
+        idx_out.append(torch.gather(idx_blk, 1, order[:, :k]))
+    if not vals_out:
+        return (
+            torch.zeros((0, k), dtype=torch.float32, device=queries.device),
+            torch.zeros((0, k), dtype=cand_idx.dtype, device=queries.device),
+        )
+    return torch.cat(vals_out), torch.cat(idx_out)
+
+
 def knn_with_labels(
     queries: torch.Tensor,
     bank: torch.Tensor,

@@ -1,101 +1,32 @@
 """K1 on the GPU: the wrapper of the fused kNN top-k CUDA kernel.
 
 Counterpart of hbird_tpu/ops/knn_pallas.py::pallas_knn (the TPU kernel
-`_knn_kernel`). The kernel source is ops/csrc/knn_topk.cu; it is compiled
-with `nvcc` for sm_90a into a shared library with a plain C interface at
-first use, and loaded with ctypes.
+`_knn_kernel`). The kernel source is ops/csrc/knn_topk.cu; ops/cuda_build.py
+compiles it with `nvcc` for sm_90a into a shared library with a plain C
+interface at first use, and it is loaded with ctypes.
 
 `knn_topk` takes the kernel for CUDA tensors and the plain version
 (ops/knn.py::exact_knn) for CPU tensors, and nothing else: a CUDA tensor
 either launches the kernel or raises. `knn_topk.launches` counts kernel
 launches.
-
-The library goes to `build/hbird_tpu_torch/` beside the package directory
-(the repository's ignored build tree). Its name carries a hash of the
-source and flags, so an edited kernel is rebuilt.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.knn import exact_knn
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "knn_topk.cu"
 MAX_K = 128
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
-
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hbird_tpu_torch"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the K1 kernel cannot be built on this host")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile knn_topk.cu (if not built yet) and return the library path."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out_dir = BUILD_DIR
-    lib_path = out_dir / f"libknn_topk_{tag}.so"
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, lib_path)  # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.knn_topk_launch
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
 
 
 def _check(queries: torch.Tensor, bank: torch.Tensor, k: int, valid_rows: int) -> None:
@@ -171,7 +102,7 @@ def knn_topk(
     idx = torch.empty((n_q, k), dtype=torch.int64, device=queries.device)
     if n_q == 0:
         return vals, idx
-    lib = _library()
+    lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", _ARGTYPES)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.knn_topk_launch(

@@ -1,8 +1,9 @@
 """chip_smoke.py rehearsed on the CPU at tiny sizes.
 
 The script's phases run here with the plain versions (a CPU tensor never
-launches K1), so the wrapper's plain path is wrapped to count as a launch;
-this checks the script's control flow, shapes and checks, not the kernel.
+launches K1 or K2), so each wrapper's plain path is wrapped to count as a
+launch; this checks the script's control flow, shapes and checks, not the
+kernels.
 Without a GPU, `main()` must exit non-zero and print no result.
 """
 
@@ -13,8 +14,9 @@ import pathlib
 import pytest
 import torch
 
+from hbird_tpu_torch.ops import ivf as ivf_mod
+from hbird_tpu_torch.ops import ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops import knn as knn_mod
-from hbird_tpu_torch.ops import knn_cuda
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -35,31 +37,48 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "BATCH", 4)
     monkeypatch.setattr(mod, "MEMORY_SIZE", 64)
     monkeypatch.setattr(mod, "BIG_M", 3000)
+    monkeypatch.setattr(mod, "IVF_ROWS", 3000)
+    monkeypatch.setattr(mod, "IVF_CLUSTERS", 8)
+    monkeypatch.setattr(mod, "IVF_Q", 200)
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
         return knn_mod.exact_knn(*args, **kwargs)
 
+    def counted_ivf(*args, **kwargs):
+        ivf_cuda.ivf_topk.launches += 1
+        return ivf_mod.ivf_search_plain(*args, **kwargs)
+
     monkeypatch.setattr(knn_cuda, "exact_knn", counted)
     monkeypatch.setattr(knn_cuda.knn_topk, "launches", 0)
+    monkeypatch.setattr(ivf_cuda, "ivf_search_plain", counted_ivf)
+    monkeypatch.setattr(ivf_cuda.ivf_topk, "launches", 0)
     return mod
 
 
 def test_phases_rehearse_on_cpu(smoke):
     gen = torch.Generator().manual_seed(0)
     assert smoke.kernel_cases(gen) <= 1e-5
-    runs, launches, err, q, bank = smoke.main_path(gen_seed=0)
-    assert launches == 2 and err == 0.0
-    assert set(runs) == {"unbounded", "bounded 64"}
-    for run in runs.values():
+    assert smoke.ivf_cases(gen) == 0.0
+    runs, launches, err, tree, q, bank, main_tree = smoke.main_path(gen_seed=0)
+    assert launches == {"knn_topk": 2, "ivf_topk": 2} and err == {"K1": 0.0, "K2": 0.0}
+    assert set(runs) == {"scann unbounded", "scann bounded 64", "ivf unbounded", "ivf bounded 64"}
+    for label, run in runs.items():
         assert 0.0 <= run["miou"] <= 1.0
         assert run["phases"]["memory_build"]["items"] == 8
         assert run["phases"]["evaluate"]["items"] == 4
+        kernel = "ivf_topk" if label.startswith("ivf") else "knn_topk"
+        assert run["launches"] == {"knn_topk": 0, "ivf_topk": 0, kernel: 1}
     assert q.shape == (4 * 16, 384) and bank.shape == (8 * 16, 384)
     assert q.dtype == bank.dtype == torch.bfloat16
-    rows, err_timing = smoke.timing(q, bank, gen)
-    assert set(rows) == {"main", "bank_3000"} and err_timing <= 1e-5
-    assert json.dumps(rows)
+    assert (tree["n_leaves"], tree["cap"]) == (128, 256) and set(tree["recall_at_30_vs_k1"]) == {"tile", "query"}
+    assert all(0.0 < r <= 1.0 for r in tree["recall_at_30_vs_k1"].values())
+    assert set(tree["build_s"]) == {"kmeans", "refine", "assign", "layout", "scatter"}
+    k1_rows, k2_rows, err_timing = smoke.timing(q, bank, main_tree, gen)
+    assert set(k1_rows) == set(k2_rows) == {"main", "bank_3000"}
+    assert err_timing == {"K1": 0.0, "K2": 0.0}
+    assert k2_rows["bank_3000"]["cap"] == 256 and k2_rows["main"]["block_q"] == 256
+    assert json.dumps([k1_rows, k2_rows])
 
 
 def test_main_path_mious_repeat(smoke):
@@ -88,6 +107,38 @@ def test_bound_of_the_main_shape(smoke):
     assert ms == pytest.approx(2 * 21904 * 87616 * 768 / 989e12 * 1e3)
 
 
+def test_k2_bound_counts_the_probed_valid_rows(smoke):
+    """86 tiles of 256 queries, 32 probed slabs each: full slabs of 2,816
+    rows are 11.9 GB to read, 3.56 ms at 3.35 TB/s; half-full ones half."""
+    lids = torch.arange(86 * 32).reshape(86, 32) % 512
+    full = torch.full((512,), 2816, dtype=torch.int32)
+    ms, by = smoke.ivf_bound_ms(86 * 256, lids, full, 768, 30, 2, smoke.PEAK_BF16_FLOPS)
+    assert by == "bytes" and ms == pytest.approx(3.56, abs=0.01)
+    half, _ = smoke.ivf_bound_ms(86 * 256, lids, full // 2, 768, 30, 2, smoke.PEAK_BF16_FLOPS)
+    assert half < 0.51 * ms
+
+
+def test_check_ivf_against_plain_rejects_wrong_results(smoke):
+    gen = torch.Generator().manual_seed(2)
+    cap = 64
+    bank = torch.nn.functional.normalize(torch.randn(4 * cap, 32, generator=gen), dim=1)
+    q = torch.randn(128, 32, generator=gen)
+    lids = torch.tensor([[0, 2], [3, 1]], dtype=torch.int32)
+    lv = torch.tensor([60, 64, 0, 20], dtype=torch.int32)
+    vals, idx = ivf_mod.ivf_search_plain(q, bank, lids, lv, 10, cap=cap)
+    smoke.check_ivf_against_plain("right", q, bank, lids, lv, 10, cap, 64, (vals, idx))
+    outside = idx.clone()
+    outside[0, 0] = 1 * cap  # slab 1 is not probed by tile 0
+    with pytest.raises(RuntimeError, match="outside the probed"):
+        smoke.check_ivf_against_plain("unprobed slab", q, bank, lids, lv, 10, cap, 64, (vals, outside))
+    masked = idx.clone()
+    masked[70, 0] = 3 * cap + 30  # past leaf_valid of slab 3
+    with pytest.raises(RuntimeError, match="outside the probed"):
+        smoke.check_ivf_against_plain("masked row", q, bank, lids, lv, 10, cap, 64, (vals, masked))
+    with pytest.raises(RuntimeError, match="values differ"):
+        smoke.check_ivf_against_plain("wrong value", q, bank, lids, lv, 10, cap, 64, (vals + 1e-2, idx))
+
+
 def test_main_without_cuda_prints_no_result(smoke, capsys):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
@@ -97,6 +148,6 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 def test_card_vs_cpu_rehearses(smoke):
     result = smoke.card_vs_cpu()
-    assert set(result) == {"scann", "faiss"}
+    assert set(result) == {"scann", "faiss", "ivf"}
     for run in result.values():
         assert run["miou"] == run["cpu_miou"] and run["label_err"] == 0.0

@@ -214,6 +214,98 @@ def test_vit_engine_matches_jax(voc, tiny_vit, nn_method):
     np.testing.assert_allclose(dt["knns_ca_labels"], dj["knns_ca_labels"], atol=1e-4)
 
 
+def _run_ivf(root, d_model, port, jax_side, nn_params, hand_over, monkeypatch):
+    """hbird_evaluation with nn_method='ivf' in both packages. With
+    `hand_over`, the port's tree gets the centroids the JAX engine trained
+    (its k-means init draws jax.random, which the port cannot repeat)."""
+    from hbird_tpu.nn.search_approx import NearestNeighborSearchApprox as JApprox
+
+    trained = {}
+    build = JApprox._build_tree
+
+    def spy(self, *args, **kwargs):
+        build(self, *args, **kwargs)
+        trained["centroids"] = np.asarray(self.centroids)
+
+    monkeypatch.setattr(JApprox, "_build_tree", spy)
+    common = dict(
+        batch_size=4, input_size=INPUT, n_neighbours=K, num_workers=0,
+        nn_method="ivf", return_knn_details=True,
+    )
+    random.seed(1234)
+    j = hbird_tpu.hbird_evaluation(
+        d_model=d_model, patch_size=PATCH, dataset_name="voc", data_dir=root,
+        nn_params=dict(nn_params), **jax_side, **common,
+    )
+    params = dict(nn_params, centroids=trained["centroids"]) if hand_over else nn_params
+    random.seed(1234)
+    t = hbird_tpu_torch.hbird_evaluation(
+        d_model=d_model, patch_size=PATCH, dataset_name="voc", data_dir=root,
+        device="cpu", nn_params=params, **port, **common,
+    )
+    return t, j
+
+
+IVF_CASES = {
+    # every leaf probed: exact search, whatever the centroids
+    "full_probe": ({"num_leaves": 32, "num_leaves_to_search": 32}, False),
+    # 2 of 8 leaves probed, through the JAX engine's centroids
+    "probe_2_of_8": ({"num_leaves": 8, "num_leaves_to_search": 2}, True),
+}
+
+
+@pytest.mark.parametrize("case", list(IVF_CASES))
+@pytest.mark.parametrize("fixture", ["oracle", "vit"])
+def test_ivf_engine_matches_jax(voc, tiny_vit, monkeypatch, fixture, case):
+    nn_params, hand_over = IVF_CASES[case]
+    if fixture == "oracle":
+        d_model = 3
+        port, jax_side = {"model": None, "ftr_extr_fn": oracle_t}, {"model": None, "ftr_extr_fn": oracle_j}
+        q, _ = oracle_t(None, _val_images(voc))
+    else:
+        (jvit, params), tvit = tiny_vit
+        d_model = 32
+        port, jax_side = {"model": tvit}, {"model": (jvit, params)}
+        with torch.no_grad():
+            q, _ = FeatureExtractor(tvit).forward_features(_val_images(voc))
+    (jt, dt), (jj, dj) = _run_ivf(voc, d_model, port, jax_side, nn_params, hand_over, monkeypatch)
+    assert abs(jt - jj) <= 1e-4, (jt, jj)
+    _assert_neighbours_agree(q.numpy(), dt["knns"], dj["knns"], True)
+    np.testing.assert_allclose(dt["knns_ca_labels"], dj["knns_ca_labels"], atol=1e-4)
+
+
+def test_ivf_engine_probes_per_tile_and_calibrates(voc, monkeypatch):
+    """The eval step passes 'tile' for the backend's 'auto' (the JAX
+    engine's jitted step sees tracers); a recall_target without a probe
+    count calibrates it after the build."""
+    from hbird_tpu_torch.models.extractor import FeatureExtractorSimple
+    from hbird_tpu_torch.ops import ivf as tivf
+
+    modes = []
+    search = tivf.ivf_search
+
+    def spy(*args, **kwargs):
+        modes.append(kwargs.get("probe_mode"))
+        return search(*args, **kwargs)
+
+    monkeypatch.setattr(tivf, "ivf_search", spy)
+    tr = transforms.get_hbird_train_transforms(INPUT, device_normalize=True)
+    ds, _ = get_dataset("voc", voc, 4, 0, tr, tr)
+    fe = FeatureExtractorSimple(None, oracle_t, eval_spatial_resolution=INPUT // PATCH, d_model=3)
+    random.seed(1234)
+    ev = HbirdEvaluation(
+        fe, ds.train_dataloader(), num_classes=21, n_neighbours=K, device="cpu",
+        nn_method="tree", nn_params={"num_leaves": 8, "recall_target": 0.9},
+        device_norm=tr["device_norm"],
+    )
+    nn = ev.NN_algorithm
+    assert nn.use_tree and nn.probe_mode == "auto"
+    assert 1 <= nn.num_leaves_to_search <= 8 and set(modes) == {"tile"}  # calibration
+    modes.clear()
+    miou = ev.evaluate(ds.val_dataloader(), INPUT // PATCH)
+    assert np.isfinite(miou) and modes == ["tile"] * 2
+
+
 def test_bounded_memory_completes(voc):
     random.seed(1234)
     miou = hbird_tpu_torch.hbird_evaluation(
@@ -254,7 +346,12 @@ def test_default_device_needs_cuda(voc):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"nn_method": "ivf"}, {"f_mem_p": "bank.npy"}, {"load_memory": True}, {"mesh": object()}],
+    [
+        {"nn_method": "ivf", "nn_params": {"quantization": "int8_rows"}},
+        {"f_mem_p": "bank.npy"},
+        {"load_memory": True},
+        {"mesh": object()},
+    ],
     ids=["ivf", "persistence", "load_memory", "mesh"],
 )
 def test_later_slices_raise(voc, kwargs):

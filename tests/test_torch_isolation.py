@@ -42,7 +42,9 @@ def test_importing_every_module_leaves_jax_out():
 
 def _sources():
     files = sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_knn_cuda.py"
+        ROOT / "chip_smoke.py",
+        ROOT / "tests" / "test_torch_knn_cuda.py",
+        ROOT / "tests" / "test_torch_ivf_cuda.py",
     ]
     assert len(files) > 20
     return files

@@ -190,7 +190,7 @@ def test_flat_backends_match_jax(backend, use_fp16):
 @pytest.mark.parametrize(
     "backend, kwargs",
     [
-        ("approx", {"use_tree": True}),
+        ("approx", {"use_tree": True, "use_int8": True}),
         ("approx", {"quantization": "int8_rows"}),
         ("approx", {"distance_measure": "l2"}),
         ("approx", {"mesh": object()}),
