@@ -129,14 +129,16 @@ def bound_ms(n_q, m_valid, d, k, elt_bytes, peak_flops):
 
 
 def ivf_bound_ms(n_q, lids, leaf_valid, d, k, elt_bytes, peak_flops):
-    """K2's least time on this data: every query tile reads the valid rows
-    of its probed slabs once (and the queries, ids and counts once, the
-    results written once), or 2·block_q·D flops per scanned row."""
-    rows = int(leaf_valid.long()[lids.long()].sum())  # valid rows scanned, over all tiles
+    """K2's least time on this data: each input read once (the valid rows
+    of the slabs any tile probes, the queries, leaf ids and counts), the
+    results written once; or 2·block_q·D flops per row a tile scans."""
+    lv = leaf_valid.long()
+    scanned = int(lv[lids.long()].sum())  # valid rows scanned, over all tiles
+    read = int(lv[torch.unique(lids.long())].sum())  # distinct valid rows probed
     block_q = n_q // lids.shape[0]
-    bytes_moved = (rows + n_q) * d * elt_bytes + n_q * k * (4 + 8) + 4 * (lids.numel() + leaf_valid.numel())
+    bytes_moved = (read + n_q) * d * elt_bytes + n_q * k * (4 + 8) + 4 * (lids.numel() + leaf_valid.numel())
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = 2.0 * block_q * rows * d / peak_flops * 1e3
+    t_ops = 2.0 * block_q * scanned * d / peak_flops * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -538,12 +540,14 @@ def timing(q, bank, main_tree, gen):
         lib_ms = cuda_ms(lambda: ivf_library(qp, tb, lids, lv, k, cap, BLOCK_Q), reps)
         b_ms, b_by = ivf_bound_ms(qp.shape[0], lids, lv, d, k, 2, PEAK_BF16_FLOPS)
         rows = int(lv.long()[lids.long()].sum())
+        read = int(lv.long()[torch.unique(lids.long())].sum())
         k2_rows[label] = {"Q": qp.shape[0], "slots": tb.shape[0], "cap": cap, "n_probe": lids.shape[1],
-                          "block_q": BLOCK_Q, "rows_scanned": rows, "D": d, "k": k, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                          "block_q": BLOCK_Q, "rows_scanned": rows, "rows_probed": read, "D": d, "k": k,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": lib_ms}
         print(f"  K2 {label}: Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={lids.shape[1]} "
-              f"rows scanned {rows}: {ms:.3f} ms, plain {plain_ms:.3f} ms (k+1), library "
-              f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+              f"rows scanned {rows} (distinct {read}): {ms:.3f} ms, plain {plain_ms:.3f} ms (k+1), "
+              f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
     return k1_rows, k2_rows, errs
 
 

@@ -47,9 +47,7 @@ class NearestNeighborSearchApprox(FlatSearch):
     'query'), tree_refine_rounds, tree_sample_rows (alias
     training_sample_size), kmeans_iters, full_lloyd_iters, seed,
     query_block (256), num_reordering_candidates, recall_target (used by
-    `calibrate_n_probe`). `centroids` hands over trained centroids: the
-    build then skips k-means, full-bank Lloyd and refinement (the tests
-    hand over the JAX package's, whose k-means init draws jax.random).
+    `calibrate_n_probe`).
     """
 
     def __init__(
@@ -79,7 +77,6 @@ class NearestNeighborSearchApprox(FlatSearch):
         query_block: Optional[int] = None,
         seed: int = 0,
         valid_rows: Optional[int] = None,
-        centroids=None,
         device=None,
         **kwargs,
     ):
@@ -156,12 +153,12 @@ class NearestNeighborSearchApprox(FlatSearch):
             # Padding rows clustered into leaves would count in leaf_valid
             # and surface as score-0 ghost neighbours.
             bank, labels = bank[:valid_rows], labels[:valid_rows]
-        self._build_tree(bank.contiguous(), labels, centroids)
+        self._build_tree(bank.contiguous(), labels)
 
     def _tree_geometry(self, n_rows: int):
         return ivf.tree_layout(n_rows, self.num_leaves, slack=self.tree_slack)
 
-    def _build_tree(self, bank: torch.Tensor, labels: torch.Tensor, centroids) -> None:
+    def _build_tree(self, bank: torch.Tensor, labels: torch.Tensor) -> None:
         """Leaf-partition the bank: train centroids, balance rows into
         fixed-capacity leaves, copy into the leaf-contiguous layout.
         `build_seconds` holds the wall time of each stage."""
@@ -170,31 +167,26 @@ class NearestNeighborSearchApprox(FlatSearch):
         m = bank.shape[0]
         n_leaves, cap = self._tree_geometry(m)
         self._n_leaves, self._cap = n_leaves, cap
-        if centroids is not None:
-            if not isinstance(centroids, torch.Tensor):
-                centroids = torch.from_numpy(np.array(centroids, np.float32))
-            self.centroids = centroids.to(dev, torch.float32)
-        else:
-            rng = np.random.default_rng(self.seed)
-            pick = rng.choice(m, min(m, self.tree_sample_rows), replace=False)
-            sample = bank[torch.as_tensor(pick, device=dev)].float()
-            with ivf.phase_seconds(times, "kmeans", dev):
-                self.centroids = ivf.train_centroids(
-                    sample, n_leaves, iters=self.kmeans_iters,
-                    generator=torch.Generator().manual_seed(self.seed),
+        rng = np.random.default_rng(self.seed)
+        pick = rng.choice(m, min(m, self.tree_sample_rows), replace=False)
+        sample = bank[torch.as_tensor(pick, device=dev)].float()
+        with ivf.phase_seconds(times, "kmeans", dev):
+            self.centroids = ivf.train_centroids(
+                sample, n_leaves, iters=self.kmeans_iters,
+                generator=torch.Generator().manual_seed(self.seed),
+            )
+        if self.full_lloyd_iters > 0:
+            # Before the capacity refinement, which plain Lloyd would undo.
+            with ivf.phase_seconds(times, "full_lloyd", dev):
+                self.centroids = ivf.full_bank_lloyd(
+                    bank, self.centroids, iters=self.full_lloyd_iters
                 )
-            if self.full_lloyd_iters > 0:
-                # Before the capacity refinement, which plain Lloyd would undo.
-                with ivf.phase_seconds(times, "full_lloyd", dev):
-                    self.centroids = ivf.full_bank_lloyd(
-                        bank, self.centroids, iters=self.full_lloyd_iters
-                    )
-            if self.tree_refine_rounds > 0:
-                with ivf.phase_seconds(times, "refine", dev):
-                    self.centroids = ivf.refine_centroids_balanced(
-                        sample, self.centroids, slack=self.tree_slack,
-                        rounds=self.tree_refine_rounds,
-                    )
+        if self.tree_refine_rounds > 0:
+            with ivf.phase_seconds(times, "refine", dev):
+                self.centroids = ivf.refine_centroids_balanced(
+                    sample, self.centroids, slack=self.tree_slack,
+                    rounds=self.tree_refine_rounds,
+                )
         with ivf.phase_seconds(times, "assign", dev):
             choices, scores = ivf.assign_leaves(
                 bank, self.centroids, n_choices=3, return_scores=True

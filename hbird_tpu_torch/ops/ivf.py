@@ -68,13 +68,25 @@ def phase_seconds(times: Optional[Dict[str, float]], name: str, device: torch.de
 # ----------------------------------------------------------------------
 # Build: centroids, balanced assignment, layout
 # ----------------------------------------------------------------------
+_ONEHOT_ELEMS = 1 << 26  # largest one-hot block of _leaf_sums (256 MB of f32)
+
+
 def _leaf_sums(x: torch.Tensor, assign: torch.Tensor, n_leaves: int):
-    """Per-leaf sums of the rows of x and member counts, as a one-hot
-    product: the same bits in every run on the card, where index_add_ adds
-    with atomics in no fixed order (and k-means would drift between runs)."""
-    onehot = torch.zeros((x.shape[0], n_leaves), dtype=torch.float32, device=x.device)
-    onehot.scatter_(1, assign[:, None], 1.0)
-    return onehot.T @ x, onehot.sum(dim=0)
+    """Per-leaf sums of the rows of x and member counts, as one-hot
+    products over row blocks of at most _ONEHOT_ELEMS entries, added in
+    block order: the same bits in every run on the card, where index_add_
+    adds with atomics in no fixed order (and k-means would drift between
+    runs)."""
+    step = max(1, _ONEHOT_ELEMS // n_leaves)
+    sums = torch.zeros((n_leaves, x.shape[1]), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros(n_leaves, dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[0], step):
+        a = assign[i : i + step]
+        onehot = torch.zeros((a.shape[0], n_leaves), dtype=torch.float32, device=x.device)
+        onehot.scatter_(1, a[:, None], 1.0)
+        sums += onehot.T @ x[i : i + step]
+        cnt += onehot.sum(dim=0)
+    return sums, cnt
 
 
 def _new_centroids(sums, cnt, c, spherical):
@@ -95,7 +107,8 @@ def train_centroids(
     init=None,
     spherical: bool = True,
 ) -> torch.Tensor:
-    """Lloyd's k-means on a row sample (matmul assign + index_add update).
+    """Lloyd's k-means on a row sample (matmul assign, then `_leaf_sums`'
+    one-hot update, which repeats bit for bit on the card).
 
     The initial centroids are `n_leaves` sample rows: `init` (row indices)
     when given, else drawn from `generator` (a CPU generator; without

@@ -108,14 +108,27 @@ def test_bound_of_the_main_shape(smoke):
 
 
 def test_k2_bound_counts_the_probed_valid_rows(smoke):
-    """86 tiles of 256 queries, 32 probed slabs each: full slabs of 2,816
-    rows are 11.9 GB to read, 3.56 ms at 3.35 TB/s; half-full ones half."""
+    """86 tiles of 256 queries, 32 probed slabs each, full slabs of 2,816
+    rows: 7.75M rows scanned are 3.05 TFLOP, 3.08 ms at 989 TFLOP/s, above
+    the 0.67 ms of reading the 512 slabs once; half-full ones half."""
     lids = torch.arange(86 * 32).reshape(86, 32) % 512
     full = torch.full((512,), 2816, dtype=torch.int32)
     ms, by = smoke.ivf_bound_ms(86 * 256, lids, full, 768, 30, 2, smoke.PEAK_BF16_FLOPS)
-    assert by == "bytes" and ms == pytest.approx(3.56, abs=0.01)
+    assert by == "operations" and ms == pytest.approx(2 * 256 * 86 * 32 * 2816 * 768 / 989e9)
     half, _ = smoke.ivf_bound_ms(86 * 256, lids, full // 2, 768, 30, 2, smoke.PEAK_BF16_FLOPS)
     assert half < 0.51 * ms
+
+
+def test_k2_bound_reads_each_probed_slab_once(smoke):
+    """A slab that many tiles probe is read once: one 64-query tile on 32
+    full slabs is set by their bytes, 86 tiles on the same 32 by flops."""
+    full = torch.full((512,), 2816, dtype=torch.int32)
+    one = torch.arange(32).reshape(1, 32)
+    ms, by = smoke.ivf_bound_ms(64, one, full, 768, 30, 2, smoke.PEAK_BF16_FLOPS)
+    read = (32 * 2816 + 64) * 768 * 2 + 64 * 30 * 12 + 4 * (32 + 512)
+    assert by == "bytes" and ms == pytest.approx(read / 3.35e9)
+    many, by = smoke.ivf_bound_ms(86 * 64, one.repeat(86, 1), full, 768, 30, 2, smoke.PEAK_BF16_FLOPS)
+    assert by == "operations" and many == pytest.approx(2 * 64 * 86 * 32 * 2816 * 768 / 989e9)
 
 
 def test_check_ivf_against_plain_rejects_wrong_results(smoke):

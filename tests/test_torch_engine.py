@@ -237,7 +237,13 @@ def _run_ivf(root, d_model, port, jax_side, nn_params, hand_over, monkeypatch):
         d_model=d_model, patch_size=PATCH, dataset_name="voc", data_dir=root,
         nn_params=dict(nn_params), **jax_side, **common,
     )
-    params = dict(nn_params, centroids=trained["centroids"]) if hand_over else nn_params
+    params = nn_params
+    if hand_over:
+        from hbird_tpu_torch.ops import ivf as tivf
+
+        centroids = torch.from_numpy(trained["centroids"])
+        monkeypatch.setattr(tivf, "train_centroids", lambda sample, n_leaves, **kw: centroids)
+        params = dict(nn_params, tree_refine_rounds=0)
     random.seed(1234)
     t = hbird_tpu_torch.hbird_evaluation(
         d_model=d_model, patch_size=PATCH, dataset_name="voc", data_dir=root,

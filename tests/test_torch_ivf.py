@@ -80,6 +80,14 @@ def _tol(q, b):
     return RTOL * float(np.linalg.norm(q, axis=1).max() * max(np.linalg.norm(b, axis=1).max(), 1.0))
 
 
+def hand_over_centroids(mp, centroids):
+    """Make the port's tree build take `centroids` (the JAX package's, whose
+    k-means init draws jax.random) for its k-means result; build with
+    tree_refine_rounds=0 so that they stay as handed over."""
+    c = torch.from_numpy(np.asarray(centroids, np.float32))
+    mp.setattr(ivf, "train_centroids", lambda sample, n_leaves, **kw: c.to(sample.device))
+
+
 # ----------------------------------------------------------------------
 # Build
 # ----------------------------------------------------------------------
@@ -164,8 +172,14 @@ def test_refine_centroids_balanced_matches_jax():
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("block_rows", [1 << 18, 700], ids=["one_block", "blocks"])
-def test_full_bank_lloyd_matches_jax(block_rows):
+@pytest.mark.parametrize(
+    "block_rows, onehot_elems",
+    [(1 << 18, None), (700, None), (1 << 18, 8 * 96)],
+    ids=["one_block", "blocks", "onehot_blocks"],
+)
+def test_full_bank_lloyd_matches_jax(monkeypatch, block_rows, onehot_elems):
+    if onehot_elems is not None:  # the leaf sums in one-hot blocks of 96 rows
+        monkeypatch.setattr(ivf, "_ONEHOT_ELEMS", onehot_elems)
     x, _ = mixture_bank(2500, 24, 5, seed=6)
     c = _jax_centroids(x[:500], 8)
     jc = jivf.full_bank_lloyd(jnp.asarray(x), c, iters=2, block_rows=block_rows)
@@ -419,7 +433,9 @@ def backends():
     kw = dict(n_neighbors=10, label_memory=labels, use_tree=True, num_leaves=16,
               num_leaves_to_search=3, tree_sample_rows=2048, kmeans_iters=6, query_block=64)
     jnn = JApprox(x, **kw)
-    tnn = NearestNeighborSearchApprox(x, **kw, centroids=np.asarray(jnn.centroids), device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        hand_over_centroids(mp, np.asarray(jnn.centroids))
+        tnn = NearestNeighborSearchApprox(x, **kw, tree_refine_rounds=0, device="cpu")
     q = x[np.random.default_rng(23).integers(0, 5000, 300)] + 0.02 * np.random.default_rng(24).normal(
         size=(300, 32)).astype(np.float32)
     return jnn, tnn, x, q.astype(np.float32)
