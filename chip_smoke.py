@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card (an H100):
 
 Phases; any failure raises and the script exits non-zero with no result:
 1. The card (nvidia-smi name and power limit) and versions; K1
-   (hbird_tpu_torch/ops/csrc/knn_topk.cu) and K2 (ops/csrc/ivf_topk.cu) are
-   built with nvcc for sm_90a, one nvcc each, started together.
+   (hbird_tpu_torch/ops/csrc/knn_topk.cu), K2 (ops/csrc/ivf_topk.cu) and K3
+   (ops/csrc/flash_attn.cu) are built with nvcc for sm_90a, one nvcc each,
+   started together.
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties).
@@ -17,7 +18,13 @@ Phases; any failure raises and the script exits non-zero with no result:
    (512 leaves): bf16 and f32; k in {1, 30, 128}; n_probe in {1, 8, 32};
    block_q in {64, 128, 256}; probed slabs with leaf_valid < k and = 0; a
    bank of duplicated rows (ties across slabs).
-4. The main paths: `hbird_evaluation` on a generated VOC-layout fixture
+4. K3 against its plain version (ops/flash.py::flash_attention_plain),
+   bf16 and f32, on seeded unit normals at (B, H, N, hd) = (16, 12, 1370,
+   64) (the main path: dinov2_vitb14 at input 518, batch 16), (2, 12, 1374,
+   64) (dinov2_vitb14_reg), (4, 12, 197, 32) (mocov3_vits16), (2, 16, 257,
+   80) (mae_vith14), (1, 12, 4625, 64) (dinov2 at input 952), (2, 2, 1, 64)
+   and (2, 2, 65, 64).
+5. The main paths: `hbird_evaluation` on a generated VOC-layout fixture
    (64 train / 16 val images, 600x450) with dinov2_vitb14 at full width
    (random weights from a seed), input 518, batch 16, k=30, seeded
    augmentations and one decode thread, so the mIoU repeats; with
@@ -30,25 +37,47 @@ Phases; any failure raises and the script exits non-zero with no result:
    the tree build's split, and a second build that must give the same
    centroids and slots; K1 and K2 held against their plain versions;
    recall@30 of the tree against K1, probing per tile and per query.
-5. The card against the CPU on a small input: a tiny ViT (depth 2, width
+   The flash path: the same 'scann' run, unbounded, with the ViT in bf16
+   (`bf16_model=True`), attention_impl='flash' and LayerScale set to 0.05
+   (at its 1e-5 init the blocks barely move the tokens, so no attention
+   would show in the output). K3 must launch once per block per forward
+   batch, depth x (4 train + 1 val batches) = 60, and K1 must launch; the
+   same run with 'xla' beside it launches no K3. On one
+   val batch the patch tokens of 'flash' and 'xla' agree (f32 within 1e-4;
+   bf16 within 0.1 max and 1e-2 mean, the port's bf16 tolerance), and K3
+   holds against its plain version on that batch's block-0 q, k, v, the
+   strided views of the qkv projection the ViT hands over.
+6. The card against the CPU on a small input: a tiny ViT (depth 2, width
    64) on a 12/6-image fixture through `hbird_evaluation`, 'scann',
-   'faiss' and 'ivf' (every leaf probed), once on the card and once with
-   device="cpu" (the plain versions): mIoU within 1e-4 and the transferred
-   soft labels within 1e-4, the tolerances the CPU tests hold the port to
-   against the JAX engine.
-6. K1 and K2 timed with CUDA events, each beside its bound, its plain
+   'faiss' and 'ivf' (every leaf probed), and 'faiss' with a tiny ViT of
+   head width 32, no LayerScale and attention_impl='flash', once on the
+   card and once with device="cpu" (the plain versions): mIoU within 1e-4
+   and the transferred soft labels within 1e-4, the tolerances the CPU
+   tests hold the port to against the JAX engine.
+7. K1, K2 and K3 timed with CUDA events, each beside its bound, its plain
    version and a library yardstick the port never calls: K1 at the main
    path's shape (Q=21,904, M=87,616) and against a 1,024,000-row bank
    (query-chunked bf16 torch.matmul + torch.topk); K2 on the main path's
    tree (32 of 512 leaves) and on a tree of the 1,024,000-row bank (cap
    2,816, 32 of 512 leaves) (the probed slabs gathered per tile, then
-   torch.bmm + torch.topk, chunked over tiles).
+   torch.bmm + torch.topk, chunked over tiles); K3 at the main shape in
+   bf16 and f32 (torch.nn.functional.scaled_dot_product_attention). Then
+   the ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and
+   bf16.
 
-Tolerance of every kernel check: values within 1e-5 * ||q|| * max||b|| (the
-products are exact in f32, only the summation order differs); index sets
-equal except where the k-th and (k+1)-th plain scores are within twice
-that; every returned index re-scored gives its returned value; K2's ids lie
-in the valid rows of the slabs their query tile probes.
+Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
+(the products are exact in f32, only the summation order differs); index
+sets equal except where the k-th and (k+1)-th plain scores are within
+twice that; every returned index re-scored gives its returned value; K2's
+ids lie in the valid rows of the slabs their query tile probes.
+
+Tolerance of the K3 checks: f32 within 1e-5 absolute at unit-normal
+inputs (the same f32 products and exps summed in another order). bf16
+within 4 bf16 ulps at each query row's scale (4 * 2^-8 * the row's largest
+|plain output|) and a mean error under 2^-7 * mean |plain output|: the
+kernel rounds p to bf16 against its running maximum and normalises at the
+end, the plain version rounds the normalised p, so about half the outputs
+differ by about one ulp; the output's own rounding adds at most one.
 
 Output: a {"kernels": [...]} line, the nvidia-smi card line, and last
 {"ok": true, "device": {...}}.
@@ -64,11 +93,15 @@ import time
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 FMA peak (no tensor cores)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 RTOL = 1e-5
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_ULPS = 4
 TPU_KERNELS = {
     "K1": "hbird_tpu/ops/knn_pallas.py:238",  # _knn_kernel
     "K2": "hbird_tpu/ops/ivf.py:668",  # _ivf_kernel
+    "K3": "hbird_tpu/models/vit.py:319",  # _flash_attention (JAX's library Pallas kernel)
 }
 
 # Sizes of the run (a rehearsal on the CPU may shrink them).
@@ -82,6 +115,18 @@ BIG_M = 1_024_000
 SMALL_FIXTURE = {"n_train": 12, "n_val": 6, "size": (64, 48)}
 SMALL_LEAVES = 32
 SMALL_TOL = 1e-4
+FLASH_SHAPES = {
+    "main (dinov2_vitb14, 518, batch 16)": (16, 12, 1370, 64),
+    "dinov2_vitb14_reg": (2, 12, 1374, 64),
+    "mocov3_vits16": (4, 12, 197, 32),
+    "mae_vith14": (2, 16, 257, 80),
+    "dinov2 at input 952": (1, 12, 4625, 64),
+    "one token": (2, 2, 1, 64),
+    "65 tokens": (2, 2, 65, 64),
+}
+FLASH_MAIN = (16, 12, 1370, 64)  # the main path's (B, H, N, hd)
+TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
+LAYERSCALE = 0.05  # the flash path's LayerScale (see flash_path)
 
 
 def fail(msg):
@@ -140,6 +185,41 @@ def ivf_bound_ms(n_q, lids, leaf_valid, d, k, elt_bytes, peak_flops):
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = 2.0 * block_q * scanned * d / peak_flops * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bound_ms(shape, elt_bytes, peak_flops):
+    """K3's least time: q, k, v read once and o written once, or the
+    4·B·H·N²·hd flops of q·kᵀ and p·v at the card's peak for the type."""
+    b, h, n, hd = shape
+    t_bytes = 4 * b * h * n * hd * elt_bytes / PEAK_BYTES * 1e3
+    t_ops = 4.0 * b * h * n * n * hd / peak_flops * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_flash(name, out, ref):
+    """K3's output against its plain version's, at the stated tolerance;
+    returns max |err|."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        fail(f"{name}: {tuple(out.shape)} {out.dtype} against {tuple(ref.shape)} {ref.dtype}")
+    o, r = out.float(), ref.float()
+    if not torch.isfinite(o).all():
+        fail(f"{name}: non-finite outputs")
+    err = (o - r).abs()
+    worst = err.max().item()
+    if ref.dtype == torch.float32:
+        if worst > FLASH_F32_TOL:
+            fail(f"{name}: max |err| {worst} > {FLASH_F32_TOL}")
+        detail = f"tolerance {FLASH_F32_TOL}"
+    else:
+        ulp = 2.0**-8 * r.abs().amax(dim=-1, keepdim=True)
+        ulps = (err / ulp.clamp_min(1e-30)).max().item()
+        if (err > FLASH_BF16_ULPS * ulp).any():
+            fail(f"{name}: {ulps:.2f} bf16 ulps at the row's scale > {FLASH_BF16_ULPS}")
+        if err.mean().item() > 2.0**-7 * r.abs().mean().item():
+            fail(f"{name}: mean |err| {err.mean().item()} > 2^-7 * mean |out|")
+        detail = f"{ulps:.2f} ulps at the row's scale, {(err > 0).float().mean().item():.3f} of outputs differ"
+    print(f"  {name}: max |err| {worst:.3g} ({detail})", flush=True)
+    return worst
 
 
 def check_against_plain(name, q, b, k, valid, kernel_out=None, plain_out=None):
@@ -332,12 +412,30 @@ def ivf_cases(gen):
     return max(errs)
 
 
+def flash_cases(gen):
+    """Phase 4: K3 against the plain version at the stated shapes."""
+    from hbird_tpu_torch.ops.flash import flash_attention_plain
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
+    errs = []
+    for label, shape in FLASH_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+            scale = shape[-1] ** -0.5
+            out = flash_attention(q, k, v, scale)
+            sync()
+            errs.append(check_flash(f"{str(dtype)[6:]} {label} {shape}", out,
+                                    flash_attention_plain(q, k, v, scale)))
+            del q, k, v, out
+    return max(errs)
+
+
 def rounded(d):
     return {k: round(v, 3) for k, v in d.items()}
 
 
 def main_path(gen_seed):
-    """Phase 4: hbird_evaluation per method and bank, counters, and the
+    """Phase 5: hbird_evaluation per method and bank, counters, and the
     kernels on the built banks."""
     from hbird_tpu_torch import HbirdEvaluation, hbird_evaluation
     from hbird_tpu_torch.data import get_dataset
@@ -432,37 +530,150 @@ def main_path(gen_seed):
     return runs, launches, {"K1": err_k1, "K2": err_k2}, tree_info, q, bank, main_tree
 
 
+def _val_batch(root):
+    """The first val batch, normalised as the engine does on the device."""
+    from hbird_tpu_torch.data import get_dataset
+    from hbird_tpu_torch.data.transforms import get_hbird_val_transforms
+
+    va = get_hbird_val_transforms(INPUT, device_normalize=True)
+    ds, _ = get_dataset("voc", root, BATCH, 0, va, va)
+    x, _ = next(iter(ds.val_dataloader()))
+    mean, std = (torch.tensor(v, device=DEVICE).reshape(1, -1, 1, 1) for v in va["device_norm"])
+    return (torch.from_numpy(x).to(DEVICE).float() / 255.0 - mean) / std
+
+
+def flash_path(gen_seed):
+    """Phase 5, the flash path: hbird_evaluation with the bf16 ViT and
+    attention_impl='flash' against 'xla', the tokens of both on one val
+    batch, and K3 on that batch's block-0 q, k, v."""
+    import dataclasses
+
+    from hbird_tpu_torch import hbird_evaluation
+    from hbird_tpu_torch.data.synthetic import make_voc_fixture
+    from hbird_tpu_torch.models import VIT_PRESETS, FeatureExtractor, ViT
+    from hbird_tpu_torch.models.vit import _layer_norm, _linear
+    from hbird_tpu_torch.ops.flash import flash_attention_plain
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.utils.profiling import PhaseTimer
+
+    cfg = VIT_PRESETS[PRESET]
+    vits = {impl: ViT(dataclasses.replace(cfg, attention_impl=impl),
+                      generator=torch.Generator().manual_seed(gen_seed)) for impl in ("flash", "xla")}
+    if cfg.layerscale:
+        # At its 1e-5 init LayerScale leaves the blocks almost silent: the
+        # tokens of any attention would then agree to 1e-10. At 0.05 the
+        # attention moves the tokens and the mIoU.
+        with torch.no_grad():
+            for vit in vits.values():
+                for blk in vit.blocks:
+                    blk.ls1.fill_(LAYERSCALE)
+                    blk.ls2.fill_(LAYERSCALE)
+    counters = {"knn_topk": knn_topk, "ivf_topk": ivf_topk, "flash_attention": flash_attention}
+    # One forward per train batch (one augmentation epoch) and per val batch.
+    n_batches = -(-FIXTURE["n_train"] // BATCH) + -(-FIXTURE["n_val"] // BATCH)
+    expected = cfg.depth * n_batches
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
+        common = dict(batch_size=BATCH, input_size=INPUT, n_neighbours=30, num_workers=0,
+                      device=DEVICE, nn_method="scann", bf16_model=True)
+        for impl, vit in vits.items():
+            label = f"scann unbounded, bf16 ViT, attention_impl={impl!r}"
+            timer = PhaseTimer()
+            random.seed(0)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, timer=timer, **common)
+            wall = time.perf_counter() - t0
+            n = {name: fn.launches for name, fn in counters.items()}
+            want = expected if impl == "flash" else 0
+            if n["flash_attention"] != want:
+                fail(f"{label}: K3 launched {n['flash_attention']} times, not {want} "
+                     f"({cfg.depth} blocks x {n_batches} forward batches)")
+            if n["knn_topk"] < 1 or n["ivf_topk"]:
+                fail(f"{label}: launches {n}")
+            if not (0.0 <= miou <= 1.0):
+                fail(f"{label}: mIoU {miou} not a finite value in [0, 1]")
+            launches[impl] = n
+            runs[label] = {"miou": miou, "launches": n, "wall_s": wall, "phases": timer.summary()}
+            print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)} (K3 expected {expected} = "
+                  f"{cfg.depth} blocks x {n_batches} forward batches), wall {wall:.2f}s, "
+                  f"phases {json.dumps(timer.summary())}", flush=True)
+        imgs = _val_batch(root)
+
+    token_err = {}
+    with torch.inference_mode():
+        for dtype, (max_tol, mean_tol) in TOKEN_TOL.items():
+            tokens = {impl: FeatureExtractor(vit, use_bf16=dtype == torch.bfloat16).forward_features(imgs)[0]
+                      for impl, vit in vits.items()}
+            err = (tokens["flash"] - tokens["xla"]).abs()
+            token_err[str(dtype)[6:]] = {"max": err.max().item(), "mean": err.mean().item()}
+            if err.max().item() > max_tol or err.mean().item() > mean_tol:
+                fail(f"flash vs xla patch tokens, {dtype}: {token_err[str(dtype)[6:]]}")
+            print(f"  flash vs xla patch tokens on one val batch, {str(dtype)[6:]}: max |err| "
+                  f"{err.max().item():.3g}, mean {err.mean().item():.3g}", flush=True)
+        # K3 on the main path's own inputs: block 0's q, k, v, strided views
+        # of its qkv projection, as the ViT hands them over.
+        vit = vits["flash"]
+        x = vit._embed(imgs, torch.bfloat16)
+        blk = vit.blocks[0]
+        y = _layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
+        b, n, _ = y.shape
+        qkv = _linear(y, blk.attn.qkv).reshape(b, n, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        scale = cfg.head_dim**-0.5
+        err_k3 = check_flash(f"K3, main path's block-0 q, k, v {tuple(q.shape)} (strided views)",
+                             flash_attention(q, k, v, scale), flash_attention_plain(q, k, v, scale))
+    return runs, launches, token_err, err_k3
+
+
 def card_vs_cpu():
-    """Phase 5: the same small run on the card and on the CPU agrees."""
+    """Phase 6: the same small run on the card and on the CPU agrees."""
     import copy
 
     from hbird_tpu_torch import hbird_evaluation
     from hbird_tpu_torch.data.synthetic import make_voc_fixture
     from hbird_tpu_torch.models import ViT, ViTConfig
 
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
     vit = ViT(ViTConfig(4, 64, 2, 4, img_size=32, layerscale=True),
               generator=torch.Generator().manual_seed(1))
+    # head width 32, the narrowest K3 takes; no LayerScale, so the
+    # attention is not silent at init
+    flash_vit = ViT(ViTConfig(4, 64, 2, 2, img_size=32, attention_impl="flash"),
+                    generator=torch.Generator().manual_seed(1))
     result = {}
     full_probe = {"num_leaves": SMALL_LEAVES, "num_leaves_to_search": SMALL_LEAVES}
+    # The flash ViT runs 'faiss', whose f32 bank passes the card's and the
+    # CPU's forward through unrounded.
+    cases = {"scann": ("scann", vit), "faiss": ("faiss", vit), "ivf": ("ivf", vit),
+             "faiss, flash ViT": ("faiss", flash_vit)}
     with tempfile.TemporaryDirectory() as root:
         make_voc_fixture(root, seed=3, colorize=True, class_pool=[1, 2, 3, 4, 5], **SMALL_FIXTURE)
-        for nn_method in ("scann", "faiss", "ivf"):
+        for label, (nn_method, model) in cases.items():
             out = {}
             for device in (DEVICE, "cpu"):
                 random.seed(1234)
+                before = flash_attention.launches
                 out[device] = hbird_evaluation(
-                    copy.deepcopy(vit), 64, 4, "voc", root, batch_size=4, input_size=32,
+                    copy.deepcopy(model), 64, 4, "voc", root, batch_size=4, input_size=32,
                     n_neighbours=5, nn_method=nn_method, num_workers=0, device=device,
                     nn_params=full_probe if nn_method == "ivf" else None,
                     return_knn_details=True)
+                if device == DEVICE and model is flash_vit and flash_attention.launches == before:
+                    fail(f"small input, {label}: K3 never launched on the card")
             (miou, det), (cpu_miou, cpu_det) = out[DEVICE], out["cpu"]
             label_err = float(abs(det["knns_ca_labels"] - cpu_det["knns_ca_labels"]).max())
             if not abs(miou - cpu_miou) <= SMALL_TOL:
-                fail(f"small input, {nn_method}: mIoU {miou} on the card, {cpu_miou} on the CPU")
+                fail(f"small input, {label}: mIoU {miou} on the card, {cpu_miou} on the CPU")
             if not label_err <= SMALL_TOL:
-                fail(f"small input, {nn_method}: soft labels differ by {label_err}")
-            result[nn_method] = {"miou": miou, "cpu_miou": cpu_miou, "label_err": label_err}
-            print(f"  {nn_method}: mIoU {miou:.6f} (CPU {cpu_miou:.6f}), "
+                fail(f"small input, {label}: soft labels differ by {label_err}")
+            result[label] = {"miou": miou, "cpu_miou": cpu_miou, "label_err": label_err}
+            print(f"  {label}: mIoU {miou:.6f} (CPU {cpu_miou:.6f}), "
                   f"soft labels max |err| {label_err:.3g}", flush=True)
     return result
 
@@ -484,7 +695,7 @@ def ivf_library(qp, bank, lids, lv, k, cap, block_q, chunk=8):
 
 
 def timing(q, bank, main_tree, gen):
-    """Phase 6: K1 and K2 vs plain vs the library yardsticks at two sizes."""
+    """Phase 7: K1 and K2 vs plain vs the library yardsticks at two sizes."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
     from hbird_tpu_torch.ops.ivf import ivf_search_plain, tile_probe_inputs
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
@@ -551,6 +762,57 @@ def timing(q, bank, main_tree, gen):
     return k1_rows, k2_rows, errs
 
 
+def flash_timing(gen):
+    """Phase 7: K3 at the main shape, bf16 and f32, vs its bound, its plain
+    version and scaled_dot_product_attention (a yardstick the port never
+    calls)."""
+    from hbird_tpu_torch.ops.flash import flash_attention_plain
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
+    rows, errs = {}, []
+    scale = FLASH_MAIN[-1] ** -0.5
+    for label, dtype, peak in (("main", torch.bfloat16, PEAK_BF16_FLOPS), ("f32", torch.float32, PEAK_F32_FLOPS)):
+        q, k, v = (torch.randn(FLASH_MAIN, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+        ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 10)
+        box = {}
+        plain_ms = cuda_ms(lambda: box.update(out=flash_attention_plain(q, k, v, scale)), 3)
+        errs.append(check_flash(f"K3 timing shape {str(dtype)[6:]} {FLASH_MAIN}",
+                                flash_attention(q, k, v, scale), box.pop("out")))
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 10)
+        b_ms, b_by = flash_bound_ms(FLASH_MAIN, q.element_size(), peak)
+        rows[label] = {"shape": list(FLASH_MAIN), "dtype": str(dtype)[6:], "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        print(f"  K3 {str(dtype)[6:]} {FLASH_MAIN}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del q, k, v
+    return rows, max(errs)
+
+
+def forward_timing(gen_seed, gen):
+    """Phase 7: the ViT forward per batch (BATCH images at INPUT) with
+    'xla' and 'flash' attention, f32 and bf16; ms by CUDA events."""
+    import dataclasses
+
+    from hbird_tpu_torch.models import VIT_PRESETS, FeatureExtractor, ViT
+
+    cfg = VIT_PRESETS[PRESET]
+    imgs = torch.randn(BATCH, 3, INPUT, INPUT, generator=gen, device=DEVICE)
+    rows = {}
+    for impl in ("xla", "flash"):
+        vit = ViT(dataclasses.replace(cfg, attention_impl=impl),
+                  generator=torch.Generator().manual_seed(gen_seed)).to(DEVICE).prepare(INPUT)
+        for dtype in (torch.float32, torch.bfloat16):
+            fe = FeatureExtractor(vit, use_bf16=dtype == torch.bfloat16)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: fe.forward_features(imgs), 5)
+            label = f"{impl} {str(dtype)[6:]}"
+            rows[label] = {"ms": ms, "images_per_s": BATCH / ms * 1e3}
+            print(f"  forward {PRESET} at {INPUT}, batch {BATCH}, {label}: {ms:.3f} ms "
+                  f"({BATCH / ms * 1e3:.1f} img/s)", flush=True)
+        del vit
+    return rows
+
+
 def kernel_entry(name, source, tpu_kernel, launches, err, rows, card):
     main = rows["main"]
     return {"name": name, "route": "cuda", "source": source, "replaces": tpu_kernel,
@@ -573,7 +835,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
 
-    print("[1] build K1 and K2", flush=True)
+    print("[1] build K1, K2 and K3", flush=True)
     t0 = time.perf_counter()
     libs = cuda_build.build_all(verbose=True)
     print(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f}s",
@@ -586,14 +848,22 @@ def main():
     print("[3] K2 vs plain version", flush=True)
     err_k2 = ivf_cases(gen)
 
-    print(f"[4] main paths ({card})", flush=True)
-    runs, launches, err_main, tree_info, q, bank, main_tree = main_path(gen_seed=0)
+    print("[4] K3 vs plain version", flush=True)
+    err_k3 = flash_cases(gen)
 
-    print("[5] the card against the CPU, small input", flush=True)
+    print(f"[5] main paths ({card})", flush=True)
+    runs, launches, err_main, tree_info, q, bank, main_tree = main_path(gen_seed=0)
+    flash_runs, flash_launches, token_err, err_k3_main = flash_path(gen_seed=0)
+    runs.update(flash_runs)
+    launches["knn_topk"] += sum(n["knn_topk"] for n in flash_launches.values())
+
+    print("[6] the card against the CPU, small input", flush=True)
     small = card_vs_cpu()
 
-    print(f"[6] K1 and K2 timing ({card})", flush=True)
+    print(f"[7] K1, K2 and K3 timing; the forward ({card})", flush=True)
     k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, gen)
+    k3_rows, err_k3_timing = flash_timing(gen)
+    forward = forward_timing(0, gen)
 
     kernels = {"kernels": [
         kernel_entry("knn_topk (K1)", "hbird_tpu_torch/ops/csrc/knn_topk.cu", TPU_KERNELS["K1"],
@@ -602,7 +872,11 @@ def main():
         kernel_entry("ivf_topk (K2)", "hbird_tpu_torch/ops/csrc/ivf_topk.cu", TPU_KERNELS["K2"],
                      launches["ivf_topk"], max(err_k2, err_main["K2"], err_timing["K2"]), k2_rows,
                      card),
-    ], "main_path": runs, "tree": tree_info, "card_vs_cpu": small,
+        kernel_entry("flash_attention (K3)", "hbird_tpu_torch/ops/csrc/flash_attn.cu", TPU_KERNELS["K3"],
+                     flash_launches["flash"]["flash_attention"], max(err_k3, err_k3_main, err_k3_timing),
+                     k3_rows, card),
+    ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err,
+        "forward_ms_per_batch": forward, "card_vs_cpu": small,
         "seconds": time.perf_counter() - t_start}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

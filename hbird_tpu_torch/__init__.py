@@ -3,7 +3,12 @@
 The PyTorch/CUDA port of `hbird_tpu`, for one NVIDIA Hopper GPU. It keeps
 the JAX package's module names so each counterpart is easy to find:
 
-- frozen ViT patch features from a PyTorch backbone (`models/`),
+- frozen ViT patch features from a PyTorch backbone (`models/`): the
+  package's ViT, its attention plain or through a hand-written flash
+  attention kernel (`attention_impl='flash'`, `ops/csrc/flash_attn.cu`),
+  with weights converted from timm or HuggingFace checkpoints
+  (`models/convert.py`), or any live torch module
+  (`models/torch_adapter.py`),
 - a device-resident memory bank of L2-normalized patch embeddings and
   per-patch soft labels,
 - exact k-nearest-neighbour retrieval through a hand-written CUDA kernel

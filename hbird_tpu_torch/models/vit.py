@@ -9,14 +9,21 @@ families' conventions (offset 0.1 and antialias).
 It computes what the JAX forward computes, in the same order:
 - the patch embedding is an unfold followed by a matmul (no convolution,
   so no TF32 cuDNN path);
-- attention is plain matmul -> softmax -> matmul, as the JAX default
-  (`attention_impl='xla'`); under bf16 compute the logits stay bf16 with
-  an f32 max-stable exp and normalisation, unless `attn_logits_f32`;
+- attention takes one of three forms (`attention_impl`):
+  - 'xla' (the default): plain matmul -> softmax -> matmul; under bf16
+    compute the logits stay bf16 with an f32 max-stable exp and
+    normalisation, unless `attn_logits_f32`;
+  - 'flash': K3, the flash attention kernel (ops/flash_cuda.py; its plain
+    version, ops/flash.py, on the CPU), which never writes the (B, H, N, N)
+    logits;
+  - 'chunked': the 'xla' math over blocks of `attention_chunk_q` query
+    rows, so only a (B, H, chunk, N) logits slice lives at a time;
+  a block asked for its attention weights runs 'xla', as in JAX;
 - layer norms run in f32 and cast back to the compute dtype;
 - weights are kept in f32 and cast to the compute dtype at each use.
 
-Weights carried across from the JAX parameter pytree live in
-models/convert.py.
+Weight converters (the JAX parameter pytree, timm and HuggingFace
+checkpoints) live in models/convert.py.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
+ATTENTION_IMPLS = ("xla", "flash", "chunked")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +55,11 @@ class ViTConfig:
     qkv_bias: bool = True
     ln_eps: float = 1e-6
     compute_dtype: torch.dtype = torch.float32
-    # 'xla' = plain matmul attention (the JAX default's name). The JAX
-    # package's 'flash' (TPU kernel K3) and 'chunked' forms are not ported.
+    # 'xla' = plain matmul attention; 'flash' = the K3 kernel (any sequence
+    # length, head widths 32/64/80 on the card); 'chunked' = the 'xla' math
+    # over blocks of attention_chunk_q query rows.
     attention_impl: str = "xla"
+    attention_chunk_q: int = 256  # query-block rows for 'chunked'
     # Under bf16 compute the attention logits are bf16 unless this is set.
     attn_logits_f32: bool = False
     # Positional-table interpolation convention (see interpolate_pos_embed).
@@ -251,6 +264,33 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+def _xla_attention(q, k, v, scale: float, logits_f32: bool):
+    """Plain attention over (B, H, N, hd): returns (out, weights)."""
+    if logits_f32:
+        logits = torch.matmul((q * scale).float(), k.float().transpose(-2, -1))
+        attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    else:
+        # bf16 logits with an f32 max-stable exp and normalisation.
+        logits = torch.matmul(q * scale, k.transpose(-2, -1))
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp((logits - m).float())
+        attn = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    return torch.matmul(attn, v), attn
+
+
+def _chunked_attention(q, k, v, scale: float, block_q: int, logits_f32: bool):
+    """The 'xla' math over blocks of `block_q` query rows: each step holds a
+    (B, H, block_q, N) logits slice, never the whole (B, H, N, N)."""
+    n = q.shape[2]
+    return torch.cat(
+        [
+            _xla_attention(q[:, :, i:i + block_q], k, v, scale, logits_f32)[0]
+            for i in range(0, n, block_q)
+        ],
+        dim=2,
+    )
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -258,25 +298,25 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(cfg.width, 3 * cfg.width, bias=cfg.qkv_bias)
         self.proj = nn.Linear(cfg.width, cfg.width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, return_weights: bool = False
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
         b, n, d = x.shape
         nh, hd = cfg.num_heads, cfg.head_dim
         qkv = _linear(x, self.qkv).reshape(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd) views of qkv
         scale = hd**-0.5
-        if cfg.attn_logits_f32 or x.dtype == torch.float32:
-            logits = torch.matmul((q * scale).float(), k.float().transpose(-2, -1))
-            attn = torch.softmax(logits, dim=-1).to(x.dtype)
+        logits_f32 = cfg.attn_logits_f32 or x.dtype == torch.float32
+        attn = None
+        if return_weights or cfg.attention_impl == "xla":
+            out, attn = _xla_attention(q, k, v, scale, logits_f32)
+        elif cfg.attention_impl == "flash":
+            out = flash_attention(q, k, v, scale)
         else:
-            # bf16 logits with an f32 max-stable exp and normalisation.
-            logits = torch.matmul(q * scale, k.transpose(-2, -1))
-            m = logits.amax(dim=-1, keepdim=True)
-            e = torch.exp((logits - m).float())
-            attn = (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
-        out = torch.matmul(attn, v)
+            out = _chunked_attention(q, k, v, scale, cfg.attention_chunk_q, logits_f32)
         out = out.transpose(1, 2).reshape(b, n, d)
-        return _linear(out, self.proj)
+        return _linear(out, self.proj), (attn if return_weights else None)
 
 
 class Mlp(nn.Module):
@@ -312,15 +352,19 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.attn(_layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps))
+    def forward(
+        self, x: torch.Tensor, return_weights: bool = False
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        y, attn = self.attn(
+            _layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps), return_weights
+        )
         if self.ls1 is not None:
             y = y * self.ls1.to(x.dtype)
         x = x + y
         y = self.mlp(_layer_norm(x, self.norm2.weight, self.norm2.bias, self.eps))
         if self.ls2 is not None:
             y = y * self.ls2.to(x.dtype)
-        return x + y
+        return x + y, attn
 
 
 class ViT(nn.Module):
@@ -335,6 +379,10 @@ class ViT(nn.Module):
     def __init__(self, config: ViTConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config
+        if cfg.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"attention_impl must be one of {ATTENTION_IMPLS}: {cfg.attention_impl!r}"
+            )
         self.config = cfg
         d, p = cfg.width, cfg.patch_size
         self.patch_embed = nn.Linear(p * p * 3, d)
@@ -418,24 +466,78 @@ class ViT(nn.Module):
         return tokens
 
     def forward(
-        self, imgs: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
-    ) -> Dict[str, torch.Tensor]:
+        self,
+        imgs: torch.Tensor,
+        compute_dtype: Optional[torch.dtype] = None,
+        return_attention: bool = False,
+    ) -> Dict[str, Optional[torch.Tensor]]:
         """Forward pass on normalized (B, 3, H, W) images.
 
+        Args:
+            imgs: (B, 3, H, W) float images.
+            compute_dtype: the blocks' dtype (defaults to the config's).
+            return_attention: also return the last block's attention
+                weights (that block then runs 'xla').
+
         Returns:
-            dict with x_norm_patchtokens (B, N, D) f32 final-LN patch tokens
-            and x_norm_clstoken (B, D) f32.
+            dict with x_norm_patchtokens (B, N, D) f32 final-LN patch tokens,
+            x_norm_clstoken (B, D) f32, and attn: the last block's
+            (B, heads, T, T) weights over all T tokens in the compute dtype,
+            or None.
         """
         cfg = self.config
-        if cfg.attention_impl != "xla":
-            raise NotImplementedError(
-                f"attention_impl={cfg.attention_impl!r} is not ported yet "
-                "(ROADMAP.md, TPU kernels K3); use 'xla', the plain form"
-            )
-        dtype = compute_dtype or cfg.compute_dtype
-        x = self._embed(imgs, dtype)
-        for blk in self.blocks:
-            x = blk(x)
+        x = self._embed(imgs, compute_dtype or cfg.compute_dtype)
+        attn = None
+        for i, blk in enumerate(self.blocks):
+            x, attn = blk(x, return_attention and i == cfg.depth - 1)
         x = _layer_norm(x, self.norm.weight, self.norm.bias, cfg.ln_eps).float()
         n_prefix = 1 + cfg.num_register_tokens
-        return {"x_norm_patchtokens": x[:, n_prefix:], "x_norm_clstoken": x[:, 0]}
+        return {"x_norm_patchtokens": x[:, n_prefix:], "x_norm_clstoken": x[:, 0], "attn": attn}
+
+    def qkv_features(
+        self,
+        imgs: torch.Tensor,
+        feat: str = "k",
+        layer_num: int = -1,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> torch.Tensor:
+        """Q/K/V token features of block `layer_num`'s attention input.
+
+        The chosen projection, heads re-concatenated, prefix (CLS and
+        register) tokens dropped (the reference's forward-hook extraction,
+        hbird/models.py:257-321). Returns (B, N_patches, D) f32.
+        """
+        if feat not in ("q", "k", "v"):
+            raise ValueError(f"feat must be 'q', 'k' or 'v': {feat!r}")
+        cfg = self.config
+        layer = layer_num % cfg.depth
+        x = self._embed(imgs, compute_dtype or cfg.compute_dtype)
+        for blk in self.blocks[:layer]:
+            x, _ = blk(x)
+        blk = self.blocks[layer]
+        y = _layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
+        qkv = _linear(y, blk.attn.qkv)
+        b, n, _ = qkv.shape
+        out = qkv.reshape(b, n, 3, cfg.width)[:, :, "qkv".index(feat)]
+        return out[:, 1 + cfg.num_register_tokens:].float()
+
+    def cls_attention(
+        self, imgs: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+    ) -> torch.Tensor:
+        """The last layer's CLS->patch attention, mean over heads, min-max
+        scaled per image (reference hbird/models.py:44-53, 356-361)."""
+        attn = self(imgs, compute_dtype, return_attention=True)["attn"]
+        return cls_to_patches(attn, self.config.num_register_tokens)
+
+
+def normalize_minmax(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Min-max normalize the last dim (reference hbird/models.py:44-53)."""
+    mins = x.amin(dim=-1, keepdim=True)
+    maxs = x.amax(dim=-1, keepdim=True)
+    return (x - mins) / torch.clamp(maxs - mins, min=eps)
+
+
+def cls_to_patches(attn: torch.Tensor, num_register_tokens: int = 0) -> torch.Tensor:
+    """(B, heads, T, T) weights -> (B, N_patches) mean-head CLS->patch
+    attention, min-max scaled; the token layout is [CLS, registers, patches]."""
+    return normalize_minmax(attn[:, :, 0, 1 + num_register_tokens:].mean(dim=1))

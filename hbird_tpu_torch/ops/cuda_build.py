@@ -1,8 +1,8 @@
 """Building the port's CUDA kernels: nvcc for sm_90a into ctypes libraries.
 
-Each kernel source in `csrc/` (K1 `knn_topk.cu`, K2 `ivf_topk.cu`, both
-including `topk_common.cuh`) compiles on its own into a shared library
-with a plain C interface, at first use. The libraries go to
+Each kernel source in `csrc/` (K1 `knn_topk.cu`, K2 `ivf_topk.cu`, K3
+`flash_attn.cu`, each including `topk_common.cuh`) compiles on its own into
+a shared library with a plain C interface, at first use. The libraries go to
 `build/hbird_tpu_torch/` beside the package directory (the repository's
 ignored build tree); a name carries a hash of the source, the headers and
 the flags, so an edited kernel is rebuilt. `build_all` starts one nvcc per
@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("knn_topk.cu", "ivf_topk.cu")
+SOURCES = ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hbird_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

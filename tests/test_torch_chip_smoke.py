@@ -1,8 +1,8 @@
 """chip_smoke.py rehearsed on the CPU at tiny sizes.
 
 The script's phases run here with the plain versions (a CPU tensor never
-launches K1 or K2), so each wrapper's plain path is wrapped to count as a
-launch; this checks the script's control flow, shapes and checks, not the
+launches K1, K2 or K3), so each wrapper's plain path is wrapped to count as
+a launch; this checks the script's control flow, shapes and checks, not the
 kernels.
 Without a GPU, `main()` must exit non-zero and print no result.
 """
@@ -14,8 +14,9 @@ import pathlib
 import pytest
 import torch
 
+from hbird_tpu_torch.ops import flash_cuda, ivf_cuda, knn_cuda
+from hbird_tpu_torch.ops import flash as flash_mod
 from hbird_tpu_torch.ops import ivf as ivf_mod
-from hbird_tpu_torch.ops import ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops import knn as knn_mod
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -40,6 +41,9 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "IVF_ROWS", 3000)
     monkeypatch.setattr(mod, "IVF_CLUSTERS", 8)
     monkeypatch.setattr(mod, "IVF_Q", 200)
+    monkeypatch.setattr(mod, "FLASH_SHAPES", {"one token": (2, 2, 1, 64), "ragged": (1, 2, 65, 32),
+                                              "wide": (1, 1, 70, 80)})
+    monkeypatch.setattr(mod, "FLASH_MAIN", (2, 2, 40, 32))
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
@@ -51,8 +55,14 @@ def smoke(monkeypatch):
 
     monkeypatch.setattr(knn_cuda, "exact_knn", counted)
     monkeypatch.setattr(knn_cuda.knn_topk, "launches", 0)
+    def counted_flash(*args, **kwargs):
+        flash_cuda.flash_attention.launches += 1
+        return flash_mod.flash_attention_plain(*args, **kwargs)
+
     monkeypatch.setattr(ivf_cuda, "ivf_search_plain", counted_ivf)
     monkeypatch.setattr(ivf_cuda.ivf_topk, "launches", 0)
+    monkeypatch.setattr(flash_cuda, "flash_attention_plain", counted_flash)
+    monkeypatch.setattr(flash_cuda.flash_attention, "launches", 0)
     return mod
 
 
@@ -79,6 +89,57 @@ def test_phases_rehearse_on_cpu(smoke):
     assert err_timing == {"K1": 0.0, "K2": 0.0}
     assert k2_rows["bank_3000"]["cap"] == 256 and k2_rows["main"]["block_q"] == 256
     assert json.dumps([k1_rows, k2_rows])
+
+
+def test_flash_phases_rehearse_on_cpu(smoke):
+    gen = torch.Generator().manual_seed(0)
+    assert smoke.flash_cases(gen) == 0.0
+    runs, launches, token_err, err = smoke.flash_path(gen_seed=0)
+    # dino_vits16: 12 blocks x (2 train + 1 val batches of 4)
+    assert launches["flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 36}
+    assert launches["xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
+    assert err == 0.0 and len(runs) == 2
+    for run in runs.values():
+        assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
+    assert token_err["float32"]["max"] <= 1e-4 and token_err["bfloat16"]["mean"] <= 1e-2
+    rows, err = smoke.flash_timing(gen)
+    assert err == 0.0 and set(rows) == {"main", "f32"}
+    assert rows["main"]["bound_by"] == "bytes" and rows["main"]["dtype"] == "bfloat16"
+    forward = smoke.forward_timing(0, gen)
+    assert set(forward) == {"xla float32", "xla bfloat16", "flash float32", "flash bfloat16"}
+    assert json.dumps([rows, forward])
+
+
+def test_flash_bound_of_the_main_shape(smoke):
+    """4·B·H·N²·hd = 92.25 GFLOP: 0.093 ms at 989 TFLOP/s, 1.38 ms at 67
+    TFLOP/s; the 134.7 MB of bf16 q, k, v and o take 0.040 ms."""
+    shape = (16, 12, 1370, 64)
+    ms, by = smoke.flash_bound_ms(shape, 2, smoke.PEAK_BF16_FLOPS)
+    assert by == "operations" and ms == pytest.approx(4 * 16 * 12 * 1370**2 * 64 / 989e9)
+    assert ms == pytest.approx(0.0933, abs=1e-4)
+    ms, by = smoke.flash_bound_ms(shape, 4, smoke.PEAK_F32_FLOPS)
+    assert by == "operations" and ms == pytest.approx(1.377, abs=1e-3)
+    ms, by = smoke.flash_bound_ms((16, 12, 8, 64), 2, smoke.PEAK_BF16_FLOPS)
+    assert by == "bytes" and ms == pytest.approx(4 * 16 * 12 * 8 * 64 * 2 / 3.35e9)
+
+
+def test_check_flash_holds_the_stated_tolerance(smoke):
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 2, 50, 32, generator=gen) for _ in range(3))
+    ref = flash_mod.flash_attention_plain(q, k, v, 0.2)
+    assert smoke.check_flash("f32 itself", ref, ref) == 0.0
+    smoke.check_flash("f32 within 1e-5", ref + 5e-6, ref)
+    with pytest.raises(RuntimeError, match="max"):
+        smoke.check_flash("f32 off by 1e-4", ref + 1e-4, ref)
+    ref16 = ref.bfloat16()
+    row = ref16.float().abs().amax(-1, keepdim=True)
+    smoke.check_flash("bf16 one ulp up", (ref16.float() * (1 + 2.0**-7)).bfloat16(), ref16)
+    with pytest.raises(RuntimeError, match="ulps"):
+        smoke.check_flash("bf16 eight ulps", (ref16.float() + 8 * 2.0**-8 * row).bfloat16(), ref16)
+    with pytest.raises(RuntimeError, match="mean"):  # 3 row-scale ulps everywhere: a bias
+        smoke.check_flash("bf16 biased", (ref16.float() + 3 * 2.0**-8 * row).bfloat16(), ref16)
+    with pytest.raises(RuntimeError, match="dtype|float"):
+        smoke.check_flash("dtype", ref16, ref)
 
 
 def test_main_path_mious_repeat(smoke):
@@ -161,6 +222,6 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 def test_card_vs_cpu_rehearses(smoke):
     result = smoke.card_vs_cpu()
-    assert set(result) == {"scann", "faiss", "ivf"}
+    assert set(result) == {"scann", "faiss", "ivf", "faiss, flash ViT"}
     for run in result.values():
         assert run["miou"] == run["cpu_miou"] and run["label_err"] == 0.0

@@ -214,6 +214,20 @@ def test_vit_engine_matches_jax(voc, tiny_vit, nn_method):
     np.testing.assert_allclose(dt["knns_ca_labels"], dj["knns_ca_labels"], atol=1e-4)
 
 
+def test_flash_vit_engine_matches_jax(voc, tiny_vit):
+    """attention_impl='flash' (K3's plain version on the CPU) against the
+    JAX engine's 'flash', which runs the XLA math off a TPU."""
+    import dataclasses
+
+    (jvit, params), tvit = tiny_vit
+    flash = ViT(dataclasses.replace(tvit.config, attention_impl="flash"))
+    flash.load_state_dict(tvit.state_dict())
+    jflash = JViT(dataclasses.replace(jvit.config, attention_impl="flash"))
+    (jt, dt), (jj, dj) = _run_both(voc, "scann", 32, {"model": flash}, {"model": (jflash, params)})
+    assert abs(jt - jj) <= 1e-4, (jt, jj)
+    np.testing.assert_allclose(dt["knns_ca_labels"], dj["knns_ca_labels"], atol=1e-4)
+
+
 def _run_ivf(root, d_model, port, jax_side, nn_params, hand_over, monkeypatch):
     """hbird_evaluation with nn_method='ivf' in both packages. With
     `hand_over`, the port's tree gets the centroids the JAX engine trained

@@ -155,7 +155,6 @@ def test_random_init_is_seeded():
     assert a.patch_embed.weight.abs().max() <= 0.04
 
 
-def test_flash_attention_not_ported():
-    vit = ViT(ViTConfig(4, 32, 1, 2, img_size=16, attention_impl="flash"))
-    with pytest.raises(NotImplementedError, match="K3"):
-        vit(torch.zeros(1, 3, 16, 16))
+def test_unknown_attention_impl_raises():
+    with pytest.raises(ValueError, match="attention_impl"):
+        ViT(ViTConfig(4, 32, 1, 2, img_size=16, attention_impl="pallas"))
