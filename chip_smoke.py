@@ -12,12 +12,20 @@ Phases; any failure raises and the script exits non-zero with no result:
    started together.
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
-   {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties).
+   {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
+   forms (b)-(e) at the same shape: l2 (bf16 and f32, rows of unequal
+   norm); int8 x int8 codes with a global scale and with row scales, bit
+   for bit; bf16 queries on those codes (asym, asym_rows); int8
+   valid_rows < k; int8 codes of duplicated rows (integer ties).
 3. K2 against its plain version (ops/ivf.py::ivf_search_plain) on an IVF
    tree built by the port over a clustered bank of 300,000 rows at D=768
    (512 leaves): bf16 and f32; k in {1, 30, 128}; n_probe in {1, 8, 32};
    block_q in {64, 128, 256}; probed slabs with leaf_valid < k and = 0; a
-   bank of duplicated rows (ties across slabs).
+   bank of duplicated rows (ties across slabs). Then its int8 forms on an
+   int8_rows tree of the same bank (trained, assigned and probed on the
+   codes): int8 and int8_rows bit for bit, asym and asym_rows within the
+   tolerance; ragged leaf_valid; int8 codes duplicated across slabs probed
+   out of slot order (integer ties).
 4. K3 against its plain version (ops/flash.py::flash_attention_plain),
    bf16 and f32, on seeded unit normals at (B, H, N, hd) = (16, 12, 1370,
    64) (the main path: dinov2_vitb14 at input 518, batch 16), (2, 12, 1374,
@@ -36,7 +44,19 @@ Phases; any failure raises and the script exits non-zero with no result:
    Then, on the unbounded bank and one eval batch of queries (Q = 21,904):
    the tree build's split, and a second build that must give the same
    centroids and slots; K1 and K2 held against their plain versions;
-   recall@30 of the tree against K1, probing per tile and per query.
+   recall@30 of the tree against K1, probing per tile and per query, by
+   ids and by score (a returned row whose exact score reaches K1's k-th
+   counts as found: the bank holds large groups of tied rows).
+   The quantized and L2 paths (QUANT_RUNS), unbounded: 'scann' with
+   quantization='int8_rows' (K1 int8_rows), 'ivf' with the reference's
+   ScaNN searcher (int8_asym, dimensions_per_block=4,
+   anisotropic_quantization_threshold=0.2, num_reordering_candidates=120;
+   K2 asym_rows), 'faiss' with use_int8 and 120 reordering candidates (K1
+   int8, then the exact re-score) and 'faiss' with distance_measure='l2'
+   on a bf16 bank (K1 l2): each must launch its form once per eval batch
+   and nothing else; each backend's recall@30 against K1's exact bf16
+   neighbours on the eval batch, by ids and by score, is printed (no
+   limit: it is what the quantization costs in answers).
    The flash path: the same 'scann' run, unbounded, with the ViT in bf16
    (`bf16_model=True`), attention_impl='flash' and LayerScale set to 0.05
    (at its 1e-5 init the blocks barely move the tokens, so no attention
@@ -53,23 +73,38 @@ Phases; any failure raises and the script exits non-zero with no result:
    head width 32, no LayerScale and attention_impl='flash', once on the
    card and once with device="cpu" (the plain versions): mIoU within 1e-4
    and the transferred soft labels within 1e-4, the tolerances the CPU
-   tests hold the port to against the JAX engine.
+   tests hold the port to against the JAX engine. The four quantized and
+   L2 runs on the tiny ViT (the tree probing every leaf): mIoU within 1e-4
+   only, since int8 rounding turns ulp-level feature differences between
+   the devices into code flips. Then each of those backends built on the
+   card and on the CPU from the same float bank (6,000 rows, D=64): the
+   same codes and scales (anisotropic codes: at most ANISO_CODE_FLIPS of
+   the rows may differ, near-tied losses) and the same neighbours (exact
+   int8 forms bit for bit; the others within RTOL).
 7. K1, K2 and K3 timed with CUDA events, each beside its bound, its plain
    version and a library yardstick the port never calls: K1 at the main
    path's shape (Q=21,904, M=87,616) and against a 1,024,000-row bank
-   (query-chunked bf16 torch.matmul + torch.topk); K2 on the main path's
-   tree (32 of 512 leaves) and on a tree of the 1,024,000-row bank (cap
-   2,816, 32 of 512 leaves) (the probed slabs gathered per tile, then
-   torch.bmm + torch.topk, chunked over tiles); K3 at the main shape in
-   bf16 and f32 (torch.nn.functional.scaled_dot_product_attention). Then
-   the ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and
-   bf16.
+   (query-chunked bf16 torch.matmul + torch.topk), and in its forms int8,
+   int8_rows (torch._int_mm + topk), asym_rows (a bf16 matmul against the
+   codes widened once) and l2 (torch.addmm with the bias) on both banks;
+   K2 on the main path's tree (32 of 512 leaves) and on a tree of the
+   1,024,000-row bank (cap 2,816, 32 of 512 leaves) (the probed slabs
+   gathered per tile, then torch.bmm + torch.topk, chunked over tiles),
+   and in its int8_rows and asym_rows forms on the same trees' slabs as
+   per-row codes; K3 at the main shape in bf16 and f32
+   (torch.nn.functional.scaled_dot_product_attention). Then the ViT-B/14
+   forward per batch of 16 at 518: 'xla' and 'flash', f32 and bf16.
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs); index
 sets equal except where the k-th and (k+1)-th plain scores are within
 twice that; every returned index re-scored gives its returned value; K2's
-ids lie in the valid rows of the slabs their query tile probes.
+ids lie in the valid rows of the slabs their query tile probes. With row
+scales the bound is 1e-5 * ||q|| * max_i(||b_i|| * s_i). int8 x int8
+scores are integers below 2^24 (D <= 1024) and a row scale is one f32
+multiply, so those forms must equal the plain version bit for bit, values
+and indices (the plain version's f32 matmul of the widened codes is exact
+with TF32 off).
 
 Tolerance of the K3 checks: f32 within 1e-5 absolute at unit-normal
 inputs (the same f32 products and exps summed in another order). bf16
@@ -93,6 +128,7 @@ import time
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 FMA peak (no tensor cores)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 RTOL = 1e-5
@@ -127,6 +163,18 @@ FLASH_SHAPES = {
 FLASH_MAIN = (16, 12, 1370, 64)  # the main path's (B, H, N, hd)
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 LAYERSCALE = 0.05  # the flash path's LayerScale (see flash_path)
+# The quantized and L2 engine runs: nn_method, nn_params, the engine's
+# bf16_bank flag, and the kernel and form that must launch once per eval batch.
+QUANT_RUNS = {
+    "int8_rows": ("scann", {"quantization": "int8_rows"}, False, ("knn_topk", "int8_rows")),
+    "scann-literal": ("ivf", {"quantization": "int8_asym", "dimensions_per_block": 4,
+                              "anisotropic_quantization_threshold": 0.2,
+                              "num_reordering_candidates": 120}, False, ("ivf_topk", "asym_rows")),
+    "int8+rerank": ("faiss", {"use_int8": True, "num_reordering_candidates": 120}, False,
+                    ("knn_topk", "int8")),
+    "l2": ("faiss", {"distance_measure": "l2"}, True, ("knn_topk", "l2")),
+}
+ANISO_CODE_FLIPS = 0.02  # rows whose anisotropic codes may differ between devices (near-tied losses)
 
 
 def fail(msg):
@@ -164,24 +212,30 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_q, m_valid, d, k, elt_bytes, peak_flops):
-    """Least time for the work: inputs read once, outputs written once, or
-    2·Q·M·D flops at the card's peak for the input type."""
-    bytes_moved = (n_q + m_valid) * d * elt_bytes + n_q * k * (4 + 8)
+def bound_ms(n_q, m_valid, d, k, elt_bytes, peak_flops, bank_bytes=None, row_bytes=0):
+    """Least time for the work: inputs read once (queries of `elt_bytes`,
+    bank rows of `bank_bytes` (default the same) plus `row_bytes` of row
+    scale each), outputs written once, or 2·Q·M·D operations at the card's
+    peak for the type the products run in."""
+    bank_bytes = elt_bytes if bank_bytes is None else bank_bytes
+    bytes_moved = n_q * d * elt_bytes + m_valid * (d * bank_bytes + row_bytes) + n_q * k * (4 + 8)
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = 2.0 * n_q * m_valid * d / peak_flops * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def ivf_bound_ms(n_q, lids, leaf_valid, d, k, elt_bytes, peak_flops):
+def ivf_bound_ms(n_q, lids, leaf_valid, d, k, elt_bytes, peak_flops, bank_bytes=None, row_bytes=0):
     """K2's least time on this data: each input read once (the valid rows
-    of the slabs any tile probes, the queries, leaf ids and counts), the
-    results written once; or 2·block_q·D flops per row a tile scans."""
+    of the slabs any tile probes, with `row_bytes` of row scale each, the
+    queries, leaf ids and counts), the results written once; or
+    2·block_q·D operations per row a tile scans."""
+    bank_bytes = elt_bytes if bank_bytes is None else bank_bytes
     lv = leaf_valid.long()
     scanned = int(lv[lids.long()].sum())  # valid rows scanned, over all tiles
     read = int(lv[torch.unique(lids.long())].sum())  # distinct valid rows probed
     block_q = n_q // lids.shape[0]
-    bytes_moved = (read + n_q) * d * elt_bytes + n_q * k * (4 + 8) + 4 * (lids.numel() + leaf_valid.numel())
+    bytes_moved = (read * (d * bank_bytes + row_bytes) + n_q * d * elt_bytes + n_q * k * (4 + 8)
+                   + 4 * (lids.numel() + leaf_valid.numel()))
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = 2.0 * block_q * scanned * d / peak_flops * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
@@ -222,16 +276,23 @@ def check_flash(name, out, ref):
     return worst
 
 
-def check_against_plain(name, q, b, k, valid, kernel_out=None, plain_out=None):
-    """K1 vs the plain version on the same CUDA tensors; returns max |err|."""
-    from hbird_tpu_torch.ops.knn import exact_knn
+def check_against_plain(name, q, b, k, valid, kernel_out=None, plain_out=None, *,
+                        distance="dot_product", row_scale=None, exact=False):
+    """K1 vs the plain version on the same CUDA tensors; returns max |err|.
+    With `exact` (int8 codes, row scales) values and indices must equal
+    the plain version's bit for bit."""
+    from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
 
-    kv, ki = kernel_out if kernel_out is not None else knn_topk(q, b, k, valid_rows=valid)
+    kw = dict(valid_rows=valid, distance=distance, row_scale=row_scale)
+    kv, ki = kernel_out if kernel_out is not None else knn_topk(q, b, k, **kw)
     sync()
-    pv, pi = plain_out if plain_out is not None else exact_knn(q, b, k + 1, valid_rows=valid)
+    pv, pi = plain_out if plain_out is not None else exact_knn(q, b, k + 1, **kw)
+    scale = None if row_scale is None else row_scale.reshape(-1).float()
+    bias = l2_bias(b) if distance != "dot_product" else None
     qn = q.float().norm(dim=1)
-    tol = RTOL * qn * b[:valid].float().norm(dim=1).max() if valid else RTOL * qn
+    bn = b[:valid].float().norm(dim=1) * (1.0 if scale is None else scale[:valid])
+    tol = RTOL * qn * bn.max() if valid else RTOL * qn
     finite = torch.isfinite(pv[:, :k])
     if not torch.equal(torch.isfinite(kv), finite):
         fail(f"{name}: -inf slots differ from the plain version")
@@ -245,8 +306,23 @@ def check_against_plain(name, q, b, k, valid, kernel_out=None, plain_out=None):
         fail(f"{name}: index outside the valid rows")
     # every returned index, re-scored, gives its value
     rescored = torch.einsum("qd,qkd->qk", q.float(), b[ki].float())
+    if scale is not None:
+        rescored = rescored * scale[ki]
+    if bias is not None:
+        rescored = rescored - bias[ki]
     if ((rescored - kv).abs().where(finite, torch.zeros_like(kv)) > 2 * tol[:, None]).any():
         fail(f"{name}: returned values do not belong to returned indices")
+    return _same_sets(name, kv, ki, pv, pi, k, tol, err, exact)
+
+
+def _same_sets(name, kv, ki, pv, pi, k, tol, err, exact):
+    """The kernel's neighbour sets against the plain version's (plain run
+    with k + 1): bit for bit when `exact`, else equal away from ties."""
+    if exact:
+        if not (torch.equal(kv, pv[:, :k]) and torch.equal(ki, pi[:, :k])):
+            fail(f"{name}: not bit-exact against the plain version (max |err| {err})")
+        print(f"  {name}: bit-exact, values and indices", flush=True)
+        return err
     same_rows = (torch.sort(ki, 1).values == torch.sort(pi[:, :k], 1).values).all(1)
     nxt = pv[:, k] if pv.shape[1] > k else torch.full_like(pv[:, 0], float("-inf"))
     ambiguous = (pv[:, k - 1] - nxt) <= 2 * tol
@@ -262,17 +338,22 @@ def check_against_plain(name, q, b, k, valid, kernel_out=None, plain_out=None):
 
 
 def check_ivf_against_plain(name, q, bank, lids, lv, k, cap, block_q, kernel_out=None,
-                            plain_out=None):
-    """K2 vs its plain version on the same CUDA tensors; returns max |err|."""
+                            plain_out=None, *, row_scale=None, exact=False):
+    """K2 vs its plain version on the same CUDA tensors; returns max |err|.
+    With `exact` (int8 codes, row scales) values and slots must equal the
+    plain version's bit for bit."""
     from hbird_tpu_torch.ops.ivf import ivf_search_plain
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
 
     kv, ki = kernel_out if kernel_out is not None else ivf_topk(
-        q, bank, lids, lv, k, cap=cap, block_q=block_q)
+        q, bank, lids, lv, k, cap=cap, block_q=block_q, row_scale=row_scale)
     sync()
-    pv, pi = plain_out if plain_out is not None else ivf_search_plain(q, bank, lids, lv, k + 1, cap=cap)
+    pv, pi = plain_out if plain_out is not None else ivf_search_plain(
+        q, bank, lids, lv, k + 1, cap=cap, row_scale=row_scale)
+    scale = None if row_scale is None else row_scale.reshape(-1).float()
     qn = q.float().norm(dim=1)
-    tol = RTOL * qn * max(bank.float().norm(dim=1).max().item(), 1e-30)
+    bn = bank.float().norm(dim=1) * (1.0 if scale is None else scale)
+    tol = RTOL * qn * max(bn.max().item(), 1e-30)
     finite = torch.isfinite(pv[:, :k])
     if not torch.equal(torch.isfinite(kv), finite):
         fail(f"{name}: -inf slots differ from the plain version")
@@ -290,20 +371,11 @@ def check_ivf_against_plain(name, q, bank, lids, lv, k, cap, block_q, kernel_out
     if (finite & ~(probed & in_valid & (ki >= 0))).any():
         fail(f"{name}: a slot outside the probed slabs' valid rows")
     rescored = torch.einsum("qd,qkd->qk", q.float(), bank[ki].float())
+    if scale is not None:
+        rescored = rescored * scale[ki]
     if ((rescored - kv).abs().where(finite, torch.zeros_like(kv)) > 2 * tol[:, None]).any():
         fail(f"{name}: returned values do not belong to returned slots")
-    same_rows = (torch.sort(ki, 1).values == torch.sort(pi[:, :k], 1).values).all(1)
-    nxt = pv[:, k] if pv.shape[1] > k else torch.full_like(pv[:, 0], float("-inf"))
-    ambiguous = (pv[:, k - 1] - nxt) <= 2 * tol
-    bad = int((~same_rows & ~ambiguous).sum())
-    if bad:
-        fail(f"{name}: {bad} queries with other neighbour sets away from ties")
-    print(
-        f"  {name}: max |err| {err:.3g}, {int((~same_rows).sum())} queries differ "
-        f"only at ties ({int(ambiguous.sum())} tied at the k-th score)",
-        flush=True,
-    )
-    return err
+    return _same_sets(name, kv, ki, pv, pi, k, tol, err, exact)
 
 
 def kernel_cases(gen):
@@ -351,11 +423,56 @@ def check_tie_order(kv, ki, n_base, name):
             fail(f"{name}: a higher copy won over a lower one")
 
 
-def clustered_bank(n, d, n_clusters, gen, noise=0.3):
+def quantized_kernel_cases(gen):
+    """Phase 2: K1's forms (b)-(e) against the plain version: l2 on a
+    float bank of unequal row norms, int8 x int8 codes (global and per-row
+    scales) bit for bit, bf16 queries on int8 codes within the tolerance."""
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+
+    shape = f"Q={CASE_Q} M={CASE_M} D={DEPTH} valid={CASE_VALID}"
+    q = torch.randn(CASE_Q, DEPTH, generator=gen, device=DEVICE)
+    b = torch.nn.functional.normalize(torch.randn(CASE_M, DEPTH, generator=gen, device=DEVICE), dim=1)
+    b = b * (0.5 + 1.5 * torch.rand(CASE_M, 1, generator=gen, device=DEVICE))  # l2 and dot orders differ
+    errs = []
+    for dtype, ks in ((torch.bfloat16, (30, 1, 128)), (torch.float32, (30,))):
+        qq, bb = q.to(dtype).contiguous(), b.to(dtype).contiguous()
+        for k in ks:
+            errs.append(check_against_plain(f"l2 {str(dtype)[6:]} {shape} k={k}", qq, bb, k, CASE_VALID,
+                                            distance="l2"))
+        del qq, bb
+    q8 = quantize_queries_int8(q)[0]
+    qb = q.to(torch.bfloat16).contiguous()
+    for per_row in (False, True):
+        codes, scale = quantize_bank_int8(b, per_row=per_row)
+        rs = scale.reshape(-1) if per_row else None
+        for form, qq, exact in (("int8", q8, True), ("asym", qb, False)):
+            label = form + ("_rows" if per_row else "")
+            for k in ((30, 1, 128) if per_row else (30,)):
+                errs.append(check_against_plain(f"{label} {shape} k={k}", qq, codes, k, CASE_VALID,
+                                                row_scale=rs, exact=exact))
+        errs.append(check_against_plain(f"int8{'_rows' if per_row else ''} valid_rows=20 < k=30",
+                                        q8[:1000], codes[:4000], 30, 20,
+                                        row_scale=None if rs is None else rs[:4000], exact=True))
+        del codes
+    # integer ties: 4 copies of 2,048 code rows, queries the codes of base rows
+    base = torch.nn.functional.normalize(torch.randn(2048, DEPTH, generator=gen, device=DEVICE), dim=1)
+    codes, scale = quantize_bank_int8(base, per_row=True)
+    bank, rs = codes.repeat(4, 1).contiguous(), scale.reshape(-1).repeat(4)
+    qd = codes[:1024].contiguous()
+    kv, ki = knn_topk(qd, bank, 30, row_scale=rs)
+    errs.append(check_against_plain("int8_rows duplicated rows (ties)", qd, bank, 30, bank.shape[0],
+                                    (kv, ki), row_scale=rs, exact=True))
+    check_tie_order(kv, ki, 2048, "int8 duplicated rows")
+    return max(errs)
+
+
+def clustered_bank(n, d, n_clusters, gen, noise=0.3, device=None):
     """Unit rows around random directions (the geometry IVF assumes)."""
-    centres = torch.nn.functional.normalize(torch.randn(n_clusters, d, generator=gen, device=DEVICE), dim=1)
-    who = torch.randint(0, n_clusters, (n,), generator=gen, device=DEVICE)
-    x = centres[who] + noise / d ** 0.5 * torch.randn(n, d, generator=gen, device=DEVICE)
+    device = device or DEVICE
+    centres = torch.nn.functional.normalize(torch.randn(n_clusters, d, generator=gen, device=device), dim=1)
+    who = torch.randint(0, n_clusters, (n,), generator=gen, device=device)
+    x = centres[who] + noise / d ** 0.5 * torch.randn(n, d, generator=gen, device=device)
     return torch.nn.functional.normalize(x, dim=1)
 
 
@@ -412,6 +529,56 @@ def ivf_cases(gen):
     return max(errs)
 
 
+def quantized_ivf_cases(gen):
+    """Phase 3: K2's int8 forms against the plain version on an int8_rows
+    tree the port builds (trained, assigned and probed on the codes, the
+    row scales in the slab layout): int8 x int8 with and without the row
+    scales bit for bit, bf16 queries on the codes within the tolerance."""
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops.ivf import tile_probe_inputs
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+
+    x = clustered_bank(IVF_ROWS, DEPTH, IVF_CLUSTERS, gen)
+    t0 = time.perf_counter()
+    nn = NearestNeighborSearchApprox(x, n_neighbors=30, use_tree=True, quantization="int8_rows",
+                                     device=DEVICE)
+    sync()
+    cap, codes, lv, cent, rs = nn._cap, nn.bank, nn.leaf_valid, nn.centroids, nn.bank_row_scale
+    print(f"  int8_rows tree of {IVF_ROWS} rows: {nn._n_leaves} leaves, cap {cap}, built in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    pick = torch.randint(0, IVF_ROWS, (IVF_Q,), generator=gen, device=DEVICE)
+    q = x[pick] + 0.05 / DEPTH ** 0.5 * torch.randn(IVF_Q, DEPTH, generator=gen, device=DEVICE)
+    del x, nn
+    q8, qb = quantize_queries_int8(q)[0], q.to(torch.bfloat16).contiguous()
+    errs = []
+    for form, qq, scale, exact in (("int8", q8, None, True), ("int8_rows", q8, rs, True),
+                                   ("asym", qb, None, False), ("asym_rows", qb, rs, False)):
+        for k, n_probe, block_q in ((30, 32, 256), (128, 8, 128), (1, 1, 64)):
+            qp, lids, _ = tile_probe_inputs(qq, cent, n_probe=n_probe, block_q=block_q)
+            errs.append(check_ivf_against_plain(
+                f"{form} Q={qp.shape[0]} k={k} n_probe={n_probe} block_q={block_q}",
+                qp, codes, lids, lv, k, cap, block_q, row_scale=scale, exact=exact))
+    qp, lids, _ = tile_probe_inputs(q8, cent, n_probe=8, block_q=128)
+    lv_cut = lv.clone()
+    lv_cut[lids[:, 0].long()] = 0
+    lv_cut[lids[:, 1].long()] = 5
+    errs.append(check_ivf_against_plain("int8_rows leaf_valid 0 and 5 < k=30 on probed slabs",
+                                        qp, codes, lids, lv_cut, 30, cap, 128, row_scale=rs, exact=True))
+    # integer ties across slabs probed out of slot order: 4 slabs of the same codes
+    base = torch.nn.functional.normalize(torch.randn(2048, DEPTH, generator=gen, device=DEVICE), dim=1)
+    bcodes, bscale = quantize_bank_int8(base, per_row=True)
+    dup, drs = bcodes.repeat(4, 1).contiguous(), bscale.reshape(-1).repeat(4)
+    qd = bcodes[:1024].contiguous()
+    dl = torch.tensor([[3, 1, 0, 2]] * 4, dtype=torch.int32, device=DEVICE)
+    dv = torch.full((4,), 2048, dtype=torch.int32, device=DEVICE)
+    kv, ki = ivf_topk(qd, dup, dl, dv, 30, cap=2048, block_q=256, row_scale=drs)
+    errs.append(check_ivf_against_plain("int8_rows duplicated rows across slabs (ties)", qd, dup, dl, dv,
+                                        30, 2048, 256, (kv, ki), row_scale=drs, exact=True))
+    check_tie_order(kv, ki, 2048, "int8 duplicated slabs")
+    return max(errs)
+
+
 def flash_cases(gen):
     """Phase 4: K3 against the plain version at the stated shapes."""
     from hbird_tpu_torch.ops.flash import flash_attention_plain
@@ -428,6 +595,19 @@ def flash_cases(gen):
                                     flash_attention_plain(q, k, v, scale)))
             del q, k, v, out
     return max(errs)
+
+
+def reset_counts(counters):
+    """Set every kernel's launch count (and its counts by form) to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "forms"):
+            fn.forms.clear()
+
+
+def read_forms(counters):
+    """Launches by form of the kernels that count them (K1, K2)."""
+    return {name: dict(fn.forms) for name, fn in counters.items() if hasattr(fn, "forms")}
 
 
 def rounded(d):
@@ -466,13 +646,13 @@ def main_path(gen_seed):
                 label = f"{method} {bank}"
                 timer = PhaseTimer()
                 random.seed(0)
-                for fn in counters.values():
-                    fn.launches = 0
+                reset_counts(counters)
                 t0 = time.perf_counter()
                 miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, nn_method=method,
                                         memory_size=memory_size, timer=timer, **common)
                 wall = time.perf_counter() - t0
                 n = {name: fn.launches for name, fn in counters.items()}
+                forms = read_forms(counters)
                 if n[kernel] < 1:
                     fail(f"main path ({label}) never launched {kernel}")
                 if method == "ivf" and n[idle]:
@@ -481,9 +661,34 @@ def main_path(gen_seed):
                     fail(f"main path ({label}): mIoU {miou} not a finite value in [0, 1]")
                 for name in launches:
                     launches[name] += n[name]
-                runs[label] = {"miou": miou, "launches": n, "wall_s": wall, "phases": timer.summary()}
+                runs[label] = {"miou": miou, "launches": n, "forms": forms, "wall_s": wall,
+                               "phases": timer.summary()}
                 print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)}, wall {wall:.2f}s, "
                       f"phases {json.dumps(timer.summary())}", flush=True)
+        # The quantized and L2 paths: each launches its kernel's form once
+        # per eval batch, and no other form or kernel.
+        n_eval = -(-FIXTURE["n_val"] // BATCH)
+        for label, (method, params, bf16_bank, (kernel, form)) in QUANT_RUNS.items():
+            timer = PhaseTimer()
+            random.seed(0)
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, nn_method=method,
+                                    nn_params=dict(params), bf16_bank=bf16_bank, timer=timer, **common)
+            wall = time.perf_counter() - t0
+            n = {name: fn.launches for name, fn in counters.items()}
+            forms = read_forms(counters)
+            if forms[kernel] != {form: n_eval} or n[kernel] != n_eval or sum(n.values()) != n_eval:
+                fail(f"main path ({label}): launches by form {forms}, not {kernel} {form} x {n_eval}")
+            if not (0.0 <= miou <= 1.0):
+                fail(f"main path ({label}): mIoU {miou} not a finite value in [0, 1]")
+            for name in launches:
+                launches[name] += n[name]
+            runs[label] = {"nn_method": method, "nn_params": params, "miou": miou, "launches": n,
+                           "forms": forms, "wall_s": wall, "phases": timer.summary()}
+            print(f"  {label} ({method}, {json.dumps(params)}): mIoU {miou:.6f}, launches by form "
+                  f"{json.dumps(forms)}, wall {wall:.2f}s, phases {json.dumps(timer.summary())}",
+                  flush=True)
 
         # The unbounded bank and tree, and one eval batch of queries, as the
         # engine hands them to the kernels.
@@ -516,18 +721,52 @@ def main_path(gen_seed):
     err_k2 = check_ivf_against_plain("K2, main-path tree, one eval batch", qp, tree.bank, lids,
                                      tree.leaf_valid, 30, tree._cap, BLOCK_Q)
     # recall@30 of the tree (original row ids) against K1 on the flat bank,
-    # probing per tile (the engine's step) and per query (ScaNN's semantics)
-    _, flat_idx = knn_topk(q, bank, 30)
-    recall = {}
+    # probing per tile (the engine's step) and per query (ScaNN's semantics);
+    # by ids, and by score (a row tied with the k-th counts as found)
+    flat_vals, flat_idx = knn_topk(q, bank, 30)
+    recall, s_recall = {}, {}
     for mode in ("tile", "query"):
         _, tree_idx, _ = tree.search_with_labels_pure(tree.device_state, q, 30, probe_mode=mode)
         recall[mode] = (tree_idx[:, :, None] == flat_idx[:, None, :]).any(2).float().mean().item()
+        s_recall[mode] = score_recall(tree_idx, q, bank, flat_vals[:, -1])
     print(f"  recall@30 of the tree ({N_PROBE} of {tree._n_leaves} leaves) against K1: "
-          f"{recall['tile']:.4f} probing per tile, {recall['query']:.4f} per query", flush=True)
+          f"{recall['tile']:.4f} probing per tile, {recall['query']:.4f} per query; by score "
+          f"{s_recall['tile']:.4f}, {s_recall['query']:.4f}", flush=True)
     tree_info = {"n_leaves": tree._n_leaves, "cap": tree._cap, "build_s": tree.build_seconds,
-                 "recall_at_30_vs_k1": recall}
+                 "recall_at_30_vs_k1": recall, "score_recall_at_30_vs_k1": s_recall}
+    # recall@30 of each quantized or L2 run's backend, built on the same
+    # bank, against K1's exact bf16 neighbours for the same (f32) queries:
+    # what quantization costs in answers.
+    qf = feats.reshape(-1, cfg.width).contiguous()
+    for label, (method, params, bf16_bank, _) in QUANT_RUNS.items():
+        ev.bf16_bank = bf16_bank
+        ev._create_nn(30, method, **params)
+        nn = ev.NN_algorithm
+        _, idx, _ = nn.search_with_labels_pure(nn.device_state, qf, 30, **ev._search_opts)
+        r = (idx[:, :, None] == flat_idx[:, None, :]).any(2).float().mean().item()
+        rs = score_recall(idx, q, bank, flat_vals[:, -1])
+        runs[label]["recall_at_30_vs_k1_bf16"] = r
+        runs[label]["score_recall_at_30_vs_k1_bf16"] = rs
+        print(f"  recall@30 of {label} against K1's exact bf16 neighbours: {r:.4f} by ids, "
+              f"{rs:.4f} by score", flush=True)
+        del nn
+    ev.NN_algorithm = None
     main_tree = (qp, lids, tree.bank, tree.leaf_valid, tree._cap)
     return runs, launches, {"K1": err_k1, "K2": err_k2}, tree_info, q, bank, main_tree
+
+
+def score_recall(idx, q, bank, kth, chunk=4096):
+    """Share of the returned rows `idx` (Q, k) whose exact score q·b (f32 on
+    the stored bank) reaches the exact k-th score `kth` (Q,) within K1's
+    tolerance: recall that counts a row tied with the k-th as found, which
+    recall by ids does not (the fixture's bank holds large tie groups)."""
+    qf = q.float()
+    tol = RTOL * qf.norm(dim=1) * bank.float().norm(dim=1).max()
+    hits = 0
+    for i in range(0, q.shape[0], chunk):
+        s = torch.einsum("qd,qkd->qk", qf[i:i + chunk], bank[idx[i:i + chunk]].float())
+        hits += (s >= (kth[i:i + chunk] - tol[i:i + chunk])[:, None]).sum().item()
+    return hits / idx.numel()
 
 
 def _val_batch(root):
@@ -583,12 +822,12 @@ def flash_path(gen_seed):
             label = f"scann unbounded, bf16 ViT, attention_impl={impl!r}"
             timer = PhaseTimer()
             random.seed(0)
-            for fn in counters.values():
-                fn.launches = 0
+            reset_counts(counters)
             t0 = time.perf_counter()
             miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, timer=timer, **common)
             wall = time.perf_counter() - t0
             n = {name: fn.launches for name, fn in counters.items()}
+            forms = read_forms(counters)
             want = expected if impl == "flash" else 0
             if n["flash_attention"] != want:
                 fail(f"{label}: K3 launched {n['flash_attention']} times, not {want} "
@@ -598,7 +837,8 @@ def flash_path(gen_seed):
             if not (0.0 <= miou <= 1.0):
                 fail(f"{label}: mIoU {miou} not a finite value in [0, 1]")
             launches[impl] = n
-            runs[label] = {"miou": miou, "launches": n, "wall_s": wall, "phases": timer.summary()}
+            runs[label] = {"miou": miou, "launches": n, "forms": forms, "wall_s": wall,
+                           "phases": timer.summary()}
             print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)} (K3 expected {expected} = "
                   f"{cfg.depth} blocks x {n_batches} forward batches), wall {wall:.2f}s, "
                   f"phases {json.dumps(timer.summary())}", flush=True)
@@ -650,11 +890,19 @@ def card_vs_cpu():
     full_probe = {"num_leaves": SMALL_LEAVES, "num_leaves_to_search": SMALL_LEAVES}
     # The flash ViT runs 'faiss', whose f32 bank passes the card's and the
     # CPU's forward through unrounded.
-    cases = {"scann": ("scann", vit), "faiss": ("faiss", vit), "ivf": ("ivf", vit),
-             "faiss, flash ViT": ("faiss", flash_vit)}
+    # (nn_method, model, nn_params, bf16_bank, soft labels held to SMALL_TOL)
+    cases = {"scann": ("scann", vit, None, False, True), "faiss": ("faiss", vit, None, False, True),
+             "ivf": ("ivf", vit, full_probe, False, True),
+             "faiss, flash ViT": ("faiss", flash_vit, None, False, True)}
+    # The quantized and L2 runs are held to the mIoU alone: int8 rounding
+    # turns ulp-level feature differences between the devices into code
+    # flips that move a near-tied neighbour.
+    for label, (method, params, bf16_bank, _) in QUANT_RUNS.items():
+        params = dict(params, **full_probe) if method == "ivf" else params
+        cases[label] = (method, vit, params, bf16_bank, False)
     with tempfile.TemporaryDirectory() as root:
         make_voc_fixture(root, seed=3, colorize=True, class_pool=[1, 2, 3, 4, 5], **SMALL_FIXTURE)
-        for label, (nn_method, model) in cases.items():
+        for label, (nn_method, model, params, bf16_bank, hold_labels) in cases.items():
             out = {}
             for device in (DEVICE, "cpu"):
                 random.seed(1234)
@@ -662,7 +910,7 @@ def card_vs_cpu():
                 out[device] = hbird_evaluation(
                     copy.deepcopy(model), 64, 4, "voc", root, batch_size=4, input_size=32,
                     n_neighbours=5, nn_method=nn_method, num_workers=0, device=device,
-                    nn_params=full_probe if nn_method == "ivf" else None,
+                    nn_params=dict(params) if params else None, bf16_bank=bf16_bank,
                     return_knn_details=True)
                 if device == DEVICE and model is flash_vit and flash_attention.launches == before:
                     fail(f"small input, {label}: K3 never launched on the card")
@@ -670,7 +918,7 @@ def card_vs_cpu():
             label_err = float(abs(det["knns_ca_labels"] - cpu_det["knns_ca_labels"]).max())
             if not abs(miou - cpu_miou) <= SMALL_TOL:
                 fail(f"small input, {label}: mIoU {miou} on the card, {cpu_miou} on the CPU")
-            if not label_err <= SMALL_TOL:
+            if hold_labels and not label_err <= SMALL_TOL:
                 fail(f"small input, {label}: soft labels differ by {label_err}")
             result[label] = {"miou": miou, "cpu_miou": cpu_miou, "label_err": label_err}
             print(f"  {label}: mIoU {miou:.6f} (CPU {cpu_miou:.6f}), "
@@ -678,20 +926,207 @@ def card_vs_cpu():
     return result
 
 
-def ivf_library(qp, bank, lids, lv, k, cap, block_q, chunk=8):
+def _topk_agree(va, ia, vb, ib, tol):
+    """Per query: values (sorted) within `tol` and the same ids strictly
+    above the k-th value + tol on both sides (ties at the k-th may swap)."""
+    close = ((va - vb).abs() <= tol[:, None]) | (torch.isinf(va) & torch.isinf(vb))
+    sets = []
+    for v, i in ((va, ia), (vb, ib)):
+        above = v > v[:, -1:] + tol[:, None]
+        sets.append(torch.sort(torch.where(above, i, -1), 1).values)
+    return close.all(1) & (sets[0] == sets[1]).all(1)
+
+
+def backends_card_vs_cpu():
+    """Phase 6: each quantized or L2 backend, built on the card and on the
+    CPU from the same float bank, stores the same codes and scales and
+    returns the same neighbours for the same queries. int8 x int8 searches
+    are exact, so their values and ids must be equal; asymmetric, reranked
+    and l2 scores are f32 sums in another order, held to RTOL. Anisotropic
+    codes may differ on rows whose two candidate losses nearly tie (at most
+    ANISO_CODE_FLIPS of the rows); queries that meet such a row are left out."""
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox, NearestNeighborSearchExact
+
+    gen = torch.Generator().manual_seed(7)
+    x = clustered_bank(6000, 64, 8, gen, device="cpu")
+    q = x[:700] + 0.05 / 8 * torch.randn(700, 64, generator=gen)
+    result = {}
+    for label, (method, params, bf16_bank, (_, form)) in QUANT_RUNS.items():
+        cls = NearestNeighborSearchExact if method == "faiss" else NearestNeighborSearchApprox
+        kw = dict(params, n_neighbors=30, use_fp16=bf16_bank or cls is NearestNeighborSearchApprox)
+        if method == "ivf":
+            kw.update(use_tree=True, num_leaves=SMALL_LEAVES, num_leaves_to_search=SMALL_LEAVES)
+        nns = {dev: cls(x.to(dev), device=dev, **kw) for dev in (DEVICE, "cpu")}
+        rows, out = {}, {}
+        for dev, nn in nns.items():
+            state = nn.device_state
+            order = state["slots"] if getattr(nn, "use_tree", False) else torch.arange(x.shape[0])
+            rows[dev] = {name: state[name][order.to(dev)].cpu() if name in ("bank", "bank_row_scale")
+                         else state[name].cpu() for name in ("bank", "bank_row_scale", "bank_scale",
+                                                             "bank_col_scale") if name in state}
+            opts = {"probe_mode": "tile"} if getattr(nn, "use_tree", False) else {}
+            v, i, _ = nn.search_with_labels_pure(state, q.to(dev), 30, **opts)
+            out[dev] = (v.cpu(), i.cpu())
+        card, host = rows[DEVICE], rows["cpu"]
+        if set(card) != set(host) or any(not torch.equal(card[n], host[n]) for n in card if n != "bank"):
+            fail(f"backends, {label}: scales differ between the card and the CPU")
+        flipped = (card["bank"] != host["bank"]).reshape(x.shape[0], -1).any(1)
+        aniso = "anisotropic_quantization_threshold" in params
+        if flipped.float().mean().item() > (ANISO_CODE_FLIPS if aniso else 0.0):
+            fail(f"backends, {label}: {int(flipped.sum())} rows with other codes")
+        (cv, ci), (hv, hi) = out[DEVICE], out["cpu"]
+        exact = form in ("int8", "int8_rows") and "num_reordering_candidates" not in params
+        if exact:
+            if not (torch.equal(cv, hv) and torch.equal(ci, hi)):
+                fail(f"backends, {label}: exact int8 search differs between the card and the CPU")
+            n_bad, n_left = 0, 0
+        else:
+            deq = nns["cpu"].gather_features_pure(nns["cpu"].device_state, torch.arange(x.shape[0]))
+            tol = RTOL * q.norm(dim=1) * deq.float().norm(dim=1).max()
+            keep = ~(flipped[ci].any(1) | flipped[hi].any(1))
+            agree = _topk_agree(cv, ci, hv, hi, tol)
+            n_bad, n_left = int((keep & ~agree).sum()), int((~keep).sum())
+            if n_bad:
+                fail(f"backends, {label}: {n_bad} queries with other neighbours or values")
+        result[label] = {"code_rows_differ": int(flipped.sum()), "exact": exact,
+                         "queries_left_out": n_left}
+        print(f"  backend {label}: codes and scales match ({int(flipped.sum())} of {x.shape[0]} rows "
+              f"differ), neighbours {'bit-exact' if exact else 'agree'} "
+              f"({n_left} queries left out)", flush=True)
+    return result
+
+
+def ivf_library(qp, bank, lids, lv, k, cap, block_q, chunk=8, row_scale=None):
     """The library yardstick for K2: each tile's probed slabs gathered, then
-    torch.bmm + torch.topk, chunked over tiles."""
+    torch.bmm (int8 x int8: torch._int_mm per tile; int8 codes under bf16
+    queries: widened to bf16 as gathered), times the row scales when given,
+    + torch.topk, chunked over tiles."""
     n_tiles, n_probe = lids.shape
     d = bank.shape[1]
     bank3 = bank.view(-1, cap, d)
+    rs3 = None if row_scale is None else row_scale.reshape(-1, cap)
     col = torch.arange(cap, device=bank.device)
     for t0 in range(0, n_tiles, chunk):
         ids = lids[t0:t0 + chunk].long()
         c = ids.shape[0]
         slabs = bank3[ids].reshape(c, n_probe * cap, d)
-        s = torch.bmm(qp[t0 * block_q:(t0 + c) * block_q].view(c, block_q, d), slabs.transpose(1, 2))
+        qc = qp[t0 * block_q:(t0 + c) * block_q].view(c, block_q, d)
+        if qp.dtype == torch.int8:
+            s = torch.stack([torch._int_mm(qc[i], slabs[i].t()) for i in range(c)]).float()
+        else:
+            s = torch.bmm(qc, slabs.to(qc.dtype).transpose(1, 2))
+        if rs3 is not None:
+            s = s.float() * rs3[ids].reshape(c, 1, n_probe * cap)
         mask = (col < lv.long()[ids][:, :, None]).reshape(c, 1, n_probe * cap)
         torch.topk(s.masked_fill_(~mask, float("-inf")), k, dim=2)
+
+
+def library_ms(fn, reps, label):
+    """`cuda_ms` of a library yardstick, or None (printed) where the
+    installed PyTorch refuses it."""
+    try:
+        return cuda_ms(fn, reps)
+    except RuntimeError as e:
+        print(f"  {label}: library yardstick refused ({str(e).splitlines()[0][:160]})", flush=True)
+        return None
+
+
+def fmt_ms(t):
+    return "n/a" if t is None else f"{t:.3f} ms"
+
+
+def k1_form_rows(q, bb, label, k, reps, rows, errs):
+    """Phase 7: K1's forms (b)-(e) on the bank `bb` (bf16) and the queries
+    `q` (bf16): each timed beside its plain version, its bound and a
+    library yardstick (int8: torch._int_mm + topk; row scales applied to
+    its f32 result; asymmetric: a bf16 matmul against the codes widened to
+    bf16 once; l2: torch.addmm with the bias)."""
+    from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+
+    n_q, d = q.shape
+    m = bb.shape[0]
+    q8 = quantize_queries_int8(q)[0]
+    codes_g = quantize_bank_int8(bb, per_row=False)[0]
+    codes_r, scale = quantize_bank_int8(bb, per_row=True)
+    rs = scale.reshape(-1)
+    wide = codes_r.to(torch.bfloat16)
+    neg_bias = (-l2_bias(bb)).to(torch.bfloat16)
+    chunk = 2048
+
+    def int_mm(qq, cc, r):
+        for s in range(0, n_q, chunk):
+            x = torch._int_mm(qq[s:s + chunk], cc.t())
+            torch.topk(x if r is None else x.float() * r, k, dim=1)
+
+    def asym_mm():
+        for s in range(0, n_q, chunk):
+            torch.topk((q[s:s + chunk] @ wide.T).float() * rs, k, dim=1)
+
+    def addmm():
+        for s in range(0, n_q, chunk):
+            torch.topk(torch.addmm(neg_bias, q[s:s + chunk], bb.T), k, dim=1)
+
+    forms = {
+        # form: (queries, bank, row_scale, distance, exact, library, bytes of q / bank row, peak)
+        "int8": (q8, codes_g, None, "dot_product", True, lambda: int_mm(q8, codes_g, None), 1, 1, 0,
+                 PEAK_INT8_OPS),
+        "int8_rows": (q8, codes_r, rs, "dot_product", True, lambda: int_mm(q8, codes_r, rs), 1, 1, 4,
+                      PEAK_INT8_OPS),
+        "asym_rows": (q, codes_r, rs, "dot_product", False, asym_mm, 2, 1, 4, PEAK_BF16_FLOPS),
+        "l2": (q, bb, None, "l2", False, addmm, 2, 2, 0, PEAK_BF16_FLOPS),
+    }
+    for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak) in forms.items():
+        kw = dict(distance=dist, row_scale=r)
+        ms = cuda_ms(lambda: knn_topk(qq, b, k, **kw), reps)
+        out = knn_topk(qq, b, k, **kw)
+        box = {}
+        plain_ms = cuda_ms(lambda: box.update(out=exact_knn(qq, b, k + 1, **kw)), 1)
+        errs["K1"] = max(errs["K1"], check_against_plain(
+            f"K1 timing shape {form} {label}", qq, b, k, m, out, box.pop("out"), exact=exact, **kw))
+        lib_ms = library_ms(lib, reps, f"K1 {form} {label}")
+        b_ms, b_by = bound_ms(n_q, m, d, k, qbytes, peak, bank_bytes=bbytes, row_bytes=rbytes)
+        rows[f"{form} {label}"] = {"form": form, "Q": n_q, "M": m, "D": d, "k": k, "ms": ms,
+                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                   "library_ms": lib_ms}
+        print(f"  K1 {form} {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
+              f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})", flush=True)
+
+
+def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
+    """Phase 7: K2's int8_rows and asym_rows forms on the tree's slabs as
+    per-row int8 codes (padding slots scale 0), probed as the bf16 tree is:
+    timed beside the plain version, the bound and the library yardstick."""
+    from hbird_tpu_torch.ops.ivf import ivf_search_plain
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+
+    d = tb.shape[1]
+    codes, scale = quantize_bank_int8(tb, per_row=True)
+    slot = torch.arange(tb.shape[0], device=tb.device)
+    rs = torch.where(slot % cap < lv.long().repeat_interleave(cap), scale.reshape(-1), 0.0)
+    q8 = quantize_queries_int8(qp)[0]
+    for form, qq, exact, qbytes, peak in (("int8_rows", q8, True, 1, PEAK_INT8_OPS),
+                                          ("asym_rows", qp, False, 2, PEAK_BF16_FLOPS)):
+        ms = cuda_ms(lambda: ivf_topk(qq, codes, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=rs), reps)
+        out = ivf_topk(qq, codes, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=rs)
+        box = {}
+        plain_ms = cuda_ms(lambda: box.update(
+            out=ivf_search_plain(qq, codes, lids, lv, k + 1, cap=cap, row_scale=rs)), 1)
+        errs["K2"] = max(errs["K2"], check_ivf_against_plain(
+            f"K2 timing shape {form} {label}", qq, codes, lids, lv, k, cap, BLOCK_Q, out, box.pop("out"),
+            row_scale=rs, exact=exact))
+        lib_ms = library_ms(lambda: ivf_library(qq, codes, lids, lv, k, cap, BLOCK_Q, row_scale=rs),
+                            reps, f"K2 {form} {label}")
+        b_ms, b_by = ivf_bound_ms(qq.shape[0], lids, lv, d, k, qbytes, peak, bank_bytes=1, row_bytes=4)
+        rows[f"{form} {label}"] = {"form": form, "Q": qq.shape[0], "slots": codes.shape[0], "cap": cap,
+                                   "n_probe": lids.shape[1], "block_q": BLOCK_Q, "D": d, "k": k, "ms": ms,
+                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                   "library_ms": lib_ms}
+        print(f"  K2 {form} {label}: Q={qq.shape[0]} slots={codes.shape[0]} cap={cap}: {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms (k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})",
+              flush=True)
 
 
 def timing(q, bank, main_tree, gen):
@@ -728,6 +1163,7 @@ def timing(q, bank, main_tree, gen):
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         print(f"  K1 {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
               f"(k+1), library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+        k1_form_rows(q, bb, label, k, reps, k1_rows, errs)
 
     t0 = time.perf_counter()
     big_tree = NearestNeighborSearchApprox(big, n_neighbors=k, use_tree=True, device=DEVICE)
@@ -759,6 +1195,7 @@ def timing(q, bank, main_tree, gen):
         print(f"  K2 {label}: Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={lids.shape[1]} "
               f"rows scanned {rows} (distinct {read}): {ms:.3f} ms, plain {plain_ms:.3f} ms (k+1), "
               f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+        k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, k2_rows, errs)
     return k1_rows, k2_rows, errs
 
 
@@ -813,12 +1250,19 @@ def forward_timing(gen_seed, gen):
     return rows
 
 
-def kernel_entry(name, source, tpu_kernel, launches, err, rows, card):
+def kernel_entry(name, source, tpu_kernel, launches, err, rows, card, forms=None):
+    """One kernel of the `kernels` line: the top-level numbers are its
+    'main' shape row (the bf16 form at the main path's shape); `shapes`
+    holds every form and shape timed, `forms` the main path's launches by
+    form."""
     main = rows["main"]
-    return {"name": name, "route": "cuda", "source": source, "replaces": tpu_kernel,
-            "launches": launches, "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shapes": rows, "card": card}
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": tpu_kernel,
+             "launches": launches, "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+             "library_ms": main["library_ms"], "shapes": rows, "card": card}
+    if forms is not None:
+        entry["forms"] = forms
+    return entry
 
 
 def main():
@@ -843,10 +1287,10 @@ def main():
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     print("[2] K1 vs plain version", flush=True)
-    err_k1 = kernel_cases(gen)
+    err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen))
 
     print("[3] K2 vs plain version", flush=True)
-    err_k2 = ivf_cases(gen)
+    err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen))
 
     print("[4] K3 vs plain version", flush=True)
     err_k3 = flash_cases(gen)
@@ -859,24 +1303,30 @@ def main():
 
     print("[6] the card against the CPU, small input", flush=True)
     small = card_vs_cpu()
+    backends = backends_card_vs_cpu()
 
     print(f"[7] K1, K2 and K3 timing; the forward ({card})", flush=True)
     k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, gen)
     k3_rows, err_k3_timing = flash_timing(gen)
     forward = forward_timing(0, gen)
 
+    forms = {name: {} for name in ("knn_topk", "ivf_topk")}  # main-path launches by form
+    for run in runs.values():
+        for name, counts in run["forms"].items():
+            for form, n in counts.items():
+                forms[name][form] = forms[name].get(form, 0) + n
     kernels = {"kernels": [
         kernel_entry("knn_topk (K1)", "hbird_tpu_torch/ops/csrc/knn_topk.cu", TPU_KERNELS["K1"],
                      launches["knn_topk"], max(err_k1, err_main["K1"], err_timing["K1"]), k1_rows,
-                     card),
+                     card, forms["knn_topk"]),
         kernel_entry("ivf_topk (K2)", "hbird_tpu_torch/ops/csrc/ivf_topk.cu", TPU_KERNELS["K2"],
                      launches["ivf_topk"], max(err_k2, err_main["K2"], err_timing["K2"]), k2_rows,
-                     card),
+                     card, forms["ivf_topk"]),
         kernel_entry("flash_attention (K3)", "hbird_tpu_torch/ops/csrc/flash_attn.cu", TPU_KERNELS["K3"],
                      flash_launches["flash"]["flash_attention"], max(err_k3, err_k3_main, err_k3_timing),
                      k3_rows, card),
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err,
-        "forward_ms_per_batch": forward, "card_vs_cpu": small,
+        "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
         "seconds": time.perf_counter() - t_start}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

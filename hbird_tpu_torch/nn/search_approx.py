@@ -2,23 +2,30 @@
 
 Counterpart of hbird_tpu/nn/search_approx.py, on one device. Two modes:
 
-- **flat (default)**: the JAX package routes the flat dot-product 'scann'
-  search to the exact fused kernel (it dominated every approximate full
-  scan measured there), with a bf16 bank by default; so does this one,
-  through K1. ScaNN's tuning knobs are accepted for config compatibility
-  and are inert on this path, as in the JAX package.
+- **flat (default)**: the JAX package routes the flat 'scann' search
+  (dot product or l2) to the exact fused kernel (it dominated every
+  approximate full scan measured there), with a bf16 bank by default; so
+  does this one, through K1. An int8 bank (`use_int8`, `quantization`) is
+  an approximate scan and honours `num_reordering_candidates` (reorder(C)
+  against a bf16 copy); on a float bank ScaNN's tuning knobs are accepted
+  for config compatibility and are inert, as in the JAX package.
 - **tree (`use_tree=True`, the engine's nn_method='ivf')**: ScaNN's
   tree(num_leaves, num_leaves_to_search): spherical k-means leaves on a
   row sample, capacity-refined; a capacity-balanced leaf-slab layout; a
   probed-leaf scan through K2 (ops/ivf.py, ops/ivf_cuda.py). Returned ids
   are original bank rows. `num_reordering_candidates > k` re-scores a
-  widened shortlist exactly (ScaNN's reorder(C)).
+  widened shortlist exactly (ScaNN's reorder(C)), except on int8 slabs,
+  where re-scoring the same codes would keep their order. An int8 tree is
+  trained, assigned and probed on the codes (cast to f32), its per-row
+  scales scattered into the slab layout.
 
-Not ported yet, and raising rather than falling back: `use_int8`,
-`quantization` and `bank_scale` (K1 c-e, K2's int8 forms and
-ops/quantize), distances other than dot_product (K1 b), `mesh`
-(parallel/). `.treedir` save/load, `from_bankdir` and the streamed build
-belong to bank/io; `state_spec`/`pin_expected_rows` served the JAX
+ScaNN's score_ah knobs (`dimensions_per_block`,
+`anisotropic_quantization_threshold`) act on the per-row int8 modes
+(ops/quantize.py::quantize_bank_int8_ah) and warn otherwise.
+
+Not ported yet, and raising rather than falling back: `mesh` (parallel/).
+`.treedir` save/load, `from_tree_state`, `from_bankdir` and the streamed
+build belong to bank/io; `state_spec`/`pin_expected_rows` served the JAX
 package's ahead-of-time compile and have no counterpart.
 """
 
@@ -30,10 +37,10 @@ import numpy as np
 import torch
 
 from hbird_tpu_torch.device import resolve_device
-from hbird_tpu_torch.nn.search_base import FlatSearch, not_ported
+from hbird_tpu_torch.nn.search_base import FlatSearch, not_ported, resolve_quantization
 from hbird_tpu_torch.ops import ivf
 from hbird_tpu_torch.ops.ivf_cuda import MAX_K
-from hbird_tpu_torch.ops.knn import rerank_exact
+from hbird_tpu_torch.ops.knn import L2_DISTANCES, rerank_exact
 from hbird_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -80,22 +87,42 @@ class NearestNeighborSearchApprox(FlatSearch):
         device=None,
         **kwargs,
     ):
-        self.use_tree = bool(use_tree) and distance_measure.lower() == "dot_product"
-        if use_int8 or quantization is not None or bank_scale is not None:
-            raise not_ported(
-                "int8 quantization",
-                "TPU kernels K2, int8 forms" if self.use_tree else "TPU kernels K1 (c)-(e)",
-            )
-        if (
-            anisotropic_quantization_threshold is not None
-            or dimensions_per_block is not None
-        ):
+        distance = distance_measure.lower()
+        if distance not in ("dot_product", *L2_DISTANCES):
+            raise ValueError(f"Unsupported distance measure: {distance_measure}")
+        knobs_set = (
+            anisotropic_quantization_threshold is not None or dimensions_per_block is not None
+        )
+        quantization = resolve_quantization(False, quantization)
+        per_row = quantization in ("int8_rows", "int8_asym")
+        if knobs_set and not per_row:
             logger.warning(
-                "anisotropic_quantization_threshold/dimensions_per_block act "
-                "on the per-row int8 modes; with %s bank storage they are "
-                "ignored.",
-                "bf16" if use_fp16 else "f32",
+                "anisotropic_quantization_threshold/dimensions_per_block act on "
+                "the per-row int8 modes (pass quantization='int8_rows' or "
+                "'int8_asym'); with %s bank storage they are ignored.",
+                quantization or ("bf16" if use_fp16 else "f32"),
             )
+        if per_row and dimensions_per_block is not None:
+            self.dims_per_block = int(dimensions_per_block)
+            if self.dims_per_block < 1:
+                raise ValueError(f"dimensions_per_block must be >= 1: {dimensions_per_block}")
+        if per_row and anisotropic_quantization_threshold is not None:
+            self.aniso_threshold = float(anisotropic_quantization_threshold)
+            if not 0.0 < self.aniso_threshold < 1.0:
+                raise ValueError(
+                    "anisotropic_quantization_threshold must be in (0, 1): "
+                    f"{anisotropic_quantization_threshold}"
+                )
+        if quantization is not None and distance != "dot_product":
+            raise ValueError("int8 quantization requires dot_product scoring")
+        self.use_tree = bool(use_tree) and distance == "dot_product"
+        if use_tree and not self.use_tree:
+            logger.warning(
+                "use_tree requires dot_product scoring; falling back to the flat scan."
+            )
+        if not (self.use_tree or distance == "dot_product"):
+            use_int8 = False  # a flat l2 scan keeps its float bank
+        quantization = resolve_quantization(use_int8, quantization)
         recall_explicit = recall_target is not None
         if recall_target is None:
             frac = num_leaves_to_search / max(1, num_leaves)
@@ -103,9 +130,10 @@ class NearestNeighborSearchApprox(FlatSearch):
         self.recall_target = recall_target
         self.num_leaves = num_leaves
         self.num_leaves_to_search = num_leaves_to_search
-        self.num_reordering_candidates = num_reordering_candidates
         if not self.use_tree:
-            if num_reordering_candidates > 0 or recall_explicit:
+            if quantization is None and distance == "dot_product" and (
+                num_reordering_candidates > 0 or recall_explicit
+            ):
                 logger.info(
                     "Flat dot-product 'scann' routes to the exact kernel "
                     "(recall 1.0); num_reordering_candidates/recall_target are "
@@ -115,8 +143,11 @@ class NearestNeighborSearchApprox(FlatSearch):
             super().__init__(
                 feature_memory,
                 n_neighbors,
-                distance_measure,
+                distance,
                 use_fp16=use_fp16,
+                quantization=quantization,
+                num_reordering_candidates=num_reordering_candidates,
+                bank_scale=bank_scale,
                 label_memory=label_memory,
                 valid_rows=valid_rows,
                 mesh=mesh,
@@ -132,6 +163,9 @@ class NearestNeighborSearchApprox(FlatSearch):
             tree_sample_rows = int(kwargs.pop("training_sample_size"))
         self.n_neighbors = n_neighbors
         self.use_fp16 = bool(use_fp16)
+        self.distance_measure = distance
+        self._set_quantization(quantization, num_reordering_candidates)
+        self.rerank_bank = None
         self.tree_slack = float(tree_slack)
         self.probe_mode = probe_mode
         self.full_lloyd_iters = int(full_lloyd_iters)
@@ -143,9 +177,7 @@ class NearestNeighborSearchApprox(FlatSearch):
         if device is None and isinstance(feature_memory, torch.Tensor):
             device = feature_memory.device
         self.device = resolve_device(device)
-        store = torch.bfloat16 if self.use_fp16 else torch.float32
-        # Store dtype straight away: the centroids see the rows as stored.
-        bank = torch.as_tensor(feature_memory, dtype=torch.float32, device=self.device).to(store)
+        bank = self._as_tensor(feature_memory)
         if label_memory is None:
             label_memory = torch.zeros((bank.shape[0], 1), dtype=torch.float32)
         labels = torch.as_tensor(label_memory, dtype=torch.float32, device=self.device)
@@ -153,14 +185,24 @@ class NearestNeighborSearchApprox(FlatSearch):
             # Padding rows clustered into leaves would count in leaf_valid
             # and surface as score-0 ghost neighbours.
             bank, labels = bank[:valid_rows], labels[:valid_rows]
-        self._build_tree(bank.contiguous(), labels)
+        row_scale = None
+        if self.quantization is not None:
+            bank, row_scale = self._take_codes(bank, bank_scale)
+        else:
+            # Store dtype straight away: the centroids see the rows as stored.
+            bank = bank.float().to(torch.bfloat16 if self.use_fp16 else torch.float32)
+        self._build_tree(bank.contiguous(), labels, row_scale)
 
     def _tree_geometry(self, n_rows: int):
         return ivf.tree_layout(n_rows, self.num_leaves, slack=self.tree_slack)
 
-    def _build_tree(self, bank: torch.Tensor, labels: torch.Tensor) -> None:
-        """Leaf-partition the bank: train centroids, balance rows into
-        fixed-capacity leaves, copy into the leaf-contiguous layout.
+    def _build_tree(
+        self, bank: torch.Tensor, labels: torch.Tensor, row_scale: Optional[torch.Tensor]
+    ) -> None:
+        """Leaf-partition the bank (as stored: int8 codes are clustered as
+        f32 codes): train centroids, balance rows into fixed-capacity
+        leaves, copy into the leaf-contiguous layout, with the per-row
+        scales `row_scale` (M, 1) in the same slots (empty slots keep 0).
         `build_seconds` holds the wall time of each stage."""
         dev = self.device
         times = self.build_seconds = {}
@@ -197,6 +239,10 @@ class NearestNeighborSearchApprox(FlatSearch):
             self.bank, self.labels, self.perm = ivf.build_ivf_arrays(
                 bank, labels, slots, n_leaves, cap
             )
+            if row_scale is not None:
+                self.bank_row_scale = torch.zeros(
+                    (n_leaves * cap, 1), dtype=torch.float32, device=dev
+                ).index_copy_(0, torch.as_tensor(slots, device=dev), row_scale)
         # original row -> leaf slot, and real rows per leaf
         self.slots = torch.as_tensor(slots, dtype=torch.int64, device=dev)
         self.leaf_valid = torch.as_tensor(fill, dtype=torch.int32, device=dev)
@@ -205,7 +251,7 @@ class NearestNeighborSearchApprox(FlatSearch):
     @property
     def device_state(self):
         """The searched arrays, passed explicitly to the pure search."""
-        state = {"bank": self.bank, "labels": self.labels}
+        state = super().device_state
         if self.use_tree:
             state.update(
                 centroids=self.centroids,
@@ -218,8 +264,10 @@ class NearestNeighborSearchApprox(FlatSearch):
     def gather_features_pure(self, state, idx: torch.Tensor) -> torch.Tensor:
         if not self.use_tree:
             return super().gather_features_pure(state, idx)
-        # idx holds original row ids; the stored bank is leaf-ordered.
-        return state["bank"][state["slots"][idx]]
+        # idx holds original row ids; the stored bank is leaf-ordered, and so
+        # are the per-slot scales.
+        slot_idx = state["slots"][idx]
+        return self._dequantize(state, state["bank"][slot_idx], slot_idx)
 
     def search_with_labels_pure(
         self, state, q: torch.Tensor, k: Optional[int] = None, *, probe_mode: Optional[str] = None
@@ -231,7 +279,8 @@ class NearestNeighborSearchApprox(FlatSearch):
             return super().search_with_labels_pure(state, q, k)
         bank = state["bank"]
         k = k or self.n_neighbors
-        reorder = self.num_reordering_candidates > k
+        # Re-scoring int8 slabs would rank by the same codes: no reorder.
+        reorder = self.num_reordering_candidates > k and self.quantization is None
         kk = self.num_reordering_candidates if reorder else k
         if kk > MAX_K:
             logger.warning(
@@ -239,8 +288,9 @@ class NearestNeighborSearchApprox(FlatSearch):
                 "128-candidate limit; clamping to 128.", kk,
             )
             kk = MAX_K
+        q_cast, q_scale = self._cast_queries(state, q)
         vals, idx_ivf = ivf.ivf_search(
-            q.to(bank.dtype).contiguous(),
+            q_cast,
             bank,
             state["centroids"],
             state["leaf_valid"],
@@ -249,7 +299,9 @@ class NearestNeighborSearchApprox(FlatSearch):
             n_probe=min(self.num_leaves_to_search, self._n_leaves),
             block_q=self.query_block,
             probe_mode=probe_mode or self.probe_mode,
+            row_scale=state.get("bank_row_scale"),
         )
+        vals = self._true_units(state, vals, q_scale)
         if reorder:
             vals, idx_ivf = rerank_exact(
                 q.float(), bank, idx_ivf, k, cand_valid=torch.isfinite(vals)
@@ -274,7 +326,8 @@ class NearestNeighborSearchApprox(FlatSearch):
 
         Probing every leaf is exact search, so recall is the overlap with
         the full-probe result on `n_queries` bank rows used as their own
-        queries (the default matches an engine batch's density). Probes
+        queries (the default matches an engine batch's density; an int8
+        tree's rows are its codes, ranked with its per-row scales). Probes
         under the runtime's granularity: 'query' for a 'query' backend,
         else 'tile'. Geometric ladder, then one bisection level.
         """
@@ -291,7 +344,7 @@ class NearestNeighborSearchApprox(FlatSearch):
             _, idx = ivf.ivf_search(
                 q, self.bank, self.centroids, self.leaf_valid, k,
                 cap=self._cap, n_probe=n_probe, block_q=self.query_block,
-                probe_mode=probe_mode,
+                probe_mode=probe_mode, row_scale=self.bank_row_scale,
             )
             return idx.cpu().numpy()
 

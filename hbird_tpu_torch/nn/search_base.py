@@ -7,8 +7,11 @@ arrays; `search_with_labels` is the fused path the engine uses (scores and
 neighbour labels without leaving the device).
 
 Both backends (`search_exact`, `search_approx`) store and search the flat
-dot-product bank the same way: `FlatSearch` below, so the JAX package's
-abstract base has no counterpart yet. The approx backend's IVF tree
+bank the same way: `FlatSearch` below, so the JAX package's abstract base
+has no counterpart. The flat bank is f32, bf16 or int8 codes (the
+`quantization` modes of hbird_tpu/nn/search_exact.py), scored by dot
+product or expanded-norm L2, searched by K1 and optionally reordered
+exactly (ScaNN's reorder(C)). The approx backend's IVF tree
 (`use_tree=True`) overrides the storage and the search. Options of the JAX
 backends that need a later slice raise `NotImplementedError` and name
 their ROADMAP item; none falls back silently.
@@ -22,7 +25,14 @@ import numpy as np
 import torch
 
 from hbird_tpu_torch.device import resolve_device
-from hbird_tpu_torch.ops.knn import knn_with_labels
+from hbird_tpu_torch.ops.knn import L2_DISTANCES, knn_with_labels
+from hbird_tpu_torch.ops.quantize import (
+    quantize_bank_int8,
+    quantize_bank_int8_ah,
+    quantize_queries_int8,
+)
+
+QUANTIZATIONS = ("int8", "int8_rows", "int8_asym")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -30,13 +40,35 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
-class FlatSearch:
-    """Flat dot-product bank on one device, searched by K1.
+def resolve_quantization(use_int8: bool, quantization: Optional[str]) -> Optional[str]:
+    """The int8 storage scheme: 'int8' (global scale; `use_int8` alone),
+    'int8_rows' (per-row scales), 'int8_asym' (per-row scales, bf16 queries
+    against the codes), or None (float storage)."""
+    if quantization is None:
+        return "int8" if use_int8 else None
+    qz = str(quantization).lower()
+    if qz not in QUANTIZATIONS:
+        raise ValueError(f"quantization must be 'int8', 'int8_rows' or 'int8_asym': {quantization!r}")
+    return qz
 
-    The bank is stored in bf16 (`use_fp16`) or f32 on `device` (default:
-    the device of a tensor `feature_memory`, else CUDA); scores accumulate
-    in f32. `valid_rows` masks padded trailing rows.
+
+class FlatSearch:
+    """Flat bank on one device, searched by K1.
+
+    The bank is stored in bf16 (`use_fp16`) or f32, or as int8 codes under
+    `quantization` ('int8': one global scale; 'int8_rows'/'int8_asym': a
+    scale per row, dequantized in K1's epilogue), on `device` (default: the
+    device of a tensor `feature_memory`, else CUDA). A torch int8 tensor
+    under a global-scale quantization is taken as codes already quantized
+    with `bank_scale`. With `num_reordering_candidates` > n_neighbors an
+    int8 bank keeps a bf16 copy (`rerank_bank`) and the search re-scores
+    that many candidates exactly. `dims_per_block` / `aniso_threshold`
+    (per-row modes) select the score_ah quantizer. `valid_rows` masks
+    padded trailing rows.
     """
+
+    dims_per_block: Optional[int] = None
+    aniso_threshold: Optional[float] = None
 
     def __init__(
         self,
@@ -45,15 +77,17 @@ class FlatSearch:
         distance_measure: str = "dot_product",
         *,
         use_fp16: bool = False,
+        quantization: Optional[str] = None,
+        num_reordering_candidates: int = 0,
+        bank_scale: Optional[float] = None,
         label_memory=None,
         valid_rows: Optional[int] = None,
         mesh=None,
         device=None,
     ):
-        if distance_measure.lower() != "dot_product":
-            raise not_ported(
-                f"distance_measure={distance_measure!r}", "TPU kernels K1 (b), l2"
-            )
+        self.distance_measure = distance_measure.lower()
+        if self.distance_measure not in ("dot_product", *L2_DISTANCES):
+            raise ValueError(f"Unsupported distance measure: {distance_measure}")
         if mesh is not None:
             raise not_ported("a device mesh", "modules to port, 'parallel/'")
         if device is None and isinstance(feature_memory, torch.Tensor):
@@ -61,23 +95,130 @@ class FlatSearch:
         self.device = resolve_device(device)
         self.n_neighbors = n_neighbors
         self.use_fp16 = bool(use_fp16)
-        store = torch.bfloat16 if self.use_fp16 else torch.float32
-        self.bank = torch.as_tensor(
-            feature_memory, dtype=torch.float32, device=self.device
-        ).to(store).contiguous()
+        self._set_quantization(quantization, num_reordering_candidates)
+        x = self._as_tensor(feature_memory)
+        self.rerank_bank = None
+        if self.quantization is not None:
+            self.bank = self._quantized_state(x, bank_scale)
+        else:
+            store = torch.bfloat16 if self.use_fp16 else torch.float32
+            self.bank = x.float().to(store).contiguous()
         if label_memory is None:
             label_memory = torch.zeros((self.bank.shape[0], 1), dtype=torch.float32)
         self.labels = torch.as_tensor(label_memory, dtype=torch.float32, device=self.device)
         self.valid_rows = self.bank.shape[0] if valid_rows is None else int(valid_rows)
 
-    def gather_features_pure(self, state, idx: torch.Tensor) -> torch.Tensor:
-        """Stored feature rows (in the bank's dtype) by row id."""
-        return state["bank"][idx]
+    def _set_quantization(self, quantization: Optional[str], num_reordering_candidates: int):
+        self.quantization = quantization
+        self.int8_rows = quantization in ("int8_rows", "int8_asym")
+        self.int8_asym = quantization == "int8_asym"
+        self.num_reordering_candidates = int(num_reordering_candidates)
+        self.bank_scale = self.bank_row_scale = self.bank_col_scale = None
+
+    def _as_tensor(self, feature_memory) -> torch.Tensor:
+        """The memory on the device: torch tensors keep their dtype (int8
+        codes stay codes), anything else becomes f32."""
+        if isinstance(feature_memory, torch.Tensor):
+            return feature_memory.to(self.device)
+        return torch.as_tensor(np.asarray(feature_memory, np.float32), device=self.device)
+
+    def _quantize_bank(self, bank_f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """int8 codes and their scale ((M, 1) per row, else 0-d) by the
+        configured scheme; the score_ah knobs (per-row modes) record the
+        column scales in `bank_col_scale`."""
+        if self.int8_rows and (self.dims_per_block is not None or self.aniso_threshold is not None):
+            codes, scale, self.bank_col_scale = quantize_bank_int8_ah(
+                bank_f, dims_per_block=self.dims_per_block, aniso_threshold=self.aniso_threshold
+            )
+            return codes, scale
+        return quantize_bank_int8(bank_f, per_row=self.int8_rows)
+
+    def _take_codes(self, x: torch.Tensor, bank_scale: Optional[float]):
+        """Codes and per-row scales (None for a global scale, which goes to
+        `bank_scale`) of the memory: a torch int8 tensor is taken as codes
+        already quantized with the given global `bank_scale`."""
+        if x.dtype == torch.int8:
+            if bank_scale is None:
+                raise ValueError("int8 bank injection requires bank_scale")
+            if self.int8_rows:
+                raise ValueError("pre-quantized int8 injection is global-scale only")
+            self.bank_scale = torch.tensor(float(bank_scale), dtype=torch.float32, device=self.device)
+            return x.contiguous(), None
+        codes, scale = self._quantize_bank(x.float())
+        if self.int8_rows:
+            return codes, scale
+        self.bank_scale = scale
+        return codes, None
+
+    def _quantized_state(self, x: torch.Tensor, bank_scale: Optional[float]) -> torch.Tensor:
+        if x.dtype != torch.int8 and self.num_reordering_candidates > self.n_neighbors:
+            # Full-precision copy for the exact re-ordering pass (bf16: half
+            # the f32 footprint, exact enough for re-scoring).
+            self.rerank_bank = x.float().to(torch.bfloat16)
+        codes, self.bank_row_scale = self._take_codes(x, bank_scale)
+        return codes.contiguous()
 
     @property
     def device_state(self):
-        """The bank and its labels, passed explicitly to the pure search."""
-        return {"bank": self.bank, "labels": self.labels}
+        """The searched arrays, passed explicitly to the pure search: the
+        bank and its labels, and an int8 bank's scales and rerank copy."""
+        state = {"bank": self.bank, "labels": self.labels}
+        if self.rerank_bank is not None:
+            state["rerank_bank"] = self.rerank_bank
+        if self.quantization is not None:
+            if self.bank_row_scale is not None:
+                state["bank_row_scale"] = self.bank_row_scale
+            else:
+                state["bank_scale"] = self.bank_scale
+            if self.bank_col_scale is not None:
+                state["bank_col_scale"] = self.bank_col_scale
+        return state
+
+    @staticmethod
+    def _dequantize(state, rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+        """Stored rows taken at positions `sel` of the bank, as features:
+        int8 codes times their scales (codes * s_row * c_col, or *
+        bank_scale); float rows as stored."""
+        if rows.dtype != torch.int8:
+            return rows
+        if "bank_row_scale" in state:
+            rows = rows.float() * state["bank_row_scale"][sel]
+            col = state.get("bank_col_scale")
+            return rows if col is None else rows * col
+        return rows.float() * state["bank_scale"]
+
+    def gather_features_pure(self, state, idx: torch.Tensor) -> torch.Tensor:
+        """Feature rows by row id, dequantized: the bf16 rerank copy when
+        there is one, else the stored rows through `_dequantize`."""
+        if "rerank_bank" in state:
+            return state["rerank_bank"][idx]
+        return self._dequantize(state, state["bank"][idx], idx)
+
+    def _cast_queries(self, state, q: torch.Tensor):
+        """Queries as the bank's scan takes them, and the query scale of
+        int8 query codes (None otherwise). The column-block scales of the
+        score_ah quantizer fold into the queries; int8_asym keeps bf16
+        queries."""
+        bank = state["bank"]
+        if bank.dtype != torch.int8:
+            return q.to(bank.dtype).contiguous(), None
+        col = state.get("bank_col_scale")
+        qq = q.float() * col if col is not None else q
+        if self.int8_asym:
+            return qq.to(torch.bfloat16).contiguous(), None
+        q_cast, q_scale = quantize_queries_int8(qq)
+        return q_cast.contiguous(), q_scale
+
+    @staticmethod
+    def _true_units(state, vals: torch.Tensor, q_scale) -> torch.Tensor:
+        """Scores of int8 query codes back to approximate dot products, the
+        units of the cross-attention temperature: row-scaled scores carry
+        the bank's side already, global ones need bank_scale too."""
+        if q_scale is None:
+            return vals
+        if "bank_row_scale" in state:
+            return vals * q_scale
+        return vals * (state["bank_scale"] * q_scale)
 
     def search_with_labels(
         self, q: torch.Tensor, k: Optional[int] = None
@@ -88,15 +229,24 @@ class FlatSearch:
     def search_with_labels_pure(
         self, state, q: torch.Tensor, k: Optional[int] = None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Search over an explicit state dict: queries are cast to the
-        bank's dtype; values (Q, k) f32, indices (Q, k) int64, labels
-        (Q, k, C)."""
-        bank = state["bank"]
+        """Search over an explicit state dict: values (Q, k) f32 in dot
+        units (exact bf16 dots when reordered), indices (Q, k) int64,
+        labels (Q, k, C)."""
         k = k or self.n_neighbors
-        q_cast = q.to(bank.dtype).contiguous()
-        return knn_with_labels(
-            q_cast, bank, state["labels"], k, valid_rows=self.valid_rows
+        rerank_bank = state.get("rerank_bank")
+        rerank = rerank_bank is not None and self.num_reordering_candidates > k
+        q_cast, q_scale = self._cast_queries(state, q)
+        distance = "dot_product" if self.distance_measure == "dot_product" else "l2"
+        vals, idx, labels = knn_with_labels(
+            q_cast, state["bank"], state["labels"], k, valid_rows=self.valid_rows,
+            distance=distance,
+            rerank_bank=rerank_bank if rerank else None,
+            rerank_queries=q.to(torch.bfloat16) if rerank else None,
+            rerank_candidates=self.num_reordering_candidates if rerank else 0,
+            row_scale=state.get("bank_row_scale"),
         )
+        # Reordered scores are exact bf16 dots already.
+        return (vals if rerank else self._true_units(state, vals, q_scale)), idx, labels
 
     def find_nearest_neighbors(
         self, q, k: Optional[int] = None

@@ -3,8 +3,11 @@
 // running top-k without writing the score matrix.
 //
 // Replaces the TPU kernel hbird_tpu/ops/ivf.py::_ivf_kernel (launched by
-// pallas_ivf_knn) on bf16 or f32 inputs, k <= 128. Its int8 and row_scale
-// forms are not ported here.
+// pallas_ivf_knn), k <= 128, in each of its forms: f32 or bf16 slabs; int8
+// codes under int8 queries (int32 accumulation, converted once to f32); int8
+// codes under bf16 queries (asymmetric: the codes widened in registers); and
+// the row_scale epilogue on int8 slabs, one f32 scale per slot, read in the
+// slab layout.
 //
 // The IVF bank is leaf-contiguous: slab s holds rows [s·cap, (s+1)·cap), of
 // which the first leaf_valid[s] are real. Queries come in tiles of block_q
@@ -21,10 +24,13 @@
 // tile reads n_probe·cap rows of D bf16 and does 2·256 flops per element,
 // 256 flops per byte, under the ~295 at which the card stops being memory
 // bound; four 64-query CTAs read the same slabs, mostly from L2. The score
-// tile is K1's (topk_common.cuh): bf16 through mma.sync m16n8k16 fed by a
-// two-stage cp.async ring whose prefetch runs across slab boundaries, f32 on
-// exact FMAs. Returned ids are IVF slot ids, sorted by value descending,
-// then slot ascending; unfilled slots are (-inf, 0).
+// tile is K1's (topk_common.cuh): bf16, int8 and asymmetric tiles through
+// mma.sync fed by a two-stage cp.async ring whose prefetch runs across slab
+// boundaries (an int8 slab takes half the bytes of a bf16 one), f32 on exact
+// FMAs. Returned ids are IVF slot ids, sorted by value descending, then slot
+// ascending; unfilled slots are (-inf, 0). Probed slabs do not arrive in slot
+// order, so an equal score in a later slab may carry a lower slot: the 64-bit
+// keys of the merge order it first all the same.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
@@ -79,9 +85,10 @@ __device__ __forceinline__ SlabWalk start_walk(const int* leaf_ids, const int* l
 template <int S>
 __global__ void __launch_bounds__(THREADS)
     ivf_topk_f32(const float* __restrict__ q, const float* __restrict__ bank,
-                 const int* __restrict__ leaf_ids, const int* __restrict__ leaf_valid,
-                 float* __restrict__ out_vals, long long* __restrict__ out_idx, int nq,
-                 int n_slabs, int cap, int d, int block_q, int n_probe, int k) {
+                 const float* __restrict__ scale, const int* __restrict__ leaf_ids,
+                 const int* __restrict__ leaf_valid, float* __restrict__ out_vals,
+                 long long* __restrict__ out_idx, int nq, int n_slabs, int cap, int d, int block_q,
+                 int n_probe, int k) {
   extern __shared__ __align__(16) float smem[];
   float* st = smem;  // [BQ][LDS], aliases the staging buffers
 
@@ -96,129 +103,95 @@ __global__ void __launch_bounds__(THREADS)
     float acc[TM][TN];
     fma_score_tile(q, bank, q0, nq, w.row0(), w.row_end(), d, smem, acc);
     __syncthreads();  // all reads of the staged chunks are done before st overwrites them
-    store_fma_tile(st, acc, w.n_cols());
+    store_fma_tile(st, acc, w.n_cols(), w.row0(), scale, nullptr);
     __syncthreads();
     top.merge_tile(st, q0, nq, w.row0(), warp, lane);
   }
   top.emit(out_vals, out_idx, q0, nq, k, warp, lane);
 }
 
-template <int S>
+template <class F, int S>
 __global__ void __launch_bounds__(THREADS)
-    ivf_topk_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ bank,
-                  const int* __restrict__ leaf_ids, const int* __restrict__ leaf_valid,
-                  float* __restrict__ out_vals, long long* __restrict__ out_idx, int nq,
-                  int n_slabs, int cap, int d, int block_q, int n_probe, int k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][STAGE]
-  float* st = reinterpret_cast<float*>(smem_raw + 2 * STAGE * sizeof(__nv_bfloat16));
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 32;  // warp's first query row in the tile
-  const int wn = (warp & 3) * 32;   // warp's first bank row in the tile
+    ivf_topk_mma(const typename F::TQ* __restrict__ q, const typename F::TB* __restrict__ bank,
+                 const float* __restrict__ scale, const int* __restrict__ leaf_ids,
+                 const int* __restrict__ leaf_valid, float* __restrict__ out_vals,
+                 long long* __restrict__ out_idx, int nq, int n_slabs, int cap, int d, int block_q,
+                 int n_probe, int k) {
   const int q0 = blockIdx.x * BQ;
-  const int n_chunks = (d + MK - 1) / MK;
-
   TopK<S> top;
   top.init();
-  // `cur` is the tile being scored, `pre` the tile whose chunk `pc` is
-  // loaded next; the ring holds two chunks, so `pre` runs one chunk ahead.
-  SlabWalk cur = start_walk(leaf_ids, leaf_valid, n_slabs, cap, block_q, n_probe);
-  SlabWalk pre = cur;
-  int pc = 0;
-  if (!pre.done()) {
-    load_chunk(q, bank, stages, q0, nq, pre.row0(), pre.row_end(), d, 0);
-    if (++pc == n_chunks) {
-      pc = 0;
-      pre.next();
-    }
-  }
-
-  float acc[2][4][4];
-  int c = 0;  // chunk of `cur` scored in this step
-  for (int s = 0; !cur.done(); ++s) {
-    if (!pre.done()) {  // prefetch the next chunk into the other stage
-      load_chunk(q, bank, stages + ((s + 1) & 1) * STAGE, q0, nq, pre.row0(), pre.row_end(),
-                 d, pc * MK);
-      if (++pc == n_chunks) {
-        pc = 0;
-        pre.next();
-      }
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // this stage's copies are visible to every warp
-
-    if (c == 0) zero_mma_acc(acc);
-    mma_chunk(acc, stages + (s & 1) * STAGE, wm, wn, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-
-    if (++c == n_chunks) {
-      store_mma_tile(st, acc, wm, wn, lane, cur.n_cols());
-      __syncthreads();
-      top.merge_tile(st, q0, nq, cur.row0(), warp, lane);
-      c = 0;
-      cur.next();
-    }
-  }
-  top.emit(out_vals, out_idx, q0, nq, k, warp, lane);
+  mma_scan<F, S>(q, bank, scale, nullptr, q0, nq, d,
+                 start_walk(leaf_ids, leaf_valid, n_slabs, cap, block_q, n_probe), top);
+  top.emit(out_vals, out_idx, q0, nq, k, threadIdx.x >> 5, threadIdx.x & 31);
 }
 
-template <typename Kernel, typename T>
+template <typename TQ, typename TB, typename Kernel>
 cudaError_t launch_one(Kernel kernel, size_t smem, const void* q, const void* bank,
-                       const void* leaf_ids, const void* leaf_valid, void* out_vals,
-                       void* out_idx, int nq, int n_slabs, int cap, int d, int block_q,
-                       int n_probe, int k, cudaStream_t stream) {
+                       const float* scale, const void* leaf_ids, const void* leaf_valid,
+                       void* out_vals, void* out_idx, int nq, int n_slabs, int cap, int d,
+                       int block_q, int n_probe, int k, cudaStream_t stream) {
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(nq / BQ);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(bank), static_cast<const int*>(leaf_ids),
-      static_cast<const int*>(leaf_valid), static_cast<float*>(out_vals),
-      static_cast<long long*>(out_idx), nq, n_slabs, cap, d, block_q, n_probe, k);
+      static_cast<const TQ*>(q), static_cast<const TB*>(bank), scale,
+      static_cast<const int*>(leaf_ids), static_cast<const int*>(leaf_valid),
+      static_cast<float*>(out_vals), static_cast<long long*>(out_idx), nq, n_slabs, cap, d,
+      block_q, n_probe, k);
   return cudaGetLastError();
 }
 
 template <int S>
-cudaError_t launch(const void* q, const void* bank, const void* leaf_ids,
+cudaError_t launch(const void* q, const void* bank, const float* scale, const void* leaf_ids,
                    const void* leaf_valid, void* out_vals, void* out_idx, int nq, int n_slabs,
-                   int cap, int d, int block_q, int n_probe, int k, int is_bf16,
+                   int cap, int d, int block_q, int n_probe, int k, int form,
                    cudaStream_t stream) {
-  if (is_bf16)
-    return launch_one<decltype(&ivf_topk_bf16<S>), __nv_bfloat16>(
-        ivf_topk_bf16<S>, MMA_SMEM, q, bank, leaf_ids, leaf_valid, out_vals, out_idx, nq,
-        n_slabs, cap, d, block_q, n_probe, k, stream);
-  return launch_one<decltype(&ivf_topk_f32<S>), float>(
-      ivf_topk_f32<S>, FMA_SMEM, q, bank, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs,
-      cap, d, block_q, n_probe, k, stream);
+  switch (form) {
+    case 0:
+      return launch_one<float, float>(ivf_topk_f32<S>, FMA_SMEM, q, bank, scale, leaf_ids,
+                                      leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d,
+                                      block_q, n_probe, k, stream);
+    case 1:
+      return launch_one<__nv_bfloat16, __nv_bfloat16>(
+          ivf_topk_mma<FormBf16, S>, Ring<FormBf16>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
+          out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
+    case 2:
+      return launch_one<int8_t, int8_t>(ivf_topk_mma<FormS8, S>, Ring<FormS8>::SMEM, q, bank,
+                                        scale, leaf_ids, leaf_valid, out_vals, out_idx, nq,
+                                        n_slabs, cap, d, block_q, n_probe, k, stream);
+    default:
+      return launch_one<__nv_bfloat16, int8_t>(
+          ivf_topk_mma<FormAsym, S>, Ring<FormAsym>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
+          out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
+  }
 }
 
 }  // namespace
 
 // Launch K2 on `stream`. q (nq, d) and bank (n_slabs·cap, d) are row-major,
-// both f32 (is_bf16 = 0) or both bf16 (is_bf16 = 1); d is a multiple of 8
-// and both pointers are 16-byte aligned. leaf_ids (nq / block_q, n_probe)
-// and leaf_valid (n_slabs,) are int32. block_q is a multiple of 64 that
-// divides nq. Writes out_vals (nq, k) f32 and out_idx (nq, k) int64 IVF slot
-// ids. 1 <= k <= 128, n_probe >= 0, n_slabs·cap < 2^31.
+// by `form`: 0 both f32, 1 both bf16, 2 both int8, 3 bf16 q and int8 bank;
+// d is a multiple of 8 (of 16 with an int8 bank) and both pointers are
+// 16-byte aligned. scale (n_slabs·cap,) f32, when not null, multiplies each
+// score by its slot's scale. leaf_ids (nq / block_q, n_probe) and leaf_valid
+// (n_slabs,) are int32. block_q is a multiple of 64 that divides nq. Writes
+// out_vals (nq, k) f32 and out_idx (nq, k) int64 IVF slot ids.
+// 1 <= k <= 128, n_probe >= 0, n_slabs·cap < 2^31.
 // Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int ivf_topk_launch(const void* q, const void* bank, const void* leaf_ids,
-                               const void* leaf_valid, void* out_vals, void* out_idx, int nq,
-                               int n_slabs, int cap, int d, int block_q, int n_probe, int k,
-                               int is_bf16, void* stream) {
-  if (nq < 1 || k < 1 || k > 128 || d % 8 != 0 || n_slabs < 1 || cap < 1 || n_probe < 0 ||
-      block_q < BQ || block_q % BQ != 0 || nq % block_q != 0 ||
-      static_cast<long long>(n_slabs) * cap > 0x7fffffffLL)
+extern "C" int ivf_topk_launch(const void* q, const void* bank, const float* scale,
+                               const void* leaf_ids, const void* leaf_valid, void* out_vals,
+                               void* out_idx, int nq, int n_slabs, int cap, int d, int block_q,
+                               int n_probe, int k, int form, void* stream) {
+  if (nq < 1 || k < 1 || k > 128 || form < 0 || form > 3 || d % (form >= 2 ? 16 : 8) != 0 ||
+      n_slabs < 1 || cap < 1 || n_probe < 0 || block_q < BQ || block_q % BQ != 0 ||
+      nq % block_q != 0 || static_cast<long long>(n_slabs) * cap > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch ((k + 31) / 32) {
-    case 1: e = launch<1>(q, bank, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, is_bf16, s); break;
-    case 2: e = launch<2>(q, bank, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, is_bf16, s); break;
-    case 3: e = launch<3>(q, bank, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, is_bf16, s); break;
-    default: e = launch<4>(q, bank, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, is_bf16, s); break;
+    case 1: e = launch<1>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
+    case 2: e = launch<2>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
+    case 3: e = launch<3>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
+    default: e = launch<4>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
   }
   return static_cast<int>(e);
 }

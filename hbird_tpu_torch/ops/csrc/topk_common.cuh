@@ -1,6 +1,7 @@
 // Device code shared by K1 (knn_topk.cu) and K2 (ivf_topk.cu): the running
-// top-k of 64-bit keys, the f32 FMA score tile, and the bf16 tensor-core
-// score tile fed by a two-stage cp.async ring.
+// top-k of 64-bit keys, the f32 FMA score tile, and the tensor-core score
+// tile (bf16, int8, and bf16 queries on int8 codes) fed by a two-stage
+// cp.async ring, with the score epilogue of the TPU kernels' forms.
 //
 // Both kernels give one CTA (256 threads) BQ = 64 queries and walk bank
 // tiles of BM = 128 rows; K1 walks the whole bank, K2 only the rows of the
@@ -12,13 +13,20 @@
 //   key: the order-preserving bits of its f32 score above the complement of
 //   its column, so "larger key" means "higher score, then lower bank index".
 //   Keys are unique, so the replace-the-minimum insertion keeps exactly the
-//   top set under that order, whatever order candidates arrive in.
+//   top set under that order, whatever order candidates arrive in. In
+//   particular a candidate that ties the set's minimum value with a lower
+//   index has the larger key and goes in: ties (frequent with int8 scores,
+//   and arriving out of slot order in K2) never depend on arrival order.
 // - A warp vote skips a query's tile when none of its 128 scores beats the
 //   query's current minimum key (the TPU kernels' carry-merge predicate).
 // - Slots start at (-inf, index 0), the TPU kernels' _init; they stay so
 //   when fewer than k rows are valid.
-// - At the end each warp extracts its queries' k largest keys in order:
+// - At the end each warp extracts its queries' k best keys in order:
 //   values descending, then bank index ascending.
+// The epilogue turns an accumulator into a score as the TPU kernels do:
+// int32 -> f32 (exact: |s| <= 127²·D < 2^24 for D <= 1024), then times the
+// row's scale (row_scale, int8 banks), then minus the row's bias (l2), each
+// one f32 rounding, before the valid-row mask.
 
 #pragma once
 
@@ -47,14 +55,7 @@ static_assert((BQ / TM) * (BM / TN) == THREADS, "micro-tiles must cover the tile
 constexpr size_t FMA_SMEM =
     (BK * LDQ + BK * LDB > BQ * LDS ? BK * LDQ + BK * LDB : BQ * LDS) * sizeof(float);
 
-// bf16 tensor-core path: depth chunks of MK staged row-major as bf16, the
-// rows padded by 16 bytes so ldmatrix's eight 16-byte rows hit distinct
-// banks. Warps tile the 64×128 score tile as 2 (queries) × 4 (bank rows),
-// 32×32 each: 2 m16 × 4 n8 mma tiles.
-constexpr int MK = 64;
-constexpr int LDK = MK + 8;
-constexpr int STAGE = (BQ + BM) * LDK;  // bf16 elements per pipeline stage
-constexpr size_t MMA_SMEM = 2 * STAGE * sizeof(__nv_bfloat16) + BQ * LDS * sizeof(float);
+// Tensor-core path: see the forms below the FMA path.
 
 typedef unsigned long long u64;
 
@@ -258,10 +259,20 @@ __device__ __forceinline__ void fma_score_tile(const float* __restrict__ q,
   }
 }
 
-// Write the micro-tiles to the score tile st[BQ][LDS]; columns at or past
-// `n_cols` score -inf.
+// The score of an accumulator for bank row `row` (see the header): scale,
+// then bias, when given; __fmul_rn/__fsub_rn keep the two roundings apart.
+__device__ __forceinline__ float epilogue(float v, int row, const float* __restrict__ scale,
+                                          const float* __restrict__ bias) {
+  if (scale != nullptr) v = __fmul_rn(v, scale[row]);
+  if (bias != nullptr) v = __fsub_rn(v, bias[row]);
+  return v;
+}
+
+// Write the micro-tiles to the score tile st[BQ][LDS] through the epilogue
+// (the tile's first bank row is row0); columns at or past `n_cols` score -inf.
 __device__ __forceinline__ void store_fma_tile(float* st, const float (&acc)[TM][TN],
-                                               int n_cols) {
+                                               int n_cols, int row0, const float* scale,
+                                               const float* bias) {
   const int tx = threadIdx.x % (BM / TN);
   const int ty = threadIdx.x / (BM / TN);
 #pragma unroll
@@ -269,12 +280,13 @@ __device__ __forceinline__ void store_fma_tile(float* st, const float (&acc)[TM]
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = tx * TN + j;
-      st[(ty * TM + i) * LDS + c] = (c < n_cols) ? acc[i][j] : neg_inf();
+      st[(ty * TM + i) * LDS + c] =
+          (c < n_cols) ? epilogue(acc[i][j], row0 + c, scale, bias) : neg_inf();
     }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: tensor-core score tile.
+// Tensor-core score tile.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -302,77 +314,192 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 codes (one 32-bit word) widened to two bf16 pairs, exactly:
+// 0x4B0000uu is the f32 2^23 + uu, and uu = code + 128.
+__device__ __forceinline__ void widen_s8x4(unsigned r, unsigned& lo, unsigned& hi) {
+  const unsigned u = r ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | e)) - 8388736.0f;
+  __nv_bfloat162 l = __floats2bfloat162_rn(f[0], f[1]);
+  __nv_bfloat162 h = __floats2bfloat162_rn(f[2], f[3]);
+  lo = *reinterpret_cast<unsigned*>(&l);
+  hi = *reinterpret_cast<unsigned*>(&h);
+}
+
+// The forms of the tensor-core tile. A depth chunk of DEPTH elements is
+// staged as QBYTES bytes of each query row and BBYTES of each bank row, the
+// rows padded by 16 bytes so ldmatrix's eight 16-byte rows hit distinct
+// banks. Warps tile the 64×128 score tile as 2 (queries) × 4 (bank rows),
+// 32×32 each: 2 m16 × 4 n8 mma tiles.
+// - Bf16: bf16 × bf16, mma.sync m16n8k16, f32 accumulators.
+// - S8: int8 × int8, mma.sync m16n8k32, int32 accumulators. Its fragments
+//   hold the same bytes as bf16's (32 bytes of depth per k-step), so the
+//   ldmatrix addressing is shared; a ring row of 128 codes takes the bytes
+//   of 64 bf16 values.
+// - Asym: bf16 queries × int8 codes, mma.sync m16n8k16. The codes stay int8
+//   in the ring (half the bytes of a bf16 bank) and are widened to bf16 in
+//   registers while the B fragments are built (widen_s8x4).
+struct FormBf16 {
+  typedef __nv_bfloat16 TQ;
+  typedef __nv_bfloat16 TB;
+  typedef float Acc;
+  static constexpr int DEPTH = 64, QBYTES = 128, BBYTES = 128;
+};
+struct FormS8 {
+  typedef int8_t TQ;
+  typedef int8_t TB;
+  typedef int Acc;
+  static constexpr int DEPTH = 128, QBYTES = 128, BBYTES = 128;
+};
+struct FormAsym {
+  typedef __nv_bfloat16 TQ;
+  typedef int8_t TB;
+  typedef float Acc;
+  static constexpr int DEPTH = 64, QBYTES = 128, BBYTES = 64;
+};
+
+template <class F>
+struct Ring {
+  static constexpr int LQ = F::QBYTES + 16;  // bytes of a staged query row
+  static constexpr int LB = F::BBYTES + 16;  // bytes of a staged bank row
+  static constexpr int STAGE = BQ * LQ + BM * LB;  // bytes of one pipeline stage
+  static constexpr size_t SMEM = 2 * STAGE + BQ * LDS * sizeof(float);  // ring + score tile
+};
+
 // Issue the async copies of one depth chunk: query rows [q0, q0 + BQ) and
-// bank rows [m0, m0 + BM), depth [k0, k0 + MK), into one pipeline stage
-// (rows of LDK bf16). Query rows at or past nq, bank rows at or past m and
-// depths past d are zero-filled; d is a multiple of 8, so a 16-byte vector
-// is wholly in or out.
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* __restrict__ q,
-                                           const __nv_bfloat16* __restrict__ bank,
-                                           __nv_bfloat16* stage, int q0, int nq, int m0, int m,
+// bank rows [m0, m0 + BM), depth [k0, k0 + DEPTH), into one pipeline stage.
+// Query rows at or past nq, bank rows at or past m and depths past d are
+// zero-filled; d is a multiple of the elements of a 16-byte vector (8 bf16,
+// 16 int8), so a vector is wholly in or out.
+template <class F>
+__device__ __forceinline__ void load_chunk(const typename F::TQ* __restrict__ q,
+                                           const typename F::TB* __restrict__ bank,
+                                           unsigned char* stage, int q0, int nq, int m0, int m,
                                            int d, int k0) {
-  constexpr int VECS = MK / 8;  // 16-byte vectors per staged row
-  for (int i = threadIdx.x; i < (BQ + BM) * VECS; i += THREADS) {
-    const int r = i / VECS;
-    const int c = (i % VECS) * 8;
-    const bool is_q = r < BQ;
-    const int gr = is_q ? q0 + r : m0 + (r - BQ);
-    const bool ok = (is_q ? gr < nq : gr < m) && k0 + c < d;
-    const __nv_bfloat16* base = is_q ? q : bank;
-    const __nv_bfloat16* src = ok ? base + static_cast<size_t>(gr) * d + k0 + c : base;
-    cp_async16(stage + r * LDK + c, src, ok ? 16 : 0);
+  constexpr int QV = F::QBYTES / 16, BV = F::BBYTES / 16;  // vectors per staged row
+  constexpr int QE = 16 / sizeof(typename F::TQ), BE = 16 / sizeof(typename F::TB);
+  for (int i = threadIdx.x; i < BQ * QV; i += THREADS) {
+    const int r = i / QV, v = i % QV;
+    const bool ok = q0 + r < nq && k0 + v * QE < d;
+    const typename F::TQ* src = ok ? q + static_cast<size_t>(q0 + r) * d + k0 + v * QE : q;
+    cp_async16(stage + r * Ring<F>::LQ + v * 16, src, ok ? 16 : 0);
+  }
+  unsigned char* bs = stage + BQ * Ring<F>::LQ;
+  for (int i = threadIdx.x; i < BM * BV; i += THREADS) {
+    const int r = i / BV, v = i % BV;
+    const bool ok = m0 + r < m && k0 + v * BE < d;
+    const typename F::TB* src = ok ? bank + static_cast<size_t>(m0 + r) * d + k0 + v * BE : bank;
+    cp_async16(bs + r * Ring<F>::LB + v * 16, src, ok ? 16 : 0);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void zero_mma_acc(float (&acc)[2][4][4]) {
+template <typename Acc>
+__device__ __forceinline__ void zero_mma_acc(Acc (&acc)[2][4][4]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 }
 
 // Accumulate one staged depth chunk into the warp's 32×32 part of the tile
 // (query rows wm.., bank rows wn..).
-__device__ __forceinline__ void mma_chunk(float (&acc)[2][4][4], const __nv_bfloat16* stage,
-                                          int wm, int wn, int lane) {
-  const __nv_bfloat16* qs = stage;
-  const __nv_bfloat16* bs = stage + BQ * LDK;
+template <class F>
+__device__ __forceinline__ void mma_chunk(typename F::Acc (&acc)[2][4][4],
+                                          const unsigned char* stage, int wm, int wn, int lane) {
+  constexpr int LQ = Ring<F>::LQ, LB = Ring<F>::LB;
+  const unsigned char* qs = stage;
+  const unsigned char* bs = stage + BQ * LQ;
+  if constexpr (F::BBYTES == F::QBYTES) {  // Bf16 and S8: one k-step per 32 bytes
 #pragma unroll
-  for (int kk = 0; kk < MK; kk += 16) {
-    unsigned a[2][4];
-    unsigned b[4][2];
+    for (int kb = 0; kb < F::QBYTES; kb += 32) {
+      unsigned a[2][4];
+      unsigned b[4][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // matrices: rows 0-7 | 8-15 of the m16 tile × depth 0-7 | 8-15
-      const int row = wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(a[i], qs + row * LDK + kk + (lane >> 4) * 8);
+      for (int i = 0; i < 2; ++i) {
+        // matrices: rows 0-7 | 8-15 of the m16 tile × bytes 0-15 | 16-31
+        const int row = wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(a[i], qs + row * LQ + kb + (lane >> 4) * 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // matrices: (n8 tile 2j, bytes 0-15 | 16-31), (n8 tile 2j+1, ...)
+        unsigned r[4];
+        const int row = wn + j * 16 + (lane >> 4) * 8 + (lane & 7);
+        ldmatrix_x4(r, bs + row * LB + kb + ((lane >> 3) & 1) * 16);
+        b[2 * j][0] = r[0];
+        b[2 * j][1] = r[1];
+        b[2 * j + 1][0] = r[2];
+        b[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (sizeof(typename F::TQ) == 1)
+            mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
+          else
+            mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+        }
     }
+  } else {  // Asym: 32 codes (64 query bytes) per step, two k16 mmas
+    const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      // matrices: (n8 tile 2j, depth 0-7 | 8-15), (n8 tile 2j+1, ...)
-      unsigned r[4];
-      const int row = wn + j * 16 + (lane >> 4) * 8 + (lane & 7);
-      ldmatrix_x4(r, bs + row * LDK + kk + ((lane >> 3) & 1) * 8);
-      b[2 * j][0] = r[0];
-      b[2 * j][1] = r[1];
-      b[2 * j + 1][0] = r[2];
-      b[2 * j + 1][1] = r[3];
+    for (int kb = 0; kb < F::BBYTES; kb += 32) {
+      // A thread's ldmatrix word of a bank row holds codes 4·t4..4·t4+3 of a
+      // 16-code half; mma h takes half h. Its b0 holds codes (4t4, 4t4+1)
+      // and b1 (4t4+2, 4t4+3), i.e. the mma's k (2t4, 2t4+1) and
+      // (8+2t4, 9+2t4) stand for depths 4t4.. of the half; the A fragments
+      // take the query depths in the same order: (a0, a2) are the 8 bytes
+      // at depth 16h + 4t4 of row g, (a1, a3) those of row g + 8.
+      unsigned b[4][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        unsigned r[4];
+        const int row = wn + j * 16 + (lane >> 4) * 8 + (lane & 7);
+        ldmatrix_x4(r, bs + row * LB + kb + ((lane >> 3) & 1) * 16);
+        widen_s8x4(r[0], b[2 * j][0], b[2 * j][1]);
+        widen_s8x4(r[1], b[2 * j][2], b[2 * j][3]);
+        widen_s8x4(r[2], b[2 * j + 1][0], b[2 * j + 1][1]);
+        widen_s8x4(r[3], b[2 * j + 1][2], b[2 * j + 1][3]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = wm + i * 16 + g;
+          const int off = 2 * kb + 32 * h + 8 * t4;
+          const uint2 lo = *reinterpret_cast<const uint2*>(qs + row * LQ + off);
+          const uint2 hi = *reinterpret_cast<const uint2*>(qs + (row + 8) * LQ + off);
+          const unsigned a[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][2 * h], b[j][2 * h + 1]);
+        }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
   }
 }
 
-// Write the warp's accumulators to the score tile st[BQ][LDS]; columns at
-// or past `n_cols` score -inf. Accumulator layout: (row lane/4, cols
-// 2·(lane%4) + {0,1}), and row + 8.
-__device__ __forceinline__ void store_mma_tile(float* st, const float (&acc)[2][4][4], int wm,
-                                               int wn, int lane, int n_cols) {
+// Write the warp's accumulators to the score tile st[BQ][LDS] through the
+// epilogue (the tile's first bank row is row0); columns at or past `n_cols`
+// score -inf. Accumulator layout: (row lane/4, cols 2·(lane%4) + {0,1}),
+// and row + 8.
+template <typename Acc>
+__device__ __forceinline__ void store_mma_tile(float* st, const Acc (&acc)[2][4][4], int wm,
+                                               int wn, int lane, int n_cols, int row0,
+                                               const float* scale, const float* bias) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -383,9 +510,72 @@ __device__ __forceinline__ void store_mma_tile(float* st, const float (&acc)[2][
       for (int e = 0; e < 4; ++e) {
         const int rr = row + (e >> 1) * 8;
         const int cc = col + (e & 1);
-        st[rr * LDS + cc] = (cc < n_cols) ? acc[i][j][e] : neg_inf();
+        st[rr * LDS + cc] =
+            (cc < n_cols) ? epilogue(static_cast<float>(acc[i][j][e]), row0 + cc, scale, bias)
+                          : neg_inf();
       }
     }
+}
+
+// The tensor-core main loop of one CTA: `Walk` hands out the bank tiles
+// (row0() is a tile's first bank row, row_end() the end of the rows it may
+// read, n_cols() its valid columns, next() moves on, done() ends), the ring
+// prefetches one depth chunk ahead across tile boundaries, and each finished
+// tile is merged into `top`.
+template <class F, int S, class Walk>
+__device__ __forceinline__ void mma_scan(const typename F::TQ* __restrict__ q,
+                                         const typename F::TB* __restrict__ bank,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ bias, int q0, int nq, int d,
+                                         Walk cur, TopK<S>& top) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* stages = smem_raw;  // [2][STAGE]
+  float* st = reinterpret_cast<float*>(smem_raw + 2 * Ring<F>::STAGE);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 2) * 32;  // warp's first query row in the tile
+  const int wn = (warp & 3) * 32;   // warp's first bank row in the tile
+  const int n_chunks = (d + F::DEPTH - 1) / F::DEPTH;
+
+  // `cur` is the tile being scored, `pre` the tile whose chunk `pc` is
+  // loaded next; the ring holds two chunks, so `pre` runs one chunk ahead.
+  Walk pre = cur;
+  int pc = 0;
+  if (!pre.done()) {
+    load_chunk<F>(q, bank, stages, q0, nq, pre.row0(), pre.row_end(), d, 0);
+    if (++pc == n_chunks) {
+      pc = 0;
+      pre.next();
+    }
+  }
+  typename F::Acc acc[2][4][4];
+  int c = 0;  // chunk of `cur` scored in this step
+  for (int s = 0; !cur.done(); ++s) {
+    if (!pre.done()) {  // prefetch the next chunk into the other stage
+      load_chunk<F>(q, bank, stages + ((s + 1) & 1) * Ring<F>::STAGE, q0, nq, pre.row0(),
+                    pre.row_end(), d, pc * F::DEPTH);
+      if (++pc == n_chunks) {
+        pc = 0;
+        pre.next();
+      }
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // this stage's copies are visible to every warp
+
+    if (c == 0) zero_mma_acc(acc);
+    mma_chunk<F>(acc, stages + (s & 1) * Ring<F>::STAGE, wm, wn, lane);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+
+    if (++c == n_chunks) {
+      store_mma_tile(st, acc, wm, wn, lane, cur.n_cols(), cur.row0(), scale, bias);
+      __syncthreads();
+      top.merge_tile(st, q0, nq, cur.row0(), warp, lane);
+      c = 0;
+      cur.next();
+    }
+  }
 }
 
 // Raise the kernel's dynamic shared memory limit where it needs more than

@@ -394,12 +394,14 @@ def ivf_search_plain(
     k: int,
     *,
     cap: int,
+    row_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K2 (counterpart of ivf_search_xla): per query
     tile, gather the valid rows of the probed slabs in slot order, take f32
-    products, and keep the top k by a stable sort (value descending, then
-    slot ascending). queries rows must be a multiple of the leaf_ids tile
-    count.
+    products (bf16 and int8 inputs widened; int8 x int8 sums are exact
+    integers), multiply each by its slot's `row_scale` when given, and keep
+    the top k by a stable sort (value descending, then slot ascending).
+    queries rows must be a multiple of the leaf_ids tile count.
 
     Returns (values (Q, k) f32, IVF slot ids (Q, k) int64); unfilled slots
     are (-inf, 0).
@@ -411,6 +413,7 @@ def ivf_search_plain(
     lids = leaf_ids.to(torch.int64)
     lv = leaf_valid.to(torch.int64)
     col_local = torch.arange(cap, device=dev)
+    scale = None if row_scale is None else row_scale.reshape(-1).float()
     out_v = torch.full((q_n, k), NEG_INF, dtype=torch.float32, device=dev)
     out_i = torch.zeros((q_n, k), dtype=torch.int64, device=dev)
     for t in range(tiles):
@@ -419,6 +422,8 @@ def ivf_search_plain(
         cols = torch.sort(cols).values
         q_t = queries[t * block_q : (t + 1) * block_q].float()
         scores = q_t @ ivf_bank[cols].float().T
+        if scale is not None:
+            scores = scores * scale[cols]
         sv, order = torch.sort(scores, dim=1, descending=True, stable=True)
         n = min(k, cols.numel())
         rows = slice(t * block_q, (t + 1) * block_q)
@@ -439,8 +444,13 @@ def ivf_search(
     block_q: int = 256,
     sort_queries: bool = True,
     probe_mode: str = "tile",
+    row_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full IVF search: (group) -> probe -> scan (K2) -> (ungroup).
+
+    Queries may be int8 codes or bf16 against an int8 tree, with the
+    per-slot `row_scale` of its int8_rows slabs; leaves are chosen from the
+    queries as handed in, cast to f32.
 
     probe_mode:
     - 'tile' (default): the union-shortlist block probing above — correct
@@ -489,7 +499,7 @@ def ivf_search(
     if probe_mode == "query":
         return ivf_search_per_query(
             queries, ivf_bank, centroids, leaf_valid, k,
-            cap=cap, n_probe=n_probe, block_q=block_q,
+            cap=cap, n_probe=n_probe, block_q=block_q, row_scale=row_scale,
         )
     if probe_mode != "tile":
         raise ValueError(f"probe_mode must be 'tile', 'query' or 'auto': {probe_mode!r}")
@@ -497,7 +507,9 @@ def ivf_search(
     q_pad, lids, inv = tile_probe_inputs(
         queries, centroids, n_probe=n_probe, block_q=block_q, sort_queries=sort_queries
     )
-    vals, idx = ivf_topk(q_pad, ivf_bank, lids, leaf_valid, k, cap=cap, block_q=block_q)
+    vals, idx = ivf_topk(
+        q_pad, ivf_bank, lids, leaf_valid, k, cap=cap, block_q=block_q, row_scale=row_scale
+    )
     vals, idx = vals[:q_n], idx[:q_n]
     if inv is not None:
         vals, idx = vals[inv], idx[inv]
@@ -514,6 +526,7 @@ def ivf_search_per_query(
     cap: int,
     n_probe: int,
     block_q: int = 128,
+    row_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query probing: every query scans exactly its top-`n_probe`
     leaves. The (query, leaf) probe pairs are grouped by leaf on the host,
@@ -557,7 +570,9 @@ def ivf_search_per_query(
 
     q_grouped = queries[torch.as_tensor(q_sel, device=dev)].contiguous()
     lids = torch.as_tensor(tile_leaf[:, None], device=dev)  # (T, 1): one slab per tile
-    vals, idx = ivf_topk(q_grouped, ivf_bank, lids, leaf_valid, kk, cap=cap, block_q=block_q)
+    vals, idx = ivf_topk(
+        q_grouped, ivf_bank, lids, leaf_valid, kk, cap=cap, block_q=block_q, row_scale=row_scale
+    )
 
     # ---- regather per query, dedup, final top-k.
     pp = torch.as_tensor(pair_pos, device=dev)

@@ -1,19 +1,23 @@
 """K2 on the GPU: the wrapper of the probed-leaf top-k CUDA kernel.
 
 Counterpart of hbird_tpu/ops/ivf.py::pallas_ivf_knn (the TPU kernel
-`_ivf_kernel`) in its bf16/f32 form. The kernel source is
+`_ivf_kernel`) in all its forms: f32 or bf16 slabs, int8 codes under int8
+queries, int8 codes under bf16 queries (asymmetric), and the per-slot
+`row_scale` epilogue on int8 slabs. The kernel source is
 ops/csrc/ivf_topk.cu; ops/cuda_build.py compiles it with `nvcc` for sm_90a
 into a shared library with a plain C interface at first use, and it is
 loaded with ctypes.
 
 `ivf_topk` takes the kernel for CUDA tensors and the plain version
 (ops/ivf.py::ivf_search_plain) for CPU tensors, and nothing else: a CUDA
-tensor either launches the kernel or raises. `ivf_topk.launches` counts
-kernel launches.
+tensor either launches the kernel or raises. Invalid combinations raise
+`ValueError` on every device. `ivf_topk.launches` counts kernel launches,
+`ivf_topk.forms` the same launches by form (ops/knn_cuda.py::form_name).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -21,32 +25,41 @@ import torch
 
 from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.ivf import ivf_search_plain
+from hbird_tpu_torch.ops.knn_cuda import FORMS, MAX_INT8_DEPTH, form_name
 
 MAX_K = 128
 BLOCK = 64  # queries per CTA: block_q must be a multiple of it on the card
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 )
 
 
-def _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q) -> None:
+def _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q, row_scale) -> None:
     if queries.ndim != 2 or ivf_bank.ndim != 2:
         raise ValueError(f"queries and bank must be 2-D: {queries.shape}, {ivf_bank.shape}")
     if queries.shape[1] != ivf_bank.shape[1]:
         raise ValueError(f"depth mismatch: {queries.shape} vs {ivf_bank.shape}")
-    if queries.dtype in (torch.int8, torch.uint8) or ivf_bank.dtype in (torch.int8, torch.uint8):
-        raise NotImplementedError(
-            "int8 leaf slabs are K2's int8 forms (ROADMAP.md, TPU kernels K2)"
-        )
-    if queries.dtype != ivf_bank.dtype or ivf_bank.dtype not in (torch.float32, torch.bfloat16):
+    if (queries.dtype, ivf_bank.dtype) not in FORMS:
         raise ValueError(
-            f"queries and bank must share dtype float32 or bfloat16: "
+            "queries and bank must be f32/f32, bf16/bf16, int8/int8 or bf16/int8: "
             f"{queries.dtype}, {ivf_bank.dtype}"
         )
+    if queries.dtype == torch.int8 and queries.shape[1] > MAX_INT8_DEPTH:
+        raise ValueError(
+            f"int8 x int8 scores are exact in f32 only up to D = {MAX_INT8_DEPTH}: "
+            f"{queries.shape[1]}"
+        )
+    if row_scale is not None:
+        if ivf_bank.dtype != torch.int8:
+            raise ValueError("row_scale requires an int8 bank")
+        if row_scale.numel() != ivf_bank.shape[0]:
+            raise ValueError(
+                f"row_scale has {row_scale.numel()} entries for {ivf_bank.shape[0]} slots"
+            )
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}]: {k}")
     if cap < 1 or ivf_bank.shape[0] % cap:
@@ -59,8 +72,8 @@ def _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q) -> None:
         )
     if tuple(leaf_valid.shape) != (n_slabs,):
         raise ValueError(f"leaf_valid must have shape ({n_slabs},): {tuple(leaf_valid.shape)}")
-    for t in (ivf_bank, leaf_ids, leaf_valid):
-        if t.device != queries.device:
+    for t in (ivf_bank, leaf_ids, leaf_valid, row_scale):
+        if t is not None and t.device != queries.device:
             raise ValueError(f"queries on {queries.device}, an input on {t.device}")
 
 
@@ -78,25 +91,25 @@ def ivf_topk(
     """Probed-leaf top-k by dot product, fused (K2).
 
     Args:
-        queries: (Q, D) f32 or bf16, Q = n_tiles * block_q.
-        ivf_bank: (n_slabs * cap, D) leaf-contiguous slabs, same dtype and
-            device as `queries`.
+        queries: (Q, D) f32, bf16 or int8 codes, Q = n_tiles * block_q.
+        ivf_bank: (n_slabs * cap, D) leaf-contiguous slabs on the same
+            device: the queries' dtype, or int8 codes under int8 or bf16
+            queries.
         leaf_ids: (n_tiles, n_probe) int slab ids scanned by each query tile.
         leaf_valid: (n_slabs,) int real rows per slab.
         k: neighbours per query, 1..128.
-        row_scale: the int8 epilogue's per-row scales, a later K2 form; raises.
+        row_scale: (n_slabs * cap,) or (n_slabs * cap, 1) per-slot scales of
+            int8 slabs; each score is multiplied by its slot's scale.
 
     Returns:
         (values (Q, k) f32, IVF slot ids (Q, k) int64), sorted by value
         descending, then slot ascending; unfilled slots are (-inf, 0).
     """
-    if row_scale is not None:
-        raise NotImplementedError(
-            "row_scale is K2's int8_rows form (ROADMAP.md, TPU kernels K2)"
-        )
-    _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q)
+    _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q, row_scale)
     if queries.device.type == "cpu":
-        return ivf_search_plain(queries, ivf_bank, leaf_ids, leaf_valid, k, cap=cap)
+        return ivf_search_plain(
+            queries, ivf_bank, leaf_ids, leaf_valid, k, cap=cap, row_scale=row_scale
+        )
     if queries.device.type != "cuda":
         raise ValueError(f"ivf_topk runs on CUDA or CPU tensors, not {queries.device}")
     if block_q < BLOCK or block_q % BLOCK:
@@ -104,14 +117,16 @@ def ivf_topk(
     if not (queries.is_contiguous() and ivf_bank.is_contiguous()):
         raise ValueError("ivf_topk needs contiguous queries and bank")
     d = queries.shape[1]
-    if d % 8:
-        raise ValueError(f"the K2 kernel needs a depth divisible by 8: {d}")
+    step = 16 if ivf_bank.dtype == torch.int8 else 8  # 16-byte rows of the staged vectors
+    if d % step:
+        raise ValueError(f"the K2 kernel needs a depth divisible by {step} for this form: {d}")
     if queries.data_ptr() % 16 or ivf_bank.data_ptr() % 16:
         raise ValueError("the K2 kernel needs 16-byte aligned queries and bank")
     if ivf_bank.shape[0] >= 2**31:
         raise ValueError(f"the K2 kernel takes fewer than 2^31 slots: {ivf_bank.shape[0]}")
     lids = leaf_ids.to(torch.int32).contiguous()
     lvalid = leaf_valid.to(torch.int32).contiguous()
+    scale = row_scale.reshape(-1).float().contiguous() if row_scale is not None else None
     n_q = queries.shape[0]
     vals = torch.empty((n_q, k), dtype=torch.float32, device=queries.device)
     idx = torch.empty((n_q, k), dtype=torch.int64, device=queries.device)
@@ -121,15 +136,18 @@ def ivf_topk(
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ivf_topk_launch(
-            queries.data_ptr(), ivf_bank.data_ptr(), lids.data_ptr(), lvalid.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(),
+            queries.data_ptr(), ivf_bank.data_ptr(),
+            scale.data_ptr() if scale is not None else None,
+            lids.data_ptr(), lvalid.data_ptr(), vals.data_ptr(), idx.data_ptr(),
             n_q, lvalid.shape[0], cap, d, block_q, lids.shape[1], k,
-            int(queries.dtype == torch.bfloat16), stream,
+            FORMS[(queries.dtype, ivf_bank.dtype)], stream,
         )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
     ivf_topk.launches += 1
+    ivf_topk.forms[form_name(queries, ivf_bank, False, row_scale)] += 1
     return vals, idx
 
 
 ivf_topk.launches = 0
+ivf_topk.forms = collections.Counter()

@@ -9,9 +9,17 @@ never materialised. It is what the CPU tests compare with the JAX package
 and what `chip_smoke.py` holds the CUDA kernel (ops/knn_cuda.py) against;
 on the engine's path it runs only for CPU tensors.
 
-Semantics shared with the kernel:
-- scores are q·b in f32 (bf16 inputs are widened; their products are
-  exact in f32);
+Semantics shared with the kernel (the forms of hbird_tpu/ops/knn_pallas.py
+`_knn_kernel`):
+- scores are q·b in f32: bf16 inputs are widened, and so are int8 codes
+  (an int8 bank under bf16 queries is the asymmetric form); their products
+  are exact in f32. int8 x int8 scores are integers below 2^24 for
+  D <= 1024, so every partial sum is exact and the order of summation
+  cannot matter;
+- `row_scale` multiplies each score by its bank row's f32 scale, after
+  the conversion and before masking (one rounding);
+- `distance='l2'` subtracts the bias ||b||^2 / 2 (`l2_bias`, f32 from the
+  bank as stored): argmax q·b - ||b||^2/2 is argmin ||q - b||^2;
 - bank rows at or past `valid_rows` never win;
 - unfilled slots (fewer than k valid rows) hold value -inf and index 0;
 - results are sorted by value descending, then bank index ascending.
@@ -24,6 +32,13 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = float("-inf")
+L2_DISTANCES = ("l2", "euclidean")
+
+
+def l2_bias(bank: torch.Tensor) -> torch.Tensor:
+    """(M,) f32 ||b||^2 / 2 of each bank row as stored."""
+    b32 = bank.float()
+    return 0.5 * (b32 * b32).sum(dim=1)
 
 
 def exact_knn(
@@ -31,17 +46,25 @@ def exact_knn(
     bank: torch.Tensor,
     k: int,
     *,
+    distance: str = "dot_product",
     valid_rows: Optional[int] = None,
+    row_scale: Optional[torch.Tensor] = None,
     query_block: int = 1024,
     bank_block: int = 8192,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k neighbours of each query by dot product.
+    """Exact top-k neighbours of each query.
 
     Args:
-        queries: (Q, D) f32 or bf16. NOT normalized (reference parity).
-        bank: (M, D) memory bank (rows may be padded; see valid_rows).
+        queries: (Q, D) f32, bf16 or int8 codes. NOT normalized (reference
+            parity).
+        bank: (M, D) memory bank (rows may be padded; see valid_rows): f32,
+            bf16 or int8 codes.
         k: neighbours per query.
+        distance: 'dot_product', or 'l2'/'euclidean' (score q·b - ||b||²/2,
+            ordering-equal to ascending squared L2).
         valid_rows: number of real rows in `bank` (defaults to M).
+        row_scale: optional (M,) or (M, 1) f32 per-row scales of an int8
+            bank; scores become (q·codes) * row_scale.
         query_block / bank_block: tile sizes.
 
     Returns:
@@ -51,6 +74,13 @@ def exact_knn(
     m = bank.shape[0]
     valid = m if valid_rows is None else max(0, min(int(valid_rows), m))
     dev = queries.device
+    if distance in L2_DISTANCES:
+        bias = l2_bias(bank)
+    elif distance == "dot_product":
+        bias = None
+    else:
+        raise ValueError(f"Unsupported distance measure: {distance}")
+    scale = None if row_scale is None else row_scale.reshape(-1).float()
     out_v = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int64, device=dev)
     for q0 in range(0, n_q, query_block):
@@ -62,6 +92,10 @@ def exact_knn(
         for b0 in range(0, valid, bank_block):
             b1 = min(b0 + bank_block, valid)
             scores = qb @ bank[b0:b1].float().T
+            if scale is not None:
+                scores = scores * scale[b0:b1]
+            if bias is not None:
+                scores = scores - bias[b0:b1]
             cols = torch.arange(b0, b1, device=dev).expand(n, -1)
             # Running entries precede the tile and hold lower indices, and a
             # stable sort keeps that order among equal values: ties go to the
@@ -128,16 +162,42 @@ def knn_with_labels(
     k: int,
     *,
     valid_rows: Optional[int] = None,
+    distance: str = "dot_product",
+    rerank_bank: Optional[torch.Tensor] = None,
+    rerank_queries: Optional[torch.Tensor] = None,
+    rerank_candidates: int = 0,
+    row_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k search + label gather on one device.
 
-    Goes through `knn_topk`: the CUDA kernel for CUDA tensors, the plain
-    `exact_knn` for CPU tensors.
+    Counterpart of the single-device branch of
+    hbird_tpu/parallel/sharded_knn.py::sharded_knn_with_labels. Goes through
+    `knn_topk`: the CUDA kernel for CUDA tensors, the plain `exact_knn` for
+    CPU tensors.
+
+    rerank_bank / rerank_queries / rerank_candidates: ScaNN's reorder(C):
+    scan for `rerank_candidates` (clamped to the bank's rows) with the
+    (possibly quantized) bank, then re-score them exactly against
+    `rerank_bank` with `rerank_queries` (default: the queries) and keep k.
+    First-pass fillers (-inf, or past valid_rows) never win the re-score.
 
     Returns:
         values (Q, k) f32, indices (Q, k) int64, neighbour labels (Q, k, C).
     """
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
 
-    vals, idx = knn_topk(queries, bank, k, valid_rows=valid_rows)
+    valid = bank.shape[0] if valid_rows is None else int(valid_rows)
+    n_cand = min(rerank_candidates, bank.shape[0]) if rerank_bank is not None else 0
+    if n_cand > k:
+        cvals, cand = knn_topk(
+            queries, bank, n_cand, valid_rows=valid, distance=distance, row_scale=row_scale
+        )
+        vals, idx = rerank_exact(
+            queries if rerank_queries is None else rerank_queries, rerank_bank, cand, k,
+            cand_valid=torch.isfinite(cvals) & (cand < valid),
+        )
+    else:
+        vals, idx = knn_topk(
+            queries, bank, k, valid_rows=valid, distance=distance, row_scale=row_scale
+        )
     return vals, idx, labels[idx]

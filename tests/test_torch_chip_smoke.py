@@ -7,6 +7,7 @@ kernels.
 Without a GPU, `main()` must exit non-zero and print no result.
 """
 
+import collections
 import importlib.util
 import json
 import pathlib
@@ -47,14 +48,19 @@ def smoke(monkeypatch):
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
+        l2 = kwargs.get("distance") in knn_mod.L2_DISTANCES
+        knn_cuda.knn_topk.forms[knn_cuda.form_name(args[0], args[1], l2, kwargs.get("row_scale"))] += 1
         return knn_mod.exact_knn(*args, **kwargs)
 
     def counted_ivf(*args, **kwargs):
         ivf_cuda.ivf_topk.launches += 1
+        ivf_cuda.ivf_topk.forms[knn_cuda.form_name(args[0], args[1], False, kwargs.get("row_scale"))] += 1
         return ivf_mod.ivf_search_plain(*args, **kwargs)
 
     monkeypatch.setattr(knn_cuda, "exact_knn", counted)
     monkeypatch.setattr(knn_cuda.knn_topk, "launches", 0)
+    monkeypatch.setattr(knn_cuda.knn_topk, "forms", collections.Counter())
+    monkeypatch.setattr(ivf_cuda.ivf_topk, "forms", collections.Counter())
     def counted_flash(*args, **kwargs):
         flash_cuda.flash_attention.launches += 1
         return flash_mod.flash_attention_plain(*args, **kwargs)
@@ -70,22 +76,37 @@ def test_phases_rehearse_on_cpu(smoke):
     gen = torch.Generator().manual_seed(0)
     assert smoke.kernel_cases(gen) <= 1e-5
     assert smoke.ivf_cases(gen) == 0.0
+    assert smoke.quantized_kernel_cases(gen) == 0.0
+    assert smoke.quantized_ivf_cases(gen) == 0.0
     runs, launches, err, tree, q, bank, main_tree = smoke.main_path(gen_seed=0)
-    assert launches == {"knn_topk": 2, "ivf_topk": 2} and err == {"K1": 0.0, "K2": 0.0}
-    assert set(runs) == {"scann unbounded", "scann bounded 64", "ivf unbounded", "ivf bounded 64"}
+    # scann x 2, int8_rows, int8+rerank, l2 on K1; ivf x 2, scann-literal on K2
+    assert launches == {"knn_topk": 5, "ivf_topk": 3} and err == {"K1": 0.0, "K2": 0.0}
+    assert set(runs) == {"scann unbounded", "scann bounded 64", "ivf unbounded", "ivf bounded 64",
+                         *smoke.QUANT_RUNS}
     for label, run in runs.items():
         assert 0.0 <= run["miou"] <= 1.0
         assert run["phases"]["memory_build"]["items"] == 8
         assert run["phases"]["evaluate"]["items"] == 4
-        kernel = "ivf_topk" if label.startswith("ivf") else "knn_topk"
+        if label in smoke.QUANT_RUNS:
+            kernel, form = smoke.QUANT_RUNS[label][3]
+            assert run["forms"][kernel] == {form: 1}
+            assert 0.0 < run["recall_at_30_vs_k1_bf16"] <= run["score_recall_at_30_vs_k1_bf16"] <= 1.0
+        else:
+            kernel = "ivf_topk" if label.startswith("ivf") else "knn_topk"
+            assert run["forms"][kernel] == {"dot": 1}
         assert run["launches"] == {"knn_topk": 0, "ivf_topk": 0, kernel: 1}
     assert q.shape == (4 * 16, 384) and bank.shape == (8 * 16, 384)
     assert q.dtype == bank.dtype == torch.bfloat16
     assert (tree["n_leaves"], tree["cap"]) == (128, 256) and set(tree["recall_at_30_vs_k1"]) == {"tile", "query"}
-    assert all(0.0 < r <= 1.0 for r in tree["recall_at_30_vs_k1"].values())
+    assert all(0.0 < r <= tree["score_recall_at_30_vs_k1"][m] <= 1.0
+               for m, r in tree["recall_at_30_vs_k1"].items())
     assert set(tree["build_s"]) == {"kmeans", "refine", "assign", "layout", "scatter"}
     k1_rows, k2_rows, err_timing = smoke.timing(q, bank, main_tree, gen)
-    assert set(k1_rows) == set(k2_rows) == {"main", "bank_3000"}
+    sizes = ("main", "bank_3000")
+    assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "l2")
+                                      for s in sizes)}
+    assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows") for s in sizes)}
+    assert k1_rows["int8 main"]["bound_by"] == k1_rows["main"]["bound_by"]
     assert err_timing == {"K1": 0.0, "K2": 0.0}
     assert k2_rows["bank_3000"]["cap"] == 256 and k2_rows["main"]["block_q"] == 256
     assert json.dumps([k1_rows, k2_rows])
@@ -213,6 +234,18 @@ def test_check_ivf_against_plain_rejects_wrong_results(smoke):
         smoke.check_ivf_against_plain("wrong value", q, bank, lids, lv, 10, cap, 64, (vals + 1e-2, idx))
 
 
+def test_score_recall_counts_tied_rows(smoke):
+    """A returned row tied with the k-th exact score counts as found; one
+    below it does not."""
+    bank = torch.tensor([[1.0, 0.0], [1.0, 0.0], [0.5, 0.0], [0.0, 1.0]])
+    q = torch.tensor([[1.0, 0.0]])
+    vals, idx = knn_mod.exact_knn(q, bank, 2)
+    assert idx.tolist() == [[0, 1]]
+    assert smoke.score_recall(torch.tensor([[1, 0]]), q, bank, vals[:, -1]) == 1.0
+    assert smoke.score_recall(torch.tensor([[0, 2]]), q, bank, vals[:, -1]) == 0.5
+    assert smoke.score_recall(torch.tensor([[3, 2]]), q, bank, vals[:, -1]) == 0.0
+
+
 def test_main_without_cuda_prints_no_result(smoke, capsys):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
@@ -222,6 +255,44 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 def test_card_vs_cpu_rehearses(smoke):
     result = smoke.card_vs_cpu()
-    assert set(result) == {"scann", "faiss", "ivf", "faiss, flash ViT"}
+    assert set(result) == {"scann", "faiss", "ivf", "faiss, flash ViT", *smoke.QUANT_RUNS}
     for run in result.values():
         assert run["miou"] == run["cpu_miou"] and run["label_err"] == 0.0
+    backends = smoke.backends_card_vs_cpu()
+    assert set(backends) == set(smoke.QUANT_RUNS)
+    assert backends["int8_rows"]["exact"] and not backends["l2"]["exact"]
+    assert all(b["code_rows_differ"] == 0 and b["queries_left_out"] == 0 for b in backends.values())
+
+
+def test_int8_bound_of_the_main_shape(smoke):
+    """2·21,904·87,616·768 int8 operations at 1,979 TOP/s: 1.49 ms; at
+    1,024,000 rows 17.4 ms. The bytes (1 per element, 4 per row scale)
+    take far less."""
+    ms, by = smoke.bound_ms(21904, 87616, 768, 30, 1, smoke.PEAK_INT8_OPS, bank_bytes=1, row_bytes=4)
+    assert by == "operations" and ms == pytest.approx(1.49, abs=0.005)
+    ms, _ = smoke.bound_ms(21904, 1024000, 768, 30, 1, smoke.PEAK_INT8_OPS, bank_bytes=1)
+    assert ms == pytest.approx(17.4, abs=0.05)
+    ms, by = smoke.bound_ms(64, 1024000, 768, 30, 2, smoke.PEAK_BF16_FLOPS, bank_bytes=1, row_bytes=4)
+    assert by == "bytes" and ms == pytest.approx((64 * 768 * 2 + 1024000 * 772 + 64 * 30 * 12) / 3.35e9)
+
+
+def test_checks_hold_int8_forms_to_bit_exactness(smoke):
+    """An int8 form that differs from the plain version by one ulp, or
+    swaps two tied indices, fails the bit-exact check."""
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+
+    gen = torch.Generator().manual_seed(4)
+    codes, scale = quantize_bank_int8(torch.randn(600, 32, generator=gen), per_row=True)
+    bank = torch.cat([codes, codes])  # every row tied with its copy
+    rs = torch.cat([scale, scale]).reshape(-1)
+    q8 = quantize_queries_int8(torch.randn(16, 32, generator=gen))[0]
+    vals, idx = knn_mod.exact_knn(q8, bank, 10, row_scale=rs)
+    smoke.check_against_plain("right", q8, bank, 10, 1200, (vals, idx), row_scale=rs, exact=True)
+    with pytest.raises(RuntimeError, match="bit-exact"):
+        smoke.check_against_plain("one ulp", q8, bank, 10, 1200, (torch.nextafter(vals, vals + 1), idx),
+                                  row_scale=rs, exact=True)
+    swapped = idx.clone()
+    swapped[:, [0, 1]] = swapped[:, [1, 0]]  # the two copies of the best row
+    with pytest.raises(RuntimeError, match="bit-exact"):
+        smoke.check_against_plain("tie order", q8, bank, 10, 1200, (vals, swapped), row_scale=rs,
+                                  exact=True)

@@ -364,15 +364,78 @@ def test_default_device_needs_cuda(voc):
             )
 
 
+# The engine runs of the quantized and L2 paths (chip_smoke.py runs them at
+# full width): method, nn_params, the engine's bf16_bank flag.
+QUANT_RUNS = {
+    "int8_rows": ("scann", {"quantization": "int8_rows"}, False),
+    "scann_literal": ("ivf", {"quantization": "int8_asym", "dimensions_per_block": 4,
+                              "anisotropic_quantization_threshold": 0.2,
+                              "num_reordering_candidates": 120,
+                              "num_leaves": 32, "num_leaves_to_search": 32}, False),
+    "int8_rerank": ("faiss", {"use_int8": True, "num_reordering_candidates": 120}, False),
+    "l2": ("faiss", {"distance_measure": "l2"}, True),
+}
+
+
+@pytest.mark.parametrize("run", list(QUANT_RUNS))
+@pytest.mark.parametrize("fixture", ["oracle", "vit"])
+def test_quantized_and_l2_engine_matches_jax(voc, tiny_vit, fixture, run):
+    """hbird_evaluation with each quantized or L2 run against the JAX
+    engine: mIoU within 1e-4, the transferred soft labels within 1e-4, and
+    `return_knn_details` features dequantized on both sides (scored against
+    the query, sorted, within one int8 step of a unit row, 1/127 of ||q||,
+    where quantized scores tie)."""
+    nn_method, nn_params, bf16_bank = QUANT_RUNS[run]
+    if fixture == "oracle":
+        d_model = 3
+        port, jax_side = {"model": None, "ftr_extr_fn": oracle_t}, {"model": None, "ftr_extr_fn": oracle_j}
+        q, _ = oracle_t(None, _val_images(voc))
+    else:
+        (jvit, params), tvit = tiny_vit
+        d_model = 32
+        port, jax_side = {"model": tvit}, {"model": (jvit, params)}
+        with torch.no_grad():
+            q, _ = FeatureExtractor(tvit).forward_features(_val_images(voc))
+    common = dict(
+        batch_size=4, input_size=INPUT, n_neighbours=K, num_workers=0, nn_method=nn_method,
+        return_knn_details=True, bf16_bank=bf16_bank,
+    )
+    random.seed(1234)
+    jt, dt = hbird_tpu_torch.hbird_evaluation(
+        d_model=d_model, patch_size=PATCH, dataset_name="voc", data_dir=voc, device="cpu",
+        nn_params=dict(nn_params), **port, **common,
+    )
+    random.seed(1234)
+    jj, dj = hbird_tpu.hbird_evaluation(
+        d_model=d_model, patch_size=PATCH, dataset_name="voc", data_dir=voc,
+        nn_params=dict(nn_params), **jax_side, **common,
+    )
+    assert abs(jt - jj) <= 1e-4, (jt, jj)
+    if fixture == "oracle" or run == "l2":
+        # On the tiny ViT, int8 rounding turns the packages' ulp-level
+        # feature differences into code flips that move a near-tied
+        # neighbour: its quantized runs are held to the mIoU and the
+        # dequantized features alone.
+        np.testing.assert_allclose(dt["knns_ca_labels"], dj["knns_ca_labels"], atol=1e-4)
+    q = q.numpy().reshape(-1, d_model).astype(np.float64)
+    kt = dt["knns"].reshape(q.shape[0], K, d_model).astype(np.float64)
+    kj = dj["knns"].reshape(q.shape[0], K, d_model).astype(np.float64)
+    # dequantized features: unit-norm rows, not codes of magnitude ~127
+    assert np.abs(kt).max() < 1.5 and np.abs(kj).max() < 1.5
+    st = -np.sort(-np.einsum("qd,qkd->qk", q, kt), axis=1)
+    sj = -np.sort(-np.einsum("qd,qkd->qk", q, kj), axis=1)
+    tol = (1e-5 if run == "l2" and not bf16_bank else 1 / 127) * np.linalg.norm(q, axis=1, keepdims=True)
+    assert (np.abs(st - sj) <= tol).all(), np.abs(st - sj).max()
+
+
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"nn_method": "ivf", "nn_params": {"quantization": "int8_rows"}},
         {"f_mem_p": "bank.npy"},
         {"load_memory": True},
         {"mesh": object()},
     ],
-    ids=["ivf", "persistence", "load_memory", "mesh"],
+    ids=["persistence", "load_memory", "mesh"],
 )
 def test_later_slices_raise(voc, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

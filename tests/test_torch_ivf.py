@@ -13,6 +13,7 @@ scores tie within rounding (XLA and torch sum in another order);
 search values within 1e-5 · ||q|| · max||b||, index sets equal on
 tie-free inputs and value multisets on duplicated rows (the port orders
 ties by slot, the JAX package by probe order or carry slot); labels 1e-6.
+K2's int8 forms and the int8 tree are in test_torch_ivf_int8.py.
 """
 
 import numpy as np
@@ -400,15 +401,25 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
 
 @pytest.mark.parametrize(
     "kwargs, error",
-    [({"int8": True}, NotImplementedError), ({"row_scale": torch.ones(1280)}, NotImplementedError),
+    [({"int8": True}, ValueError), ({"row_scale": torch.ones(1280)}, ValueError),
      ({"k": 129}, ValueError), ({"cap": 300}, ValueError), ({"block_q": 32}, ValueError),
-     ({"mixed": True}, ValueError)],
-    ids=["int8", "row_scale", "k_too_large", "cap_not_slabs", "tiles_mismatch", "mixed_dtype"],
+     ({"mixed": True}, ValueError), ({"codes": True, "row_scale": torch.ones(1279)}, ValueError),
+     ({"codes": True, "depth": 1040}, ValueError)],
+    ids=["int8", "row_scale", "k_too_large", "cap_not_slabs", "tiles_mismatch", "mixed_dtype",
+         "row_scale_length", "int8_too_deep"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
+    """As `pallas_ivf_knn` asserts: dtype pairs outside f32/f32, bf16/bf16,
+    int8/int8 and bf16/int8 (here int8 queries on f32 slabs), row scales on
+    float slabs or of the wrong length, int8 x int8 past D = 1024."""
     kwargs = dict(kwargs)
     _, _, (qt, bt, lids, lv) = _k2_inputs(torch.float32, 64, 2, seed=1)
+    if "depth" in kwargs:
+        d = kwargs.pop("depth")
+        qt, bt = torch.zeros(qt.shape[0], d), torch.zeros(bt.shape[0], d)
     if kwargs.pop("int8", False):
+        qt = qt.to(torch.int8)
+    if kwargs.pop("codes", False):
         qt, bt = qt.to(torch.int8), bt.to(torch.int8)
     if kwargs.pop("mixed", False):
         bt = bt.to(torch.bfloat16)
@@ -528,11 +539,7 @@ def test_backend_builds_its_own_tree_and_trims_padding():
     assert (vals - exact).abs().max().item() <= 1e-5  # every leaf probed: exact
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [{"use_int8": True}, {"quantization": "int8_rows"}, {"bank_scale": 0.1}, {"mesh": object()}],
-    ids=["use_int8", "quantization", "bank_scale", "mesh"],
-)
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}], ids=["mesh"])
 def test_tree_options_of_later_slices_raise(kwargs):
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
 

@@ -9,10 +9,13 @@ repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_ivf_cuda.py
 
-Tolerance: values within 1e-5 · ||q|| · max||b|| (the same exact products
-summed in another order); index sets equal on tie-free inputs; on slabs of
-duplicated rows the kernel's order is value descending, then slot
-ascending, exactly.
+Tolerance: values within 1e-5 · ||q|| · max_i(||b_i|| · s_i) (the same
+exact products summed in another order; s_i is an int8 slot's scale, 1 for
+float slabs and global int8 codes), for f32, bf16 and the asymmetric forms;
+index sets equal on tie-free inputs. int8 x int8 scores are exact integers
+and the row scale one f32 multiply, so the int8 forms equal the plain
+version bit for bit, values and slots. On slabs of duplicated rows the
+kernel's order is value descending, then slot ascending, exactly.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from hbird_tpu_torch.ops import ivf, ivf_cuda
+from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -163,7 +167,76 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
                           cap=256, block_q=64)
     with pytest.raises(ValueError, match="on cpu"):
         ivf_cuda.ivf_topk(q, b.cpu(), lids, lv, 4, cap=256, block_q=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf_cuda.ivf_topk(q.to(torch.int8), b.to(torch.int8), lids, lv, 4, cap=256, block_q=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf_cuda.ivf_topk(q, b, lids, lv, 4, cap=256, block_q=64, row_scale=torch.ones(512))
+    with pytest.raises(ValueError, match="must be f32/f32"):
+        ivf_cuda.ivf_topk(q.to(torch.int8), b, lids, lv, 4, cap=256, block_q=64)
+    with pytest.raises(ValueError, match="row_scale requires"):
+        ivf_cuda.ivf_topk(q, b, lids, lv, 4, cap=256, block_q=64,
+                          row_scale=torch.ones(512, device=cuda_device))
+    q8, b8 = q.to(torch.int8), b.to(torch.int8)
+    with pytest.raises(ValueError, match="divisible by 16"):
+        ivf_cuda.ivf_topk(q8[:, :56].contiguous(), b8[:, :56].contiguous(), lids, lv, 4,
+                          cap=256, block_q=64)
+
+
+def _int8_tree(form, d, block_q, n_probe, seed, dev):
+    """_tree's slabs as int8 codes (per slot for the *_rows forms, padding
+    slots scale 0) under the queries the form takes; with the value
+    tolerance (0 where bit-exact)."""
+    cap = 384
+    q, bank, lids, valid = _tree(12, cap, d, 3, n_probe, block_q, seed=seed)
+    valid[lids[0, 0]] = 0
+    valid[lids[1, 0]] = 7
+    codes, scale = quantize_bank_int8(torch.from_numpy(bank), per_row=form.endswith("rows"))
+    rs = None
+    if form.endswith("rows"):
+        rs = torch.where(torch.from_numpy(bank).abs().amax(1, keepdim=True) > 0, scale, 0.0)
+        rs = rs.reshape(-1)
+    if form.startswith("int8"):
+        qq, tol = quantize_queries_int8(torch.from_numpy(q))[0], 0.0
+    else:
+        qq = torch.from_numpy(q).bfloat16()
+        s = rs if rs is not None else torch.ones(codes.shape[0])
+        tol = RTOL * float(qq.float().norm(dim=1).max() * (codes.float().norm(dim=1) * s).max())
+    put = lambda t: None if t is None else t.to(dev)
+    return (put(qq), put(codes), put(torch.from_numpy(lids)), put(torch.from_numpy(valid)),
+            put(rs), cap, tol)
+
+
+@pytest.mark.parametrize("form", ["int8", "int8_rows", "asym", "asym_rows"])
+@pytest.mark.parametrize("k", [1, 30, 128])
+@pytest.mark.parametrize("block_q, n_probe, d", [(64, 1, 48), (128, 5, 80), (256, 12, 768)])
+def test_int8_forms_match_plain_version(cuda_device, form, k, block_q, n_probe, d):
+    """K2's int8 forms, with an empty probed slab and one with fewer rows
+    than k; depths 48 and 80 end inside a staged depth chunk."""
+    q, codes, lids, lv, rs, cap, tol = _int8_tree(form, d, block_q, n_probe, k + d, cuda_device)
+    before = ivf_cuda.ivf_topk.forms[form]
+    kv, ki = ivf_cuda.ivf_topk(q, codes, lids, lv, k, cap=cap, block_q=block_q, row_scale=rs)
+    pv, pi = ivf.ivf_search_plain(q, codes, lids, lv, k, cap=cap, row_scale=rs)
+    torch.cuda.synchronize()
+    assert ivf_cuda.ivf_topk.forms[form] == before + 1
+    if tol == 0.0:
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    else:
+        finite = torch.isfinite(pv)
+        assert torch.equal(torch.isfinite(kv), finite)
+        assert ((kv - pv).abs()[finite] <= tol).all()
+        assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+
+
+@pytest.mark.parametrize("form", ["int8", "int8_rows"])
+def test_int8_ties_across_slabs_order_by_lowest_slot(cuda_device, form):
+    """Codes in {-1, 0, 1} tie many ways, and the slabs are probed out of
+    slot order (2, 0, 1): an equal score in a later slab carries a lower
+    slot. The kernel equals the plain version's stable order exactly."""
+    cap = 256
+    gen = torch.Generator().manual_seed(5)
+    codes = torch.randint(-1, 2, (3 * cap, 32), generator=gen, dtype=torch.int8)
+    q = torch.randint(-1, 2, (128, 32), generator=gen, dtype=torch.int8)
+    lids = torch.tensor([[2, 0, 1], [1, 2, 0]], dtype=torch.int32)
+    lv = torch.tensor([200, 256, 131], dtype=torch.int32)
+    rs = torch.full((3 * cap,), 0.5) if form == "int8_rows" else None
+    args = [None if t is None else t.to(cuda_device) for t in (q, codes, lids, lv, rs)]
+    kv, ki = ivf_cuda.ivf_topk(*args[:4], 100, cap=cap, block_q=64, row_scale=args[4])
+    pv, pi = ivf.ivf_search_plain(*args[:4], 100, cap=cap, row_scale=args[4])
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)

@@ -8,10 +8,14 @@ them, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_knn_cuda.py
 
-Tolerance: values within 1e-5 · ||q|| · max||b|| (the same exact products
-summed in another order); index sets equal on tie-free inputs; on a bank
-of duplicated rows the kernel's order is value descending, then index
-ascending, exactly.
+Tolerance: values within 1e-5 · ||q|| · max_i(||b_i|| · s_i) (the same
+exact products summed in another order; s_i is an int8 row's scale, 1 for
+float banks and global int8 codes), for f32, bf16, l2 and the asymmetric
+forms; index sets equal on tie-free inputs. int8 x int8 scores are exact
+integers below 2^24 and the row scale is one f32 multiply, so the int8 and
+int8_rows forms equal the plain version bit for bit, values and indices. On
+a bank of duplicated rows the kernel's order is value descending, then
+index ascending, exactly.
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 
 from hbird_tpu_torch.ops import knn_cuda
 from hbird_tpu_torch.ops.knn import exact_knn
+from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +102,83 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         knn_cuda.knn_topk(q, b.cpu(), 4)
     with pytest.raises(ValueError, match="k must be"):
         knn_cuda.knn_topk(q, b, 129)
+    q8, b8 = q.to(torch.int8), b.to(torch.int8)
+    with pytest.raises(ValueError, match="divisible by 16"):
+        knn_cuda.knn_topk(q8[:, :56].contiguous(), b8[:, :56].contiguous(), 4)
+    with pytest.raises(ValueError, match="divisible by 16"):
+        knn_cuda.knn_topk(q[:, :56].bfloat16().contiguous(), b8[:, :56].contiguous(), 4)
+    with pytest.raises(ValueError, match="l2 requires"):
+        knn_cuda.knn_topk(q8, b8, 4, distance="l2")
+    with pytest.raises(ValueError, match="row_scale requires"):
+        knn_cuda.knn_topk(q, b, 4, row_scale=torch.ones(100, device=cuda_device))
+
+
+def _int8_inputs(form, n_q, m, d, seed, dev):
+    """Codes of a unit-row bank (per row for the *_rows forms) and the
+    queries the form takes: int8 codes, or bf16 for the asymmetric forms;
+    with the row scales and the value tolerance (0 where bit-exact)."""
+    q, b = _inputs(n_q, m, d, seed)
+    codes, scale = quantize_bank_int8(torch.from_numpy(b), per_row=form.endswith("rows"))
+    rs = scale.reshape(-1) if form.endswith("rows") else None
+    if form.startswith("int8"):
+        qq, tol = quantize_queries_int8(torch.from_numpy(q))[0], 0.0
+    else:
+        qq = torch.from_numpy(q).bfloat16()
+        s = rs if rs is not None else torch.ones(m)
+        tol = RTOL * float(qq.float().norm(dim=1).max() * (codes.float().norm(dim=1) * s).max())
+    return qq.to(dev), codes.to(dev), None if rs is None else rs.to(dev), tol
+
+
+@pytest.mark.parametrize("form", ["int8", "int8_rows", "asym", "asym_rows"])
+@pytest.mark.parametrize("k", [1, 30, 128])
+@pytest.mark.parametrize("d", [48, 80, 768])
+def test_int8_forms_match_plain_version(cuda_device, form, k, d):
+    """K1 (c), (c)+(d), (e) and (e)+(d) at a ragged valid_rows; depths 48
+    and 80 end inside a staged depth chunk."""
+    q, codes, rs, tol = _int8_inputs(form, 300, 5003, d, seed=k + d, dev=cuda_device)
+    before = dict(knn_cuda.knn_topk.forms)
+    kv, ki = knn_cuda.knn_topk(q, codes, k, valid_rows=4900, row_scale=rs)
+    pv, pi = exact_knn(q, codes, k, valid_rows=4900, row_scale=rs)
+    torch.cuda.synchronize()
+    assert knn_cuda.knn_topk.forms[form] == before.get(form, 0) + 1
+    assert bool((ki < 4900).all())
+    if tol == 0.0:
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    else:
+        assert (kv - pv).abs().max().item() <= tol
+        assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+
+
+@pytest.mark.parametrize("form", ["int8", "int8_rows"])
+def test_int8_ties_keep_the_lowest_index(cuda_device, form):
+    """Codes in {-1, 0, 1} at D = 32 make integer scores tie many ways,
+    within and across bank tiles: the kernel equals the plain version's
+    stable order exactly."""
+    gen = torch.Generator().manual_seed(9)
+    q = torch.randint(-1, 2, (200, 32), generator=gen, dtype=torch.int8)
+    codes = torch.randint(-1, 2, (3000, 32), generator=gen, dtype=torch.int8)
+    rs = torch.full((3000,), 0.25) if form == "int8_rows" else None
+    args = [t.to(cuda_device) if t is not None else None for t in (q, codes, rs)]
+    kv, ki = knn_cuda.knn_topk(args[0], args[1], 100, valid_rows=2999, row_scale=args[2])
+    pv, pi = exact_knn(args[0], args[1], 100, valid_rows=2999, row_scale=args[2])
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 30, 128])
+def test_l2_matches_plain_version(cuda_device, dtype, k):
+    """K1 (b) on rows of unequal norm (the l2 order differs from the dot
+    order); the bias is the wrapper's, the same tensor both see."""
+    rng = np.random.default_rng(20 + k)
+    q = rng.normal(size=(300, 64)).astype(np.float32)
+    b = (rng.normal(size=(5003, 64)) * rng.uniform(0.2, 3.0, (5003, 1))).astype(np.float32)
+    qt = torch.from_numpy(q).to(cuda_device, dtype)
+    bt = torch.from_numpy(b).to(cuda_device, dtype)
+    before = knn_cuda.knn_topk.forms["l2"]
+    kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=4900, distance="l2")
+    pv, pi = exact_knn(qt, bt, k, valid_rows=4900, distance="l2")
+    torch.cuda.synchronize()
+    assert knn_cuda.knn_topk.forms["l2"] == before + 1
+    assert (kv - pv).abs().max().item() <= _tol(q, b)
+    assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
