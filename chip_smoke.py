@@ -9,7 +9,13 @@ Phases; any failure raises and the script exits non-zero with no result:
 1. The card (nvidia-smi name and power limit) and versions; K1
    (hbird_tpu_torch/ops/csrc/knn_topk.cu), K2 (ops/csrc/ivf_topk.cu) and K3
    (ops/csrc/flash_attn.cu) are built with nvcc for sm_90a, one nvcc each,
-   started together.
+   started together. For the Hopper kernels (K1's and K3's bf16 wgmma
+   kernels, ops/csrc/hopper.cuh) it prints what ptxas reported (registers,
+   spills by instance, that setmaxnreg was not ignored, and any warpgroup
+   wait or arrive it injected or wgmma it serialised) and the dynamic shared
+   memory they ask for; where cuobjdump exists, the HGMMA, UTMALDG and HMMA
+   (mma.sync) instructions of each library and of each wgmma kernel, which
+   must issue HGMMA and UTMALDG and no HMMA.
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
@@ -91,9 +97,11 @@ Phases; any failure raises and the script exits non-zero with no result:
    1,024,000-row bank (cap 2,816, 32 of 512 leaves) (the probed slabs
    gathered per tile, then torch.bmm + torch.topk, chunked over tiles),
    and in its int8_rows and asym_rows forms on the same trees' slabs as
-   per-row codes; K3 at the main shape in bf16 and f32
-   (torch.nn.functional.scaled_dot_product_attention). Then the ViT-B/14
-   forward per batch of 16 at 518: 'xla' and 'flash', f32 and bf16.
+   per-row codes; K3 at the main shape in bf16 and f32 and in bf16 at
+   (1, 12, 4625, 64) (torch.nn.functional.scaled_dot_product_attention).
+   K1's bf16 dot and l2 rows and K3's bf16 rows print their share of the
+   bound (bound / ms) and their ratio to the library call. Then the
+   ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and bf16.
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs); index
@@ -116,10 +124,22 @@ differ by about one ulp; the output's own rounding adds at most one.
 
 Output: a {"kernels": [...]} line, the nvidia-smi card line, and last
 {"ok": true, "device": {...}}.
+
+Parent against change: `python3 chip_smoke.py --pairs TREE` imports the
+package of the source tree TREE instead of this one's, builds its K1 and K3,
+and times only the kernels redesigned for Hopper, each beside its bound and
+library call (phase 7's helpers): K3 bf16 at the main shape and at (1, 12,
+4625, 64) on unit normals, and K1 bf16 dot and l2 with k in {30, 128}, Q =
+21,904 normal queries against 87,616 and 1,024,000 unit rows. It prints one
+JSON line. Two trees are compared in one session on one card, each in its
+own process, in turns: parent, change, change, parent.
 """
 
+import argparse
 import json
+import pathlib
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -161,6 +181,10 @@ FLASH_SHAPES = {
     "65 tokens": (2, 2, 65, 64),
 }
 FLASH_MAIN = (16, 12, 1370, 64)  # the main path's (B, H, N, hd)
+FLASH_LONG = (1, 12, 4625, 64)  # dinov2 at input 952: the longest sequence timed
+PAIR_Q, PAIR_M, PAIR_KS = 21904, 87616, (30, 128)  # --pairs: the main path's eval batch and bank
+# The Hopper kernels: source -> the name their wgmma kernels carry.
+WGMMA_KERNELS = {"knn_topk.cu": "knn_bf16_wgmma", "flash_attn.cu": "flash_bf16_wgmma"}
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 LAYERSCALE = 0.05  # the flash path's LayerScale (see flash_path)
 # The quantized and L2 engine runs: nn_method, nn_params, the engine's
@@ -595,6 +619,104 @@ def flash_cases(gen):
                                     flash_attention_plain(q, k, v, scale)))
             del q, k, v, out
     return max(errs)
+
+
+def shares(ms, bound, library):
+    """'share of the bound x, y x the library' for a timed row."""
+    lib = "no library call" if library is None else f"{ms / library:.3f}x the library call"
+    return f"{bound / ms:.1%} of the bound, {lib}"
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# ptxas notes on wgmma: a warpgroup.wait (C7517) or warpgroup.arrive (C7519)
+# it injected, or wgmma serialised (C7520).
+WGMMA_NOTES = ("C7517", "C7519", "C7520")
+
+
+def ptxas_report(log, name):
+    """Of the kernel `name` in an nvcc -Xptxas -v log: each instance's
+    template arguments (as mangled), registers at entry and spill stores;
+    the setmaxnreg-ignored warnings; and the WGMMA_NOTES lines."""
+    lines = log.splitlines()
+    args, regs, spills = [], [], []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            targs = re.search(re.escape(name) + r"(I\w*?E)E", line)
+            args.append(targs.group(1) if targs else "")
+            for nxt in lines[i + 1:i + 5]:
+                if "spill stores" in nxt:
+                    spills.append(int(re.search(r"(\d+) bytes spill stores", nxt).group(1)))
+                if "Used" in nxt and "registers" in nxt:
+                    regs.append(int(re.search(r"Used (\d+) registers", nxt).group(1)))
+                    break
+    ignored = [ln.strip() for ln in lines if "setmaxnreg" in ln and "ignored" in ln]
+    notes = [ln.strip() for ln in lines
+             if name in ln and any(f"({code})" in ln for code in WGMMA_NOTES)]
+    return {"instances": len(regs), "template_args": args, "registers": regs,
+            "spill_store_bytes": spills, "setmaxnreg_ignored": ignored, "wgmma_notes": notes}
+
+
+def sass_counts(sass):
+    """SASS_OPS counted per function of a cuobjdump -sass listing."""
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            per_fn[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    per_fn[fn][op] += 1
+    return per_fn
+
+
+def build_report(libs):
+    """Phase 1: what ptxas said of the Hopper kernels, the shared memory
+    they ask for, and the SASS instructions of each library by cuobjdump
+    (where it exists): each wgmma kernel must issue HGMMA and UTMALDG and no
+    HMMA (mma.sync)."""
+    import ctypes
+    import shutil
+
+    from hbird_tpu_torch.ops import cuda_build
+
+    report = {}
+    for src, name in WGMMA_KERNELS.items():
+        if src not in cuda_build.LOGS:
+            print(f"  {src}: built before this run, no ptxas report", flush=True)
+            continue
+        r = report[name] = ptxas_report(cuda_build.LOGS[src], name)
+        spills = dict(zip(r["template_args"], r["spill_store_bytes"]))
+        print(f"  ptxas, {name} ({r['instances']} instances): registers at entry "
+              f"{sorted(set(r['registers']))}, spill stores by instance {json.dumps(spills)} bytes; "
+              "setmaxnreg " + (f"IGNORED: {r['setmaxnreg_ignored'][0]}" if r["setmaxnreg_ignored"]
+                               else "not ignored (no C7508 warning)")
+              + f"; {len(r['wgmma_notes'])} wgmma notes ({', '.join(WGMMA_NOTES)})", flush=True)
+        for note in r["wgmma_notes"]:
+            print(f"    {note}", flush=True)
+    k1 = ctypes.CDLL(str(libs["knn_topk.cu"]))
+    k3 = ctypes.CDLL(str(libs["flash_attn.cu"]))
+    smem = {"knn_bf16_wgmma": k1.knn_topk_bf16_smem(DEPTH), "flash_bf16_wgmma": k3.flash_attn_wgmma_smem()}
+    print(f"  dynamic shared memory: knn_bf16_wgmma {smem['knn_bf16_wgmma']} B at D={DEPTH}, "
+          f"flash_bf16_wgmma {smem['flash_bf16_wgmma']} B", flush=True)
+    report["smem_bytes"] = smem
+    tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
+    if tool is None:
+        print("  cuobjdump not found: SASS not counted", flush=True)
+        return report
+    for src, path in libs.items():
+        per_fn = sass_counts(subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                                            text=True).stdout)
+        total = {op: sum(c[op] for c in per_fn.values()) for op in SASS_OPS}
+        name = WGMMA_KERNELS.get(src)
+        wg_fns = {f: c for f, c in per_fn.items() if name and name in f}
+        print(f"  SASS of {path.name}: {json.dumps(total)}; wgmma kernels (HGMMA, UTMALDG, HMMA): "
+              f"{json.dumps(sorted({tuple(c.values()) for c in wg_fns.values()}))}", flush=True)
+        for f, c in wg_fns.items():
+            if c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"]:
+                fail(f"{f}: {c} (a wgmma kernel must issue HGMMA and UTMALDG and no HMMA)")
+        report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
+    return report
 
 
 def reset_counts(counters):
@@ -1035,6 +1157,14 @@ def fmt_ms(t):
     return "n/a" if t is None else f"{t:.3f} ms"
 
 
+def k1_library(q, bb, k, neg_bias=None, chunk=4096):
+    """K1's library yardstick, chunked over the queries: a bf16 matmul (or
+    torch.addmm with the negated l2 bias), then torch.topk."""
+    for s in range(0, q.shape[0], chunk):
+        x = q[s:s + chunk]
+        torch.topk(x @ bb.T if neg_bias is None else torch.addmm(neg_bias, x, bb.T), k, dim=1)
+
+
 def k1_form_rows(q, bb, label, k, reps, rows, errs):
     """Phase 7: K1's forms (b)-(e) on the bank `bb` (bf16) and the queries
     `q` (bf16): each timed beside its plain version, its bound and a
@@ -1064,10 +1194,6 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
         for s in range(0, n_q, chunk):
             torch.topk((q[s:s + chunk] @ wide.T).float() * rs, k, dim=1)
 
-    def addmm():
-        for s in range(0, n_q, chunk):
-            torch.topk(torch.addmm(neg_bias, q[s:s + chunk], bb.T), k, dim=1)
-
     forms = {
         # form: (queries, bank, row_scale, distance, exact, library, bytes of q / bank row, peak)
         "int8": (q8, codes_g, None, "dot_product", True, lambda: int_mm(q8, codes_g, None), 1, 1, 0,
@@ -1075,7 +1201,8 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
         "int8_rows": (q8, codes_r, rs, "dot_product", True, lambda: int_mm(q8, codes_r, rs), 1, 1, 4,
                       PEAK_INT8_OPS),
         "asym_rows": (q, codes_r, rs, "dot_product", False, asym_mm, 2, 1, 4, PEAK_BF16_FLOPS),
-        "l2": (q, bb, None, "l2", False, addmm, 2, 2, 0, PEAK_BF16_FLOPS),
+        "l2": (q, bb, None, "l2", False, lambda: k1_library(q, bb, k, neg_bias, chunk), 2, 2, 0,
+               PEAK_BF16_FLOPS),
     }
     for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak) in forms.items():
         kw = dict(distance=dist, row_scale=r)
@@ -1091,7 +1218,8 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
                                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                                    "library_ms": lib_ms}
         print(f"  K1 {form} {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})", flush=True)
+              f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})"
+              + (f": {shares(ms, b_ms, lib_ms)}" if form == "l2" else ""), flush=True)
 
 
 def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
@@ -1137,10 +1265,6 @@ def timing(q, bank, main_tree, gen):
     from hbird_tpu_torch.ops.knn import exact_knn
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
 
-    def library(qq, bb, k, chunk=4096):
-        for s in range(0, qq.shape[0], chunk):
-            torch.topk(qq[s:s + chunk] @ bb.T, k, dim=1)
-
     k = 30
     n_q, d = q.shape
     k1_rows, k2_rows, errs = {}, {}, {"K1": 0.0, "K2": 0.0}
@@ -1157,12 +1281,13 @@ def timing(q, bank, main_tree, gen):
         errs["K1"] = max(errs["K1"], check_against_plain(f"K1 timing shape {label}", q, bb, k, m,
                                                           out, plain))
         del plain
-        lib_ms = cuda_ms(lambda: library(q, bb, k), reps)
+        lib_ms = cuda_ms(lambda: k1_library(q, bb, k), reps)
         b_ms, b_by = bound_ms(n_q, m, d, k, 2, PEAK_BF16_FLOPS)
         k1_rows[label] = {"Q": n_q, "M": m, "D": d, "k": k, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         print(f"  K1 {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"(k+1), library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+              f"(k+1), library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}): "
+              f"{shares(ms, b_ms, lib_ms)}", flush=True)
         k1_form_rows(q, bb, label, k, reps, k1_rows, errs)
 
     t0 = time.perf_counter()
@@ -1207,20 +1332,23 @@ def flash_timing(gen):
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
 
     rows, errs = {}, []
-    scale = FLASH_MAIN[-1] ** -0.5
-    for label, dtype, peak in (("main", torch.bfloat16, PEAK_BF16_FLOPS), ("f32", torch.float32, PEAK_F32_FLOPS)):
-        q, k, v = (torch.randn(FLASH_MAIN, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+    for label, shape, dtype, peak in (("main", FLASH_MAIN, torch.bfloat16, PEAK_BF16_FLOPS),
+                                      ("f32", FLASH_MAIN, torch.float32, PEAK_F32_FLOPS),
+                                      ("long", FLASH_LONG, torch.bfloat16, PEAK_BF16_FLOPS)):
+        scale = shape[-1] ** -0.5
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
         ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 10)
         box = {}
         plain_ms = cuda_ms(lambda: box.update(out=flash_attention_plain(q, k, v, scale)), 3)
-        errs.append(check_flash(f"K3 timing shape {str(dtype)[6:]} {FLASH_MAIN}",
+        errs.append(check_flash(f"K3 timing shape {str(dtype)[6:]} {shape}",
                                 flash_attention(q, k, v, scale), box.pop("out")))
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 10)
-        b_ms, b_by = flash_bound_ms(FLASH_MAIN, q.element_size(), peak)
-        rows[label] = {"shape": list(FLASH_MAIN), "dtype": str(dtype)[6:], "ms": ms, "plain_ms": plain_ms,
+        b_ms, b_by = flash_bound_ms(shape, q.element_size(), peak)
+        rows[label] = {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        print(f"  K3 {str(dtype)[6:]} {FLASH_MAIN}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"  K3 {str(dtype)[6:]} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+              + (f": {shares(ms, b_ms, lib_ms)}" if dtype == torch.bfloat16 else ""), flush=True)
         del q, k, v
     return rows, max(errs)
 
@@ -1250,6 +1378,53 @@ def forward_timing(gen_seed, gen):
     return rows
 
 
+def pairs(tree):
+    """--pairs: the Hopper-redesigned kernels of the imported package (K3
+    bf16, K1 bf16 dot and l2) timed alone by CUDA events, each beside its
+    bound and its library call; returns the JSON-ready result."""
+    import hbird_tpu_torch
+    from hbird_tpu_torch.ops import cuda_build
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+    from hbird_tpu_torch.ops.knn import l2_bias
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        for src in ("knn_topk.cu", "flash_attn.cu"):
+            cuda_build.build(src)
+    out = {"tree": tree, "package": str(pathlib.Path(hbird_tpu_torch.__file__).parent),
+           "build_s": time.perf_counter() - t0, "k3": {}, "k1": {}}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def record(kernel, label, ms, shape_bound, library):
+        b_ms, b_by = shape_bound
+        out[kernel][label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+        print(f"  [{tree}] {kernel.upper()} {label}: {ms:.4f} ms, library {library:.4f} ms, bound "
+              f"{b_ms:.4f} ms: {shares(ms, b_ms, library)}", flush=True)
+
+    for shape in (FLASH_MAIN, FLASH_LONG):
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).bfloat16() for _ in range(3))
+        scale = shape[-1] ** -0.5
+        ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 20)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+        record("k3", f"bf16 {shape}", ms, flash_bound_ms(shape, 2, PEAK_BF16_FLOPS), lib)
+        del q, k, v
+    q = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE).bfloat16()
+    for m in (PAIR_M, BIG_M):
+        bank = torch.nn.functional.normalize(
+            torch.randn(m, DEPTH, generator=gen, device=DEVICE), dim=1).bfloat16()
+        neg_bias = (-l2_bias(bank)).bfloat16()
+        reps = 5 if m < 200_000 else 2
+        for k in PAIR_KS:
+            bound = bound_ms(PAIR_Q, m, DEPTH, k, 2, PEAK_BF16_FLOPS)
+            for form, kw, nb in (("dot", {}, None), ("l2", {"distance": "l2"}, neg_bias)):
+                ms = cuda_ms(lambda: knn_topk(q, bank, k, **kw), reps)
+                lib = cuda_ms(lambda: k1_library(q, bank, k, nb), reps)
+                record("k1", f"bf16 {form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
+        del bank, neg_bias
+    return out
+
+
 def kernel_entry(name, source, tpu_kernel, launches, err, rows, card, forms=None):
     """One kernel of the `kernels` line: the top-level numbers are its
     'main' shape row (the bf16 form at the main path's shape); `shapes`
@@ -1265,10 +1440,19 @@ def kernel_entry(name, source, tpu_kernel, launches, err, rows, card, forms=None
     return entry
 
 
-def main():
+def main(argv=()):
+    ap = argparse.ArgumentParser(description="Smoke run of hbird_tpu_torch on one CUDA card.")
+    ap.add_argument("--pairs", metavar="TREE",
+                    help="time only the Hopper-redesigned kernels of TREE's package (see the docstring)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.pairs is not None:
+        sys.path.insert(0, str(pathlib.Path(args.pairs).resolve()))
+        print(card_line(), flush=True)
+        print(json.dumps(pairs(args.pairs)), flush=True)
+        return 0
     from hbird_tpu_torch.device import resolve_device
     from hbird_tpu_torch.ops import cuda_build
 
@@ -1284,6 +1468,7 @@ def main():
     libs = cuda_build.build_all(verbose=True)
     print(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f}s",
           flush=True)
+    build = build_report(libs)
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     print("[2] K1 vs plain version", flush=True)
@@ -1327,6 +1512,7 @@ def main():
                      k3_rows, card),
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
+        "hopper_build": build,
         "seconds": time.perf_counter() - t_start}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
@@ -1337,4 +1523,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -16,26 +16,51 @@
 // 4·B·H·N·hd elements moved (q, k, v read, o written); at the ViT-B/14 main
 // shape (16, 12, 1370, 64) that is ~685 flops per bf16 byte, above the ~295
 // at which the card stops being memory bound. So both products go on the
-// tensor cores for bf16 (mma.sync m16n8k16, f32 accumulation), fed by a
-// two-stage cp.async ring of 64-key K/V tiles, and the scores, the softmax
-// and p never leave registers: p is re-packed from the q·kᵀ accumulator
-// layout straight into the A operand of p·v. f32 inputs use FMAs on a
-// 64×64 score tile in shared memory (no TF32, which would round the
-// inputs).
+// tensor cores for bf16, and the scores, the softmax and p never leave
+// registers. f32 inputs use FMAs on a 64×64 score tile in shared memory (no
+// TF32, which would round the inputs).
 //
-// Design: one CTA per (b, h, 64-query block); the TPU grid's sequential
-// key axis becomes the loop over 64-key tiles inside the CTA, with the
-// running max m, the sum l and the f32 output accumulator kept across it.
-// bf16: 4 warps, each owning 16 query rows and the whole 64-key tile. f32:
-// 256 threads, each owning a 4×4 part of the score tile and 4 rows × hd/16
-// columns of the output. q, k and v are read through strides (the ViT hands
-// over views of its qkv projection) and o is written through its own (the
-// wrapper lays it out so that the heads merge back without a copy). Head
-// widths 32, 64 and 80 (every VIT_PRESETS width) are instantiated.
+// bf16 at hd = 64 (every dinov2, DINO, ViT-B/L and MAE-B/L preset; the main
+// path), `flash_bf16_wgmma`, built from hopper.cuh:
+// - Persistent CTAs, one per SM, walk work items (b, h, 128-query block),
+//   the blocks of one head adjacent so that its K and V stay in L2.
+// - A CTA is one producer warp (in a warpgroup that gives its registers
+//   away with setmaxnreg) and two consumer warpgroups of 64 query rows each.
+//   The producer issues every copy by TMA from 4-D tensor maps (hd, N, H,
+//   B) built from the strides: the ViT's strided views of its qkv
+//   projection go in as they are, a tile never crosses into the next head,
+//   and rows at or past N arrive as zeros. Q comes once per item; K and V
+//   stream in 128-key tiles through a 4-stage ring with full (K, V) and
+//   empty mbarriers, across item boundaries.
+// - s = q·kᵀ is wgmma m64n128k16 with both operands K-major in 128-byte
+//   swizzled shared memory; p·v is wgmma m64n64k16 with p as the register
+//   A operand (cast to bf16 from the s accumulator, whose layout is the A
+//   fragment's) and V as the MN-major B operand (the transpose bit): no
+//   ldmatrix, no shared-memory round trip of s or p.
+// - Online softmax in f32 registers with exp2 of s·scale·log2(e), the sum
+//   divided out once at the end; key columns at or past N score -inf.
+// - Overlap, both kept by measurement (PERF.md): the next tile's q·kᵀ is
+//   issued together with this tile's p·v and the softmax runs while p·v is
+//   in flight; and the two consumer warpgroups take turns issuing products
+//   (ping-pong on named barriers), so one's softmax runs under the other's
+//   products.
+// Other widths (hd 32: mocov3_vits16; hd 80: mae_vith14, whose 160-byte
+// rows do not fit one 128-byte swizzle row) keep `flash_bf16<HD>`: 4 warps
+// per 64-query block on mma.sync m16n8k16, fed by a two-stage cp.async ring
+// of 64-key tiles, p re-packed from registers into the A operand. The
+// choice is made by hd in flash_attn_launch.
+//
+// Design of the rest: the TPU grid's sequential key axis becomes the loop
+// over key tiles inside the CTA, with the running max m, the sum l and the
+// f32 output accumulator kept across it. f32: 256 threads per 64-query
+// block, each owning a 4×4 part of the score tile and 4 rows × hd/16
+// columns of the output. o is written through its own strides (the wrapper
+// lays it out so that the heads merge back without a copy).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
 
+#include "hopper.cuh"
 #include "topk_common.cuh"  // cp_async16, ldmatrix_x4, mma_bf16, allow_smem, neg_inf
 
 namespace {
@@ -242,6 +267,284 @@ __global__ void __launch_bounds__(BF16_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, hd = 64: wgmma on TMA-fed rings with a producer warp.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int HD = 64;
+constexpr int BQ = 128;                 // queries per item: two consumer warpgroups of 64
+constexpr int BKV = 128;                // keys per tile
+constexpr int STAGES = 4;               // K/V ring depth
+constexpr int TILE = BKV * HD * 2;      // bytes of a K or V tile, and of the Q tile
+constexpr int THREADS = 384;            // producer warpgroup + two consumer warpgroups
+constexpr int SMEM = hopper::SMEM_ALIGN + TILE * (1 + 2 * STAGES) + 256;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s = q·kᵀ for one 128-key tile (A: the warpgroup's 64 query rows).
+__device__ __forceinline__ void issue_s(float (&s)[64], const unsigned char* qa,
+                                        const unsigned char* kt) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    hopper::wgmma_m64n128k16_ss(s, hopper::sw128_desc(qa + kk * 32),
+                                hopper::sw128_desc(kt + kk * 32), kk > 0);
+  hopper::wgmma_commit();
+}
+
+// o += p·v for one 128-key tile: 8 k16 steps of 16 keys (2,048 bytes of V).
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[8][4],
+                                         const unsigned char* vt) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    hopper::wgmma_m64n64k16_rs_tb(o, p[kk], hopper::sw128_desc(vt + kk * 2048), 1);
+  hopper::wgmma_commit();
+}
+
+// The online softmax of one score tile in place (s becomes unnormalised p
+// in f32): scores scaled by sl2 = scale·log2(e), columns at or past n
+// masked, the rows' maxima m and partial sums l updated; alpha rescales the
+// output accumulated so far. Accumulator element 4j+e: row g (e < 2) or
+// g + 8, column 8j + 2·(lane%4) + (e&1).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int c0, int n, float sl2,
+                                             int lane) {
+  float mx[2] = {m[0], m[1]};
+  const bool ragged = c0 + BKV > n;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * sl2;
+      if (ragged && c0 + 8 * j + 2 * (lane & 3) + (e & 1) >= n) x = neg_inf();
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    alpha[i] = ex2(m[i] - mx[i]);  // 0 on the first tile (m = -inf)
+    m[i] = mx[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(s[4 * j + e] - m[e >> 1]);
+      l[e >> 1] += s[4 * j + e];
+    }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// p as bf16 A fragments of the 8 k16 steps: columns 16kk.. are accumulator
+// groups 2kk and 2kk+1.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4], const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// Consumer warpgroup `cw`'s turn to issue products (ping-pong): named
+// barrier 1 + cw, completed by the other warpgroup's arrival.
+__device__ __forceinline__ void turn_begin(int cw) { hopper::named_sync(1 + cw, 256); }
+
+__device__ __forceinline__ void turn_end(int cw) { hopper::named_arrive(2 - cw, 256); }
+
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                     int heads, int n, long long ob, long long oh, long long on, float sl2,
+                     int n_qblocks, int n_items) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::aligned_smem(smem_raw);
+  unsigned char* ks = qs + TILE;
+  unsigned char* vs = ks + STAGES * TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * TILE);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+  const int n_tiles = (n + BKV - 1) / BKV;
+  const int wgi = __shfl_sync(FULL, threadIdx.x / 128, 0);  // warp-uniform to the compiler
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 256);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, 256);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // Producer: one thread issues every TMA copy.
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensor_map(&tq);
+      hopper::prefetch_tensor_map(&tk);
+      hopper::prefetch_tensor_map(&tv);
+      int stage = 0;
+      uint32_t phase = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int bh = item / n_qblocks, qb = item % n_qblocks;
+        const int b = bh / heads, h = bh % heads;
+        hopper::mbar_wait(q_empty, (it & 1) ^ 1);
+        hopper::mbar_expect_tx(q_full, TILE);
+        hopper::tma_load_4d(qs, &tq, q_full, 0, qb * BQ, h, b);
+        for (int t = 0; t < n_tiles; ++t) {
+          hopper::mbar_wait(empty + stage, phase ^ 1);
+          hopper::mbar_expect_tx(k_full + stage, TILE);
+          hopper::tma_load_4d(ks + stage * TILE, &tk, k_full + stage, 0, t * BKV, h, b);
+          hopper::mbar_expect_tx(v_full + stage, TILE);
+          hopper::tma_load_4d(vs + stage * TILE, &tv, v_full + stage, 0, t * BKV, h, b);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup cw owns query rows [64·cw, 64·cw + 64) of the item.
+    hopper::reg_alloc<232>();
+    const int cw = wgi - 1;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid >> 5, lane = tid & 31;
+    const unsigned char* qa = qs + cw * (TILE / 2);
+    if (cw == 1) hopper::named_arrive(1, 256);  // consumer 0 takes the first turn
+    int stage = 0;
+    uint32_t phase = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int bh = item / n_qblocks, qb = item % n_qblocks;
+      const int b = bh / heads, h = bh % heads;
+      float acc[32], s[64], m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f}, alpha[2];
+      uint32_t p[8][4];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      hopper::mbar_wait(q_full, it & 1);
+
+      // Prologue: s of tile 0 and its softmax.
+      turn_begin(cw);
+      hopper::mbar_wait(k_full + stage, phase);
+      issue_s(s, qa, ks + stage * TILE);
+      turn_end(cw);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      if (n_tiles == 1) hopper::mbar_arrive(q_empty);
+      softmax_tile(s, m, l, alpha, 0, n, sl2, lane);
+      pack_p(p, s);
+      int prev = stage;
+      uint32_t prev_phase = phase;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      for (int t = 1; t < n_tiles; ++t) {
+        // s of tile t and p·v of tile t-1 in flight together; the softmax
+        // of tile t runs under p·v.
+        turn_begin(cw);
+        hopper::mbar_wait(k_full + stage, phase);
+        issue_s(s, qa, ks + stage * TILE);
+        rescale(acc, alpha);
+        hopper::mbar_wait(v_full + prev, prev_phase);
+        issue_pv(acc, p, vs + prev * TILE);
+        turn_end(cw);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(s);
+        if (t == n_tiles - 1) hopper::mbar_arrive(q_empty);
+        softmax_tile(s, m, l, alpha, t * BKV, n, sl2, lane);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        hopper::mbar_arrive(empty + prev);
+        pack_p(p, s);
+        prev = stage;
+        prev_phase = phase;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      turn_begin(cw);
+      rescale(acc, alpha);
+      hopper::mbar_wait(v_full + prev, prev_phase);
+      issue_pv(acc, p, vs + prev * TILE);
+      turn_end(cw);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::mbar_arrive(empty + prev);
+
+      // Normalise once and store the rows below n: rows g and g + 8 of the
+      // warp's 16, head dims 8j + 2·(lane%4).
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(FULL, l[i], 1);
+        l[i] += __shfl_xor_sync(FULL, l[i], 2);
+        inv[i] = 1.0f / l[i];
+      }
+      __nv_bfloat16* ob_h = o + b * ob + h * oh;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = qb * BQ + cw * 64 + warp * 16 + (lane >> 2) + 8 * i;
+        if (row >= n) continue;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = 8 * j + 2 * (lane & 3);
+          *reinterpret_cast<__nv_bfloat162*>(ob_h + row * on + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
+        }
+      }
+    }
+  }
+}
+
+// K3 bf16 at hd = 64: the tensor maps of q, k and v (shared strides), then
+// the kernel. Returns 0, a cudaError_t or a hopper::ERR_* code.
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n,
+           const Layout& lay, float scale, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const uint64_t dims[4] = {HD, static_cast<uint64_t>(n), static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(lay.sn) * 2, static_cast<uint64_t>(lay.sh) * 2,
+                               static_cast<uint64_t>(lay.sb) * 2};
+  const uint32_t box[4] = {HD, BKV, 1, 1};
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int r = hopper::encode_tensor_map(&maps[i], 4, ptrs[i], dims, strides, box);
+    if (r != 0) return r;
+  }
+  const int n_qblocks = (n + BQ - 1) / BQ;
+  const int n_items = n_qblocks * batch * heads;
+  const float sl2 = scale * 1.4426950408889634f;
+  const cudaError_t e = allow_smem(flash_bf16_wgmma, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int sms = hopper::sm_count();
+  const int grid = sms > 0 && sms < n_items ? sms : n_items;
+  flash_bf16_wgmma<<<grid, THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2],
+                                                    static_cast<__nv_bfloat16*>(o), heads, n, lay.ob,
+                                                    lay.oh, lay.on, sl2, n_qblocks, n_items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // f32: FMAs.
 // ---------------------------------------------------------------------------
 
@@ -393,13 +696,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
                    int n, Layout lay, float scale, int is_bf16, cudaStream_t stream) {
   const dim3 grid((n + FQ - 1) / FQ, batch * heads);
   if (is_bf16) {
-    const size_t smem = 5 * 64 * (HD + 8) * sizeof(__nv_bfloat16);  // q, 2 × (k, v)
-    const cudaError_t e = allow_smem(flash_bf16<HD>, smem);
-    if (e != cudaSuccess) return e;
-    flash_bf16<HD><<<grid, BF16_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), heads, n, lay,
-        scale);
+    if constexpr (HD == wg::HD) {
+      return cudaErrorInvalidValue;  // wg::launch takes bf16 at hd = 64
+    } else {
+      const size_t smem = 5 * 64 * (HD + 8) * sizeof(__nv_bfloat16);  // q, 2 × (k, v)
+      const cudaError_t e = allow_smem(flash_bf16<HD>, smem);
+      if (e != cudaSuccess) return e;
+      flash_bf16<HD><<<grid, BF16_THREADS, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), heads, n, lay,
+          scale);
+    }
   } else {
     const size_t smem = (2 * HD * (FQ + 4) + FK * (HD + 4) + FQ * (FK + 4)) * sizeof(float);
     const cudaError_t e = allow_smem(flash_f32<HD>, smem);
@@ -418,7 +725,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
 // has strides (ob, oh, on) and a unit stride along hd. All f32 (is_bf16 =
 // 0) or all bf16 (is_bf16 = 1); hd is 32, 64 or 80; pointers and strides
 // are 16-byte aligned. n >= 1, batch · heads <= 65,535.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched), or 9001 / 9002
+// when the tensor maps of the hd = 64 bf16 kernel cannot be encoded.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int batch,
                                  int heads, int n, int hd, long long sb, long long sh,
                                  long long sn, long long ob, long long oh, long long on,
@@ -427,6 +735,8 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay{sb, sh, sn, ob, oh, on};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && hd == wg::HD)
+    return wg::launch(q, k, v, o, batch, heads, n, lay, scale, s);
   cudaError_t e;
   switch (hd) {
     case 32: e = launch<32>(q, k, v, o, batch, heads, n, lay, scale, is_bf16, s); break;
@@ -436,3 +746,6 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
   }
   return static_cast<int>(e);
 }
+
+// Dynamic shared memory the bf16 hd = 64 kernel asks for.
+extern "C" int flash_attn_wgmma_smem() { return wg::SMEM; }

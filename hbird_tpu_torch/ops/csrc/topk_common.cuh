@@ -1,11 +1,14 @@
 // Device code shared by K1 (knn_topk.cu) and K2 (ivf_topk.cu): the running
 // top-k of 64-bit keys, the f32 FMA score tile, and the tensor-core score
 // tile (bf16, int8, and bf16 queries on int8 codes) fed by a two-stage
-// cp.async ring, with the score epilogue of the TPU kernels' forms.
+// cp.async ring, with the score epilogue of the TPU kernels' forms. The
+// keys, merge_row and TopK are the one definition of the tie order: K1's
+// bf16 wgmma kernel (knn_topk.cu, built on hopper.cuh) keeps its top sets in
+// TopK<S, 16> and merges with merge_row too, but scores without mma_scan.
 //
-// Both kernels give one CTA (256 threads) BQ = 64 queries and walk bank
-// tiles of BM = 128 rows; K1 walks the whole bank, K2 only the rows of the
-// leaf slabs its query tile probes. A finished 64×128 f32 score tile goes to
+// The mma_scan kernels give one CTA (256 threads) BQ = 64 queries and walk
+// bank tiles of BM = 128 rows; K1's f32 and int8 forms walk the whole bank,
+// K2 only the rows of the leaf slabs its query tile probes. A finished 64×128 f32 score tile goes to
 // shared memory (columns past the tile's valid rows score -inf) and is merged
 // into the queries' running top sets:
 // - Each warp owns 8 queries. A query's running top-(32·S) lives in
@@ -95,9 +98,35 @@ __device__ __forceinline__ u64 warp_min(u64 v) {
   return v;
 }
 
-// Insert a query's tile candidates `ck` (CAND keys per lane) into its
-// running top set `keys` (S keys per lane). `thr` is the set's minimum key
-// (warp-uniform) and is kept current.
+// Put `g`, a key above the set's minimum `thr`, into a query's running top
+// set `keys` (S keys per lane) in place of one slot holding the minimum
+// (keys are unique except the identical initial slots, so any holder will
+// do), and bring `thr` (warp-uniform) up to date.
+template <int S>
+__device__ __forceinline__ void insert_key(u64 (&keys)[S], u64& thr, u64 g, int lane) {
+  bool holds = false;
+#pragma unroll
+  for (int s = 0; s < S; ++s) holds |= keys[s] == thr;
+  const unsigned who = __ballot_sync(FULL, holds);
+  if (lane == __ffs(who) - 1) {
+    bool done = false;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!done && keys[s] == thr) {
+        keys[s] = g;
+        done = true;
+      }
+    }
+  }
+  u64 lmin = keys[0];
+#pragma unroll
+  for (int s = 1; s < S; ++s) lmin = keys[s] < lmin ? keys[s] : lmin;
+  thr = warp_min(lmin);
+}
+
+// Insert a query's tile candidates `ck` (CAND keys per lane, 0 for none)
+// into its running top set, best first: every candidate above the set's
+// minimum at its turn goes in.
 template <int S>
 __device__ __forceinline__ void merge_row(u64 (&keys)[S], u64& thr, u64 (&ck)[CAND],
                                           int lane) {
@@ -109,39 +138,21 @@ __device__ __forceinline__ void merge_row(u64 (&keys)[S], u64& thr, u64 (&ck)[CA
     const u64 g = warp_max(best);
 #pragma unroll
     for (int j = 0; j < CAND; ++j) ck[j] = (ck[j] == g) ? 0 : ck[j];
-    // Evict one slot holding the minimum (keys are unique except the
-    // identical initial slots, so any holder will do).
-    bool holds = false;
-#pragma unroll
-    for (int s = 0; s < S; ++s) holds |= keys[s] == thr;
-    const unsigned who = __ballot_sync(FULL, holds);
-    if (lane == __ffs(who) - 1) {
-      bool done = false;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (!done && keys[s] == thr) {
-          keys[s] = g;
-          done = true;
-        }
-      }
-    }
-    u64 lmin = keys[0];
-#pragma unroll
-    for (int s = 1; s < S; ++s) lmin = keys[s] < lmin ? keys[s] : lmin;
-    thr = warp_min(lmin);
+    insert_key<S>(keys, thr, g, lane);
   }
 }
 
-// Running top sets of a warp's queries.
-template <int S>
+// Running top sets of a warp's ROWS queries (8 in the mma.sync tile, 16 in
+// K1's wgmma tile, 1 in its merge of split partials).
+template <int S, int ROWS = ROWS_PER_WARP>
 struct TopK {
-  u64 keys[ROWS_PER_WARP][S];
-  u64 thr[ROWS_PER_WARP];
+  u64 keys[ROWS][S];
+  u64 thr[ROWS];
 
   __device__ __forceinline__ void init() {
     const u64 empty = make_key(neg_inf(), 0);
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    for (int r = 0; r < ROWS; ++r) {
       thr[r] = empty;
 #pragma unroll
       for (int s = 0; s < S; ++s) keys[r][s] = empty;
@@ -152,8 +163,8 @@ struct TopK {
   __device__ __forceinline__ void merge_tile(const float* st, int q0, int nq, int m0,
                                              int warp, int lane) {
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int row = warp * ROWS_PER_WARP + r;
+    for (int r = 0; r < ROWS; ++r) {
+      const int row = warp * ROWS + r;
       if (q0 + row < nq) {  // warp-uniform
         u64 ck[CAND];
 #pragma unroll
@@ -170,8 +181,8 @@ struct TopK {
   __device__ __forceinline__ void emit(float* out_vals, long long* out_idx, int q0, int nq,
                                        int k, int warp, int lane) {
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int qi = q0 + warp * ROWS_PER_WARP + r;
+    for (int r = 0; r < ROWS; ++r) {
+      const int qi = q0 + warp * ROWS + r;
       if (qi >= nq) continue;  // warp-uniform
       for (int t = 0; t < k; ++t) {
         u64 lmax = keys[r][0];

@@ -1,12 +1,15 @@
 """Building the port's CUDA kernels: nvcc for sm_90a into ctypes libraries.
 
 Each kernel source in `csrc/` (K1 `knn_topk.cu`, K2 `ivf_topk.cu`, K3
-`flash_attn.cu`, each including `topk_common.cuh`) compiles on its own into
+`flash_attn.cu`, each including `topk_common.cuh`; K1 and K3 also
+`hopper.cuh`) compiles on its own into
 a shared library with a plain C interface, at first use. The libraries go to
 `build/hbird_tpu_torch/` beside the package directory (the repository's
 ignored build tree); a name carries a hash of the source, the headers and
 the flags, so an edited kernel is rebuilt. `build_all` starts one nvcc per
-source at once.
+source at once. The compiler's report (`-Xptxas -v`: registers, shared
+memory, spills, warnings) of each library built by this process is kept in
+`LOGS`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -67,6 +71,7 @@ def build(source: str, verbose: bool = False) -> Path:
             raise RuntimeError(
                 f"nvcc failed on {source} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
+        LOGS[source] = proc.stdout + proc.stderr
         if verbose:
             print(f"{source}:\n{proc.stdout}{proc.stderr}", flush=True)
         os.replace(tmp, lib_path)  # atomic: concurrent builds agree

@@ -20,6 +20,15 @@ first use, and it is loaded with ctypes.
 either launches the kernel or raises. Invalid combinations raise
 `ValueError` on every device, as the JAX asserts do. `knn_topk.launches`
 counts kernel launches, `knn_topk.forms` the same launches by form.
+
+The bf16 forms (a) and (b) run a persistent kernel over (bank split,
+64-query tile) items and merge the splits' partial top sets in a second
+pass from the same entry point. `plan_bf16_splits` picks the split size
+here, so the rounds of items fill the SMs; the partial sets
+(`parts_shape`) and the per-query minimum keys they share are scratch
+allocated here. That kernel keeps its queries in shared memory; where they
+do not fit (D > 1536, as the library reports) the bf16 forms run the
+kernel of the other forms, with no scratch.
 """
 
 from __future__ import annotations
@@ -47,8 +56,49 @@ _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
+# The bf16 kernel's tiling: 64 queries an item, 128 bank rows a tile.
+BF16_BLOCK_Q = 64
+BF16_BLOCK_M = 128
+MIN_FILL = 0.9  # least share of the SMs' rounds of items that do work
+MIN_TILES_PER_SPLIT = 4  # a split's bank tiles, against its item's query load
+MAX_PARTS_BYTES = 512 << 20  # scratch of the partial top sets
+
+
+def plan_bf16_splits(n_q: int, valid_rows: int, n_sm: int, k: int) -> Tuple[int, int]:
+    """(split_rows, splits) of the bf16 kernel: the valid rows cut into
+    `splits` ranges of `split_rows` (a multiple of 128; the last may be
+    shorter), giving ceil(n_q / 64) * splits work items that `n_sm`
+    persistent CTAs take in rounds. The fewest splits whose rounds keep at
+    least MIN_FILL of the SMs busy (items / (rounds * n_sm)); failing that,
+    the best fill (fewest splits among equals). Every split costs each query
+    two more partial top sets to fill, so fewer is better once the card is
+    full. Each split keeps MIN_TILES_PER_SPLIT tiles where it can, and the
+    scratch stays under MAX_PARTS_BYTES."""
+    tiles = -(-valid_rows // BF16_BLOCK_M)
+    if tiles == 0:
+        return BF16_BLOCK_M, 1
+    q_tiles = -(-n_q // BF16_BLOCK_Q)
+    per_split = 2 * 32 * (-(-k // 32)) * 8 * n_q  # bytes of scratch per split
+    most = max(1, min(tiles // MIN_TILES_PER_SPLIT, MAX_PARTS_BYTES // per_split))
+    best = None
+    for want in range(1, most + 1):
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+        items = q_tiles * splits
+        fill = items / (-(-items // n_sm) * n_sm)
+        if fill >= MIN_FILL:
+            return per * BF16_BLOCK_M, splits
+        if best is None or fill > best[0]:
+            best = (fill, per * BF16_BLOCK_M, splits)
+    return best[1], best[2]
+
+
+def parts_shape(n_q: int, splits: int, k: int) -> Tuple[int, int, int]:
+    """Shape of the bf16 kernel's scratch: per query, two partial sets (one
+    per consumer warpgroup) per split of 32 * ceil(k / 32) 64-bit keys."""
+    return n_q, 2 * splits, 32 * (-(-k // 32))
 
 
 def form_name(queries: torch.Tensor, bank: torch.Tensor, l2: bool, row_scale) -> str:
@@ -133,6 +183,7 @@ def knn_topk(
         raise ValueError(f"the K1 kernel needs a depth divisible by {step} for this form: {d}")
     if queries.data_ptr() % 16 or bank.data_ptr() % 16:
         raise ValueError("the K1 kernel needs 16-byte aligned queries and bank")
+    form = FORMS[(queries.dtype, bank.dtype)]
     l2 = distance in L2_DISTANCES
     bias = l2_bias(bank).contiguous() if l2 else None
     scale = row_scale.reshape(-1).float().contiguous() if row_scale is not None else None
@@ -142,6 +193,12 @@ def knn_topk(
     if n_q == 0:
         return vals, idx
     lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", _ARGTYPES)
+    parts, thr, split_rows = None, None, 0
+    if form == FORMS[(torch.bfloat16, torch.bfloat16)] and lib.knn_topk_bf16_smem(d) > 0:
+        n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
+        split_rows, splits = plan_bf16_splits(n_q, valid, n_sm, k)
+        parts = torch.empty(parts_shape(n_q, splits, k), dtype=torch.int64, device=queries.device)
+        thr = torch.zeros(n_q, dtype=torch.int64, device=queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.knn_topk_launch(
@@ -149,7 +206,9 @@ def knn_topk(
             scale.data_ptr() if scale is not None else None,
             bias.data_ptr() if bias is not None else None,
             vals.data_ptr(), idx.data_ptr(),
-            n_q, m, d, valid, k, FORMS[(queries.dtype, bank.dtype)], stream,
+            n_q, m, d, valid, k, form,
+            parts.data_ptr() if parts is not None else None,
+            thr.data_ptr() if thr is not None else None, split_rows, stream,
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")

@@ -45,6 +45,7 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "FLASH_SHAPES", {"one token": (2, 2, 1, 64), "ragged": (1, 2, 65, 32),
                                               "wide": (1, 1, 70, 80)})
     monkeypatch.setattr(mod, "FLASH_MAIN", (2, 2, 40, 32))
+    monkeypatch.setattr(mod, "FLASH_LONG", (1, 2, 130, 64))
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
@@ -124,8 +125,9 @@ def test_flash_phases_rehearse_on_cpu(smoke):
         assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
     assert token_err["float32"]["max"] <= 1e-4 and token_err["bfloat16"]["mean"] <= 1e-2
     rows, err = smoke.flash_timing(gen)
-    assert err == 0.0 and set(rows) == {"main", "f32"}
+    assert err == 0.0 and set(rows) == {"main", "f32", "long"}
     assert rows["main"]["bound_by"] == "bytes" and rows["main"]["dtype"] == "bfloat16"
+    assert rows["long"]["shape"] == [1, 2, 130, 64] and rows["long"]["dtype"] == "bfloat16"
     forward = smoke.forward_timing(0, gen)
     assert set(forward) == {"xla float32", "xla bfloat16", "flash float32", "flash bfloat16"}
     assert json.dumps([rows, forward])
@@ -250,7 +252,26 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
     assert smoke.main() != 0
-    assert '"ok"' not in capsys.readouterr().out
+    assert smoke.main(["--pairs", str(ROOT)]) != 0
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and '"k1"' not in out
+
+
+def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
+    """The --pairs timing: K3 bf16 at the main and long shapes, K1 bf16 dot
+    and l2 at each k of PAIR_KS on both banks, each with its bound and
+    library time, as one JSON-ready result."""
+    monkeypatch.setattr(smoke, "PAIR_Q", 40)
+    monkeypatch.setattr(smoke, "PAIR_M", 500)
+    out = smoke.pairs("here")
+    assert out["tree"] == "here" and pathlib.Path(out["package"]) == ROOT / "hbird_tpu_torch"
+    assert set(out["k3"]) == {"bf16 (2, 2, 40, 32)", "bf16 (1, 2, 130, 64)"}
+    assert set(out["k1"]) == {f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
+                              for k in (30, 128)}
+    for row in [*out["k3"].values(), *out["k1"].values()]:
+        assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
+    assert out["k1"]["bf16 dot Q=40 M=500 k=128"]["bound_by"] == "bytes"
+    assert json.dumps(out)
 
 
 def test_card_vs_cpu_rehearses(smoke):
@@ -296,3 +317,49 @@ def test_checks_hold_int8_forms_to_bit_exactness(smoke):
     with pytest.raises(RuntimeError, match="bit-exact"):
         smoke.check_against_plain("tie order", q8, bank, 10, 1200, (vals, swapped), row_scale=rs,
                                   exact=True)
+
+
+def test_ptxas_report_reads_the_wgmma_kernels(smoke):
+    """Registers at entry and spills of each instance of a kernel, and any
+    setmaxnreg-ignored warning, from an nvcc -Xptxas -v log."""
+    log = """ptxas info    : Compiling entry function '_ZN2wg16flash_bf16_wgmmaILb1ELb1EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN2wg16flash_bf16_wgmmaILb1ELb1EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z9flash_f32ILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z9flash_f32ILi64EEvv
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN2wg16flash_bf16_wgmmaILb0ELb0EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN2wg16flash_bf16_wgmmaILb0ELb0EEEv
+    80 bytes stack frame, 1116 bytes spill stores, 1264 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+    r = smoke.ptxas_report(log, "flash_bf16_wgmma")
+    assert r == {"instances": 2, "template_args": ["ILb1ELb1E", "ILb0ELb0E"], "registers": [168, 168],
+                 "spill_store_bytes": [0, 1116], "setmaxnreg_ignored": [], "wgmma_notes": []}
+    warned = log + "ptxas warning : (C7508) Potential Performance Loss: setmaxnreg ignored; unable to determine register count at entry\n"
+    assert len(smoke.ptxas_report(warned, "flash_bf16_wgmma")["setmaxnreg_ignored"]) == 1
+    noted = log + (
+        "ptxas info    : (C7519) warpgroup.arrive is injected in around line 82808 by compiler to allow use "
+        "of registers in GMMA in function '_ZN2wg16flash_bf16_wgmmaILb1ELb1EEEv'\n"
+        "ptxas info    : (C7517) warpgroup.wait is injected in around line 82931 by compiler to allow use "
+        "of registers defined by GMMA in function '_Z9flash_f32ILi64EEvv'\n")
+    notes = smoke.ptxas_report(noted, "flash_bf16_wgmma")["wgmma_notes"]
+    assert len(notes) == 1 and notes[0].startswith("ptxas info    : (C7519)")
+
+
+def test_sass_counts_per_function(smoke):
+    """HGMMA, UTMALDG and HMMA counted per function of a cuobjdump listing;
+    HMMA is not counted inside HGMMA."""
+    sass = """
+        Function : _ZN2wg14knn_bf16_wgmmaILi1ELb0EEEv
+        /*0100*/                   UTMALDG.2D [UR8], [UR4] ;
+        /*0110*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0120*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;
+        Function : _Z12knn_topk_mmaI8FormAsymLi1EEvv
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+    per_fn = smoke.sass_counts(sass)
+    assert per_fn["_ZN2wg14knn_bf16_wgmmaILi1ELb0EEEv"] == {"HGMMA": 2, "UTMALDG": 1, "HMMA": 0}
+    assert per_fn["_Z12knn_topk_mmaI8FormAsymLi1EEvv"] == {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1}

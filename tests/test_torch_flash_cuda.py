@@ -140,3 +140,47 @@ def test_flash_vit_on_the_card_matches_the_cpu(cuda_device, dtype):
         assert err.max().item() <= 1e-4
     else:
         assert err.max().item() <= 0.1 and err.mean().item() <= 1e-2
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 1370, 4625])
+def test_bf16_sequence_edges(cuda_device, n, hd):
+    """bf16 at every edge of the 64-key (hd 32, 80) and 128-key (hd 64)
+    tiles and of the 128-query blocks, against the plain version."""
+    q, k, v = _qkv((2, 3, n, hd), seed=n + hd, device=cuda_device, dtype=torch.bfloat16)
+    out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80])
+def test_strided_qkv_views_of_every_width(cuda_device, hd):
+    """The ViT's views of its qkv projection at each head width, with
+    N = 1370 (ragged against every tile): read in place, equal to the
+    contiguous copies' output and within the tolerance."""
+    b, n, h = 2, 1370, 4
+    rng = np.random.default_rng(hd)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * hd), dtype=np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16).reshape(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    assert flash_cuda._kernel_layout(q, k, v)
+    out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
+    dense = flash_cuda.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+    assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80])
+def test_batch_heads_at_the_grid_limit(cuda_device, hd):
+    """B·H = 65,535 (the limit the wrapper keeps for every width) runs;
+    one more pair is refused."""
+    q, k, v = _qkv((5, 13107, 3, hd), seed=hd, device=cuda_device, dtype=torch.bfloat16)
+    out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
+    torch.cuda.synchronize()
+    assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
+    q, k, v = (x.reshape(1, 65535, 3, hd) for x in (q, k, v))
+    with pytest.raises(ValueError, match="pairs"):
+        flash_cuda.flash_attention(torch.cat([q, q[:, :1]], 1), torch.cat([k, k[:, :1]], 1),
+                                   torch.cat([v, v[:, :1]], 1), 0.1)

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from hbird_tpu_torch.ops import knn_cuda
-from hbird_tpu_torch.ops.knn import exact_knn
+from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
 from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
 pytestmark = pytest.mark.cuda
@@ -182,3 +182,146 @@ def test_l2_matches_plain_version(cuda_device, dtype, k):
     assert knn_cuda.knn_topk.forms["l2"] == before + 1
     assert (kv - pv).abs().max().item() <= _tol(q, b)
     assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+
+
+@pytest.mark.parametrize("distance", ["dot_product", "l2"])
+@pytest.mark.parametrize("k", [1, 30, 128])
+@pytest.mark.parametrize("n_q,m", [(333, 4999), (65, 129), (1, 1000)])
+def test_bf16_ragged_queries_and_bank(cuda_device, n_q, m, k, distance):
+    """The bf16 kernel (dot and l2) with Q and M multiples of no tile."""
+    rng = np.random.default_rng(n_q + m + k)
+    q = rng.normal(size=(n_q, 64)).astype(np.float32)
+    b = (rng.normal(size=(m, 64)) * rng.uniform(0.5, 2.0, (m, 1))).astype(np.float32)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
+    kv, ki = knn_cuda.knn_topk(qt, bt, k, distance=distance)
+    pv, pi = exact_knn(qt, bt, k, distance=distance)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
+    assert (kv - pv).abs().where(finite, torch.zeros_like(kv)).max().item() <= _tol(q, b)
+    assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+
+
+def _split_rows(n_q, valid, k):
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return knn_cuda.plan_bf16_splits(n_q, valid, n_sm, k)
+
+
+@pytest.mark.parametrize("where", ["k-1", "tile", "tile+1", "split", "split-1"])
+def test_bf16_valid_rows_at_edges(cuda_device, where):
+    """valid_rows below k, on a 128-row tile edge and next to it, and on the
+    edge of the first bank split the wrapper plans (several splits)."""
+    q, b = _inputs(200, 20000, 64, seed=31)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
+    split_rows, splits = _split_rows(200, 20000, 30)
+    assert splits > 1
+    valid = {"k-1": 29, "tile": 1280, "tile+1": 1281, "split": split_rows,
+             "split-1": split_rows - 1}[where]
+    kv, ki = knn_cuda.knn_topk(qt, bt, 30, valid_rows=valid)
+    pv, pi = exact_knn(qt, bt, 30, valid_rows=valid)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
+    assert bool((ki < valid).all())
+    assert (kv - pv).abs().where(finite, torch.zeros_like(kv)).max().item() <= _tol(q, b)
+    assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+
+
+def test_bf16_copies_in_two_splits_keep_the_lowest_index(cuda_device):
+    """Two copies of a bank, each in its own split: of a row whose copies
+    tie, the lower index is kept first; with k odd the (k+1)/2-th row
+    keeps only its first copy."""
+    q, b = _inputs(64, 3000, 64, seed=8)
+    bank = torch.from_numpy(np.concatenate([b, b])).to(cuda_device, torch.bfloat16)
+    split_rows, splits = _split_rows(64, 6000, 7)
+    assert splits > 1 and split_rows <= 3000 + 128
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    kv, ki = knn_cuda.knn_topk(qt, bank, 7)
+    torch.cuda.synchronize()
+    ordered = (kv[:, :-1] > kv[:, 1:]) | ((kv[:, :-1] == kv[:, 1:]) & (ki[:, :-1] < ki[:, 1:]))
+    assert ordered.all()
+    assert torch.equal(ki[:, 0::2][:, :4] % 3000, ki[:, 0::2][:, :4])  # first copies lead
+    assert torch.equal(ki[:, 1::2] - 3000, ki[:, 0::2][:, :3])  # then their second copies
+    assert bool((ki[:, 6] < 3000).all())
+
+
+@pytest.mark.parametrize("distance", ["dot_product", "l2"])
+@pytest.mark.parametrize("k", [1, 30, 128])
+def test_bf16_bank_of_one_row(cuda_device, k, distance):
+    q, b = _inputs(70, 1, 64, seed=k)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
+    kv, ki = knn_cuda.knn_topk(qt, bt, k, distance=distance)
+    pv, pi = exact_knn(qt, bt, k, distance=distance)
+    torch.cuda.synchronize()
+    assert (ki == 0).all() and torch.isinf(kv[:, 1:]).all()
+    assert (kv[:, 0] - pv[:, 0]).abs().max().item() <= _tol(q, b)
+
+
+@pytest.mark.parametrize("distance", ["dot_product", "l2"])
+@pytest.mark.parametrize("d", [1536, 1664])
+def test_bf16_depth_the_queries_must_fit(cuda_device, d, distance):
+    """D = 1536 (dinov2_vitg14's width) is the widest whose queries fit the
+    wgmma kernel's shared memory (one ring stage per consumer); a wider
+    bank (1,664, a converted checkpoint's width) runs the mma_scan kernel.
+    Both hold against the plain version and count as their form."""
+    q, b = _inputs(100, 700, d, seed=12)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
+    form = "l2" if distance == "l2" else "dot"
+    before = knn_cuda.knn_topk.forms[form]
+    kv, ki = knn_cuda.knn_topk(qt, bt, 30, distance=distance)
+    pv, pi = exact_knn(qt, bt, 30, distance=distance)
+    torch.cuda.synchronize()
+    assert knn_cuda.knn_topk.forms[form] == before + 1
+    assert (kv - pv).abs().max().item() <= _tol(q, b)
+    assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+
+
+def _tie_dense_edge(n_q, m, d, k):
+    """Integer bf16 entries in {-1, 0, 1} (scores exact in any order, tied
+    many ways) and a valid_rows at most m that ends the last bank split the
+    wrapper plans exactly, with several splits."""
+    gen = torch.Generator().manual_seed(k + d)
+    q = torch.randint(-1, 2, (n_q, d), generator=gen).to(torch.bfloat16)
+    b = torch.randint(-1, 2, (m, d), generator=gen).to(torch.bfloat16)
+    for tiles in range(m // 128, 0, -1):
+        split_rows, splits = _split_rows(n_q, tiles * 128, k)
+        if splits > 1 and (tiles * 128) % split_rows == 0:
+            return q, b, tiles * 128, split_rows, splits
+    raise AssertionError("no valid_rows on a split edge")
+
+
+@pytest.mark.parametrize("distance", ["dot_product", "l2"])
+@pytest.mark.parametrize("k", [1, 30, 128])
+def test_bf16_ties_across_splits_bit_for_bit(cuda_device, k, distance):
+    """The split kernel's pruning under dense ties: Q = 10,000 queries (more
+    64-query tiles than SMs, so items of several splits run at once) on a
+    bank of integer entries in {-1, 0, 1}, whose scores and l2 biases are
+    exact, so the kernel must equal exact_knn bit for bit, values and
+    indices; valid_rows on a split edge and one row past a tile edge."""
+    q, b, edge, split_rows, splits = _tie_dense_edge(10000, 40960, 96, k)
+    assert -(-10000 // 64) > torch.cuda.get_device_properties(0).multi_processor_count
+    qt, bt = q.to(cuda_device), b.to(cuda_device)
+    for valid in (edge, edge - 127):
+        kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=valid, distance=distance)
+        pv, pi = exact_knn(qt, bt, k, valid_rows=valid, distance=distance)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), (valid, split_rows, splits)
+
+
+def test_bf16_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(knn_cuda, "exact_knn", plain)
+    q, b = _inputs(100, 900, 64, seed=13)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
+    before = knn_cuda.knn_topk.forms["dot"], knn_cuda.knn_topk.forms["l2"]
+    knn_cuda.knn_topk(qt, bt, 5)
+    knn_cuda.knn_topk(qt, bt, 5, distance="l2")
+    torch.cuda.synchronize()
+    assert (knn_cuda.knn_topk.forms["dot"], knn_cuda.knn_topk.forms["l2"]) == (before[0] + 1, before[1] + 1)
