@@ -9,13 +9,15 @@ Phases; any failure raises and the script exits non-zero with no result:
 1. The card (nvidia-smi name and power limit) and versions; K1
    (hbird_tpu_torch/ops/csrc/knn_topk.cu), K2 (ops/csrc/ivf_topk.cu) and K3
    (ops/csrc/flash_attn.cu) are built with nvcc for sm_90a, one nvcc each,
-   started together. For the Hopper kernels (K1's and K3's bf16 wgmma
-   kernels, ops/csrc/hopper.cuh) it prints what ptxas reported (registers,
-   spills by instance, that setmaxnreg was not ignored, and any warpgroup
-   wait or arrive it injected or wgmma it serialised) and the dynamic shared
-   memory they ask for; where cuobjdump exists, the HGMMA, UTMALDG and HMMA
-   (mma.sync) instructions of each library and of each wgmma kernel, which
-   must issue HGMMA and UTMALDG and no HMMA.
+   started together. For the Hopper kernels (K1's bf16 and int8 wgmma
+   kernel, K3's bf16 wgmma kernel, ops/csrc/hopper.cuh) it prints what
+   ptxas reported (registers, spills by instance, that setmaxnreg was not
+   ignored, and any warpgroup wait or arrive it injected or wgmma it
+   serialised), the registers and spills of K3's 3xTF32 f32 kernel, and
+   the dynamic shared memory they ask for; where cuobjdump exists, the
+   warpgroup MMAs (HGMMA, IGMMA for int8), UTMALDG and mma.sync (HMMA,
+   IMMA for int8) instructions of each library and of each wgmma kernel,
+   which must issue a warpgroup MMA and UTMALDG and no mma.sync.
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
@@ -64,15 +66,16 @@ Phases; any failure raises and the script exits non-zero with no result:
    neighbours on the eval batch, by ids and by score, is printed (no
    limit: it is what the quantization costs in answers).
    The flash path: the same 'scann' run, unbounded, with the ViT in bf16
-   (`bf16_model=True`), attention_impl='flash' and LayerScale set to 0.05
-   (at its 1e-5 init the blocks barely move the tokens, so no attention
-   would show in the output). K3 must launch once per block per forward
-   batch, depth x (4 train + 1 val batches) = 60, and K1 must launch; the
-   same run with 'xla' beside it launches no K3. On one
-   val batch the patch tokens of 'flash' and 'xla' agree (f32 within 1e-4;
-   bf16 within 0.1 max and 1e-2 mean, the port's bf16 tolerance), and K3
-   holds against its plain version on that batch's block-0 q, k, v, the
-   strided views of the qkv projection the ViT hands over.
+   (`bf16_model=True`) and in f32, each with attention_impl='flash' and
+   LayerScale set to 0.05 (at its 1e-5 init the blocks barely move the
+   tokens, so no attention would show in the output). K3 must launch once
+   per block per forward batch in the run's dtype, depth x (4 train + 1 val
+   batches) = 60, and K1 must launch; the same run with 'xla' beside it
+   launches no K3, and the mIoU of the two is printed. On one val batch the
+   patch tokens of 'flash' and 'xla' agree (f32 within 1e-4; bf16 within
+   0.1 max and 1e-2 mean, the port's bf16 tolerance), and K3 holds against
+   its plain version on that batch's block-0 q, k, v, the strided views of
+   the qkv projection the ViT hands over, in bf16 and in f32.
 6. The card against the CPU on a small input: a tiny ViT (depth 2, width
    64) on a 12/6-image fixture through `hbird_evaluation`, 'scann',
    'faiss' and 'ivf' (every leaf probed), and 'faiss' with a tiny ViT of
@@ -91,17 +94,25 @@ Phases; any failure raises and the script exits non-zero with no result:
    version and a library yardstick the port never calls: K1 at the main
    path's shape (Q=21,904, M=87,616) and against a 1,024,000-row bank
    (query-chunked bf16 torch.matmul + torch.topk), and in its forms int8,
-   int8_rows (torch._int_mm + topk), asym_rows (a bf16 matmul against the
-   codes widened once) and l2 (torch.addmm with the bias) on both banks;
+   int8_rows (torch._int_mm + topk; at k = 30 and at k = 120, the `faiss`
+   int8 + reorder path's scan), asym_rows (a bf16 matmul against the codes
+   widened once) and l2 (torch.addmm with the bias) on both banks;
    K2 on the main path's tree (32 of 512 leaves) and on a tree of the
    1,024,000-row bank (cap 2,816, 32 of 512 leaves) (the probed slabs
    gathered per tile, then torch.bmm + torch.topk, chunked over tiles),
    and in its int8_rows and asym_rows forms on the same trees' slabs as
    per-row codes; K3 at the main shape in bf16 and f32 and in bf16 at
-   (1, 12, 4625, 64) (torch.nn.functional.scaled_dot_product_attention).
-   K1's bf16 dot and l2 rows and K3's bf16 rows print their share of the
-   bound (bound / ms) and their ratio to the library call. Then the
-   ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and bf16.
+   (1, 12, 4625, 64), at hd 32 (16, 12, 197, 32) and at hd 80 (16, 16,
+   257, 80) (torch.nn.functional.scaled_dot_product_attention). K3 f32's
+   bound is its work at f32 accuracy on the tensor cores (3 TF32 passes at
+   the TF32 peak), printed beside the f32 FMA bound. Every row but
+   asym_rows prints its share of the bound (bound / ms) and its ratio to
+   the library call. The select's load on the main path's bank: for K1
+   int8 at k = 30 and 120, the share of (query, 128-row tile) pairs in
+   which the running top-k receives a score, walking the tiles in
+   mma_scan's order and in the wgmma kernel's partial sets. Then the
+   ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and
+   bf16.
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs); index
@@ -115,7 +126,8 @@ and indices (the plain version's f32 matmul of the widened codes is exact
 with TF32 off).
 
 Tolerance of the K3 checks: f32 within 1e-5 absolute at unit-normal
-inputs (the same f32 products and exps summed in another order). bf16
+inputs (3xTF32 products, about 21 bits of each operand, and exps summed
+in another order). bf16
 within 4 bf16 ulps at each query row's scale (4 * 2^-8 * the row's largest
 |plain output|) and a mean error under 2^-7 * mean |plain output|: the
 kernel rounds p to bf16 against its running maximum and normalises at the
@@ -128,11 +140,13 @@ Output: a {"kernels": [...]} line, the nvidia-smi card line, and last
 Parent against change: `python3 chip_smoke.py --pairs TREE` imports the
 package of the source tree TREE instead of this one's, builds its K1 and K3,
 and times only the kernels redesigned for Hopper, each beside its bound and
-library call (phase 7's helpers): K3 bf16 at the main shape and at (1, 12,
-4625, 64) on unit normals, and K1 bf16 dot and l2 with k in {30, 128}, Q =
-21,904 normal queries against 87,616 and 1,024,000 unit rows. It prints one
-JSON line. Two trees are compared in one session on one card, each in its
-own process, in turns: parent, change, change, parent.
+library call (phase 7's helpers): K3 bf16 and f32 at the main shape and at
+(1, 12, 4625, 64) on unit normals, K1 bf16 dot and l2 with k in {30, 128}
+and K1 int8 and int8_rows with k in {30, 64, 96, 120, 128}, Q = 21,904
+normal queries (and their int8 codes) against 87,616 and 1,024,000 unit
+rows (and their global and per-row int8 codes). It prints one JSON line.
+Two trees are compared in one run on one card, each in its own
+process, in turns: parent, change, change, parent.
 """
 
 import argparse
@@ -149,7 +163,9 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 FMA peak (no tensor cores)
+TF32_PASSES = 3  # K3 f32's products at f32 accuracy: 3xTF32 (big·small, small·big, big·big)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 RTOL = 1e-5
 FLASH_F32_TOL = 1e-5
@@ -182,9 +198,15 @@ FLASH_SHAPES = {
 }
 FLASH_MAIN = (16, 12, 1370, 64)  # the main path's (B, H, N, hd)
 FLASH_LONG = (1, 12, 4625, 64)  # dinov2 at input 952: the longest sequence timed
+FLASH_NARROW = (16, 12, 197, 32)  # mocov3_vits16 at 224, batch 16: K3 bf16 at hd 32
+FLASH_WIDE = (16, 16, 257, 80)  # mae_vith14 at 224, batch 16: K3 bf16 at hd 80
 PAIR_Q, PAIR_M, PAIR_KS = 21904, 87616, (30, 128)  # --pairs: the main path's eval batch and bank
+# --pairs, K1 int8 forms: the engine's k, S = 2 and 3 keys a lane, faiss int8 + reorder's scan, the most
+PAIR_INT8_KS = (30, 64, 96, 120, 128)
+INT8_KS = (30, 120)  # phase 7's K1 int8 forms: the engine's k and faiss int8 + reorder's scan
 # The Hopper kernels: source -> the name their wgmma kernels carry.
-WGMMA_KERNELS = {"knn_topk.cu": "knn_bf16_wgmma", "flash_attn.cu": "flash_bf16_wgmma"}
+WGMMA_KERNELS = {"knn_topk.cu": "knn_wgmma", "flash_attn.cu": "flash_bf16_wgmma"}
+TF32_KERNEL = "flash_f32"  # K3 f32: 3xTF32 on mma.sync (HMMA, no wgmma)
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 LAYERSCALE = 0.05  # the flash path's LayerScale (see flash_path)
 # The quantized and L2 engine runs: nn_method, nn_params, the engine's
@@ -265,13 +287,23 @@ def ivf_bound_ms(n_q, lids, leaf_valid, d, k, elt_bytes, peak_flops, bank_bytes=
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_bound_ms(shape, elt_bytes, peak_flops):
+def flash_bound_ms(shape, elt_bytes, peak_flops, passes=1):
     """K3's least time: q, k, v read once and o written once, or the
-    4·B·H·N²·hd flops of q·kᵀ and p·v at the card's peak for the type."""
+    4·B·H·N²·hd flops of q·kᵀ and p·v, `passes` times over, at the card's
+    peak for the type (f32 at f32 accuracy on the tensor cores: 3 TF32
+    passes at the TF32 peak)."""
     b, h, n, hd = shape
     t_bytes = 4 * b * h * n * hd * elt_bytes / PEAK_BYTES * 1e3
-    t_ops = 4.0 * b * h * n * n * hd / peak_flops * 1e3
+    t_ops = passes * 4.0 * b * h * n * n * hd / peak_flops * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k3_bound(shape, dtype):
+    """K3's bound for its dtype: bf16 products at the bf16 peak; f32 at f32
+    accuracy on the tensor cores, TF32_PASSES passes at the TF32 peak."""
+    if dtype == torch.bfloat16:
+        return flash_bound_ms(shape, 2, PEAK_BF16_FLOPS)
+    return flash_bound_ms(shape, 4, PEAK_TF32_FLOPS, passes=TF32_PASSES)
 
 
 def check_flash(name, out, ref):
@@ -627,7 +659,9 @@ def shares(ms, bound, library):
     return f"{bound / ms:.1%} of the bound, {lib}"
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# Warpgroup MMAs (HGMMA float, IGMMA integer), TMA loads, and mma.sync
+# (HMMA float, IMMA integer).
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
 # ptxas notes on wgmma: a warpgroup.wait (C7517) or warpgroup.arrive (C7519)
 # it injected, or wgmma serialised (C7520).
 WGMMA_NOTES = ("C7517", "C7519", "C7520")
@@ -673,8 +707,8 @@ def sass_counts(sass):
 def build_report(libs):
     """Phase 1: what ptxas said of the Hopper kernels, the shared memory
     they ask for, and the SASS instructions of each library by cuobjdump
-    (where it exists): each wgmma kernel must issue HGMMA and UTMALDG and no
-    HMMA (mma.sync)."""
+    (where it exists): each wgmma kernel must issue warpgroup MMAs (HGMMA,
+    or IGMMA for int8) and UTMALDG and no mma.sync (HMMA, IMMA)."""
     import ctypes
     import shutil
 
@@ -694,11 +728,18 @@ def build_report(libs):
               + f"; {len(r['wgmma_notes'])} wgmma notes ({', '.join(WGMMA_NOTES)})", flush=True)
         for note in r["wgmma_notes"]:
             print(f"    {note}", flush=True)
+    if "flash_attn.cu" in cuda_build.LOGS:
+        r = report[TF32_KERNEL] = ptxas_report(cuda_build.LOGS["flash_attn.cu"], TF32_KERNEL)
+        print(f"  ptxas, {TF32_KERNEL} (3xTF32, {r['instances']} instances): registers "
+              f"{json.dumps(dict(zip(r['template_args'], r['registers'])))}, spill stores by instance "
+              f"{json.dumps(dict(zip(r['template_args'], r['spill_store_bytes'])))} bytes", flush=True)
     k1 = ctypes.CDLL(str(libs["knn_topk.cu"]))
     k3 = ctypes.CDLL(str(libs["flash_attn.cu"]))
-    smem = {"knn_bf16_wgmma": k1.knn_topk_bf16_smem(DEPTH), "flash_bf16_wgmma": k3.flash_attn_wgmma_smem()}
-    print(f"  dynamic shared memory: knn_bf16_wgmma {smem['knn_bf16_wgmma']} B at D={DEPTH}, "
-          f"flash_bf16_wgmma {smem['flash_bf16_wgmma']} B", flush=True)
+    k1.knn_topk_wgmma_smem.argtypes, k1.knn_topk_wgmma_smem.restype = (ctypes.c_int,) * 3, ctypes.c_int
+    k3.flash_attn_wgmma_smem.argtypes, k3.flash_attn_wgmma_smem.restype = (), ctypes.c_int
+    smem = {"knn_wgmma bf16": k1.knn_topk_wgmma_smem(DEPTH, 1, 30), "knn_wgmma int8": k1.knn_topk_wgmma_smem(DEPTH, 2, 30),
+            "flash_bf16_wgmma": k3.flash_attn_wgmma_smem()}
+    print(f"  dynamic shared memory at D={DEPTH}: {json.dumps(smem)} B", flush=True)
     report["smem_bytes"] = smem
     tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
     if tool is None:
@@ -710,11 +751,15 @@ def build_report(libs):
         total = {op: sum(c[op] for c in per_fn.values()) for op in SASS_OPS}
         name = WGMMA_KERNELS.get(src)
         wg_fns = {f: c for f, c in per_fn.items() if name and name in f}
-        print(f"  SASS of {path.name}: {json.dumps(total)}; wgmma kernels (HGMMA, UTMALDG, HMMA): "
+        print(f"  SASS of {path.name}: {json.dumps(total)}; wgmma kernels ({', '.join(SASS_OPS)}): "
               f"{json.dumps(sorted({tuple(c.values()) for c in wg_fns.values()}))}", flush=True)
+        tf32 = {f: c for f, c in per_fn.items() if TF32_KERNEL in f}
+        if tf32:
+            print(f"  SASS of the {TF32_KERNEL} kernels ({', '.join(SASS_OPS)}): "
+                  f"{json.dumps(sorted({tuple(c.values()) for c in tf32.values()}))}", flush=True)
         for f, c in wg_fns.items():
-            if c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"]:
-                fail(f"{f}: {c} (a wgmma kernel must issue HGMMA and UTMALDG and no HMMA)")
+            if c["HGMMA"] + c["IGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] or c["IMMA"]:
+                fail(f"{f}: {c} (a wgmma kernel must issue HGMMA or IGMMA and UTMALDG, and no HMMA or IMMA)")
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
     return report
 
@@ -904,9 +949,9 @@ def _val_batch(root):
 
 
 def flash_path(gen_seed):
-    """Phase 5, the flash path: hbird_evaluation with the bf16 ViT and
-    attention_impl='flash' against 'xla', the tokens of both on one val
-    batch, and K3 on that batch's block-0 q, k, v."""
+    """Phase 5, the flash path: hbird_evaluation with the ViT in bf16 and in
+    f32, each with attention_impl='flash' against 'xla', the tokens of both
+    on one val batch, and K3 on that batch's block-0 q, k, v."""
     import dataclasses
 
     from hbird_tpu_torch import hbird_evaluation
@@ -939,31 +984,36 @@ def flash_path(gen_seed):
     with tempfile.TemporaryDirectory() as root:
         make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
         common = dict(batch_size=BATCH, input_size=INPUT, n_neighbours=30, num_workers=0,
-                      device=DEVICE, nn_method="scann", bf16_model=True)
-        for impl, vit in vits.items():
-            label = f"scann unbounded, bf16 ViT, attention_impl={impl!r}"
-            timer = PhaseTimer()
-            random.seed(0)
-            reset_counts(counters)
-            t0 = time.perf_counter()
-            miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, timer=timer, **common)
-            wall = time.perf_counter() - t0
-            n = {name: fn.launches for name, fn in counters.items()}
-            forms = read_forms(counters)
-            want = expected if impl == "flash" else 0
-            if n["flash_attention"] != want:
-                fail(f"{label}: K3 launched {n['flash_attention']} times, not {want} "
-                     f"({cfg.depth} blocks x {n_batches} forward batches)")
-            if n["knn_topk"] < 1 or n["ivf_topk"]:
-                fail(f"{label}: launches {n}")
-            if not (0.0 <= miou <= 1.0):
-                fail(f"{label}: mIoU {miou} not a finite value in [0, 1]")
-            launches[impl] = n
-            runs[label] = {"miou": miou, "launches": n, "forms": forms, "wall_s": wall,
-                           "phases": timer.summary()}
-            print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)} (K3 expected {expected} = "
-                  f"{cfg.depth} blocks x {n_batches} forward batches), wall {wall:.2f}s, "
-                  f"phases {json.dumps(timer.summary())}", flush=True)
+                      device=DEVICE, nn_method="scann")
+        for dt in ("bf16", "f32"):
+            mious = {}
+            for impl, vit in vits.items():
+                label = f"scann unbounded, {dt} ViT, attention_impl={impl!r}"
+                timer = PhaseTimer()
+                random.seed(0)
+                reset_counts(counters)
+                t0 = time.perf_counter()
+                miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, timer=timer,
+                                        bf16_model=dt == "bf16", **common)
+                wall = time.perf_counter() - t0
+                n = {name: fn.launches for name, fn in counters.items()}
+                forms = read_forms(counters)
+                want = expected if impl == "flash" else 0
+                if n["flash_attention"] != want or forms["flash_attention"] != ({dt: want} if want else {}):
+                    fail(f"{label}: K3 launched {forms['flash_attention']}, not {dt} x {want} "
+                         f"({cfg.depth} blocks x {n_batches} forward batches)")
+                if n["knn_topk"] < 1 or n["ivf_topk"]:
+                    fail(f"{label}: launches {n}")
+                if not (0.0 <= miou <= 1.0):
+                    fail(f"{label}: mIoU {miou} not a finite value in [0, 1]")
+                launches[f"{dt} {impl}"] = n
+                mious[impl] = miou
+                runs[label] = {"miou": miou, "launches": n, "forms": forms, "wall_s": wall,
+                               "phases": timer.summary()}
+                print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)} (K3 expected {expected} = "
+                      f"{cfg.depth} blocks x {n_batches} forward batches), wall {wall:.2f}s, "
+                      f"phases {json.dumps(timer.summary())}", flush=True)
+            print(f"  {dt} ViT: mIoU 'flash' - 'xla' {mious['flash'] - mious['xla']:.3g}", flush=True)
         imgs = _val_batch(root)
 
     token_err = {}
@@ -980,15 +1030,18 @@ def flash_path(gen_seed):
         # K3 on the main path's own inputs: block 0's q, k, v, strided views
         # of its qkv projection, as the ViT hands them over.
         vit = vits["flash"]
-        x = vit._embed(imgs, torch.bfloat16)
         blk = vit.blocks[0]
-        y = _layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
-        b, n, _ = y.shape
-        qkv = _linear(y, blk.attn.qkv).reshape(b, n, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
         scale = cfg.head_dim**-0.5
-        err_k3 = check_flash(f"K3, main path's block-0 q, k, v {tuple(q.shape)} (strided views)",
-                             flash_attention(q, k, v, scale), flash_attention_plain(q, k, v, scale))
+        err_k3 = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            x = vit._embed(imgs, dtype)
+            y = _layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
+            b, n, _ = y.shape
+            qkv = _linear(y, blk.attn.qkv).reshape(b, n, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv[0], qkv[1], qkv[2]
+            err_k3 = max(err_k3, check_flash(
+                f"K3 {str(dtype)[6:]}, main path's block-0 q, k, v {tuple(q.shape)} (strided views)",
+                flash_attention(q, k, v, scale), flash_attention_plain(q, k, v, scale)))
     return runs, launches, token_err, err_k3
 
 
@@ -1165,12 +1218,22 @@ def k1_library(q, bb, k, neg_bias=None, chunk=4096):
         torch.topk(x @ bb.T if neg_bias is None else torch.addmm(neg_bias, x, bb.T), k, dim=1)
 
 
+def int8_library(q8, codes, k, rs=None, chunk=2048):
+    """K1 int8's library yardstick, chunked over the queries:
+    torch._int_mm, times the row scales `rs` when given, then torch.topk."""
+    for s in range(0, q8.shape[0], chunk):
+        x = torch._int_mm(q8[s:s + chunk], codes.t())
+        torch.topk(x if rs is None else x.float() * rs, k, dim=1)
+
+
 def k1_form_rows(q, bb, label, k, reps, rows, errs):
     """Phase 7: K1's forms (b)-(e) on the bank `bb` (bf16) and the queries
     `q` (bf16): each timed beside its plain version, its bound and a
     library yardstick (int8: torch._int_mm + topk; row scales applied to
     its f32 result; asymmetric: a bf16 matmul against the codes widened to
-    bf16 once; l2: torch.addmm with the bias)."""
+    bf16 once; l2: torch.addmm with the bias). The int8 forms at each k of
+    INT8_KS (the engine's k and `faiss` int8 + reorder's scan), the others
+    at `k`."""
     from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -1185,41 +1248,99 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
     neg_bias = (-l2_bias(bb)).to(torch.bfloat16)
     chunk = 2048
 
-    def int_mm(qq, cc, r):
-        for s in range(0, n_q, chunk):
-            x = torch._int_mm(qq[s:s + chunk], cc.t())
-            torch.topk(x if r is None else x.float() * r, k, dim=1)
-
     def asym_mm():
         for s in range(0, n_q, chunk):
             torch.topk((q[s:s + chunk] @ wide.T).float() * rs, k, dim=1)
 
     forms = {
-        # form: (queries, bank, row_scale, distance, exact, library, bytes of q / bank row, peak)
-        "int8": (q8, codes_g, None, "dot_product", True, lambda: int_mm(q8, codes_g, None), 1, 1, 0,
-                 PEAK_INT8_OPS),
-        "int8_rows": (q8, codes_r, rs, "dot_product", True, lambda: int_mm(q8, codes_r, rs), 1, 1, 4,
-                      PEAK_INT8_OPS),
-        "asym_rows": (q, codes_r, rs, "dot_product", False, asym_mm, 2, 1, 4, PEAK_BF16_FLOPS),
+        # form: (queries, bank, row_scale, distance, exact, library, bytes of q / bank row, peak, ks)
+        "int8": (q8, codes_g, None, "dot_product", True, lambda: int8_library(q8, codes_g, k, None, chunk),
+                 1, 1, 0, PEAK_INT8_OPS, INT8_KS),
+        "int8_rows": (q8, codes_r, rs, "dot_product", True, lambda: int8_library(q8, codes_r, k, rs, chunk),
+                      1, 1, 4, PEAK_INT8_OPS, INT8_KS),
+        "asym_rows": (q, codes_r, rs, "dot_product", False, asym_mm, 2, 1, 4, PEAK_BF16_FLOPS, (k,)),
         "l2": (q, bb, None, "l2", False, lambda: k1_library(q, bb, k, neg_bias, chunk), 2, 2, 0,
-               PEAK_BF16_FLOPS),
+               PEAK_BF16_FLOPS, (k,)),
     }
-    for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak) in forms.items():
-        kw = dict(distance=dist, row_scale=r)
-        ms = cuda_ms(lambda: knn_topk(qq, b, k, **kw), reps)
-        out = knn_topk(qq, b, k, **kw)
-        box = {}
-        plain_ms = cuda_ms(lambda: box.update(out=exact_knn(qq, b, k + 1, **kw)), 1)
-        errs["K1"] = max(errs["K1"], check_against_plain(
-            f"K1 timing shape {form} {label}", qq, b, k, m, out, box.pop("out"), exact=exact, **kw))
-        lib_ms = library_ms(lib, reps, f"K1 {form} {label}")
-        b_ms, b_by = bound_ms(n_q, m, d, k, qbytes, peak, bank_bytes=bbytes, row_bytes=rbytes)
-        rows[f"{form} {label}"] = {"form": form, "Q": n_q, "M": m, "D": d, "k": k, "ms": ms,
-                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                   "library_ms": lib_ms}
-        print(f"  K1 {form} {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})"
-              + (f": {shares(ms, b_ms, lib_ms)}" if form == "l2" else ""), flush=True)
+    base_k = k
+    for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak, ks) in forms.items():
+        for k in ks:
+            kw = dict(distance=dist, row_scale=r)
+            name = form if k == base_k else f"{form} k={k}"
+            ms = cuda_ms(lambda: knn_topk(qq, b, k, **kw), reps)
+            out = knn_topk(qq, b, k, **kw)
+            box = {}
+            plain_ms = cuda_ms(lambda: box.update(out=exact_knn(qq, b, k + 1, **kw)), 1)
+            errs["K1"] = max(errs["K1"], check_against_plain(
+                f"K1 timing shape {name} {label}", qq, b, k, m, out, box.pop("out"), exact=exact, **kw))
+            lib_ms = library_ms(lib, reps, f"K1 {name} {label}")
+            b_ms, b_by = bound_ms(n_q, m, d, k, qbytes, peak, bank_bytes=bbytes, row_bytes=rbytes)
+            rows[f"{name} {label}"] = {"form": form, "Q": n_q, "M": m, "D": d, "k": k, "ms": ms,
+                                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                       "library_ms": lib_ms}
+            print(f"  K1 {name} {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                  f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})"
+                  + (f": {shares(ms, b_ms, lib_ms)}" if form != "asym_rows" else ""), flush=True)
+
+
+def select_load(scores, k, groups):
+    """What reaches a top-k select: the running top-k sets walk the bank's
+    128-row tiles in the orders `groups` (one list of tile indices per set),
+    and a (query, tile) pair counts when some score of the tile beats the
+    set's k-th score at the tile's start (ties do not: a tied later row has
+    the higher index). Returns (share of the pairs that count, scores above
+    the k-th per query and tile). `scores` (Q, M) f32."""
+    hit = above = pairs = 0
+    for group in groups:
+        top = torch.full((scores.shape[0], k), float("-inf"), device=scores.device)
+        for t in group:
+            tile = scores[:, 128 * t:128 * (t + 1)]
+            n = (tile > top[:, -1:]).sum(1)
+            hit += int((n > 0).sum())
+            above += int(n.sum())
+            pairs += scores.shape[0]
+            top = torch.topk(torch.cat([top, tile], 1), k, dim=1).values
+    return hit / pairs, above / pairs
+
+
+def k1_select_rows(q, bank, chunk=2048):
+    """Phase 7: the select's load on the main path's bank, K1 int8 (global
+    codes) at k = 30 and 120: the share of (query, tile) pairs with a score
+    above the running k-th, for one set per query over the whole bank in
+    order (mma_scan) and for the wgmma kernel's partial sets (per bank
+    split of its plan, consumer w taking tiles w, w + 2, ...; without the
+    minimum the sets share, so an upper bound for them)."""
+    from hbird_tpu_torch.ops import knn_cuda
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+
+    q8 = quantize_queries_int8(q.float())[0]
+    codes = quantize_bank_int8(bank.float(), per_row=False)[0]
+    m = codes.shape[0]
+    tiles = -(-m // 128)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count if DEVICE == "cuda" else 132
+    rows = {}
+    for k in INT8_KS:
+        split_rows, splits = knn_cuda.plan_splits(q8.shape[0], m, n_sm, k)
+        per = split_rows // 128
+        orders = {"one set over the bank (mma_scan)": [list(range(tiles))],
+                  f"wgmma partial sets ({splits} splits x 2)": [
+                      list(range(s * per + w, min(tiles, (s + 1) * per), 2))
+                      for s in range(splits) for w in range(2)]}
+        for scheme, groups in orders.items():
+            hit = above = 0.0
+            for s in range(0, q8.shape[0], chunk):
+                x = q8[s:s + chunk]
+                scores = (torch._int_mm(x, codes.t()) if DEVICE == "cuda"
+                          else x.int() @ codes.int().t()).float()
+                h, a = select_load(scores, k, groups)
+                hit += h * x.shape[0]
+                above += a * x.shape[0]
+            rows[f"int8 k={k}, {scheme}"] = {"rows_above_kth": hit / q8.shape[0],
+                                             "scores_above_kth": above / q8.shape[0]}
+            print(f"  K1 select load, int8 k={k}, {scheme}: {hit / q8.shape[0]:.4f} of (query, tile) "
+                  f"pairs hold a score above the running k-th, {above / q8.shape[0]:.3f} such scores "
+                  f"per pair", flush=True)
+    return rows
 
 
 def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
@@ -1327,14 +1448,15 @@ def timing(q, bank, main_tree, gen):
 def flash_timing(gen):
     """Phase 7: K3 at the main shape, bf16 and f32, vs its bound, its plain
     version and scaled_dot_product_attention (a yardstick the port never
-    calls)."""
+    calls). f32's bound is its work at f32 accuracy on the tensor cores
+    (3 TF32 passes at the TF32 peak); the f32 FMA bound stands beside it."""
     from hbird_tpu_torch.ops.flash import flash_attention_plain
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
 
     rows, errs = {}, []
-    for label, shape, dtype, peak in (("main", FLASH_MAIN, torch.bfloat16, PEAK_BF16_FLOPS),
-                                      ("f32", FLASH_MAIN, torch.float32, PEAK_F32_FLOPS),
-                                      ("long", FLASH_LONG, torch.bfloat16, PEAK_BF16_FLOPS)):
+    for label, shape, dtype in (("main", FLASH_MAIN, torch.bfloat16), ("f32", FLASH_MAIN, torch.float32),
+                                ("long", FLASH_LONG, torch.bfloat16), ("hd32", FLASH_NARROW, torch.bfloat16),
+                                ("hd80", FLASH_WIDE, torch.bfloat16)):
         scale = shape[-1] ** -0.5
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
         ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 10)
@@ -1343,12 +1465,16 @@ def flash_timing(gen):
         errs.append(check_flash(f"K3 timing shape {str(dtype)[6:]} {shape}",
                                 flash_attention(q, k, v, scale), box.pop("out")))
         lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 10)
-        b_ms, b_by = flash_bound_ms(shape, q.element_size(), peak)
+        b_ms, b_by = k3_bound(shape, dtype)
         rows[label] = {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        extra = ""
+        if dtype == torch.float32:
+            rows[label]["fma_bound_ms"] = flash_bound_ms(shape, 4, PEAK_F32_FLOPS)[0]
+            extra = f", f32 FMA bound {rows[label]['fma_bound_ms']:.4f} ms"
         print(f"  K3 {str(dtype)[6:]} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-              + (f": {shares(ms, b_ms, lib_ms)}" if dtype == torch.bfloat16 else ""), flush=True)
+              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}{', 3xTF32' if extra else ''}){extra}: "
+              f"{shares(ms, b_ms, lib_ms)}", flush=True)
         del q, k, v
     return rows, max(errs)
 
@@ -1380,13 +1506,15 @@ def forward_timing(gen_seed, gen):
 
 def pairs(tree):
     """--pairs: the Hopper-redesigned kernels of the imported package (K3
-    bf16, K1 bf16 dot and l2) timed alone by CUDA events, each beside its
-    bound and its library call; returns the JSON-ready result."""
+    bf16 and f32, K1 bf16 dot and l2, K1 int8 and int8_rows) timed alone by
+    CUDA events, each beside its bound and its library call; returns the
+    JSON-ready result."""
     import hbird_tpu_torch
     from hbird_tpu_torch.ops import cuda_build
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
     from hbird_tpu_torch.ops.knn import l2_bias
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
     t0 = time.perf_counter()
     if DEVICE == "cuda":
@@ -1399,17 +1527,19 @@ def pairs(tree):
     def record(kernel, label, ms, shape_bound, library):
         b_ms, b_by = shape_bound
         out[kernel][label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
-        print(f"  [{tree}] {kernel.upper()} {label}: {ms:.4f} ms, library {library:.4f} ms, bound "
+        print(f"  [{tree}] {kernel.upper()} {label}: {ms:.4f} ms, library {fmt_ms(library)}, bound "
               f"{b_ms:.4f} ms: {shares(ms, b_ms, library)}", flush=True)
 
-    for shape in (FLASH_MAIN, FLASH_LONG):
-        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).bfloat16() for _ in range(3))
-        scale = shape[-1] ** -0.5
-        ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 20)
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 20)
-        record("k3", f"bf16 {shape}", ms, flash_bound_ms(shape, 2, PEAK_BF16_FLOPS), lib)
-        del q, k, v
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in (FLASH_MAIN, FLASH_LONG):
+            q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+            scale = shape[-1] ** -0.5
+            ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 20)
+            lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+            record("k3", f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}", ms, k3_bound(shape, dtype), lib)
+            del q, k, v
     q = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE).bfloat16()
+    q8 = quantize_queries_int8(q.float())[0]
     for m in (PAIR_M, BIG_M):
         bank = torch.nn.functional.normalize(
             torch.randn(m, DEPTH, generator=gen, device=DEVICE), dim=1).bfloat16()
@@ -1421,7 +1551,17 @@ def pairs(tree):
                 ms = cuda_ms(lambda: knn_topk(q, bank, k, **kw), reps)
                 lib = cuda_ms(lambda: k1_library(q, bank, k, nb), reps)
                 record("k1", f"bf16 {form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
+        codes_g = quantize_bank_int8(bank, per_row=False)[0]
+        codes_r, scale = quantize_bank_int8(bank, per_row=True)
+        rs = scale.reshape(-1).float().contiguous()
         del bank, neg_bias
+        for k in PAIR_INT8_KS:
+            for form, codes, r in (("int8", codes_g, None), ("int8_rows", codes_r, rs)):
+                bound = bound_ms(PAIR_Q, m, DEPTH, k, 1, PEAK_INT8_OPS, row_bytes=0 if r is None else 4)
+                ms = cuda_ms(lambda: knn_topk(q8, codes, k, row_scale=r), reps)
+                lib = library_ms(lambda: int8_library(q8, codes, k, r), reps, f"K1 {form}")
+                record("k1", f"{form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
+        del codes_g, codes_r, rs
     return out
 
 
@@ -1492,10 +1632,11 @@ def main(argv=()):
 
     print(f"[7] K1, K2 and K3 timing; the forward ({card})", flush=True)
     k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, gen)
+    select = k1_select_rows(q, bank)
     k3_rows, err_k3_timing = flash_timing(gen)
     forward = forward_timing(0, gen)
 
-    forms = {name: {} for name in ("knn_topk", "ivf_topk")}  # main-path launches by form
+    forms = {name: {} for name in ("knn_topk", "ivf_topk", "flash_attention")}  # main-path launches by form
     for run in runs.values():
         for name, counts in run["forms"].items():
             for form, n in counts.items():
@@ -1508,9 +1649,9 @@ def main(argv=()):
                      launches["ivf_topk"], max(err_k2, err_main["K2"], err_timing["K2"]), k2_rows,
                      card, forms["ivf_topk"]),
         kernel_entry("flash_attention (K3)", "hbird_tpu_torch/ops/csrc/flash_attn.cu", TPU_KERNELS["K3"],
-                     flash_launches["flash"]["flash_attention"], max(err_k3, err_k3_main, err_k3_timing),
-                     k3_rows, card),
-    ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err,
+                     sum(n["flash_attention"] for n in flash_launches.values()),
+                     max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
+    ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
         "hopper_build": build,
         "seconds": time.perf_counter() - t_start}

@@ -16,9 +16,25 @@
 // 4·B·H·N·hd elements moved (q, k, v read, o written); at the ViT-B/14 main
 // shape (16, 12, 1370, 64) that is ~685 flops per bf16 byte, above the ~295
 // at which the card stops being memory bound. So both products go on the
-// tensor cores for bf16, and the scores, the softmax and p never leave
-// registers. f32 inputs use FMAs on a 64×64 score tile in shared memory (no
-// TF32, which would round the inputs).
+// tensor cores, and the scores, the softmax and p never leave registers.
+//
+// f32 (`f32::flash_f32<HD>`, every hd): 3xTF32 on mma.sync m16n8k8. Each f32
+// operand x is split into big = tf32(x) and small = tf32(x - big), both
+// rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero; the
+// rounding is held fixed: tests/test_torch_flash_tf32.py emulates it), and a
+// product is big·small + small·big + big·big with f32 accumulation: about
+// 21 bits of each operand. The tensor cores' accumulation rounds toward
+// zero, so each chain of products into one accumulator is kept short and
+// the chains are summed in f32 registers: within 1e-5 of the f32 plain
+// version (~1e-6 measured). The split
+// of a fragment is computed once, when a warp loads it, for its three
+// products: q once per CTA (its A fragments stay in registers), each K and
+// V word once per warp and tile, p once per tile in registers. That costs
+// three tensor-core passes, but TF32's dense rate is ~7x the f32 FMA rate.
+// 4 warps per 64-query block, 16 rows each, 64-key tiles through a
+// two-stage cp.async ring (flash_bf16's skeleton); the
+// fragments' k order is chosen so that a lane reads q and K as float4s and
+// the s accumulator is p·v's A fragment in place (see flash_f32).
 //
 // bf16 at hd = 64 (every dinov2, DINO, ViT-B/L and MAE-B/L preset; the main
 // path), `flash_bf16_wgmma`, built from hopper.cuh:
@@ -52,10 +68,9 @@
 //
 // Design of the rest: the TPU grid's sequential key axis becomes the loop
 // over key tiles inside the CTA, with the running max m, the sum l and the
-// f32 output accumulator kept across it. f32: 256 threads per 64-query
-// block, each owning a 4×4 part of the score tile and 4 rows × hd/16
-// columns of the output. o is written through its own strides (the wrapper
-// lays it out so that the heads merge back without a copy).
+// f32 output accumulator kept across it. o is written through its own
+// strides (the wrapper lays it out so that the heads merge back without a
+// copy).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
@@ -68,7 +83,6 @@ namespace {
 constexpr int FQ = 64;  // queries per CTA
 constexpr int FK = 64;  // keys per tile
 constexpr int BF16_THREADS = 128;
-constexpr int F32_THREADS = 256;
 
 // q/k/v (shared) and o strides, in elements.
 struct Layout {
@@ -545,23 +559,99 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// f32: FMAs.
+// f32: 3xTF32 on the tensor cores.
 // ---------------------------------------------------------------------------
 
+namespace f32 {
+
+constexpr int THREADS = 128;  // four warps of 16 query rows
+
+// Row strides (floats) of the staged K and V tiles. K is read as float4s at
+// depth 16i + 4t of key g by the lanes (g, t) of a quarter warp: a stride
+// of 16 (mod 32) words puts keys g and g + 1 on the two halves of the
+// banks. V is read as single floats at keys 2t, 2t + 1 and dim g: a stride
+// of 4 (mod 16) words puts the 32 lanes on 32 banks.
 template <int HD>
-__global__ void __launch_bounds__(F32_THREADS)
+__host__ __device__ constexpr int ldk() {
+  return HD + (48 - HD % 32) % 32;
+}
+template <int HD>
+__host__ __device__ constexpr int ldv() {
+  return HD + 4;
+}
+template <int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 2 * FK * (ldk<HD>() + ldv<HD>()) * sizeof(float);  // two stages of (K, V)
+}
+
+// x rounded to TF32 (10 stored mantissa bits) to nearest, ties away from
+// zero: cvt.rna.tf32.f32's rounding, as two integer operations (the
+// magnitude bits gain half the dropped unit, then the 13 low bits go);
+// the instruction itself compiles to a longer sequence. Equal to cvt.rna
+// on every input but NaN, which still leaves the output non-finite.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// big = tf32(x) and small = tf32(x - big), both rounded by tf32_rna; x - big
+// is exact in f32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b in 3xTF32: the two small cross terms first, then big·big.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t b0b, uint32_t b1b,
+                                           uint32_t b0s, uint32_t b1s) {
+  mma_tf32(c, as, b0b, b1b);
+  mma_tf32(c, ab, b0s, b1s);
+  mma_tf32(c, ab, b0b, b1b);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One CTA per 64 queries of one (b, h); lane (g, t) = (lane / 4, lane % 4)
+// of warp w holds query rows w·16 + g and + 8. The m16n8k8 fragments take
+// their k index in an order of our choosing, as long as A and B agree:
+// - q·kᵀ, k-step 2i + h: k index t is depth 16i + 4t + 2h and t + 4 is the
+//   depth after it, so a lane reads its A and B words as float4s;
+// - p·v, k-step j: k index t is key 8j + 2t and t + 4 is key 8j + 2t + 1,
+//   which is where the s accumulator of n8 tile j holds p: p becomes the A
+//   fragment in place.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int heads, int n, Layout lay,
-              float scale) {
-  constexpr int LDT = FQ + 4;  // q and k staged transposed: [HD][LDT]
-  constexpr int LDV = HD + 4;  // v row-major: [FK][LDV]
-  constexpr int LDP = FK + 4;  // p: [FQ][LDP]
-  constexpr int DJ = HD / 16;  // output columns per thread: tx + 16·j
+              float sl2) {
+  constexpr int LDK = ldk<HD>();
+  constexpr int LDV = ldv<HD>();
+  constexpr int DG = HD / 16;  // depth groups of two k-steps
+  constexpr int DT = HD / 8;   // n8 tiles of the output row
+  // The tensor cores add into their f32 accumulator rounding toward zero,
+  // a bias that grows with the length of a chain of mma.sync into one
+  // accumulator (over a whole sequence it reached 1e-5 in o). So every
+  // chain is short: s sums each depth group (6 products) into a fresh
+  // accumulator, and p·v a tile (24) at hd <= 64, a k-step (3) at hd = 80,
+  // whose 40 more registers a tile's sum would not leave; the sums are
+  // added in f32, rounding to nearest.
+  constexpr int SUM_STEPS = HD <= 64 ? 8 : 1;
   extern __shared__ __align__(16) float fsm[];
-  float* qt = fsm;
-  float* kt = qt + HD * LDT;
-  float* vs = kt + HD * LDT;
-  float* ps = vs + FK * LDV;
+  float* ks = fsm;               // [2][FK][LDK]
+  float* vs = ks + 2 * FK * LDK;  // [2][FK][LDV]
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y % heads;
@@ -570,122 +660,166 @@ __global__ void __launch_bounds__(F32_THREADS)
   q += off;
   k += off;
   v += off;
-  const int tx = threadIdx.x & 15;  // score columns tx·4.., output columns tx + 16·j
-  const int ty = threadIdx.x >> 4;  // rows ty·4..ty·4+3; a row's 16 threads share a half-warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
 
-  // Stage rows [row0, row0 + 64) transposed into dst[HD][LDT]; zeros past n.
-  auto stage_t = [&](float* dst, const float* src, int row0) {
-    for (int i = threadIdx.x; i < 64 * (HD / 4); i += F32_THREADS) {
-      const int r = i / (HD / 4);
-      const int c = (i % (HD / 4)) * 4;
+  load_tile<HD, LDK>(ks, k, 0, n, lay.sn, THREADS);
+  load_tile<HD, LDV>(vs, v, 0, n, lay.sn, THREADS);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // The warp's query rows as split A fragments, read once from memory.
+  uint32_t qb[DT][4], qsm[DT][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int i = 0; i < DG; ++i) {
       float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row0 + r < n)
-        x = *reinterpret_cast<const float4*>(src + static_cast<long long>(row0 + r) * lay.sn + c);
-      dst[(c + 0) * LDT + r] = x.x;
-      dst[(c + 1) * LDT + r] = x.y;
-      dst[(c + 2) * LDT + r] = x.z;
-      dst[(c + 3) * LDT + r] = x.w;
+      if (row < n) x = *reinterpret_cast<const float4*>(q + row * lay.sn + 16 * i + 4 * t4);
+      // A: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+      split(x.x, qb[2 * i][r], qsm[2 * i][r]);
+      split(x.y, qb[2 * i][2 + r], qsm[2 * i][2 + r]);
+      split(x.z, qb[2 * i + 1][r], qsm[2 * i + 1][r]);
+      split(x.w, qb[2 * i + 1][2 + r], qsm[2 * i + 1][2 + r]);
     }
-  };
-
-  stage_t(qt, q, q0);
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = neg_inf();
-    l[i] = 0.0f;
   }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m[2] = {neg_inf(), neg_inf()};  // rows g and g + 8, in log2 units
+  float l[2] = {0.0f, 0.0f};           // this lane's share of the row sums
 
   const int n_tiles = (n + FK - 1) / FK;
   for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();  // earlier readers of kt, vs and ps are done
-    stage_t(kt, k, t * FK);
-    load_tile<HD, LDV>(vs, v, t * FK, n, lay.sn, F32_THREADS);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * LDT + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&kt[d * LDT + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+    if (t + 1 < n_tiles) {  // prefetch the next K/V tile into the other stage
+      const int st = (t + 1) & 1;
+      load_tile<HD, LDK>(ks + st * FK * LDK, k, (t + 1) * FK, n, lay.sn, THREADS);
+      load_tile<HD, LDV>(vs + st * FK * LDV, v, (t + 1) * FK, n, lay.sn, THREADS);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
     }
+    __syncthreads();  // this tile's copies are visible to every warp
+    const float* kt = ks + (t & 1) * FK * LDK;
+    const float* vt = vs + (t & 1) * FK * LDV;
 
+    // s = q·kᵀ: 16 rows × 64 keys per warp, 8 n8 tiles; each K word is
+    // split once, for its three products. Each depth group's products go
+    // into a fresh accumulator, added to s in f32 (see SUM_STEPS).
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = t * FK + tx * 4 + j < n ? s[i][j] * scale : neg_inf();
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DG; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(kt + (8 * j + g) * LDK + 16 * i + 4 * t4);
+        uint32_t bb[4], bs[4];
+        split(x.x, bb[0], bs[0]);
+        split(x.y, bb[1], bs[1]);
+        split(x.z, bb[2], bs[2]);
+        split(x.w, bb[3], bs[3]);
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_3xtf32(d, qb[2 * i], qsm[2 * i], bb[0], bb[1], bs[0], bs[1]);
+        mma_3xtf32(d, qb[2 * i + 1], qsm[2 * i + 1], bb[2], bb[3], bs[2], bs[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += d[e];
+      }
+
+    // Scale (by scale·log2 e), mask the ragged edge, online softmax in f32.
+    const int col0 = t * FK + 2 * t4;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = col0 + 8 * j + (e & 1) < n ? s[j][e] * sl2 : neg_inf();
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      alpha[i] = ex2(m[i] - mx[i]);  // 0 on the first tile (m = -inf)
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
       }
 #pragma unroll
-      for (int w = 1; w < 16; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, w));
-      const float alpha = expf(m[i] - mx);
-      m[i] = mx;
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mx);
-        l[i] += s[i][j];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-      *reinterpret_cast<float4*>(&ps[(ty * 4 + i) * LDP + tx * 4]) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
     }
-    __syncthreads();
 
-#pragma unroll 2
-    for (int c = 0; c < FK; c += 4) {
-      float pr[4][4];
+    // o += p·v: k-step j is n8 score tile j; p and each V word split once.
+    // The products of SUM_STEPS k-steps go into a fresh accumulator, added
+    // to o in f32.
+    float pv[DT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(&ps[(ty * 4 + i) * LDP + c]);
-        pr[i][0] = x.x;
-        pr[i][1] = x.y;
-        pr[i][2] = x.z;
-        pr[i][3] = x.w;
+    for (int j = 0; j < 8; ++j) {
+      if (j % SUM_STEPS == 0) {
+#pragma unroll
+        for (int nn = 0; nn < DT; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[nn][e] = 0.0f;
       }
+      uint32_t pb[4], ps[4];
+      split(s[j][0], pb[0], ps[0]);
+      split(s[j][2], pb[1], ps[1]);
+      split(s[j][1], pb[2], ps[2]);
+      split(s[j][3], pb[3], ps[3]);
+      const float* v0 = vt + (8 * j + 2 * t4) * LDV + g;
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
+      for (int nn = 0; nn < DT; ++nn) {
+        uint32_t b0b, b0s, b1b, b1s;
+        split(v0[8 * nn], b0b, b0s);
+        split(v0[LDV + 8 * nn], b1b, b1s);
+        mma_3xtf32(pv[nn], pb, ps, b0b, b1b, b0s, b1s);
+      }
+      if (j % SUM_STEPS == SUM_STEPS - 1) {
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float vv = vs[(c + cc) * LDV + tx + 16 * j];
+        for (int nn = 0; nn < DT; ++nn)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i][cc], vv, acc[i][j]);
-        }
+          for (int e = 0; e < 4; ++e) acc[nn][e] += pv[nn][e];
+      }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
+  // Normalise once and store the rows below n: head dims 8nn + 2t, + 1.
   o += b * lay.ob + h * lay.oh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int w = 1; w < 16; w <<= 1) l[i] += __shfl_xor_sync(FULL, l[i], w);
-    const int row = q0 + ty * 4 + i;
-    if (row >= n) continue;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
     const float inv = 1.0f / l[i];
+    const int row = q0 + warp * 16 + g + 8 * i;
+    if (row >= n) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) o[row * lay.on + tx + 16 * j] = acc[i][j] * inv;
+    for (int nn = 0; nn < DT; ++nn)
+      *reinterpret_cast<float2*>(o + row * lay.on + 8 * nn + 2 * t4) =
+          make_float2(acc[nn][2 * i] * inv, acc[nn][2 * i + 1] * inv);
   }
 }
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // Launch.
@@ -708,12 +842,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
           scale);
     }
   } else {
-    const size_t smem = (2 * HD * (FQ + 4) + FK * (HD + 4) + FQ * (FK + 4)) * sizeof(float);
-    const cudaError_t e = allow_smem(flash_f32<HD>, smem);
+    constexpr size_t smem = f32::smem_bytes<HD>();
+    const cudaError_t e = allow_smem(f32::flash_f32<HD>, smem);
     if (e != cudaSuccess) return e;
-    flash_f32<HD><<<grid, F32_THREADS, smem, stream>>>(
+    f32::flash_f32<HD><<<grid, f32::THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), heads, n, lay, scale);
+        static_cast<float*>(o), heads, n, lay, scale * 1.4426950408889634f);
   }
   return cudaGetLastError();
 }

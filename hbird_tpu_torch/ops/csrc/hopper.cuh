@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the redesigned bf16 kernels: K1's
-// score-and-select tile (knn_topk.cu) and K3's forward (flash_attn.cu).
+// Hopper (sm_90a) building blocks of the redesigned kernels: K1's bf16 and
+// int8 score-and-select tile (knn_topk.cu) and K3's bf16 forward
+// (flash_attn.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count, and
 //   a wait on a phase parity;
@@ -9,17 +10,19 @@
 //   libraries need no -lcuda;
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled tile (the
 //   layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes in
-//   1,024-byte atoms of 8 rows), fence / commit / wait, and the two shapes
-//   the kernels issue: m64n128k16 with both operands in shared memory, and
-//   m64n64k16 with A in registers and B transposed (MN-major);
+//   1,024-byte atoms of 8 rows), fence / commit / wait, and the shapes the
+//   kernels issue: m64n128k16 bf16 and m64n128k32 s8 with both operands in
+//   shared memory, and m64n64k16 bf16 with A in registers and B transposed
+//   (MN-major);
 // - setmaxnreg, which moves registers from the producer warpgroup to the
 //   consumer warpgroups.
 //
-// Descriptors: a K-major operand (the depth contiguous, 64 bf16 = one
-// 128-byte row) advances 32 bytes per k16 step inside its rows; an MN-major
-// operand (K3's V: keys are rows, head dims contiguous) advances 16 rows
-// (2,048 bytes) per k16 step. Either way 8-row groups are 1,024 bytes apart
-// (the stride byte offset); the leading byte offset is unused at these widths.
+// Descriptors: a K-major operand (the depth contiguous, 64 bf16 or 128 int8
+// = one 128-byte row) advances 32 bytes per k-step (k16 bf16, k32 s8)
+// inside its rows; an MN-major operand (K3's V: keys are rows, head dims
+// contiguous) advances 16 rows (2,048 bytes) per k16 step. Either way 8-row
+// groups are 1,024 bytes apart (the stride byte offset); the leading byte
+// offset is unused at these widths.
 
 #pragma once
 
@@ -137,6 +140,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // d (64×128 f32, accumulator layout) += A (64×16, descriptor) · B (128×16,
 // descriptor), both K-major; scale_d = 0 overwrites d instead.
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
@@ -181,6 +190,34 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64×128 s32, the same accumulator layout) += A (64×32 int8, descriptor)
+// · B (128×32 int8, descriptor), both K-major: 32 bytes of depth per step,
+// as in the bf16 form; scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t a, uint64_t b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------
@@ -246,15 +283,17 @@ inline EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (dims innermost first, strides in
-// bytes of dims 1.., box in elements), 128-byte swizzle, zeros out of
-// bounds. Returns 0, ERR_NO_ENCODER or ERR_ENCODE.
+// A tensor map of `rank` dimensions (dims innermost first, strides in bytes
+// of dims 1.., box in elements) of bf16 elements, or of bytes (UINT8: int8
+// codes), 128-byte swizzle, zeros out of bounds. Returns 0, ERR_NO_ENCODER
+// or ERR_ENCODE.
 inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
-                             const uint64_t* strides, const uint32_t* box) {
+                             const uint64_t* strides, const uint32_t* box,
+                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = tensor_map_encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+  const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
                         reinterpret_cast<const cuuint32_t*>(box), elem,

@@ -19,47 +19,58 @@
 // So the score tile belongs on the tensor cores. f32 inputs keep exact f32
 // FMAs (the tensor cores would round them to TF32).
 //
-// bf16, forms (a) and (b) (`wg::knn_bf16_wgmma`, built from hopper.cuh):
+// bf16, forms (a) and (b), and int8 codes, forms (c) and (c)+(d)
+// (`wg::knn_wgmma<F, S, E>`, built from hopper.cuh; F the element form, S
+// keys a lane, E the epilogue):
 // - Persistent CTAs, one per SM, walk work items (bank split, 64-query
 //   tile), split-major, so the CTAs in flight read the same ~1/splits of the
 //   bank and find it in L2. The wrapper picks the fewest splits whose
 //   rounds of items keep at least 90% of the SMs busy (ops/knn_cuda.py,
-//   plan_bf16_splits: 3 at Q = 21,904 on 132 SMs); the splits cover only
-//   the valid rows.
+//   plan_splits: 3 at Q = 21,904 on 132 SMs); the splits cover only the
+//   valid rows.
 // - A CTA is one producer warp (its warpgroup gives registers away with
 //   setmaxnreg) and two consumer warpgroups. The item's 64 queries are
-//   loaded once by TMA and stay in shared memory for the whole depth (96 KB
-//   at D = 768); consumer w scores the split's 128-row bank tiles w, w + 2,
-//   ... from its own ring of up to 4 stages of 128 rows × 64 depth (16 KB),
-//   which the producer fills chunk by chunk by TMA, the two rings in turn.
-//   Shared memory at D = 768: 96 KB + 2 × 4 × 16 KB = 224 KB; at larger D
-//   the rings get fewer stages (one each at D = 1536, dinov2_vitg14's
-//   width). Wider banks (a converted checkpoint of width 1,664, say) do not
-//   leave room for one stage and take mma_scan<FormBf16>, the kernel of
-//   the other forms below.
-// - Scores: wgmma m64n128k16, queries and bank rows both K-major in
-//   128-byte swizzled tiles, f32 accumulators in registers.
-// - Select in registers: each accumulator goes through the epilogue (minus
-//   the l2 bias) and is compared with its query's current minimum key,
-//   kept in registers by TopK<S, 16> (topk_common.cuh). Only a query with a
+//   loaded once by TMA and stay in shared memory for the whole depth;
+//   consumer w scores the split's 128-row bank tiles w, w + 2, ... from its
+//   own ring of up to 4 stages of 128 rows × one 128-byte depth chunk (16
+//   KB: 64 bf16 or 128 int8 values), which the producer fills chunk by
+//   chunk by TMA, the two rings in turn. At D = 768 the queries take 96 KB
+//   in bf16 and 48 KB in int8, the rings 2 × 4 × 16 KB. Wider bf16 banks get
+//   fewer stages (one each at D = 1536, dinov2_vitg14's width); wider still
+//   (a converted checkpoint of width 1,664, say) do not leave room for one
+//   stage and take mma_scan<FormBf16>, the kernel of the other forms below.
+//   int8 codes are at most 1,024 wide (exact scores), so their queries
+//   always fit. int8 at k > 96 (S = 4 keys a lane, where the consumers'
+//   top sets spill) runs mma_scan instead, chosen in knn_topk_launch by k:
+//   at the main path's bank (87,616 rows, the `faiss` int8 + reorder scan's
+//   k = 120) it is the faster of the two (PERF.md).
+// - Scores: wgmma m64n128k16 (bf16, f32 accumulators) or m64n128k32 s8
+//   (int32 accumulators), queries and bank rows both K-major in 128-byte
+//   swizzled tiles; either way a chunk is 4 k-steps of 32 bytes.
+// - Select in registers: each accumulator goes through the conversion
+//   (int32 -> f32 once for int8) and the epilogue (minus the l2 bias, or
+//   times the row scale, preloaded per lane under the last chunk's
+//   products) and is compared with its query's current minimum key, kept
+//   in registers by TopK<S, 16> (topk_common.cuh). Only a query with a
 //   score above it is merged (insert_key for a single one, else merge_row
-//   after a shuffle into its layout): no score tile in shared memory. While one consumer
-//   selects, the other's products run.
+//   after a shuffle into its layout): no score tile in shared memory. While
+//   one consumer selects, the other's products run.
 // - Each consumer leaves its top-(32·S) keys per query as one partial set
 //   of the scratch `parts`; a second kernel, launched from the same entry
 //   point, merges a query's 2·splits sets with merge_row and emits the k
 //   best: the tie order (value descending, then index ascending) is the
 //   single-pass one, because the keys are unique and each partial holds its
-//   range's exact top set.
-// The other forms (and bf16 wider than D = 1536) keep topk_common.cuh's
-// mma_scan: one CTA (256 threads)
-// per BQ = 64 queries walking the bank in tiles of BM = 128 rows; bf16
-// queries on int8 codes and int8 × int8 go through mma.sync (m16n8k16 with
-// the codes widened in registers, m16n8k32 s8) fed by a two-stage cp.async
-// ring; an int8 bank tile takes half the ring bytes of a bf16 one. Tiles at
-// or past `valid_rows` are never visited: their columns would all score
-// -inf. The epilogue and the running top-k merge (ties resolve by lowest
-// index, as ops/knn.py::exact_knn does) are shared with K2, in
+//   range's exact top set. int8 scores are the plain version's bit for bit
+//   (exact integers, one f32 rounding for the row scale), so are the keys.
+// The other forms (f32, and bf16 queries on int8 codes), bf16 wider than
+// D = 1536 and int8 at k > 96 keep topk_common.cuh's mma_scan: one CTA (256
+// threads) per BQ = 64 queries walking the bank in tiles of BM = 128 rows;
+// bf16 queries on int8 codes go through mma.sync m16n8k16 with the codes
+// widened in registers, int8 × int8 through m16n8k32 s8, fed by a two-stage
+// cp.async ring; an int8 bank tile takes half the ring bytes of a bf16 one.
+// Tiles at or past `valid_rows` are never visited: their columns would all
+// score -inf. The epilogue and the running top-k merge (ties resolve by
+// lowest index, as ops/knn.py::exact_knn does) are shared with K2, in
 // topk_common.cuh.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
@@ -121,22 +132,68 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dot and l2: wgmma on TMA-fed rings with a producer warp.
+// bf16 dot and l2, int8 and int8_rows: wgmma on TMA-fed rings with a producer
+// warp.
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
 constexpr int BQH = 64;                   // queries per item, resident for the whole depth
 constexpr int BMH = 128;                  // bank rows per tile: one consumer warpgroup's N
-constexpr int DK = 64;                    // depth per chunk: one 128-byte swizzled row
-constexpr int Q_CHUNK = BQH * DK * 2;     // 8 KB
-constexpr int B_CHUNK = BMH * DK * 2;     // 16 KB
+constexpr int CHUNK_BYTES = 128;          // depth per chunk: one 128-byte swizzled row
+constexpr int Q_CHUNK = BQH * CHUNK_BYTES;  // 8 KB
+constexpr int B_CHUNK = BMH * CHUNK_BYTES;  // 16 KB
 constexpr int MAX_STAGES = 4;             // per consumer ring
 constexpr int THREADS = 384;              // producer warpgroup + two consumer warpgroups
 constexpr int SMEM_LIMIT = 232448;        // a block's shared memory on an H100
 constexpr int BAR_BYTES = 256;
 constexpr int ROWS = 16;                  // queries per consumer warp
 constexpr int MERGE_THREADS = 256;        // 8 queries per merge CTA, one warp each
+// int8 at larger k (S = 4 keys a lane) runs mma_scan: at the main path's bank
+// it is the faster there (PERF.md).
+constexpr int S8_MAX_K = 96;
+
+// The forms of the kernel: the element type (its TMA map type and depth per
+// 128-byte chunk), the wgmma that scores one chunk (4 k-steps of 32 bytes
+// either way) and the accumulator type with its conversion to a score.
+// - Bf16: m64n128k16, f32 accumulators.
+// - S8: int8 codes, m64n128k32 s8, s32 accumulators, each converted once to
+//   f32 (__int2float_rn, exact below 2^24: D <= 1024); a score turned back
+//   into the accumulator's register keeps its f32 bits.
+struct Bf16 {
+  typedef float Acc;
+  static constexpr int DK = 64;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    hopper::wgmma_m64n128k16_ss(d, a, b, scale_d);
+  }
+  __device__ __forceinline__ static float score(float v) { return v; }
+  __device__ __forceinline__ static float bits(float v) { return v; }
+  __device__ __forceinline__ static float unbits(float v) { return v; }
+};
+struct S8 {
+  typedef int Acc;
+  static constexpr int DK = 128;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  __device__ __forceinline__ static void mma(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    hopper::wgmma_m64n128k32_s8_ss(d, a, b, scale_d);
+  }
+  __device__ __forceinline__ static float score(int v) { return __int2float_rn(v); }
+  __device__ __forceinline__ static int bits(float v) { return __float_as_int(v); }
+  __device__ __forceinline__ static float unbits(int v) { return __int_as_float(v); }
+};
+
+// The epilogue after the conversion, with one f32 per bank row (the
+// wrapper's vector `cvec`): none, minus the l2 bias, or times the row scale
+// (topk_common.cuh's epilogue, one rounding each).
+enum Epi { PLAIN = 0, BIAS = 1, SCALE = 2 };
+
+template <Epi E>
+__device__ __forceinline__ float epi(float v, float c) {
+  if constexpr (E == BIAS) return __fsub_rn(v, c);
+  if constexpr (E == SCALE) return __fmul_rn(v, c);
+  return v;
+}
 
 // Ring stages per consumer warpgroup for n_chunks depth chunks of queries
 // (0: the queries do not fit).
@@ -154,18 +211,18 @@ inline int smem_bytes(int n_chunks, int stages) {
 // Merge one finished tile (accumulators `acc`, bank rows col0..col0+127, of
 // which those below row_end are valid) into the warp's 16 running top sets.
 // A lane holds rows g = lane/4 and g + 8 of the warp's 16, columns
-// 8j + 2·(lane%4) + {0, 1} (accumulator 4j + {0, 1} and 4j + {2, 3}); with
-// L2, `bias` holds its columns' l2 biases (bias[2j + e]). Each score goes
-// through the epilogue and is compared with the larger of its row's minimum
-// key and `pub`, lane r's copy of the minimum key published for row r by
-// any partial set of the same query (see knn_bf16_wgmma); only a row with a
-// score above it is merged. A single such score replaces the set's minimum
-// (insert_key); more are first redistributed by shuffles to 4 per lane,
-// merge_row's layout. A row whose minimum key rose publishes it (atomicMax
-// at `thr_out[r]`).
-template <int S, bool L2>
-__device__ __forceinline__ void merge_acc(TopK<S, ROWS>& top, float (&acc)[64], int col0,
-                                          int row_end, const float (&bias)[32], u64 pub,
+// 8j + 2·(lane%4) + {0, 1} (accumulator 4j + {0, 1} and 4j + {2, 3}); `cv`
+// holds its columns' epilogue values (cv[2j + e]: l2 bias or row scale).
+// Each score goes through the conversion and the epilogue and is compared
+// with the larger of its row's minimum key and `pub`, lane r's copy of the
+// minimum key published for row r by any partial set of the same query (see
+// knn_wgmma); only a row with a score above it is merged. A single such
+// score replaces the set's minimum (insert_key); more are first
+// redistributed by shuffles to 4 per lane, merge_row's layout. A row whose
+// minimum key rose publishes it (atomicMax at `thr_out[r]`).
+template <class F, int S, Epi E>
+__device__ __forceinline__ void merge_acc(TopK<S, ROWS>& top, typename F::Acc (&acc)[64], int col0,
+                                          int row_end, const float (&cv)[32], u64 pub,
                                           u64* thr_out, int n_rows, int lane) {
   const int g = lane >> 2;
   u64 t_lo = top.thr[0], t_hi = top.thr[8];
@@ -188,12 +245,9 @@ __device__ __forceinline__ void merge_acc(TopK<S, ROWS>& top, float (&acc)[64], 
       const int c = 8 * j + 2 * (lane & 3) + e;
       float lo = neg_inf(), hi = neg_inf();
       if (c < n_cols) {
-        lo = acc[4 * j + e];
-        hi = acc[4 * j + 2 + e];
-        if constexpr (L2) {  // the epilogue of topk_common.cuh, bias preloaded
-          lo = __fsub_rn(lo, bias[2 * j + e]);
-          hi = __fsub_rn(hi, bias[2 * j + e]);
-        }
+        const float c_e = E == PLAIN ? 0.0f : cv[2 * j + e];
+        lo = epi<E>(F::score(acc[4 * j + e]), c_e);
+        hi = epi<E>(F::score(acc[4 * j + 2 + e]), c_e);
         const u64 k_lo = make_key(lo, col0 + c), k_hi = make_key(hi, col0 + c);
         if (k_lo > t_lo) {
           ++n_lo;
@@ -204,8 +258,8 @@ __device__ __forceinline__ void merge_acc(TopK<S, ROWS>& top, float (&acc)[64], 
           last_hi = k_hi;
         }
       }
-      acc[4 * j + e] = lo;
-      acc[4 * j + 2 + e] = hi;
+      acc[4 * j + e] = F::bits(lo);
+      acc[4 * j + 2 + e] = F::bits(hi);
     }
   const unsigned b_lo = __ballot_sync(FULL, n_lo > 0), b_hi = __ballot_sync(FULL, n_hi > 0);
   if ((b_lo | b_hi) == 0) return;  // the common case once the sets fill
@@ -232,7 +286,7 @@ __device__ __forceinline__ void merge_acc(TopK<S, ROWS>& top, float (&acc)[64], 
         for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float x = __shfl_sync(FULL, acc[4 * (4 * j + jj) + 2 * (r >> 3) + e], src);
+            const float x = F::unbits(__shfl_sync(FULL, acc[4 * (4 * j + jj) + 2 * (r >> 3) + e], src));
             if ((lane >> 3) == jj && (lane & 1) == e) v = x;
           }
         const u64 key = make_key(v, col0 + lane + 32 * j);
@@ -257,12 +311,12 @@ __device__ __forceinline__ void merge_acc(TopK<S, ROWS>& top, float (&acc)[64], 
 // and cannot be among the k best, so a set may drop it: the union of the
 // sets still holds the k best, whatever the timing, and far fewer keys are
 // inserted than if each set filled on its own.
-template <int S, bool L2>
+template <class F, int S, Epi E>
 __global__ void __launch_bounds__(THREADS, 1)
-    knn_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tb,
-                   const float* __restrict__ bias, u64* __restrict__ parts, u64* __restrict__ thr,
-                   int nq, int valid, int n_chunks, int stages, int q_tiles, int split_rows,
-                   int n_items) {
+    knn_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tb,
+              const float* __restrict__ cvec, u64* __restrict__ parts, u64* __restrict__ thr,
+              int nq, int valid, int n_chunks, int stages, int q_tiles, int split_rows,
+              int n_items) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = hopper::aligned_smem(smem_raw);  // [n_chunks][64 rows][128 B]
   unsigned char* ring = qs + n_chunks * Q_CHUNK;        // [2][stages][128 rows][128 B]
@@ -301,7 +355,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         hopper::mbar_wait(q_empty, (it & 1) ^ 1);
         hopper::mbar_expect_tx(q_full, n_chunks * Q_CHUNK);
         for (int c = 0; c < n_chunks; ++c)
-          hopper::tma_load_2d(qs + c * Q_CHUNK, &tq, q_full, c * DK, qt * BQH);
+          hopper::tma_load_2d(qs + c * Q_CHUNK, &tq, q_full, c * F::DK, qt * BQH);
         for (int p = 0; 2 * p < n_tiles; ++p)
           for (int c = 0; c < n_chunks; ++c)
             for (int w = 0; w < 2; ++w) {
@@ -310,7 +364,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               uint64_t* f = full + w * MAX_STAGES + st[w];
               hopper::mbar_wait(empty + w * MAX_STAGES + st[w], ph[w] ^ 1);
               hopper::mbar_expect_tx(f, B_CHUNK);
-              hopper::tma_load_2d(ring + (w * stages + st[w]) * B_CHUNK, &tb, f, c * DK,
+              hopper::tma_load_2d(ring + (w * stages + st[w]) * B_CHUNK, &tb, f, c * F::DK,
                                   r0 + tile * BMH);
               if (++st[w] == stages) {
                 st[w] = 0;
@@ -328,7 +382,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint64_t* my_full = full + w * MAX_STAGES;
     uint64_t* my_empty = empty + w * MAX_STAGES;
     TopK<S, ROWS> top;
-    float acc[64];
+    typename F::Acc acc[64];
     int st = 0;
     uint32_t ph = 0, it = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
@@ -348,9 +402,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           const unsigned char* bc = my_ring + st * B_CHUNK;
           hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < DK / 16; ++kk)
-            hopper::wgmma_m64n128k16_ss(acc, hopper::sw128_desc(qc + kk * 32),
-                                        hopper::sw128_desc(bc + kk * 32), (c | kk) != 0);
+          for (int kk = 0; kk < CHUNK_BYTES / 32; ++kk)
+            F::mma(acc, hopper::sw128_desc(qc + kk * 32), hopper::sw128_desc(bc + kk * 32),
+                   (c | kk) != 0);
           hopper::wgmma_commit();
           if (stages > 1) {
             hopper::wgmma_wait<1>();  // the previous chunk's products are done with its stage
@@ -365,17 +419,17 @@ __global__ void __launch_bounds__(THREADS, 1)
             ph ^= 1;
           }
         }
-        // Under the last chunk's products: this tile's biases and the
-        // warp's published minimum keys.
+        // Under the last chunk's products: this tile's epilogue values (l2
+        // biases or row scales) and the warp's published minimum keys.
         const int col0 = r0 + tile * BMH;
-        float bb[32];
-        if constexpr (L2) {
+        float cv[32];
+        if constexpr (E != PLAIN) {
 #pragma unroll
           for (int j = 0; j < 16; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int c = col0 + 8 * j + 2 * (lane & 3) + e;
-              bb[2 * j + e] = c < r1 ? __ldg(bias + c) : 0.0f;
+              cv[2 * j + e] = c < r1 ? __ldg(cvec + c) : 0.0f;
             }
         }
         const u64 pub = lane < ROWS && q_row + lane < nq ? __ldcg(thr + q_row + lane) : 0;
@@ -383,7 +437,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         hopper::fence_regs(acc);
         if (prev >= 0) hopper::mbar_arrive(my_empty + prev);
         if (tile + 2 >= n_tiles) hopper::mbar_arrive(q_empty);  // the queries are read
-        merge_acc<S, L2>(top, acc, col0, r1, bb, pub, thr + q_row, nq - q_row, lane);
+        merge_acc<F, S, E>(top, acc, col0, r1, cv, pub, thr + q_row, nq - q_row, lane);
       }
       const int part = 2 * split + w;
 #pragma unroll
@@ -424,38 +478,48 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   top.emit(out_vals, out_idx, qi, nq, k, 0, lane);
 }
 
-// Launch the bf16 form: tensor maps of the queries (box 64 depth × 64
-// rows) and the bank (64 × 128), the persistent kernel, then the merge.
-template <int S, bool L2>
-int launch(const void* q, const void* bank, const float* bias, void* out_vals, void* out_idx,
+// Dynamic shared memory of form F's kernel at depth d (0: the queries do
+// not fit).
+template <class F>
+inline int smem_at(int d) {
+  const int n_chunks = (d + F::DK - 1) / F::DK;
+  const int stages = stages_for(n_chunks);
+  return stages < 1 ? 0 : smem_bytes(n_chunks, stages);
+}
+
+// Launch form F: tensor maps of the queries (box one chunk × 64 rows) and
+// the bank (one chunk × 128 rows), the persistent kernel, then the merge.
+template <class F, int S, Epi E>
+int launch(const void* q, const void* bank, const float* cvec, void* out_vals, void* out_idx,
            void* parts, void* thr, int nq, int m, int d, int valid_rows, int k, int split_rows,
            cudaStream_t stream) {
-  const int n_chunks = (d + DK - 1) / DK;
+  const int n_chunks = (d + F::DK - 1) / F::DK;
   const int stages = stages_for(n_chunks);
   if (stages < 1 || split_rows < BMH || split_rows % BMH != 0 || parts == nullptr ||
-      thr == nullptr || L2 != (bias != nullptr))
+      thr == nullptr || (E == PLAIN) != (cvec == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tb;
-  const uint64_t stride[1] = {static_cast<uint64_t>(d) * 2};
+  const int elem = CHUNK_BYTES / F::DK;  // bytes per element
+  const uint64_t stride[1] = {static_cast<uint64_t>(d) * elem};
   const uint64_t q_dims[2] = {static_cast<uint64_t>(d), static_cast<uint64_t>(nq)};
-  const uint32_t q_box[2] = {DK, BQH};
-  int r = hopper::encode_tensor_map(&tq, 2, q, q_dims, stride, q_box);
+  const uint32_t q_box[2] = {F::DK, BQH};
+  int r = hopper::encode_tensor_map(&tq, 2, q, q_dims, stride, q_box, F::TMA_TYPE);
   if (r != 0) return r;
   // A bank of no rows is never read: its map points at the queries.
   const uint64_t b_dims[2] = {static_cast<uint64_t>(d), static_cast<uint64_t>(m > 0 ? m : nq)};
-  const uint32_t b_box[2] = {DK, BMH};
-  r = hopper::encode_tensor_map(&tb, 2, m > 0 ? bank : q, b_dims, stride, b_box);
+  const uint32_t b_box[2] = {F::DK, BMH};
+  r = hopper::encode_tensor_map(&tb, 2, m > 0 ? bank : q, b_dims, stride, b_box, F::TMA_TYPE);
   if (r != 0) return r;
   const int q_tiles = (nq + BQH - 1) / BQH;
   const int splits = valid_rows > 0 ? (valid_rows + split_rows - 1) / split_rows : 1;
   const int n_items = q_tiles * splits;
   const size_t smem = smem_bytes(n_chunks, stages);
-  cudaError_t e = allow_smem(knn_bf16_wgmma<S, L2>, smem);
+  cudaError_t e = allow_smem(knn_wgmma<F, S, E>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int sms = hopper::sm_count();
   const int grid = sms > 0 && sms < n_items ? sms : n_items;
-  knn_bf16_wgmma<S, L2><<<grid, THREADS, smem, stream>>>(
-      tq, tb, bias, static_cast<u64*>(parts), static_cast<u64*>(thr), nq, valid_rows, n_chunks,
+  knn_wgmma<F, S, E><<<grid, THREADS, smem, stream>>>(
+      tq, tb, cvec, static_cast<u64*>(parts), static_cast<u64*>(thr), nq, valid_rows, n_chunks,
       stages, q_tiles, split_rows, n_items);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -504,17 +568,25 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
       return launch_one<float, float>(knn_topk_f32<S>, FMA_SMEM, q, bank, scale, bias, out_vals,
                                       out_idx, nq, m, d, valid_rows, k, stream);
     case 1:
-      if (wg::stages_for((d + wg::DK - 1) / wg::DK) == 0)  // the queries do not fit: mma_scan
+      if (wg::smem_at<wg::Bf16>(d) == 0)  // the queries do not fit: mma_scan
         return launch_mma<FormBf16, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
                                        valid_rows, k, stream);
       if (bias != nullptr)
-        return wg::launch<S, true>(q, bank, bias, out_vals, out_idx, parts, thr, nq, m, d,
-                                   valid_rows, k, split_rows, stream);
-      return wg::launch<S, false>(q, bank, bias, out_vals, out_idx, parts, thr, nq, m, d,
-                                  valid_rows, k, split_rows, stream);
-    case 2:
-      return launch_mma<FormS8, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
-                                   valid_rows, k, stream);
+        return wg::launch<wg::Bf16, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr, nq,
+                                                 m, d, valid_rows, k, split_rows, stream);
+      return wg::launch<wg::Bf16, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
+                                                nq, m, d, valid_rows, k, split_rows, stream);
+    case 2:  // D <= 1024: the queries always fit
+      if constexpr (32 * S > wg::S8_MAX_K) {
+        return launch_mma<FormS8, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
+                                     valid_rows, k, stream);
+      } else {
+        if (scale != nullptr)
+          return wg::launch<wg::S8, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
+                                                  nq, m, d, valid_rows, k, split_rows, stream);
+        return wg::launch<wg::S8, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
+                                                nq, m, d, valid_rows, k, split_rows, stream);
+      }
     default:
       return launch_mma<FormAsym, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
                                      valid_rows, k, stream);
@@ -529,13 +601,14 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
 // aligned. scale (m,) f32 multiplies each score by its row's scale and bias
 // (m,) f32 is subtracted from it, each when not null. Writes out_vals
 // (nq, k) f32 and out_idx (nq, k) int64. 1 <= k <= 128,
-// 0 <= valid_rows <= m, nq >= 1. Form 1 splits the valid rows into
+// 0 <= valid_rows <= m, nq >= 1. Forms 1 and 2 split the valid rows into
 // ceil(valid_rows / split_rows) splits (split_rows a multiple of 128) and
-// needs the scratch `parts`, (nq, 2 · splits, 32 · ceil(k / 32)) 64-bit
-// keys, and `thr`, nq 64-bit keys set to 0, where knn_topk_bf16_smem(d) > 0
-// (the queries fit in shared memory); the other forms, and form 1 at a
-// larger d, ignore them. Returns cudaGetLastError() after the launch (0 =
-// launched), or 9001 / 9002 when form 1's tensor maps cannot be encoded.
+// need the scratch `parts`, (nq, 2 · splits, 32 · ceil(k / 32)) 64-bit
+// keys, and `thr`, nq 64-bit keys set to 0, where
+// knn_topk_wgmma_smem(d, form, k) > 0 (the queries fit in shared memory,
+// and form 2 at k <= 96); the other calls ignore them. Returns
+// cudaGetLastError() after the launch (0 = launched), or 9001 / 9002 when
+// the wgmma forms' tensor maps cannot be encoded.
 extern "C" int knn_topk_launch(const void* q, const void* bank, const float* scale,
                                const float* bias, void* out_vals, void* out_idx, int nq, int m,
                                int d, int valid_rows, int k, int form, void* parts, void* thr,
@@ -552,10 +625,10 @@ extern "C" int knn_topk_launch(const void* q, const void* bank, const float* sca
   }
 }
 
-// Dynamic shared memory the bf16 wgmma kernel asks for at depth d (0: the
-// queries do not fit, and form 1 runs mma_scan without scratch).
-extern "C" int knn_topk_bf16_smem(int d) {
-  const int n_chunks = (d + wg::DK - 1) / wg::DK;
-  const int stages = wg::stages_for(n_chunks);
-  return stages < 1 ? 0 : wg::smem_bytes(n_chunks, stages);
+// Dynamic shared memory the wgmma kernel of `form` (1 bf16, 2 int8) asks
+// for at depth d and k; 0: that call runs mma_scan, without scratch (bf16
+// whose queries do not fit, int8 at k > 96, and the other forms).
+extern "C" int knn_topk_wgmma_smem(int d, int form, int k) {
+  if (form == 1) return wg::smem_at<wg::Bf16>(d);
+  return form == 2 && k <= wg::S8_MAX_K ? wg::smem_at<wg::S8>(d) : 0;
 }

@@ -8,7 +8,8 @@ with a plain C interface at first use, and it is loaded with ctypes.
 `flash_attention` takes the kernel for CUDA tensors and the plain version
 (ops/flash.py::flash_attention_plain) for CPU tensors, and nothing else: a
 CUDA tensor either launches the kernel or raises. `flash_attention.launches`
-counts kernel launches.
+counts kernel launches, `flash_attention.forms` the same launches by dtype
+('bf16', 'f32').
 
 Layout: the kernel reads q, k and v through one shared set of strides, so
 the ViT's views of its qkv projection go in as they are, with no copy; only
@@ -20,6 +21,7 @@ merges the heads without a copy either.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -95,7 +97,9 @@ def flash_attention(
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.forms["bf16" if q.dtype == torch.bfloat16 else "f32"] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.forms = collections.Counter()

@@ -21,14 +21,16 @@ either launches the kernel or raises. Invalid combinations raise
 `ValueError` on every device, as the JAX asserts do. `knn_topk.launches`
 counts kernel launches, `knn_topk.forms` the same launches by form.
 
-The bf16 forms (a) and (b) run a persistent kernel over (bank split,
-64-query tile) items and merge the splits' partial top sets in a second
-pass from the same entry point. `plan_bf16_splits` picks the split size
-here, so the rounds of items fill the SMs; the partial sets
-(`parts_shape`) and the per-query minimum keys they share are scratch
-allocated here. That kernel keeps its queries in shared memory; where they
-do not fit (D > 1536, as the library reports) the bf16 forms run the
-kernel of the other forms, with no scratch.
+The bf16 forms (a) and (b) and the int8 forms (c) and (c)+(d) run one
+persistent wgmma kernel over (bank split, 64-query tile) items and merge
+the splits' partial top sets in a second pass from the same entry point.
+`plan_splits` picks the split size here, the same plan for both element
+types (the same items and tiles), so the rounds of items fill the SMs; the
+partial sets (`parts_shape`) and the per-query minimum keys they share are
+scratch allocated here. That kernel keeps its queries in shared memory;
+where they do not fit (bf16 at D > 1536), and for int8 at k > 96, the call
+runs the kernel of the other forms, with no scratch, as the library
+reports (`knn_topk_wgmma_smem`).
 """
 
 from __future__ import annotations
@@ -58,16 +60,18 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 )
-# The bf16 kernel's tiling: 64 queries an item, 128 bank rows a tile.
-BF16_BLOCK_Q = 64
-BF16_BLOCK_M = 128
+# The wgmma kernel's tiling: 64 queries an item, 128 bank rows a tile.
+WGMMA_BLOCK_Q = 64
+WGMMA_BLOCK_M = 128
+# The forms that run it (bf16, int8 x int8), where the queries fit.
+WGMMA_FORMS = (1, 2)
 MIN_FILL = 0.9  # least share of the SMs' rounds of items that do work
 MIN_TILES_PER_SPLIT = 4  # a split's bank tiles, against its item's query load
 MAX_PARTS_BYTES = 512 << 20  # scratch of the partial top sets
 
 
-def plan_bf16_splits(n_q: int, valid_rows: int, n_sm: int, k: int) -> Tuple[int, int]:
-    """(split_rows, splits) of the bf16 kernel: the valid rows cut into
+def plan_splits(n_q: int, valid_rows: int, n_sm: int, k: int) -> Tuple[int, int]:
+    """(split_rows, splits) of the wgmma kernel: the valid rows cut into
     `splits` ranges of `split_rows` (a multiple of 128; the last may be
     shorter), giving ceil(n_q / 64) * splits work items that `n_sm`
     persistent CTAs take in rounds. The fewest splits whose rounds keep at
@@ -76,10 +80,10 @@ def plan_bf16_splits(n_q: int, valid_rows: int, n_sm: int, k: int) -> Tuple[int,
     two more partial top sets to fill, so fewer is better once the card is
     full. Each split keeps MIN_TILES_PER_SPLIT tiles where it can, and the
     scratch stays under MAX_PARTS_BYTES."""
-    tiles = -(-valid_rows // BF16_BLOCK_M)
+    tiles = -(-valid_rows // WGMMA_BLOCK_M)
     if tiles == 0:
-        return BF16_BLOCK_M, 1
-    q_tiles = -(-n_q // BF16_BLOCK_Q)
+        return WGMMA_BLOCK_M, 1
+    q_tiles = -(-n_q // WGMMA_BLOCK_Q)
     per_split = 2 * 32 * (-(-k // 32)) * 8 * n_q  # bytes of scratch per split
     most = max(1, min(tiles // MIN_TILES_PER_SPLIT, MAX_PARTS_BYTES // per_split))
     best = None
@@ -89,14 +93,14 @@ def plan_bf16_splits(n_q: int, valid_rows: int, n_sm: int, k: int) -> Tuple[int,
         items = q_tiles * splits
         fill = items / (-(-items // n_sm) * n_sm)
         if fill >= MIN_FILL:
-            return per * BF16_BLOCK_M, splits
+            return per * WGMMA_BLOCK_M, splits
         if best is None or fill > best[0]:
-            best = (fill, per * BF16_BLOCK_M, splits)
+            best = (fill, per * WGMMA_BLOCK_M, splits)
     return best[1], best[2]
 
 
 def parts_shape(n_q: int, splits: int, k: int) -> Tuple[int, int, int]:
-    """Shape of the bf16 kernel's scratch: per query, two partial sets (one
+    """Shape of the wgmma kernel's scratch: per query, two partial sets (one
     per consumer warpgroup) per split of 32 * ceil(k / 32) 64-bit keys."""
     return n_q, 2 * splits, 32 * (-(-k // 32))
 
@@ -194,9 +198,11 @@ def knn_topk(
         return vals, idx
     lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", _ARGTYPES)
     parts, thr, split_rows = None, None, 0
-    if form == FORMS[(torch.bfloat16, torch.bfloat16)] and lib.knn_topk_bf16_smem(d) > 0:
+    wgmma_smem = lib.knn_topk_wgmma_smem
+    wgmma_smem.argtypes, wgmma_smem.restype = (ctypes.c_int,) * 3, ctypes.c_int
+    if form in WGMMA_FORMS and wgmma_smem(d, form, k) > 0:
         n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
-        split_rows, splits = plan_bf16_splits(n_q, valid, n_sm, k)
+        split_rows, splits = plan_splits(n_q, valid, n_sm, k)
         parts = torch.empty(parts_shape(n_q, splits, k), dtype=torch.int64, device=queries.device)
         thr = torch.zeros(n_q, dtype=torch.int64, device=queries.device)
     with torch.cuda.device(queries.device):

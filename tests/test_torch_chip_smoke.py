@@ -46,6 +46,8 @@ def smoke(monkeypatch):
                                               "wide": (1, 1, 70, 80)})
     monkeypatch.setattr(mod, "FLASH_MAIN", (2, 2, 40, 32))
     monkeypatch.setattr(mod, "FLASH_LONG", (1, 2, 130, 64))
+    monkeypatch.setattr(mod, "FLASH_NARROW", (2, 2, 20, 32))
+    monkeypatch.setattr(mod, "FLASH_WIDE", (2, 2, 20, 80))
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
@@ -64,12 +66,14 @@ def smoke(monkeypatch):
     monkeypatch.setattr(ivf_cuda.ivf_topk, "forms", collections.Counter())
     def counted_flash(*args, **kwargs):
         flash_cuda.flash_attention.launches += 1
+        flash_cuda.flash_attention.forms["bf16" if args[0].dtype == torch.bfloat16 else "f32"] += 1
         return flash_mod.flash_attention_plain(*args, **kwargs)
 
     monkeypatch.setattr(ivf_cuda, "ivf_search_plain", counted_ivf)
     monkeypatch.setattr(ivf_cuda.ivf_topk, "launches", 0)
     monkeypatch.setattr(flash_cuda, "flash_attention_plain", counted_flash)
     monkeypatch.setattr(flash_cuda.flash_attention, "launches", 0)
+    monkeypatch.setattr(flash_cuda.flash_attention, "forms", collections.Counter())
     return mod
 
 
@@ -105,29 +109,49 @@ def test_phases_rehearse_on_cpu(smoke):
     k1_rows, k2_rows, err_timing = smoke.timing(q, bank, main_tree, gen)
     sizes = ("main", "bank_3000")
     assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "l2")
-                                      for s in sizes)}
+                                      for s in sizes),
+                            *(f"{f} k=120 {s}" for f in ("int8", "int8_rows") for s in sizes)}
+    assert k1_rows["int8 k=120 main"]["k"] == 120 and k1_rows["int8_rows main"]["k"] == 30
     assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows") for s in sizes)}
     assert k1_rows["int8 main"]["bound_by"] == k1_rows["main"]["bound_by"]
     assert err_timing == {"K1": 0.0, "K2": 0.0}
     assert k2_rows["bank_3000"]["cap"] == 256 and k2_rows["main"]["block_q"] == 256
     assert json.dumps([k1_rows, k2_rows])
+    select = smoke.k1_select_rows(q, bank)
+    assert len(select) == 4 and all(0.0 < r["rows_above_kth"] <= 1.0 for r in select.values())
+
+
+def test_select_load_counts_the_pairs_a_set_receives(smoke):
+    """Scores rising along the bank reach the set at every tile, falling
+    ones only at the first; ties with an earlier row do not count; a set
+    that walks half the tiles fills again."""
+    rising = torch.arange(512.0).repeat(3, 1)
+    assert smoke.select_load(rising, 4, [list(range(4))]) == (1.0, 128.0)
+    assert smoke.select_load(rising.flip(1), 4, [list(range(4))]) == (0.25, 32.0)
+    flat = torch.zeros(3, 512)
+    assert smoke.select_load(flat, 4, [list(range(4))]) == (0.25, 32.0)
+    assert smoke.select_load(rising.flip(1), 4, [[0, 2], [1, 3]]) == (0.5, 64.0)
 
 
 def test_flash_phases_rehearse_on_cpu(smoke):
     gen = torch.Generator().manual_seed(0)
     assert smoke.flash_cases(gen) == 0.0
     runs, launches, token_err, err = smoke.flash_path(gen_seed=0)
-    # dino_vits16: 12 blocks x (2 train + 1 val batches of 4)
-    assert launches["flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 36}
-    assert launches["xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
-    assert err == 0.0 and len(runs) == 2
+    # dino_vits16: 12 blocks x (2 train + 1 val batches of 4), in bf16 and in f32
+    for dt in ("bf16", "f32"):
+        assert launches[f"{dt} flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 36}
+        assert launches[f"{dt} xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
+        assert runs[f"scann unbounded, {dt} ViT, attention_impl='flash'"]["forms"]["flash_attention"] == {dt: 36}
+    assert err == 0.0 and len(runs) == 4
     for run in runs.values():
         assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
     assert token_err["float32"]["max"] <= 1e-4 and token_err["bfloat16"]["mean"] <= 1e-2
     rows, err = smoke.flash_timing(gen)
-    assert err == 0.0 and set(rows) == {"main", "f32", "long"}
+    assert err == 0.0 and set(rows) == {"main", "f32", "long", "hd32", "hd80"}
     assert rows["main"]["bound_by"] == "bytes" and rows["main"]["dtype"] == "bfloat16"
     assert rows["long"]["shape"] == [1, 2, 130, 64] and rows["long"]["dtype"] == "bfloat16"
+    assert rows["hd80"]["shape"] == [2, 2, 20, 80] and rows["hd32"]["dtype"] == "bfloat16"
+    assert rows["f32"]["fma_bound_ms"] > 0 and "fma_bound_ms" not in rows["main"]
     forward = smoke.forward_timing(0, gen)
     assert set(forward) == {"xla float32", "xla bfloat16", "flash float32", "flash bfloat16"}
     assert json.dumps([rows, forward])
@@ -135,13 +159,18 @@ def test_flash_phases_rehearse_on_cpu(smoke):
 
 def test_flash_bound_of_the_main_shape(smoke):
     """4·B·H·N²·hd = 92.25 GFLOP: 0.093 ms at 989 TFLOP/s, 1.38 ms at 67
-    TFLOP/s; the 134.7 MB of bf16 q, k, v and o take 0.040 ms."""
+    TFLOP/s (f32 FMAs); f32 at f32 accuracy on the tensor cores is 3 TF32
+    passes, 276.8 GFLOP at 495 TFLOP/s: 0.559 ms. The 134.7 MB of bf16 q,
+    k, v and o take 0.040 ms."""
     shape = (16, 12, 1370, 64)
     ms, by = smoke.flash_bound_ms(shape, 2, smoke.PEAK_BF16_FLOPS)
     assert by == "operations" and ms == pytest.approx(4 * 16 * 12 * 1370**2 * 64 / 989e9)
     assert ms == pytest.approx(0.0933, abs=1e-4)
+    assert smoke.k3_bound(shape, torch.bfloat16) == (ms, by)
     ms, by = smoke.flash_bound_ms(shape, 4, smoke.PEAK_F32_FLOPS)
     assert by == "operations" and ms == pytest.approx(1.377, abs=1e-3)
+    ms, by = smoke.k3_bound(shape, torch.float32)
+    assert by == "operations" and ms == pytest.approx(0.5591, abs=1e-4)
     ms, by = smoke.flash_bound_ms((16, 12, 8, 64), 2, smoke.PEAK_BF16_FLOPS)
     assert by == "bytes" and ms == pytest.approx(4 * 16 * 12 * 8 * 64 * 2 / 3.35e9)
 
@@ -258,16 +287,21 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 
 def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
-    """The --pairs timing: K3 bf16 at the main and long shapes, K1 bf16 dot
-    and l2 at each k of PAIR_KS on both banks, each with its bound and
-    library time, as one JSON-ready result."""
+    """The --pairs timing: K3 bf16 and f32 at the main and long shapes, K1
+    bf16 dot and l2 at each k of PAIR_KS and int8 and int8_rows at each k
+    of PAIR_INT8_KS on both banks, each with its bound and library time, as
+    one JSON-ready result."""
     monkeypatch.setattr(smoke, "PAIR_Q", 40)
     monkeypatch.setattr(smoke, "PAIR_M", 500)
     out = smoke.pairs("here")
     assert out["tree"] == "here" and pathlib.Path(out["package"]) == ROOT / "hbird_tpu_torch"
-    assert set(out["k3"]) == {"bf16 (2, 2, 40, 32)", "bf16 (1, 2, 130, 64)"}
-    assert set(out["k1"]) == {f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
-                              for k in (30, 128)}
+    assert set(out["k3"]) == {f"{dt} {s}" for dt in ("bf16", "f32")
+                              for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")}
+    assert set(out["k1"]) == {*(f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
+                                for k in (30, 128)),
+                              *(f"{f} Q=40 M={m} k={k}" for f in ("int8", "int8_rows") for m in (500, 3000)
+                                for k in smoke.PAIR_INT8_KS)}
+    assert out["k3"]["f32 (2, 2, 40, 32)"]["bound_ms"] == smoke.k3_bound((2, 2, 40, 32), torch.float32)[0]
     for row in [*out["k3"].values(), *out["k1"].values()]:
         assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert out["k1"]["bf16 dot Q=40 M=500 k=128"]["bound_by"] == "bytes"
@@ -350,16 +384,25 @@ ptxas info    : Used 168 registers, used 1 barriers
 
 
 def test_sass_counts_per_function(smoke):
-    """HGMMA, UTMALDG and HMMA counted per function of a cuobjdump listing;
-    HMMA is not counted inside HGMMA."""
+    """HGMMA, IGMMA (int8 wgmma), UTMALDG, HMMA and IMMA counted per
+    function of a cuobjdump listing; HMMA is not counted inside HGMMA, nor
+    IMMA inside IGMMA."""
     sass = """
         Function : _ZN2wg14knn_bf16_wgmmaILi1ELb0EEEv
         /*0100*/                   UTMALDG.2D [UR8], [UR4] ;
         /*0110*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
         /*0120*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24 ;
+        Function : _ZN2wg9knn_wgmmaINS_2S8ELi1ELNS_3EpiE0EEEvv
+        /*0100*/                   UTMALDG.2D [UR8], [UR4] ;
+        /*0110*/                   IGMMA.64x128x32.S32.S8.S8 R24, gdesc[UR8], RZ, !UPT ;
         Function : _Z12knn_topk_mmaI8FormAsymLi1EEvv
         /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/                   IMMA.16832.S8.S8 R4, R8, R12, R4 ;
 """
     per_fn = smoke.sass_counts(sass)
-    assert per_fn["_ZN2wg14knn_bf16_wgmmaILi1ELb0EEEv"] == {"HGMMA": 2, "UTMALDG": 1, "HMMA": 0}
-    assert per_fn["_Z12knn_topk_mmaI8FormAsymLi1EEvv"] == {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1}
+    assert per_fn["_ZN2wg14knn_bf16_wgmmaILi1ELb0EEEv"] == {"HGMMA": 2, "IGMMA": 0, "UTMALDG": 1, "HMMA": 0,
+                                                            "IMMA": 0}
+    assert per_fn["_ZN2wg9knn_wgmmaINS_2S8ELi1ELNS_3EpiE0EEEvv"] == {"HGMMA": 0, "IGMMA": 1, "UTMALDG": 1,
+                                                                     "HMMA": 0, "IMMA": 0}
+    assert per_fn["_Z12knn_topk_mmaI8FormAsymLi1EEvv"] == {"HGMMA": 0, "IGMMA": 0, "UTMALDG": 0, "HMMA": 1,
+                                                           "IMMA": 1}

@@ -1,0 +1,109 @@
+"""K3 f32's 3xTF32 products, emulated in torch, against the f32 numerics.
+
+The CUDA kernel (ops/csrc/flash_attn.cu, `f32::flash_f32`) runs both of
+K3's products on TF32 tensor cores: each f32 operand x is split into
+big = tf32(x) and small = tf32(x - big), rounded by cvt.rna.tf32.f32 (to
+nearest, ties away from zero, 10 stored mantissa bits), and a product is
+big·small + small·big + big·big with f32 accumulation. The kernel runs only
+on the card; this file holds the design on the CPU:
+- `tf32_rna` below is that rounding, bit for bit by construction (the
+  magnitude bits rounded at bit 13, half away from zero);
+- `flash_3xtf32` is flash_attention_plain's numerics with both products
+  taken in 3xTF32. It is within 1e-5 of the f32 plain version and of the
+  JAX package's `_flash_attention` (JAX's library Pallas TPU kernel, run
+  in interpret mode) for N in {1, 50, 197, 600} and hd in {32, 64, 80} on
+  unit-normal inputs: the f32 tolerance K3 is held to on the card. A
+  single TF32 pass (big·big alone) misses that tolerance, so the three
+  passes are what keeps it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from hbird_tpu.models.vit import _flash_attention
+from hbird_tpu_torch.ops.flash import flash_attention_plain
+
+F32_TOL = 1e-5
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on f32 `x`: the 13 low mantissa bits rounded off,
+    to nearest, ties away from zero (the magnitude bits gain half the
+    dropped unit, then lose the 13 bits), as an f32 tensor."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel takes it: the two small cross terms, then
+    big·big, each product of TF32 values exact in f32, sums in f32."""
+    ab, as_ = split_tf32(a)
+    bb, bs = split_tf32(b)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def flash_3xtf32(q, k, v, scale, passes=3):
+    """flash_attention_plain's numerics (f32) with its two products in
+    3xTF32 (`passes=1`: big·big alone, one TF32 pass)."""
+    mm = matmul_3xtf32 if passes == 3 else (lambda a, b: tf32_rna(a) @ tf32_rna(b))
+    s = mm(q, k.transpose(-2, -1)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return mm(p, v)
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+def test_rounding_is_to_nearest_ties_away():
+    """Halfway cases go away from zero in both signs; others to nearest;
+    the 13 low bits are clear; inf and 0 stay."""
+    one_ulp = 2.0**-10  # a TF32 ulp at 1.0
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + 3 * one_ulp / 2,
+                      1 + one_ulp / 2 - 2.0**-23, 1 + one_ulp / 2 + 2.0**-23,
+                      float("inf"), -float("inf"), 0.0], dtype=torch.float32)
+    want = torch.tensor([1 + one_ulp, -(1 + one_ulp), 1 + 2 * one_ulp, 1.0, 1 + one_ulp,
+                         float("inf"), -float("inf"), 0.0], dtype=torch.float32)
+    assert torch.equal(tf32_rna(x), want)
+    r = tf32_rna(torch.from_numpy(np.random.default_rng(0).normal(size=10000).astype(np.float32)))
+    assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+
+
+def test_split_keeps_about_21_bits():
+    """big + small equals x to within 2^-21 of |x| (big alone: 2^-11)."""
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=100000).astype(np.float32))
+    big, small = split_tf32(x)
+    x64, b64, s64 = x.double(), big.double(), small.double()
+    assert ((x64 - b64).abs() <= 2.0**-11 * x64.abs()).all()
+    assert ((x64 - b64 - s64).abs() <= 2.0**-21 * x64.abs()).all()
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80])
+@pytest.mark.parametrize("n", [1, 50, 197, 600])
+def test_3xtf32_matches_f32_and_the_tpu_kernel(n, hd):
+    """3xTF32 within 1e-5 of the f32 plain version and of the library TPU
+    kernel in interpret mode; one TF32 pass does not keep 1e-5 (N > 1)."""
+    q, k, v = _qkv((2, 2, n, hd), seed=n * 100 + hd)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    scale = hd**-0.5
+    out = flash_3xtf32(tq, tk, tv, scale)
+    plain = flash_attention_plain(tq, tk, tv, scale)
+    assert out.dtype == torch.float32 and out.shape == (2, 2, n, hd)
+    assert (out - plain).abs().max().item() <= F32_TOL
+    with pltpu.force_tpu_interpret_mode():
+        j = np.asarray(_flash_attention(*(jnp.asarray(a) for a in (q, k, v)), scale))
+    assert np.abs(out.numpy() - j).max() <= F32_TOL
+    if n > 1:
+        one_pass = flash_3xtf32(tq, tk, tv, scale, passes=1)
+        assert (one_pass - plain).abs().max().item() > F32_TOL

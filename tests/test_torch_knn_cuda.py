@@ -130,11 +130,12 @@ def _int8_inputs(form, n_q, m, d, seed, dev):
 
 
 @pytest.mark.parametrize("form", ["int8", "int8_rows", "asym", "asym_rows"])
-@pytest.mark.parametrize("k", [1, 30, 128])
-@pytest.mark.parametrize("d", [48, 80, 768])
+@pytest.mark.parametrize("k", [1, 30, 120, 128])
+@pytest.mark.parametrize("d", [48, 80, 768, 1024])
 def test_int8_forms_match_plain_version(cuda_device, form, k, d):
     """K1 (c), (c)+(d), (e) and (e)+(d) at a ragged valid_rows; depths 48
-    and 80 end inside a staged depth chunk."""
+    and 80 end inside a depth chunk, 1,024 is the widest exact int8 depth;
+    k = 120 is the `faiss` int8 + reorder path's scan."""
     q, codes, rs, tol = _int8_inputs(form, 300, 5003, d, seed=k + d, dev=cuda_device)
     before = dict(knn_cuda.knn_topk.forms)
     kv, ki = knn_cuda.knn_topk(q, codes, k, valid_rows=4900, row_scale=rs)
@@ -184,80 +185,124 @@ def test_l2_matches_plain_version(cuda_device, dtype, k):
     assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
 
 
-@pytest.mark.parametrize("distance", ["dot_product", "l2"])
+# The forms of the wgmma kernel: bf16 dot and l2, int8 and int8_rows codes.
+WGMMA_FORMS = ["dot", "l2", "int8", "int8_rows"]
+
+
+def _form_args(form, q, b, dev, seed=0):
+    """(queries, bank, knn_topk keyword arguments, exact) of `form` from
+    float inputs: bf16 for dot and l2; for the int8 forms the int8 codes of
+    q and of b (per row, with its row scales, for int8_rows), exact
+    against the plain version. Integer-valued inputs keep their values as
+    codes (scaled per row by seeded scales for int8_rows)."""
+    q, b = torch.as_tensor(q).float(), torch.as_tensor(b).float()
+    if form in ("dot", "l2"):
+        kw = {"distance": "l2"} if form == "l2" else {}
+        return q.to(dev, torch.bfloat16), b.to(dev, torch.bfloat16), kw, False
+    if bool((q == q.round()).all() and (b == b.round()).all()):
+        qq, codes = q.to(torch.int8), b.to(torch.int8)
+        gen = torch.Generator().manual_seed(seed)
+        scale = 0.25 + torch.rand(b.shape[0], generator=gen)
+    else:
+        qq = quantize_queries_int8(q)[0]
+        codes, scale = quantize_bank_int8(b, per_row=form == "int8_rows")
+    kw = {"row_scale": scale.reshape(-1).to(dev)} if form == "int8_rows" else {}
+    return qq.to(dev), codes.to(dev), kw, True
+
+
+def _agree(kv, ki, pv, pi, exact, tol):
+    """The kernel's (kv, ki) against the plain version's: bit for bit when
+    `exact`, else the -inf slots, the values within `tol` and the index sets."""
+    if exact:
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        return
+    finite = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
+    assert (kv - pv).abs().where(finite, torch.zeros_like(kv)).max().item() <= tol
+    assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+
+
+@pytest.mark.parametrize("form", WGMMA_FORMS)
 @pytest.mark.parametrize("k", [1, 30, 128])
 @pytest.mark.parametrize("n_q,m", [(333, 4999), (65, 129), (1, 1000)])
-def test_bf16_ragged_queries_and_bank(cuda_device, n_q, m, k, distance):
-    """The bf16 kernel (dot and l2) with Q and M multiples of no tile."""
+def test_wgmma_ragged_queries_and_bank(cuda_device, n_q, m, k, form):
+    """The wgmma kernel (bf16 dot and l2, int8 and int8_rows) with Q and M
+    multiples of no tile."""
     rng = np.random.default_rng(n_q + m + k)
     q = rng.normal(size=(n_q, 64)).astype(np.float32)
     b = (rng.normal(size=(m, 64)) * rng.uniform(0.5, 2.0, (m, 1))).astype(np.float32)
-    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
-    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
-    kv, ki = knn_cuda.knn_topk(qt, bt, k, distance=distance)
-    pv, pi = exact_knn(qt, bt, k, distance=distance)
+    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    before = knn_cuda.knn_topk.forms[form]
+    kv, ki = knn_cuda.knn_topk(qt, bt, k, **kw)
+    pv, pi = exact_knn(qt, bt, k, **kw)
     torch.cuda.synchronize()
-    finite = torch.isfinite(pv)
-    assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
-    assert (kv - pv).abs().where(finite, torch.zeros_like(kv)).max().item() <= _tol(q, b)
-    assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+    assert knn_cuda.knn_topk.forms[form] == before + 1
+    _agree(kv, ki, pv, pi, exact, _tol(q, b))
 
 
 def _split_rows(n_q, valid, k):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    return knn_cuda.plan_bf16_splits(n_q, valid, n_sm, k)
+    return knn_cuda.plan_splits(n_q, valid, n_sm, k)
 
 
+@pytest.mark.parametrize("form", WGMMA_FORMS)
 @pytest.mark.parametrize("where", ["k-1", "tile", "tile+1", "split", "split-1"])
-def test_bf16_valid_rows_at_edges(cuda_device, where):
+def test_wgmma_valid_rows_at_edges(cuda_device, where, form):
     """valid_rows below k, on a 128-row tile edge and next to it, and on the
     edge of the first bank split the wrapper plans (several splits)."""
     q, b = _inputs(200, 20000, 64, seed=31)
-    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
-    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
+    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
     split_rows, splits = _split_rows(200, 20000, 30)
     assert splits > 1
     valid = {"k-1": 29, "tile": 1280, "tile+1": 1281, "split": split_rows,
              "split-1": split_rows - 1}[where]
-    kv, ki = knn_cuda.knn_topk(qt, bt, 30, valid_rows=valid)
-    pv, pi = exact_knn(qt, bt, 30, valid_rows=valid)
+    kv, ki = knn_cuda.knn_topk(qt, bt, 30, valid_rows=valid, **kw)
+    pv, pi = exact_knn(qt, bt, 30, valid_rows=valid, **kw)
     torch.cuda.synchronize()
-    finite = torch.isfinite(pv)
-    assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
     assert bool((ki < valid).all())
-    assert (kv - pv).abs().where(finite, torch.zeros_like(kv)).max().item() <= _tol(q, b)
-    assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
+    _agree(kv, ki, pv, pi, exact, _tol(q, b))
 
 
-def test_bf16_copies_in_two_splits_keep_the_lowest_index(cuda_device):
+@pytest.mark.parametrize("form", WGMMA_FORMS)
+def test_wgmma_copies_in_two_splits_keep_the_lowest_index(cuda_device, form):
     """Two copies of a bank, each in its own split: of a row whose copies
     tie, the lower index is kept first; with k odd the (k+1)/2-th row
-    keeps only its first copy."""
+    keeps only its first copy. int8 codes may also tie across rows, so
+    there the order is held to the plain version's bit for bit, and a
+    second copy is kept only with its first."""
     q, b = _inputs(64, 3000, 64, seed=8)
-    bank = torch.from_numpy(np.concatenate([b, b])).to(cuda_device, torch.bfloat16)
+    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    bank = torch.cat([bt, bt]).contiguous()
+    if "row_scale" in kw:
+        kw["row_scale"] = torch.cat([kw["row_scale"], kw["row_scale"]])
     split_rows, splits = _split_rows(64, 6000, 7)
     assert splits > 1 and split_rows <= 3000 + 128
-    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
-    kv, ki = knn_cuda.knn_topk(qt, bank, 7)
+    kv, ki = knn_cuda.knn_topk(qt, bank, 7, **kw)
     torch.cuda.synchronize()
     ordered = (kv[:, :-1] > kv[:, 1:]) | ((kv[:, :-1] == kv[:, 1:]) & (ki[:, :-1] < ki[:, 1:]))
     assert ordered.all()
-    assert torch.equal(ki[:, 0::2][:, :4] % 3000, ki[:, 0::2][:, :4])  # first copies lead
-    assert torch.equal(ki[:, 1::2] - 3000, ki[:, 0::2][:, :3])  # then their second copies
-    assert bool((ki[:, 6] < 3000).all())
+    if exact:
+        pv, pi = exact_knn(qt, bank, 7, **kw)
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        second = ki >= 3000
+        first_kept = ((ki - 3000)[:, :, None] == ki[:, None, :]).any(2)
+        assert not (second & ~first_kept).any()
+    else:
+        assert torch.equal(ki[:, 0::2][:, :4] % 3000, ki[:, 0::2][:, :4])  # first copies lead
+        assert torch.equal(ki[:, 1::2] - 3000, ki[:, 0::2][:, :3])  # then their second copies
+        assert bool((ki[:, 6] < 3000).all())
 
 
-@pytest.mark.parametrize("distance", ["dot_product", "l2"])
+@pytest.mark.parametrize("form", WGMMA_FORMS)
 @pytest.mark.parametrize("k", [1, 30, 128])
-def test_bf16_bank_of_one_row(cuda_device, k, distance):
+def test_wgmma_bank_of_one_row(cuda_device, k, form):
     q, b = _inputs(70, 1, 64, seed=k)
-    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
-    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
-    kv, ki = knn_cuda.knn_topk(qt, bt, k, distance=distance)
-    pv, pi = exact_knn(qt, bt, k, distance=distance)
+    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    kv, ki = knn_cuda.knn_topk(qt, bt, k, **kw)
+    pv, pi = exact_knn(qt, bt, k, **kw)
     torch.cuda.synchronize()
     assert (ki == 0).all() and torch.isinf(kv[:, 1:]).all()
-    assert (kv[:, 0] - pv[:, 0]).abs().max().item() <= _tol(q, b)
+    _agree(kv, ki, pv, pi, exact, _tol(q, b))
 
 
 @pytest.mark.parametrize("distance", ["dot_product", "l2"])
@@ -281,12 +326,12 @@ def test_bf16_depth_the_queries_must_fit(cuda_device, d, distance):
 
 
 def _tie_dense_edge(n_q, m, d, k):
-    """Integer bf16 entries in {-1, 0, 1} (scores exact in any order, tied
-    many ways) and a valid_rows at most m that ends the last bank split the
+    """Integer entries in {-1, 0, 1} (scores exact in any order, tied many
+    ways) and a valid_rows at most m that ends the last bank split the
     wrapper plans exactly, with several splits."""
     gen = torch.Generator().manual_seed(k + d)
-    q = torch.randint(-1, 2, (n_q, d), generator=gen).to(torch.bfloat16)
-    b = torch.randint(-1, 2, (m, d), generator=gen).to(torch.bfloat16)
+    q = torch.randint(-1, 2, (n_q, d), generator=gen).float()
+    b = torch.randint(-1, 2, (m, d), generator=gen).float()
     for tiles in range(m // 128, 0, -1):
         split_rows, splits = _split_rows(n_q, tiles * 128, k)
         if splits > 1 and (tiles * 128) % split_rows == 0:
@@ -294,34 +339,34 @@ def _tie_dense_edge(n_q, m, d, k):
     raise AssertionError("no valid_rows on a split edge")
 
 
-@pytest.mark.parametrize("distance", ["dot_product", "l2"])
-@pytest.mark.parametrize("k", [1, 30, 128])
-def test_bf16_ties_across_splits_bit_for_bit(cuda_device, k, distance):
+@pytest.mark.parametrize("form", WGMMA_FORMS)
+@pytest.mark.parametrize("k", [1, 30, 120, 128])
+def test_wgmma_ties_across_splits_bit_for_bit(cuda_device, k, form):
     """The split kernel's pruning under dense ties: Q = 10,000 queries (more
     64-query tiles than SMs, so items of several splits run at once) on a
-    bank of integer entries in {-1, 0, 1}, whose scores and l2 biases are
-    exact, so the kernel must equal exact_knn bit for bit, values and
-    indices; valid_rows on a split edge and one row past a tile edge."""
+    bank of integer entries in {-1, 0, 1}, whose scores, l2 biases and
+    scaled int8 scores are exact, so the kernel must equal exact_knn bit for
+    bit, values and indices; valid_rows on a split edge and one row past a
+    tile edge."""
     q, b, edge, split_rows, splits = _tie_dense_edge(10000, 40960, 96, k)
     assert -(-10000 // 64) > torch.cuda.get_device_properties(0).multi_processor_count
-    qt, bt = q.to(cuda_device), b.to(cuda_device)
+    qt, bt, kw, _ = _form_args(form, q, b, cuda_device, seed=k)
     for valid in (edge, edge - 127):
-        kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=valid, distance=distance)
-        pv, pi = exact_knn(qt, bt, k, valid_rows=valid, distance=distance)
+        kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=valid, **kw)
+        pv, pi = exact_knn(qt, bt, k, valid_rows=valid, **kw)
         torch.cuda.synchronize()
         assert torch.equal(kv, pv) and torch.equal(ki, pi), (valid, split_rows, splits)
 
 
-def test_bf16_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
+@pytest.mark.parametrize("form", WGMMA_FORMS)
+def test_wgmma_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch, form):
     def plain(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(knn_cuda, "exact_knn", plain)
     q, b = _inputs(100, 900, 64, seed=13)
-    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
-    bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
-    before = knn_cuda.knn_topk.forms["dot"], knn_cuda.knn_topk.forms["l2"]
-    knn_cuda.knn_topk(qt, bt, 5)
-    knn_cuda.knn_topk(qt, bt, 5, distance="l2")
+    qt, bt, kw, _ = _form_args(form, q, b, cuda_device)
+    before = knn_cuda.knn_topk.forms[form]
+    knn_cuda.knn_topk(qt, bt, 5, **kw)
     torch.cuda.synchronize()
-    assert (knn_cuda.knn_topk.forms["dot"], knn_cuda.knn_topk.forms["l2"]) == (before[0] + 1, before[1] + 1)
+    assert knn_cuda.knn_topk.forms[form] == before + 1
