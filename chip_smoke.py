@@ -9,22 +9,28 @@ Phases; any failure raises and the script exits non-zero with no result:
 1. The card (nvidia-smi name and power limit) and versions; K1
    (hbird_tpu_torch/ops/csrc/knn_topk.cu), K2 (ops/csrc/ivf_topk.cu) and K3
    (ops/csrc/flash_attn.cu) are built with nvcc for sm_90a, one nvcc each,
-   started together. For the Hopper kernels (K1's bf16 and int8 wgmma
-   kernel, K3's bf16 wgmma kernel, ops/csrc/hopper.cuh) it prints what
-   ptxas reported (registers, spills by instance, that setmaxnreg was not
+   started together. For the Hopper kernels (K1's and K2's wgmma kernel,
+   ops/csrc/wgmma_topk.cuh, every instance S = 1-4 of each form; K3's bf16
+   wgmma kernel; ops/csrc/hopper.cuh) it prints what ptxas reported
+   (registers and spills by instance, that setmaxnreg was not
    ignored, and any warpgroup wait or arrive it injected or wgmma it
    serialised), the registers and spills of K3's 3xTF32 f32 kernel, and
    the dynamic shared memory they ask for; where cuobjdump exists, the
    warpgroup MMAs (HGMMA, IGMMA for int8), UTMALDG and mma.sync (HMMA,
    IMMA for int8) instructions of each library and of each wgmma kernel,
-   which must issue a warpgroup MMA and UTMALDG and no mma.sync.
+   which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's and
+   K2's libraries must hold such kernels).
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
    forms (b)-(e) at the same shape: l2 (bf16 and f32, rows of unequal
    norm); int8 x int8 codes with a global scale and with row scales, bit
    for bit; bf16 queries on those codes (asym, asym_rows); int8
-   valid_rows < k; int8 codes of duplicated rows (integer ties).
+   valid_rows < k; int8 codes of duplicated rows (integer ties). Then the
+   wgmma forms (bf16 dot and l2, int8, int8_rows) at every k of CHECK_KS
+   (30, 33, 64, 96, 97, 120, 128: each size of the batched select and its
+   edges) at that shape, and on tie-dense entries in {-1, 0, 1} (Q=10,000,
+   so items of several bank splits are in flight) bit for bit.
 3. K2 against its plain version (ops/ivf.py::ivf_search_plain) on an IVF
    tree built by the port over a clustered bank of 300,000 rows at D=768
    (512 leaves): bf16 and f32; k in {1, 30, 128}; n_probe in {1, 8, 32};
@@ -33,13 +39,18 @@ Phases; any failure raises and the script exits non-zero with no result:
    int8_rows tree of the same bank (trained, assigned and probed on the
    codes): int8 and int8_rows bit for bit, asym and asym_rows within the
    tolerance; ragged leaf_valid; int8 codes duplicated across slabs probed
-   out of slot order (integer ties).
+   out of slot order (integer ties). K2's wgmma forms bf16, asym_rows and
+   int8_rows at k in {30, 64, 120, 128}, 32 probes a 256-query tile (items
+   of several probe splits in flight), with probed slabs emptied, cut to 5
+   and to 128 rows, and an id outside [0, n_slabs) in every tile's list.
 4. K3 against its plain version (ops/flash.py::flash_attention_plain),
    bf16 and f32, on seeded unit normals at (B, H, N, hd) = (16, 12, 1370,
    64) (the main path: dinov2_vitb14 at input 518, batch 16), (2, 12, 1374,
    64) (dinov2_vitb14_reg), (4, 12, 197, 32) (mocov3_vits16), (2, 16, 257,
    80) (mae_vith14), (1, 12, 4625, 64) (dinov2 at input 952), (2, 2, 1, 64)
-   and (2, 2, 65, 64).
+   and (2, 2, 65, 64). K3 has no backward: under autograd (an input that
+   requires grad) the card's call must raise and launch nothing, and under
+   torch.no_grad() the same inputs hold.
 5. The main paths: `hbird_evaluation` on a generated VOC-layout fixture
    (64 train / 16 val images, 600x450) with dinov2_vitb14 at full width
    (random weights from a seed), input 518, batch 16, k=30, seeded
@@ -110,7 +121,9 @@ Phases; any failure raises and the script exits non-zero with no result:
    the library call. The select's load on the main path's bank: for K1
    int8 at k = 30 and 120, the share of (query, 128-row tile) pairs in
    which the running top-k receives a score, walking the tiles in
-   mma_scan's order and in the wgmma kernel's partial sets. Then the
+   mma_scan's order and in the wgmma kernel's partial sets, and for the
+   partial sets what the batched select does: scores buffered per pair,
+   merges and 32-score chunks merged per query and set. Then the
    ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and
    bf16.
 
@@ -138,13 +151,15 @@ Output: a {"kernels": [...]} line, the nvidia-smi card line, and last
 {"ok": true, "device": {...}}.
 
 Parent against change: `python3 chip_smoke.py --pairs TREE` imports the
-package of the source tree TREE instead of this one's, builds its K1 and K3,
+package of the source tree TREE instead of this one's, builds its kernels,
 and times only the kernels redesigned for Hopper, each beside its bound and
 library call (phase 7's helpers): K3 bf16 and f32 at the main shape and at
-(1, 12, 4625, 64) on unit normals, K1 bf16 dot and l2 with k in {30, 128}
-and K1 int8 and int8_rows with k in {30, 64, 96, 120, 128}, Q = 21,904
-normal queries (and their int8 codes) against 87,616 and 1,024,000 unit
-rows (and their global and per-row int8 codes). It prints one JSON line.
+(1, 12, 4625, 64) on unit normals; K1 bf16 dot and l2, int8 and int8_rows
+with k in PAIR_KS (30, 64, 96, 120, 128), Q = 21,904 normal queries (and
+their int8 codes) against 87,616 and 1,024,000 unit rows (and their global
+and per-row int8 codes); K2 bf16 and asym_rows (the slabs' per-row codes)
+at k = 30 on a tree the package builds of each bank (512 leaves, 32 probed
+per 256-query tile). It prints one JSON line.
 Two trees are compared in one run on one card, each in its own
 process, in turns: parent, change, change, parent.
 """
@@ -200,12 +215,16 @@ FLASH_MAIN = (16, 12, 1370, 64)  # the main path's (B, H, N, hd)
 FLASH_LONG = (1, 12, 4625, 64)  # dinov2 at input 952: the longest sequence timed
 FLASH_NARROW = (16, 12, 197, 32)  # mocov3_vits16 at 224, batch 16: K3 bf16 at hd 32
 FLASH_WIDE = (16, 16, 257, 80)  # mae_vith14 at 224, batch 16: K3 bf16 at hd 80
-PAIR_Q, PAIR_M, PAIR_KS = 21904, 87616, (30, 128)  # --pairs: the main path's eval batch and bank
-# --pairs, K1 int8 forms: the engine's k, S = 2 and 3 keys a lane, faiss int8 + reorder's scan, the most
-PAIR_INT8_KS = (30, 64, 96, 120, 128)
+PAIR_Q, PAIR_M = 21904, 87616  # --pairs: the main path's eval batch and bank
+# --pairs, K1's wgmma forms: the engine's k, S = 2 and 3 keys a lane, faiss int8 + reorder's scan, the most
+PAIR_KS = (30, 64, 96, 120, 128)
 INT8_KS = (30, 120)  # phase 7's K1 int8 forms: the engine's k and faiss int8 + reorder's scan
-# The Hopper kernels: source -> the name their wgmma kernels carry.
-WGMMA_KERNELS = {"knn_topk.cu": "knn_wgmma", "flash_attn.cu": "flash_bf16_wgmma"}
+# The Hopper kernels: source -> the name their wgmma kernels carry (K1 and
+# K2 instantiate one template, wgmma_topk.cuh's topk_wgmma).
+WGMMA_KERNELS = {"knn_topk.cu": "topk_wgmma", "ivf_topk.cu": "topk_wgmma",
+                 "flash_attn.cu": "flash_bf16_wgmma"}
+# Every k of the K1 card checks: each S (keys a lane) and its edges.
+CHECK_KS = (30, 33, 64, 96, 97, 120, 128)
 TF32_KERNEL = "flash_f32"  # K3 f32: 3xTF32 on mma.sync (HMMA, no wgmma)
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 LAYERSCALE = 0.05  # the flash path's LayerScale (see flash_path)
@@ -393,19 +412,37 @@ def _same_sets(name, kv, ki, pv, pi, k, tol, err, exact):
     return err
 
 
+def _in_range(bank, lids, lv, cap, row_scale):
+    """(bank, lids, lv, row_scale) with every probed id outside [0, n_slabs)
+    pointed at an empty slab appended to the bank, for the plain version,
+    which indexes with the ids (the kernel skips such ids)."""
+    n_slabs = lv.shape[0]
+    bad = (lids < 0) | (lids >= n_slabs)
+    if not bad.any():
+        return bank, lids, lv, row_scale
+    bank = torch.cat([bank, bank.new_zeros((cap, bank.shape[1]))])
+    lv = torch.cat([lv, lv.new_zeros(1)])
+    if row_scale is not None:
+        row_scale = torch.cat([row_scale.reshape(-1), row_scale.new_zeros(cap)])
+    return bank, torch.where(bad, n_slabs, lids).to(lids.dtype), lv, row_scale
+
+
 def check_ivf_against_plain(name, q, bank, lids, lv, k, cap, block_q, kernel_out=None,
                             plain_out=None, *, row_scale=None, exact=False):
     """K2 vs its plain version on the same CUDA tensors; returns max |err|.
     With `exact` (int8 codes, row scales) values and slots must equal the
-    plain version's bit for bit."""
+    plain version's bit for bit. Probed ids outside [0, n_slabs) contribute
+    nothing."""
     from hbird_tpu_torch.ops.ivf import ivf_search_plain
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
 
     kv, ki = kernel_out if kernel_out is not None else ivf_topk(
         q, bank, lids, lv, k, cap=cap, block_q=block_q, row_scale=row_scale)
     sync()
-    pv, pi = plain_out if plain_out is not None else ivf_search_plain(
-        q, bank, lids, lv, k + 1, cap=cap, row_scale=row_scale)
+    if plain_out is None:
+        pb, pl, plv, prs = _in_range(bank, lids, lv, cap, row_scale)
+        plain_out = ivf_search_plain(q, pb, pl, plv, k + 1, cap=cap, row_scale=prs)
+    pv, pi = plain_out
     scale = None if row_scale is None else row_scale.reshape(-1).float()
     qn = q.float().norm(dim=1)
     bn = bank.float().norm(dim=1) * (1.0 if scale is None else scale)
@@ -520,6 +557,46 @@ def quantized_kernel_cases(gen):
     errs.append(check_against_plain("int8_rows duplicated rows (ties)", qd, bank, 30, bank.shape[0],
                                     (kv, ki), row_scale=rs, exact=True))
     check_tie_order(kv, ki, 2048, "int8 duplicated rows")
+    errs.append(select_cases(gen))
+    return max(errs)
+
+
+def select_cases(gen):
+    """Phase 2: the wgmma forms (bf16 dot and l2, int8, int8_rows) at every
+    k of CHECK_KS (each S of the batched select and its edges): on the
+    stated shape (Q=4,096 over two bank splits) against the plain version,
+    and on tie-dense integer entries in {-1, 0, 1} (Q=10,000 queries, so
+    items of several splits are in flight; scores, l2 biases and scaled
+    int8 scores exact) bit for bit, values and indices."""
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+
+    shape = f"Q={CASE_Q} M={CASE_M} D={DEPTH} valid={CASE_VALID}"
+    q = torch.randn(CASE_Q, DEPTH, generator=gen, device=DEVICE)
+    b = torch.nn.functional.normalize(torch.randn(CASE_M, DEPTH, generator=gen, device=DEVICE), dim=1)
+    b = b * (0.5 + 1.5 * torch.rand(CASE_M, 1, generator=gen, device=DEVICE))
+    qb, bb = q.bfloat16().contiguous(), b.bfloat16().contiguous()
+    q8 = quantize_queries_int8(q)[0]
+    codes, scale = quantize_bank_int8(b, per_row=True)
+    rs = scale.reshape(-1)
+    del q, b
+    n_q, m = min(CASE_Q * 5 // 2, 10000), min(CASE_M, 40960)
+    tq = torch.randint(-1, 2, (n_q, 96), generator=gen, device=DEVICE)
+    tb = torch.randint(-1, 2, (m, 96), generator=gen, device=DEVICE)
+    t_rs = 0.25 + torch.rand(m, generator=gen, device=DEVICE)
+    forms = {  # form: (the stated shape's (q, bank, kw), the tie-dense (q, bank, kw), exact)
+        "dot": ((qb, bb, {}), (tq.bfloat16(), tb.bfloat16(), {}), False),
+        "l2": ((qb, bb, {"distance": "l2"}), (tq.bfloat16(), tb.bfloat16(), {"distance": "l2"}), False),
+        "int8": ((q8, codes, {}), (tq.to(torch.int8), tb.to(torch.int8), {}), True),
+        "int8_rows": ((q8, codes, {"row_scale": rs}), (tq.to(torch.int8), tb.to(torch.int8), {"row_scale": t_rs}),
+                      True),
+    }
+    errs = []
+    for form, ((qq, bank, kw), (tqq, tbank, tkw), exact) in forms.items():
+        for k in CHECK_KS:
+            errs.append(check_against_plain(f"{form} {shape} k={k}", qq, bank, k, CASE_VALID, exact=exact, **kw))
+            valid = tbank.shape[0] - 127
+            errs.append(check_against_plain(f"{form} tie-dense Q={n_q} M={tbank.shape[0]} valid={valid} k={k}",
+                                            tqq, tbank, k, valid, exact=True, **tkw))
     return max(errs)
 
 
@@ -572,6 +649,7 @@ def ivf_cases(gen):
                                         30, cap, 128))
     errs.append(check_ivf_against_plain("bf16 every probed slab empty", qp, bank, lids,
                                         torch.zeros_like(lv), 8, cap, 128))
+    errs.append(ivf_edge_cases("bf16", q.to(torch.bfloat16), bank, lv, cent, cap, None, False))
     # duplicated rows: 4 slabs holding the same 2,048 rows, every slab probed
     base = torch.nn.functional.normalize(torch.randn(2048, DEPTH, generator=gen, device=DEVICE), dim=1)
     dup = base.repeat(4, 1).to(torch.bfloat16).contiguous()
@@ -582,6 +660,31 @@ def ivf_cases(gen):
     errs.append(check_ivf_against_plain("bf16 duplicated rows across slabs (ties)", qd, dup, dl, dv,
                                         30, 2048, 256, (kv, ki)))
     check_tie_order(kv, ki, 2048, "duplicated slabs")
+    return max(errs)
+
+
+def ivf_edge_cases(form, q, bank, lv, cent, cap, rs, exact):
+    """Phase 3: K2's wgmma kernel at the select's sizes (k in 30, 64, 120,
+    128; 32 probes a 256-query tile, so its items run in several probe
+    splits) with probed slabs emptied, cut to 5 rows and to a tile edge
+    (128), and an id outside [0, n_slabs) in every tile's list (on the
+    card: the kernel skips such ids; the plain version indexes with them)."""
+    from hbird_tpu_torch.ops.ivf import tile_probe_inputs
+
+    qp, lids, _ = tile_probe_inputs(q, cent, n_probe=N_PROBE, block_q=BLOCK_Q)
+    lv_cut = lv.clone()
+    lv_cut[lids[:, 0].long()] = 0
+    lv_cut[lids[:, 1].long()] = 5
+    lv_cut[lids[:, 2].long()] = torch.clamp(lv_cut[lids[:, 2].long()], max=128)
+    lids = lids.clone()
+    if DEVICE == "cuda":
+        lids[:, 3] = lv.shape[0] + 5
+    errs = []
+    for k in (30, 64, 120, 128):
+        errs.append(check_ivf_against_plain(
+            f"{form} Q={qp.shape[0]} k={k} n_probe={N_PROBE} block_q={BLOCK_Q}, slabs empty, of 5 and "
+            f"128 rows, an id out of range", qp, bank, lids, lv_cut, k, cap, BLOCK_Q, row_scale=rs,
+            exact=exact))
     return max(errs)
 
 
@@ -621,6 +724,8 @@ def quantized_ivf_cases(gen):
     lv_cut[lids[:, 1].long()] = 5
     errs.append(check_ivf_against_plain("int8_rows leaf_valid 0 and 5 < k=30 on probed slabs",
                                         qp, codes, lids, lv_cut, 30, cap, 128, row_scale=rs, exact=True))
+    errs.append(ivf_edge_cases("asym_rows", qb, codes, lv, cent, cap, rs, False))
+    errs.append(ivf_edge_cases("int8_rows", q8, codes, lv, cent, cap, rs, True))
     # integer ties across slabs probed out of slot order: 4 slabs of the same codes
     base = torch.nn.functional.normalize(torch.randn(2048, DEPTH, generator=gen, device=DEVICE), dim=1)
     bcodes, bscale = quantize_bank_int8(base, per_row=True)
@@ -650,7 +755,35 @@ def flash_cases(gen):
             errs.append(check_flash(f"{str(dtype)[6:]} {label} {shape}", out,
                                     flash_attention_plain(q, k, v, scale)))
             del q, k, v, out
+    if DEVICE == "cuda":
+        grad_check(gen)
     return max(errs)
+
+
+def grad_check(gen):
+    """Phase 4: K3 has no backward, so under autograd (an input that
+    requires grad, grad mode on) the card's call must raise and launch
+    nothing; under torch.no_grad() the same inputs run and hold."""
+    from hbird_tpu_torch.ops.flash import flash_attention_plain
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
+    q, k, v = (torch.randn((2, 4, 100, 64), generator=gen, device=DEVICE) for _ in range(3))
+    q.requires_grad_(True)
+    before = flash_attention.launches
+    try:
+        flash_attention(q, k, v, 0.125)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        fail("K3 under autograd returned an output instead of raising")
+    if flash_attention.launches != before:
+        fail("K3 under autograd launched")
+    with torch.no_grad():
+        out = flash_attention(q, k, v, 0.125)
+        check_flash("K3 f32 under torch.no_grad() (its inputs require grad)", out,
+                    flash_attention_plain(q, k, v, 0.125))
+    print("  K3 under autograd: raises (no backward), launches nothing", flush=True)
 
 
 def shares(ms, bound, library):
@@ -719,10 +852,11 @@ def build_report(libs):
         if src not in cuda_build.LOGS:
             print(f"  {src}: built before this run, no ptxas report", flush=True)
             continue
-        r = report[name] = ptxas_report(cuda_build.LOGS[src], name)
+        r = report[f"{src}:{name}"] = ptxas_report(cuda_build.LOGS[src], name)
+        regs = dict(zip(r["template_args"], r["registers"]))
         spills = dict(zip(r["template_args"], r["spill_store_bytes"]))
-        print(f"  ptxas, {name} ({r['instances']} instances): registers at entry "
-              f"{sorted(set(r['registers']))}, spill stores by instance {json.dumps(spills)} bytes; "
+        print(f"  ptxas, {src} {name} ({r['instances']} instances): registers at entry by instance "
+              f"{json.dumps(regs)}, spill stores by instance {json.dumps(spills)} bytes; "
               "setmaxnreg " + (f"IGNORED: {r['setmaxnreg_ignored'][0]}" if r["setmaxnreg_ignored"]
                                else "not ignored (no C7508 warning)")
               + f"; {len(r['wgmma_notes'])} wgmma notes ({', '.join(WGMMA_NOTES)})", flush=True)
@@ -734,11 +868,14 @@ def build_report(libs):
               f"{json.dumps(dict(zip(r['template_args'], r['registers'])))}, spill stores by instance "
               f"{json.dumps(dict(zip(r['template_args'], r['spill_store_bytes'])))} bytes", flush=True)
     k1 = ctypes.CDLL(str(libs["knn_topk.cu"]))
+    k2 = ctypes.CDLL(str(libs["ivf_topk.cu"]))
     k3 = ctypes.CDLL(str(libs["flash_attn.cu"]))
-    k1.knn_topk_wgmma_smem.argtypes, k1.knn_topk_wgmma_smem.restype = (ctypes.c_int,) * 3, ctypes.c_int
+    k1.knn_topk_wgmma_smem.argtypes, k1.knn_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
+    k2.ivf_topk_wgmma_smem.argtypes, k2.ivf_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
     k3.flash_attn_wgmma_smem.argtypes, k3.flash_attn_wgmma_smem.restype = (), ctypes.c_int
-    smem = {"knn_wgmma bf16": k1.knn_topk_wgmma_smem(DEPTH, 1, 30), "knn_wgmma int8": k1.knn_topk_wgmma_smem(DEPTH, 2, 30),
-            "flash_bf16_wgmma": k3.flash_attn_wgmma_smem()}
+    smem = {"K1 bf16": k1.knn_topk_wgmma_smem(DEPTH, 1), "K1 int8": k1.knn_topk_wgmma_smem(DEPTH, 2),
+            "K2 bf16": k2.ivf_topk_wgmma_smem(DEPTH, 1), "K2 int8": k2.ivf_topk_wgmma_smem(DEPTH, 2),
+            "K2 asym": k2.ivf_topk_wgmma_smem(DEPTH, 3), "flash_bf16_wgmma": k3.flash_attn_wgmma_smem()}
     print(f"  dynamic shared memory at D={DEPTH}: {json.dumps(smem)} B", flush=True)
     report["smem_bytes"] = smem
     tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
@@ -760,6 +897,8 @@ def build_report(libs):
         for f, c in wg_fns.items():
             if c["HGMMA"] + c["IGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] or c["IMMA"]:
                 fail(f"{f}: {c} (a wgmma kernel must issue HGMMA or IGMMA and UTMALDG, and no HMMA or IMMA)")
+        if name and not wg_fns:
+            fail(f"{path.name}: no {name} kernel in the SASS")
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
     return report
 
@@ -1303,6 +1442,46 @@ def select_load(scores, k, groups):
     return hit / pairs, above / pairs
 
 
+def batched_load(scores, k, groups, flush_at=32, buf=160):
+    """The batched select's work on these scores: each partial set (one list
+    of tile indices per set) buffers the scores above its minimum as of its
+    last merge, and merges its buffer once it holds `flush_at` (and at its
+    end) into its top-P set (P = 32·S, 128 at S = 3). Without the minimum
+    the sets share, and with ties counted as above, so an upper bound.
+    Returns (scores buffered per (query, tile) pair, merges per query and
+    set, 32-score chunks merged per query and set)."""
+    s = -(-k // 32)
+    p = 32 * (4 if s == 3 else s)
+    n_q = scores.shape[0]
+    buffered = merges = chunks = pairs = 0
+    for group in groups:
+        top = torch.full((n_q, p), float("-inf"), device=scores.device)
+        pend = torch.full((n_q, buf), float("-inf"), device=scores.device)
+        cnt = torch.zeros(n_q, dtype=torch.long, device=scores.device)
+
+        def merge(rows):
+            nonlocal merges, chunks
+            merges += int(rows.numel())
+            chunks += int(((cnt[rows] + 31) // 32).sum())
+            top[rows] = torch.topk(torch.cat([top[rows], pend[rows]], 1), p, dim=1).values
+            pend[rows] = float("-inf")
+            cnt[rows] = 0
+
+        for t in group:
+            tile = scores[:, 128 * t:128 * (t + 1)]
+            mask = tile > top[:, -1:]
+            pos = cnt[:, None] + torch.cumsum(mask, 1) - 1
+            r, c = mask.nonzero(as_tuple=True)
+            pend[r, pos[r, c]] = tile[r, c]
+            cnt += mask.sum(1)
+            buffered += int(mask.sum())
+            pairs += n_q
+            merge((cnt >= flush_at).nonzero(as_tuple=True)[0])
+        merge((cnt > 0).nonzero(as_tuple=True)[0])
+    sets = len(groups) * n_q
+    return buffered / pairs, merges / sets, chunks / sets
+
+
 def k1_select_rows(q, bank, chunk=2048):
     """Phase 7: the select's load on the main path's bank, K1 int8 (global
     codes) at k = 30 and 120: the share of (query, tile) pairs with a score
@@ -1327,7 +1506,7 @@ def k1_select_rows(q, bank, chunk=2048):
                       list(range(s * per + w, min(tiles, (s + 1) * per), 2))
                       for s in range(splits) for w in range(2)]}
         for scheme, groups in orders.items():
-            hit = above = 0.0
+            hit = above = buffered = merges = merged = 0.0
             for s in range(0, q8.shape[0], chunk):
                 x = q8[s:s + chunk]
                 scores = (torch._int_mm(x, codes.t()) if DEVICE == "cuda"
@@ -1335,11 +1514,22 @@ def k1_select_rows(q, bank, chunk=2048):
                 h, a = select_load(scores, k, groups)
                 hit += h * x.shape[0]
                 above += a * x.shape[0]
-            rows[f"int8 k={k}, {scheme}"] = {"rows_above_kth": hit / q8.shape[0],
-                                             "scores_above_kth": above / q8.shape[0]}
-            print(f"  K1 select load, int8 k={k}, {scheme}: {hit / q8.shape[0]:.4f} of (query, tile) "
-                  f"pairs hold a score above the running k-th, {above / q8.shape[0]:.3f} such scores "
+                if scheme.startswith("wgmma"):
+                    bu, me, ch = batched_load(scores, k, groups)
+                    buffered += bu * x.shape[0]
+                    merges += me * x.shape[0]
+                    merged += ch * x.shape[0]
+            n = q8.shape[0]
+            row = rows[f"int8 k={k}, {scheme}"] = {"rows_above_kth": hit / n, "scores_above_kth": above / n}
+            print(f"  K1 select load, int8 k={k}, {scheme}: {hit / n:.4f} of (query, tile) "
+                  f"pairs hold a score above the running k-th, {above / n:.3f} such scores "
                   f"per pair", flush=True)
+            if scheme.startswith("wgmma"):
+                row.update(batched_buffered_per_pair=buffered / n, batched_merges_per_set=merges / n,
+                           batched_chunks_per_set=merged / n)
+                print(f"  K1 batched select, int8 k={k}, {scheme}: {buffered / n:.3f} scores buffered per "
+                      f"(query, tile) pair, {merges / n:.2f} merges and {merged / n:.2f} 32-score chunks "
+                      f"per query and set (upper bounds: no shared minimum)", flush=True)
     return rows
 
 
@@ -1506,9 +1696,9 @@ def forward_timing(gen_seed, gen):
 
 def pairs(tree):
     """--pairs: the Hopper-redesigned kernels of the imported package (K3
-    bf16 and f32, K1 bf16 dot and l2, K1 int8 and int8_rows) timed alone by
-    CUDA events, each beside its bound and its library call; returns the
-    JSON-ready result."""
+    bf16 and f32, K1 bf16 dot and l2, int8 and int8_rows, K2 bf16 and
+    asym_rows) timed alone by CUDA events, each beside its bound and its
+    library call; returns the JSON-ready result."""
     import hbird_tpu_torch
     from hbird_tpu_torch.ops import cuda_build
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
@@ -1518,10 +1708,9 @@ def pairs(tree):
 
     t0 = time.perf_counter()
     if DEVICE == "cuda":
-        for src in ("knn_topk.cu", "flash_attn.cu"):
-            cuda_build.build(src)
+        cuda_build.build_all()
     out = {"tree": tree, "package": str(pathlib.Path(hbird_tpu_torch.__file__).parent),
-           "build_s": time.perf_counter() - t0, "k3": {}, "k1": {}}
+           "build_s": time.perf_counter() - t0, "k3": {}, "k1": {}, "k2": {}}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
 
     def record(kernel, label, ms, shape_bound, library):
@@ -1545,24 +1734,51 @@ def pairs(tree):
             torch.randn(m, DEPTH, generator=gen, device=DEVICE), dim=1).bfloat16()
         neg_bias = (-l2_bias(bank)).bfloat16()
         reps = 5 if m < 200_000 else 2
+        codes_g = quantize_bank_int8(bank, per_row=False)[0]
+        codes_r, scale = quantize_bank_int8(bank, per_row=True)
+        rs = scale.reshape(-1).float().contiguous()
         for k in PAIR_KS:
             bound = bound_ms(PAIR_Q, m, DEPTH, k, 2, PEAK_BF16_FLOPS)
             for form, kw, nb in (("dot", {}, None), ("l2", {"distance": "l2"}, neg_bias)):
                 ms = cuda_ms(lambda: knn_topk(q, bank, k, **kw), reps)
                 lib = cuda_ms(lambda: k1_library(q, bank, k, nb), reps)
                 record("k1", f"bf16 {form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
-        codes_g = quantize_bank_int8(bank, per_row=False)[0]
-        codes_r, scale = quantize_bank_int8(bank, per_row=True)
-        rs = scale.reshape(-1).float().contiguous()
-        del bank, neg_bias
-        for k in PAIR_INT8_KS:
             for form, codes, r in (("int8", codes_g, None), ("int8_rows", codes_r, rs)):
                 bound = bound_ms(PAIR_Q, m, DEPTH, k, 1, PEAK_INT8_OPS, row_bytes=0 if r is None else 4)
                 ms = cuda_ms(lambda: knn_topk(q8, codes, k, row_scale=r), reps)
                 lib = library_ms(lambda: int8_library(q8, codes, k, r), reps, f"K1 {form}")
                 record("k1", f"{form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
-        del codes_g, codes_r, rs
+        del codes_g, codes_r, rs, neg_bias
+        pairs_k2(q, bank, f"M={m}", record, 5 if m < 200_000 else 3)
+        del bank
     return out
+
+
+def pairs_k2(q, bank, label, record, reps):
+    """--pairs, K2: a tree of `bank` (the tree's defaults: 512 leaves),
+    `q` grouped into 256-query tiles probing 32 leaves each, k = 30; bf16
+    and asym_rows (the slabs as per-row int8 codes, padding slots scale
+    0)."""
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops.ivf import tile_probe_inputs
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8
+
+    k = 30
+    tree = NearestNeighborSearchApprox(bank, n_neighbors=k, use_tree=True, device=DEVICE)
+    tb, lv, cap = tree.bank, tree.leaf_valid, tree._cap
+    qp, lids, _ = tile_probe_inputs(q, tree.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
+    del tree
+    codes, scale = quantize_bank_int8(tb, per_row=True)
+    slot = torch.arange(tb.shape[0], device=tb.device)
+    rs = torch.where(slot % cap < lv.long().repeat_interleave(cap), scale.reshape(-1), 0.0)
+    shape = f"Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={N_PROBE}"
+    for form, b, r, bank_bytes in (("bf16", tb, None, 2), ("asym_rows", codes, rs, 1)):
+        bound = ivf_bound_ms(qp.shape[0], lids, lv, DEPTH, k, 2, PEAK_BF16_FLOPS,
+                             bank_bytes=bank_bytes, row_bytes=0 if r is None else 4)
+        ms = cuda_ms(lambda: ivf_topk(qp, b, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r), reps)
+        lib = cuda_ms(lambda: ivf_library(qp, b, lids, lv, k, cap, BLOCK_Q, row_scale=r), reps)
+        record("k2", f"{form} {label} {shape}", ms, bound, lib)
 
 
 def kernel_entry(name, source, tpu_kernel, launches, err, rows, card, forms=None):

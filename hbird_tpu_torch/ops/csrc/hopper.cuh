@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the redesigned kernels: K1's bf16 and
-// int8 score-and-select tile (knn_topk.cu) and K3's bf16 forward
-// (flash_attn.cu).
+// Hopper (sm_90a) building blocks of the redesigned kernels: K1's and K2's
+// score-and-select tile (wgmma_topk.cuh, for knn_topk.cu and ivf_topk.cu)
+// and K3's bf16 forward (flash_attn.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count, and
 //   a wait on a phase parity;
@@ -130,6 +130,13 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory (a tile widened
+// by the threads) visible to the async proxy (wgmma) once the writers meet at
+// a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
@@ -285,11 +292,12 @@ inline EncodeTiledFn tensor_map_encoder() {
 
 // A tensor map of `rank` dimensions (dims innermost first, strides in bytes
 // of dims 1.., box in elements) of bf16 elements, or of bytes (UINT8: int8
-// codes), 128-byte swizzle, zeros out of bounds. Returns 0, ERR_NO_ENCODER
-// or ERR_ENCODE.
+// codes), 128-byte swizzle (or none: int8 codes that the threads widen),
+// zeros out of bounds. Returns 0, ERR_NO_ENCODER or ERR_ENCODE.
 inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
                              const uint64_t* strides, const uint32_t* box,
-                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = tensor_map_encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
@@ -297,7 +305,7 @@ inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const
                         const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
                         reinterpret_cast<const cuuint64_t*>(strides),
                         reinterpret_cast<const cuuint32_t*>(box), elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }

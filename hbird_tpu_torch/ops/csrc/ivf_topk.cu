@@ -14,20 +14,28 @@
 // rows (a multiple of 64); tile t probes the n_probe slabs
 // leaf_ids[t, :]. The TPU kernel picks the probed slab per grid step with a
 // scalar-prefetched index map and carries the top-k across the sequential
-// probe axis; here one CTA (256 threads) owns BQ = 64 queries of one tile,
-// reads that tile's leaf_ids row itself and loops over the probed slabs'
-// 128-row tiles. Tiles at or past a slab's leaf_valid are never visited,
-// columns past it in the last tile score -inf, and slabs with no valid row
-// (or an id outside [0, n_slabs)) contribute nothing.
+// probe axis. Tiles at or past a slab's leaf_valid are never visited,
+// columns past it in the last tile are never selected, and slabs with no
+// valid row (or an id outside [0, n_slabs)) contribute nothing.
 //
 // What bounds it on an H100: bytes, at the engine's shapes. A 256-query
 // tile reads n_probe·cap rows of D bf16 and does 2·256 flops per element,
 // 256 flops per byte, under the ~295 at which the card stops being memory
-// bound; four 64-query CTAs read the same slabs, mostly from L2. The score
-// tile is K1's (topk_common.cuh): bf16, int8 and asymmetric tiles through
-// mma.sync fed by a two-stage cp.async ring whose prefetch runs across slab
-// boundaries (an int8 slab takes half the bytes of a bf16 one), f32 on exact
-// FMAs. Returned ids are IVF slot ids, sorted by value descending, then slot
+// bound; the four 64-query items of a tile read the same slabs, mostly from
+// L2.
+// bf16, int8 (with or without row scales) and bf16 queries on int8 codes
+// (asym, asym_rows: the reference's ScaNN searcher) run wgmma_topk.cuh's
+// kernel (topk_wgmma<F, S, E, Slabs>), K1's: persistent CTAs over (probe
+// split, 64-query tile) items, the queries resident, the slab tiles by TMA
+// from one 2-D tensor map over the leaf-contiguous bank (a tile is the box
+// at row s·cap + m0), two consumer warpgroups on wgmma, the batched select
+// in registers and global scratch, the partial sets merged in a second
+// pass. asym's codes are widened to bf16 in shared memory by the consumers
+// (exact), so its wgmma and select are bf16's. f32 stays on exact FMAs
+// (ivf_topk_f32) and bf16 or asym wider than the kernel's shared memory on
+// topk_common.cuh's mma_scan (one CTA of 256 threads per 64 queries, a
+// two-stage cp.async ring whose prefetch runs across slab boundaries).
+// Returned ids are IVF slot ids, sorted by value descending, then slot
 // ascending; unfilled slots are (-inf, 0). Probed slabs do not arrive in slot
 // order, so an equal score in a later slab may carry a lower slot: the 64-bit
 // keys of the merge order it first all the same.
@@ -36,6 +44,7 @@
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
 
 #include "topk_common.cuh"
+#include "wgmma_topk.cuh"
 
 namespace {
 
@@ -125,6 +134,41 @@ __global__ void __launch_bounds__(THREADS)
   top.emit(out_vals, out_idx, q0, nq, k, threadIdx.x >> 5, threadIdx.x & 31);
 }
 
+// The wgmma kernel's items (wgmma_topk.cuh): (probe split, 64-query tile),
+// split-major, so the four items of a 256-query tile run side by side and
+// read the same slabs from L2. A split walks probes [p0, p0 + per_split) of
+// its query tile's leaf_ids row, slab by slab, 128 rows a tile.
+struct Slabs {
+  const int* leaf_ids;
+  const int* leaf_valid;
+  int n_slabs, cap, n_probe, block_q, q_tiles, splits, per_split;
+  __host__ __device__ __forceinline__ int n_items() const { return q_tiles * splits; }
+  __host__ __device__ __forceinline__ int q_tile(int item) const { return item % q_tiles; }
+  __host__ __device__ __forceinline__ int split(int item) const { return item / q_tiles; }
+  __device__ __forceinline__ SlabWalk walk(int item) const {
+    const int tile = q_tile(item) * wg::BQH / block_q;
+    const int p0 = split(item) * per_split;
+    SlabWalk w{leaf_ids + static_cast<size_t>(tile) * n_probe, leaf_valid,
+               min(n_probe, p0 + per_split), n_slabs, cap};
+    w.seek(p0);
+    return w;
+  }
+};
+
+template <class F, int S, wg::Epi E>
+int launch_wgmma(const void* q, const void* bank, const float* scale, const void* leaf_ids,
+                 const void* leaf_valid, void* out_vals, void* out_idx, void* parts, void* thr,
+                 void* work, int work_ctas, int nq, int n_slabs, int cap, int d, int block_q,
+                 int n_probe, int k, int probe_splits, cudaStream_t stream) {
+  if (probe_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_split = n_probe > 0 ? (n_probe + probe_splits - 1) / probe_splits : 1;
+  const int splits = n_probe > 0 ? (n_probe + per_split - 1) / per_split : 1;
+  const Slabs items{static_cast<const int*>(leaf_ids), static_cast<const int*>(leaf_valid),
+                    n_slabs, cap, n_probe, block_q, nq / wg::BQH, splits, per_split};
+  return wg::launch<F, S, E>(q, bank, scale, out_vals, out_idx, parts, thr, work, work_ctas, nq,
+                             n_slabs * cap, d, k, items, stream);
+}
+
 template <typename TQ, typename TB, typename Kernel>
 cudaError_t launch_one(Kernel kernel, size_t smem, const void* q, const void* bank,
                        const float* scale, const void* leaf_ids, const void* leaf_valid,
@@ -142,27 +186,48 @@ cudaError_t launch_one(Kernel kernel, size_t smem, const void* q, const void* ba
 }
 
 template <int S>
-cudaError_t launch(const void* q, const void* bank, const float* scale, const void* leaf_ids,
-                   const void* leaf_valid, void* out_vals, void* out_idx, int nq, int n_slabs,
-                   int cap, int d, int block_q, int n_probe, int k, int form,
-                   cudaStream_t stream) {
+int launch(const void* q, const void* bank, const float* scale, const void* leaf_ids,
+           const void* leaf_valid, void* out_vals, void* out_idx, int nq, int n_slabs, int cap,
+           int d, int block_q, int n_probe, int k, int form, void* parts, void* thr, void* work,
+           int work_ctas, int probe_splits, cudaStream_t stream) {
   switch (form) {
     case 0:
       return launch_one<float, float>(ivf_topk_f32<S>, FMA_SMEM, q, bank, scale, leaf_ids,
                                       leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d,
                                       block_q, n_probe, k, stream);
     case 1:
-      return launch_one<__nv_bfloat16, __nv_bfloat16>(
-          ivf_topk_mma<FormBf16, S>, Ring<FormBf16>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
-          out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
-    case 2:
-      return launch_one<int8_t, int8_t>(ivf_topk_mma<FormS8, S>, Ring<FormS8>::SMEM, q, bank,
-                                        scale, leaf_ids, leaf_valid, out_vals, out_idx, nq,
-                                        n_slabs, cap, d, block_q, n_probe, k, stream);
+      if (wg::smem_at<wg::Bf16>(d) == 0)  // the queries do not fit: mma_scan
+        return launch_one<__nv_bfloat16, __nv_bfloat16>(
+            ivf_topk_mma<FormBf16, S>, Ring<FormBf16>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
+            out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
+      return launch_wgmma<wg::Bf16, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid,
+                                                  out_vals, out_idx, parts, thr, work, work_ctas,
+                                                  nq, n_slabs, cap, d, block_q, n_probe, k,
+                                                  probe_splits, stream);
+    case 2:  // D <= 1024: the queries always fit
+      if (scale != nullptr)
+        return launch_wgmma<wg::S8, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid, out_vals,
+                                                  out_idx, parts, thr, work, work_ctas, nq,
+                                                  n_slabs, cap, d, block_q, n_probe, k,
+                                                  probe_splits, stream);
+      return launch_wgmma<wg::S8, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid, out_vals,
+                                                out_idx, parts, thr, work, work_ctas, nq, n_slabs,
+                                                cap, d, block_q, n_probe, k, probe_splits,
+                                                stream);
     default:
-      return launch_one<__nv_bfloat16, int8_t>(
-          ivf_topk_mma<FormAsym, S>, Ring<FormAsym>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
-          out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
+      if (wg::smem_at<wg::Asym>(d) == 0)
+        return launch_one<__nv_bfloat16, int8_t>(
+            ivf_topk_mma<FormAsym, S>, Ring<FormAsym>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
+            out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
+      if (scale != nullptr)
+        return launch_wgmma<wg::Asym, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid,
+                                                    out_vals, out_idx, parts, thr, work,
+                                                    work_ctas, nq, n_slabs, cap, d, block_q,
+                                                    n_probe, k, probe_splits, stream);
+      return launch_wgmma<wg::Asym, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid,
+                                                  out_vals, out_idx, parts, thr, work, work_ctas,
+                                                  nq, n_slabs, cap, d, block_q, n_probe, k,
+                                                  probe_splits, stream);
   }
 }
 
@@ -175,23 +240,40 @@ cudaError_t launch(const void* q, const void* bank, const float* scale, const vo
 // score by its slot's scale. leaf_ids (nq / block_q, n_probe) and leaf_valid
 // (n_slabs,) are int32. block_q is a multiple of 64 that divides nq. Writes
 // out_vals (nq, k) f32 and out_idx (nq, k) int64 IVF slot ids.
-// 1 <= k <= 128, n_probe >= 0, n_slabs·cap < 2^31.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// 1 <= k <= 128, n_probe >= 0, n_slabs·cap < 2^31. Where
+// ivf_topk_wgmma_smem(d, form) > 0 the call runs the wgmma kernel: it cuts
+// each tile's probe list into ceil(n_probe / ceil(n_probe / probe_splits))
+// splits and needs the scratch `parts`, (nq, 2 · splits, 32 · ceil(k /
+// 32)) 64-bit keys, `thr`, nq 64-bit keys set to 0, and `work`, work_ctas ·
+// ivf_topk_work_keys(k) 64-bit keys (it runs on at most work_ctas CTAs);
+// the other calls ignore them. Returns cudaGetLastError() after the launch
+// (0 = launched), or 9001 / 9002 when the tensor maps cannot be encoded.
 extern "C" int ivf_topk_launch(const void* q, const void* bank, const float* scale,
                                const void* leaf_ids, const void* leaf_valid, void* out_vals,
                                void* out_idx, int nq, int n_slabs, int cap, int d, int block_q,
-                               int n_probe, int k, int form, void* stream) {
+                               int n_probe, int k, int form, void* parts, void* thr, void* work,
+                               int work_ctas, int probe_splits, void* stream) {
   if (nq < 1 || k < 1 || k > 128 || form < 0 || form > 3 || d % (form >= 2 ? 16 : 8) != 0 ||
       n_slabs < 1 || cap < 1 || n_probe < 0 || block_q < BQ || block_q % BQ != 0 ||
       nq % block_q != 0 || static_cast<long long>(n_slabs) * cap > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch ((k + 31) / 32) {
-    case 1: e = launch<1>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
-    case 2: e = launch<2>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
-    case 3: e = launch<3>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
-    default: e = launch<4>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, s); break;
+    case 1: return launch<1>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, parts, thr, work, work_ctas, probe_splits, s);
+    case 2: return launch<2>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, parts, thr, work, work_ctas, probe_splits, s);
+    case 3: return launch<3>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, parts, thr, work, work_ctas, probe_splits, s);
+    default: return launch<4>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, form, parts, thr, work, work_ctas, probe_splits, s);
   }
-  return static_cast<int>(e);
 }
+
+// Dynamic shared memory the wgmma kernel of `form` (1 bf16, 2 int8, 3 bf16
+// queries on int8 codes) asks for at depth d; 0: that call runs mma_scan
+// (or f32's FMA kernel), without scratch.
+extern "C" int ivf_topk_wgmma_smem(int d, int form) {
+  if (form == 1) return wg::smem_at<wg::Bf16>(d);
+  if (form == 2) return wg::smem_at<wg::S8>(d);
+  return form == 3 ? wg::smem_at<wg::Asym>(d) : 0;
+}
+
+// 64-bit keys of the wgmma kernel's `work` scratch per CTA at k.
+extern "C" int ivf_topk_work_keys(int k) { return wg::work_keys(k); }

@@ -1,14 +1,15 @@
 // Device code shared by K1 (knn_topk.cu) and K2 (ivf_topk.cu): the running
-// top-k of 64-bit keys, the f32 FMA score tile, and the tensor-core score
-// tile (bf16, int8, and bf16 queries on int8 codes) fed by a two-stage
+// top-k of 64-bit keys, the f32 FMA score tile, and the mma.sync score
+// tile (bf16, and bf16 queries on int8 codes) fed by a two-stage
 // cp.async ring, with the score epilogue of the TPU kernels' forms. The
-// keys, merge_row and TopK are the one definition of the tie order: K1's
-// bf16 wgmma kernel (knn_topk.cu, built on hopper.cuh) keeps its top sets in
-// TopK<S, 16> and merges with merge_row too, but scores without mma_scan.
+// keys (make_key) are the one definition of the tie order: the wgmma
+// kernel of K1 and K2 (wgmma_topk.cuh, built on hopper.cuh) selects the same
+// keys with its batched select and merges its partial sets with merge_row.
 //
 // The mma_scan kernels give one CTA (256 threads) BQ = 64 queries and walk
-// bank tiles of BM = 128 rows; K1's f32 and int8 forms walk the whole bank,
-// K2 only the rows of the leaf slabs its query tile probes. A finished 64×128 f32 score tile goes to
+// bank tiles of BM = 128 rows: K1's asym forms and bf16 wider than the
+// wgmma kernel's shared memory walk the whole bank, K2's bf16 and asym forms
+// wider than it the rows of the leaf slabs a query tile probes. A finished 64×128 f32 score tile goes to
 // shared memory (columns past the tile's valid rows score -inf) and is merged
 // into the queries' running top sets:
 // - Each warp owns 8 queries. A query's running top-(32·S) lives in
@@ -27,9 +28,8 @@
 // - At the end each warp extracts its queries' k best keys in order:
 //   values descending, then bank index ascending.
 // The epilogue turns an accumulator into a score as the TPU kernels do:
-// int32 -> f32 (exact: |s| <= 127²·D < 2^24 for D <= 1024), then times the
-// row's scale (row_scale, int8 banks), then minus the row's bias (l2), each
-// one f32 rounding, before the valid-row mask.
+// times the row's scale (row_scale, int8 banks), then minus the row's bias
+// (l2), each one f32 rounding, before the valid-row mask.
 
 #pragma once
 
@@ -325,15 +325,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Four int8 codes (one 32-bit word) widened to two bf16 pairs, exactly:
 // 0x4B0000uu is the f32 2^23 + uu, and uu = code + 128.
 __device__ __forceinline__ void widen_s8x4(unsigned r, unsigned& lo, unsigned& hi) {
@@ -354,10 +345,6 @@ __device__ __forceinline__ void widen_s8x4(unsigned r, unsigned& lo, unsigned& h
 // banks. Warps tile the 64×128 score tile as 2 (queries) × 4 (bank rows),
 // 32×32 each: 2 m16 × 4 n8 mma tiles.
 // - Bf16: bf16 × bf16, mma.sync m16n8k16, f32 accumulators.
-// - S8: int8 × int8, mma.sync m16n8k32, int32 accumulators. Its fragments
-//   hold the same bytes as bf16's (32 bytes of depth per k-step), so the
-//   ldmatrix addressing is shared; a ring row of 128 codes takes the bytes
-//   of 64 bf16 values.
 // - Asym: bf16 queries × int8 codes, mma.sync m16n8k16. The codes stay int8
 //   in the ring (half the bytes of a bf16 bank) and are widened to bf16 in
 //   registers while the B fragments are built (widen_s8x4).
@@ -366,12 +353,6 @@ struct FormBf16 {
   typedef __nv_bfloat16 TB;
   typedef float Acc;
   static constexpr int DEPTH = 64, QBYTES = 128, BBYTES = 128;
-};
-struct FormS8 {
-  typedef int8_t TQ;
-  typedef int8_t TB;
-  typedef int Acc;
-  static constexpr int DEPTH = 128, QBYTES = 128, BBYTES = 128;
 };
 struct FormAsym {
   typedef __nv_bfloat16 TQ;
@@ -434,7 +415,7 @@ __device__ __forceinline__ void mma_chunk(typename F::Acc (&acc)[2][4][4],
   constexpr int LQ = Ring<F>::LQ, LB = Ring<F>::LB;
   const unsigned char* qs = stage;
   const unsigned char* bs = stage + BQ * LQ;
-  if constexpr (F::BBYTES == F::QBYTES) {  // Bf16 and S8: one k-step per 32 bytes
+  if constexpr (F::BBYTES == F::QBYTES) {  // Bf16: one k-step per 32 bytes
 #pragma unroll
     for (int kb = 0; kb < F::QBYTES; kb += 32) {
       unsigned a[2][4];
@@ -460,10 +441,7 @@ __device__ __forceinline__ void mma_chunk(typename F::Acc (&acc)[2][4][4],
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if constexpr (sizeof(typename F::TQ) == 1)
-            mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-          else
-            mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
         }
     }
   } else {  // Asym: 32 codes (64 query bytes) per step, two k16 mmas

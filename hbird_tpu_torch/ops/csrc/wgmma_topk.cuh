@@ -1,0 +1,664 @@
+// The Hopper score-and-select tile of K1 (knn_topk.cu) and K2 (ivf_topk.cu):
+// one persistent kernel template, topk_wgmma<Form, S, Epi, Items>, that
+// scores 64 resident queries against 128-row bank tiles with wgmma fed by
+// TMA rings and keeps each query's running top set with a batched select.
+//
+// - Items hand out the work: K1's (bank split, 64-query tile), K2's (probe
+//   split, 64-query tile), split-major, so the CTAs in flight read the same
+//   bank rows (K1's split, or the slabs K2's 256-query tile probes) and find
+//   them in L2. An item's Walk lists its 128-row bank tiles in order: the
+//   first row, and the valid columns (K1: up to the split's end; K2: up to
+//   the slab's leaf_valid; the rest of the box is loaded but never selected).
+// - A CTA is one producer warp (its warpgroup gives registers away with
+//   setmaxnreg) and two consumer warpgroups. The item's 64 queries are loaded
+//   once by TMA and stay in shared memory for the whole depth; consumer w
+//   scores the item's tiles w, w + 2, ... from its own ring of up to 4
+//   stages, one 128-byte depth chunk of 128 rows each, which the producer
+//   fills by TMA, the two rings in turn.
+// - Forms: Bf16 (m64n128k16, f32 accumulators), S8 (int8 codes, m64n128k32
+//   s8, s32 accumulators converted once by __int2float_rn) and Asym (bf16
+//   queries, int8 codes: the ring holds the codes, 64 bytes a row, and the
+//   consumer widens each stage exactly (widen_s8x4) into a 128-byte-swizzled
+//   bf16 tile of its own before a bf16 wgmma, so the select's layout is the
+//   other forms'). The epilogue: none, minus the l2 bias, or times the row
+//   scale (Epi), one f32 rounding each.
+//
+// The select (why it is batched). A consumer warp holds the accumulators of
+// 16 queries x 128 bank rows. Keeping the 16 running top-(32·S) sets in
+// registers cost 32·S + 32 registers beside 64 accumulators and spilled at
+// S >= 2, and merging each accepted key alone cost a warp-wide max and min
+// (two chains of five dependent shuffles) per key. Here:
+// - Registers hold only each lane's two rows' minimum keys and counts. A
+//   score whose key beats its row's minimum (and the minimum published by
+//   the query's other partial sets) is appended, compacted over the row's
+//   four lanes, to the row's candidate buffer (BUF keys) in the CTA's
+//   global scratch `work` (stores do not stall the warp). The count pass
+//   compares a score with the floor as a float and an index (no 64-bit key)
+//   and keeps each lane's last two keys of a row, so a tile whose keys are
+//   sparse (the common case once the sets fill) stores them at once; only a
+//   denser tile takes a second pass over the accumulators.
+// - When a row holds FLUSH_AT or more buffered keys, or at the item's end,
+//   the warp merges them into the row's set, which lies sorted descending
+//   in `work` (P = 32·S keys, 128 at S = 3): chunks of 32 keys, each sorted
+//   by a bitonic network over the warp, reversed, folded into the set's
+//   lowest 32 keys by an elementwise max (the set's top P then form one
+//   bitonic sequence) and put in order by a bitonic merge of P. A key then
+//   costs a share of ~25 shuffle steps per 32 keys, not two reductions of
+//   its own. The new minimum is the set's last key.
+// - The keys are the unique 64-bit keys of topk_common.cuh, so the sets are
+//   exact under "value descending, then index ascending" in any arrival and
+//   merge order. Each consumer leaves its top-(32·S) keys per query as one
+//   partial set of `parts`; merge_parts emits the k best.
+// - The partial sets of a query share `thr` (zeroed by the caller): a set
+//   publishes its minimum (the P-th best key of its rows so far) with
+//   atomicMax, and keys below another set's minimum are dropped, since P >=
+//   k greater keys exist. The union of the sets still holds the k best.
+// tests/test_torch_knn_select.py emulates this order of work in torch.
+
+#pragma once
+
+#include "hopper.cuh"
+#include "topk_common.cuh"
+
+namespace wg {
+
+constexpr int BQH = 64;                     // queries per item, resident for the whole depth
+constexpr int BMH = 128;                    // bank rows per tile: one consumer warpgroup's N
+constexpr int CHUNK_BYTES = 128;            // query depth per chunk: one 128-byte swizzled row
+constexpr int Q_CHUNK = BQH * CHUNK_BYTES;  // 8 KB
+constexpr int WIDE_TILE = BMH * CHUNK_BYTES;  // 16 KB: a 128-row bf16 chunk
+constexpr int MAX_STAGES = 4;               // per consumer ring
+constexpr int THREADS = 384;                // producer warpgroup + two consumer warpgroups
+constexpr int SMEM_LIMIT = 232448;          // a block's shared memory on an H100
+constexpr int BAR_BYTES = 256;
+constexpr int ROWS = 16;                    // queries per consumer warp
+constexpr int WARPS_PER_CTA = 8;            // consumer warps
+constexpr int MERGE_THREADS = 256;          // 8 queries per merge CTA, one warp each
+constexpr int FLUSH_AT = 32;                // buffered keys of a row that start a merge
+constexpr int BUF = 160;                    // a row's buffer: FLUSH_AT - 1 + one tile's 128, rounded
+constexpr int BUF_CHUNKS = BUF / 32;
+
+// The forms: element types (TMA map types, bytes per element), the depth
+// DK of one chunk, the bank bytes of a chunk's row, and the wgmma.
+struct Bf16 {
+  typedef float Acc;
+  static constexpr int DK = 64, B_BYTES = 128;
+  static constexpr bool WIDEN = false;
+  static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    hopper::wgmma_m64n128k16_ss(d, a, b, scale_d);
+  }
+  __device__ __forceinline__ static float score(float v) { return v; }
+  __device__ __forceinline__ static float bits(float v) { return v; }
+  __device__ __forceinline__ static float unbits(float v) { return v; }
+};
+struct S8 {
+  typedef int Acc;
+  static constexpr int DK = 128, B_BYTES = 128;
+  static constexpr bool WIDEN = false;
+  static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  __device__ __forceinline__ static void mma(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    hopper::wgmma_m64n128k32_s8_ss(d, a, b, scale_d);
+  }
+  __device__ __forceinline__ static float score(int v) { return __int2float_rn(v); }
+  __device__ __forceinline__ static int bits(float v) { return __float_as_int(v); }
+  __device__ __forceinline__ static float unbits(int v) { return __int_as_float(v); }
+};
+struct Asym : Bf16 {  // bf16 queries, int8 codes widened in shared memory
+  static constexpr int B_BYTES = 64;
+  static constexpr bool WIDEN = true;
+  static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+
+enum Epi { PLAIN = 0, BIAS = 1, SCALE = 2 };
+
+template <Epi E>
+__device__ __forceinline__ float epi(float v, float c) {
+  if constexpr (E == BIAS) return __fsub_rn(v, c);
+  if constexpr (E == SCALE) return __fmul_rn(v, c);
+  return v;
+}
+
+// Shared memory: the queries, two rings, the widened tiles (Asym: two per
+// consumer), barriers.
+template <class F>
+constexpr int fixed_smem(int n_chunks) {
+  return hopper::SMEM_ALIGN + n_chunks * Q_CHUNK + (F::WIDEN ? 4 * WIDE_TILE : 0) + BAR_BYTES;
+}
+
+// Ring stages per consumer for n_chunks depth chunks (0: the queries do not fit).
+template <class F>
+inline int stages_for(int n_chunks) {
+  const int st = (SMEM_LIMIT - fixed_smem<F>(n_chunks)) / (2 * BMH * F::B_BYTES);
+  return st < MAX_STAGES ? (st > 0 ? st : 0) : MAX_STAGES;
+}
+
+template <class F>
+inline int smem_bytes(int n_chunks, int stages) {
+  return fixed_smem<F>(n_chunks) + 2 * stages * BMH * F::B_BYTES;
+}
+
+// Dynamic shared memory of form F's kernel at depth d (0: the queries do not fit).
+template <class F>
+inline int smem_at(int d) {
+  const int n_chunks = (d + F::DK - 1) / F::DK;
+  const int stages = stages_for<F>(n_chunks);
+  return stages < 1 ? 0 : smem_bytes<F>(n_chunks, stages);
+}
+
+// ---------------------------------------------------------------------------
+// The batched select.
+// ---------------------------------------------------------------------------
+
+template <int S>
+struct SetSize {
+  static constexpr int COLS = S == 3 ? 4 : S;  // keys a lane: the bitonic merge wants 2^n
+  static constexpr int P = 32 * COLS;
+  static constexpr int WARP_KEYS = ROWS * (P + BUF);  // scratch keys of a consumer warp
+};
+
+// Scratch keys of one CTA at k (the wrapper allocates grid x this).
+inline int work_keys(int k) {
+  const int s = (k + 31) / 32;
+  const int p = 32 * (s == 3 ? 4 : s);
+  return WARPS_PER_CTA * ROWS * (p + BUF);
+}
+
+__device__ __forceinline__ u64 umax(u64 a, u64 b) { return a > b ? a : b; }
+__device__ __forceinline__ u64 umin(u64 a, u64 b) { return a < b ? a : b; }
+
+// Compare-exchange with the lane j away: keep the larger key or the smaller.
+__device__ __forceinline__ u64 cx(u64 v, int j, bool keep_max) {
+  const u64 o = __shfl_xor_sync(FULL, v, j);
+  return keep_max ? umax(v, o) : umin(v, o);
+}
+
+// One key a lane, sorted descending over the warp (bitonic sort).
+__device__ __forceinline__ u64 sort32_desc(u64 v, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1)
+      v = cx(v, j, ((lane & j) == 0) == ((lane & size) == 0 || size == 32));
+  return v;
+}
+
+// A bitonic sequence of 32·COLS keys (key s·32 + lane in t[s]) sorted
+// descending.
+template <int COLS>
+__device__ __forceinline__ void merge_desc(u64 (&t)[COLS], int lane) {
+#pragma unroll
+  for (int js = COLS / 2; js > 0; js >>= 1)
+#pragma unroll
+    for (int s = 0; s < COLS; ++s)
+      if ((s & js) == 0) {
+        const u64 a = t[s], b = t[s + js];
+        t[s] = umax(a, b);
+        t[s + js] = umin(a, b);
+      }
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1)
+#pragma unroll
+    for (int s = 0; s < COLS; ++s) t[s] = cx(t[s], j, (lane & j) == 0);
+}
+
+// Merge 32 keys `x` (one a lane, any order, 0 for none) into the sorted set
+// t: the set keeps its top 32·COLS of the union, sorted descending. The
+// reversed sorted chunk against the set's last 32 keys, elementwise max,
+// gives the top 32 of those 64; with the set's other keys (each above all 32
+// of its last) they are the union's top and a bitonic sequence.
+template <int COLS>
+__device__ __forceinline__ void merge_chunk(u64 (&t)[COLS], u64 x, int lane) {
+  x = sort32_desc(x, lane);
+  x = __shfl_sync(FULL, x, 31 - lane);
+  t[COLS - 1] = umax(t[COLS - 1], x);
+  merge_desc<COLS>(t, lane);
+}
+
+// The running sets of one consumer warp's 16 queries. A lane holds the
+// minimum key and the buffered count of rows g = lane / 4 and g + 8 (the
+// rows of its accumulators; the four lanes of a row agree).
+template <int S>
+struct Select {
+  static constexpr int COLS = SetSize<S>::COLS, P = SetSize<S>::P;
+  u64* top;  // [ROWS][P] sorted descending
+  u64* buf;  // [ROWS][BUF]
+  u64 t_lo, t_hi;
+  int n_lo, n_hi;
+
+  // The warp's scratch: its sets, then its buffers.
+  __device__ __forceinline__ void bind(u64* warp_work) {
+    top = warp_work;
+    buf = warp_work + ROWS * P;
+  }
+
+  // At the item's end: merge every buffered key.
+  __device__ __forceinline__ void finish(u64 pub, u64* thr_out, int n_rows, int lane) {
+    flush_rows(1, pub, thr_out, n_rows, lane);
+  }
+
+  __device__ __forceinline__ void init(int lane) {
+    const u64 empty = make_key(neg_inf(), 0);
+#pragma unroll 4
+    for (int i = lane; i < ROWS * P; i += 32) top[i] = empty;
+    t_lo = t_hi = empty;
+    n_lo = n_hi = 0;
+    __syncwarp();
+  }
+
+  // Merge row r's n buffered keys above `floor` into its set; returns the
+  // set's new minimum.
+  __device__ __forceinline__ u64 flush(int r, int n, u64 floor, int lane) {
+    u64* tr = top + r * P;
+    const u64* br = buf + r * BUF;
+    u64 t[COLS], c[BUF_CHUNKS];
+#pragma unroll
+    for (int s = 0; s < COLS; ++s) t[s] = tr[32 * s + lane];
+#pragma unroll
+    for (int j = 0; j < BUF_CHUNKS; ++j) c[j] = 32 * j + lane < n ? br[32 * j + lane] : 0;
+#pragma unroll
+    for (int j = 0; j < BUF_CHUNKS; ++j) {
+      if (32 * j >= n) break;  // warp-uniform
+      const u64 lo = umax(__shfl_sync(FULL, t[COLS - 1], 31), floor);
+      const u64 x = c[j] > lo ? c[j] : 0;
+      if (__any_sync(FULL, x != 0)) merge_chunk<COLS>(t, x, lane);
+    }
+#pragma unroll
+    for (int s = 0; s < COLS; ++s) tr[32 * s + lane] = t[s];
+    return __shfl_sync(FULL, t[COLS - 1], 31);
+  }
+
+  // Lanes of row r take its new minimum `m` (and, when `reset`, an empty
+  // buffer); lane 0 publishes m where it is above the shared minimum.
+  __device__ __forceinline__ void set_min(int r, u64 m, bool reset, u64 pub_r, u64* thr_out,
+                                          int n_rows, int lane) {
+    if ((lane >> 2) == (r & 7)) {
+      if (r < 8) {
+        t_lo = m;
+        if (reset) n_lo = 0;
+      } else {
+        t_hi = m;
+        if (reset) n_hi = 0;
+      }
+    }
+    if (lane == 0 && r < n_rows && m > pub_r) atomicMax(thr_out + r, m);
+  }
+
+  // Merge every row whose buffer holds at least `at` keys; publish a row's
+  // new minimum above the shared one (lane r's `pub`) at thr_out[r].
+  __device__ __forceinline__ void flush_rows(int at, u64 pub, u64* thr_out, int n_rows, int lane) {
+    const unsigned lo = __ballot_sync(FULL, (lane & 3) == 0 && n_lo >= at);
+    const unsigned hi = __ballot_sync(FULL, (lane & 3) == 0 && n_hi >= at);
+    if ((lo | hi) == 0) return;
+    __syncwarp();  // the buffers' stores are visible to the whole warp
+#pragma unroll 1
+    for (int r = 0; r < ROWS; ++r) {
+      const int q = 4 * (r & 7);
+      if ((((r < 8 ? lo : hi) >> q) & 1u) == 0) continue;  // warp-uniform
+      const int n = __shfl_sync(FULL, r < 8 ? n_lo : n_hi, q);
+      const u64 pub_r = __shfl_sync(FULL, pub, r);
+      set_min(r, flush(r, n, pub_r, lane), true, pub_r, thr_out, n_rows, lane);
+    }
+    __syncwarp();  // every lane's reads of the buffers precede the next tile's stores
+  }
+
+  // Write each row's top-(32·S) keys as partial set `part` of `parts`.
+  __device__ __forceinline__ void emit_part(u64* parts, int q_row, int nq, int n_parts, int part,
+                                           int lane) {
+    __syncwarp();
+#pragma unroll 1
+    for (int r = 0; r < ROWS && q_row + r < nq; ++r) {
+      u64* dst = parts + (static_cast<size_t>(q_row + r) * n_parts + part) * (32 * S);
+#pragma unroll
+      for (int s = 0; s < S; ++s) dst[32 * s + lane] = top[r * P + 32 * s + lane];
+    }
+  }
+};
+
+// One finished tile (accumulators `acc`, bank rows col0.., the first n_cols
+// of them valid) into the warp's sets. A lane holds rows g = lane/4 and g + 8
+// of the warp's 16, columns 8j + 2·(lane%4) + {0, 1} (accumulator 4j + {0,
+// 1} and 4j + {2, 3}); cv[2j + e] holds its columns' epilogue values. Each
+// score goes through the conversion and the epilogue; a key above its row's
+// floor (the larger of the set's minimum and `pub`, lane r's copy of the
+// minimum published for row r) is buffered; full buffers are merged.
+template <class F, int S, Epi E>
+__device__ __forceinline__ void select_tile(Select<S>& sel, typename F::Acc (&acc)[64], int col0,
+                                            int n_cols, const float (&cv)[32], u64 pub,
+                                            u64* thr_out, int n_rows, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const u64 f_lo = umax(sel.t_lo, __shfl_sync(FULL, pub, g));
+  const u64 f_hi = umax(sel.t_hi, __shfl_sync(FULL, pub, g + 8));
+  // key(v, c) > f as a float and an index compare: v above f's value, or
+  // equal to it (+0 == -0, as make_key folds them) at a lower column.
+  const float fv_lo = ord2f(static_cast<unsigned>(f_lo >> 32));
+  const float fv_hi = ord2f(static_cast<unsigned>(f_hi >> 32));
+  const unsigned fc_lo = ~static_cast<unsigned>(f_lo), fc_hi = ~static_cast<unsigned>(f_hi);
+  int c_lo = 0, c_hi = 0;
+  // The lane's last two keys of each row, as (score, column).
+  float lv_lo = 0.0f, pv_lo = 0.0f, lv_hi = 0.0f, pv_hi = 0.0f;
+  int lc_lo = 0, pc_lo = 0, lc_hi = 0, pc_hi = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * t4 + e;
+      float lo = neg_inf(), hi = neg_inf();
+      if (c < n_cols) {
+        const float c_e = E == PLAIN ? 0.0f : cv[2 * j + e];
+        lo = epi<E>(F::score(acc[4 * j + e]), c_e);
+        hi = epi<E>(F::score(acc[4 * j + 2 + e]), c_e);
+        const int col = col0 + c;
+        if (lo > fv_lo || (lo == fv_lo && static_cast<unsigned>(col) < fc_lo)) {
+          ++c_lo;
+          pv_lo = lv_lo;
+          pc_lo = lc_lo;
+          lv_lo = lo;
+          lc_lo = col;
+        }
+        if (hi > fv_hi || (hi == fv_hi && static_cast<unsigned>(col) < fc_hi)) {
+          ++c_hi;
+          pv_hi = lv_hi;
+          pc_hi = lc_hi;
+          lv_hi = hi;
+          lc_hi = col;
+        }
+      }
+      acc[4 * j + e] = F::bits(lo);
+      acc[4 * j + 2 + e] = F::bits(hi);
+    }
+  if (!__any_sync(FULL, (c_lo | c_hi) != 0)) return;  // the common case once the sets fill
+  // Each lane's place in its rows' buffers: an exclusive prefix over the four lanes.
+  int x_lo = c_lo, x_hi = c_hi;
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    const int a = __shfl_up_sync(FULL, x_lo, o, 4), b = __shfl_up_sync(FULL, x_hi, o, 4);
+    if (t4 >= o) {
+      x_lo += a;
+      x_hi += b;
+    }
+  }
+  int at_lo = sel.n_lo + x_lo - c_lo, at_hi = sel.n_hi + x_hi - c_hi;
+  sel.n_lo += __shfl_sync(FULL, x_lo, 3, 4);
+  sel.n_hi += __shfl_sync(FULL, x_hi, 3, 4);
+  u64* b_lo = sel.buf + g * BUF;
+  u64* b_hi = sel.buf + (g + 8) * BUF;
+  if (!__any_sync(FULL, c_lo > 2 || c_hi > 2)) {
+    // Sparse keys, the common case once the sets fill: the count pass kept
+    // them (order within a buffer does not matter).
+    if (c_lo > 0) b_lo[at_lo] = make_key(lv_lo, lc_lo);
+    if (c_lo > 1) b_lo[at_lo + 1] = make_key(pv_lo, pc_lo);
+    if (c_hi > 0) b_hi[at_hi] = make_key(lv_hi, lc_hi);
+    if (c_hi > 1) b_hi[at_hi + 1] = make_key(pv_hi, pc_hi);
+  } else if (c_lo | c_hi) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t4 + e;
+        if (c < n_cols) {
+          const u64 k_lo = make_key(F::unbits(acc[4 * j + e]), col0 + c);
+          const u64 k_hi = make_key(F::unbits(acc[4 * j + 2 + e]), col0 + c);
+          if (k_lo > f_lo) b_lo[at_lo++] = k_lo;
+          if (k_hi > f_hi) b_hi[at_hi++] = k_hi;
+        }
+      }
+  }
+  sel.flush_rows(FLUSH_AT, pub, thr_out, n_rows, lane);
+}
+
+// Widen one ring stage of int8 codes (128 rows x 64 bytes, row-major) into
+// a bf16 tile (128 rows x 128 bytes, 128-byte swizzle: 16-byte unit u of row
+// r at unit u ^ (r % 8)); thread tid of the consumer warpgroup takes row tid.
+__device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned char* dst, int tid) {
+  const uint4* s = reinterpret_cast<const uint4*>(src + tid * 64);
+  unsigned char* d = dst + tid * CHUNK_BYTES;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint4 v = s[j];
+    uint4 a, b;
+    widen_s8x4(v.x, a.x, a.y);
+    widen_s8x4(v.y, a.z, a.w);
+    widen_s8x4(v.z, b.x, b.y);
+    widen_s8x4(v.w, b.z, b.w);
+    *reinterpret_cast<uint4*>(d + (((2 * j) ^ (tid & 7)) * 16)) = a;
+    *reinterpret_cast<uint4*>(d + (((2 * j + 1) ^ (tid & 7)) * 16)) = b;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernel.
+// ---------------------------------------------------------------------------
+
+// Items (host and device): n_items(), q_tile(item), split(item), splits,
+// and (device) walk(item) with
+// done(), next(), row0() (the tile's first bank row, its first key id) and
+// n_cols() (its valid columns). `work` holds gridDim.x x work_keys(k) keys.
+template <class F, int S, Epi E, class Items>
+__global__ void __launch_bounds__(THREADS, 1)
+    topk_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tb,
+               const float* __restrict__ cvec, u64* __restrict__ parts, u64* __restrict__ thr,
+               u64* __restrict__ work, const Items items, int nq, int n_chunks, int stages) {
+  constexpr int B_STAGE = BMH * F::B_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::aligned_smem(smem_raw);  // [n_chunks][64 rows][128 B]
+  unsigned char* ring = qs + n_chunks * Q_CHUNK;        // [2][stages][128 rows][B_BYTES]
+  unsigned char* wide = ring + 2 * stages * B_STAGE;    // Asym: [2][2][128 rows][128 B]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(wide + (F::WIDEN ? 4 * WIDE_TILE : 0));
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_full + 2;  // [2][MAX_STAGES]
+  uint64_t* empty = full + 2 * MAX_STAGES;
+  const int n_items = items.n_items();
+  const int n_parts = 2 * items.splits;
+  const int wgi = __shfl_sync(FULL, threadIdx.x / 128, 0);  // warp-uniform to the compiler
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 256);
+    for (int i = 0; i < 2 * MAX_STAGES; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // Producer: one thread issues every TMA copy; the item's tiles go to the
+    // two rings in turn, chunk by chunk, so both consumers move at once.
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensor_map(&tq);
+      hopper::prefetch_tensor_map(&tb);
+      int st[2] = {0, 0};
+      uint32_t ph[2] = {0, 0}, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        hopper::mbar_wait(q_empty, (it & 1) ^ 1);
+        hopper::mbar_expect_tx(q_full, n_chunks * Q_CHUNK);
+        for (int c = 0; c < n_chunks; ++c)
+          hopper::tma_load_2d(qs + c * Q_CHUNK, &tq, q_full, c * F::DK, items.q_tile(item) * BQH);
+        for (auto wk = items.walk(item); !wk.done();) {
+          int row[2], n = 0;
+          for (; n < 2 && !wk.done(); ++n, wk.next()) row[n] = wk.row0();
+          for (int c = 0; c < n_chunks; ++c)
+            for (int w = 0; w < n; ++w) {
+              uint64_t* f = full + w * MAX_STAGES + st[w];
+              hopper::mbar_wait(empty + w * MAX_STAGES + st[w], ph[w] ^ 1);
+              hopper::mbar_expect_tx(f, B_STAGE);
+              hopper::tma_load_2d(ring + (w * stages + st[w]) * B_STAGE, &tb, f, c * F::DK, row[w]);
+              if (++st[w] == stages) {
+                st[w] = 0;
+                ph[w] ^= 1;
+              }
+            }
+        }
+      }
+    }
+  } else {
+    hopper::reg_alloc<232>();
+    const int w = wgi - 1;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid >> 5, lane = tid & 31;
+    const unsigned char* my_ring = ring + w * stages * B_STAGE;
+    unsigned char* my_wide = wide + w * 2 * WIDE_TILE;
+    uint64_t* my_full = full + w * MAX_STAGES;
+    uint64_t* my_empty = empty + w * MAX_STAGES;
+    Select<S> sel;
+    sel.bind(work + (static_cast<size_t>(blockIdx.x) * WARPS_PER_CTA + 4 * w + warp) *
+                        SetSize<S>::WARP_KEYS);
+    typename F::Acc acc[64];
+    int st = 0, wb = 0;
+    uint32_t ph = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int q_row = items.q_tile(item) * BQH + warp * ROWS;  // the warp's first query
+      hopper::mbar_wait(q_full, it & 1);
+      sel.init(lane);
+      auto wk = items.walk(item);
+      if (w == 1 && !wk.done()) wk.next();  // consumer w takes tiles w, w + 2, ...
+      bool released = false;
+      while (!wk.done()) {
+        const int col0 = wk.row0(), n_cols = wk.n_cols();
+        int prev = -1;
+        for (int c = 0; c < n_chunks; ++c) {
+          hopper::mbar_wait(my_full + st, ph);
+          const unsigned char* bc = my_ring + st * B_STAGE;
+          if constexpr (F::WIDEN) {
+            // every warp's products of two chunks ago, the last reader of
+            // this widened tile, are done (wgmma_wait<1> below)
+            hopper::named_sync(1 + w, 128);
+            unsigned char* dst = my_wide + wb * WIDE_TILE;
+            widen_tile(bc, dst, tid);
+            hopper::mbar_arrive(my_empty + st);  // the codes are read
+            hopper::fence_proxy_async();
+            hopper::named_sync(1 + w, 128);
+            bc = dst;
+            wb ^= 1;
+          }
+          const unsigned char* qc = qs + c * Q_CHUNK;
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < CHUNK_BYTES / 32; ++kk)
+            F::mma(acc, hopper::sw128_desc(qc + kk * 32), hopper::sw128_desc(bc + kk * 32),
+                   (c | kk) != 0);
+          hopper::wgmma_commit();
+          if constexpr (F::WIDEN) {
+            hopper::wgmma_wait<1>();
+          } else if (stages > 1) {
+            hopper::wgmma_wait<1>();  // the previous chunk's products are done with its stage
+            if (prev >= 0) hopper::mbar_arrive(my_empty + prev);
+            prev = st;
+          } else {  // one stage: it is refilled only once this chunk is done
+            hopper::wgmma_wait<0>();
+            hopper::mbar_arrive(my_empty + st);
+          }
+          if (++st == stages) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+        // Under the last chunk's products: this tile's epilogue values (l2
+        // biases or row scales) and the warp's published minimum keys.
+        float cv[32];
+        if constexpr (E != PLAIN) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + 2 * (lane & 3) + e;
+              cv[2 * j + e] = c < n_cols ? __ldg(cvec + col0 + c) : 0.0f;
+            }
+        }
+        const u64 pub = lane < ROWS && q_row + lane < nq ? __ldcg(thr + q_row + lane) : 0;
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        if (!F::WIDEN && prev >= 0) hopper::mbar_arrive(my_empty + prev);
+        wk.next();
+        if (!wk.done()) wk.next();
+        if (wk.done()) {  // this consumer's last tile: the queries are read
+          hopper::mbar_arrive(q_empty);
+          released = true;
+        }
+        select_tile<F, S, E>(sel, acc, col0, n_cols, cv, pub, thr + q_row, nq - q_row, lane);
+      }
+      if (!released) hopper::mbar_arrive(q_empty);
+      const u64 pub = lane < ROWS && q_row + lane < nq ? __ldcg(thr + q_row + lane) : 0;
+      sel.finish(pub, thr + q_row, nq - q_row, lane);
+      sel.emit_part(parts, q_row, nq, n_parts, 2 * items.split(item) + w, lane);
+    }
+  }
+}
+
+// The split merge: one warp per query takes the best keys of its n_parts
+// partial sets (merge_row, so the tie order is the single-pass one) and
+// emits the k best, value descending, then index ascending.
+template <int S>
+__global__ void __launch_bounds__(MERGE_THREADS)
+    merge_parts(const u64* __restrict__ parts, int n_parts, float* __restrict__ out_vals,
+                long long* __restrict__ out_idx, int nq, int k) {
+  const int qi = (blockIdx.x * MERGE_THREADS + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (qi >= nq) return;  // warp-uniform
+  TopK<S, 1> top;
+  top.init();
+  const int total = n_parts * 32 * S;
+  const u64* src = parts + static_cast<size_t>(qi) * total;
+  for (int c0 = 0; c0 < total; c0 += 32 * CAND) {
+    u64 ck[CAND];
+#pragma unroll
+    for (int j = 0; j < CAND; ++j) {
+      const int i = c0 + lane + 32 * j;
+      ck[j] = i < total ? src[i] : 0;
+    }
+    merge_row<S>(top.keys[0], top.thr[0], ck, lane);
+  }
+  top.emit(out_vals, out_idx, qi, nq, k, 0, lane);
+}
+
+// Launch form F over `items`: tensor maps of the queries (nq, d) (box one
+// chunk x 64 rows) and the bank (m, d) (one chunk x 128 rows; Asym's int8
+// codes unswizzled, the consumers widen them), the persistent kernel on
+// min(work_ctas, items) CTAs, then the merge of the 2 · splits partial sets.
+template <class F, int S, Epi E, class Items>
+int launch(const void* q, const void* bank, const float* cvec, void* out_vals, void* out_idx,
+           void* parts, void* thr, void* work, int work_ctas, int nq, int m, int d, int k,
+           const Items& items, cudaStream_t stream) {
+  const int n_chunks = (d + F::DK - 1) / F::DK;
+  const int stages = stages_for<F>(n_chunks);
+  if (stages < 1 || parts == nullptr || thr == nullptr || work == nullptr || work_ctas < 1 ||
+      (E == PLAIN) != (cvec == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tb;
+  const uint64_t q_stride[1] = {static_cast<uint64_t>(d) * (CHUNK_BYTES / F::DK)};
+  const uint64_t q_dims[2] = {static_cast<uint64_t>(d), static_cast<uint64_t>(nq)};
+  const uint32_t q_box[2] = {F::DK, BQH};
+  int r = hopper::encode_tensor_map(&tq, 2, q, q_dims, q_stride, q_box, F::Q_TMA);
+  if (r != 0) return r;
+  // A bank of no rows is never read: its map points at the queries.
+  const uint64_t b_stride[1] = {static_cast<uint64_t>(d) * (F::B_BYTES / F::DK)};
+  const uint64_t b_dims[2] = {static_cast<uint64_t>(d), static_cast<uint64_t>(m > 0 ? m : nq)};
+  const uint32_t b_box[2] = {F::DK, BMH};
+  r = hopper::encode_tensor_map(&tb, 2, m > 0 ? bank : q, m > 0 ? b_dims : q_dims,
+                                m > 0 ? b_stride : q_stride, b_box, m > 0 ? F::B_TMA : F::Q_TMA,
+                                F::WIDEN && m > 0 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                                  : CU_TENSOR_MAP_SWIZZLE_128B);
+  if (r != 0) return r;
+  const size_t smem = smem_bytes<F>(n_chunks, stages);
+  cudaError_t e = allow_smem(topk_wgmma<F, S, E, Items>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_items = items.n_items();
+  const int grid = work_ctas < n_items ? work_ctas : n_items;
+  topk_wgmma<F, S, E, Items><<<grid, THREADS, smem, stream>>>(
+      tq, tb, cvec, static_cast<u64*>(parts), static_cast<u64*>(thr), static_cast<u64*>(work),
+      items, nq, n_chunks, stages);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (nq + MERGE_THREADS / 32 - 1) / (MERGE_THREADS / 32);
+  merge_parts<S><<<blocks, MERGE_THREADS, 0, stream>>>(
+      static_cast<const u64*>(parts), 2 * items.splits, static_cast<float*>(out_vals),
+      static_cast<long long*>(out_idx), nq, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg

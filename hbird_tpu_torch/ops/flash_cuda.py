@@ -17,6 +17,13 @@ inputs whose strides differ or are not 16-byte multiples are made
 contiguous first. The output is laid out (B, N, H, hd) in memory and
 returned as a (B, H, N, hd) view, so `out.transpose(1, 2).reshape(B, N, D)`
 merges the heads without a copy either.
+
+The kernel has no backward (the library TPU kernel's backward, K3-bwd, is
+not ported: ROADMAP queue 2, item 4), so on the card `flash_attention`
+raises when autograd would record it (grad mode on and q, k or v requiring
+grad) rather than return an output that looks differentiable and is not.
+Under `torch.no_grad()` or `torch.inference_mode()`, as the engine runs,
+it launches. On the CPU the plain version stays differentiable.
 """
 
 from __future__ import annotations
@@ -75,6 +82,11 @@ def flash_attention(
         return flash_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "the K3 kernel has no backward (K3-bwd, ROADMAP queue 2, item 4): call it under "
+            "torch.no_grad() or torch.inference_mode(), or on CPU tensors for gradients"
+        )
     b, h, n, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")

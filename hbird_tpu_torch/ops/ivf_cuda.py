@@ -8,6 +8,13 @@ ops/csrc/ivf_topk.cu; ops/cuda_build.py compiles it with `nvcc` for sm_90a
 into a shared library with a plain C interface at first use, and it is
 loaded with ctypes.
 
+bf16, int8 (with or without row scales) and bf16 queries on int8 codes
+(asym, asym_rows) run K1's persistent wgmma kernel over (probe split,
+64-query tile) items (ops/csrc/wgmma_topk.cuh), where the queries fit its
+shared memory; `plan_probe_splits` cuts each tile's probe list so the rounds
+of items fill the SMs, and the partial sets are merged in a second pass.
+f32 runs an FMA kernel, wider bf16 and asym banks the mma.sync kernel.
+
 `ivf_topk` takes the kernel for CUDA tensors and the plain version
 (ops/ivf.py::ivf_search_plain) for CPU tensors, and nothing else: a CUDA
 tensor either launches the kernel or raises. Invalid combinations raise
@@ -25,17 +32,45 @@ import torch
 
 from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.ivf import ivf_search_plain
-from hbird_tpu_torch.ops.knn_cuda import FORMS, MAX_INT8_DEPTH, form_name
+from hbird_tpu_torch.ops.knn_cuda import (
+    FORMS, MAX_INT8_DEPTH, MAX_PARTS_BYTES, MIN_FILL, form_name, wgmma_scratch,
+    wgmma_smem,
+)
 
 MAX_K = 128
 BLOCK = 64  # queries per CTA: block_q must be a multiple of it on the card
+MIN_PROBES_PER_SPLIT = 4  # a probe split's slabs, against its item's query load
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 )
+
+
+def plan_probe_splits(n_q: int, n_probe: int, n_sm: int, k: int) -> int:
+    """How many splits the wgmma kernel cuts each tile's probe list into
+    (ceil(n_probe / splits) probes each, the last may hold fewer), giving
+    n_q / 64 * splits work items that `n_sm` persistent CTAs take in rounds:
+    the fewest whose rounds keep at least MIN_FILL of the SMs busy; failing
+    that, the best fill (fewest among equals). Each split keeps
+    MIN_PROBES_PER_SPLIT probes where it can, and the partial sets' scratch
+    stays under MAX_PARTS_BYTES."""
+    q_tiles = -(-n_q // BLOCK)
+    per_split = 2 * 32 * (-(-k // 32)) * 8 * n_q  # bytes of scratch per split
+    most = max(1, min(n_probe // MIN_PROBES_PER_SPLIT, MAX_PARTS_BYTES // per_split))
+    best = None
+    for want in range(1, most + 1):
+        splits = -(-n_probe // -(-n_probe // want)) if n_probe else 1
+        items = q_tiles * splits
+        fill = items / (-(-items // n_sm) * n_sm)
+        if fill >= MIN_FILL:
+            return splits
+        if best is None or fill > best[0]:
+            best = (fill, splits)
+    return best[1]
 
 
 def _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q, row_scale) -> None:
@@ -133,14 +168,24 @@ def ivf_topk(
     if n_q == 0:
         return vals, idx
     lib = cuda_build.load("ivf_topk.cu", "ivf_topk_launch", _ARGTYPES)
+    form = FORMS[(queries.dtype, ivf_bank.dtype)]
+    n_probe = lids.shape[1]
+    parts = thr = work = None
+    work_ctas = splits = 0
+    if wgmma_smem(lib, "ivf_topk", d, form) > 0:
+        n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
+        splits = plan_probe_splits(n_q, n_probe, n_sm, k)
+        parts, thr, work, work_ctas = wgmma_scratch(lib, "ivf_topk", n_q, splits, k, queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ivf_topk_launch(
             queries.data_ptr(), ivf_bank.data_ptr(),
             scale.data_ptr() if scale is not None else None,
             lids.data_ptr(), lvalid.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            n_q, lvalid.shape[0], cap, d, block_q, lids.shape[1], k,
-            FORMS[(queries.dtype, ivf_bank.dtype)], stream,
+            n_q, lvalid.shape[0], cap, d, block_q, n_probe, k, form,
+            parts.data_ptr() if parts is not None else None,
+            thr.data_ptr() if thr is not None else None,
+            work.data_ptr() if work is not None else None, work_ctas, max(splits, 1), stream,
         )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")

@@ -22,15 +22,17 @@ either launches the kernel or raises. Invalid combinations raise
 counts kernel launches, `knn_topk.forms` the same launches by form.
 
 The bf16 forms (a) and (b) and the int8 forms (c) and (c)+(d) run one
-persistent wgmma kernel over (bank split, 64-query tile) items and merge
-the splits' partial top sets in a second pass from the same entry point.
-`plan_splits` picks the split size here, the same plan for both element
-types (the same items and tiles), so the rounds of items fill the SMs; the
-partial sets (`parts_shape`) and the per-query minimum keys they share are
-scratch allocated here. That kernel keeps its queries in shared memory;
-where they do not fit (bf16 at D > 1536), and for int8 at k > 96, the call
-runs the kernel of the other forms, with no scratch, as the library
-reports (`knn_topk_wgmma_smem`).
+persistent wgmma kernel over (bank split, 64-query tile) items, at every k,
+and merge the splits' partial top sets in a second pass from the same entry
+point. `plan_splits` picks the split size here, the same plan for both
+element types (the same items and tiles), so the rounds of items fill the
+SMs. The partial sets (`parts_shape`), the per-query minimum keys they
+share and the select's per-CTA scratch (`wgmma_scratch`: each consumer
+warp's running sets and candidate buffers) are allocated here. That kernel
+keeps its queries in shared memory; where they do not fit (bf16 at D >
+1536) the call runs the kernel of the other forms, with no scratch, as the
+library reports (`knn_topk_wgmma_smem`). K2 (ops/ivf_cuda.py) runs the same
+kernel over its probed slabs.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 )
 # The wgmma kernel's tiling: 64 queries an item, 128 bank rows a tile.
 WGMMA_BLOCK_Q = 64
@@ -103,6 +106,28 @@ def parts_shape(n_q: int, splits: int, k: int) -> Tuple[int, int, int]:
     """Shape of the wgmma kernel's scratch: per query, two partial sets (one
     per consumer warpgroup) per split of 32 * ceil(k / 32) 64-bit keys."""
     return n_q, 2 * splits, 32 * (-(-k // 32))
+
+
+def wgmma_scratch(lib, prefix: str, n_q: int, splits: int, k: int, device):
+    """(parts, thr, work, work_ctas) of the wgmma kernel of `lib` (K1's or
+    K2's, entry points named `prefix`_*): the partial sets, the per-query
+    minimum keys they share (zeros), and one CTA's select scratch
+    (`prefix`_work_keys(k) keys) for each SM, the most CTAs it runs."""
+    work_keys = getattr(lib, f"{prefix}_work_keys")
+    work_keys.argtypes, work_keys.restype = (ctypes.c_int,), ctypes.c_int
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    parts = torch.empty(parts_shape(n_q, splits, k), dtype=torch.int64, device=device)
+    thr = torch.zeros(n_q, dtype=torch.int64, device=device)
+    work = torch.empty(n_sm * work_keys(k), dtype=torch.int64, device=device)
+    return parts, thr, work, n_sm
+
+
+def wgmma_smem(lib, prefix: str, d: int, form: int) -> int:
+    """Shared memory of `lib`'s wgmma kernel for `form` at depth d; 0 where
+    the call runs another kernel."""
+    fn = getattr(lib, f"{prefix}_wgmma_smem")
+    fn.argtypes, fn.restype = (ctypes.c_int, ctypes.c_int), ctypes.c_int
+    return fn(d, form)
 
 
 def form_name(queries: torch.Tensor, bank: torch.Tensor, l2: bool, row_scale) -> str:
@@ -197,14 +222,12 @@ def knn_topk(
     if n_q == 0:
         return vals, idx
     lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", _ARGTYPES)
-    parts, thr, split_rows = None, None, 0
-    wgmma_smem = lib.knn_topk_wgmma_smem
-    wgmma_smem.argtypes, wgmma_smem.restype = (ctypes.c_int,) * 3, ctypes.c_int
-    if form in WGMMA_FORMS and wgmma_smem(d, form, k) > 0:
+    parts = thr = work = None
+    split_rows = work_ctas = 0
+    if form in WGMMA_FORMS and wgmma_smem(lib, "knn_topk", d, form) > 0:
         n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
         split_rows, splits = plan_splits(n_q, valid, n_sm, k)
-        parts = torch.empty(parts_shape(n_q, splits, k), dtype=torch.int64, device=queries.device)
-        thr = torch.zeros(n_q, dtype=torch.int64, device=queries.device)
+        parts, thr, work, work_ctas = wgmma_scratch(lib, "knn_topk", n_q, splits, k, queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.knn_topk_launch(
@@ -214,7 +237,8 @@ def knn_topk(
             vals.data_ptr(), idx.data_ptr(),
             n_q, m, d, valid, k, form,
             parts.data_ptr() if parts is not None else None,
-            thr.data_ptr() if thr is not None else None, split_rows, stream,
+            thr.data_ptr() if thr is not None else None,
+            work.data_ptr() if work is not None else None, work_ctas, split_rows, stream,
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")

@@ -288,9 +288,9 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     """The --pairs timing: K3 bf16 and f32 at the main and long shapes, K1
-    bf16 dot and l2 at each k of PAIR_KS and int8 and int8_rows at each k
-    of PAIR_INT8_KS on both banks, each with its bound and library time, as
-    one JSON-ready result."""
+    bf16 dot and l2, int8 and int8_rows at each k of PAIR_KS on both banks,
+    and K2 bf16 and asym_rows on a tree of each bank, each with its bound
+    and library time, as one JSON-ready result."""
     monkeypatch.setattr(smoke, "PAIR_Q", 40)
     monkeypatch.setattr(smoke, "PAIR_M", 500)
     out = smoke.pairs("here")
@@ -298,11 +298,13 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     assert set(out["k3"]) == {f"{dt} {s}" for dt in ("bf16", "f32")
                               for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")}
     assert set(out["k1"]) == {*(f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
-                                for k in (30, 128)),
+                                for k in smoke.PAIR_KS),
                               *(f"{f} Q=40 M={m} k={k}" for f in ("int8", "int8_rows") for m in (500, 3000)
-                                for k in smoke.PAIR_INT8_KS)}
+                                for k in smoke.PAIR_KS)}
+    assert len(out["k2"]) == 4
+    assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows", "asym_rows", "bf16", "bf16"]
     assert out["k3"]["f32 (2, 2, 40, 32)"]["bound_ms"] == smoke.k3_bound((2, 2, 40, 32), torch.float32)[0]
-    for row in [*out["k3"].values(), *out["k1"].values()]:
+    for row in [*out["k3"].values(), *out["k1"].values(), *out["k2"].values()]:
         assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert out["k1"]["bf16 dot Q=40 M=500 k=128"]["bound_by"] == "bytes"
     assert json.dumps(out)

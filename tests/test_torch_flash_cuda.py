@@ -188,3 +188,25 @@ def test_batch_heads_at_the_grid_limit(cuda_device, hd):
     with pytest.raises(ValueError, match="pairs"):
         flash_cuda.flash_attention(torch.cat([q, q[:, :1]], 1), torch.cat([k, k[:, :1]], 1),
                                    torch.cat([v, v[:, :1]], 1), 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_kernel_raises_under_autograd_and_runs_without_it(cuda_device, dtype):
+    """K3 has no backward on the card: with grad mode on and an input that
+    requires grad it raises instead of returning an output that looks
+    differentiable; under torch.no_grad() (or with no input requiring grad)
+    it launches as before."""
+    q, k, v = _qkv((2, 4, 100, 64), seed=11, device=cuda_device, dtype=dtype)
+    for needs in (q, k, v):
+        needs.requires_grad_(True)
+        before = flash_cuda.flash_attention.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_cuda.flash_attention(q, k, v, 0.125)
+        assert flash_cuda.flash_attention.launches == before
+        with torch.no_grad():
+            out = flash_cuda.flash_attention(q, k, v, 0.125)
+        assert flash_cuda.flash_attention.launches == before + 1 and out.grad_fn is None
+        needs.requires_grad_(False)
+    out = flash_cuda.flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert_close(out, flash_attention_plain(q, k, v, 0.125))

@@ -240,3 +240,85 @@ def test_int8_ties_across_slabs_order_by_lowest_slot(cuda_device, form):
     pv, pi = ivf.ivf_search_plain(*args[:4], 100, cap=cap, row_scale=args[4])
     torch.cuda.synchronize()
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+# The forms that run the wgmma kernel over probe splits.
+WGMMA_FORMS = ["bf16", "asym", "asym_rows", "int8", "int8_rows"]
+
+
+def _wgmma_tree(form, k, dev):
+    """A tree of 40 slabs (cap 384, D = 768) with ragged leaf_valid, an empty
+    slab, one with fewer rows than k, one filled to a tile edge and one id
+    out of range in the probe lists; 44 tiles of 256 queries, 24 probes
+    each (176 items of 64 queries: three probe splits fill the SMs): the form's queries and
+    bank, the row scales (padding slots 0) and the value tolerance (0 where
+    bit-exact)."""
+    cap, n_slabs, block_q, n_probe = 384, 40, 256, 24
+    rng = np.random.default_rng(k)
+    fill = rng.integers(1, cap + 1, n_slabs)
+    fill[:4] = [0, 9, 256, cap]
+    q, bank, lids, valid = _tree(n_slabs, cap, 768, 44, n_probe, block_q, seed=k, fill=fill)
+    lids[::3, 5] = n_slabs + 3  # out of range: contributes nothing
+    for t in range(1, 44, 3):  # the edge slabs, each once
+        lids[t] = np.concatenate([[0, 1, 2, 3], rng.choice(np.arange(4, n_slabs), n_probe - 4, replace=False)])
+    bt = torch.from_numpy(bank)
+    rs = None
+    if form == "bf16":
+        qq, bank_t = torch.from_numpy(q).bfloat16(), bt.bfloat16()
+        tol = RTOL * float(np.linalg.norm(q, axis=1).max())
+    else:
+        bank_t, scale = quantize_bank_int8(bt, per_row=form.endswith("rows"))
+        if form.endswith("rows"):
+            rs = torch.where(bt.abs().amax(1, keepdim=True) > 0, scale, 0.0).reshape(-1)
+        if form.startswith("int8"):
+            qq, tol = quantize_queries_int8(torch.from_numpy(q))[0], 0.0
+        else:
+            qq = torch.from_numpy(q).bfloat16()
+            s = rs if rs is not None else torch.ones(bank_t.shape[0])
+            tol = RTOL * float(qq.float().norm(dim=1).max() * (bank_t.float().norm(dim=1) * s).max())
+    put = lambda t: None if t is None else t.to(dev)
+    return (put(qq), put(bank_t), put(torch.from_numpy(lids)), put(torch.from_numpy(valid)),
+            put(rs), cap, block_q, tol)
+
+
+@pytest.mark.parametrize("form", WGMMA_FORMS)
+@pytest.mark.parametrize("k", [1, 30, 64, 120, 128])
+def test_wgmma_forms_over_probe_splits(cuda_device, form, k):
+    """K2's wgmma forms with empty, out-of-range, partly valid and
+    tile-edge slabs, several probe splits in flight: bit for bit for int8
+    and int8_rows; otherwise values within the tolerance and equal slot
+    sets away from ties at the k-th score (the chip_smoke.py rule)."""
+    q, bank, lids, lv, rs, cap, block_q, tol = _wgmma_tree(form, k, cuda_device)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ivf_cuda.plan_probe_splits(q.shape[0], lids.shape[1], n_sm, k) > 1
+    before = ivf_cuda.ivf_topk.forms[form if form != "bf16" else "dot"]
+    kv, ki = ivf_cuda.ivf_topk(q, bank, lids, lv, k, cap=cap, block_q=block_q, row_scale=rs)
+    plain_lids = torch.where(lids < lv.shape[0], lids, 0)  # slab 0 is empty
+    pv, pi = ivf.ivf_search_plain(q, bank, plain_lids, lv, k + 1, cap=cap, row_scale=rs)
+    torch.cuda.synchronize()
+    assert ivf_cuda.ivf_topk.forms[form if form != "bf16" else "dot"] == before + 1
+    nxt = pv[:, k]
+    pv, pi = pv[:, :k], pi[:, :k]
+    if tol == 0.0:
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    else:
+        finite = torch.isfinite(pv)
+        assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
+        assert ((kv - pv).abs()[finite] <= tol).all()
+        # equal slot sets, except where the k-th and (k+1)-th plain scores lie
+        # within twice the tolerance (the sums run in another order)
+        same = (torch.sort(ki, 1).values == torch.sort(pi, 1).values).all(1)
+        assert (same | (pv[:, -1] - nxt <= 2 * tol)).all()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("form", ["bf16", "asym_rows"])
+def test_wgmma_result_does_not_depend_on_the_probe_splits(cuda_device, monkeypatch, form, splits):
+    """The same call with the probe lists cut 1, 2 or 5 ways: the same
+    values and slots (the keys are unique, so the merge is exact)."""
+    q, bank, lids, lv, rs, cap, block_q, _ = _wgmma_tree(form, 30, cuda_device)
+    want = ivf_cuda.ivf_topk(q, bank, lids, lv, 30, cap=cap, block_q=block_q, row_scale=rs)
+    monkeypatch.setattr(ivf_cuda, "plan_probe_splits", lambda *args: splits)
+    got = ivf_cuda.ivf_topk(q, bank, lids, lv, 30, cap=cap, block_q=block_q, row_scale=rs)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -370,3 +370,57 @@ def test_wgmma_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypat
     knn_cuda.knn_topk(qt, bt, 5, **kw)
     torch.cuda.synchronize()
     assert knn_cuda.knn_topk.forms[form] == before + 1
+
+
+@pytest.mark.parametrize("form", WGMMA_FORMS)
+@pytest.mark.parametrize("k", [33, 64, 96, 97])
+def test_wgmma_select_at_every_k_bit_for_bit(cuda_device, k, form):
+    """The batched select at S = 2, 3 and 4 keys a lane beside the k of the
+    test above: Q = 10,000 tie-dense queries (several splits in flight) on
+    integer entries in {-1, 0, 1}, valid_rows on a split edge and one row
+    past a tile edge, bit for bit against exact_knn."""
+    q, b, edge, split_rows, splits = _tie_dense_edge(10000, 40960, 96, k)
+    qt, bt, kw, _ = _form_args(form, q, b, cuda_device, seed=k)
+    for valid in (edge, edge - 127):
+        kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=valid, **kw)
+        pv, pi = exact_knn(qt, bt, k, valid_rows=valid, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), (valid, split_rows, splits)
+
+
+@pytest.mark.parametrize("form", WGMMA_FORMS)
+@pytest.mark.parametrize("k", [33, 64, 96, 97, 120])
+@pytest.mark.parametrize("n_q,m", [(333, 4999), (65, 129), (1, 1000)])
+def test_wgmma_ragged_at_every_k(cuda_device, n_q, m, k, form):
+    """Q and M multiples of no tile at the select's larger sizes."""
+    rng = np.random.default_rng(n_q + m + k)
+    q = rng.normal(size=(n_q, 64)).astype(np.float32)
+    b = (rng.normal(size=(m, 64)) * rng.uniform(0.5, 2.0, (m, 1))).astype(np.float32)
+    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    kv, ki = knn_cuda.knn_topk(qt, bt, k, **kw)
+    pv, pi = exact_knn(qt, bt, k, **kw)
+    torch.cuda.synchronize()
+    _agree(kv, ki, pv, pi, exact, _tol(q, b))
+
+
+@pytest.mark.parametrize("form", ["dot", "int8_rows"])
+@pytest.mark.parametrize("k", [30, 128])
+def test_wgmma_every_tile_beats_the_set(cuda_device, k, form):
+    """Scores that rise along the bank (rows s_i times one vector, s_i
+    increasing): every score of every tile beats its set's minimum, so the
+    candidate buffers take a whole tile at a time and merge at every tile;
+    exact scores, bit for bit against exact_knn."""
+    m = 20000
+    scale = torch.linspace(0.5, 2.0, m)
+    if form == "dot":
+        q = torch.ones(300, 64, device=cuda_device, dtype=torch.bfloat16)
+        b = (torch.arange(1, m + 1)[:, None] * torch.ones(1, 64)).to(cuda_device, torch.bfloat16)
+        kw = {}
+    else:
+        q = torch.ones(300, 64, device=cuda_device, dtype=torch.int8)
+        b = torch.ones(m, 64, device=cuda_device, dtype=torch.int8)
+        kw = {"row_scale": scale.to(cuda_device)}
+    kv, ki = knn_cuda.knn_topk(q, b, k, **kw)
+    pv, pi = exact_knn(q, b, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
