@@ -126,6 +126,29 @@ Phases; any failure raises and the script exits non-zero with no result:
    merges and 32-score chunks merged per query and set. Then the
    ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and
    bf16.
+8. The entry point and persistence, at phase 5's width and fixture:
+   `hbird_tpu_torch.eval_cli.main` (what `python -m hbird_tpu_torch.eval_cli`
+   runs) with --model dinov2_vitb14 --random-init --seed 0, 'scann', saving
+   the bank as .bankdirs (its mIoU must equal phase 5's 'scann' unbounded
+   run's); again with --load-memory (nothing built: no memory_build items,
+   no index_build; the same mIoU); 'ivf' with --load-memory on the same
+   .bankdirs (the streamed tree build on the card); 'ivf' saving the built
+   index as a .treedir, then reloading it (the same mIoU). Each CLI run must
+   launch its kernel's dot form once per eval batch and the other kernel
+   never. Then, on phase 5's eval batch: the streamed build from the
+   .bankdirs equals the in-memory build of the loaded bank (centroids,
+   slots, slabs, labels), its recall@30 against K1; a .treedir round trip
+   and the CLI's saved .treedir give neighbours bit for bit equal to the
+   built tree's. The streamed build at scale: BIG_M clustered rows (4,096
+   mixture centres) from a seeded generator on the card in windows of
+   131,072, against the in-memory build of the same f32 bank: seconds and
+   peak allocated device memory of each; the two must give the same
+   centroids and slots, and the streamed peak must be the lower. The
+   memory build's peak allocated memory over the bank's bytes, unbounded,
+   with the row count unknown (the steps' slabs concatenated, as before the
+   repair) and known (written in place), with a patch-mean projection to
+   the ViT's width as the step, once over the fixture and once over 8
+   augmentation epochs (a bank 8x larger beside the same step).
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs); index
@@ -173,6 +196,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -199,6 +223,8 @@ FIXTURE = {"n_train": 64, "n_val": 16, "size": (600, 450)}
 PRESET, INPUT, BATCH, MEMORY_SIZE = "dinov2_vitb14", 518, 16, 32768
 N_PROBE, BLOCK_Q = 32, 256  # the tree's defaults on the engine's path
 BIG_M = 1_024_000
+STREAM_WINDOW, STREAM_CLUSTERS = 131_072, 4096  # phase 8's streamed build: window rows, mixture centres
+BANK_MEMORY_EPOCHS = 8  # phase 8's larger bank for the memory build's peak (augmentation epochs)
 SMALL_FIXTURE = {"n_train": 12, "n_val": 6, "size": (64, 48)}
 SMALL_LEAVES = 32
 SMALL_TOL = 1e-4
@@ -824,16 +850,18 @@ def ptxas_report(log, name):
 
 
 def sass_counts(sass):
-    """SASS_OPS counted per function of a cuobjdump -sass listing."""
+    """SASS_OPS counted per function of a cuobjdump -sass listing (lines
+    with none of them are skipped by a substring test: the listings run to
+    millions of lines)."""
+    pattern = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
     per_fn, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             per_fn[fn] = dict.fromkeys(SASS_OPS, 0)
-        elif fn is not None:
-            for op in SASS_OPS:
-                if re.search(rf"\b{op}\b", line):
-                    per_fn[fn][op] += 1
+        elif fn is not None and ("MMA" in line or "UTMA" in line):
+            for op in set(pattern.findall(line)):
+                per_fn[fn][op] += 1
     return per_fn
 
 
@@ -882,9 +910,12 @@ def build_report(libs):
     if tool is None:
         print("  cuobjdump not found: SASS not counted", flush=True)
         return report
+    dumps = {src: subprocess.Popen([tool, "-sass", str(path)], stdout=subprocess.PIPE, text=True)
+             for src, path in libs.items()}  # the three listings at once
+    with ThreadPoolExecutor(len(dumps)) as pool:
+        listings = dict(zip(dumps, pool.map(lambda proc: proc.communicate()[0], dumps.values())))
     for src, path in libs.items():
-        per_fn = sass_counts(subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                                            text=True).stdout)
+        per_fn = sass_counts(listings[src])
         total = {op: sum(c[op] for c in per_fn.values()) for op in SASS_OPS}
         name = WGMMA_KERNELS.get(src)
         wg_fns = {f: c for f, c in per_fn.items() if name and name in f}
@@ -1059,6 +1090,277 @@ def main_path(gen_seed):
     ev.NN_algorithm = None
     main_tree = (qp, lids, tree.bank, tree.leaf_valid, tree._cap)
     return runs, launches, {"K1": err_k1, "K2": err_k2}, tree_info, q, bank, main_tree
+
+
+def _cli(label, argv, counters, kernel, idle, n_eval, runs):
+    """One `python -m hbird_tpu_torch.eval_cli` run in this process, its
+    counts set to 0 before and read after: `kernel` must launch once per
+    eval batch, `idle` never. Returns the run's --out summary."""
+    from hbird_tpu_torch import eval_cli
+
+    out = argv[argv.index("--out") + 1]
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    eval_cli.main(argv)
+    wall = time.perf_counter() - t0
+    n = {name: fn.launches for name, fn in counters.items()}
+    forms = read_forms(counters)
+    with open(out) as f:
+        summary = json.load(f)
+    if n[kernel] != n_eval or forms[kernel] != {"dot": n_eval} or n[idle]:
+        fail(f"entry point ({label}): launches by form {forms}, not {kernel} dot x {n_eval}")
+    if not (0.0 <= summary["miou"] <= 1.0):
+        fail(f"entry point ({label}): mIoU {summary['miou']} not a finite value in [0, 1]")
+    runs[label] = {"miou": summary["miou"], "launches": n, "forms": forms, "wall_s": wall,
+                   "phases": summary["phases"]}
+    print(f"  {label}: mIoU {summary['miou']:.6f}, launches {json.dumps(n)}, wall {wall:.2f}s, "
+          f"phases {json.dumps(summary['phases'])}", flush=True)
+    return summary
+
+
+def _same_search(name, a, b, q):
+    """Two trees give the same answers, bit for bit."""
+    va, ia, la = a.search_with_labels_pure(a.device_state, q, 30, probe_mode="tile")
+    vb, ib, lb = b.search_with_labels_pure(b.device_state, q, 30, probe_mode="tile")
+    if not (torch.equal(va, vb) and torch.equal(ia, ib) and torch.equal(la, lb)):
+        fail(f"{name}: the neighbours differ")
+
+
+def clustered_windows(n_rows, window, d, seed):
+    """A re-iterable stream of f32 unit rows around STREAM_CLUSTERS random
+    directions, window by window on the card, each window from its own
+    seeded generator: every pass gives the same rows."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    centres = torch.nn.functional.normalize(torch.randn(STREAM_CLUSTERS, d, generator=g, device=DEVICE), dim=1)
+
+    def windows():
+        for i, s in enumerate(range(0, n_rows, window)):
+            n = min(window, n_rows - s)
+            g = torch.Generator(device=DEVICE).manual_seed(seed + 1 + i)
+            who = torch.randint(0, STREAM_CLUSTERS, (n,), generator=g, device=DEVICE)
+            x = centres[who] + 0.3 / d ** 0.5 * torch.randn(n, d, generator=g, device=DEVICE)
+            yield torch.nn.functional.normalize(x, dim=1)
+    return windows
+
+
+def peak_bytes(fn):
+    """fn()'s result and the card's peak allocated bytes while it ran (None
+    on the CPU rehearsal, where no device counts memory)."""
+    if DEVICE != "cuda":
+        return fn(), None
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def streamed_build_at_scale():
+    """Phase 8.5: the streamed tree build over a seeded stream of BIG_M
+    clustered rows in windows of STREAM_WINDOW (no disk), and the in-memory
+    build of the same bank (its f32 rows on the card, as the engine holds
+    them): seconds and peak device memory of each."""
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops import ivf
+
+    windows = clustered_windows(BIG_M, STREAM_WINDOW, DEPTH, seed=8)
+
+    def stream():
+        for w in windows():
+            yield w.to(torch.bfloat16), None  # the store dtype, cast on the card
+
+    t0 = time.perf_counter()
+    parts, streamed_peak = peak_bytes(lambda: ivf.build_tree_streamed(stream, BIG_M, 512))
+    streamed_s = time.perf_counter() - t0
+    flat = torch.cat(list(windows()))
+    t0 = time.perf_counter()
+    tree, flat_peak = peak_bytes(lambda: NearestNeighborSearchApprox(flat, n_neighbors=30, use_tree=True,
+                                                                      device=DEVICE))
+    flat_s = time.perf_counter() - t0
+    same = (parts["slots"] == tree.slots).float().mean().item()
+    info = {"rows": BIG_M, "window_rows": STREAM_WINDOW, "n_leaves": parts["n_leaves"], "cap": parts["cap"],
+            "streamed_s": streamed_s, "streamed_split_s": parts["build_seconds"],
+            "streamed_peak_bytes": streamed_peak, "in_memory_s": flat_s,
+            "in_memory_split_s": tree.build_seconds, "in_memory_peak_bytes": flat_peak,
+            "flat_f32_bytes": flat.numel() * 4, "slabs_bytes": parts["ivf_bank"].numel() * 2,
+            "centroids_equal": bool(torch.equal(parts["centroids"], tree.centroids)),
+            "slots_equal_share": same}
+    del flat, tree, parts
+    if not (info["centroids_equal"] and same == 1.0):
+        fail(f"the streamed build differs from the in-memory build: same centroids {info['centroids_equal']}, "
+             f"same slots {same}")
+    if DEVICE == "cuda" and not streamed_peak < flat_peak:
+        fail(f"streamed build peak {streamed_peak} B is not under the in-memory build's {flat_peak} B")
+    gib = (lambda b: "n/a" if b is None else f"{b / 2**30:.3f} GiB")
+    print(f"  streamed build of {BIG_M} rows in windows of {STREAM_WINDOW}: {streamed_s:.2f}s "
+          f"{json.dumps(rounded(info['streamed_split_s']))}, peak {gib(streamed_peak)}; in-memory build "
+          f"(f32 bank {gib(info['flat_f32_bytes'])} on the card): {flat_s:.2f}s "
+          f"{json.dumps(rounded(info['in_memory_split_s']))}, peak {gib(flat_peak)}; slabs "
+          f"{gib(info['slabs_bytes'])}; same centroids {info['centroids_equal']}, same slots "
+          f"{same:.6f}", flush=True)
+    return info
+
+
+def bank_build_memory(cfg, root):
+    """Phase 8.6: peak device memory of the unbounded memory build over the
+    bank's bytes, with the row count unknown (no dataset_size: the steps'
+    slabs concatenated, the build before the repair) and known (written in
+    place). The step is a patch-mean projection to the ViT's width: the
+    ViT's own activations (its attention logits) would set the peak and
+    hide the bank. A step's soft labels still pass through a (B, S, S, P, C)
+    one-hot larger than this bank, so the builds run once over the fixture
+    and once over BANK_MEMORY_EPOCHS augmentation epochs, a bank that many
+    times larger beside the same step. The fixture's batches are decoded
+    once and fed again each epoch: the peak does not depend on their
+    pixels."""
+    from hbird_tpu_torch import HbirdEvaluation
+    from hbird_tpu_torch.data import get_dataset
+    from hbird_tpu_torch.data.transforms import get_hbird_train_transforms
+    from hbird_tpu_torch.models import FeatureExtractorSimple
+
+    esr = INPUT // cfg.patch_size
+    tr = get_hbird_train_transforms(INPUT, device_normalize=True)
+    ds, _ = get_dataset("voc", root, BATCH, 0, tr, tr)
+    random.seed(0)
+    batches = list(ds.train_dataloader())
+    proj = torch.randn(3, cfg.width, generator=torch.Generator(device=DEVICE).manual_seed(9), device=DEVICE)
+
+    def patch_means(model, imgs):
+        b, c, h, w = imgs.shape
+        x = imgs.reshape(b, c, esr, h // esr, esr, w // esr).mean(dim=(3, 5))
+        return x.permute(0, 2, 3, 1).reshape(b, esr * esr, c) @ proj, None
+
+    fe = FeatureExtractorSimple(None, patch_means, eval_spatial_resolution=esr, d_model=cfg.width)
+    out = {}
+    for name, epochs in (("projection", 1), (f"projection x{BANK_MEMORY_EPOCHS}", BANK_MEMORY_EPOCHS)):
+        for build, dataset_size in (("concatenated", None), ("in_place", ds.get_train_dataset_size())):
+            base = torch.cuda.memory_allocated() if DEVICE == "cuda" else None
+            ev, peak = peak_bytes(lambda: HbirdEvaluation(
+                fe, batches, num_classes=ds.get_num_classes(), device=DEVICE, nn_method="faiss",
+                augmentation_epoch=epochs, dataset_size=dataset_size, device_norm=tr["device_norm"]))
+            bank = ev.feature_memory.numel() * 4 + ev.label_memory.numel() * 4
+            out[f"{name} {build}"] = {"bank_bytes": bank, "peak_bytes": peak, "base_bytes": base,
+                                      "peak_over_bank": None if peak is None else peak / bank,
+                                      "growth_over_bank": None if peak is None else (peak - base) / bank}
+            del ev
+        a, b = out[f"{name} concatenated"], out[f"{name} in_place"]
+        if DEVICE == "cuda":
+            print(f"  memory_build peak / bank bytes ({name}, bank {a['bank_bytes'] / 2**20:.1f} MiB): "
+                  f"concatenated {a['peak_over_bank']:.3f} (growth {a['growth_over_bank']:.3f}), in place "
+                  f"{b['peak_over_bank']:.3f} (growth {b['growth_over_bank']:.3f})", flush=True)
+    return out
+
+
+def entry_point_path(gen_seed, q, scann_miou):
+    """Phase 8: `python -m hbird_tpu_torch.eval_cli` (its `main`, in this
+    process) at full width on phase 5's fixture, with the bank saved and
+    reloaded; the streamed tree build at scale; the bank build's memory."""
+    from hbird_tpu_torch.bank.io import load_memory
+    from hbird_tpu_torch.data.synthetic import make_voc_fixture
+    from hbird_tpu_torch.models import VIT_PRESETS
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    cfg = VIT_PRESETS[PRESET]
+    counters = {"knn_topk": knn_topk, "ivf_topk": ivf_topk}
+    n_eval = -(-FIXTURE["n_val"] // BATCH)
+    runs, info = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = str(pathlib.Path(tmp) / "voc")
+        make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
+        f_dir, l_dir, t_dir = (str(pathlib.Path(tmp) / n) for n in ("feats.bankdir", "labels.bankdir",
+                                                                    "index.treedir"))
+
+        def argv(label, *flags):
+            return ["--dataset-name", "voc", "--data-dir", root, "--model", PRESET, "--random-init",
+                    "--seed", str(gen_seed), "--d-model", str(cfg.width), "--patch-size", str(cfg.patch_size),
+                    "--input-size", str(INPUT), "--batch-size", str(BATCH), "--num-workers", "0",
+                    "--n-neighbours", "30", "--device", DEVICE, "--log-level", "WARNING",
+                    "--out", str(pathlib.Path(tmp) / f"{label}.json"), *flags]
+
+        banks = ["--f-mem-p", f_dir, "--l-mem-p", l_dir]
+        ivf_flags = ["--nn-method", "ivf"]
+        # 1. the CLI builds and saves the bank (.bankdir); the same run as
+        # phase 5's 'scann unbounded', so the same mIoU
+        t0 = time.perf_counter()
+        built = _cli("cli scann, save .bankdir", argv("built", *banks), counters, "knn_topk", "ivf_topk",
+                     n_eval, runs)
+        if built["miou"] != scann_miou:
+            fail(f"the CLI's mIoU {built['miou']} is not phase 5's scann run's {scann_miou}")
+        # 2. reloaded: nothing built, the same mIoU
+        loaded = _cli("cli scann, --load-memory", argv("loaded", *banks, "--load-memory"), counters,
+                      "knn_topk", "ivf_topk", n_eval, runs)
+        # 3. ivf from the same .bankdirs: the streamed tree build on the card
+        streamed = _cli("cli ivf, --load-memory (streamed build)", argv("streamed", *banks, *ivf_flags,
+                                                                         "--load-memory"),
+                        counters, "ivf_topk", "knn_topk", n_eval, runs)
+        # 4. a .treedir: the built index saved, then reloaded
+        tree_built = _cli("cli ivf, save .treedir", argv("tree_built", *ivf_flags, "--f-mem-p", t_dir),
+                          counters, "ivf_topk", "knn_topk", n_eval, runs)
+        tree_loaded = _cli("cli ivf, --load-memory .treedir", argv("tree_loaded", *ivf_flags, "--f-mem-p",
+                                                                    t_dir, "--load-memory"),
+                           counters, "ivf_topk", "knn_topk", n_eval, runs)
+        info["cli_seconds"] = time.perf_counter() - t0
+        for run, label in ((loaded, "cli scann, --load-memory"), (streamed, "cli ivf, --load-memory (streamed build)"),
+                           (tree_loaded, "cli ivf, --load-memory .treedir")):
+            if run["phases"]["memory_build"].get("items", 0) or "index_build" in run["phases"]:
+                fail(f"{label} built its memory: phases {run['phases']}")
+        if loaded["miou"] != built["miou"] or tree_loaded["miou"] != tree_built["miou"]:
+            fail(f"reloaded runs differ: scann {built['miou']} -> {loaded['miou']}, "
+                 f".treedir {tree_built['miou']} -> {tree_loaded['miou']}")
+
+        # The saved bank and the trees, on the eval batch of phase 5.
+        t0 = time.perf_counter()
+        flat = load_memory(f_dir, device=DEVICE)
+        labels = load_memory(l_dir, device=DEVICE)
+        info["bankdir_load_s"] = time.perf_counter() - t0
+        info["bankdir_bytes"] = sum(p.stat().st_size for d in (f_dir, l_dir) for p in pathlib.Path(d).iterdir())
+        flat_bf16 = flat.to(torch.bfloat16)
+        flat_vals, flat_idx = knn_topk(q, flat_bf16, 30)
+        t0 = time.perf_counter()
+        from_disk = NearestNeighborSearchApprox.from_bankdir(f_dir, l_dir, n_neighbors=30, device=DEVICE)
+        sync()
+        info["streamed_build_s"] = time.perf_counter() - t0
+        info["streamed_split_s"] = from_disk.build_seconds
+        _, tree_idx, _ = from_disk.search_with_labels_pure(from_disk.device_state, q, 30, probe_mode="tile")
+        info["streamed_recall_at_30_vs_k1"] = (tree_idx[:, :, None] == flat_idx[:, None, :]).any(2).float().mean().item()
+        info["streamed_score_recall_at_30_vs_k1"] = score_recall(tree_idx, q, flat_bf16, flat_vals[:, -1])
+        t0 = time.perf_counter()
+        tree = NearestNeighborSearchApprox(flat, n_neighbors=30, use_tree=True, label_memory=labels, device=DEVICE)
+        sync()
+        info["in_memory_build_s"] = time.perf_counter() - t0
+        # the streamed build is the in-memory build of the same bank
+        for name in ("centroids", "slots", "bank", "labels"):
+            if not torch.equal(getattr(from_disk, name), getattr(tree, name)):
+                fail(f"the streamed build's {name} differ from the in-memory build's")
+        t0 = time.perf_counter()
+        tree.save_tree(str(pathlib.Path(tmp) / "direct.treedir"))
+        info["treedir_save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = NearestNeighborSearchApprox.load_tree(str(pathlib.Path(tmp) / "direct.treedir"), n_neighbors=30,
+                                                     device=DEVICE)
+        sync()
+        info["treedir_load_s"] = time.perf_counter() - t0
+        _same_search(".treedir round trip", tree, back, q)
+        _same_search("the CLI's saved .treedir against a build of its bank",
+                     tree, NearestNeighborSearchApprox.load_tree(t_dir, n_neighbors=30, device=DEVICE), q)
+        print(f"  .bankdir ({info['bankdir_bytes'] / 2**20:.1f} MiB) loaded in {info['bankdir_load_s']:.3f}s; "
+              f"streamed build from it {info['streamed_build_s']:.2f}s "
+              f"{json.dumps(rounded(info['streamed_split_s']))} (in-memory {info['in_memory_build_s']:.2f}s, "
+              f"the same tree); recall@30 against K1 {info['streamed_recall_at_30_vs_k1']:.4f} by ids, "
+              f"{info['streamed_score_recall_at_30_vs_k1']:.4f} by score; .treedir saved in "
+              f"{info['treedir_save_s']:.3f}s, loaded in {info['treedir_load_s']:.3f}s, neighbours bit for bit",
+              flush=True)
+        del flat, flat_bf16, labels, from_disk, tree, back
+        t0 = time.perf_counter()
+        info["bank_build_memory"] = bank_build_memory(cfg, root)
+        info["bank_build_memory_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["streamed_at_scale"] = streamed_build_at_scale()
+    info["streamed_at_scale_s"] = time.perf_counter() - t0
+    launches = {name: sum(r["launches"][name] for r in runs.values()) for name in counters}
+    return runs, launches, info
 
 
 def score_recall(idx, q, bank, kth, chunk=4096):
@@ -1819,7 +2121,10 @@ def main(argv=()):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
 
-    print("[1] build K1, K2 and K3", flush=True)
+    def phase(title):
+        print(f"{title} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+
+    phase("[1] build K1, K2 and K3")
     t0 = time.perf_counter()
     libs = cuda_build.build_all(verbose=True)
     print(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f}s",
@@ -1827,30 +2132,37 @@ def main(argv=()):
     build = build_report(libs)
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    print("[2] K1 vs plain version", flush=True)
+    phase("[2] K1 vs plain version")
     err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen))
 
-    print("[3] K2 vs plain version", flush=True)
+    phase("[3] K2 vs plain version")
     err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen))
 
-    print("[4] K3 vs plain version", flush=True)
+    phase("[4] K3 vs plain version")
     err_k3 = flash_cases(gen)
 
-    print(f"[5] main paths ({card})", flush=True)
+    phase(f"[5] main paths ({card})")
     runs, launches, err_main, tree_info, q, bank, main_tree = main_path(gen_seed=0)
     flash_runs, flash_launches, token_err, err_k3_main = flash_path(gen_seed=0)
     runs.update(flash_runs)
     launches["knn_topk"] += sum(n["knn_topk"] for n in flash_launches.values())
 
-    print("[6] the card against the CPU, small input", flush=True)
+    phase("[6] the card against the CPU, small input")
     small = card_vs_cpu()
     backends = backends_card_vs_cpu()
 
-    print(f"[7] K1, K2 and K3 timing; the forward ({card})", flush=True)
+    phase(f"[7] K1, K2 and K3 timing; the forward ({card})")
     k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, gen)
     select = k1_select_rows(q, bank)
     k3_rows, err_k3_timing = flash_timing(gen)
     forward = forward_timing(0, gen)
+    del main_tree, bank
+
+    phase(f"[8] the command line, bank and index persistence, the streamed build ({card})")
+    cli_runs, cli_launches, persistence = entry_point_path(0, q, runs["scann unbounded"]["miou"])
+    runs.update(cli_runs)
+    for name, n in cli_launches.items():
+        launches[name] += n
 
     forms = {name: {} for name in ("knn_topk", "ivf_topk", "flash_attention")}  # main-path launches by form
     for run in runs.values():
@@ -1869,7 +2181,7 @@ def main(argv=()):
                      max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
-        "hopper_build": build,
+        "hopper_build": build, "persistence": persistence,
         "seconds": time.perf_counter() - t_start}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -16,7 +16,12 @@ the JAX package's module names so each counterpart is easy to find:
   matrix never materialised), or approximate retrieval over an IVF tree
   (`nn_method='ivf'`: k-means leaves, probed-leaf scan in
   `ops/csrc/ivf_topk.cu`),
-- soft-label cross-attention transfer and confusion-matrix mIoU.
+- soft-label cross-attention transfer and confusion-matrix mIoU,
+- the bank and the built tree saved and reloaded in the JAX package's
+  formats (`bank/io.py`; a tree can also be built from a saved bank by the
+  streamed build, which never holds the flat bank on the card),
+- the command line, `python -m hbird_tpu_torch.eval_cli`, with the flags
+  of the JAX package's `eval.py`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no explicit CPU request they raise.

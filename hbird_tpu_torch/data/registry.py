@@ -1,16 +1,14 @@
 """Dataset factory: name -> (datamodule, ignore_index).
 
-Mirrors the reference's `get_dataset` (hbird/data/__init__.py:39-198) for
-the VOC feed:
-- 'voc', with the fractional subsampling DSL 'voc*fract'
-  (random.shuffle + truncate)
-- tar-vs-folder auto-selection by '.tar' in data_dir (handled inside the
-  dataset via the byte backend)
-- ignore_index 255
-- default VOC fileset resolution under root/sets/ (tar variant:
-  archive.tar!/VOCSegmentation/sets/...)
-
-ADE20K, Cityscapes and COCO feeds are not part of this package yet.
+Mirrors the reference's `get_dataset` (hbird/data/__init__.py:39-198):
+- 'voc', 'ade20k', 'cityscapes', 'coco-thing', 'coco-stuff'
+- fractional subsampling DSL 'name*fract' (random.shuffle + truncate)
+- tar-vs-folder auto-selection by '.tar' in data_dir (here handled inside
+  the datasets via the byte backend)
+- per-dataset ignore_index: voc/cityscapes/coco=255, ade20k=0
+- default VOC fileset resolution under root/sets/ (the reference's tar
+  variant of this default has a malformed '!'-path bug,
+  data/__init__.py:60-63 — fixed here: archive.tar!/VOCSegmentation/sets/...)
 """
 
 from __future__ import annotations
@@ -19,13 +17,14 @@ import os
 import random
 from typing import Any, Optional, Tuple
 
+from hbird_tpu_torch.data.ade20k import Ade20kDataModule
+from hbird_tpu_torch.data.cityscapes import CityscapesDataModule
+from hbird_tpu_torch.data.coco import CocoDataModule
 from hbird_tpu_torch.data.voc import VOCDataModule
-from hbird_tpu_torch.utils.io import read_file_set
+from hbird_tpu_torch.utils.io import list_files, read_file_set
 from hbird_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
-
-_LATER_DATASETS = ("ade20k", "cityscapes", "coco")
 
 
 def get_dataset(
@@ -49,49 +48,125 @@ def get_dataset(
         sample_fract = float(fract)
         logger.info("Using %.3f fraction of the %s dataset.", sample_fract, dataset_name)
 
-    if dataset_name.startswith(_LATER_DATASETS):
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported yet: the ADE20K, "
-            "Cityscapes and COCO feeds come in a later slice (ROADMAP.md, "
-            "'remaining datasets'); only 'voc' is available"
-        )
-    if dataset_name != "voc":
-        raise ValueError("Unknown dataset name")
-
     is_tar = data_dir.endswith(".tar")
-    if train_file_set is None:
-        p = (
-            f"{data_dir}!/VOCSegmentation/sets/trainaug.txt"
-            if is_tar
-            else os.path.join(data_dir, "sets", "trainaug.txt")
-        )
-        train_file_set = read_file_set(p)
-    if val_file_set is None:
-        p = (
-            f"{data_dir}!/VOCSegmentation/sets/val.txt"
-            if is_tar
-            else os.path.join(data_dir, "sets", "val.txt")
-        )
-        val_file_set = read_file_set(p)
-    if sample_fract is not None:
-        random.shuffle(train_file_set)
-        train_file_set = train_file_set[: int(len(train_file_set) * sample_fract)]
-    ignore_index = 255
-    dataset = VOCDataModule(
-        batch_size=batch_size,
-        num_workers=num_workers,
-        train_split="trainaug",
-        val_split="val",
-        data_dir=data_dir,
-        train_image_transform=train_transforms,
-        val_transforms=val_transforms,
-        shuffle=False,
-        return_masks=True,
-        drop_last=False,
-        train_file_set=train_file_set,
-        val_file_set=val_file_set,
-        loader_mode=loader_mode,
-    ).setup()
+
+    if dataset_name == "voc":
+        if train_file_set is None:
+            p = (
+                f"{data_dir}!/VOCSegmentation/sets/trainaug.txt"
+                if is_tar
+                else os.path.join(data_dir, "sets", "trainaug.txt")
+            )
+            train_file_set = read_file_set(p)
+        if val_file_set is None:
+            p = (
+                f"{data_dir}!/VOCSegmentation/sets/val.txt"
+                if is_tar
+                else os.path.join(data_dir, "sets", "val.txt")
+            )
+            val_file_set = read_file_set(p)
+        if sample_fract is not None:
+            random.shuffle(train_file_set)
+            train_file_set = train_file_set[: int(len(train_file_set) * sample_fract)]
+        ignore_index = 255
+        dataset = VOCDataModule(
+            batch_size=batch_size,
+            num_workers=num_workers,
+            train_split="trainaug",
+            val_split="val",
+            data_dir=data_dir,
+            train_image_transform=train_transforms,
+            val_transforms=val_transforms,
+            shuffle=False,
+            return_masks=True,
+            drop_last=False,
+            train_file_set=train_file_set,
+            val_file_set=val_file_set,
+            loader_mode=loader_mode,
+        ).setup()
+
+    elif dataset_name == "ade20k":
+        if sample_fract is not None:
+            if train_file_set is None:
+                search = f"{data_dir}!/ade20k" if is_tar else data_dir
+                train_file_set = [
+                    f.replace(".jpg", "")
+                    for f in list_files(os.path.join(search, "images", "training"))
+                    if f.endswith(".jpg")
+                ]
+            random.shuffle(train_file_set)
+            train_file_set = train_file_set[: int(len(train_file_set) * sample_fract)]
+        ignore_index = 0
+        dataset = Ade20kDataModule(
+            data_dir,
+            train_transforms=train_transforms,
+            val_transforms=val_transforms,
+            shuffle=False,
+            num_workers=num_workers,
+            batch_size=batch_size,
+            train_file_set=train_file_set,
+            drop_last=False,
+            val_file_set=val_file_set,
+            loader_mode=loader_mode,
+        ).setup()
+
+    elif dataset_name == "cityscapes":
+        if sample_fract is not None:
+            if train_file_set is None:
+                search = f"{data_dir}!/cityscapes" if is_tar else data_dir
+                img_folder = os.path.join(search, "leftImg8bit", "train")
+                train_file_set = [
+                    os.path.basename(f).split("_leftImg8bit.png")[0]
+                    for f in list_files(img_folder)
+                    if f.endswith(".png")
+                ]
+            random.shuffle(train_file_set)
+            train_file_set = train_file_set[: int(len(train_file_set) * sample_fract)]
+        ignore_index = 255
+        dataset = CityscapesDataModule(
+            root=data_dir,
+            train_transforms=train_transforms,
+            val_transforms=val_transforms,
+            shuffle=False,
+            num_workers=num_workers,
+            batch_size=batch_size,
+            drop_last=False,
+            train_file_set=train_file_set,
+            val_file_set=val_file_set,
+            loader_mode=loader_mode,
+        ).setup()
+
+    elif "coco" in dataset_name:
+        parts = dataset_name.split("-")
+        assert len(parts) == 2, "use 'coco-thing' or 'coco-stuff'"
+        mask_type = parts[-1]
+        assert mask_type in ("thing", "stuff")
+        ignore_index = 255
+        if sample_fract is not None:
+            if train_file_set is None:
+                search = (
+                    f"{data_dir}!/coco/images/train2017"
+                    if is_tar
+                    else os.path.join(data_dir, "images", "train2017")
+                )
+                train_file_set = list_files(search)
+            random.shuffle(train_file_set)
+            train_file_set = train_file_set[: int(len(train_file_set) * sample_fract)]
+        dataset = CocoDataModule(
+            batch_size=batch_size,
+            num_workers=num_workers,
+            data_dir=data_dir,
+            mask_type=mask_type,
+            train_transforms=train_transforms,
+            val_transforms=val_transforms,
+            train_file_set=train_file_set,
+            drop_last=False,
+            val_file_set=val_file_set,
+            loader_mode=loader_mode,
+        ).setup()
+
+    else:
+        raise ValueError("Unknown dataset name")
 
     logger.info(
         "Dataset=%s | train=%d imgs | num_classes=%d | ignore_index=%d",

@@ -8,8 +8,10 @@ is the one-call wrapper.
 
 Dataflow on the device (CUDA unless the caller passes device="cpu"):
 - memory step per batch: backbone forward + GT patchify + soft labels
-  (+ bounded rarity sampling) + L2 normalisation; the slabs stay on the
-  device and are concatenated into the bank after the build;
+  (+ bounded rarity sampling) + L2 normalisation; each step's rows are
+  written in place into the bank, allocated once on the device when its
+  row count is known (bounded, or `dataset_size` given), else kept as
+  slabs and concatenated after the build;
 - eval step per batch: backbone forward -> kNN search (K1, the fused CUDA
   kernel ops/csrc/knn_topk.cu, over the flat bank; or, for 'ivf'/'tree',
   K2, ops/csrc/ivf_topk.cu, over the probed leaves of the IVF tree) ->
@@ -32,8 +34,14 @@ The eval step runs eagerly, but it stands for the JAX engine's jitted
 step, where a tree backend's probe_mode='auto' resolves to tile probing
 (the queries are tracers there): so the step passes 'tile' for 'auto'.
 
-Not ported yet (each raises): device meshes and bank persistence
-(f_mem_p / l_mem_p / load_memory, including .treedir indexes).
+Persistence (bank/io.py, the JAX package's formats): f_mem_p / l_mem_p
+save the bank after the build (.npy/.npz/.pt, .bankdir), and an f_mem_p
+ending in '.treedir' saves the built IVF index; load_memory=True restores
+them instead of building (a .treedir as it was saved; .bankdirs with a tree
+backend through the streamed tree build; flat files through the usual
+index build), and falls back to a build when nothing is on disk.
+
+Not ported yet (raises): device meshes (parallel/).
 """
 
 from __future__ import annotations
@@ -119,6 +127,10 @@ class HbirdEvaluation:
         seed: seed of the sampling-noise generator.
         bf16_bank: store the exact backend's bank in bfloat16.
         device_norm: (mean, std) for normalising uint8 batches on the device.
+        f_mem_p / l_mem_p: where to save the feature / label memory (and
+            with load_memory, where to restore them from); see the module
+            docstring for the formats.
+        load_memory: restore the memory or index instead of building it.
         timer: PhaseTimer to record the phases in (a fresh one by default).
     """
 
@@ -144,8 +156,6 @@ class HbirdEvaluation:
         load_memory: bool = False,
         timer: Optional[PhaseTimer] = None,
     ) -> None:
-        if f_mem_p is not None or l_mem_p is not None or load_memory:
-            raise not_ported("memory persistence", "modules to port, 'bank/io'")
         if mesh is not None:
             raise not_ported("a device mesh", "modules to port, 'parallel/'")
         method = _NN_ALIASES.get(nn_method.lower())
@@ -163,6 +173,9 @@ class HbirdEvaluation:
         self.n_neighbours = n_neighbours
         self.num_classes = num_classes
         self.bf16_bank = bf16_bank
+        self.f_mem_p = f_mem_p
+        self.l_mem_p = l_mem_p
+        self._dataset_size = dataset_size
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.timer = timer if timer is not None else PhaseTimer()
 
@@ -195,14 +208,29 @@ class HbirdEvaluation:
             )
 
         with torch.inference_mode():
+            if load_memory:
+                with self.timer.phase("memory_build"):
+                    loaded = self.load_memory()
+                    self._sync()
+                if loaded:
+                    logger.info("Memory restored from disk; skipping the train build.")
+                    return
+                logger.warning(
+                    "load_memory=True but no persisted memory found at f_mem_p=%s / "
+                    "l_mem_p=%s; building from the train loader.",
+                    self.f_mem_p,
+                    self.l_mem_p,
+                )
             with self.timer.phase("memory_build"), maybe_trace("memory_build"):
                 self._create_memory(train_loader)
                 self._sync()
+            self._save_memory()
             with self.timer.phase("index_build"):
                 self._create_nn(
                     self.n_neighbours, nn_method=self.nn_method, **self.nn_params
                 )
                 self._sync()
+            self._save_tree_if_requested()
 
     def _sync(self) -> None:
         """Wait for the device, so a phase's time covers its work."""
@@ -258,8 +286,29 @@ class HbirdEvaluation:
         return normed.reshape(-1, sampled.shape[-1]), lbl.reshape(-1, c)
 
     def _create_memory(self, train_loader) -> None:
-        """Run the memory step over the loader and concatenate the slabs
-        (bounded banks stop at memory_size rows)."""
+        """Run the memory step over the loader into the bank (bounded banks
+        stop at memory_size rows).
+
+        When dataset_size is known the final row count is too (dataset_size
+        · rows per image · augmentation_epoch, at most memory_size): the f32
+        feature and label banks are allocated once and each step's rows are
+        written in place, so the card never holds the bank twice. A feed
+        shorter than dataset_size says leaves a trimmed copy; rows beyond
+        the count (a longer feed) wait on the host and are joined to the
+        bank there after the build. Without dataset_size the steps' slabs
+        are concatenated after the build."""
+        d, c = self.feature_extractor.d_model, self.num_classes
+        esr = self.feature_extractor.eval_spatial_resolution
+        alloc = None
+        if self._dataset_size:
+            per_image = esr * esr if self.memory_size is None else self.num_sampled_features
+            alloc = self._dataset_size * per_image * self.augmentation_epoch
+            if self.memory_size is not None:
+                alloc = min(alloc, self.memory_size)
+        bank = labels_bank = None
+        if alloc is not None:
+            bank = torch.zeros((alloc, d), dtype=torch.float32, device=self.device)
+            labels_bank = torch.zeros((alloc, c), dtype=torch.float32, device=self.device)
         feature_chunks: List[torch.Tensor] = []
         label_chunks: List[torch.Tensor] = []
         rows = 0
@@ -277,36 +326,165 @@ class HbirdEvaluation:
                 n_rows = valid * (feats.shape[0] // batch_size)
                 if self.memory_size is not None:
                     n_rows = min(n_rows, self.memory_size - rows)
-                feature_chunks.append(feats[:n_rows])
-                label_chunks.append(labels[:n_rows])
+                if alloc is None:
+                    feature_chunks.append(feats[:n_rows])
+                    label_chunks.append(labels[:n_rows])
+                    rows += n_rows
+                    n_imgs += valid
+                    continue
+                n_in = max(0, min(n_rows, alloc - rows))
+                if n_in:
+                    bank[rows : rows + n_in].copy_(feats[:n_in])
+                    labels_bank[rows : rows + n_in].copy_(labels[:n_in])
+                if n_in < n_rows:
+                    if not feature_chunks:
+                        logger.warning(
+                            "Memory overflow: the %d preallocated rows are full but the "
+                            "loader keeps yielding; the excess waits on the host and is "
+                            "joined to the bank after the build. Check "
+                            "dataset_size/augmentation_epoch.",
+                            alloc,
+                        )
+                    feature_chunks.append(feats[n_in:n_rows].cpu())
+                    label_chunks.append(labels[n_in:n_rows].cpu())
                 rows += n_rows
                 n_imgs += valid
         self.timer.add_items("memory_build", n_imgs)
-        d = self.feature_extractor.d_model
-        self.feature_memory = (
-            torch.cat(feature_chunks)
-            if feature_chunks
-            else torch.zeros((0, d), dtype=torch.float32, device=self.device)
-        )
-        self.label_memory = (
-            torch.cat(label_chunks)
-            if label_chunks
-            else torch.zeros((0, self.num_classes), dtype=torch.float32, device=self.device)
-        )
+        if bank is None:
+            if len(feature_chunks) == 1:
+                bank, labels_bank = feature_chunks[0], label_chunks[0]
+            elif feature_chunks:
+                bank, labels_bank = torch.cat(feature_chunks), torch.cat(label_chunks)
+            else:
+                bank = torch.zeros((0, d), dtype=torch.float32, device=self.device)
+                labels_bank = torch.zeros((0, c), dtype=torch.float32, device=self.device)
+        elif feature_chunks:
+            # Joined on the host, the device bank freed before the upload:
+            # the card holds the bank once.
+            bank = torch.cat([bank.cpu(), *feature_chunks])
+            labels_bank = torch.cat([labels_bank.cpu(), *label_chunks])
+            bank, labels_bank = bank.to(self.device), labels_bank.to(self.device)
+        elif rows < alloc:
+            # A copy: a view would keep the whole allocation alive.
+            bank, labels_bank = bank[:rows].clone(), labels_bank[:rows].clone()
+        self.feature_memory, self.label_memory = bank, labels_bank
         logger.info(
-            "%s memory: %d x %d rows",
+            "%s memory: %d x %d rows (%s)",
             "Bounded" if self.memory_size is not None else "Unbounded",
             self.feature_memory.shape[0],
             self.feature_memory.shape[1],
+            "written in place" if alloc is not None else "concatenated",
         )
+
+    # ------------------------------------------------------------------
+    # Persistence (bank/io.py; reference hbird_eval.py:371-400)
+    # ------------------------------------------------------------------
+    def _save_memory(self) -> None:
+        """Save the built bank to f_mem_p / l_mem_p. An f_mem_p ending in
+        '.treedir' is the built index, saved after the index build
+        (_save_tree_if_requested); the label save does not depend on it."""
+        from hbird_tpu_torch.bank.io import is_tree_path, save_memory
+
+        if self.f_mem_p is not None and not is_tree_path(self.f_mem_p):
+            # save_memory may append '.npy': keep the path written.
+            self.f_mem_p = save_memory(self.feature_memory, self.f_mem_p)
+            logger.info("Saved feature memory to: %s", self.f_mem_p)
+        if self.l_mem_p is not None:
+            self.l_mem_p = save_memory(self.label_memory, self.l_mem_p)
+            logger.info("Saved label memory to: %s", self.l_mem_p)
+
+    def _save_tree_if_requested(self) -> None:
+        """An f_mem_p ending in '.treedir' saves the BUILT IVF index (a
+        reload skips k-means, layout and scatter). A flat backend saves its
+        flat feature memory to f_mem_p + '.flat.npy' instead."""
+        from hbird_tpu_torch.bank.io import is_tree_path, save_memory
+
+        if self.f_mem_p is None or not is_tree_path(self.f_mem_p):
+            return
+        if not getattr(self.NN_algorithm, "use_tree", False):
+            fallback = save_memory(self.feature_memory, self.f_mem_p + ".flat")
+            logger.warning(
+                "f_mem_p=%s requests a tree save but the backend is not a tree (nn_method=%s); "
+                "saved the FLAT feature memory to %s instead. Use nn_method='ivf' for a tree, "
+                "or a '.npy/.bankdir' path for flat banks.",
+                self.f_mem_p,
+                self.nn_method,
+                fallback,
+            )
+            return
+        self.NN_algorithm.save_tree(self.f_mem_p)
+        logger.info("Saved built tree index to: %s", self.f_mem_p)
+
+    def load_memory(self) -> bool:
+        """Restore the saved memory or index; False when nothing is on disk.
+
+        - f_mem_p a saved tree (.treedir): the index as saved (l_mem_p
+          unused); the search options of nn_params apply.
+        - f_mem_p and l_mem_p both .bankdirs with a tree backend: the
+          streamed tree build from disk windows (the flat bank is never
+          assembled).
+        - otherwise both flat files: loaded onto the device, then the usual
+          index build.
+        A recall_target without num_leaves_to_search calibrates the probe
+        count of a tree, as after a build."""
+        from hbird_tpu_torch.bank.io import (
+            is_sharded_path,
+            load_memory,
+            memory_path_on_disk,
+            tree_path_on_disk,
+        )
+
+        if self.f_mem_p is not None and tree_path_on_disk(self.f_mem_p):
+            search_keys = (
+                "num_leaves_to_search", "recall_target", "query_block",
+                "shard_probe", "num_reordering_candidates",
+            )
+            kwargs = {k: v for k, v in self.nn_params.items() if k in search_keys}
+            self.NN_algorithm = NearestNeighborSearchApprox.load_tree(
+                self.f_mem_p, n_neighbors=self.n_neighbours, device=self.device, **kwargs
+            )
+            self.feature_memory = self.label_memory = None
+            logger.info("Loaded built tree index from: %s", self.f_mem_p)
+            self._finish_nn(kwargs)
+            return True
+        if (
+            self.f_mem_p is None
+            or self.l_mem_p is None
+            or memory_path_on_disk(self.f_mem_p) is None
+            or memory_path_on_disk(self.l_mem_p) is None
+        ):
+            logger.warning("Memory files not found or paths not provided; skipping load.")
+            return False
+        if (
+            (self.nn_method == "ivf" or self.nn_params.get("use_tree"))
+            and is_sharded_path(self.f_mem_p)
+            and is_sharded_path(self.l_mem_p)
+        ):
+            _, kwargs = self._nn_cls_kwargs("ivf", **self.nn_params)
+            kwargs.pop("use_tree", None)
+            kwargs.pop("use_fp16", None)
+            self.NN_algorithm = NearestNeighborSearchApprox.from_bankdir(
+                self.f_mem_p, self.l_mem_p, n_neighbors=self.n_neighbours, device=self.device,
+                **kwargs,
+            )
+            self.feature_memory = self.label_memory = None
+            logger.info("Loaded .bankdir memory via the streamed tree build.")
+            self._finish_nn(kwargs)
+            return True
+        self.feature_memory = load_memory(self.f_mem_p, device=self.device)
+        self.label_memory = load_memory(self.l_mem_p, device=self.device)
+        self._create_nn(self.n_neighbours, nn_method=self.nn_method, **self.nn_params)
+        logger.info("Loaded memory from disk.")
+        return True
 
     # ------------------------------------------------------------------
     # NN backend
     # ------------------------------------------------------------------
-    def _create_nn(self, n_neighbours: int = 30, nn_method: str = "exact", **kwargs):
-        logger.info("Building NN index: method=%s, k=%d", nn_method, n_neighbours)
-        explicit_recall = kwargs.get("recall_target") is not None
-        explicit_probe = "num_leaves_to_search" in kwargs
+    def _nn_cls_kwargs(self, nn_method: str, **kwargs):
+        """The backend class and its kwargs for `nn_method`: the tree for
+        'ivf'; a bf16 bank for the approx backend by default, and for the
+        exact backend when the engine's bf16_bank says so (faiss
+        useFloat16)."""
         method = _NN_ALIASES.get(nn_method, nn_method)
         cls = (
             NearestNeighborSearchApprox
@@ -315,11 +493,14 @@ class HbirdEvaluation:
         )
         if method == "ivf":
             kwargs.setdefault("use_tree", True)
-        # exact: bf16 bank tracks the engine flag (faiss useFloat16);
-        # approx: bf16 by default, as in the JAX engine.
         kwargs.setdefault(
             "use_fp16", self.bf16_bank or cls is NearestNeighborSearchApprox
         )
+        return cls, kwargs
+
+    def _create_nn(self, n_neighbours: int = 30, nn_method: str = "exact", **kwargs):
+        logger.info("Building NN index: method=%s, k=%d", nn_method, n_neighbours)
+        cls, kwargs = self._nn_cls_kwargs(nn_method, **kwargs)
         self.NN_algorithm = cls(
             self.feature_memory,
             n_neighbors=n_neighbours,
@@ -327,9 +508,14 @@ class HbirdEvaluation:
             device=self.device,
             **kwargs,
         )
+        self._finish_nn(kwargs)
+
+    def _finish_nn(self, kwargs) -> None:
+        """After a backend is built or loaded: a tree with a recall_target
+        and no explicit probe count calibrates it (ScaNN's recall-tuned
+        index, done by measurement); the eval step's search options."""
         tree = getattr(self.NN_algorithm, "use_tree", False)
-        if tree and explicit_recall and not explicit_probe:
-            # ScaNN's recall-tuned builder, done by measurement.
+        if tree and kwargs.get("recall_target") is not None and "num_leaves_to_search" not in kwargs:
             self.NN_algorithm.calibrate_n_probe(self.NN_algorithm.recall_target)
         # The JAX engine's jitted step sees tracers, for which 'auto'
         # probing means tile probing.

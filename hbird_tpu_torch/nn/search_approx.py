@@ -23,10 +23,15 @@ ScaNN's score_ah knobs (`dimensions_per_block`,
 `anisotropic_quantization_threshold`) act on the per-row int8 modes
 (ops/quantize.py::quantize_bank_int8_ah) and warn otherwise.
 
+A tree built elsewhere: `from_tree_state` takes prebuilt slabs,
+`from_bankdir` builds them by the streamed three-pass build from .bankdir
+banks (the flat bank never on the device), and `save_tree`/`load_tree`
+write and read a built tree as a .treedir (bank/io.py), in the JAX
+package's format.
+
 Not ported yet, and raising rather than falling back: `mesh` (parallel/).
-`.treedir` save/load, `from_tree_state`, `from_bankdir` and the streamed
-build belong to bank/io; `state_spec`/`pin_expected_rows` served the JAX
-package's ahead-of-time compile and have no counterpart.
+`state_spec`/`pin_expected_rows` served the JAX package's ahead-of-time
+compile and have no counterpart.
 """
 
 from __future__ import annotations
@@ -177,6 +182,8 @@ class NearestNeighborSearchApprox(FlatSearch):
         if device is None and isinstance(feature_memory, torch.Tensor):
             device = feature_memory.device
         self.device = resolve_device(device)
+        if feature_memory is None:
+            return  # from_tree_state installs a built tree
         bank = self._as_tensor(feature_memory)
         if label_memory is None:
             label_memory = torch.zeros((bank.shape[0], 1), dtype=torch.float32)
@@ -386,3 +393,198 @@ class NearestNeighborSearchApprox(FlatSearch):
         )
         self.num_leaves_to_search = n_probe
         return n_probe
+
+    # ------------------------------------------------------------------
+    # A tree built elsewhere: streamed from a .bankdir, or saved (.treedir)
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_tree_state(
+        cls,
+        ivf_bank,
+        ivf_labels,
+        centroids,
+        leaf_valid,
+        perm,
+        slots,
+        *,
+        cap: int,
+        valid_rows: int,
+        n_neighbors: int = 30,
+        bank_scale=None,
+        bank_row_scale=None,
+        bank_col_scale=None,
+        mesh=None,
+        device=None,
+        **kwargs,
+    ):
+        """The tree backend over prebuilt leaf slabs (the streamed build's or
+        a saved tree's), with no flat bank and no build. The arrays go to
+        `device` (default: the slabs' device if they are a tensor, else
+        CUDA). int8 slabs need their scale: `bank_scale` (global) or
+        `bank_row_scale` (per slot, (n_slots, 1)); `bank_col_scale` holds
+        the score_ah column scales. Search options pass through `kwargs`."""
+        if mesh is not None:
+            raise not_ported("a meshed tree", "modules to port, 'parallel/'")
+        if device is None and isinstance(ivf_bank, torch.Tensor):
+            device = ivf_bank.device
+        n_slots = ivf_bank.shape[0]
+        if n_slots % cap:
+            raise ValueError(f"{n_slots} slots are not whole leaves of {cap}")
+        int8 = ivf_bank.dtype == torch.int8
+        kwargs.setdefault("num_leaves", n_slots // cap)
+        kwargs.setdefault("use_tree", True)
+        kwargs.setdefault("use_int8", int8)
+        if kwargs["use_int8"]:
+            if bank_scale is None and bank_row_scale is None:
+                raise ValueError("int8 slab injection requires bank_scale or bank_row_scale")
+            if bank_row_scale is not None:
+                kwargs.setdefault("quantization", "int8_rows")
+        if str(kwargs.get("quantization") or "").lower() in ("int8_rows", "int8_asym") and bank_row_scale is None:
+            raise ValueError(
+                f"quantization={kwargs['quantization']!r} slab injection requires bank_row_scale "
+                "(the per-slot scales the codes were quantized with)"
+            )
+        self = cls(None, n_neighbors=n_neighbors, device=device, **kwargs)
+        dev = self.device
+
+        def put(x, dtype=None):
+            t = torch.as_tensor(x).to(dev)
+            return t if dtype is None else t.to(dtype)
+
+        self.bank = put(ivf_bank).contiguous()
+        self.labels = put(ivf_labels, torch.float32).contiguous()
+        self.centroids = put(centroids, torch.float32)
+        self.leaf_valid = put(leaf_valid, torch.int32)
+        self.perm = put(perm, torch.int64)
+        self.slots = put(slots, torch.int64)
+        self._n_leaves, self._cap = n_slots // cap, int(cap)
+        self.valid_rows = int(valid_rows)
+        if bank_row_scale is not None:
+            self.bank_row_scale = put(bank_row_scale, torch.float32).reshape(-1, 1).contiguous()
+        elif bank_scale is not None:
+            self.bank_scale = torch.tensor(float(bank_scale), dtype=torch.float32, device=dev)
+        # Injected slabs are quantized already: only handed-over column
+        # scales apply.
+        self.bank_col_scale = None if bank_col_scale is None else put(bank_col_scale, torch.float32)
+        return self
+
+    @classmethod
+    def from_bankdir(
+        cls,
+        feature_dir: str,
+        label_dir: Optional[str] = None,
+        *,
+        n_neighbors: int = 30,
+        window_rows: int = 524288,
+        num_leaves: int = 512,
+        tree_slack: float = 1.3,
+        kmeans_iters: int = 12,
+        tree_refine_rounds: int = 2,
+        tree_sample_rows: int = 131072,
+        seed: int = 0,
+        bank_scale=None,
+        mesh=None,
+        device=None,
+        **kwargs,
+    ):
+        """The tree backend built by the streamed three-pass build
+        (ops/ivf.py::build_tree_streamed) from .bankdir banks read window by
+        window: the flat bank never exists on the host or the device.
+
+        Float banks are cast to the tree's store dtype (bf16 unless
+        use_fp16=False) on the device, window by window. An int8 .bankdir
+        needs `bank_scale`, its global scale; `use_int8` cannot quantize a
+        float .bankdir here (that needs another full pass) and is ignored
+        with a warning, and the per-row modes raise."""
+        from hbird_tpu_torch.bank.io import iter_bankdir_windows, sharded_memory_info
+
+        if mesh is not None:
+            raise not_ported("the meshed streamed tree build", "modules to port, 'parallel/'")
+        dev = resolve_device(device)
+        info = sharded_memory_info(feature_dir)
+        is_int8 = info["dtype"] == "int8"
+        qz = str(kwargs.get("quantization") or "").lower()
+        if qz in ("int8_rows", "int8_asym"):
+            raise ValueError(
+                f"quantization={qz!r} is not supported for streamed .bankdir tree builds: quantize at "
+                "save time (global scale) or build from an in-memory bank."
+            )
+        if kwargs.pop("use_int8", False) and not is_int8:
+            logger.warning(
+                "use_int8 ignored for a %s .bankdir streamed load: quantization would need an extra "
+                "full pass; save an int8 .bankdir + bank_scale for the quantized path.",
+                info["dtype"],
+            )
+        store = torch.int8 if is_int8 else (torch.bfloat16 if kwargs.get("use_fp16", True) else torch.float32)
+
+        def stream():
+            for rows, labs in iter_bankdir_windows(feature_dir, label_dir, window_rows=window_rows):
+                yield rows.to(dev).to(store), labs
+
+        parts = ivf.build_tree_streamed(
+            stream, info["rows"], num_leaves, slack=tree_slack, kmeans_iters=kmeans_iters,
+            refine_rounds=tree_refine_rounds, sample_rows=tree_sample_rows, seed=seed,
+        )
+        self = cls.from_tree_state(
+            parts["ivf_bank"], parts["ivf_labels"], parts["centroids"], parts["leaf_fill"],
+            parts["perm"], parts["slots"], cap=parts["cap"], valid_rows=parts["valid_rows"],
+            n_neighbors=n_neighbors, bank_scale=bank_scale, num_leaves=parts["n_leaves"],
+            tree_slack=tree_slack, device=dev, **kwargs,
+        )
+        self.build_seconds = parts["build_seconds"]
+        return self
+
+    def save_tree(self, dir_path: str, *, chunk_rows: int = 262144) -> str:
+        """Write the built tree (slabs, labels, centroids, layout) to
+        `dir_path`, conventionally '*.treedir', in the JAX package's format.
+        Slabs come off the device one chunk at a time. int8 trees keep their
+        scales (per-slot scales as a last label column), bf16 slabs are
+        stored as uint16 bits."""
+        from hbird_tpu_torch.bank.io import save_tree_state
+
+        if not self.use_tree or getattr(self, "_cap", None) is None:
+            raise ValueError("save_tree requires a BUILT tree backend (use_tree=true / nn_method='ivf')")
+        int8 = self.quantization is not None
+        scale = float(self.bank_scale) if int8 and self.bank_scale is not None else None
+        row_scale_in_labels = int8 and self.bank_row_scale is not None
+        labels = self.labels
+        if row_scale_in_labels:
+            labels = torch.cat([self.labels.float(), self.bank_row_scale], dim=1)
+        return save_tree_state(
+            dir_path,
+            ivf_bank=self.bank,
+            ivf_labels=labels,
+            centroids=self.centroids,
+            leaf_valid=self.leaf_valid,
+            perm=self.perm,
+            slots=self.slots,
+            cap=self._cap,
+            valid_rows=self.valid_rows,
+            bank_scale=scale,
+            row_scale_in_labels=row_scale_in_labels,
+            col_scale=self.bank_col_scale,
+            asym=self.int8_asym,
+            chunk_rows=chunk_rows,
+        )
+
+    @classmethod
+    def load_tree(cls, dir_path: str, *, n_neighbors: int = 30, mesh=None, device=None, **kwargs):
+        """The tree backend from a save_tree() directory (either package's),
+        its slabs assembled on `device` (default: CUDA) chunk by chunk.
+        Search options (num_leaves_to_search, recall_target, ...) pass
+        through `kwargs`."""
+        from hbird_tpu_torch.bank.io import load_tree_state
+
+        if mesh is not None:
+            raise not_ported("a meshed tree", "modules to port, 'parallel/'")
+        state = load_tree_state(dir_path, device=device)
+        if state.pop("asym", False):
+            # A tree saved in int8_asym mode scores bf16 queries on the codes.
+            kwargs.setdefault("quantization", "int8_asym")
+        return cls.from_tree_state(
+            state["ivf_bank"], state["ivf_labels"], state["centroids"], state["leaf_valid"],
+            state["perm"], state["slots"], cap=state["cap"], valid_rows=state["valid_rows"],
+            n_neighbors=n_neighbors, bank_scale=state["bank_scale"],
+            bank_row_scale=state["bank_row_scale"], bank_col_scale=state["bank_col_scale"],
+            num_leaves=state["n_leaves"], device=state["ivf_bank"].device, **kwargs,
+        )

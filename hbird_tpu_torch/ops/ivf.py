@@ -19,6 +19,9 @@ hbird/nn/search_scann.py:26-27):
   Per-query probing (`probe_mode='query'`) scans each query's own leaves.
 - **Search**: K2 (`ivf_topk`) on CUDA tensors, `ivf_search_plain` on CPU
   tensors.
+- **Streamed build** (`build_tree_streamed`): the same tree from a
+  re-iterable stream of row windows (a .bankdir read from disk), in three
+  passes, so the device holds the slabs and one window, never the flat bank.
 
 Results order by value descending, then IVF slot ascending (the JAX
 package's XLA path breaks ties by probe order, its Pallas kernel by carry
@@ -314,6 +317,120 @@ def full_bank_lloyd(
             cnt += blk_cnt
         c = _new_centroids(sums, cnt, c, spherical)
     return c
+
+
+def build_tree_streamed(
+    slab_stream,
+    n_rows: int,
+    num_leaves: int,
+    *,
+    slack: float = 1.3,
+    n_choices: int = 3,
+    kmeans_iters: int = 12,
+    refine_rounds: int = 2,
+    sample_rows: int = 131072,
+    seed: int = 0,
+    mesh=None,
+):
+    """The tree's arrays from a re-iterable stream of row windows, without
+    the flat bank: three passes over the stream.
+
+    1. Sample: the rows the flat build samples (the same numpy draw over
+       global rows, in the same order), then k-means (its init from a CPU
+       generator seeded with `seed`) and the capacity refinement.
+    2. Assign: each window's top `n_choices` leaves, then the host greedy
+       layout over all rows.
+    3. Scatter: each window copied into the preallocated slabs.
+
+    `slab_stream` is a zero-argument callable returning an iterator of
+    (rows (n, D), labels (n, C) or None) tensors in the tree's store dtype,
+    identical on every call (windows read from disk again, or a seeded
+    generator), on the device that builds the tree: it holds the slabs and
+    one window, never the flat bank. `mesh` is not ported.
+
+    Returns dict(ivf_bank, ivf_labels, centroids, perm, slots, leaf_fill
+    (tensors on the device; perm, slots int64, leaf_fill int32), cap,
+    n_leaves, valid_rows, build_seconds (wall time of each stage)).
+    """
+    if mesh is not None:
+        from hbird_tpu_torch.nn.search_base import not_ported
+
+        raise not_ported("the meshed streamed tree build", "modules to port, 'parallel/'")
+    n_leaves, cap = tree_layout(n_rows, num_leaves, slack=slack)
+    n_slots = n_leaves * cap
+    times: Dict[str, float] = {}
+
+    # Pass 1: the sample, in the order of the draw.
+    sel = np.random.default_rng(seed).choice(n_rows, min(sample_rows, n_rows), replace=False)
+    sample = None
+    pos = 0
+    for rows, _ in slab_stream():
+        n = rows.shape[0]
+        if sample is None:
+            dev = rows.device
+            sample = torch.empty((sel.size, rows.shape[1]), dtype=torch.float32, device=dev)
+        hit = np.nonzero((sel >= pos) & (sel < pos + n))[0]
+        if hit.size:
+            sample[torch.as_tensor(hit, device=dev)] = rows[torch.as_tensor(sel[hit] - pos, device=dev)].float()
+        pos += n
+    if pos != n_rows:
+        raise ValueError(f"slab_stream yielded {pos} rows, n_rows says {n_rows}")
+    with phase_seconds(times, "kmeans", dev):
+        centroids = train_centroids(
+            sample, n_leaves, iters=kmeans_iters, generator=torch.Generator().manual_seed(seed)
+        )
+    if refine_rounds > 0:
+        with phase_seconds(times, "refine", dev):
+            centroids = refine_centroids_balanced(sample, centroids, slack=slack, rounds=refine_rounds)
+    del sample
+
+    # Pass 2: leaf choices per window, then the layout over all rows.
+    choices = np.empty((n_rows, n_choices), np.int32)
+    scores = np.empty((n_rows, n_choices), np.float32)
+    pos = 0
+    with phase_seconds(times, "assign", dev):
+        for rows, _ in slab_stream():
+            n = rows.shape[0]
+            choices[pos : pos + n], scores[pos : pos + n] = assign_leaves(
+                rows, centroids, n_choices=n_choices, return_scores=True
+            )
+            pos += n
+    with phase_seconds(times, "layout", dev):
+        slots, fill = balanced_layout(choices, n_leaves, cap, scores=scores)
+    del choices, scores
+
+    # Pass 3: each window into its slots.
+    slots_t = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+    ivf_bank = ivf_labels = None
+    pos = 0
+    with phase_seconds(times, "scatter", dev):
+        for rows, labs in slab_stream():
+            n = rows.shape[0]
+            sl = slots_t[pos : pos + n]
+            if ivf_bank is None:
+                ivf_bank = torch.zeros((n_slots, rows.shape[1]), dtype=rows.dtype, device=dev)
+            ivf_bank.index_copy_(0, sl, rows)
+            if labs is not None:
+                if ivf_labels is None:
+                    ivf_labels = torch.zeros((n_slots, labs.shape[1]), dtype=torch.float32, device=dev)
+                ivf_labels.index_copy_(0, sl, labs.to(dev).float())
+            pos += n
+    if ivf_labels is None:
+        ivf_labels = torch.zeros((n_slots, 1), dtype=torch.float32, device=dev)
+    perm = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
+    perm[slots_t] = torch.arange(n_rows, device=dev)
+    return dict(
+        ivf_bank=ivf_bank,
+        ivf_labels=ivf_labels,
+        centroids=centroids,
+        perm=perm,
+        slots=slots_t,
+        leaf_fill=torch.as_tensor(fill, dtype=torch.int32, device=dev),
+        cap=cap,
+        n_leaves=n_leaves,
+        valid_rows=n_rows,
+        build_seconds=times,
+    )
 
 
 # ----------------------------------------------------------------------

@@ -194,6 +194,51 @@ def test_check_flash_holds_the_stated_tolerance(smoke):
         smoke.check_flash("dtype", ref16, ref)
 
 
+def test_entry_point_phase_rehearses_on_cpu(smoke, monkeypatch):
+    """Phase 8 at the rehearsal's sizes: the CLI runs launch their kernel
+    once per eval batch, the reloads build nothing and repeat the mIoU, the
+    streamed builds equal the in-memory ones."""
+    monkeypatch.setattr(smoke, "STREAM_WINDOW", 1000)
+    monkeypatch.setattr(smoke, "STREAM_CLUSTERS", 16)
+    runs, _, _, _, q, _, _ = smoke.main_path(gen_seed=0)
+    cli_runs, launches, info = smoke.entry_point_path(0, q, runs["scann unbounded"]["miou"])
+    assert launches == {"knn_topk": 2, "ivf_topk": 3}
+    assert len(cli_runs) == 5 and all(r["wall_s"] > 0 for r in cli_runs.values())
+    assert cli_runs["cli scann, save .bankdir"]["miou"] == runs["scann unbounded"]["miou"]
+    assert cli_runs["cli scann, save .bankdir"]["phases"]["memory_build"]["items"] == 8
+    for label in ("cli scann, --load-memory", "cli ivf, --load-memory (streamed build)",
+                  "cli ivf, --load-memory .treedir"):
+        assert "items" not in cli_runs[label]["phases"]["memory_build"]
+        assert cli_runs[label]["phases"]["evaluate"]["items"] == 4
+    assert 0.0 < info["streamed_recall_at_30_vs_k1"] <= info["streamed_score_recall_at_30_vs_k1"] <= 1.0
+    assert set(info["streamed_split_s"]) == {"kmeans", "refine", "assign", "layout", "scatter"}
+    scale = info["streamed_at_scale"]
+    assert scale["rows"] == 3000 and scale["centroids_equal"] and scale["slots_equal_share"] == 1.0
+    assert scale["streamed_peak_bytes"] is None  # no device memory counters on the CPU
+    memory = info["bank_build_memory"]
+    assert set(memory) == {f"{e} {b}" for e in ("projection", "projection x8")
+                           for b in ("concatenated", "in_place")}
+    assert memory["projection in_place"]["bank_bytes"] == 8 * 16 * (384 + 21) * 4
+    assert memory["projection x8 concatenated"]["bank_bytes"] == 8 * 8 * 16 * (384 + 21) * 4
+    assert json.dumps(info)
+
+
+@pytest.mark.parametrize("part", ["centroids", "slots"])
+def test_streamed_build_at_scale_fails_when_builds_differ(smoke, monkeypatch, part):
+    monkeypatch.setattr(smoke, "STREAM_WINDOW", 1000)
+    monkeypatch.setattr(smoke, "STREAM_CLUSTERS", 16)
+    build = ivf_mod.build_tree_streamed
+
+    def off(*args, **kwargs):
+        parts = build(*args, **kwargs)
+        parts[part] = parts[part].flip(0)
+        return parts
+
+    monkeypatch.setattr(ivf_mod, "build_tree_streamed", off)
+    with pytest.raises(RuntimeError, match="differs from the in-memory build"):
+        smoke.streamed_build_at_scale()
+
+
 def test_main_path_mious_repeat(smoke):
     first = smoke.main_path(gen_seed=0)[0]
     second = smoke.main_path(gen_seed=0)[0]

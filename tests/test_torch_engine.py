@@ -428,28 +428,13 @@ def test_quantized_and_l2_engine_matches_jax(voc, tiny_vit, fixture, run):
     assert (np.abs(st - sj) <= tol).all(), np.abs(st - sj).max()
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"f_mem_p": "bank.npy"},
-        {"load_memory": True},
-        {"mesh": object()},
-    ],
-    ids=["persistence", "load_memory", "mesh"],
-)
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}], ids=["mesh"])
 def test_later_slices_raise(voc, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hbird_tpu_torch.hbird_evaluation(
             None, 3, PATCH, "voc", voc, batch_size=4, input_size=INPUT,
             ftr_extr_fn=oracle_t, num_workers=0, device="cpu", **kwargs,
         )
-
-
-def test_later_datasets_raise(voc):
-    tr = transforms.get_hbird_val_transforms(INPUT)
-    for name in ("ade20k", "cityscapes", "coco-thing"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            get_dataset(name, voc, 4, 0, tr, tr)
 
 
 def test_pad_batch_keeps_the_known_crash():

@@ -46,6 +46,7 @@ def _sources():
         ROOT / "tests" / "test_torch_knn_cuda.py",
         ROOT / "tests" / "test_torch_ivf_cuda.py",
         ROOT / "tests" / "test_torch_flash_cuda.py",
+        ROOT / "tests" / "test_torch_bank_cuda.py",
     ]
     assert len(files) > 20
     return files
