@@ -106,13 +106,14 @@ Phases; any failure raises and the script exits non-zero with no result:
    path's shape (Q=21,904, M=87,616) and against a 1,024,000-row bank
    (query-chunked bf16 torch.matmul + torch.topk), and in its forms int8,
    int8_rows (torch._int_mm + topk; at k = 30 and at k = 120, the `faiss`
-   int8 + reorder path's scan), asym_rows (a bf16 matmul against the codes
-   widened once) and l2 (torch.addmm with the bias) on both banks;
+   int8 + reorder path's scan), asym_rows and asym (a bf16 matmul against
+   the per-row or global codes widened once), l2 (torch.addmm with the
+   bias) and f32 (an f32 matmul) on both banks;
    K2 on the main path's tree (32 of 512 leaves) and on a tree of the
    1,024,000-row bank (cap 2,816, 32 of 512 leaves) (the probed slabs
    gathered per tile, then torch.bmm + torch.topk, chunked over tiles),
    and in its int8_rows and asym_rows forms on the same trees' slabs as
-   per-row codes; K3 at the main shape in bf16 and f32 and in bf16 at
+   per-row codes, int8 and asym as global codes, and f32; K3 at the main shape in bf16 and f32 and in bf16 at
    (1, 12, 4625, 64), at hd 32 (16, 12, 197, 32) and at hd 80 (16, 16,
    257, 80) (torch.nn.functional.scaled_dot_product_attention). K3 f32's
    bound is its work at f32 accuracy on the tensor cores (3 TF32 passes at
@@ -149,6 +150,30 @@ Phases; any failure raises and the script exits non-zero with no result:
    repair) and known (written in place), with a patch-mean projection to
    the ViT's width as the step, once over the fixture and once over 8
    augmentation epochs (a bank 8x larger beside the same step).
+9. The native tar feed, K1 on a bank mesh, the command line on the mesh,
+   one-process NCCL. 9.1: the native library (utils/native.py) built with
+   g++ (its time printed); an uncompressed VOC tar of phase 5's fixture;
+   the native index against tarfile (member lists equal, every member's
+   bytes identical, the index and the full read timed both ways); phase
+   5's unbounded 'scann' run fed from the tar: the folder's mIoU exactly,
+   memory_build img/s of both. 9.2: K1 over a ('bank',) mesh of
+   MESH_SHARDS shards stacked on one card (parallel/sharded_knn.py), on
+   phase 5's bank and eval batch and on a BIG_M-row bank, in bf16 dot,
+   int8 + reorder 120 and int8_rows (k = 30), by 'gather' and 'ring',
+   against unsharded K1: int8_rows bit for bit (values, ids, labels); dot
+   within the K1 tolerance, ids equal away from ties; reorder (each shard
+   reorders its own 120 candidates: a superset pool) every id re-scores to
+   its value and the sorted values are at least the unsharded run's within
+   the tolerance; every label row is its winner's; K1 launches 4 times a
+   call (gather) and 16 (ring) in the form asked for; each timed beside
+   the unsharded call, with the gather's merge and label fetch timed alone.
+   9.3: `eval_cli.main` with 'scann --mesh-bank 4 --mesh-devices
+   cuda:0,...' at phase 5's settings, saving .bankdirs, then reloading them
+   onto the mesh: mIoU within 1e-4 of phase 5's unsharded run, K1 launched
+   4 times per eval batch, the reload building nothing. 9.4: a process
+   group of one over tcp://127.0.0.1 on NCCL: sync_conf_mat returns its
+   input, PredsmIoU(sync_distributed=True) the unsynced result. With more
+   than one card, 9.2 and 9.3 run again over distinct cards.
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs); index
@@ -266,6 +291,7 @@ QUANT_RUNS = {
     "l2": ("faiss", {"distance_measure": "l2"}, True, ("knn_topk", "l2")),
 }
 ANISO_CODE_FLIPS = 0.02  # rows whose anisotropic codes may differ between devices (near-tied losses)
+MESH_SHARDS = 4  # phase 9: bank shards of the mesh (stacked on one card, or distinct cards)
 
 
 def fail(msg):
@@ -1092,10 +1118,11 @@ def main_path(gen_seed):
     return runs, launches, {"K1": err_k1, "K2": err_k2}, tree_info, q, bank, main_tree
 
 
-def _cli(label, argv, counters, kernel, idle, n_eval, runs):
+def _cli(label, argv, counters, kernel, idle, n_eval, runs, per_batch=1):
     """One `python -m hbird_tpu_torch.eval_cli` run in this process, its
-    counts set to 0 before and read after: `kernel` must launch once per
-    eval batch, `idle` never. Returns the run's --out summary."""
+    counts set to 0 before and read after: `kernel` must launch
+    `per_batch` times (once per bank shard) per eval batch, `idle` never.
+    Returns the run's --out summary."""
     from hbird_tpu_torch import eval_cli
 
     out = argv[argv.index("--out") + 1]
@@ -1107,8 +1134,9 @@ def _cli(label, argv, counters, kernel, idle, n_eval, runs):
     forms = read_forms(counters)
     with open(out) as f:
         summary = json.load(f)
-    if n[kernel] != n_eval or forms[kernel] != {"dot": n_eval} or n[idle]:
-        fail(f"entry point ({label}): launches by form {forms}, not {kernel} dot x {n_eval}")
+    want = n_eval * per_batch
+    if n[kernel] != want or forms[kernel] != {"dot": want} or n[idle]:
+        fail(f"entry point ({label}): launches by form {forms}, not {kernel} dot x {want}")
     if not (0.0 <= summary["miou"] <= 1.0):
         fail(f"entry point ({label}): mIoU {summary['miou']} not a finite value in [0, 1]")
     runs[label] = {"miou": summary["miou"], "launches": n, "forms": forms, "wall_s": wall,
@@ -1668,13 +1696,13 @@ def int8_library(q8, codes, k, rs=None, chunk=2048):
 
 
 def k1_form_rows(q, bb, label, k, reps, rows, errs):
-    """Phase 7: K1's forms (b)-(e) on the bank `bb` (bf16) and the queries
-    `q` (bf16): each timed beside its plain version, its bound and a
-    library yardstick (int8: torch._int_mm + topk; row scales applied to
-    its f32 result; asymmetric: a bf16 matmul against the codes widened to
-    bf16 once; l2: torch.addmm with the bias). The int8 forms at each k of
-    INT8_KS (the engine's k and `faiss` int8 + reorder's scan), the others
-    at `k`."""
+    """Phase 7: K1's forms (b)-(e) and f32 on the bank `bb` (bf16) and the
+    queries `q` (bf16; f32: both widened): each timed beside its plain
+    version, its bound and a library yardstick (int8: torch._int_mm + topk;
+    row scales applied to its f32 result; asymmetric: a bf16 matmul against
+    the codes widened to bf16 once; l2: torch.addmm with the bias; f32: an
+    f32 matmul, TF32 off). The int8 forms at each k of INT8_KS (the
+    engine's k and `faiss` int8 + reorder's scan), the others at `k`."""
     from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -1685,13 +1713,15 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
     codes_g = quantize_bank_int8(bb, per_row=False)[0]
     codes_r, scale = quantize_bank_int8(bb, per_row=True)
     rs = scale.reshape(-1)
-    wide = codes_r.to(torch.bfloat16)
+    wide, wide_g = codes_r.to(torch.bfloat16), codes_g.to(torch.bfloat16)
     neg_bias = (-l2_bias(bb)).to(torch.bfloat16)
+    q32, b32 = q.float(), bb.float()
     chunk = 2048
 
-    def asym_mm():
+    def asym_mm(widened, scale_rows):
         for s in range(0, n_q, chunk):
-            torch.topk((q[s:s + chunk] @ wide.T).float() * rs, k, dim=1)
+            x = q[s:s + chunk] @ widened.T
+            torch.topk(x if scale_rows is None else x.float() * scale_rows, k, dim=1)
 
     forms = {
         # form: (queries, bank, row_scale, distance, exact, library, bytes of q / bank row, peak, ks)
@@ -1699,9 +1729,14 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
                  1, 1, 0, PEAK_INT8_OPS, INT8_KS),
         "int8_rows": (q8, codes_r, rs, "dot_product", True, lambda: int8_library(q8, codes_r, k, rs, chunk),
                       1, 1, 4, PEAK_INT8_OPS, INT8_KS),
-        "asym_rows": (q, codes_r, rs, "dot_product", False, asym_mm, 2, 1, 4, PEAK_BF16_FLOPS, (k,)),
+        "asym_rows": (q, codes_r, rs, "dot_product", False, lambda: asym_mm(wide, rs), 2, 1, 4,
+                      PEAK_BF16_FLOPS, (k,)),
+        "asym": (q, codes_g, None, "dot_product", False, lambda: asym_mm(wide_g, None), 2, 1, 0,
+                 PEAK_BF16_FLOPS, (k,)),
         "l2": (q, bb, None, "l2", False, lambda: k1_library(q, bb, k, neg_bias, chunk), 2, 2, 0,
                PEAK_BF16_FLOPS, (k,)),
+        "f32": (q32, b32, None, "dot_product", False, lambda: k1_library(q32, b32, k, None, chunk), 4, 4, 0,
+                PEAK_F32_FLOPS, (k,)),
     }
     base_k = k
     for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak, ks) in forms.items():
@@ -1721,7 +1756,7 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
                                        "library_ms": lib_ms}
             print(f"  K1 {name} {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
                   f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})"
-                  + (f": {shares(ms, b_ms, lib_ms)}" if form != "asym_rows" else ""), flush=True)
+                  + (f": {shares(ms, b_ms, lib_ms)}" if not form.startswith("asym") else ""), flush=True)
 
 
 def select_load(scores, k, groups):
@@ -1836,9 +1871,11 @@ def k1_select_rows(q, bank, chunk=2048):
 
 
 def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
-    """Phase 7: K2's int8_rows and asym_rows forms on the tree's slabs as
-    per-row int8 codes (padding slots scale 0), probed as the bf16 tree is:
-    timed beside the plain version, the bound and the library yardstick."""
+    """Phase 7: K2's other forms on the tree's slabs, probed as the bf16
+    tree is: int8_rows and asym_rows on per-row int8 codes (padding slots
+    scale 0), int8 and asym on global-scale codes, f32 on the slabs in f32;
+    each timed beside the plain version, the bound and the library
+    yardstick."""
     from hbird_tpu_torch.ops.ivf import ivf_search_plain
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -1847,20 +1884,27 @@ def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
     codes, scale = quantize_bank_int8(tb, per_row=True)
     slot = torch.arange(tb.shape[0], device=tb.device)
     rs = torch.where(slot % cap < lv.long().repeat_interleave(cap), scale.reshape(-1), 0.0)
+    codes_g = quantize_bank_int8(tb, per_row=False)[0]
     q8 = quantize_queries_int8(qp)[0]
-    for form, qq, exact, qbytes, peak in (("int8_rows", q8, True, 1, PEAK_INT8_OPS),
-                                          ("asym_rows", qp, False, 2, PEAK_BF16_FLOPS)):
-        ms = cuda_ms(lambda: ivf_topk(qq, codes, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=rs), reps)
-        out = ivf_topk(qq, codes, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=rs)
+    forms = (  # form, queries, slabs, row scales, exact, bytes of q / slab row / row scale, peak
+        ("int8_rows", q8, codes, rs, True, 1, 1, 4, PEAK_INT8_OPS),
+        ("asym_rows", qp, codes, rs, False, 2, 1, 4, PEAK_BF16_FLOPS),
+        ("int8", q8, codes_g, None, True, 1, 1, 0, PEAK_INT8_OPS),
+        ("asym", qp, codes_g, None, False, 2, 1, 0, PEAK_BF16_FLOPS),
+        ("f32", qp.float(), tb.float(), None, False, 4, 4, 0, PEAK_F32_FLOPS),
+    )
+    for form, qq, sb, r, exact, qbytes, bbytes, rbytes, peak in forms:
+        ms = cuda_ms(lambda: ivf_topk(qq, sb, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r), reps)
+        out = ivf_topk(qq, sb, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r)
         box = {}
         plain_ms = cuda_ms(lambda: box.update(
-            out=ivf_search_plain(qq, codes, lids, lv, k + 1, cap=cap, row_scale=rs)), 1)
+            out=ivf_search_plain(qq, sb, lids, lv, k + 1, cap=cap, row_scale=r)), 1)
         errs["K2"] = max(errs["K2"], check_ivf_against_plain(
-            f"K2 timing shape {form} {label}", qq, codes, lids, lv, k, cap, BLOCK_Q, out, box.pop("out"),
-            row_scale=rs, exact=exact))
-        lib_ms = library_ms(lambda: ivf_library(qq, codes, lids, lv, k, cap, BLOCK_Q, row_scale=rs),
+            f"K2 timing shape {form} {label}", qq, sb, lids, lv, k, cap, BLOCK_Q, out, box.pop("out"),
+            row_scale=r, exact=exact))
+        lib_ms = library_ms(lambda: ivf_library(qq, sb, lids, lv, k, cap, BLOCK_Q, row_scale=r),
                             reps, f"K2 {form} {label}")
-        b_ms, b_by = ivf_bound_ms(qq.shape[0], lids, lv, d, k, qbytes, peak, bank_bytes=1, row_bytes=4)
+        b_ms, b_by = ivf_bound_ms(qq.shape[0], lids, lv, d, k, qbytes, peak, bank_bytes=bbytes, row_bytes=rbytes)
         rows[f"{form} {label}"] = {"form": form, "Q": qq.shape[0], "slots": codes.shape[0], "cap": cap,
                                    "n_probe": lids.shape[1], "block_q": BLOCK_Q, "D": d, "k": k, "ms": ms,
                                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -2083,6 +2127,250 @@ def pairs_k2(q, bank, label, record, reps):
         record("k2", f"{form} {label} {shape}", ms, bound, lib)
 
 
+def native_feed(gen_seed, folder_run):
+    """Phase 9.1: the native tar index (utils/native.py, built with g++)
+    against tarfile on an uncompressed VOC tar of phase 5's fixture, and
+    phase 5's unbounded 'scann' run fed from that tar (`folder_run` is the
+    same run fed from the folder): the same mIoU."""
+    import tarfile
+
+    from hbird_tpu_torch import hbird_evaluation
+    from hbird_tpu_torch.data.backend import TarBackend
+    from hbird_tpu_torch.data.synthetic import folder_to_tar, make_voc_fixture
+    from hbird_tpu_torch.models import VIT_PRESETS, ViT
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.utils import native
+    from hbird_tpu_torch.utils.profiling import PhaseTimer
+
+    info = {}
+    t0 = time.perf_counter()
+    cached = native.library_path().exists()
+    native.build()
+    info["gxx_s"] = time.perf_counter() - t0
+    print(f"  native library {native.library_path().name}: g++ {info['gxx_s']:.2f}s"
+          f"{' (already built)' if cached else ''}", flush=True)
+    counters = {"knn_topk": knn_topk, "ivf_topk": ivf_topk}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, tar = str(pathlib.Path(tmp) / "voc"), str(pathlib.Path(tmp) / "voc.tar")
+        make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
+        folder_to_tar(root, tar, "VOCSegmentation")
+        info["tar_bytes"] = pathlib.Path(tar).stat().st_size
+        t0 = time.perf_counter()
+        entries = native.tar_index(tar)
+        info["native_index_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with tarfile.open(tar) as t:
+            members = [m for m in t.getmembers() if m.isfile()]
+        info["tarfile_index_s"] = time.perf_counter() - t0
+        regular = [name for name, _, _, tf in entries if tf in ("0", "\x00")]
+        if sorted(regular) != sorted(m.name for m in members):
+            fail("the native tar index lists other members than tarfile")
+        backend = TarBackend(tar)
+        if backend._index is None:
+            fail("TarBackend did not take the native index for an uncompressed tar")
+        t0 = time.perf_counter()
+        native_bytes = {m: backend.read(m) for m in backend.members}
+        info["native_read_s"] = time.perf_counter() - t0
+        backend.close()
+        t0 = time.perf_counter()
+        with tarfile.open(tar) as t:
+            tar_bytes = {m.name: t.extractfile(m).read() for m in members}
+        info["tarfile_read_s"] = time.perf_counter() - t0
+        if native_bytes != tar_bytes:
+            fail("the native reads differ from tarfile's bytes")
+        info["members"] = len(regular)
+        print(f"  {len(regular)} members ({info['tar_bytes'] / 2**20:.1f} MiB): index native "
+              f"{info['native_index_s'] * 1e3:.2f} ms vs tarfile {info['tarfile_index_s'] * 1e3:.2f} ms; "
+              f"every member read native (pread) {info['native_read_s'] * 1e3:.2f} ms vs tarfile "
+              f"{info['tarfile_read_s'] * 1e3:.2f} ms; lists and bytes equal", flush=True)
+        cfg = VIT_PRESETS[PRESET]
+        vit = ViT(cfg, generator=torch.Generator().manual_seed(gen_seed))
+        timer = PhaseTimer()
+        random.seed(0)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", tar, nn_method="scann", batch_size=BATCH,
+                                input_size=INPUT, n_neighbours=30, num_workers=0, device=DEVICE, timer=timer)
+        wall = time.perf_counter() - t0
+        n = {name: fn.launches for name, fn in counters.items()}
+        if n["knn_topk"] < 1 or n["ivf_topk"]:
+            fail(f"scann fed from the tar: launches {n}")
+        if miou != folder_run["miou"]:
+            fail(f"scann fed from the tar: mIoU {miou}, from the folder {folder_run['miou']}")
+        runs["scann unbounded, tar feed"] = {"miou": miou, "launches": n, "forms": read_forms(counters),
+                                             "wall_s": wall, "phases": timer.summary()}
+        info["memory_build_img_per_s"] = {
+            "tar": timer.summary()["memory_build"]["items_per_sec"],
+            "folder": folder_run["phases"]["memory_build"]["items_per_sec"]}
+        print(f"  scann unbounded fed from the tar: mIoU {miou:.6f} (the folder's), memory_build img/s "
+              f"{json.dumps(info['memory_build_img_per_s'])}, wall {wall:.2f}s", flush=True)
+    return runs, info
+
+
+def mesh_k1_cases(q, bank, gen, devices):
+    """Phase 9.2: K1 over a ('bank',) mesh of len(devices) shards against
+    unsharded K1, on the main bank and on a BIG_M-row bank, in bf16 dot,
+    int8 + reorder 120 and int8_rows (k = 30), by 'gather' and 'ring'."""
+    from hbird_tpu_torch.ops.knn import knn_with_labels
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+    from hbird_tpu_torch.parallel import make_mesh, ring_knn_with_labels, sharded_knn_with_labels
+    from hbird_tpu_torch.parallel.sharded_knn import fetch_labels, merge_topk, shard_rows
+
+    k, c_reorder, n = 30, 120, len(devices)
+    mesh = make_mesh((n,), ("bank",), devices)
+    strategies = {"gather": (sharded_knn_with_labels, n), "ring": (ring_knn_with_labels, n * n)}
+    q32 = q.float()
+    qc, _ = quantize_queries_int8(q32)
+    tol = RTOL * q32.norm(dim=1).max().item()  # unit bank rows
+    rows, err = {}, 0.0
+    big = torch.nn.functional.normalize(
+        torch.randn(BIG_M, bank.shape[1], generator=gen, device=DEVICE), dim=1).to(torch.bfloat16)
+    for label, bb, reps in (("main", bank, 3), (f"bank_{BIG_M}", big, 2)):
+        m = bb.shape[0]
+        lab = torch.rand(m, 21, generator=gen, device=DEVICE)
+        codes, g_scale = quantize_bank_int8(bb.float(), per_row=False)
+        codes_r, r_scale = quantize_bank_int8(bb.float(), per_row=True)
+        forms = {
+            "dot": ((q, bb), {}, {}),
+            "int8+reorder": ((qc, codes), {"rerank_bank": bb, "rerank_queries": q, "rerank_candidates": c_reorder},
+                             {"rerank_bank": shard_rows(bb, mesh), "rerank_queries": q,
+                              "rerank_candidates": c_reorder}),
+            "int8_rows": ((qc, codes_r), {"row_scale": r_scale}, {"row_scale": shard_rows(r_scale, mesh)}),
+        }
+        del g_scale
+        lab_s = shard_rows(lab, mesh)
+        for form, ((qq, b), kw1, kwn) in forms.items():
+            kernel_form = {"dot": "dot", "int8+reorder": "int8", "int8_rows": "int8_rows"}[form]
+            b_s = shard_rows(b, mesh)
+            v0, i0, l0 = knn_with_labels(qq, b, lab, k, **kw1)
+            one_ms = cuda_ms(lambda: knn_with_labels(qq, b, lab, k, **kw1), reps)
+            row = {"M": m, "Q": q.shape[0], "k": k, "shards": n, "unsharded_ms": one_ms}
+            for strat, (fn, per_call) in strategies.items():
+                before, before_form = knn_topk.launches, knn_topk.forms[kernel_form]
+                v, i, lv = fn(qq, b_s, lab_s, k, mesh=mesh, valid_rows=m, **kwn)
+                sync()
+                if knn_topk.launches - before != per_call or knn_topk.forms[kernel_form] - before_form != per_call:
+                    fail(f"mesh {label} {form} {strat}: {knn_topk.launches - before} launches "
+                         f"({knn_topk.forms[kernel_form] - before_form} {kernel_form}), not {per_call}")
+                name = f"mesh {label} {form} {strat}"
+                if not torch.equal(lv, lab[i]):
+                    fail(f"{name}: labels are not the winners' rows")
+                if form == "int8_rows":
+                    if not (torch.equal(v, v0) and torch.equal(i, i0) and torch.equal(lv, l0)):
+                        fail(f"{name}: not bit for bit against unsharded K1")
+                    e = 0.0
+                elif form == "dot":
+                    pv, pi = knn_topk(qq, b, k + 1)
+                    e = _same_sets(name, v, i, pv, pi, k, torch.full_like(pv[:, 0], tol),
+                                   (v - v0).abs().max().item(), False)
+                    if (v - v0).abs().max().item() > tol:
+                        fail(f"{name}: values differ from unsharded K1 by more than {tol}")
+                else:  # each shard reorders its own candidates: a superset pool
+                    e = max((torch.einsum("qd,qkd->qk", q32[c0 : c0 + 2048], bb[i[c0 : c0 + 2048]].float())
+                             - v[c0 : c0 + 2048]).abs().max().item() for c0 in range(0, q.shape[0], 2048))
+                    if e > 2 * tol:
+                        fail(f"{name}: ids do not re-score to their values ({e})")
+                    if ((v - v0) < -tol).any():
+                        fail(f"{name}: sorted values below the unsharded run's")
+                err = max(err, e)
+                row[f"{strat}_ms"] = cuda_ms(lambda: fn(qq, b_s, lab_s, k, mesh=mesh, valid_rows=m, **kwn), reps)
+                row[f"{strat}_launches_per_call"] = per_call
+            # the gather's merge alone: n sets of k per query, then the labels
+            cand_v = torch.cat([v0] * n, dim=1)
+            cand_i = torch.cat([i0 + j * b_s[0].shape[0] for j in range(n)], dim=1)
+            row["merge_ms"] = cuda_ms(lambda: merge_topk(cand_v, cand_i, k, index_ordered=True), reps)
+            row["label_fetch_ms"] = cuda_ms(lambda: fetch_labels(i0, lab_s), reps)
+            row["merge_share_of_gather"] = (row["merge_ms"] + row["label_fetch_ms"]) / row["gather_ms"]
+            rows[f"{label} {form}"] = row
+            print(f"  K1 on {n} shards, {label} {form}: unsharded {one_ms:.3f} ms, gather {row['gather_ms']:.3f} "
+                  f"ms, ring {row['ring_ms']:.3f} ms; merge {row['merge_ms']:.3f} ms + labels "
+                  f"{row['label_fetch_ms']:.3f} ms ({100 * row['merge_share_of_gather']:.1f}% of the gather)",
+                  flush=True)
+            del b_s, v0, i0, l0
+    del big
+    return rows, err
+
+
+def mesh_cli(gen_seed, scann_miou, devices, label_prefix=""):
+    """Phase 9.3: `eval_cli.main` with 'scann --mesh-bank N' at phase 5's
+    settings, saving the bank as .bankdirs, then reloading them onto the
+    mesh: both mIoU within 1e-4 of phase 5's unsharded run, K1 launched
+    once per shard per eval batch."""
+    from hbird_tpu_torch.data.synthetic import make_voc_fixture
+    from hbird_tpu_torch.models import VIT_PRESETS
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    cfg = VIT_PRESETS[PRESET]
+    counters = {"knn_topk": knn_topk, "ivf_topk": ivf_topk}
+    n_eval = -(-FIXTURE["n_val"] // BATCH)
+    n = len(devices)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = str(pathlib.Path(tmp) / "voc")
+        make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
+        banks = ["--f-mem-p", str(pathlib.Path(tmp) / "f.bankdir"), "--l-mem-p", str(pathlib.Path(tmp) / "l.bankdir")]
+
+        def argv(label, *flags):
+            return ["--dataset-name", "voc", "--data-dir", root, "--model", PRESET, "--random-init",
+                    "--seed", str(gen_seed), "--d-model", str(cfg.width), "--patch-size", str(cfg.patch_size),
+                    "--input-size", str(INPUT), "--batch-size", str(BATCH), "--num-workers", "0",
+                    "--n-neighbours", "30", "--device", DEVICE, "--log-level", "WARNING",
+                    "--mesh-bank", str(n), "--mesh-devices", ",".join(str(d) for d in devices),
+                    "--out", str(pathlib.Path(tmp) / f"{label}.json"), *flags]
+
+        for label, flags in ((f"{label_prefix}cli scann --mesh-bank {n}, save .bankdir", banks),
+                             (f"{label_prefix}cli scann --mesh-bank {n}, --load-memory .bankdir onto the mesh",
+                              [*banks, "--load-memory"])):
+            out = _cli(label, argv(str(len(runs)), *flags), counters, "knn_topk", "ivf_topk", n_eval, runs,
+                       per_batch=n)
+            if abs(out["miou"] - scann_miou) > 1e-4:
+                fail(f"{label}: mIoU {out['miou']}, unsharded {scann_miou}")
+        loaded = runs[f"{label_prefix}cli scann --mesh-bank {n}, --load-memory .bankdir onto the mesh"]
+        if loaded["phases"]["memory_build"].get("items", 0) or "index_build" in loaded["phases"]:
+            fail(f"the .bankdir reload onto the mesh built its memory: {loaded['phases']}")
+    return runs
+
+
+def nccl_one_process():
+    """Phase 9.4: one process joins a process group of one over
+    tcp://127.0.0.1 (NCCL on the card): sync_conf_mat returns its input and
+    PredsmIoU(sync_distributed=True) the unsynced result."""
+    import numpy as np
+
+    from hbird_tpu_torch.parallel import distributed
+    from hbird_tpu_torch.utils.eval_metrics import PredsmIoU
+
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    distributed.initialize(f"tcp://127.0.0.1:{port}", num_processes=1, process_id=0, backend=backend)
+    try:
+        rng = np.random.default_rng(0)
+        conf = rng.integers(0, 1000, (21, 21))
+        if not np.array_equal(distributed.sync_conf_mat(conf), conf):
+            fail("sync_conf_mat over one process changed the matrix")
+        m = PredsmIoU(21, 21)
+        m.update_with_conf_mat(conf)
+        synced = m.compute(is_global_zero=True, sync_distributed=True, return_reordered=False)
+        plain = m.compute(is_global_zero=True, return_reordered=False)
+        if synced[:4] != plain[:4]:
+            fail("PredsmIoU(sync_distributed=True) differs from the unsynced result")
+    finally:
+        distributed.shutdown()
+    wall = time.perf_counter() - t0
+    print(f"  {backend} process group of one: sync_conf_mat and PredsmIoU(sync_distributed=True) equal "
+          f"their inputs ({wall:.2f}s with init)", flush=True)
+    return {"backend": backend, "seconds": wall}
+
+
 def kernel_entry(name, source, tpu_kernel, launches, err, rows, card, forms=None):
     """One kernel of the `kernels` line: the top-level numbers are its
     'main' shape row (the bf16 form at the main path's shape); `shapes`
@@ -2156,13 +2444,33 @@ def main(argv=()):
     select = k1_select_rows(q, bank)
     k3_rows, err_k3_timing = flash_timing(gen)
     forward = forward_timing(0, gen)
-    del main_tree, bank
+    del main_tree
 
     phase(f"[8] the command line, bank and index persistence, the streamed build ({card})")
     cli_runs, cli_launches, persistence = entry_point_path(0, q, runs["scann unbounded"]["miou"])
     runs.update(cli_runs)
     for name, n in cli_launches.items():
         launches[name] += n
+
+    phase(f"[9] the native tar feed, K1 on a bank mesh, the command line on the mesh, NCCL ({card})")
+    scann_run = runs["scann unbounded"]
+    feed_runs, feed = native_feed(0, scann_run)
+    one_card = [torch.device("cuda", torch.cuda.current_device())] * MESH_SHARDS
+    mesh_rows, err_mesh = mesh_k1_cases(q, bank, gen, one_card)
+    mesh_runs = mesh_cli(0, scann_run["miou"], one_card)
+    nccl = nccl_one_process()
+    distinct = {}
+    if torch.cuda.device_count() > 1:  # never taken on a one-card machine
+        cards = [torch.device("cuda", i) for i in range(min(MESH_SHARDS, torch.cuda.device_count()))]
+        distinct["k1"], err_distinct = mesh_k1_cases(q, bank, gen, cards)
+        err_mesh = max(err_mesh, err_distinct)
+        mesh_runs.update(mesh_cli(0, scann_run["miou"], cards, label_prefix="distinct cards: "))
+    del bank
+    for new_runs in (feed_runs, mesh_runs):
+        runs.update(new_runs)
+        for run in new_runs.values():
+            for name in launches:
+                launches[name] += run["launches"][name]
 
     forms = {name: {} for name in ("knn_topk", "ivf_topk", "flash_attention")}  # main-path launches by form
     for run in runs.values():
@@ -2171,7 +2479,7 @@ def main(argv=()):
                 forms[name][form] = forms[name].get(form, 0) + n
     kernels = {"kernels": [
         kernel_entry("knn_topk (K1)", "hbird_tpu_torch/ops/csrc/knn_topk.cu", TPU_KERNELS["K1"],
-                     launches["knn_topk"], max(err_k1, err_main["K1"], err_timing["K1"]), k1_rows,
+                     launches["knn_topk"], max(err_k1, err_main["K1"], err_timing["K1"], err_mesh), k1_rows,
                      card, forms["knn_topk"]),
         kernel_entry("ivf_topk (K2)", "hbird_tpu_torch/ops/csrc/ivf_topk.cu", TPU_KERNELS["K2"],
                      launches["ivf_topk"], max(err_k2, err_main["K2"], err_timing["K2"]), k2_rows,
@@ -2181,8 +2489,8 @@ def main(argv=()):
                      max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
-        "hopper_build": build, "persistence": persistence,
-        "seconds": time.perf_counter() - t_start}
+        "hopper_build": build, "persistence": persistence, "native_feed": feed, "mesh_k1": mesh_rows,
+        "mesh_distinct_cards": distinct, "nccl": nccl, "seconds": time.perf_counter() - t_start}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

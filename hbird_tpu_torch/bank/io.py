@@ -23,8 +23,10 @@ A .treedir's slabs are uint16 bits under the slab manifest dtype "uint16",
 with "bfloat16" in tree_meta.json, as the JAX package writes them. Flat
 files widen bf16 to f32: they carry no dtype to view the bits back with.
 
-Not ported (raising): `mesh=` placement and the multi-process .bankdir
-writer (parallel/).
+`load_memory_sharded(..., mesh=)` reads a .bankdir straight into padded
+row shards over a mesh's bank axis (parallel/). Not ported yet (raising):
+a .treedir placed on a mesh and the multi-process .bankdir writer, the
+next slice of ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -37,11 +39,10 @@ import numpy as np
 import torch
 
 from hbird_tpu_torch.device import resolve_device
-from hbird_tpu_torch.nn.search_base import not_ported
+from hbird_tpu_torch.nn.search_base import NEXT_SLICE, not_ported
 
 SHARDED_MANIFEST = "manifest.json"
 TREE_META = "tree_meta.json"
-_PARALLEL = "modules to port, 'parallel/'"
 
 
 def _dtype_name(dtype) -> str:
@@ -204,16 +205,32 @@ def _read_rows(dir_path: str, manifest: dict, start: int, stop: int) -> torch.Te
     return out
 
 
-def load_memory_sharded(dir_path: str, *, mesh=None, dtype=None, device=None):
+def load_memory_sharded(dir_path: str, *, mesh=None, bank_axis: str = "bank", dtype=None, device=None):
     """A .bankdir as one tensor on `device` (default: CUDA; pass
     device='cpu' for a host tensor), in the manifest's dtype or `dtype`,
-    assembled chunk by chunk: peak host memory is one chunk. `mesh`
-    placement is not ported."""
-    if mesh is not None:
-        raise not_ported("loading a .bankdir onto a mesh", _PARALLEL)
-    dev = resolve_device(device)
+    assembled chunk by chunk: peak host memory is one chunk.
+
+    With `mesh`: `(shards, rows)`, the rows zero-padded to
+    `pad_rows_for_mesh` and split into one shard per device of the mesh's
+    `bank_axis` (parallel/sharded_knn.py's layout), each read from disk
+    straight onto its device; `rows` is the real row count."""
     manifest = sharded_memory_info(dir_path)
     out_dtype = dtype or _torch_dtype(manifest["dtype"])
+    if mesh is not None:
+        from hbird_tpu_torch.parallel.sharded_knn import pad_rows_for_mesh
+
+        rows, dim = manifest["rows"], manifest["dim"]
+        devices = mesh.axis_devices(bank_axis)
+        per = pad_rows_for_mesh(rows, len(devices)) // len(devices)
+        shards = []
+        for j, dev in enumerate(devices):
+            shard = torch.zeros((per, dim), dtype=out_dtype, device=dev)
+            lo, hi = min(j * per, rows), min((j + 1) * per, rows)
+            if hi > lo:
+                shard[: hi - lo] = _read_rows(dir_path, manifest, lo, hi).to(dev).to(out_dtype)
+            shards.append(shard)
+        return shards, rows
+    dev = resolve_device(device)
     out = torch.empty((manifest["rows"], manifest["dim"]), dtype=out_dtype, device=dev)
     for start, blk in iter_memory_chunks(dir_path):
         out[start : start + blk.shape[0]] = blk.to(out.device).to(out_dtype)
@@ -258,7 +275,7 @@ def tree_path_on_disk(path: str) -> Optional[str]:
 
 def _save_rows_distributed(arr, dir_path: str) -> None:
     """The multi-process writer (each process writes the rows it holds)."""
-    raise not_ported("the multi-process .bankdir writer", _PARALLEL)
+    raise not_ported("the multi-process .bankdir writer", NEXT_SLICE)
 
 
 def _storage_blocks(arr, chunk_rows: int, dtype=None):
@@ -342,7 +359,7 @@ def load_tree_state(dir_path: str, *, mesh=None, device=None) -> dict:
     assembled on the device chunk by chunk (peak device memory: the slabs,
     the labels and one chunk; peak host memory: one chunk)."""
     if mesh is not None:
-        raise not_ported("loading a .treedir onto a mesh", _PARALLEL)
+        raise not_ported("loading a .treedir onto a mesh", NEXT_SLICE)
     dev = resolve_device(device)
     with open(os.path.join(dir_path, TREE_META)) as f:
         meta = json.load(f)

@@ -15,7 +15,7 @@ import io
 import os
 import tarfile
 import threading
-from typing import List
+from typing import Dict, List, Optional, Tuple
 
 from PIL import Image
 
@@ -28,6 +28,20 @@ def looks_like_tar(path: str) -> bool:
 
 def norm_member(name: str) -> str:
     return name[2:] if name.startswith("./") else name
+
+
+def is_native_tar(path: str) -> bool:
+    """An uncompressed archive, which the native header scan reads."""
+    return path.lower().endswith(".tar")
+
+
+def native_tar_files(tar_path: str) -> List[Tuple[str, int, int]]:
+    """(name, payload offset, size) of each regular file of an
+    uncompressed tar, by the native header scan (utils/native.py); raises
+    when the library cannot be built or loaded."""
+    from hbird_tpu_torch.utils import native
+
+    return [(name, off, size) for name, off, size, tf in native.tar_index(tar_path) if tf in ("0", "\x00")]
 
 
 def stem(path: str) -> str:
@@ -49,12 +63,25 @@ class FolderBackend:
 
 
 class TarBackend:
-    """Reads members from a tar archive through one lazily-opened tarfile
-    handle per thread."""
+    """Reads members from a tar archive.
+
+    Uncompressed tars (`.tar`): the native C++ header scan
+    (native/hbird_native.cpp) builds a name -> (offset, size) index once,
+    and member payloads are served by pread(2) on a per-thread file
+    descriptor, with no Python header parsing on the hot path. A `.tar`
+    whose library cannot be built or loaded raises. Compressed tars, which
+    the native scan cannot read, use one lazily-opened tarfile handle per
+    thread.
+    """
 
     def __init__(self, tar_path: str):
         self.tar_path = tar_path
         self._local = threading.local()
+        self._index: Optional[Dict[str, Tuple[int, int]]] = None
+        if is_native_tar(tar_path):
+            self._index = {norm_member(name): (off, size) for name, off, size in native_tar_files(tar_path)}
+            self.members: List[str] = sorted(self._index)
+            return
         with tarfile.open(tar_path, "r:*") as t:
             self.members = [norm_member(m.name) for m in t.getmembers() if m.isfile()]
 
@@ -65,7 +92,20 @@ class TarBackend:
             self._local.tar = t
         return t
 
+    def _fd(self) -> int:
+        fd = getattr(self._local, "fd", None)
+        if fd is None:
+            fd = os.open(self.tar_path, os.O_RDONLY)
+            self._local.fd = fd
+        return fd
+
     def read(self, member: str) -> bytes:
+        if self._index is not None:
+            entry = self._index.get(norm_member(member))
+            if entry is None:
+                raise FileNotFoundError(f"{member} not in {self.tar_path}")
+            offset, size = entry
+            return os.pread(self._fd(), size, offset)
         t = self._tar()
         try:
             f = t.extractfile(member)
@@ -92,12 +132,16 @@ class TarBackend:
         self._local = threading.local()
 
     # Threads die with the process; handles are closed by GC. Provide an
-    # explicit close for tests.
+    # explicit close (this thread's handle and descriptor).
     def close(self):
         t = getattr(self._local, "tar", None)
         if t is not None:
             t.close()
             self._local.tar = None
+        fd = getattr(self._local, "fd", None)
+        if fd is not None:
+            os.close(fd)
+            self._local.fd = None
 
 
 def make_backend(root: str):

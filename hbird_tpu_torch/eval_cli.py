@@ -12,8 +12,14 @@ cache).
 Two flags of the JAX command configure JAX alone and have no counterpart:
 --platform (the JAX backend; here --device) and --compilation-cache (the
 XLA compile cache; nothing is compiled here beyond the CUDA kernels, which
-cache themselves under build/). --mesh-bank raises until parallel/ is
-ported.
+cache themselves under build/).
+
+--mesh-bank N shards the flat bank over N devices (parallel/): by default
+the first N CUDA cards, as the JAX command takes the first N devices. One
+flag is the port's own: --mesh-devices lists the mesh's devices, and a
+device may repeat (cuda:0,cuda:0,cuda:0,cuda:0 stacks four shards on one
+card; cpu,cpu,... with --device cpu). The JAX command has no such flag
+because a JAX mesh needs distinct devices.
 
 Examples:
     python -m hbird_tpu_torch.eval_cli --dataset-name voc --data-dir /data/voc \\
@@ -97,7 +103,8 @@ class RunConfig:
 
     nn: NNBackend = field(default_factory=NNBackend)
 
-    mesh_bank: Optional[int] = None  # shard the bank over N devices (not ported)
+    mesh_bank: Optional[int] = None  # shard the bank over N devices
+    mesh_devices: Optional[str] = None  # comma-separated devices of that mesh (may repeat)
     bf16_bank: bool = False
     # The JAX command's `platform` and `compilation_cache` configure JAX and
     # have no counterpart here.
@@ -240,14 +247,19 @@ def run(cfg: RunConfig) -> Dict[str, Any]:
     """Evaluate as configured; returns (and with --out writes) the summary:
     the mIoU and the engine's phase times."""
     from hbird_tpu_torch.hbird_eval import hbird_evaluation
-    from hbird_tpu_torch.nn.search_base import not_ported
     from hbird_tpu_torch.utils.profiling import PhaseTimer
 
     logger = logging.getLogger("eval")
     logger.info("===== Hummingbird Evaluation (PyTorch) =====")
     logger.info("Config: %s", json.dumps(_public_config_dict(cfg), indent=2))
+    mesh = None
     if cfg.mesh_bank:
-        raise not_ported("--mesh-bank (a device mesh)", "modules to port, 'parallel/'")
+        from hbird_tpu_torch.parallel import make_mesh
+
+        devices = cfg.mesh_devices.split(",") if cfg.mesh_devices else None
+        mesh = make_mesh((cfg.mesh_bank,), ("bank",), devices)
+    elif cfg.mesh_devices:
+        raise ValueError("--mesh-devices needs --mesh-bank")
 
     set_seed(cfg.seed)
     if cfg.profile_dir:
@@ -281,6 +293,7 @@ def run(cfg: RunConfig) -> Dict[str, Any]:
         seed=cfg.seed or 123,
         bf16_bank=cfg.bf16_bank,
         bf16_model=cfg.amp,
+        mesh=mesh,
         timer=timer,
     )
 
@@ -399,7 +412,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "eval.py:207-234) and run the live torch module. "
                         "Needs network or cached hub models.")
     p.add_argument("--mesh-bank", type=int, default=None,
-                   help="Shard the memory bank over N devices (not ported yet).")
+                   help="Shard the memory bank over N devices (default: the first N CUDA cards).")
+    p.add_argument("--mesh-devices", default=None,
+                   help="Comma-separated devices of the --mesh-bank mesh; a device may repeat "
+                        "(cuda:0,cuda:0,cuda:0,cuda:0 stacks four shards on one card). Not in the "
+                        "JAX command, whose meshes need distinct devices.")
     p.add_argument("--bf16-bank", action="store_true",
                    help="Store the bank in bfloat16 (faiss useFloat16 analogue).")
     # Misc
@@ -480,6 +497,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             nn_params=nn_params or None,
         ),
         mesh_bank=args.mesh_bank,
+        mesh_devices=args.mesh_devices,
         loader_mode=args.loader_mode,
         device_normalize=not bool(args.host_normalize),
         bf16_bank=bool(args.bf16_bank),

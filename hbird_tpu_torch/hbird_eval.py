@@ -41,11 +41,20 @@ them instead of building (a .treedir as it was saved; .bankdirs with a tree
 backend through the streamed tree build; flat files through the usual
 index build), and falls back to a build when nothing is on disk.
 
-Not ported yet (raises): device meshes (parallel/).
+A device mesh (parallel/mesh.py; a device may repeat): its 'bank' axis
+shards the flat bank's rows (K1 once per shard, parallel/sharded_knn.py),
+and the bank is accumulated padded to equal shards (`pad_rows_for_mesh`),
+its real rows carried as `valid_rows`. Its 'data' axis splits each batch's
+backbone forward over the axis's devices (the batch padded to a multiple of
+the axis), and the rest of each step runs on the engine's device. A tree
+on a bank mesh is the next slice (ROADMAP queue 1) and raises. With several
+processes (parallel/distributed.py) each process feeds its own data and
+the confusion matrices are summed across them before scoring.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -67,8 +76,11 @@ from hbird_tpu_torch.device import resolve_device
 from hbird_tpu_torch.models.extractor import FeatureExtractor, FeatureExtractorSimple
 from hbird_tpu_torch.models.vit import ViT
 from hbird_tpu_torch.nn.search_approx import NearestNeighborSearchApprox
-from hbird_tpu_torch.nn.search_base import not_ported
+from hbird_tpu_torch.nn.search_base import bank_mesh
 from hbird_tpu_torch.nn.search_exact import NearestNeighborSearchExact
+from hbird_tpu_torch.parallel.distributed import process_count
+from hbird_tpu_torch.parallel.mesh import canonical_device
+from hbird_tpu_torch.parallel.sharded_knn import pad_rows_for_mesh
 from hbird_tpu_torch.utils.eval_metrics import PredsmIoU, confusion_matrix
 from hbird_tpu_torch.utils.logging import get_logger
 from hbird_tpu_torch.utils.profiling import PhaseTimer, maybe_trace
@@ -131,8 +143,15 @@ class HbirdEvaluation:
             with load_memory, where to restore them from); see the module
             docstring for the formats.
         load_memory: restore the memory or index instead of building it.
+        mesh: a parallel.mesh.Mesh ('bank' shards the flat bank, 'data'
+            splits each batch's forward); see the module docstring.
         timer: PhaseTimer to record the phases in (a fresh one by default).
     """
+
+    # Defaults for engines made without __init__ (injection paths).
+    mesh = None
+    _data_devices: Optional[List[torch.device]] = None
+    _bank_valid_rows: Optional[int] = None
 
     def __init__(
         self,
@@ -156,14 +175,18 @@ class HbirdEvaluation:
         load_memory: bool = False,
         timer: Optional[PhaseTimer] = None,
     ) -> None:
-        if mesh is not None:
-            raise not_ported("a device mesh", "modules to port, 'parallel/'")
         method = _NN_ALIASES.get(nn_method.lower())
         if method is None:
             raise AssertionError(
                 "Only faiss/exact, scann/approx and ivf/tree are supported"
             )
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._data_devices = (
+            mesh.axis_devices("data") if mesh is not None and mesh.shape.get("data", 1) > 1 else None
+        )
+        self._replicas: Dict[torch.device, Any] = {}
+        self._bank_valid_rows: Optional[int] = None
         self._device_norm = device_norm
         self.nn_params = dict(nn_params or {})
         self.feature_extractor = feature_extractor
@@ -243,6 +266,38 @@ class HbirdEvaluation:
     def _put_batch(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
 
+    def _pad_target(self, n: int) -> int:
+        """Batch size: the first batch's, rounded up to split evenly over
+        the mesh's 'data' axis."""
+        d = len(self._data_devices) if self._data_devices else 1
+        return -(-n // d) * d
+
+    def _replica(self, dev: torch.device):
+        """The feature extractor on `dev`: itself on the engine's device,
+        else a copy whose module is moved there (made once)."""
+        dev = canonical_device(dev)
+        if dev == canonical_device(self.device):
+            return self.feature_extractor
+        if dev not in self._replicas:
+            rep = copy.deepcopy(self.feature_extractor)
+            for name in ("vit", "model"):
+                module = getattr(rep, name, None)
+                if isinstance(module, torch.nn.Module):
+                    module.to(dev)
+            self._replicas[dev] = rep
+        return self._replicas[dev]
+
+    def _forward_features(self, imgs: torch.Tensor) -> torch.Tensor:
+        """(B, N, D) backbone features on the engine's device. With a 'data'
+        axis the batch splits evenly over its devices; every slice is
+        launched before any result moves back."""
+        if self._data_devices is None:
+            return self.feature_extractor.forward_features(self._prep_images(imgs))[0]
+        parts = []
+        for dev, x in zip(self._data_devices, imgs.chunk(len(self._data_devices))):
+            parts.append(self._replica(dev).forward_features(self._prep_images(x.to(dev)))[0])
+        return torch.cat([f.to(self.device) for f in parts])
+
     def _prep_images(self, imgs: torch.Tensor) -> torch.Tensor:
         """uint8 batches are normalized on the device: (x/255 - mean)/std."""
         if imgs.dtype != torch.uint8:
@@ -270,7 +325,7 @@ class HbirdEvaluation:
         c = self.num_classes
         y = self._mask_ids(masks)
         y = torch.where(y == 255, torch.zeros_like(y), y)
-        feats, _ = fe.forward_features(self._prep_images(imgs))  # (B, N, D)
+        feats = self._forward_features(imgs)  # (B, N, D)
         patch_size = imgs.shape[-1] // fe.eval_spatial_resolution
         pgt = patchify_gt(y, patch_size)  # (B, S, S, P)
         label = patch_soft_labels(pgt, c)  # (B, S, S, C)
@@ -296,7 +351,11 @@ class HbirdEvaluation:
         shorter than dataset_size says leaves a trimmed copy; rows beyond
         the count (a longer feed) wait on the host and are joined to the
         bank there after the build. Without dataset_size the steps' slabs
-        are concatenated after the build."""
+        are concatenated after the build.
+
+        With a bank mesh the allocation is padded to equal shards
+        (`pad_rows_for_mesh`) and kept padded; its real rows go to the
+        backend as `valid_rows`."""
         d, c = self.feature_extractor.d_model, self.num_classes
         esr = self.feature_extractor.eval_spatial_resolution
         alloc = None
@@ -306,9 +365,11 @@ class HbirdEvaluation:
             if self.memory_size is not None:
                 alloc = min(alloc, self.memory_size)
         bank = labels_bank = None
+        meshed = bank_mesh(self.mesh) is not None
         if alloc is not None:
-            bank = torch.zeros((alloc, d), dtype=torch.float32, device=self.device)
-            labels_bank = torch.zeros((alloc, c), dtype=torch.float32, device=self.device)
+            alloc_rows = pad_rows_for_mesh(alloc, self.mesh.shape["bank"]) if meshed else alloc
+            bank = torch.zeros((alloc_rows, d), dtype=torch.float32, device=self.device)
+            labels_bank = torch.zeros((alloc_rows, c), dtype=torch.float32, device=self.device)
         feature_chunks: List[torch.Tensor] = []
         label_chunks: List[torch.Tensor] = []
         rows = 0
@@ -319,7 +380,7 @@ class HbirdEvaluation:
                 x = _as_batch(x)
                 y = _as_batch(y)
                 if batch_size is None:
-                    batch_size = x.shape[0]
+                    batch_size = self._pad_target(x.shape[0])
                 x, valid = _pad_batch(x, batch_size)
                 y, _ = _pad_batch(y, batch_size)
                 feats, labels = self._memory_step(self._put_batch(x), self._put_batch(y))
@@ -364,6 +425,9 @@ class HbirdEvaluation:
             bank = torch.cat([bank.cpu(), *feature_chunks])
             labels_bank = torch.cat([labels_bank.cpu(), *label_chunks])
             bank, labels_bank = bank.to(self.device), labels_bank.to(self.device)
+        elif meshed:
+            # Kept padded to equal shards; the padding is masked out.
+            self._bank_valid_rows = rows
         elif rows < alloc:
             # A copy: a view would keep the whole allocation alive.
             bank, labels_bank = bank[:rows].clone(), labels_bank[:rows].clone()
@@ -385,12 +449,13 @@ class HbirdEvaluation:
         (_save_tree_if_requested); the label save does not depend on it."""
         from hbird_tpu_torch.bank.io import is_tree_path, save_memory
 
+        rows = self._bank_valid_rows  # a meshed bank's padding is not saved
         if self.f_mem_p is not None and not is_tree_path(self.f_mem_p):
             # save_memory may append '.npy': keep the path written.
-            self.f_mem_p = save_memory(self.feature_memory, self.f_mem_p)
+            self.f_mem_p = save_memory(self.feature_memory[:rows], self.f_mem_p)
             logger.info("Saved feature memory to: %s", self.f_mem_p)
         if self.l_mem_p is not None:
-            self.l_mem_p = save_memory(self.label_memory, self.l_mem_p)
+            self.l_mem_p = save_memory(self.label_memory[:rows], self.l_mem_p)
             logger.info("Saved label memory to: %s", self.l_mem_p)
 
     def _save_tree_if_requested(self) -> None:
@@ -402,7 +467,7 @@ class HbirdEvaluation:
         if self.f_mem_p is None or not is_tree_path(self.f_mem_p):
             return
         if not getattr(self.NN_algorithm, "use_tree", False):
-            fallback = save_memory(self.feature_memory, self.f_mem_p + ".flat")
+            fallback = save_memory(self.feature_memory[: self._bank_valid_rows], self.f_mem_p + ".flat")
             logger.warning(
                 "f_mem_p=%s requests a tree save but the backend is not a tree (nn_method=%s); "
                 "saved the FLAT feature memory to %s instead. Use nn_method='ivf' for a tree, "
@@ -424,12 +489,14 @@ class HbirdEvaluation:
           streamed tree build from disk windows (the flat bank is never
           assembled).
         - otherwise both flat files: loaded onto the device, then the usual
-          index build.
+          index build; with a bank mesh, .bankdirs load straight into
+          padded shards (bank/io.py::load_memory_sharded).
         A recall_target without num_leaves_to_search calibrates the probe
         count of a tree, as after a build."""
         from hbird_tpu_torch.bank.io import (
             is_sharded_path,
             load_memory,
+            load_memory_sharded,
             memory_path_on_disk,
             tree_path_on_disk,
         )
@@ -441,7 +508,8 @@ class HbirdEvaluation:
             )
             kwargs = {k: v for k, v in self.nn_params.items() if k in search_keys}
             self.NN_algorithm = NearestNeighborSearchApprox.load_tree(
-                self.f_mem_p, n_neighbors=self.n_neighbours, device=self.device, **kwargs
+                self.f_mem_p, n_neighbors=self.n_neighbours, mesh=bank_mesh(self.mesh), device=self.device,
+                **kwargs,
             )
             self.feature_memory = self.label_memory = None
             logger.info("Loaded built tree index from: %s", self.f_mem_p)
@@ -464,15 +532,23 @@ class HbirdEvaluation:
             kwargs.pop("use_tree", None)
             kwargs.pop("use_fp16", None)
             self.NN_algorithm = NearestNeighborSearchApprox.from_bankdir(
-                self.f_mem_p, self.l_mem_p, n_neighbors=self.n_neighbours, device=self.device,
-                **kwargs,
+                self.f_mem_p, self.l_mem_p, n_neighbors=self.n_neighbours, mesh=bank_mesh(self.mesh),
+                device=self.device, **kwargs,
             )
             self.feature_memory = self.label_memory = None
             logger.info("Loaded .bankdir memory via the streamed tree build.")
             self._finish_nn(kwargs)
             return True
-        self.feature_memory = load_memory(self.f_mem_p, device=self.device)
-        self.label_memory = load_memory(self.l_mem_p, device=self.device)
+        if bank_mesh(self.mesh) is not None and is_sharded_path(self.f_mem_p) and is_sharded_path(self.l_mem_p):
+            self.feature_memory, self._bank_valid_rows = load_memory_sharded(
+                self.f_mem_p, mesh=self.mesh, dtype=torch.float32, device=self.device
+            )
+            self.label_memory, _ = load_memory_sharded(
+                self.l_mem_p, mesh=self.mesh, dtype=torch.float32, device=self.device
+            )
+        else:
+            self.feature_memory = load_memory(self.f_mem_p, device=self.device)
+            self.label_memory = load_memory(self.l_mem_p, device=self.device)
         self._create_nn(self.n_neighbours, nn_method=self.nn_method, **self.nn_params)
         logger.info("Loaded memory from disk.")
         return True
@@ -501,10 +577,14 @@ class HbirdEvaluation:
     def _create_nn(self, n_neighbours: int = 30, nn_method: str = "exact", **kwargs):
         logger.info("Building NN index: method=%s, k=%d", nn_method, n_neighbours)
         cls, kwargs = self._nn_cls_kwargs(nn_method, **kwargs)
+        if self._bank_valid_rows is not None:
+            # A meshed bank arrives padded to equal shards.
+            kwargs.setdefault("valid_rows", self._bank_valid_rows)
         self.NN_algorithm = cls(
             self.feature_memory,
             n_neighbors=n_neighbours,
             label_memory=self.label_memory,
+            mesh=bank_mesh(self.mesh),
             device=self.device,
             **kwargs,
         )
@@ -533,7 +613,7 @@ class HbirdEvaluation:
         c = self.num_classes
         k = self.n_neighbours
         b, _, h, w = imgs.shape
-        feats, _ = self.feature_extractor.forward_features(self._prep_images(imgs))
+        feats = self._forward_features(imgs)
         d = feats.shape[-1]
         q = feats.reshape(-1, d)
         state = nn.device_state
@@ -612,7 +692,7 @@ class HbirdEvaluation:
                 x = _as_batch(x)
                 y = _as_batch(y)
                 if batch_size is None:
-                    batch_size = x.shape[0]
+                    batch_size = self._pad_target(x.shape[0])
                 x, valid = _pad_batch(x, batch_size)
                 # Padded images: all-ignore GT so they don't touch the metric.
                 ign = ignore_index if ignore_index is not None else 255
@@ -636,7 +716,7 @@ class HbirdEvaluation:
         self.timer.add_items("evaluate", n_imgs)
         with self.timer.phase("metric_compute"):
             jac, tp, fp, fn, reordered_preds, matched_bg_clusters = metric.compute(
-                is_global_zero=True, return_reordered=False
+                is_global_zero=True, return_reordered=False, sync_distributed=process_count() > 1
             )
         if return_knn_details:
             details_out = {

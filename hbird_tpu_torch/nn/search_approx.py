@@ -29,7 +29,11 @@ banks (the flat bank never on the device), and `save_tree`/`load_tree`
 write and read a built tree as a .treedir (bank/io.py), in the JAX
 package's format.
 
-Not ported yet, and raising rather than falling back: `mesh` (parallel/).
+A flat bank on a `mesh` with a 'bank' axis is sharded over it and searched
+by K1 once per shard, merged by 'gather' (parallel/sharded_knn.py), as in
+the JAX package. A tree on a mesh (its sharded build, `shard_probe`, the
+meshed streamed build and a .treedir placed on a mesh) is not ported yet
+and raises; it is the next slice of ROADMAP queue 1 ('sharded_ivf').
 `state_spec`/`pin_expected_rows` served the JAX package's ahead-of-time
 compile and have no counterpart.
 """
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from hbird_tpu_torch.device import resolve_device
-from hbird_tpu_torch.nn.search_base import FlatSearch, not_ported, resolve_quantization
+from hbird_tpu_torch.nn.search_base import NEXT_SLICE, FlatSearch, not_ported, resolve_quantization
 from hbird_tpu_torch.ops import ivf
 from hbird_tpu_torch.ops.ivf_cuda import MAX_K
 from hbird_tpu_torch.ops.knn import L2_DISTANCES, rerank_exact
@@ -161,9 +165,10 @@ class NearestNeighborSearchApprox(FlatSearch):
             return
 
         if mesh is not None:
-            raise not_ported("a device mesh", "modules to port, 'parallel/'")
+            raise not_ported("a meshed tree", NEXT_SLICE)
         if probe_mode not in ("auto", "tile", "query"):
             raise ValueError(f"probe_mode must be 'auto', 'tile' or 'query': {probe_mode!r}")
+        self.mesh = None
         if "training_sample_size" in kwargs:  # ScaNN's name for the sample size
             tree_sample_rows = int(kwargs.pop("training_sample_size"))
         self.n_neighbors = n_neighbors
@@ -424,7 +429,7 @@ class NearestNeighborSearchApprox(FlatSearch):
         `bank_row_scale` (per slot, (n_slots, 1)); `bank_col_scale` holds
         the score_ah column scales. Search options pass through `kwargs`."""
         if mesh is not None:
-            raise not_ported("a meshed tree", "modules to port, 'parallel/'")
+            raise not_ported("a meshed tree", NEXT_SLICE)
         if device is None and isinstance(ivf_bank, torch.Tensor):
             device = ivf_bank.device
         n_slots = ivf_bank.shape[0]
@@ -499,7 +504,7 @@ class NearestNeighborSearchApprox(FlatSearch):
         from hbird_tpu_torch.bank.io import iter_bankdir_windows, sharded_memory_info
 
         if mesh is not None:
-            raise not_ported("the meshed streamed tree build", "modules to port, 'parallel/'")
+            raise not_ported("the meshed streamed tree build", NEXT_SLICE)
         dev = resolve_device(device)
         info = sharded_memory_info(feature_dir)
         is_int8 = info["dtype"] == "int8"
@@ -576,7 +581,7 @@ class NearestNeighborSearchApprox(FlatSearch):
         from hbird_tpu_torch.bank.io import load_tree_state
 
         if mesh is not None:
-            raise not_ported("a meshed tree", "modules to port, 'parallel/'")
+            raise not_ported("a meshed tree", NEXT_SLICE)
         state = load_tree_state(dir_path, device=device)
         if state.pop("asym", False):
             # A tree saved in int8_asym mode scores bf16 queries on the codes.

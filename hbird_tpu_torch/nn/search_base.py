@@ -11,10 +11,14 @@ bank the same way: `FlatSearch` below, so the JAX package's abstract base
 has no counterpart. The flat bank is f32, bf16 or int8 codes (the
 `quantization` modes of hbird_tpu/nn/search_exact.py), scored by dot
 product or expanded-norm L2, searched by K1 and optionally reordered
-exactly (ScaNN's reorder(C)). The approx backend's IVF tree
-(`use_tree=True`) overrides the storage and the search. Options of the JAX
-backends that need a later slice raise `NotImplementedError` and name
-their ROADMAP item; none falls back silently.
+exactly (ScaNN's reorder(C)). With a mesh whose 'bank' axis is larger
+than 1 (parallel/mesh.py), the stored arrays are lists of row shards, one
+per bank-axis device, and K1 runs once per shard
+(parallel/sharded_knn.py: 'gather', or the exact backend's 'ring'). The
+approx backend's IVF tree (`use_tree=True`) overrides the storage and the
+search. Options of the JAX backends that need a later slice raise
+`NotImplementedError` and name their ROADMAP item; none falls back
+silently.
 """
 
 from __future__ import annotations
@@ -31,13 +35,28 @@ from hbird_tpu_torch.ops.quantize import (
     quantize_bank_int8_ah,
     quantize_queries_int8,
 )
+from hbird_tpu_torch.parallel.sharded_knn import (
+    ring_knn_with_labels,
+    shard_rows,
+    sharded_knn_with_labels,
+    take_rows,
+)
 
 QUANTIZATIONS = ("int8", "int8_rows", "int8_asym")
+
+
+# The ROADMAP item (queue 1) that ports what is still missing of parallel/.
+NEXT_SLICE = "modules to port, 'parallel/': sharded_ivf and the multi-process writer, the next slice"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for an option of the JAX package that a later slice ports."""
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+
+
+def bank_mesh(mesh):
+    """The mesh when its 'bank' axis shards the bank (size > 1), else None."""
+    return mesh if mesh is not None and mesh.shape.get("bank", 1) > 1 else None
 
 
 def resolve_quantization(use_int8: bool, quantization: Optional[str]) -> Optional[str]:
@@ -65,6 +84,15 @@ class FlatSearch:
     that many candidates exactly. `dims_per_block` / `aniso_threshold`
     (per-row modes) select the score_ah quantizer. `valid_rows` masks
     padded trailing rows.
+
+    With a bank `mesh`, every stored array is split into row shards over
+    its 'bank' axis (`shard_rows`: zero-padded to equal shards) and
+    `shard_strategy` picks the sharded search: 'gather' (K1 on each shard
+    with all the queries, then the merge) or 'ring' (query blocks visit the
+    shards). `feature_memory` / `label_memory` may then also arrive as
+    lists of shards already (bank/io.py::load_memory_sharded), with
+    `valid_rows` their real rows; a quantized bank joins them first, since
+    its scales span the whole bank.
     """
 
     dims_per_block: Optional[int] = None
@@ -83,30 +111,54 @@ class FlatSearch:
         label_memory=None,
         valid_rows: Optional[int] = None,
         mesh=None,
+        shard_strategy: str = "gather",
         device=None,
     ):
         self.distance_measure = distance_measure.lower()
         if self.distance_measure not in ("dot_product", *L2_DISTANCES):
             raise ValueError(f"Unsupported distance measure: {distance_measure}")
-        if mesh is not None:
-            raise not_ported("a device mesh", "modules to port, 'parallel/'")
+        if shard_strategy not in ("gather", "ring"):
+            raise ValueError(f"shard_strategy must be 'gather' or 'ring': {shard_strategy!r}")
+        self.mesh = bank_mesh(mesh)
+        self.shard_strategy = shard_strategy
+        sharded_in = isinstance(feature_memory, (list, tuple))
+        if sharded_in and self.mesh is None:
+            raise ValueError("a bank given as shards needs a mesh with a 'bank' axis")
         if device is None and isinstance(feature_memory, torch.Tensor):
             device = feature_memory.device
         self.device = resolve_device(device)
         self.n_neighbors = n_neighbors
         self.use_fp16 = bool(use_fp16)
         self._set_quantization(quantization, num_reordering_candidates)
-        x = self._as_tensor(feature_memory)
         self.rerank_bank = None
-        if self.quantization is not None:
-            self.bank = self._quantized_state(x, bank_scale)
+        store = torch.bfloat16 if self.use_fp16 else torch.float32
+        if sharded_in and self.quantization is None:
+            self.bank = [s.to(store).contiguous() for s in feature_memory]
+            n_rows = sum(s.shape[0] for s in self.bank)
         else:
-            store = torch.bfloat16 if self.use_fp16 else torch.float32
-            self.bank = x.float().to(store).contiguous()
+            x = self._as_tensor(torch.cat([s.to(self.device) for s in feature_memory]) if sharded_in else feature_memory)
+            if self.quantization is not None:
+                self.bank = self._quantized_state(x, bank_scale)
+            else:
+                self.bank = x.float().to(store).contiguous()
+            n_rows = self.bank.shape[0]
         if label_memory is None:
-            label_memory = torch.zeros((self.bank.shape[0], 1), dtype=torch.float32)
-        self.labels = torch.as_tensor(label_memory, dtype=torch.float32, device=self.device)
-        self.valid_rows = self.bank.shape[0] if valid_rows is None else int(valid_rows)
+            label_memory = torch.zeros((n_rows, 1), dtype=torch.float32)
+        if isinstance(label_memory, (list, tuple)):
+            self.labels = [s.float() for s in label_memory]
+        else:
+            self.labels = torch.as_tensor(label_memory, dtype=torch.float32, device=self.device)
+        self.valid_rows = n_rows if valid_rows is None else int(valid_rows)
+        if self.mesh is not None:
+            self._shard_state()
+
+    def _shard_state(self) -> None:
+        """Split every stored array into row shards over the bank axis."""
+        def split(x):
+            return x if x is None or isinstance(x, list) else shard_rows(x, self.mesh)
+
+        self.bank, self.labels = split(self.bank), split(self.labels)
+        self.rerank_bank, self.bank_row_scale = split(self.rerank_bank), split(self.bank_row_scale)
 
     def _set_quantization(self, quantization: Optional[str], num_reordering_candidates: int):
         self.quantization = quantization
@@ -175,6 +227,12 @@ class FlatSearch:
         return state
 
     @staticmethod
+    def _rows(x, idx: torch.Tensor) -> torch.Tensor:
+        """x[idx] of a tensor, or of a list of row shards (each row from its
+        owning shard)."""
+        return take_rows(x, idx) if isinstance(x, list) else x[idx]
+
+    @staticmethod
     def _dequantize(state, rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
         """Stored rows taken at positions `sel` of the bank, as features:
         int8 codes times their scales (codes * s_row * c_col, or *
@@ -182,7 +240,7 @@ class FlatSearch:
         if rows.dtype != torch.int8:
             return rows
         if "bank_row_scale" in state:
-            rows = rows.float() * state["bank_row_scale"][sel]
+            rows = rows.float() * FlatSearch._rows(state["bank_row_scale"], sel)
             col = state.get("bank_col_scale")
             return rows if col is None else rows * col
         return rows.float() * state["bank_scale"]
@@ -191,15 +249,15 @@ class FlatSearch:
         """Feature rows by row id, dequantized: the bf16 rerank copy when
         there is one, else the stored rows through `_dequantize`."""
         if "rerank_bank" in state:
-            return state["rerank_bank"][idx]
-        return self._dequantize(state, state["bank"][idx], idx)
+            return self._rows(state["rerank_bank"], idx)
+        return self._dequantize(state, self._rows(state["bank"], idx), idx)
 
     def _cast_queries(self, state, q: torch.Tensor):
         """Queries as the bank's scan takes them, and the query scale of
         int8 query codes (None otherwise). The column-block scales of the
         score_ah quantizer fold into the queries; int8_asym keeps bf16
         queries."""
-        bank = state["bank"]
+        bank = state["bank"][0] if isinstance(state["bank"], list) else state["bank"]
         if bank.dtype != torch.int8:
             return q.to(bank.dtype).contiguous(), None
         col = state.get("bank_col_scale")
@@ -237,9 +295,18 @@ class FlatSearch:
         rerank = rerank_bank is not None and self.num_reordering_candidates > k
         q_cast, q_scale = self._cast_queries(state, q)
         distance = "dot_product" if self.distance_measure == "dot_product" else "l2"
-        vals, idx, labels = knn_with_labels(
+        if self.mesh is None:
+            search, extra = knn_with_labels, {}
+        elif self.shard_strategy == "ring":
+            # Queries split over every mesh axis: each data row runs its
+            # own ring rather than repeating the same one.
+            parts = tuple(ax for ax in ("data", "bank") if self.mesh.shape.get(ax, 1) > 1)
+            search, extra = ring_knn_with_labels, {"mesh": self.mesh, "query_partition": parts}
+        else:
+            search, extra = sharded_knn_with_labels, {"mesh": self.mesh}
+        vals, idx, labels = search(
             q_cast, state["bank"], state["labels"], k, valid_rows=self.valid_rows,
-            distance=distance,
+            distance=distance, **extra,
             rerank_bank=rerank_bank if rerank else None,
             rerank_queries=q.to(torch.bfloat16) if rerank else None,
             rerank_candidates=self.num_reordering_candidates if rerank else 0,

@@ -1,7 +1,7 @@
 """Exact flat kNN backend (the Faiss GpuIndexFlatIP/L2 analogue).
 
 Counterpart of hbird_tpu/nn/search_exact.py (reference
-hbird/nn/search_faiss.py:6-90), on one device:
+hbird/nn/search_faiss.py:6-90):
 - distance_measure: 'dot_product' (default) | 'l2'/'euclidean'
   (expanded-norm, K1's l2 form)
 - `use_fp16` -> bf16 bank storage (faiss `config.useFloat16`,
@@ -10,18 +10,23 @@ hbird/nn/search_faiss.py:6-90), on one device:
   bank (ops/quantize.py), dot product only; with
   `num_reordering_candidates` > n_neighbors a bf16 copy re-scores that many
   candidates exactly (ScaNN's reorder(C))
+- `mesh` (parallel/mesh.py) with a 'bank' axis, or `idx_shard=True` with
+  `devices` (the reference's `gpu_ids`; default: every CUDA card) -> rows
+  sharded over the devices (IndexShards); `shard_strategy` 'gather' or
+  'ring' (parallel/sharded_knn.py). Without `idx_shard`, `devices` is
+  unused: the bank stays on one device (IndexReplicas' degenerate case)
 - search goes through K1 (ops/knn_cuda.py) on CUDA, its plain version on
-  the CPU
-
-Not ported yet, and raising rather than falling back: `idx_shard`,
-`devices` and `mesh` (parallel/).
+  the CPU, once per shard
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from hbird_tpu_torch.nn.search_base import FlatSearch, not_ported, resolve_quantization
+import torch
+
+from hbird_tpu_torch.nn.search_base import FlatSearch, resolve_quantization
+from hbird_tpu_torch.parallel.mesh import make_mesh
 
 
 class NearestNeighborSearchExact(FlatSearch):
@@ -38,6 +43,7 @@ class NearestNeighborSearchExact(FlatSearch):
         devices=None,
         mesh=None,
         label_memory=None,
+        shard_strategy: str = "gather",
         valid_rows: Optional[int] = None,
         device=None,
         **kwargs,
@@ -45,8 +51,13 @@ class NearestNeighborSearchExact(FlatSearch):
         quantization = resolve_quantization(use_int8, quantization)
         if quantization is not None and distance_measure.lower() != "dot_product":
             raise ValueError("use_int8 requires dot_product")
-        if idx_shard or devices is not None:
-            raise not_ported("bank sharding", "modules to port, 'parallel/'")
+        self.idx_shard = idx_shard
+        self.devices = devices
+        if mesh is None and idx_shard:
+            if devices is None and torch.cuda.is_available():
+                devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if devices is not None and len(devices) > 1:
+                mesh = make_mesh((len(devices),), ("bank",), devices)
         super().__init__(
             feature_memory,
             n_neighbors,
@@ -57,5 +68,6 @@ class NearestNeighborSearchExact(FlatSearch):
             label_memory=label_memory,
             valid_rows=valid_rows,
             mesh=mesh,
+            shard_strategy=shard_strategy,
             device=device,
         )

@@ -346,16 +346,16 @@ def build_tree_streamed(
     (rows (n, D), labels (n, C) or None) tensors in the tree's store dtype,
     identical on every call (windows read from disk again, or a seeded
     generator), on the device that builds the tree: it holds the slabs and
-    one window, never the flat bank. `mesh` is not ported.
+    one window, never the flat bank. `mesh` is not ported yet (the next slice).
 
     Returns dict(ivf_bank, ivf_labels, centroids, perm, slots, leaf_fill
     (tensors on the device; perm, slots int64, leaf_fill int32), cap,
     n_leaves, valid_rows, build_seconds (wall time of each stage)).
     """
     if mesh is not None:
-        from hbird_tpu_torch.nn.search_base import not_ported
+        from hbird_tpu_torch.nn.search_base import NEXT_SLICE, not_ported
 
-        raise not_ported("the meshed streamed tree build", "modules to port, 'parallel/'")
+        raise not_ported("the meshed streamed tree build", NEXT_SLICE)
     n_leaves, cap = tree_layout(n_rows, num_leaves, slack=slack)
     n_slots = n_leaves * cap
     times: Dict[str, float] = {}

@@ -8,9 +8,11 @@ Hungarian (default) or greedy many-to-one pred->gt matching, plus the
 - `confusion_matrix` is a bincount of gt*P + pred over the valid pixels,
   in int64, on whatever device the inputs live on; it equals the JAX
   package's chunked one-hot matmul count for count.
-- The Hungarian assignment stays on the host (scipy, else numpy).
-- Only single-process scoring exists here; `sync_distributed=True` raises
-  until the distributed slice lands.
+- The Hungarian assignment stays on the host (scipy, else the native
+  solver, else numpy).
+- `compute(sync_distributed=True)` sums the confusion matrix over the
+  torch.distributed process group first (parallel/distributed.py), and
+  keeps the local matrix as it was.
 """
 
 from __future__ import annotations
@@ -31,9 +33,15 @@ from hbird_tpu_torch.utils.hungarian import hungarian as _np_hungarian
 
 
 def linear_sum_assignment(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Hungarian assignment: scipy when installed, else the numpy solver."""
+    """Hungarian assignment, in the JAX package's order: scipy when
+    installed, else the native solver (utils/native.py) when it builds,
+    else the numpy solver."""
     if _SCIPY_AVAILABLE:
         return _scipy_lsa(cost)
+    from hbird_tpu_torch.utils import native
+
+    if native.available():
+        return native.hungarian(cost)
     return _np_hungarian(cost)
 
 
@@ -208,18 +216,26 @@ class PredsmIoU:
         Defaults mirror the reference call site
         (hbird/hbird_eval.py:253 -> Hungarian matching).
         """
+        local_conf = None
         if sync_distributed:
-            raise NotImplementedError(
-                "sync_distributed needs the distributed slice (ROADMAP.md, "
-                "'parallel/'); this package scores in one process"
+            from hbird_tpu_torch.parallel.distributed import sync_conf_mat
+
+            # A collective: every process calls it, before the
+            # is_global_zero return. The local matrix is restored after, so
+            # a second compute() does not sum already-summed matrices.
+            local_conf = self._conf_mat
+            self._conf_mat = np.asarray(sync_conf_mat(local_conf), np.int64)
+        try:
+            return self._compute_from_conf_mat(
+                is_global_zero,
+                many_to_one=many_to_one,
+                precision_based=precision_based,
+                linear_probe=linear_probe,
+                return_reordered=return_reordered,
             )
-        return self._compute_from_conf_mat(
-            is_global_zero,
-            many_to_one=many_to_one,
-            precision_based=precision_based,
-            linear_probe=linear_probe,
-            return_reordered=return_reordered,
-        )
+        finally:
+            if local_conf is not None:
+                self._conf_mat = local_conf
 
     def _compute_from_conf_mat(
         self,

@@ -26,7 +26,13 @@ def is_tar_path(path: str) -> bool:
 
 
 def _tar_member_files(tar_path: str) -> List[str]:
-    """Regular-file member names of a tar archive."""
+    """Regular-file member names of a tar archive: by the native header scan
+    for an uncompressed one (raising if the library cannot be built), by
+    tarfile for a compressed one."""
+    from hbird_tpu_torch.data.backend import is_native_tar, native_tar_files
+
+    if is_native_tar(tar_path):
+        return [name for name, _off, _size in native_tar_files(tar_path)]
     with tarfile.open(tar_path, "r:*") as tar:
         return [m.name for m in tar.getmembers() if m.isfile()]
 

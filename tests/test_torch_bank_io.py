@@ -192,9 +192,12 @@ def test_loaders_default_to_cuda(tmp_path, monkeypatch, ext):
 
 
 def test_mesh_placement_raises(tmp_path):
+    """A .treedir placed on a mesh and the multi-process .bankdir writer are
+    the next slice and raise. (A .bankdir loads onto a mesh since the
+    parallel/ slice: tests/test_torch_parallel_engine.py.)"""
     p = tio.save_memory(torch.zeros(4, 2), str(tmp_path / "x.bankdir"))
     with pytest.raises(NotImplementedError, match="parallel/"):
-        tio.load_memory_sharded(p, mesh=object())
+        tio.load_tree_state(p, mesh=object())
     with pytest.raises(NotImplementedError, match="parallel/"):
         tio._save_rows_distributed(torch.zeros(4, 2), str(tmp_path / "d.bankdir"))
 

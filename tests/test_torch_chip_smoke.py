@@ -108,11 +108,12 @@ def test_phases_rehearse_on_cpu(smoke):
     assert set(tree["build_s"]) == {"kmeans", "refine", "assign", "layout", "scatter"}
     k1_rows, k2_rows, err_timing = smoke.timing(q, bank, main_tree, gen)
     sizes = ("main", "bank_3000")
-    assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "l2")
+    assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "asym", "l2", "f32")
                                       for s in sizes),
                             *(f"{f} k=120 {s}" for f in ("int8", "int8_rows") for s in sizes)}
     assert k1_rows["int8 k=120 main"]["k"] == 120 and k1_rows["int8_rows main"]["k"] == 30
-    assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows") for s in sizes)}
+    assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows", "int8", "asym", "f32")
+                                      for s in sizes)}
     assert k1_rows["int8 main"]["bound_by"] == k1_rows["main"]["bound_by"]
     assert err_timing == {"K1": 0.0, "K2": 0.0}
     assert k2_rows["bank_3000"]["cap"] == 256 and k2_rows["main"]["block_q"] == 256
@@ -221,6 +222,47 @@ def test_entry_point_phase_rehearses_on_cpu(smoke, monkeypatch):
     assert memory["projection in_place"]["bank_bytes"] == 8 * 16 * (384 + 21) * 4
     assert memory["projection x8 concatenated"]["bank_bytes"] == 8 * 8 * 16 * (384 + 21) * 4
     assert json.dumps(info)
+
+
+def test_mesh_phase_rehearses_on_cpu(smoke):
+    """Phase 9 at the rehearsal's sizes: the tar feed repeats the folder's
+    mIoU, K1 on 4 stacked shards passes its checks with 4 (gather) and 16
+    (ring) launches a call, the command line on the mesh repeats the
+    unsharded mIoU and its reload builds nothing, the process group of one
+    passes the confusion matrix through."""
+    runs, _, _, _, q, bank, _ = smoke.main_path(gen_seed=0)
+    feed_runs, feed = smoke.native_feed(0, runs["scann unbounded"])
+    (run,) = feed_runs.values()
+    assert run["miou"] == runs["scann unbounded"]["miou"] and run["launches"]["knn_topk"] == 1
+    assert feed["members"] > 0 and set(feed["memory_build_img_per_s"]) == {"tar", "folder"}
+    rows, err = smoke.mesh_k1_cases(q, bank, torch.Generator().manual_seed(1), [torch.device("cpu")] * 4)
+    assert set(rows) == {f"{b} {f}" for b in ("main", "bank_3000") for f in ("dot", "int8+reorder", "int8_rows")}
+    assert all(r["gather_launches_per_call"] == 4 and r["ring_launches_per_call"] == 16 for r in rows.values())
+    assert err < 1e-3 and all(0.0 < r["merge_share_of_gather"] for r in rows.values())
+    mesh_runs = smoke.mesh_cli(0, runs["scann unbounded"]["miou"], [torch.device("cpu")] * 4)
+    assert len(mesh_runs) == 2
+    for r in mesh_runs.values():
+        assert r["launches"]["knn_topk"] == 4 and abs(r["miou"] - runs["scann unbounded"]["miou"]) <= 1e-4
+    assert smoke.nccl_one_process()["backend"] == "gloo"
+
+
+def test_mesh_checks_reject_a_wrong_merge(smoke, monkeypatch):
+    """A sharded search that returns other neighbours fails phase 9.2."""
+    from hbird_tpu_torch.parallel import sharded_knn
+
+    real = sharded_knn.merge_topk
+
+    def shifted(vals, idx, k, **kw):
+        v, i = real(vals, idx, k, **kw)
+        return v, torch.roll(i, 1, dims=1)
+
+    monkeypatch.setattr(sharded_knn, "merge_topk", shifted)
+    monkeypatch.setattr(smoke, "BIG_M", 500)
+    gen = torch.Generator().manual_seed(0)
+    bank = torch.nn.functional.normalize(torch.randn(400, 64, generator=gen), dim=1).to(torch.bfloat16)
+    q = torch.randn(50, 64, generator=gen).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="chip_smoke"):
+        smoke.mesh_k1_cases(q, bank, gen, [torch.device("cpu")] * 4)
 
 
 @pytest.mark.parametrize("part", ["centroids", "slots"])

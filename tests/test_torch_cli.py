@@ -97,12 +97,20 @@ def test_jax_and_port_parsers_share_every_other_flag():
         return {s for a in p._actions for s in a.option_strings}
 
     assert flags(jax_build_parser()) - flags(build_parser()) == {"--platform", "--compilation-cache"}
-    assert flags(build_parser()) <= flags(jax_build_parser())
+    # --mesh-devices is the port's own: a JAX mesh needs distinct devices.
+    assert flags(build_parser()) - flags(jax_build_parser()) == {"--mesh-devices"}
 
 
 def test_mesh_bank_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        eval_cli.main(REQUIRED + ["--model", "dino_vits16", "--random-init", "--mesh-bank", "2",
+    """--mesh-bank takes the first N CUDA cards, and there are none here;
+    a tree on a bank mesh is the next slice. (The flat bank on a mesh:
+    tests/test_torch_parallel_engine.py.)"""
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="CUDA devices"):
+            eval_cli.main(REQUIRED + ["--model", "dino_vits16", "--random-init", "--mesh-bank", "2",
+                                      "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs --mesh-bank"):
+        eval_cli.main(REQUIRED + ["--model", "dino_vits16", "--random-init", "--mesh-devices", "cpu,cpu",
                                   "--device", "cpu"])
 
 

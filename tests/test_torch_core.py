@@ -142,6 +142,12 @@ def test_predsmiou_compute_miou_adapter_equal():
 
 
 def test_predsmiou_sync_distributed_raises():
+    """sync_distributed=True raised until parallel/distributed.py was
+    ported; with no process group it now scores the local matrix, which it
+    leaves as it was (across processes: tests/test_torch_distributed.py)."""
     m = tmetrics.PredsmIoU(3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.compute(is_global_zero=True, sync_distributed=True)
+    m.update(np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2]))
+    before = m._conf_mat.copy()
+    synced = m.compute(is_global_zero=True, sync_distributed=True, return_reordered=False)
+    assert synced == m.compute(is_global_zero=True, return_reordered=False)
+    np.testing.assert_array_equal(m._conf_mat, before)

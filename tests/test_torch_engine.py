@@ -35,6 +35,7 @@ from hbird_tpu_torch.hbird_eval import HbirdEvaluation, _pad_batch
 from hbird_tpu_torch.models.convert import params_from_jax
 from hbird_tpu_torch.models.extractor import FeatureExtractor
 from hbird_tpu_torch.models.vit import ViT, ViTConfig
+from hbird_tpu_torch.parallel import make_mesh
 
 INPUT = 32
 PATCH = 4
@@ -428,8 +429,14 @@ def test_quantized_and_l2_engine_matches_jax(voc, tiny_vit, fixture, run):
     assert (np.abs(st - sj) <= tol).all(), np.abs(st - sj).max()
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}], ids=["mesh"])
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"mesh": make_mesh((2,), ("bank",), ["cpu", "cpu"]), "nn_method": "ivf"}],
+    ids=["mesh"],
+)
 def test_later_slices_raise(voc, kwargs):
+    """The tree on a bank mesh is the next slice (the flat bank on a mesh is
+    ported: tests/test_torch_parallel_engine.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hbird_tpu_torch.hbird_evaluation(
             None, 3, PATCH, "voc", voc, batch_size=4, input_size=INPUT,

@@ -47,6 +47,7 @@ def _sources():
         ROOT / "tests" / "test_torch_ivf_cuda.py",
         ROOT / "tests" / "test_torch_flash_cuda.py",
         ROOT / "tests" / "test_torch_bank_cuda.py",
+        ROOT / "tests" / "test_torch_parallel_cuda.py",
     ]
     assert len(files) > 20
     return files

@@ -224,8 +224,41 @@ def test_short_stream_is_caught():
         ivf.build_tree_streamed(_stream(x, None, 100), 400, 4)
 
 
+TIE = 1e-6  # f32 near-ties in the layout priority (PERF.md section 2)
+
+
+def _layout_prio(choices, scores, slots, cap):
+    """Each row's layout priority: its centroid score for the leaf it sits
+    in (NaN for a row spilled to a leaf it did not choose)."""
+    hit = np.asarray(choices) == (np.asarray(slots) // cap)[:, None]
+    prio = np.where(hit, np.asarray(scores), np.nan)
+    return np.where(hit.any(1), np.nanmax(np.where(hit, prio, -np.inf), 1), np.nan)
+
+
+def _assert_same_layout(t_slots, j_slots, cap, n_slots, t_prio, j_prio, tol=TIE):
+    """Slots equal except adjacent swaps of rows whose priorities tie
+    within `tol` in both packages; each row's leaf equal exactly. Returns
+    sigma, the map from the JAX package's slots to the port's."""
+    t_slots, j_slots = np.asarray(t_slots), np.asarray(j_slots)
+    np.testing.assert_array_equal(t_slots // cap, j_slots // cap)
+    sigma = np.arange(n_slots)
+    sigma[j_slots] = t_slots
+    row_at_t = np.full(sigma.size, -1)
+    row_at_t[t_slots] = np.arange(t_slots.size)
+    for r in np.nonzero(t_slots != j_slots)[0]:
+        r2 = row_at_t[j_slots[r]]  # the row the port put in JAX's slot for r
+        assert abs(int(t_slots[r]) - int(j_slots[r])) == 1 and j_slots[r2] == t_slots[r], (r, r2)
+        for prio in (t_prio, j_prio):
+            assert abs(float(prio[r]) - float(prio[r2])) <= tol, (r, r2, prio[r], prio[r2])
+    return sigma
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_streamed_build_matches_jax_with_its_centroids(monkeypatch, dtype):
+    """Leaves equal exactly; within a leaf the order equal except adjacent
+    rows whose priorities tie within 1e-6 in both packages (the two
+    matmuls may round them apart either way); perm and the slabs equal
+    through that map of slots."""
     x = mixture_bank(3000, 32, 5, seed=25)
     labels = np.random.default_rng(26).random((3000, 6)).astype(np.float32)
     x = torch.from_numpy(x).to(dtype).float().numpy()  # rows as the store dtype holds them
@@ -239,14 +272,45 @@ def test_streamed_build_matches_jax_with_its_centroids(monkeypatch, dtype):
     c = torch.from_numpy(np.asarray(jparts["centroids"], np.float32))
     monkeypatch.setattr(ivf, "train_centroids", lambda sample, n_leaves, **kw: c)
     parts = ivf.build_tree_streamed(_stream(x, labels, 700, dtype), 3000, 10, slack=1.3, refine_rounds=0)
-    assert (parts["cap"], parts["n_leaves"]) == (jparts["cap"], jparts["n_leaves"])
-    np.testing.assert_array_equal(parts["slots"].numpy(), np.asarray(jparts["slots"]))
+    cap = parts["cap"]
+    assert (cap, parts["n_leaves"]) == (jparts["cap"], jparts["n_leaves"])
+    t_ch, t_sc = ivf.assign_leaves(torch.from_numpy(x).to(dtype), c, n_choices=3, return_scores=True)
+    j_ch, j_sc = jivf.assign_leaves(jnp.asarray(x, jdtype), jnp.asarray(c.numpy()), n_choices=3, return_scores=True)
+    t_slots, j_slots = parts["slots"].numpy(), np.asarray(jparts["slots"])
+    sigma = _assert_same_layout(t_slots, j_slots, cap, parts["perm"].numel(), _layout_prio(t_ch, t_sc, t_slots, cap),
+                                _layout_prio(j_ch, j_sc, j_slots, cap))
     np.testing.assert_array_equal(parts["leaf_fill"].numpy(), np.asarray(jparts["leaf_fill"]))
-    np.testing.assert_array_equal(parts["perm"].numpy(), np.asarray(jparts["perm"]))
+    j_perm = np.asarray(jparts["perm"])
+    moved = np.empty_like(j_perm)
+    moved[sigma] = j_perm
+    np.testing.assert_array_equal(parts["perm"].numpy(), moved)
     assert parts["ivf_bank"].dtype == dtype
-    np.testing.assert_allclose(parts["ivf_bank"].float().numpy(), np.asarray(jparts["ivf_bank"], np.float32),
-                               rtol=0, atol=1e-6)
-    np.testing.assert_allclose(parts["ivf_labels"].numpy(), np.asarray(jparts["ivf_labels"]), rtol=0, atol=1e-6)
+    for name, tv in (("ivf_bank", parts["ivf_bank"].float()), ("ivf_labels", parts["ivf_labels"])):
+        jv = np.asarray(jparts[name], np.float32)
+        moved = np.empty_like(jv)
+        moved[sigma] = jv
+        np.testing.assert_allclose(tv.numpy(), moved, rtol=0, atol=TIE, err_msg=name)
+
+
+@pytest.mark.parametrize("gap, tied", [(4e-8, True), (1e-3, False)], ids=["near_tie", "apart"])
+def test_layout_near_tie_is_tolerated_only_within_tie(gap, tied):
+    """A constructed pair whose priorities the two packages round apart in
+    opposite orders: accepted within 1e-6, refused when it is wider."""
+    choices = np.array([[0, 1], [0, 1], [0, 1], [1, 0]], np.int32)
+    base = np.array([[0.9, 0.1], [0.9, 0.2], [0.5, 0.3], [0.8, 0.4]], np.float32)
+    t_sc, j_sc = base.copy(), base.copy()
+    t_sc[0, 0] += gap  # the port puts row 0 first, the JAX package row 1
+    j_sc[1, 0] += gap
+    t_slots, _ = ivf.balanced_layout(choices, 2, 3, scores=t_sc)
+    j_slots, _ = jivf.balanced_layout(choices, 2, 3, scores=j_sc)
+    assert (t_slots[:2].tolist(), j_slots[:2].tolist()) == ([0, 1], [1, 0])
+    args = (t_slots, j_slots, 3, 6, _layout_prio(choices, t_sc, t_slots, 3), _layout_prio(choices, j_sc, j_slots, 3))
+    if tied:
+        sigma = _assert_same_layout(*args)
+        assert sigma[:2].tolist() == [1, 0]
+    else:
+        with pytest.raises(AssertionError):
+            _assert_same_layout(*args)
 
 
 def _bankdirs(tmp_path, x, labels, f_chunk, l_chunk):
