@@ -174,6 +174,33 @@ Phases; any failure raises and the script exits non-zero with no result:
    group of one over tcp://127.0.0.1 on NCCL: sync_conf_mat returns its
    input, PredsmIoU(sync_distributed=True) the unsynced result. With more
    than one card, 9.2 and 9.3 run again over distinct cards.
+10. The IVF tree on a ('bank',) mesh of MESH_SHARDS shards stacked on one
+   card (parallel/sharded_ivf.py). 10.1: built on phase 5's bank and on
+   BIG_M clustered rows (phase 8's stream) unmeshed, meshed with the host
+   layout (must equal the unmeshed build: centroids, slots, perm, leaf
+   fill, slabs and labels bit for bit) and with the device layout (the
+   same fill, every row in the greedy's leaf except rows whose score ties
+   another's within 1e-6, slots and perm consistent); seconds, stages and
+   peak allocated memory of each over what was allocated before it. 10.2: with every leaf probed the meshed
+   search equals the unmeshed one (bf16 and the ScaNN searcher's asym_rows
+   at K2's tolerance, ids equal away from ties; int8_rows bit for bit;
+   each label row its winner's) and launches K2 once per shard; at the
+   engine's 32 probes, recall@30 against K1's exact neighbours under
+   'split' and 'full' beside the unmeshed tree's, and ms of the meshed call,
+   of its K2 launches alone, of the merge and of the label fetch, beside
+   the unmeshed call and its K2 (bf16, both banks). 10.3: the streamed
+   build from a .bankdir of the BIG_M bank onto the mesh: the unmeshed
+   streamed build's tree and the in-memory one's, peaks printed. 10.4: the
+   meshed bf16, int8_rows and ScaNN trees saved as .treedirs and loaded
+   back onto the mesh answer bit for bit; a 3-shard mesh raises. 10.5:
+   `eval_cli.main` with 'ivf --mesh-bank 4 --mesh-devices cuda:0,...' at
+   phase 5's settings: every leaf probed (host and device layouts), mIoU
+   within 1e-4 of the unmeshed every-leaf run, K2 launched once per shard
+   per eval batch; at 32 probes ('split', 'full') beside phase 5's 'ivf'
+   run. 10.6: the same tree over a bank axis that spans a process group of
+   one (NCCL over tcp://127.0.0.1; every cross-shard step a collective):
+   builds and search equal the process-local mesh's bit for bit. With more
+   than one card, 10.1-10.5 run again over distinct cards.
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs); index
@@ -2371,6 +2398,407 @@ def nccl_one_process():
     return {"backend": backend, "seconds": wall}
 
 
+def peak_growth(fn):
+    """fn()'s result and the card's peak allocated bytes while it ran over
+    what was allocated when it started: the call's own peak, whatever
+    earlier results stay alive (None on the CPU rehearsal)."""
+    if DEVICE != "cuda":
+        return fn(), None
+    sync()
+    base = torch.cuda.memory_allocated()
+    out, peak = peak_bytes(fn)
+    return out, peak - base
+
+
+def _layout_prio(choices, scores, slots, cap):
+    """Each row's score for the leaf it sits in (NaN for a row spilled to a
+    leaf it did not choose)."""
+    import numpy as np
+
+    hit = choices == (slots // cap)[:, None]
+    return np.where(hit.any(1), np.where(hit, scores, -np.inf).max(1), np.nan)
+
+
+def _device_layout_checks(name, one, dev, bank, tie=1e-6):
+    """The 'device' layout of a meshed build against the unmeshed host
+    greedy's `one`: the same fill; every row on one of its choices in the
+    greedy's leaf and the same rows spilled, except rows whose score for a
+    leaf in some pass ties another row's there within `tie` (the device
+    layout admits ties by row id, the greedy in its internal order after
+    the first pass; spilled rows fill leaves with room in another order by
+    design); slots and perm consistent, each slab row the bank row it
+    names."""
+    import numpy as np
+
+    from hbird_tpu_torch.ops import ivf
+
+    m, cap = bank.shape[0], one._cap
+    slots = torch.cat(dev.slots)
+    if not torch.equal(dev.leaf_valid, one.leaf_valid):
+        fail(f"{name}: the device layout's leaf fill differs from the host greedy's")
+    if (slots[m:] != -1).any() or torch.unique(slots[:m]).numel() != m or (slots[:m] < 0).any():
+        fail(f"{name}: the device layout's slots are not one per real row")
+    perm = torch.cat([p.to(slots.device) for p in dev.perm])
+    if not torch.equal(perm[slots[:m]], torch.arange(m, device=slots.device)) or int((perm >= 0).sum()) != m:
+        fail(f"{name}: the device layout's perm does not invert its slots")
+    if not torch.equal(torch.cat(dev.bank)[slots[:m]], bank.to(one.bank.dtype)):
+        fail(f"{name}: a slab row is not the bank row its slot names")
+    ch, sc = ivf.assign_leaves(bank, one.centroids, n_choices=3, return_scores=True)
+    leaf_h, leaf_d = one.slots.cpu().numpy() // cap, slots[:m].cpu().numpy() // cap
+    tied = np.zeros(m, bool)
+    for a in range(ch.shape[1]):  # rows a near-equal score away from another's in the same leaf and pass
+        order = np.lexsort((sc[:, a], ch[:, a]))
+        s, c = sc[order, a], ch[order, a]
+        near = (np.diff(s) <= tie) & (c[1:] == c[:-1])
+        tied[order[1:][near]] = tied[order[:-1][near]] = True
+    spilled_h, spilled_d = (np.isnan(_layout_prio(ch, sc, lf * cap, cap)) for lf in (leaf_h, leaf_d))
+    differ = (spilled_h != spilled_d) | (~spilled_h & (leaf_h != leaf_d))
+    if (differ & ~tied).any():
+        fail(f"{name}: {int((differ & ~tied).sum())} rows placed otherwise than by the host greedy, not at a tie")
+    return {"rows_in_another_leaf": int(differ.sum()), "tied_rows": int(tied.sum()),
+            "spilled": [int(spilled_h.sum()), int(spilled_d.sum())]}
+
+
+def _mesh_tree_builds(label, bank, labels, mesh, info):
+    """Phase 10.1: the unmeshed build and the meshed builds (host and
+    device layouts) of `bank` on the same card: seconds, split and peak
+    allocated memory of each; the host layout must be the unmeshed build
+    exactly, the device layout its membership up to ties."""
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+
+    trees, row = {}, {"rows": bank.shape[0]}
+    for name, kw in (("unmeshed", {}), ("host", {"mesh": mesh}),
+                     ("device", {"mesh": mesh, "tree_build_layout": "device"})):
+        t0 = time.perf_counter()
+        trees[name], peak = peak_growth(lambda: NearestNeighborSearchApprox(
+            bank, n_neighbors=30, use_tree=True, label_memory=labels, device=DEVICE, **kw))
+        row[name] = {"s": time.perf_counter() - t0, "split_s": trees[name].build_seconds,
+                     "peak_growth_bytes": peak}
+    one, host = trees["unmeshed"], trees["host"]
+    for part in ("centroids", "slots", "perm", "leaf_valid"):
+        if not torch.equal(getattr(host, part), getattr(one, part)):
+            fail(f"{label}: the meshed host-layout build's {part} differ from the unmeshed build's")
+    if not (torch.equal(torch.cat(host.bank), one.bank) and torch.equal(torch.cat(host.labels), one.labels)):
+        fail(f"{label}: the meshed host-layout build's slabs differ from the unmeshed build's")
+    row["device"].update(_device_layout_checks(label, one, trees["device"], bank))
+    gib = (lambda b: "n/a" if b is None else f"{b / 2**30:.3f} GiB")
+    print(f"  10.1 {label} ({bank.shape[0]} rows, {one._n_leaves} leaves, cap {one._cap}): " + "; ".join(
+        f"{n} {r['s']:.2f}s {json.dumps(rounded(r['split_s']))} peak +{gib(r['peak_growth_bytes'])}"
+        for n, r in row.items() if n != "rows") + f"; host layout = unmeshed build; device layout: "
+        f"{row['device']['rows_in_another_leaf']} rows placed otherwise, all at ties "
+        f"({row['device']['tied_rows']} tied rows), spilled {row['device']['spilled']}", flush=True)
+    info[label] = row
+    return trees
+
+
+def _mesh_search_checks(label, one, meshed, q, exact, n_shards):
+    """Phase 10.2: with every leaf probed the meshed search equals the
+    unmeshed one (bit for bit when `exact`, else at K2's tolerance, ids
+    equal away from ties), launching K2 once per shard."""
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+
+    for tree in (one, meshed):
+        tree.num_leaves_to_search = one._n_leaves
+    state = one.device_state
+    before = ivf_topk.launches
+    mv, mi, ml = meshed.search_with_labels_pure(meshed.device_state, q, 30, probe_mode="tile")
+    sync()
+    if ivf_topk.launches - before != n_shards:
+        fail(f"{label}: the meshed search launched K2 {ivf_topk.launches - before} times, not {n_shards}")
+    if exact:
+        uv, ui, ul = one.search_with_labels_pure(state, q, 30, probe_mode="tile")
+        if not (torch.equal(mv, uv) and torch.equal(mi, ui) and torch.equal(ml, ul)):
+            fail(f"{label}: the meshed search is not bit for bit the unmeshed one")
+        err = 0.0
+        print(f"  10.2 {label}, every leaf probed: bit for bit, values, ids and labels", flush=True)
+    else:
+        uv, ui, _ = one.search_with_labels_pure(state, q, 31, probe_mode="tile")
+        q_cast, _ = one._cast_queries(state, q)
+        rows = one.bank.float() * (1.0 if one.bank_row_scale is None else one.bank_row_scale)
+        tol = RTOL * q_cast.float().norm(dim=1) * rows.norm(dim=1).max()
+        err = (mv - uv[:, :30]).abs().max().item()
+        if ((mv - uv[:, :30]).abs() > tol[:, None]).any():
+            fail(f"{label}: meshed values differ from the unmeshed search's by {err}")
+        _same_sets(f"10.2 {label}, every leaf probed", mv, mi, uv, ui, 30, tol, err, False)
+    if not torch.equal(ml, torch.cat(meshed.labels)[meshed._rows(meshed.slots, mi)]):
+        fail(f"{label}: a label row is not its winner's")
+    one.num_leaves_to_search = meshed.num_leaves_to_search = N_PROBE
+    return err
+
+
+def _mesh_search_timing(label, one, meshed, q, flat_idx, reps):
+    """Phase 10.2 at the engine's 32 probes: recall@30 against K1's exact
+    neighbours under 'split' and 'full' beside the unmeshed tree's, and ms
+    of the meshed call, of its K2 launches alone, of the merge and of the
+    label fetch, beside the unmeshed call and its K2."""
+    from hbird_tpu_torch.ops import ivf
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.parallel import sharded_ivf
+    from hbird_tpu_torch.parallel.sharded_knn import fetch_labels, merge_topk
+
+    row = {}
+
+    def recall(tree):
+        _, idx, _ = tree.search_with_labels_pure(tree.device_state, q, 30, probe_mode="tile")
+        return (idx[:, :, None] == flat_idx[:, None, :]).any(2).float().mean().item()
+
+    row["recall_at_30_vs_k1"] = {"unmeshed": recall(one)}
+    for shard_probe in ("split", "full"):
+        meshed.shard_probe = shard_probe
+        row["recall_at_30_vs_k1"][shard_probe] = recall(meshed)
+        row[f"{shard_probe}_ms"] = cuda_ms(lambda: meshed.search_with_labels_pure(
+            meshed.device_state, q, 30, probe_mode="tile"), reps)
+    meshed.shard_probe = "split"
+    row["unmeshed_ms"] = cuda_ms(lambda: one.search_with_labels_pure(one.device_state, q, 30, probe_mode="tile"),
+                                 reps)
+    # the kernels alone, on the inputs each call hands them
+    qp, lids, _ = ivf.tile_probe_inputs(q, one.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
+    row["k2_unmeshed_ms"] = cuda_ms(lambda: ivf_topk(qp, one.bank, lids, one.leaf_valid, 30, cap=one._cap,
+                                                     block_q=BLOCK_Q), reps)
+    p = len(meshed.bank)
+    local = one._n_leaves // p
+    l_p = sharded_ivf.probes_per_shard(N_PROBE, p, local, "split")
+    shard_in = []  # each shard's queries, leaf ids and fill, on its device
+    for j, slab in enumerate(meshed.bank):
+        q_j = qp.to(slab.device)
+        shard_in.append((q_j, ivf.select_block_leaves(q_j, meshed.centroids[j * local:(j + 1) * local].to(slab.device),
+                                                      l_p, BLOCK_Q),
+                         meshed.leaf_valid[j * local:(j + 1) * local].to(slab.device)))
+
+    def k2_shards():
+        return [ivf_topk(q_j, meshed.bank[j], lids_j, lv_j, 30, cap=one._cap, block_q=BLOCK_Q)
+                for j, (q_j, lids_j, lv_j) in enumerate(shard_in)]
+
+    parts = k2_shards()
+    row["k2_shards_ms"] = cuda_ms(k2_shards, reps)
+    cand_v = torch.cat([v.to(qp.device) for v, _ in parts], dim=1)
+    cand_i = torch.cat([i.to(qp.device) + j * meshed.bank[0].shape[0] for j, (_, i) in enumerate(parts)], dim=1)
+    row["merge_ms"] = cuda_ms(lambda: merge_topk(cand_v, cand_i, 30, index_ordered=True), reps)
+    _, idx = merge_topk(cand_v, cand_i, 30, index_ordered=True)
+    row["label_fetch_ms"] = cuda_ms(lambda: fetch_labels(idx, meshed.labels), reps)
+    row["merge_share_of_split"] = (row["merge_ms"] + row["label_fetch_ms"]) / row["split_ms"]
+    row.update(probes_per_shard=l_p, queries=q.shape[0])
+    r = row["recall_at_30_vs_k1"]
+    print(f"  10.2 {label}, {N_PROBE} probes: recall@30 vs K1 unmeshed {r['unmeshed']:.4f}, split {r['split']:.4f}, "
+          f"full {r['full']:.4f}; ms unmeshed call {row['unmeshed_ms']:.3f} (K2 {row['k2_unmeshed_ms']:.3f}), "
+          f"meshed split {row['split_ms']:.3f} (K2 x{p} {row['k2_shards_ms']:.3f}), full {row['full_ms']:.3f}; "
+          f"merge {row['merge_ms']:.3f} + labels {row['label_fetch_ms']:.3f} "
+          f"({100 * row['merge_share_of_split']:.1f}% of the split call)", flush=True)
+    return row
+
+
+def _same_answers(name, a, b, q):
+    """Two trees answer the eval batch alike at their probes, bit for bit."""
+    va, ia, la = a.search_with_labels_pure(a.device_state, q, 30, probe_mode="tile")
+    vb, ib, lb = b.search_with_labels_pure(b.device_state, q, 30, probe_mode="tile")
+    if not (torch.equal(va, vb) and torch.equal(ia, ib) and torch.equal(la, lb)):
+        fail(f"{name}: the neighbours differ")
+
+
+def _same_leaves_answers(name, host, dev, q, bank):
+    """The host and device layouts of one tree, every leaf probed (spilled
+    rows fill other leaves in each by design, so a partial probe may
+    differ): the same values, and the same ids away from ties (K2 orders
+    ties by slot, and the slot orders within a leaf differ)."""
+    for tree in (host, dev):
+        tree.num_leaves_to_search = host._n_leaves
+    vh, ih, _ = host.search_with_labels_pure(host.device_state, q, 31, probe_mode="tile")
+    vd, idd, _ = dev.search_with_labels_pure(dev.device_state, q, 30, probe_mode="tile")
+    host.num_leaves_to_search = dev.num_leaves_to_search = N_PROBE
+    tol = RTOL * q.float().norm(dim=1) * bank.float().norm(dim=1).max()
+    err = (vd - vh[:, :30]).abs().max().item()
+    if ((vd - vh[:, :30]).abs() > tol[:, None]).any():
+        fail(f"{name}: values differ by {err}")
+    return _same_sets(name, vd, idd, vh, ih, 30, tol, err, False)
+
+
+def mesh_tree(q, bank, gen, devices, label_prefix=""):
+    """Phase 10: the IVF tree over a ('bank',) mesh of len(devices) shards
+    (parallel/sharded_ivf.py): 10.1 its builds against the unmeshed build,
+    on phase 5's bank and on BIG_M clustered rows; 10.2 its search, K2
+    once per shard, against the unmeshed search, with recall and times;
+    10.3 the streamed build from .bankdir windows onto the mesh; 10.4 a
+    .treedir saved from the mesh and loaded back onto it."""
+    from hbird_tpu_torch.bank.io import save_memory_sharded
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.parallel import make_mesh
+
+    n = len(devices)
+    mesh = make_mesh((n,), ("bank",), devices)
+    info = {"builds": {}, "search": {}, "shards": n}
+    err = 0.0
+    labels = torch.rand(bank.shape[0], 21, generator=gen, device=DEVICE)
+    trees = _mesh_tree_builds(f"{label_prefix}main", bank, labels, mesh, info["builds"])
+    flat_idx = knn_topk(q, bank, 30)[1]
+    err = max(err, _mesh_search_checks(f"{label_prefix}main bf16", trees["unmeshed"], trees["host"], q, False, n))
+    info["search"]["main bf16"] = _mesh_search_timing(f"{label_prefix}main bf16", trees["unmeshed"], trees["host"],
+                                                      q, flat_idx, 5)
+    _same_leaves_answers(f"{label_prefix}10.2 main: device layout against host layout, every leaf probed",
+                         trees["host"], trees["device"], q, bank)
+    quantized = {"int8_rows": ({"quantization": "int8_rows"}, True),
+                 "ScaNN searcher (asym_rows)": (dict(QUANT_RUNS["scann-literal"][1]), False)}
+    saved = {"bf16": trees["host"]}
+    for name, (kw, exact) in quantized.items():
+        one = NearestNeighborSearchApprox(bank, n_neighbors=30, use_tree=True, label_memory=labels, device=DEVICE,
+                                          **kw)
+        meshed = NearestNeighborSearchApprox(bank, n_neighbors=30, use_tree=True, label_memory=labels,
+                                             device=DEVICE, mesh=mesh, **kw)
+        err = max(err, _mesh_search_checks(f"{label_prefix}main {name}", one, meshed, q, exact, n))
+        saved[name] = meshed
+        del one
+    del trees
+    with tempfile.TemporaryDirectory() as tmp:
+        # 10.4: a .treedir saved from the mesh and loaded back onto it
+        t0 = time.perf_counter()
+        for i, (name, tree) in enumerate(saved.items()):
+            path = tree.save_tree(str(pathlib.Path(tmp) / f"{i}.treedir"))
+            back = NearestNeighborSearchApprox.load_tree(path, n_neighbors=30, mesh=mesh, device=DEVICE)
+            _same_answers(f"{label_prefix}.treedir of the meshed {name} tree, loaded back onto the mesh", tree,
+                          back, q)
+            del back
+        info["treedir_round_trips_s"] = time.perf_counter() - t0
+        n_leaves = tree._n_leaves
+        try:
+            NearestNeighborSearchApprox.load_tree(path, mesh=make_mesh((3,), ("bank",), [devices[0]] * 3),
+                                                  device=DEVICE)
+            fail(f"a 3-shard mesh over {n_leaves} leaves loaded")
+        except ValueError as e:
+            info["three_shard_error"] = str(e)
+        print(f"  10.4 .treedir round trips on the mesh ({', '.join(saved)}): bit for bit in "
+              f"{info['treedir_round_trips_s']:.2f}s; 3 shards over {n_leaves} leaves: ValueError", flush=True)
+        del saved
+
+        # 10.1-10.2 at BIG_M clustered rows (phase 8's stream), bf16
+        # (the queries' width: DEPTH on the card, phase 8's stream)
+        big = torch.cat([w.to(torch.bfloat16)
+                         for w in clustered_windows(BIG_M, STREAM_WINDOW, q.shape[1], seed=8)()])
+        trees = _mesh_tree_builds(f"{label_prefix}bank_{BIG_M}", big, None, mesh, info["builds"])
+        flat_idx = knn_topk(q, big, 30)[1]
+        info["search"][f"bank_{BIG_M} bf16"] = _mesh_search_timing(
+            f"{label_prefix}bank_{BIG_M} bf16", trees["unmeshed"], trees["host"], q, flat_idx, 3)
+        _same_leaves_answers(f"{label_prefix}10.2 bank_{BIG_M}: device layout against host layout, every leaf "
+                             f"probed", trees["host"], trees["device"], q, big)
+        in_memory = trees["unmeshed"]
+        del trees
+        # 10.3: the streamed build from .bankdir windows, onto the mesh
+        f_dir = str(pathlib.Path(tmp) / "big.bankdir")
+        t0 = time.perf_counter()
+        save_memory_sharded(big, f_dir)
+        streamed = {"save_s": time.perf_counter() - t0}
+        del big
+        built = {}
+        for name, kw in (("unmeshed", {}), ("meshed", {"mesh": mesh})):
+            t0 = time.perf_counter()
+            built[name], peak = peak_growth(lambda: NearestNeighborSearchApprox.from_bankdir(
+                f_dir, n_neighbors=30, window_rows=STREAM_WINDOW, device=DEVICE, **kw))
+            streamed[name] = {"s": time.perf_counter() - t0, "split_s": built[name].build_seconds,
+                              "peak_growth_bytes": peak}
+        one, meshed = built["unmeshed"], built["meshed"]
+        for part in ("centroids", "slots", "perm", "leaf_valid"):
+            if not (torch.equal(getattr(meshed, part), getattr(one, part))
+                    and torch.equal(getattr(one, part), getattr(in_memory, part))):
+                fail(f"10.3: the streamed builds' {part} differ (meshed, unmeshed, in memory)")
+        if not (torch.equal(torch.cat(meshed.bank), one.bank) and torch.equal(one.bank, in_memory.bank)):
+            fail("10.3: the streamed builds' slabs differ (meshed, unmeshed, in memory)")
+        info["streamed"] = streamed
+        gib = (lambda b: "n/a" if b is None else f"{b / 2**30:.3f} GiB")
+        print(f"  10.3 streamed build of {BIG_M} rows from a .bankdir (saved in {streamed['save_s']:.2f}s), windows "
+              f"of {STREAM_WINDOW}: unmeshed {streamed['unmeshed']['s']:.2f}s peak "
+              f"+{gib(streamed['unmeshed']['peak_growth_bytes'])}, onto the mesh {streamed['meshed']['s']:.2f}s "
+              f"peak +{gib(streamed['meshed']['peak_growth_bytes'])}; the same tree (and the in-memory build's)",
+              flush=True)
+        del built, one, meshed, in_memory
+    return info, err
+
+
+def mesh_tree_process_group(q, bank, devices):
+    """Phase 10.6: the tree over a bank axis that spans a process group of
+    one (parallel/distributed.py::process_mesh, NCCL on the card over
+    tcp://127.0.0.1), so every cross-shard step runs as a collective: the
+    build (both layouts) and the search equal the process-local mesh's bit
+    for bit."""
+    import socket
+
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.parallel import distributed, make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    distributed.initialize(f"tcp://127.0.0.1:{port}", num_processes=1, process_id=0, backend=backend)
+    try:
+        group_mesh = distributed.process_mesh(devices)
+        local_mesh = make_mesh((len(devices),), ("bank",), devices)
+        if not group_mesh.spans_processes:
+            fail("process_mesh gave a process-local mesh")
+        for layout in ("host", "device"):
+            trees = [NearestNeighborSearchApprox(bank, n_neighbors=30, use_tree=True, device=DEVICE, mesh=m,
+                                                 tree_build_layout=layout) for m in (local_mesh, group_mesh)]
+            for part in ("bank", "labels"):
+                if not all(torch.equal(a, b) for a, b in zip(getattr(trees[0], part), getattr(trees[1], part))):
+                    fail(f"10.6 {layout}: the process group's {part} differ from the process-local mesh's")
+            _same_answers(f"10.6 {layout}: the process group's tree against the process-local one", *trees, q)
+            del trees
+    finally:
+        distributed.shutdown()
+    wall = time.perf_counter() - t0
+    print(f"  10.6 {backend} process group of one, bank axis over it: builds (host, device) and search equal "
+          f"the process-local mesh's ({wall:.2f}s with init)", flush=True)
+    return {"backend": backend, "seconds": wall}
+
+
+def mesh_tree_cli(gen_seed, ivf_miou, devices, label_prefix=""):
+    """Phase 10.5: `eval_cli.main` with 'ivf --mesh-bank N' at phase 5's
+    settings: every leaf probed, mIoU within 1e-4 of the unmeshed
+    every-leaf run (K2 launched once per shard per eval batch); at the
+    default probes ('split', 'full') beside phase 5's 'ivf' run; the
+    'device' layout once."""
+    from hbird_tpu_torch.data.synthetic import make_voc_fixture
+    from hbird_tpu_torch.models import VIT_PRESETS
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    cfg = VIT_PRESETS[PRESET]
+    counters = {"knn_topk": knn_topk, "ivf_topk": ivf_topk}
+    n_eval = -(-FIXTURE["n_val"] // BATCH)
+    n = len(devices)
+    runs = {}
+    every = ["--nn-param", "num_leaves_to_search=512"]
+    mesh_flags = ["--mesh-bank", str(n), "--mesh-devices", ",".join(str(d) for d in devices)]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = str(pathlib.Path(tmp) / "voc")
+        make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
+
+        def argv(label, *flags):
+            return ["--dataset-name", "voc", "--data-dir", root, "--model", PRESET, "--random-init",
+                    "--seed", str(gen_seed), "--d-model", str(cfg.width), "--patch-size", str(cfg.patch_size),
+                    "--input-size", str(INPUT), "--batch-size", str(BATCH), "--num-workers", "0",
+                    "--n-neighbours", "30", "--device", DEVICE, "--log-level", "WARNING", "--nn-method", "ivf",
+                    "--out", str(pathlib.Path(tmp) / f"{label}.json"), *flags]
+
+        cases = (("cli ivf, every leaf probed", every, 1),
+                 (f"cli ivf --mesh-bank {n}, every leaf probed", [*mesh_flags, *every], n),
+                 (f"cli ivf --mesh-bank {n}, tree_build_layout=device, every leaf probed",
+                  [*mesh_flags, *every, "--nn-param", "tree_build_layout=device"], n),
+                 (f"cli ivf --mesh-bank {n}, {N_PROBE} probes split", mesh_flags, n),
+                 (f"cli ivf --mesh-bank {n}, {N_PROBE} probes, shard_probe=full",
+                  [*mesh_flags, "--nn-param", "shard_probe=full"], n))
+        out = {}
+        for label, flags, per_batch in cases:
+            out[label] = _cli(label_prefix + label, argv(str(len(runs)), *flags), counters, "ivf_topk", "knn_topk",
+                              n_eval, runs, per_batch=per_batch)["miou"]
+        base = out["cli ivf, every leaf probed"]
+        for label, _, per_batch in cases[1:3]:
+            if abs(out[label] - base) > 1e-4:
+                fail(f"{label}: mIoU {out[label]}, the unmeshed every-leaf run's {base}")
+        print(f"  10.5 mIoU at {N_PROBE} probes on the mesh: split {out[cases[3][0]]:.6f}, full "
+              f"{out[cases[4][0]]:.6f}; phase 5's unmeshed ivf {ivf_miou:.6f}", flush=True)
+    return runs
+
+
 def kernel_entry(name, source, tpu_kernel, launches, err, rows, card, forms=None):
     """One kernel of the `kernels` line: the top-level numbers are its
     'main' shape row (the bf16 form at the main path's shape); `shapes`
@@ -2465,8 +2893,18 @@ def main(argv=()):
         distinct["k1"], err_distinct = mesh_k1_cases(q, bank, gen, cards)
         err_mesh = max(err_mesh, err_distinct)
         mesh_runs.update(mesh_cli(0, scann_run["miou"], cards, label_prefix="distinct cards: "))
+
+    phase(f"[10] the IVF tree on a bank mesh: its builds, K2 per shard, the streamed build, .treedir, the command "
+          f"line ({card})")
+    tree_mesh, err_tree_mesh = mesh_tree(q, bank, gen, one_card)
+    tree_runs = mesh_tree_cli(0, runs["ivf unbounded"]["miou"], one_card)
+    tree_mesh["process_group"] = mesh_tree_process_group(q, bank, one_card)
+    if torch.cuda.device_count() > 1:  # never taken on a one-card machine
+        distinct["tree"], err_distinct = mesh_tree(q, bank, gen, cards, label_prefix="distinct cards: ")
+        err_tree_mesh = max(err_tree_mesh, err_distinct)
+        tree_runs.update(mesh_tree_cli(0, runs["ivf unbounded"]["miou"], cards, label_prefix="distinct cards: "))
     del bank
-    for new_runs in (feed_runs, mesh_runs):
+    for new_runs in (feed_runs, mesh_runs, tree_runs):
         runs.update(new_runs)
         for run in new_runs.values():
             for name in launches:
@@ -2482,7 +2920,7 @@ def main(argv=()):
                      launches["knn_topk"], max(err_k1, err_main["K1"], err_timing["K1"], err_mesh), k1_rows,
                      card, forms["knn_topk"]),
         kernel_entry("ivf_topk (K2)", "hbird_tpu_torch/ops/csrc/ivf_topk.cu", TPU_KERNELS["K2"],
-                     launches["ivf_topk"], max(err_k2, err_main["K2"], err_timing["K2"]), k2_rows,
+                     launches["ivf_topk"], max(err_k2, err_main["K2"], err_timing["K2"], err_tree_mesh), k2_rows,
                      card, forms["ivf_topk"]),
         kernel_entry("flash_attention (K3)", "hbird_tpu_torch/ops/csrc/flash_attn.cu", TPU_KERNELS["K3"],
                      sum(n["flash_attention"] for n in flash_launches.values()),
@@ -2490,7 +2928,8 @@ def main(argv=()):
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
         "hopper_build": build, "persistence": persistence, "native_feed": feed, "mesh_k1": mesh_rows,
-        "mesh_distinct_cards": distinct, "nccl": nccl, "seconds": time.perf_counter() - t_start}
+        "mesh_distinct_cards": distinct, "nccl": nccl, "mesh_tree": tree_mesh,
+        "seconds": time.perf_counter() - t_start}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,9 +24,13 @@ with "bfloat16" in tree_meta.json, as the JAX package writes them. Flat
 files widen bf16 to f32: they carry no dtype to view the bits back with.
 
 `load_memory_sharded(..., mesh=)` reads a .bankdir straight into padded
-row shards over a mesh's bank axis (parallel/). Not ported yet (raising):
-a .treedir placed on a mesh and the multi-process .bankdir writer, the
-next slice of ROADMAP queue 1.
+row shards over a mesh's bank axis (parallel/), and `load_tree_state(...,
+mesh=)` a .treedir into whole-leaf shards (parallel/sharded_ivf.py's
+layout). A meshed tree's slabs and labels are written shard by shard
+(`_save_rows_distributed`, the JAX package's multi-process format, chunk
+files named by their first global row): on a mesh over several processes
+each writes its own shards and process 0 the manifests and the meta, and
+the files are those one process holding every shard writes.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from hbird_tpu_torch.device import resolve_device
-from hbird_tpu_torch.nn.search_base import NEXT_SLICE, not_ported
+from hbird_tpu_torch.parallel import distributed
 
 SHARDED_MANIFEST = "manifest.json"
 TREE_META = "tree_meta.json"
@@ -188,17 +192,22 @@ def iter_memory_chunks(dir_path: str):
         start += c["rows"]
 
 
-def _read_rows(dir_path: str, manifest: dict, start: int, stop: int) -> torch.Tensor:
+def _read_rows(dir_path: str, manifest: dict, start: int, stop: int, out: Optional[torch.Tensor] = None):
     """Rows [start, stop) as a CPU tensor, reading only the chunks that
-    overlap them."""
-    out = torch.empty((stop - start, manifest["dim"]), dtype=_torch_dtype(manifest["dtype"]))
+    overlap them; or written into `out` (on any device), one chunk's piece
+    at a time."""
+    if out is None:
+        out = torch.empty((stop - start, manifest["dim"]), dtype=_torch_dtype(manifest["dtype"]))
     c_start = 0
     for c in manifest["chunks"]:
         c_stop = c_start + c["rows"]
         lo, hi = max(start, c_start), min(stop, c_stop)
         if lo < hi:
             blk = np.load(os.path.join(dir_path, c["file"]), mmap_mode="r")
-            out[lo - start : hi - start] = _as_tensor(blk[lo - c_start : hi - c_start], manifest["dtype"])
+            piece = _as_tensor(blk[lo - c_start : hi - c_start], manifest["dtype"])
+            if piece.dtype == torch.int16 and out.dtype == torch.bfloat16:
+                piece = piece.view(torch.bfloat16)  # the uint16 bits of bf16 slabs
+            out[lo - start : hi - start] = piece.to(out.device)
         if c_stop >= stop:
             break
         c_start = c_stop
@@ -273,9 +282,41 @@ def tree_path_on_disk(path: str) -> Optional[str]:
     return None
 
 
-def _save_rows_distributed(arr, dir_path: str) -> None:
-    """The multi-process writer (each process writes the rows it holds)."""
-    raise not_ported("the multi-process .bankdir writer", NEXT_SLICE)
+def _spans_processes(shards) -> bool:
+    """Whether another process holds some of these shards (None here)."""
+    return any(s is None for s in shards)
+
+
+def _save_rows_distributed(shards, dir_path: str, *, chunk_rows: int = 262144, dtype=None) -> None:
+    """A .bankdir of row shards of equal length (a list, None where another
+    process of a process mesh holds the shard): each process writes its own
+    shards' rows, cut every `chunk_rows` within a shard, as
+    chunk_g{first global row:012d}.npy; then (after a barrier, when the
+    shards span processes) process 0 writes the manifest of every shard's
+    chunks in row order, and all wait. The same files come out whichever
+    process holds a shard. `dtype` casts the rows before they leave the
+    device; bf16 is stored as uint16 bits."""
+    os.makedirs(dir_path, exist_ok=True)
+    first = next(s for s in shards if s is not None)
+    rows, dim = first.shape
+    chunks, stored = [], None
+    for j, part in enumerate(shards):
+        for s in range(0, rows, chunk_rows):
+            name = f"chunk_g{j * rows + s:012d}.npy"
+            chunks.append({"file": name, "rows": min(chunk_rows, rows - s)})
+            if part is not None:
+                blk = part[s : s + chunk_rows]
+                blk = _host_block(blk if dtype is None else blk.to(dtype))
+                stored = blk.dtype.name
+                np.save(os.path.join(dir_path, name), blk)
+    spans = _spans_processes(shards)
+    if spans:
+        distributed.barrier()
+    if not spans or distributed.is_global_zero():
+        with open(os.path.join(dir_path, SHARDED_MANIFEST), "w") as f:
+            json.dump({"rows": rows * len(shards), "dim": int(dim), "dtype": stored, "chunks": chunks}, f)
+    if spans:
+        distributed.barrier()
 
 
 def _storage_blocks(arr, chunk_rows: int, dtype=None):
@@ -307,19 +348,34 @@ def save_tree_state(
     chunk_rows: int = 262144,
 ) -> str:
     """Write a built tree. Slabs and labels may live on the card; they are
-    pulled to the host one chunk at a time."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() and (
-        torch.distributed.get_world_size() > 1
-    ):
-        _save_rows_distributed(ivf_bank, os.path.join(dir_path, "slabs.bankdir"))
+    pulled to the host one chunk at a time. A meshed tree's slabs and
+    labels (lists of shards) are written shard by shard
+    (`_save_rows_distributed`); on a mesh over several processes every
+    process calls this with the same small arrays, writes its own shards,
+    and process 0 writes the meta files."""
     os.makedirs(dir_path, exist_ok=True)
-    n_slots, dim = ivf_bank.shape
-    save_memory_sharded(_storage_blocks(ivf_bank, chunk_rows), os.path.join(dir_path, "slabs.bankdir"))
-    save_memory_sharded(
-        _storage_blocks(ivf_labels, chunk_rows, torch.float32), os.path.join(dir_path, "labels.bankdir")
-    )
+    slab_dir, label_dir = os.path.join(dir_path, "slabs.bankdir"), os.path.join(dir_path, "labels.bankdir")
+    meshed = isinstance(ivf_bank, (list, tuple))
+    spans = meshed and _spans_processes(ivf_bank)
+    if meshed:
+        first = next(s for s in ivf_bank if s is not None)
+        n_slots, dim = len(ivf_bank) * first.shape[0], first.shape[1]
+        _save_rows_distributed(ivf_bank, slab_dir, chunk_rows=chunk_rows)
+        _save_rows_distributed(ivf_labels, label_dir, chunk_rows=chunk_rows, dtype=torch.float32)
+        labels_c = next(s for s in ivf_labels if s is not None).shape[1]
+    else:
+        first = ivf_bank
+        n_slots, dim = ivf_bank.shape
+        save_memory_sharded(_storage_blocks(ivf_bank, chunk_rows), slab_dir)
+        save_memory_sharded(_storage_blocks(ivf_labels, chunk_rows, torch.float32), label_dir)
+        labels_c = ivf_labels.shape[1]
+    if spans and not distributed.is_global_zero():
+        distributed.barrier()
+        return dir_path
 
     def host(x, dtype):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat([t.detach().cpu() for t in x])
         x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
         return x.astype(dtype)
 
@@ -340,8 +396,8 @@ def save_tree_state(
         "dim": int(dim),
         # With row_scale_in_labels the last label column holds the per-slot
         # int8 scales; n_classes counts only the label columns.
-        "n_classes": int(ivf_labels.shape[1]) - int(row_scale_in_labels),
-        "bank_dtype": _dtype_name(ivf_bank.dtype),
+        "n_classes": int(labels_c) - int(row_scale_in_labels),
+        "bank_dtype": _dtype_name(first.dtype),
         "bank_scale": None if bank_scale is None else float(bank_scale),
         "row_scale_in_labels": bool(row_scale_in_labels),
         # int8_asym trees score bf16 queries against the codes: without the
@@ -350,27 +406,54 @@ def save_tree_state(
     }
     with open(os.path.join(dir_path, TREE_META), "w") as f:
         json.dump(meta, f)
+    if spans:
+        distributed.barrier()
     return dir_path
 
 
-def load_tree_state(dir_path: str, *, mesh=None, device=None) -> dict:
+def load_tree_state(dir_path: str, *, mesh=None, bank_axis: str = "bank", device=None) -> dict:
     """A saved tree as a dict for NearestNeighborSearchApprox.from_tree_state,
     every array a tensor on `device` (default: CUDA). Slabs and labels are
     assembled on the device chunk by chunk (peak device memory: the slabs,
-    the labels and one chunk; peak host memory: one chunk)."""
-    if mesh is not None:
-        raise not_ported("loading a .treedir onto a mesh", NEXT_SLICE)
+    the labels and one chunk; peak host memory: one chunk).
+
+    With `mesh`, the slabs, labels (and row scales) are lists of whole-leaf
+    shards, each read from disk straight onto its device of the mesh's
+    `bank_axis`; a leaf count the axis does not divide raises ValueError
+    (a leaf would straddle two shards)."""
     dev = resolve_device(device)
     with open(os.path.join(dir_path, TREE_META)) as f:
         meta = json.load(f)
-    slabs = load_memory_sharded(os.path.join(dir_path, "slabs.bankdir"), device=dev)
-    if meta["bank_dtype"] == "bfloat16" and slabs.dtype != torch.bfloat16:
-        slabs = slabs.view(torch.bfloat16)  # stored as uint16 bits
-    labels = load_memory_sharded(os.path.join(dir_path, "labels.bankdir"), dtype=torch.float32, device=dev)
+    bf16 = meta["bank_dtype"] == "bfloat16"  # stored as uint16 bits
+    slab_dir, label_dir = os.path.join(dir_path, "slabs.bankdir"), os.path.join(dir_path, "labels.bankdir")
+    if mesh is not None:
+        devices = mesh.axis_devices(bank_axis)
+        p = len(devices)
+        if meta["n_leaves"] % p:
+            raise ValueError(
+                f"the tree has {meta['n_leaves']} leaves, not divisible by the mesh's {bank_axis!r} axis "
+                f"({p}): leaves would straddle shard boundaries"
+            )
+        local = meta["n_leaves"] // p * meta["cap"]
+
+        def shards(path, dtype):
+            info = sharded_memory_info(path)
+            return [None if d is None else _read_rows(path, info, j * local, (j + 1) * local,
+                                                      out=torch.empty((local, info["dim"]), dtype=dtype, device=d))
+                    for j, d in enumerate(devices)]  # None: another process's shard
+
+        slabs = shards(slab_dir, torch.bfloat16 if bf16 else _torch_dtype(meta["bank_dtype"]))
+        labels = shards(label_dir, torch.float32)
+    else:
+        slabs = load_memory_sharded(slab_dir, device=dev)
+        if bf16 and slabs.dtype != torch.bfloat16:
+            slabs = slabs.view(torch.bfloat16)
+        labels = load_memory_sharded(label_dir, dtype=torch.float32, device=dev)
     row_scale = None
     if meta.get("row_scale_in_labels", False):
-        row_scale = labels[:, -1:].contiguous()
-        labels = labels[:, :-1].contiguous()
+        split = (lambda f: [None if x is None else f(x) for x in labels]) if mesh is not None else (lambda f: f(labels))
+        row_scale = split(lambda x: x[:, -1:].contiguous())
+        labels = split(lambda x: x[:, :-1].contiguous())
     with np.load(os.path.join(dir_path, "meta.npz")) as z:
         arrays = {name: torch.from_numpy(z[name]).to(dev) for name in z.files}
     return dict(

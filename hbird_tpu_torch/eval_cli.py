@@ -14,7 +14,9 @@ Two flags of the JAX command configure JAX alone and have no counterpart:
 XLA compile cache; nothing is compiled here beyond the CUDA kernels, which
 cache themselves under build/).
 
---mesh-bank N shards the flat bank over N devices (parallel/): by default
+--mesh-bank N shards the bank over N devices (parallel/): the flat bank's
+rows, or with --nn-method ivf the tree's leaves (--nn-param
+shard_probe=split|full, --nn-param tree_build_layout=host|device); by default
 the first N CUDA cards, as the JAX command takes the first N devices. One
 flag is the port's own: --mesh-devices lists the mesh's devices, and a
 device may repeat (cuda:0,cuda:0,cuda:0,cuda:0 stacks four shards on one
@@ -369,10 +371,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "searched exactly (the fused top-k kernel); "
                         "ivf/tree = leaf-partitioned scan (ScaNN tree() "
                         "semantics; num_leaves / num_leaves_to_search "
-                        "nn-params). ivf with --nn-param recall_target=R "
-                        "(and no explicit num_leaves_to_search) MEASURES the "
-                        "smallest probe count meeting recall R against a "
-                        "full-probe oracle.")
+                        "nn-params). With --mesh-bank > 1 the ivf probe budget "
+                        "splits across shards (recall can differ from one "
+                        "device under leaf skew); --nn-param shard_probe=full "
+                        "probes up to num_leaves_to_search leaves per shard "
+                        "for recall >= one device, and --nn-param "
+                        "tree_build_layout=device lays the tree out with "
+                        "nothing O(rows) gathered. ivf with --nn-param "
+                        "recall_target=R (and no explicit "
+                        "num_leaves_to_search) MEASURES the smallest probe "
+                        "count meeting recall R against a full-probe oracle "
+                        "— meshed trees calibrate through the real sharded "
+                        "path, shard_probe semantics included.")
     p.add_argument("--nn-param", action="append", default=[], metavar="KEY=VALUE",
                    help="Extra NN param (repeatable), e.g. --nn-param use_fp16=true")
     p.add_argument("--memory-size", type=int, default=None)

@@ -42,14 +42,16 @@ backend through the streamed tree build; flat files through the usual
 index build), and falls back to a build when nothing is on disk.
 
 A device mesh (parallel/mesh.py; a device may repeat): its 'bank' axis
-shards the flat bank's rows (K1 once per shard, parallel/sharded_knn.py),
-and the bank is accumulated padded to equal shards (`pad_rows_for_mesh`),
-its real rows carried as `valid_rows`. Its 'data' axis splits each batch's
+shards the flat bank's rows (K1 once per shard, parallel/sharded_knn.py)
+or, with nn_method='ivf', the tree's leaves (K2 once per shard,
+parallel/sharded_ivf.py; nn_params shard_probe and tree_build_layout), and
+the bank is accumulated padded to equal shards (`pad_rows_for_mesh`), its
+real rows carried as `valid_rows`. Its 'data' axis splits each batch's
 backbone forward over the axis's devices (the batch padded to a multiple of
-the axis), and the rest of each step runs on the engine's device. A tree
-on a bank mesh is the next slice (ROADMAP queue 1) and raises. With several
-processes (parallel/distributed.py) each process feeds its own data and
-the confusion matrices are summed across them before scoring.
+the axis), and the rest of each step runs on the engine's device. With
+several processes (parallel/distributed.py) each process feeds its own
+data into its own bank on a process-local mesh, and the confusion
+matrices are summed across them before scoring.
 """
 
 from __future__ import annotations
@@ -143,8 +145,9 @@ class HbirdEvaluation:
             with load_memory, where to restore them from); see the module
             docstring for the formats.
         load_memory: restore the memory or index instead of building it.
-        mesh: a parallel.mesh.Mesh ('bank' shards the flat bank, 'data'
-            splits each batch's forward); see the module docstring.
+        mesh: a parallel.mesh.Mesh ('bank' shards the flat bank or the
+            tree's leaves, 'data' splits each batch's forward); see the
+            module docstring.
         timer: PhaseTimer to record the phases in (a fresh one by default).
     """
 
@@ -181,6 +184,10 @@ class HbirdEvaluation:
                 "Only faiss/exact, scann/approx and ivf/tree are supported"
             )
         self.device = resolve_device(device)
+        if mesh is not None and mesh.spans_processes:
+            # Each process feeds and holds its own bank here; a bank axis over
+            # processes assumes one bank that every process sees.
+            raise ValueError("the engine takes a process-local mesh (parallel/distributed.py::global_mesh)")
         self.mesh = mesh
         self._data_devices = (
             mesh.axis_devices("data") if mesh is not None and mesh.shape.get("data", 1) > 1 else None

@@ -31,9 +31,15 @@ package's format.
 
 A flat bank on a `mesh` with a 'bank' axis is sharded over it and searched
 by K1 once per shard, merged by 'gather' (parallel/sharded_knn.py), as in
-the JAX package. A tree on a mesh (its sharded build, `shard_probe`, the
-meshed streamed build and a .treedir placed on a mesh) is not ported yet
-and raises; it is the next slice of ROADMAP queue 1 ('sharded_ivf').
+the JAX package. A tree on such a mesh is leaf-sharded
+(parallel/sharded_ivf.py): the bank is row-sharded before any tree work
+and built into whole-leaf shards (`tree_build_layout`: 'host', the
+unmeshed build's slots, or 'device', nothing O(M) gathered), and each
+search runs K2 once per shard (`shard_probe`: 'split' spreads the probe
+budget over the shards, 'full' probes it on each). On a mesh the tree
+probes per query tile (probe_mode='query' falls back to 'tile' with a
+warning) and does not reorder (a warning says so). `from_tree_state`,
+`from_bankdir` and `load_tree` place a tree on a mesh too.
 `state_spec`/`pin_expected_rows` served the JAX package's ahead-of-time
 compile and have no counterpart.
 """
@@ -46,10 +52,18 @@ import numpy as np
 import torch
 
 from hbird_tpu_torch.device import resolve_device
-from hbird_tpu_torch.nn.search_base import NEXT_SLICE, FlatSearch, not_ported, resolve_quantization
+from hbird_tpu_torch.nn.search_base import FlatSearch, bank_mesh, resolve_quantization
 from hbird_tpu_torch.ops import ivf
 from hbird_tpu_torch.ops.ivf_cuda import MAX_K
 from hbird_tpu_torch.ops.knn import L2_DISTANCES, rerank_exact
+from hbird_tpu_torch.ops.quantize import (
+    block_column_scales,
+    global_scale,
+    quantize_bank_int8,
+    quantize_bank_int8_ah,
+)
+from hbird_tpu_torch.parallel import distributed, sharded_ivf
+from hbird_tpu_torch.parallel.sharded_knn import shard_rows
 from hbird_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -63,7 +77,9 @@ class NearestNeighborSearchApprox(FlatSearch):
     'query'), tree_refine_rounds, tree_sample_rows (alias
     training_sample_size), kmeans_iters, full_lloyd_iters, seed,
     query_block (256), num_reordering_candidates, recall_target (used by
-    `calibrate_n_probe`).
+    `calibrate_n_probe`); on a bank mesh also shard_probe ('split' |
+    'full') and tree_build_layout ('host' | 'device'), where
+    full_lloyd_iters runs over the shards (sharded_ivf.sharded_kmeans).
     """
 
     def __init__(
@@ -84,6 +100,8 @@ class NearestNeighborSearchApprox(FlatSearch):
         bank_scale: Optional[float] = None,
         tree_slack: float = 1.3,
         probe_mode: str = "auto",
+        shard_probe: str = "split",
+        tree_build_layout: str = "host",
         full_lloyd_iters: int = 0,
         tree_refine_rounds: int = 2,
         tree_sample_rows: int = 131072,
@@ -164,11 +182,26 @@ class NearestNeighborSearchApprox(FlatSearch):
             )
             return
 
-        if mesh is not None:
-            raise not_ported("a meshed tree", NEXT_SLICE)
         if probe_mode not in ("auto", "tile", "query"):
             raise ValueError(f"probe_mode must be 'auto', 'tile' or 'query': {probe_mode!r}")
-        self.mesh = None
+        if shard_probe not in sharded_ivf.SHARD_PROBES:
+            raise ValueError(f"shard_probe must be 'split' or 'full': {shard_probe!r}")
+        if tree_build_layout not in sharded_ivf.LAYOUTS:
+            raise ValueError(f"tree_build_layout must be 'host' or 'device': {tree_build_layout!r}")
+        self.mesh = bank_mesh(mesh)
+        if self.mesh is not None and probe_mode == "query":
+            logger.warning(
+                "probe_mode='query' is a single-device feature; a bank-sharded tree probes per "
+                "query TILE. Using 'tile'."
+            )
+            probe_mode = "tile"
+        if self.mesh is not None and num_reordering_candidates > n_neighbors:
+            logger.warning(
+                "num_reordering_candidates is not supported with a leaf-sharded tree; returned "
+                "scores are the first-pass scan scores."
+            )
+        self.shard_probe = shard_probe
+        self.tree_build_layout = tree_build_layout
         if "training_sample_size" in kwargs:  # ScaNN's name for the sample size
             tree_sample_rows = int(kwargs.pop("training_sample_size"))
         self.n_neighbors = n_neighbors
@@ -189,6 +222,9 @@ class NearestNeighborSearchApprox(FlatSearch):
         self.device = resolve_device(device)
         if feature_memory is None:
             return  # from_tree_state installs a built tree
+        if self.mesh is not None:
+            self._build_tree_sharded(feature_memory, label_memory, bank_scale, valid_rows)
+            return
         bank = self._as_tensor(feature_memory)
         if label_memory is None:
             label_memory = torch.zeros((bank.shape[0], 1), dtype=torch.float32)
@@ -206,7 +242,10 @@ class NearestNeighborSearchApprox(FlatSearch):
         self._build_tree(bank.contiguous(), labels, row_scale)
 
     def _tree_geometry(self, n_rows: int):
-        return ivf.tree_layout(n_rows, self.num_leaves, slack=self.tree_slack)
+        n_leaves, cap = ivf.tree_layout(n_rows, self.num_leaves, slack=self.tree_slack)
+        if self.mesh is not None:  # whole leaves per shard
+            n_leaves = ivf._round_up(n_leaves, self.mesh.shape["bank"])
+        return n_leaves, cap
 
     def _build_tree(
         self, bank: torch.Tensor, labels: torch.Tensor, row_scale: Optional[torch.Tensor]
@@ -260,6 +299,109 @@ class NearestNeighborSearchApprox(FlatSearch):
         self.leaf_valid = torch.as_tensor(fill, dtype=torch.int32, device=dev)
         self.valid_rows = m
 
+    def _quantize_shards(self, shards, bank_scale):
+        """int8 codes of row shards and their per-row scales (None under a
+        global scale, which goes to `bank_scale`), shard by shard: the global
+        abs-max and the score_ah column scales are taken over every shard,
+        so the codes are the unsharded bank's."""
+        dev, mesh = self.device, self.mesh
+        own = [s for s in shards if s is not None]
+        if own[0].dtype == torch.int8:
+            if bank_scale is None:
+                raise ValueError("int8 bank injection requires bank_scale")
+            if self.int8_rows:
+                raise ValueError("pre-quantized int8 injection is global-scale only")
+            self.bank_scale = torch.tensor(float(bank_scale), dtype=torch.float32, device=dev)
+            return shards, None
+        def group_max(t):  # over this process's shards, then over the processes
+            return distributed.all_max(t) if mesh.spans_processes else t
+
+        if not self.int8_rows:
+            top = group_max(torch.stack([s.float().abs().max().to(dev) for s in own]).max())
+            self.bank_scale = global_scale(top)
+            return [None if s is None else quantize_bank_int8(s, per_row=False, scale=self.bank_scale)[0]
+                    for s in shards], None
+        if self.dims_per_block is None and self.aniso_threshold is None:
+            out = [None if s is None else quantize_bank_int8(s, per_row=True) for s in shards]
+        else:
+            if self.dims_per_block is not None:
+                col_max = group_max(torch.stack([s.float().abs().amax(dim=0).to(dev) for s in own]).amax(dim=0))
+                self.bank_col_scale = block_column_scales(col_max[None], self.dims_per_block)
+            col = self.bank_col_scale
+            out = [None if s is None else quantize_bank_int8_ah(
+                s, aniso_threshold=self.aniso_threshold, col_scale=None if col is None else col.to(s.device))[:2]
+                for s in shards]
+        return [None if o is None else o[0] for o in out], [None if o is None else o[1] for o in out]
+
+    def _build_tree_sharded(self, feature_memory, label_memory, bank_scale, valid_rows) -> None:
+        """The tree over the mesh's bank axis (parallel/sharded_ivf.py): the
+        bank (a tensor, or row shards) is row-sharded before any tree work,
+        quantized shard by shard, sampled by the unmeshed build's draw, its
+        centroids trained (sample k-means, full-bank Lloyd over the shards,
+        capacity refinement), then laid out and scattered into whole-leaf
+        shards; per-row scales ride the scatter as a last label column."""
+        mesh, dev = self.mesh, self.device
+        times = self.build_seconds = {}
+        n_in = None  # shards given: all their rows
+        if isinstance(feature_memory, (list, tuple)):
+            shards = [None if d is None else s.to(d) for s, d in zip(feature_memory, mesh.axis_devices("bank"))]
+        else:
+            x = self._as_tensor(feature_memory)
+            shards, n_in = shard_rows(x, mesh, block=1), x.shape[0]
+        own = next(s for s in shards if s is not None)
+        rows = len(shards) * own.shape[0]  # with the padding to whole shards
+        m = int(valid_rows) if valid_rows is not None else (rows if n_in is None else n_in)
+        row_scale = None
+        if self.quantization is not None:
+            shards, row_scale = self._quantize_shards(shards, bank_scale)
+        else:
+            store = torch.bfloat16 if self.use_fp16 else torch.float32
+            shards = [None if s is None else s.float().to(store).contiguous() for s in shards]
+        n_leaves, cap = self._tree_geometry(m)
+        rng = np.random.default_rng(self.seed)
+        pick = torch.as_tensor(rng.choice(m, min(m, self.tree_sample_rows), replace=False), device=dev)
+        sample = sharded_ivf.take(shards, pick, mesh,
+                                  out=torch.zeros((pick.shape[0], own.shape[1]), dtype=torch.float32, device=dev))
+        with ivf.phase_seconds(times, "kmeans", dev):
+            self.centroids = ivf.train_centroids(
+                sample, n_leaves, iters=self.kmeans_iters,
+                generator=torch.Generator().manual_seed(self.seed),
+            )
+        if self.full_lloyd_iters > 0:
+            # Before the capacity refinement, which plain Lloyd would undo.
+            with ivf.phase_seconds(times, "full_lloyd", dev):
+                self.centroids = sharded_ivf.sharded_kmeans(
+                    shards, self.centroids, mesh, iters=self.full_lloyd_iters, valid_rows=m
+                )
+        if self.tree_refine_rounds > 0:
+            with ivf.phase_seconds(times, "refine", dev):
+                self.centroids = ivf.refine_centroids_balanced(
+                    sample, self.centroids, slack=self.tree_slack, rounds=self.tree_refine_rounds,
+                )
+        del sample
+        if label_memory is None:
+            label_memory = torch.zeros((m, 1), dtype=torch.float32)
+        if not isinstance(label_memory, (list, tuple)):
+            label_memory = torch.as_tensor(label_memory, dtype=torch.float32, device=dev)
+        labels = sharded_ivf.row_shards(label_memory, mesh, rows)
+        if row_scale is not None:
+            labels = [None if lab is None else torch.cat([lab.float(), rs.to(lab.device)], dim=1)
+                      for lab, rs in zip(labels, row_scale)]
+        parts = sharded_ivf.build_ivf_sharded(
+            shards, labels, self.centroids, n_leaves, cap, mesh, valid_rows=m,
+            layout=self.tree_build_layout, times=times,
+        )
+        del shards, labels
+        labels = parts["ivf_labels"]
+        if row_scale is not None:
+            self.bank_row_scale = [None if lab is None else lab[:, -1:].contiguous() for lab in labels]
+            labels = [None if lab is None else lab[:, :-1].contiguous() for lab in labels]
+        self.bank, self.labels = parts["ivf_bank"], labels
+        self.perm, self.slots = parts["perm"], parts["slots"]
+        self.leaf_valid = torch.as_tensor(parts["leaf_fill"], dtype=torch.int32, device=dev)
+        self._n_leaves, self._cap = n_leaves, cap
+        self.valid_rows = m
+
     @property
     def device_state(self):
         """The searched arrays, passed explicitly to the pure search."""
@@ -277,9 +419,9 @@ class NearestNeighborSearchApprox(FlatSearch):
         if not self.use_tree:
             return super().gather_features_pure(state, idx)
         # idx holds original row ids; the stored bank is leaf-ordered, and so
-        # are the per-slot scales.
-        slot_idx = state["slots"][idx]
-        return self._dequantize(state, state["bank"][slot_idx], slot_idx)
+        # are the per-slot scales (each taken from its shard on a mesh).
+        slot_idx = self._rows(state["slots"], idx)
+        return self._dequantize(state, self._rows(state["bank"], slot_idx), slot_idx)
 
     def search_with_labels_pure(
         self, state, q: torch.Tensor, k: Optional[int] = None, *, probe_mode: Optional[str] = None
@@ -291,6 +433,16 @@ class NearestNeighborSearchApprox(FlatSearch):
             return super().search_with_labels_pure(state, q, k)
         bank = state["bank"]
         k = k or self.n_neighbors
+        if self.mesh is not None:
+            q_cast, q_scale = self._cast_queries(state, q)
+            vals, idx_ivf, out_labels = sharded_ivf.sharded_ivf_knn_with_labels(
+                q_cast, bank, state["labels"], state["centroids"], state["leaf_valid"], k,
+                mesh=self.mesh, cap=self._cap, n_probe=min(self.num_leaves_to_search, self._n_leaves),
+                block_q=self.query_block, shard_probe=self.shard_probe,
+                row_scale=state.get("bank_row_scale"),
+            )
+            idx = torch.clamp(self._rows(state["perm"], idx_ivf), min=0)
+            return self._true_units(state, vals, q_scale), idx, out_labels
         # Re-scoring int8 slabs would rank by the same codes: no reorder.
         reorder = self.num_reordering_candidates > k and self.quantization is None
         kk = self.num_reordering_candidates if reorder else k
@@ -349,10 +501,19 @@ class NearestNeighborSearchApprox(FlatSearch):
         rng = np.random.default_rng(seed)
         n_q = min(n_queries, self.valid_rows)
         choice = torch.as_tensor(rng.choice(self.valid_rows, n_q, replace=False), device=self.device)
-        q = self.bank[self.slots[choice]]
+        q = self._rows(self.bank, self._rows(self.slots, choice))
         cal_mode = "query" if self.probe_mode == "query" else "tile"
 
         def probe(n_probe, probe_mode=cal_mode):
+            if self.mesh is not None:
+                # The sharded path itself, shard_probe included (a mesh probes
+                # per tile); one label column is all the merge needs to move.
+                _, idx, _ = sharded_ivf.sharded_ivf_knn_with_labels(
+                    q, self.bank, [None if lab is None else lab[:, :1] for lab in self.labels], self.centroids,
+                    self.leaf_valid, k, mesh=self.mesh, cap=self._cap, n_probe=n_probe,
+                    block_q=self.query_block, shard_probe=self.shard_probe, row_scale=self.bank_row_scale,
+                )
+                return idx.cpu().numpy()
             _, idx = ivf.ivf_search(
                 q, self.bank, self.centroids, self.leaf_valid, k,
                 cap=self._cap, n_probe=n_probe, block_q=self.query_block,
@@ -427,15 +588,20 @@ class NearestNeighborSearchApprox(FlatSearch):
         `device` (default: the slabs' device if they are a tensor, else
         CUDA). int8 slabs need their scale: `bank_scale` (global) or
         `bank_row_scale` (per slot, (n_slots, 1)); `bank_col_scale` holds
-        the score_ah column scales. Search options pass through `kwargs`."""
-        if mesh is not None:
-            raise not_ported("a meshed tree", NEXT_SLICE)
-        if device is None and isinstance(ivf_bank, torch.Tensor):
-            device = ivf_bank.device
-        n_slots = ivf_bank.shape[0]
+        the score_ah column scales. Search options pass through `kwargs`.
+
+        With a bank `mesh`, the slabs, labels and row scales (tensors, or
+        lists of whole-leaf shards) are placed as whole-leaf shards over its
+        'bank' axis (parallel/sharded_ivf.py::shard_ivf_state); a leaf count
+        the axis does not divide raises ValueError."""
+        shards = isinstance(ivf_bank, (list, tuple))
+        first = next(t for t in ivf_bank if t is not None) if shards else ivf_bank
+        if device is None and isinstance(first, torch.Tensor):
+            device = first.device
+        n_slots = len(ivf_bank) * first.shape[0] if shards else ivf_bank.shape[0]
         if n_slots % cap:
             raise ValueError(f"{n_slots} slots are not whole leaves of {cap}")
-        int8 = ivf_bank.dtype == torch.int8
+        int8 = first.dtype == torch.int8
         kwargs.setdefault("num_leaves", n_slots // cap)
         kwargs.setdefault("use_tree", True)
         kwargs.setdefault("use_int8", int8)
@@ -449,15 +615,23 @@ class NearestNeighborSearchApprox(FlatSearch):
                 f"quantization={kwargs['quantization']!r} slab injection requires bank_row_scale "
                 "(the per-slot scales the codes were quantized with)"
             )
-        self = cls(None, n_neighbors=n_neighbors, device=device, **kwargs)
+        self = cls(None, n_neighbors=n_neighbors, device=device, mesh=mesh, **kwargs)
         dev = self.device
 
         def put(x, dtype=None):
-            t = torch.as_tensor(x).to(dev)
-            return t if dtype is None else t.to(dtype)
+            if isinstance(x, (list, tuple)):  # per-shard arrays go to their shards' devices
+                return [None if d is None else torch.as_tensor(t).to(d, dtype)
+                        for t, d in zip(x, self.mesh.axis_devices("bank"))]
+            return torch.as_tensor(x).to(dev, dtype)
 
-        self.bank = put(ivf_bank).contiguous()
-        self.labels = put(ivf_labels, torch.float32).contiguous()
+        if self.mesh is not None:
+            self.bank, self.labels, rs = sharded_ivf.shard_ivf_state(
+                ivf_bank, ivf_labels, self.mesh, cap=cap, row_scale=bank_row_scale
+            )
+        else:
+            self.bank = put(ivf_bank).contiguous()
+            self.labels = put(ivf_labels, torch.float32).contiguous()
+            rs = None if bank_row_scale is None else put(bank_row_scale, torch.float32).reshape(-1, 1).contiguous()
         self.centroids = put(centroids, torch.float32)
         self.leaf_valid = put(leaf_valid, torch.int32)
         self.perm = put(perm, torch.int64)
@@ -465,7 +639,7 @@ class NearestNeighborSearchApprox(FlatSearch):
         self._n_leaves, self._cap = n_slots // cap, int(cap)
         self.valid_rows = int(valid_rows)
         if bank_row_scale is not None:
-            self.bank_row_scale = put(bank_row_scale, torch.float32).reshape(-1, 1).contiguous()
+            self.bank_row_scale = rs
         elif bank_scale is not None:
             self.bank_scale = torch.tensor(float(bank_scale), dtype=torch.float32, device=dev)
         # Injected slabs are quantized already: only handed-over column
@@ -500,11 +674,11 @@ class NearestNeighborSearchApprox(FlatSearch):
         use_fp16=False) on the device, window by window. An int8 .bankdir
         needs `bank_scale`, its global scale; `use_int8` cannot quantize a
         float .bankdir here (that needs another full pass) and is ignored
-        with a warning, and the per-row modes raise."""
+        with a warning, and the per-row modes raise. With a bank `mesh`
+        each window goes straight to the shards owning its slots (the leaf
+        count rounded up to a multiple of the axis)."""
         from hbird_tpu_torch.bank.io import iter_bankdir_windows, sharded_memory_info
 
-        if mesh is not None:
-            raise not_ported("the meshed streamed tree build", NEXT_SLICE)
         dev = resolve_device(device)
         info = sharded_memory_info(feature_dir)
         is_int8 = info["dtype"] == "int8"
@@ -528,13 +702,13 @@ class NearestNeighborSearchApprox(FlatSearch):
 
         parts = ivf.build_tree_streamed(
             stream, info["rows"], num_leaves, slack=tree_slack, kmeans_iters=kmeans_iters,
-            refine_rounds=tree_refine_rounds, sample_rows=tree_sample_rows, seed=seed,
+            refine_rounds=tree_refine_rounds, sample_rows=tree_sample_rows, seed=seed, mesh=mesh,
         )
         self = cls.from_tree_state(
             parts["ivf_bank"], parts["ivf_labels"], parts["centroids"], parts["leaf_fill"],
             parts["perm"], parts["slots"], cap=parts["cap"], valid_rows=parts["valid_rows"],
             n_neighbors=n_neighbors, bank_scale=bank_scale, num_leaves=parts["n_leaves"],
-            tree_slack=tree_slack, device=dev, **kwargs,
+            tree_slack=tree_slack, mesh=mesh, device=dev, **kwargs,
         )
         self.build_seconds = parts["build_seconds"]
         return self
@@ -544,7 +718,9 @@ class NearestNeighborSearchApprox(FlatSearch):
         `dir_path`, conventionally '*.treedir', in the JAX package's format.
         Slabs come off the device one chunk at a time. int8 trees keep their
         scales (per-slot scales as a last label column), bf16 slabs are
-        stored as uint16 bits."""
+        stored as uint16 bits. A meshed tree is written shard by shard
+        (bank/io.py::_save_rows_distributed); on a mesh over several
+        processes every process calls this and writes its own shards."""
         from hbird_tpu_torch.bank.io import save_tree_state
 
         if not self.use_tree or getattr(self, "_cap", None) is None:
@@ -552,17 +728,23 @@ class NearestNeighborSearchApprox(FlatSearch):
         int8 = self.quantization is not None
         scale = float(self.bank_scale) if int8 and self.bank_scale is not None else None
         row_scale_in_labels = int8 and self.bank_row_scale is not None
-        labels = self.labels
-        if row_scale_in_labels:
+        labels, perm, slots = self.labels, self.perm, self.slots
+        if row_scale_in_labels and self.mesh is not None:
+            labels = [None if lab is None else torch.cat([lab.float(), rs], dim=1)
+                      for lab, rs in zip(self.labels, self.bank_row_scale)]
+        elif row_scale_in_labels:
             labels = torch.cat([self.labels.float(), self.bank_row_scale], dim=1)
+        if self.mesh is not None and self.mesh.spans_processes and isinstance(perm, list):
+            # a device-layout tree's perm and slots, gathered for the meta file
+            perm, slots = (torch.cat(distributed.gather_shards(x, self.device)) for x in (perm, slots))
         return save_tree_state(
             dir_path,
             ivf_bank=self.bank,
             ivf_labels=labels,
             centroids=self.centroids,
             leaf_valid=self.leaf_valid,
-            perm=self.perm,
-            slots=self.slots,
+            perm=perm,
+            slots=slots,
             cap=self._cap,
             valid_rows=self.valid_rows,
             bank_scale=scale,
@@ -575,14 +757,15 @@ class NearestNeighborSearchApprox(FlatSearch):
     @classmethod
     def load_tree(cls, dir_path: str, *, n_neighbors: int = 30, mesh=None, device=None, **kwargs):
         """The tree backend from a save_tree() directory (either package's),
-        its slabs assembled on `device` (default: CUDA) chunk by chunk.
+        its slabs assembled on `device` (default: CUDA) chunk by chunk, or
+        with a bank `mesh` read straight into whole-leaf shards on its
+        devices (a leaf count the axis does not divide raises ValueError).
         Search options (num_leaves_to_search, recall_target, ...) pass
         through `kwargs`."""
         from hbird_tpu_torch.bank.io import load_tree_state
 
-        if mesh is not None:
-            raise not_ported("a meshed tree", NEXT_SLICE)
-        state = load_tree_state(dir_path, device=device)
+        mesh = bank_mesh(mesh)
+        state = load_tree_state(dir_path, mesh=mesh, device=device)
         if state.pop("asym", False):
             # A tree saved in int8_asym mode scores bf16 queries on the codes.
             kwargs.setdefault("quantization", "int8_asym")
@@ -591,5 +774,5 @@ class NearestNeighborSearchApprox(FlatSearch):
             state["perm"], state["slots"], cap=state["cap"], valid_rows=state["valid_rows"],
             n_neighbors=n_neighbors, bank_scale=state["bank_scale"],
             bank_row_scale=state["bank_row_scale"], bank_col_scale=state["bank_col_scale"],
-            num_leaves=state["n_leaves"], device=state["ivf_bank"].device, **kwargs,
+            num_leaves=state["n_leaves"], mesh=mesh, device=state["centroids"].device, **kwargs,
         )

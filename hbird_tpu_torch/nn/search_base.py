@@ -16,9 +16,9 @@ than 1 (parallel/mesh.py), the stored arrays are lists of row shards, one
 per bank-axis device, and K1 runs once per shard
 (parallel/sharded_knn.py: 'gather', or the exact backend's 'ring'). The
 approx backend's IVF tree (`use_tree=True`) overrides the storage and the
-search. Options of the JAX backends that need a later slice raise
-`NotImplementedError` and name their ROADMAP item; none falls back
-silently.
+search (parallel/sharded_ivf.py on a mesh). Row shards held by another
+process (a mesh over a process group) are None here: only the tree takes
+such a mesh, and its row gathers sum over the group.
 """
 
 from __future__ import annotations
@@ -43,15 +43,6 @@ from hbird_tpu_torch.parallel.sharded_knn import (
 )
 
 QUANTIZATIONS = ("int8", "int8_rows", "int8_asym")
-
-
-# The ROADMAP item (queue 1) that ports what is still missing of parallel/.
-NEXT_SLICE = "modules to port, 'parallel/': sharded_ivf and the multi-process writer, the next slice"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for an option of the JAX package that a later slice ports."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 def bank_mesh(mesh):
@@ -120,6 +111,8 @@ class FlatSearch:
         if shard_strategy not in ("gather", "ring"):
             raise ValueError(f"shard_strategy must be 'gather' or 'ring': {shard_strategy!r}")
         self.mesh = bank_mesh(mesh)
+        if self.mesh is not None and self.mesh.spans_processes:
+            raise ValueError("the flat search shards over a process-local mesh (parallel/distributed.py::global_mesh)")
         self.shard_strategy = shard_strategy
         sharded_in = isinstance(feature_memory, (list, tuple))
         if sharded_in and self.mesh is None:
@@ -226,21 +219,25 @@ class FlatSearch:
                 state["bank_col_scale"] = self.bank_col_scale
         return state
 
-    @staticmethod
-    def _rows(x, idx: torch.Tensor) -> torch.Tensor:
+    def _rows(self, x, idx: torch.Tensor) -> torch.Tensor:
         """x[idx] of a tensor, or of a list of row shards (each row from its
-        owning shard)."""
-        return take_rows(x, idx) if isinstance(x, list) else x[idx]
+        owning shard; on a mesh over several processes, summed over them)."""
+        if not isinstance(x, list):
+            return x[idx]
+        if self.mesh is not None and self.mesh.spans_processes:
+            from hbird_tpu_torch.parallel.sharded_ivf import take
 
-    @staticmethod
-    def _dequantize(state, rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+            return take(x, idx, self.mesh)
+        return take_rows(x, idx)
+
+    def _dequantize(self, state, rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
         """Stored rows taken at positions `sel` of the bank, as features:
         int8 codes times their scales (codes * s_row * c_col, or *
         bank_scale); float rows as stored."""
         if rows.dtype != torch.int8:
             return rows
         if "bank_row_scale" in state:
-            rows = rows.float() * FlatSearch._rows(state["bank_row_scale"], sel)
+            rows = rows.float() * self._rows(state["bank_row_scale"], sel)
             col = state.get("bank_col_scale")
             return rows if col is None else rows * col
         return rows.float() * state["bank_scale"]
@@ -257,7 +254,9 @@ class FlatSearch:
         int8 query codes (None otherwise). The column-block scales of the
         score_ah quantizer fold into the queries; int8_asym keeps bf16
         queries."""
-        bank = state["bank"][0] if isinstance(state["bank"], list) else state["bank"]
+        bank = state["bank"]
+        if isinstance(bank, list):  # a shard this process holds
+            bank = next(s for s in bank if s is not None)
         if bank.dtype != torch.int8:
             return q.to(bank.dtype).contiguous(), None
         col = state.get("bank_col_scale")

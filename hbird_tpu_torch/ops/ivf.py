@@ -304,19 +304,33 @@ def full_bank_lloyd(
     sample-trained centroids when the sample is a small fraction of the
     bank. The (rows, n_leaves) score block never exceeds block_rows x
     n_leaves."""
-    n_leaves, d = centroids.shape
     c = centroids.float()
-    m = bank.shape[0]
     for _ in range(iters):
-        sums = torch.zeros((n_leaves, d), dtype=torch.float32, device=c.device)
-        cnt = torch.zeros(n_leaves, dtype=torch.float32, device=c.device)
-        for i in range(0, m, block_rows):
-            x = bank[i : i + block_rows].float()
-            blk_sums, blk_cnt = _leaf_sums(x, torch.argmax(x @ c.T, dim=1), n_leaves)
-            sums += blk_sums
-            cnt += blk_cnt
-        c = _new_centroids(sums, cnt, c, spherical)
+        c = _new_centroids(*lloyd_sums(bank, c, block_rows=block_rows), c, spherical)
     return c
+
+
+def lloyd_sums(bank: torch.Tensor, c: torch.Tensor, *, block_rows: int = 1 << 18):
+    """One Lloyd step's per-leaf sums and counts of `bank`'s rows under the
+    centroids `c` (on the bank's device), block by block in row order."""
+    n_leaves, d = c.shape
+    sums = torch.zeros((n_leaves, d), dtype=torch.float32, device=bank.device)
+    cnt = torch.zeros(n_leaves, dtype=torch.float32, device=bank.device)
+    for i in range(0, bank.shape[0], block_rows):
+        x = bank[i : i + block_rows].float()
+        blk_sums, blk_cnt = _leaf_sums(x, torch.argmax(x @ c.T, dim=1), n_leaves)
+        sums += blk_sums
+        cnt += blk_cnt
+    return sums, cnt
+
+
+def slab_rows(slots: torch.Tensor, start: int, n: int):
+    """(positions in `slots`, local slots) of the entries in [start,
+    start + n): the rows one slab shard takes; (None, None) when none."""
+    sel = torch.nonzero((slots >= start) & (slots < start + n)).squeeze(1)
+    if sel.numel() == 0:
+        return None, None
+    return sel, slots[sel] - start
 
 
 def build_tree_streamed(
@@ -331,6 +345,7 @@ def build_tree_streamed(
     sample_rows: int = 131072,
     seed: int = 0,
     mesh=None,
+    bank_axis: str = "bank",
 ):
     """The tree's arrays from a re-iterable stream of row windows, without
     the flat bank: three passes over the stream.
@@ -346,17 +361,31 @@ def build_tree_streamed(
     (rows (n, D), labels (n, C) or None) tensors in the tree's store dtype,
     identical on every call (windows read from disk again, or a seeded
     generator), on the device that builds the tree: it holds the slabs and
-    one window, never the flat bank. `mesh` is not ported yet (the next slice).
+    one window, never the flat bank.
+
+    With a `mesh` whose `bank_axis` has p > 1 devices the slabs are whole-
+    leaf shards over it (n_leaves is rounded up to a multiple of p; a leaf
+    count that still does not divide raises), and each window's rows go
+    only to the shard that owns their slots: no device holds the flat bank
+    or the whole slab layout. `ivf_bank` and `ivf_labels` are then lists of
+    shards (parallel/sharded_ivf.py's layout; on a mesh over several
+    processes, each reading the same stream, None at the others' shards).
 
     Returns dict(ivf_bank, ivf_labels, centroids, perm, slots, leaf_fill
     (tensors on the device; perm, slots int64, leaf_fill int32), cap,
     n_leaves, valid_rows, build_seconds (wall time of each stage)).
     """
-    if mesh is not None:
-        from hbird_tpu_torch.nn.search_base import NEXT_SLICE, not_ported
-
-        raise not_ported("the meshed streamed tree build", NEXT_SLICE)
+    devices = None
+    if mesh is not None and mesh.shape.get(bank_axis, 1) > 1:
+        devices = mesh.axis_devices(bank_axis)
+        p = len(devices)
+        num_leaves = _round_up(num_leaves, p)  # whole leaves per shard
     n_leaves, cap = tree_layout(n_rows, num_leaves, slack=slack)
+    if devices is not None and n_leaves % p:
+        raise ValueError(
+            f"meshed streamed build: {n_rows} rows give {n_leaves} leaves, not divisible by the "
+            f"mesh's {bank_axis!r} axis ({p})"
+        )
     n_slots = n_leaves * cap
     times: Dict[str, float] = {}
 
@@ -399,24 +428,40 @@ def build_tree_streamed(
         slots, fill = balanced_layout(choices, n_leaves, cap, scores=scores)
     del choices, scores
 
-    # Pass 3: each window into its slots.
+    # Pass 3: each window into its slots; with a mesh, each shard takes the
+    # window's rows that fall in its slab.
     slots_t = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+    owners = devices or [dev]
+    local = n_slots // len(owners)
     ivf_bank = ivf_labels = None
     pos = 0
     with phase_seconds(times, "scatter", dev):
         for rows, labs in slab_stream():
             n = rows.shape[0]
             sl = slots_t[pos : pos + n]
-            if ivf_bank is None:
-                ivf_bank = torch.zeros((n_slots, rows.shape[1]), dtype=rows.dtype, device=dev)
-            ivf_bank.index_copy_(0, sl, rows)
-            if labs is not None:
-                if ivf_labels is None:
-                    ivf_labels = torch.zeros((n_slots, labs.shape[1]), dtype=torch.float32, device=dev)
-                ivf_labels.index_copy_(0, sl, labs.to(dev).float())
+            labs = None if labs is None else labs.to(dev).float()
+            if ivf_bank is None:  # None: a shard another process holds
+                ivf_bank = [None if o is None else torch.zeros((local, rows.shape[1]), dtype=rows.dtype, device=o)
+                            for o in owners]
+            if labs is not None and ivf_labels is None:
+                ivf_labels = [None if o is None else torch.zeros((local, labs.shape[1]), dtype=torch.float32,
+                                                                 device=o) for o in owners]
+            if devices is None:
+                ivf_bank[0].index_copy_(0, sl, rows)
+                if labs is not None:
+                    ivf_labels[0].index_copy_(0, sl, labs)
+            for j, o in enumerate(devices or ()):
+                sel, loc = slab_rows(sl, j * local, local) if o is not None else (None, None)
+                if sel is None:
+                    continue
+                ivf_bank[j].index_copy_(0, loc.to(o), rows[sel].to(o))
+                if labs is not None:
+                    ivf_labels[j].index_copy_(0, loc.to(o), labs[sel].to(o))
             pos += n
     if ivf_labels is None:
-        ivf_labels = torch.zeros((n_slots, 1), dtype=torch.float32, device=dev)
+        ivf_labels = [None if o is None else torch.zeros((local, 1), dtype=torch.float32, device=o) for o in owners]
+    if devices is None:
+        ivf_bank, ivf_labels = ivf_bank[0], ivf_labels[0]
     perm = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
     perm[slots_t] = torch.arange(n_rows, device=dev)
     return dict(

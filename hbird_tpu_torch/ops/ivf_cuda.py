@@ -110,6 +110,12 @@ def _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q, row_scale) 
     for t in (ivf_bank, leaf_ids, leaf_valid, row_scale):
         if t is not None and t.device != queries.device:
             raise ValueError(f"queries on {queries.device}, an input on {t.device}")
+    # The kernel reads the queries and slabs through TMA tensor maps, whose
+    # base must be 16-byte aligned: a view into a larger allocation (a slab
+    # shard of a meshed tree) must start on 16 bytes, or be copied first
+    # (parallel/sharded_ivf.py::shard_ivf_state does).
+    if queries.device.type == "cuda" and (queries.data_ptr() % 16 or ivf_bank.data_ptr() % 16):
+        raise ValueError("the K2 kernel needs 16-byte aligned queries and bank (TMA tensor maps)")
 
 
 def ivf_topk(
@@ -155,8 +161,6 @@ def ivf_topk(
     step = 16 if ivf_bank.dtype == torch.int8 else 8  # 16-byte rows of the staged vectors
     if d % step:
         raise ValueError(f"the K2 kernel needs a depth divisible by {step} for this form: {d}")
-    if queries.data_ptr() % 16 or ivf_bank.data_ptr() % 16:
-        raise ValueError("the K2 kernel needs 16-byte aligned queries and bank")
     if ivf_bank.shape[0] >= 2**31:
         raise ValueError(f"the K2 kernel takes fewer than 2^31 slots: {ivf_bank.shape[0]}")
     lids = leaf_ids.to(torch.int32).contiguous()

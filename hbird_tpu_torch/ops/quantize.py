@@ -37,17 +37,27 @@ def _round_codes(y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(y), -127.0, 127.0)
 
 
-def quantize_bank_int8(bank_f: torch.Tensor, *, per_row: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def global_scale(abs_max: torch.Tensor) -> torch.Tensor:
+    """The global scale of a bank whose largest |entry| is `abs_max`."""
+    return _over_127(torch.clamp(abs_max.float(), min=1e-12))
+
+
+def quantize_bank_int8(
+    bank_f: torch.Tensor, *, per_row: bool, scale: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize a float bank to symmetric int8 codes.
 
     Returns `(codes, scale)`: int8 codes and a `(M, 1)` f32 scale when
     `per_row`, else a 0-d f32 scale. Dequantization is `codes * scale`.
+    A given global `scale` (of a bank this is a slice of) is used as is.
     """
     x = bank_f.float()
     if per_row:
         scale = _over_127(torch.clamp(x.abs().amax(dim=1, keepdim=True), min=1e-12))
+    elif scale is None:
+        scale = global_scale(x.abs().max())
     else:
-        scale = _over_127(torch.clamp(x.abs().max(), min=1e-12))
+        scale = scale.to(x.device)
     return _round_codes(x / scale).to(torch.int8), scale
 
 
@@ -137,6 +147,7 @@ def quantize_bank_int8_ah(
     dims_per_block: Optional[int] = None,
     aniso_threshold: Optional[float] = None,
     row_block: Optional[int] = 262144,
+    col_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """`score_ah`-flavored scalar quantization: separable per-row x
     per-column-block scales plus anisotropic code refinement.
@@ -144,9 +155,12 @@ def quantize_bank_int8_ah(
     Returns `(codes, row_scale (M, 1), col_scale (d,) or None)`;
     dequantization is `codes * row_scale * col_scale`. `row_block` chunks
     the anisotropic refinement's (block, d) f32 temporaries (~800 MB at
-    d = 768); None refines all rows at once.
+    d = 768); None refines all rows at once. A given `col_scale` (of a bank
+    this is a slice of) replaces the one `dims_per_block` would measure.
     """
-    col = block_column_scales(bank_f, dims_per_block) if dims_per_block is not None else None
+    col = col_scale
+    if col is None and dims_per_block is not None:
+        col = block_column_scales(bank_f, dims_per_block)
     xc = bank_f.float() / col if col is not None else bank_f.float()
     scale = _over_127(torch.clamp(xc.abs().amax(dim=1, keepdim=True), min=1e-12))
     if aniso_threshold is None:

@@ -1,4 +1,9 @@
 from hbird_tpu_torch.parallel.mesh import Mesh, default_mesh, make_mesh
+from hbird_tpu_torch.parallel.sharded_ivf import (
+    build_ivf_sharded,
+    shard_ivf_state,
+    sharded_ivf_knn_with_labels,
+)
 from hbird_tpu_torch.parallel.sharded_knn import (
     pad_rows_for_mesh,
     ring_knn_with_labels,
@@ -14,4 +19,7 @@ __all__ = [
     "shard_bank",
     "sharded_knn_with_labels",
     "ring_knn_with_labels",
+    "shard_ivf_state",
+    "sharded_ivf_knn_with_labels",
+    "build_ivf_sharded",
 ]

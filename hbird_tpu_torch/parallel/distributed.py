@@ -15,18 +15,24 @@ hbird/utils/eval_metrics.py:246-252); this makes it real:
   only the confusion matrix crosses processes (`sync_conf_mat`).
 - `sync_conf_mat()`: the cross-process confusion-matrix sum (the
   reference's dormant all_reduce hook), exact in int64.
+- `process_mesh()`: a ('bank',) mesh over every process's devices, for the
+  leaf-sharded tree (parallel/sharded_ivf.py), whose shard lists hold None
+  for the other processes' shards; and the collectives its functions use
+  where the JAX package's shard_maps do (all-gathers of per-shard results
+  in shard order, sums and maxima, paired sends and receives of the
+  scatter ring, barriers around the multi-process .treedir writer).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from hbird_tpu_torch.parallel.mesh import make_mesh
+from hbird_tpu_torch.parallel.mesh import Mesh, canonical_device, make_mesh
 from hbird_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -119,3 +125,91 @@ def sync_conf_mat(conf: np.ndarray) -> np.ndarray:
     total = torch.tensor(np.asarray(conf, np.int64), device=dev)  # a copy: the reduce is in place
     dist.all_reduce(total, op=dist.ReduceOp.SUM)
     return total.cpu().numpy()
+
+
+# ----------------------------------------------------------------------
+# A bank axis over the process group
+# ----------------------------------------------------------------------
+def process_mesh(local_devices: Sequence, bank_axis: str = "bank") -> Mesh:
+    """A 1-d mesh whose `bank_axis` holds every process's `local_devices`,
+    in rank order (each process gives the same number). Rank r owns shards
+    [r·n, (r+1)·n); this process's grid holds None at the others'."""
+    local = [canonical_device(d) for d in local_devices]
+    n, world, rank = len(local), process_count(), process_index()
+    if _ready():
+        counts = [None] * world
+        dist.all_gather_object(counts, n)
+        if len(set(counts)) != 1:
+            raise ValueError(f"every process must give the same number of devices: {counts}")
+    grid = np.empty(n * world, dtype=object)
+    grid[rank * n : (rank + 1) * n] = local
+    return Mesh(grid, (bank_axis,), ranks=np.repeat(np.arange(world), n))
+
+
+def _comm_device() -> torch.device:
+    """Where collectives run: the current card under NCCL, else the CPU."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def gather_shards(parts: Sequence[Optional[torch.Tensor]], home) -> List[torch.Tensor]:
+    """Every shard's tensor (one shape for all) on `home`, in shard order:
+    this process's present entries and the others' all-gathered."""
+    comm = _comm_device()
+    mine = torch.stack([t.to(comm) for t in parts if t is not None])
+    out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, mine)
+    return [t.to(home) for t in torch.cat(out).unbind(0)]
+
+
+def _reduce(t: torch.Tensor, op) -> torch.Tensor:
+    wide = torch.float32 if t.is_floating_point() else torch.int64  # bf16 and int8 widen exactly
+    c = t.to(_comm_device(), wide)
+    dist.all_reduce(c, op=op)
+    return c.to(t.device, t.dtype)
+
+
+def all_sum(t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the group (the masked psum: exact where one process
+    holds each nonzero entry)."""
+    return _reduce(t, dist.ReduceOp.SUM)
+
+
+def all_max(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s elementwise maximum over the group."""
+    return _reduce(t, dist.ReduceOp.MAX)
+
+
+def barrier() -> None:
+    if _ready():
+        dist.barrier()
+
+
+def send_rows(tensors: Sequence[torch.Tensor], dst: int) -> None:
+    """Send equal-length row blocks to rank `dst`: their row count, then
+    each block's bytes (what the scatter ring hands the next shard)."""
+    comm = _comm_device()
+    n = tensors[0].shape[0]
+    dist.send(torch.tensor([n], dtype=torch.int64, device=comm), dst)
+    if n:
+        for t in tensors:
+            dist.send(t.contiguous().view(torch.uint8).to(comm), dst)
+
+
+def recv_rows(specs: Sequence, src: int, device) -> Optional[List[torch.Tensor]]:
+    """Receive `send_rows`' blocks from rank `src`, as (dtype, row shape)
+    `specs` say, on `device`; None when no rows came."""
+    comm = _comm_device()
+    n = torch.zeros(1, dtype=torch.int64, device=comm)
+    dist.recv(n, src)
+    n = int(n.item())
+    if n == 0:
+        return None
+    out = []
+    for dtype, shape in specs:
+        row_bytes = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+        buf = torch.empty((n, row_bytes), dtype=torch.uint8, device=comm)
+        dist.recv(buf, src)
+        out.append(buf.view(dtype).reshape((n, *shape)).to(device))
+    return out

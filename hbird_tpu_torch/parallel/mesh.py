@@ -10,6 +10,11 @@ A device may repeat in the grid (`['cpu'] * 8`, `['cuda:0'] * 4`): the
 shards then share that device and run one after another on its stream.
 That is how the CPU tests and a one-card machine hold 2-8 shards, the
 counterpart of the JAX tests' virtual CPU devices, which PyTorch lacks.
+
+A mesh may also span the processes of a torch.distributed group
+(parallel/distributed.py::process_mesh): `ranks` then names the process
+that owns each position, and a process's grid holds None where another
+process's device stands.
 """
 
 from __future__ import annotations
@@ -37,10 +42,12 @@ class Mesh:
 
     `shape` maps each axis name to its size, in axis order, as the engine
     reads it (`mesh.shape.get('bank', 1)`); `devices` is the grid (a numpy
-    object array of torch.device).
+    object array of torch.device, None where another process's device
+    stands); `ranks`, for a mesh over a process group, the grid of owning
+    ranks (None for a process-local mesh).
     """
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str], ranks=None):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-d device grid for axes {tuple(axis_names)}")
@@ -49,6 +56,12 @@ class Mesh:
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = OrderedDict(zip(self.axis_names, devices.shape))
+        self.ranks = None if ranks is None else np.asarray(ranks).reshape(devices.shape)
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the mesh's positions belong to several processes."""
+        return self.ranks is not None
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The devices along `axis`, at index 0 of every other axis."""

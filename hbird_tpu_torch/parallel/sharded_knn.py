@@ -45,17 +45,20 @@ def pad_rows_for_mesh(n_rows: int, n_shards: int, block: int = 8) -> int:
     return per_shard * n_shards
 
 
-def shard_rows(x: torch.Tensor, mesh, bank_axis: str = "bank") -> Shards:
-    """`x` (M, ...) zero-padded to `pad_rows_for_mesh` rows and split into
-    one shard per device of the mesh's `bank_axis`. A shard on `x`'s own
-    device is a view of it (no copy)."""
+def shard_rows(x: torch.Tensor, mesh, bank_axis: str = "bank", block: int = 8) -> Shards:
+    """`x` (M, ...) zero-padded to `pad_rows_for_mesh` rows (each shard a
+    multiple of `block` rows; the tree's build takes block=1, the JAX
+    package's layout there) and split into one shard per device of the
+    mesh's `bank_axis`. A shard on `x`'s own device is a view of it (no
+    copy); on a mesh over several processes another process's shard is
+    None here."""
     devices = mesh.axis_devices(bank_axis)
     n = len(devices)
-    padded = pad_rows_for_mesh(x.shape[0], n)
+    padded = pad_rows_for_mesh(x.shape[0], n, block)
     if padded != x.shape[0]:
         x = torch.cat([x, x.new_zeros((padded - x.shape[0],) + tuple(x.shape[1:]))])
     r = padded // n
-    return [x[j * r : (j + 1) * r].to(dev) for j, dev in enumerate(devices)]
+    return [None if dev is None else x[j * r : (j + 1) * r].to(dev) for j, dev in enumerate(devices)]
 
 
 def shard_bank(bank: torch.Tensor, labels: torch.Tensor, mesh, bank_axis: str = "bank") -> Tuple[Shards, Shards, int]:
@@ -85,11 +88,15 @@ def merge_topk(vals: torch.Tensor, idx: torch.Tensor, k: int, *, index_ordered: 
 def take_rows(shards: Shards, idx: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows of global ids `idx` (any shape), each taken from its owning
     shard, on idx's device, in the shards' dtype (or `out`'s, updated in
-    place)."""
-    r = shards[0].shape[0]
+    place). Shards that are None (another process's) leave their rows as
+    they were."""
+    first = next(s for s in shards if s is not None)
+    r = first.shape[0]
     if out is None:
-        out = torch.zeros(idx.shape + tuple(shards[0].shape[1:]), dtype=shards[0].dtype, device=idx.device)
+        out = torch.zeros(idx.shape + tuple(first.shape[1:]), dtype=first.dtype, device=idx.device)
     for j, part in enumerate(shards):
+        if part is None:
+            continue
         mine = (idx >= j * r) & (idx < (j + 1) * r)
         rows = torch.where(mine, idx - j * r, torch.zeros_like(idx)).to(part.device)
         mine = mine.reshape(mine.shape + (1,) * (out.dim() - mine.dim()))

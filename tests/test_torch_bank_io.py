@@ -192,14 +192,25 @@ def test_loaders_default_to_cuda(tmp_path, monkeypatch, ext):
 
 
 def test_mesh_placement_raises(tmp_path):
-    """A .treedir placed on a mesh and the multi-process .bankdir writer are
-    the next slice and raise. (A .bankdir loads onto a mesh since the
-    parallel/ slice: tests/test_torch_parallel_engine.py.)"""
-    p = tio.save_memory(torch.zeros(4, 2), str(tmp_path / "x.bankdir"))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tio.load_tree_state(p, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tio._save_rows_distributed(torch.zeros(4, 2), str(tmp_path / "d.bankdir"))
+    """A .treedir placed on a mesh, which raised here until its slice was
+    ported, loads into whole-leaf shards, each read from disk onto its
+    device; a bank axis that does not divide the leaf count raises
+    ValueError. (A .bankdir loads onto a mesh since the parallel/ slice:
+    tests/test_torch_parallel_engine.py.)"""
+    from hbird_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(600, 8)).astype(np.float32)
+    nn = NearestNeighborSearchApprox(x, n_neighbors=3, use_tree=True, num_leaves=4, quantization="int8_rows",
+                                     device="cpu")
+    p = nn.save_tree(str(tmp_path / "t.treedir"), chunk_rows=100)
+    st = tio.load_tree_state(p, mesh=make_mesh((4,), ("bank",), ["cpu"] * 4), device="cpu")
+    assert [s.shape[0] for s in st["ivf_bank"]] == [nn._cap] * 4
+    assert torch.equal(torch.cat(st["ivf_bank"]), nn.bank)
+    assert torch.equal(torch.cat(st["bank_row_scale"]), nn.bank_row_scale)
+    assert torch.equal(torch.cat(st["ivf_labels"]), nn.labels)
+    with pytest.raises(ValueError, match="divisible"):
+        tio.load_tree_state(p, mesh=make_mesh((3,), ("bank",), ["cpu"] * 3), device="cpu")
 
 
 # ----------------------------------------------------------------------

@@ -246,6 +246,43 @@ def test_mesh_phase_rehearses_on_cpu(smoke):
     assert smoke.nccl_one_process()["backend"] == "gloo"
 
 
+def test_mesh_tree_phase_rehearses_on_cpu(smoke, monkeypatch):
+    """Phase 10 at the rehearsal's sizes: the meshed builds equal the
+    unmeshed one (host layout) and its membership (device layout), the
+    every-leaf meshed searches equal the unmeshed ones with K2 once per
+    shard (int8_rows bit for bit), the streamed build onto the mesh is the
+    unmeshed one, .treedirs round-trip on the mesh and 3 shards raise, a
+    bank axis over a process group of one gives the same trees and
+    answers, and the command line on the mesh repeats the unmeshed
+    every-leaf mIoU."""
+    monkeypatch.setattr(smoke, "STREAM_WINDOW", 1000)
+    monkeypatch.setattr(smoke, "STREAM_CLUSTERS", 16)
+    runs, _, _, _, q, bank, _ = smoke.main_path(gen_seed=0)
+    four = [torch.device("cpu")] * 4
+    info, err = smoke.mesh_tree(q, bank, torch.Generator().manual_seed(1), four)
+    assert err < 1e-3 and info["shards"] == 4
+    assert set(info["builds"]) == {"main", "bank_3000"}
+    for row in info["builds"].values():
+        assert set(row) == {"rows", "unmeshed", "host", "device"}
+        assert set(row["host"]["split_s"]) == {"kmeans", "refine", "assign", "layout", "scatter"}
+        assert row["device"]["spilled"][0] == row["device"]["spilled"][1]
+    for row in info["search"].values():
+        assert set(row["recall_at_30_vs_k1"]) == {"unmeshed", "split", "full"}
+        assert row["merge_share_of_split"] > 0 and row["probes_per_shard"] == 8
+    assert "divisible" in info["three_shard_error"]
+    assert set(info["streamed"]) == {"save_s", "unmeshed", "meshed"}
+    assert smoke.mesh_tree_process_group(q, bank, four)["backend"] == "gloo"
+    tree_runs = smoke.mesh_tree_cli(0, runs["ivf unbounded"]["miou"], four)
+    assert len(tree_runs) == 5
+    base = tree_runs["cli ivf, every leaf probed"]
+    assert base["launches"] == {"knn_topk": 0, "ivf_topk": 1}
+    for label, r in tree_runs.items():
+        if label != "cli ivf, every leaf probed":
+            assert r["launches"] == {"knn_topk": 0, "ivf_topk": 4}, label
+        if "every leaf" in label:
+            assert abs(r["miou"] - base["miou"]) <= 1e-4, label
+
+
 def test_mesh_checks_reject_a_wrong_merge(smoke, monkeypatch):
     """A sharded search that returns other neighbours fails phase 9.2."""
     from hbird_tpu_torch.parallel import sharded_knn

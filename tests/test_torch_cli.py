@@ -102,9 +102,9 @@ def test_jax_and_port_parsers_share_every_other_flag():
 
 
 def test_mesh_bank_raises(tmp_path):
-    """--mesh-bank takes the first N CUDA cards, and there are none here;
-    a tree on a bank mesh is the next slice. (The flat bank on a mesh:
-    tests/test_torch_parallel_engine.py.)"""
+    """--mesh-bank takes the first N CUDA cards, and there are none here.
+    (The flat bank on a mesh: tests/test_torch_parallel_engine.py; the tree
+    on one: tests/test_torch_sharded_ivf_engine.py.)"""
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="CUDA devices"):
             eval_cli.main(REQUIRED + ["--model", "dino_vits16", "--random-init", "--mesh-bank", "2",

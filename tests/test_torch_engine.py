@@ -435,13 +435,17 @@ def test_quantized_and_l2_engine_matches_jax(voc, tiny_vit, fixture, run):
     ids=["mesh"],
 )
 def test_later_slices_raise(voc, kwargs):
-    """The tree on a bank mesh is the next slice (the flat bank on a mesh is
-    ported: tests/test_torch_parallel_engine.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hbird_tpu_torch.hbird_evaluation(
-            None, 3, PATCH, "voc", voc, batch_size=4, input_size=INPUT,
-            ftr_extr_fn=oracle_t, num_workers=0, device="cpu", **kwargs,
-        )
+    """The tree on a bank mesh, which raised here until its slice was
+    ported, now runs: with every leaf probed its mIoU is the unmeshed run's
+    (parity with the JAX engine: tests/test_torch_sharded_ivf_engine.py)."""
+    common = dict(batch_size=4, input_size=INPUT, ftr_extr_fn=oracle_t, num_workers=0, device="cpu",
+                  nn_params={"num_leaves": 8, "num_leaves_to_search": 8})
+    runs = []
+    for extra in ({}, kwargs):
+        random.seed(7)
+        runs.append(hbird_tpu_torch.hbird_evaluation(None, 3, PATCH, "voc", voc, **common,
+                                                     **{"nn_method": "ivf", **extra}))
+    assert abs(runs[0] - runs[1]) <= 1e-6, runs
 
 
 def test_pad_batch_keeps_the_known_crash():

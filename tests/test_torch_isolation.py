@@ -24,6 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(hbird_tpu_torch.__path__, "hbird_
 for name in names:
     importlib.import_module(name)
 import hbird_tpu_torch.hbird_eval
+import hbird_tpu_torch.parallel.sharded_ivf
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                 or m == "hbird_tpu" or m.startswith("hbird_tpu."))

@@ -539,11 +539,23 @@ def test_backend_builds_its_own_tree_and_trims_padding():
     assert (vals - exact).abs().max().item() <= 1e-5  # every leaf probed: exact
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}], ids=["mesh"])
+@pytest.mark.parametrize("kwargs", [{"mesh": "bank2"}], ids=["mesh"])
 def test_tree_options_of_later_slices_raise(kwargs):
+    """A tree on a bank mesh, which raised here until its slice was ported,
+    is built over the shards: with every leaf probed it answers as the
+    unmeshed tree. Its options raise ValueError when they name no mode."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NearestNeighborSearchApprox(
-            np.zeros((64, 8), np.float32), n_neighbors=2, use_tree=True, device="cpu", **kwargs
-        )
+    mesh = make_mesh((2,), ("bank",), ["cpu", "cpu"])
+    x, _ = mixture_bank(500, 8, 4, seed=3)
+    common = dict(n_neighbors=4, use_tree=True, num_leaves=4, num_leaves_to_search=4, query_block=64, device="cpu")
+    nn = NearestNeighborSearchApprox(x, **common, mesh=mesh)
+    one = NearestNeighborSearchApprox(x, **common)
+    assert isinstance(nn.bank, list) and len(nn.bank) == 2 and nn._n_leaves == 4
+    q = torch.from_numpy(x[:70])
+    for a, b in zip(nn.search_with_labels(q), one.search_with_labels(q)):
+        assert torch.equal(a, b)
+    for bad in ({"shard_probe": "half"}, {"tree_build_layout": "disk"}):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            NearestNeighborSearchApprox(x, **common, mesh=mesh, **bad)

@@ -495,21 +495,17 @@ def _np(x):
     ids=["mesh", "exact_shard"],
 )
 def test_backends_raise_for_later_slices(backend, kwargs):
-    """The tree on a bank mesh is the next slice and raises. Bank sharding
-    of the flat backends, which raised here until parallel/ was ported, now
-    shards (parity: tests/test_torch_parallel.py)."""
+    """Bank sharding of the flat backends and the tree on a bank mesh, which
+    raised here until their slices were ported, now shard (parity:
+    tests/test_torch_parallel.py, tests/test_torch_sharded_ivf_engine.py)."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox, NearestNeighborSearchExact
     from hbird_tpu_torch.parallel import make_mesh
 
     if kwargs.get("mesh") == "bank2":
         kwargs = {**kwargs, "mesh": make_mesh((2,), ("bank",), ["cpu", "cpu"])}
     cls = NearestNeighborSearchApprox if backend == "approx" else NearestNeighborSearchExact
-    if backend == "approx":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(np.zeros((4, 8), np.float32), n_neighbors=2, device="cpu", **kwargs)
-    else:
-        nn = cls(np.zeros((4, 8), np.float32), n_neighbors=2, device="cpu", **kwargs)
-        assert nn.mesh.shape == {"bank": 2} and len(nn.bank) == 2
+    nn = cls(np.zeros((4, 8), np.float32), n_neighbors=2, device="cpu", **kwargs)
+    assert nn.mesh.shape == {"bank": 2} and len(nn.bank) == 2
 
 
 @pytest.mark.parametrize(

@@ -13,8 +13,8 @@ search and against the JAX package's sharded search.
   JAX side runs its XLA path for float banks and its Pallas kernel in
   interpret mode for row scales, which only the kernel takes.
 - The backends: `mesh=`, `idx_shard` with `devices`, `shard_strategy`; the
-  features of the winners come back from their shards; the meshed tree
-  still raises and names its slice.
+  features of the winners come back from their shards; the tree on a mesh
+  is built over the shards.
 """
 
 import numpy as np
@@ -255,8 +255,9 @@ def test_idx_shard_devices_and_the_approx_flat_path():
     for ref, other in ((base, nn), (a0, a1)):
         for a, b in zip(ref.search_with_labels(qt), other.search_with_labels(qt)):
             assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        NearestNeighborSearchApprox(x, n_neighbors=5, use_tree=True, num_leaves=4, device="cpu", mesh=cpu_mesh(2))
+    # the tree on a mesh: leaf-sharded (tests/test_torch_sharded_ivf_engine.py)
+    tree = NearestNeighborSearchApprox(x, n_neighbors=5, use_tree=True, num_leaves=4, device="cpu", mesh=cpu_mesh(2))
+    assert len(tree.bank) == 2 and tree.search_with_labels(qt)[1].shape == (20, 5)
     with pytest.raises(ValueError, match="shard_strategy"):
         NearestNeighborSearchExact(x, device="cpu", mesh=cpu_mesh(2), shard_strategy="tree")
 

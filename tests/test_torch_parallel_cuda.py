@@ -1,5 +1,5 @@
 """The bank-sharded search on the card: 4 shards on one card against
-unsharded K1.
+unsharded K1, and the leaf-sharded tree against the unmeshed tree (K2).
 
 Every test needs a CUDA GPU (marker `cuda`) and skips without one; the
 file imports neither JAX nor `hbird_tpu`. From the repository root:
@@ -14,17 +14,27 @@ The shards share the card (a port mesh may repeat a device). Checks:
   candidates before the merge, so the pool holds the unsharded one: every
   id re-scores to its value, and the sorted values are at least the
   unsharded run's, position by position, within the tolerance;
-- K1 launches 4 times a call (gather) and 16 (ring), in the form asked for.
+- K1 launches 4 times a call (gather) and 16 (ring), in the form asked for;
+- the tree built over 4 shards (parallel/sharded_ivf.py): the host layout
+  is the unmeshed build exactly (centroids, slots, perm, slabs); the device
+  layout places every row in the same leaf on these tie-free rows; with
+  every leaf probed the meshed search equals the unmeshed one (int8_rows
+  bit for bit; bf16 and asym_rows at K2's tolerance, ids equal) and K2
+  launches 4 times a call;
+- K2 refuses a slab view that does not start on 16 bytes (its TMA reads),
+  and `shard_ivf_state` hands it an aligned copy instead.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from hbird_tpu_torch.ops import knn_cuda
+from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+from hbird_tpu_torch.ops import ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops.knn import knn_with_labels
 from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 from hbird_tpu_torch.parallel import make_mesh, ring_knn_with_labels, shard_bank, sharded_knn_with_labels
+from hbird_tpu_torch.parallel.sharded_ivf import shard_ivf_state, sharded_ivf_knn_with_labels
 from hbird_tpu_torch.parallel.sharded_knn import shard_rows
 
 pytestmark = pytest.mark.cuda
@@ -102,3 +112,55 @@ def test_reordered_shards_rescore_and_dominate(cuda_device, strategy):
     assert (rescored - v).abs().max().item() <= tol
     assert (v - v0 >= -tol).all()
     assert torch.equal(lv, lab[i])
+
+
+TREE_FORMS = {"bf16": {}, "int8_rows": {"quantization": "int8_rows"},
+              "asym_rows": {"quantization": "int8_asym", "dimensions_per_block": 4}}
+
+
+@pytest.mark.parametrize("form", list(TREE_FORMS))
+def test_meshed_tree_on_one_card_matches_the_unmeshed_tree(cuda_device, form):
+    x, q, lab = _inputs(cuda_device, m=30000, seed=11)
+    common = dict(n_neighbors=30, use_tree=True, num_leaves=64, label_memory=lab, device=cuda_device,
+                  **TREE_FORMS[form])
+    mesh = make_mesh((N,), ("bank",), [cuda_device] * N)
+    one = NearestNeighborSearchApprox(x, **common)
+    meshed = NearestNeighborSearchApprox(x, mesh=mesh, **common)
+    for part in ("centroids", "slots", "perm", "leaf_valid"):
+        assert torch.equal(getattr(meshed, part), getattr(one, part)), part
+    assert torch.equal(torch.cat(meshed.bank), one.bank) and torch.equal(torch.cat(meshed.labels), one.labels)
+    dev = NearestNeighborSearchApprox(x, mesh=mesh, tree_build_layout="device", **common)
+    assert torch.equal(dev.leaf_valid, one.leaf_valid)
+    slots = torch.cat(dev.slots)[: x.shape[0]]
+    assert torch.equal(slots // one._cap, one.slots // one._cap)  # tie-free rows: the same leaves
+    for tree in (one, meshed):
+        tree.num_leaves_to_search = one._n_leaves
+    before = ivf_cuda.ivf_topk.launches
+    v, i, lv = meshed.search_with_labels(q)
+    torch.cuda.synchronize()
+    assert ivf_cuda.ivf_topk.launches - before == N
+    v0, i0, l0 = one.search_with_labels(q)
+    if form == "int8_rows":
+        assert torch.equal(v, v0) and torch.equal(i, i0)
+    else:
+        tol = RTOL * float(torch.linalg.vector_norm(q, dim=1).max()) * 1.01
+        assert (v - v0).abs().max().item() <= tol and torch.equal(i, i0)
+    assert torch.equal(lv, l0)
+
+
+def test_k2_refuses_a_misaligned_slab_view(cuda_device):
+    x, q, lab = _inputs(cuda_device, m=4096, seed=12)
+    cap = 256
+    flat = x.to(torch.bfloat16).reshape(-1)
+    view = flat[4:].narrow(0, 0, 4095 * 64).view(4095, 64)[: 15 * cap]  # starts 8 bytes into the allocation
+    lv = torch.full((15,), cap, dtype=torch.int32, device=cuda_device)
+    qb = q[:256].to(torch.bfloat16)
+    lids = torch.arange(4, dtype=torch.int32, device=cuda_device)[None].repeat(4, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        ivf_cuda.ivf_topk(qb, view, lids, lv, 10, cap=cap, block_q=64)
+    mesh = make_mesh((1,), ("bank",), [cuda_device])
+    bank, labels, _ = shard_ivf_state(view, lab[: 15 * cap], mesh, cap=cap)
+    assert bank[0].data_ptr() % 16 == 0 and torch.equal(bank[0], view)
+    v, i, _ = sharded_ivf_knn_with_labels(qb, bank, labels, torch.randn(15, 64, device=cuda_device), lv, 10,
+                                          cap=cap, n_probe=4, block_q=64)
+    assert torch.isfinite(v).all()

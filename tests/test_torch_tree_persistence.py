@@ -140,13 +140,28 @@ def test_int8_slab_injection_needs_its_scales(fixture):
 
 
 def test_meshed_trees_raise(fixture, tmp_path):
-    x, labels, _ = fixture
+    """Meshed trees, which raised here until their slice was ported: a
+    .treedir loads onto a 2-shard mesh and answers as the unmeshed load;
+    a mesh whose bank axis does not divide the leaf count raises
+    ValueError, as the JAX package's loader does, and so does a streamed
+    build whose rounded leaf count cannot split."""
+    from hbird_tpu_torch.parallel import make_mesh
+
+    x, labels, q = fixture
     nn = _build(x, labels)
     path = nn.save_tree(str(tmp_path / "t.treedir"))
-    for call in (lambda: NearestNeighborSearchApprox.load_tree(path, mesh=object(), device="cpu"),
-                 lambda: load_tree_state(path, mesh=object(), device="cpu"),
-                 lambda: ivf.build_tree_streamed(lambda: iter(()), 10, 2, mesh=object())):
-        with pytest.raises(NotImplementedError, match="parallel/"):
+    two, three = (make_mesh((n,), ("bank",), ["cpu"] * n) for n in (2, 3))
+    meshed = NearestNeighborSearchApprox.load_tree(path, n_neighbors=10, num_leaves_to_search=8, query_block=64,
+                                                   mesh=two, device="cpu")
+    assert len(meshed.bank) == 2 and torch.equal(torch.cat(meshed.bank), nn.bank)
+    one = NearestNeighborSearchApprox.load_tree(path, n_neighbors=10, num_leaves_to_search=8, query_block=64,
+                                                device="cpu")
+    for a, b in zip(meshed.search_with_labels(q), one.search_with_labels(q)):
+        assert torch.equal(a, b)
+    for call in (lambda: NearestNeighborSearchApprox.load_tree(path, mesh=three, device="cpu"),
+                 lambda: load_tree_state(path, mesh=three, device="cpu"),
+                 lambda: ivf.build_tree_streamed(lambda: iter(()), 2, 2, mesh=three)):
+        with pytest.raises(ValueError, match="divisible"):
             call()
 
 
