@@ -14,12 +14,15 @@ Phases; any failure raises and the script exits non-zero with no result:
    wgmma kernel; ops/csrc/hopper.cuh) it prints what ptxas reported
    (registers and spills by instance, that setmaxnreg was not
    ignored, and any warpgroup wait or arrive it injected or wgmma it
-   serialised), the registers and spills of K3's 3xTF32 f32 kernel, and
-   the dynamic shared memory they ask for; where cuobjdump exists, the
+   serialised), the registers and spills of the 3xTF32 kernels (K3 f32
+   on mma.sync, K1's F32 wgmma instances; ops/csrc/tf32.cuh), and the
+   dynamic shared memory they ask for; where cuobjdump exists, the
    warpgroup MMAs (HGMMA, IGMMA for int8), UTMALDG and mma.sync (HMMA,
    IMMA for int8) instructions of each library and of each wgmma kernel,
    which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's and
-   K2's libraries must hold such kernels).
+   K2's libraries must hold such kernels). K1's F32 and Asym forms must
+   each have their 8 instances (select sizes 1-4, two epilogues) in the
+   ptxas report and the SASS, and spill nothing.
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
@@ -27,10 +30,11 @@ Phases; any failure raises and the script exits non-zero with no result:
    norm); int8 x int8 codes with a global scale and with row scales, bit
    for bit; bf16 queries on those codes (asym, asym_rows); int8
    valid_rows < k; int8 codes of duplicated rows (integer ties). Then the
-   wgmma forms (bf16 dot and l2, int8, int8_rows) at every k of CHECK_KS
-   (30, 33, 64, 96, 97, 120, 128: each size of the batched select and its
-   edges) at that shape, and on tie-dense entries in {-1, 0, 1} (Q=10,000,
-   so items of several bank splits are in flight) bit for bit.
+   wgmma forms (bf16 dot and l2, f32 dot and l2 on 3xTF32, int8,
+   int8_rows, asym, asym_rows: every form) at every k of CHECK_KS (30, 33,
+   64, 96, 97, 120, 128: each size of the batched select and its edges) at
+   that shape, and on tie-dense entries in {-1, 0, 1} (Q=10,000, so items
+   of several bank splits are in flight; every score exact) bit for bit.
 3. K2 against its plain version (ops/ivf.py::ivf_search_plain) on an IVF
    tree built by the port over a clustered bank of 300,000 rows at D=768
    (512 leaves): bf16 and f32; k in {1, 30, 128}; n_probe in {1, 8, 32};
@@ -71,9 +75,11 @@ Phases; any failure raises and the script exits non-zero with no result:
    ScaNN searcher (int8_asym, dimensions_per_block=4,
    anisotropic_quantization_threshold=0.2, num_reordering_candidates=120;
    K2 asym_rows), 'faiss' with use_int8 and 120 reordering candidates (K1
-   int8, then the exact re-score) and 'faiss' with distance_measure='l2'
-   on a bf16 bank (K1 l2): each must launch its form once per eval batch
-   and nothing else; each backend's recall@30 against K1's exact bf16
+   int8, then the exact re-score), 'faiss' with distance_measure='l2'
+   on a bf16 bank (K1 l2), 'faiss' as the command line runs it by default
+   (no --bf16-bank: an f32 bank, K1 f32 on 3xTF32) and flat 'faiss' with
+   quantization='int8_asym' (K1 asym_rows): each must launch its form once
+   per eval batch and nothing else; each backend's recall@30 against K1's exact bf16
    neighbours on the eval batch, by ids and by score, is printed (no
    limit: it is what the quantization costs in answers).
    The flash path: the same 'scann' run, unbounded, with the ViT in bf16
@@ -93,10 +99,11 @@ Phases; any failure raises and the script exits non-zero with no result:
    head width 32, no LayerScale and attention_impl='flash', once on the
    card and once with device="cpu" (the plain versions): mIoU within 1e-4
    and the transferred soft labels within 1e-4, the tolerances the CPU
-   tests hold the port to against the JAX engine. The four quantized and
-   L2 runs on the tiny ViT (the tree probing every leaf): mIoU within 1e-4
-   only, since int8 rounding turns ulp-level feature differences between
-   the devices into code flips. Then each of those backends built on the
+   tests hold the port to against the JAX engine ('faiss' keeps an f32
+   bank: K1 f32 on 3xTF32). The quantized and L2 runs of phase 5 on the
+   tiny ViT (the tree probing every leaf): mIoU within 1e-4 only, since
+   int8 rounding turns ulp-level feature differences between the devices
+   into code flips. Then each backend of phase 5's runs built on the
    card and on the CPU from the same float bank (6,000 rows, D=64): the
    same codes and scales (anisotropic codes: at most ANISO_CODE_FLIPS of
    the rows may differ, near-tied losses) and the same neighbours (exact
@@ -108,7 +115,15 @@ Phases; any failure raises and the script exits non-zero with no result:
    int8_rows (torch._int_mm + topk; at k = 30 and at k = 120, the `faiss`
    int8 + reorder path's scan), asym_rows and asym (a bf16 matmul against
    the per-row or global codes widened once), l2 (torch.addmm with the
-   bias) and f32 (an f32 matmul) on both banks;
+   bias), f32 (an f32 matmul, TF32 off; at k = 30 and 120) and f32 l2 on
+   both banks, each row with the kernel it ran (`route`: wgmma or
+   mma_scan) and f32's with its 3xTF32 bound (3 TF32 passes at the TF32
+   peak) beside its f32 FMA bound. The f32 forms take real f32 operands:
+   the main path's f32 queries and f32 bank (the default 'faiss' run's),
+   and the large bank's f32 rows, so the split's small parts are not 0 and
+   each CTA carries its state over several items; on each, a single TF32
+   pass must miss the f32 tolerance at the plain top-30 (else the check
+   could not tell it from 3xTF32);
    K2 on the main path's tree (32 of 512 leaves) and on a tree of the
    1,024,000-row bank (cap 2,816, 32 of 512 leaves) (the probed slabs
    gathered per tile, then torch.bmm + torch.topk, chunked over tiles),
@@ -117,9 +132,9 @@ Phases; any failure raises and the script exits non-zero with no result:
    (1, 12, 4625, 64), at hd 32 (16, 12, 197, 32) and at hd 80 (16, 16,
    257, 80) (torch.nn.functional.scaled_dot_product_attention). K3 f32's
    bound is its work at f32 accuracy on the tensor cores (3 TF32 passes at
-   the TF32 peak), printed beside the f32 FMA bound. Every row but
-   asym_rows prints its share of the bound (bound / ms) and its ratio to
-   the library call. The select's load on the main path's bank: for K1
+   the TF32 peak), printed beside the f32 FMA bound, as K1 f32's. Every
+   row prints its share of the bound (bound / ms) and its ratio to the
+   library call. The select's load on the main path's bank: for K1
    int8 at k = 30 and 120, the share of (query, 128-row tile) pairs in
    which the running top-k receives a score, walking the tiles in
    mma_scan's order and in the wgmma kernel's partial sets, and for the
@@ -203,7 +218,8 @@ Phases; any failure raises and the script exits non-zero with no result:
    than one card, 10.1-10.5 run again over distinct cards.
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
-(the products are exact in f32, only the summation order differs); index
+(the products are exact in f32, only the summation order differs; K1 f32
+takes 3xTF32 products, ~21 bits of each operand); index
 sets equal except where the k-th and (k+1)-th plain scores are within
 twice that; every returned index re-scored gives its returned value; K2's
 ids lie in the valid rows of the slabs their query tile probes. With row
@@ -229,10 +245,13 @@ Parent against change: `python3 chip_smoke.py --pairs TREE` imports the
 package of the source tree TREE instead of this one's, builds its kernels,
 and times only the kernels redesigned for Hopper, each beside its bound and
 library call (phase 7's helpers): K3 bf16 and f32 at the main shape and at
-(1, 12, 4625, 64) on unit normals; K1 bf16 dot and l2, int8 and int8_rows
-with k in PAIR_KS (30, 64, 96, 120, 128), Q = 21,904 normal queries (and
-their int8 codes) against 87,616 and 1,024,000 unit rows (and their global
-and per-row int8 codes); K2 bf16 and asym_rows (the slabs' per-row codes)
+(1, 12, 4625, 64) on unit normals, each with a digest of its output's
+bytes (the same seeded inputs in every tree, so equal digests mean equal
+outputs bit for bit); K1 bf16 dot and l2, int8 and int8_rows
+with k in PAIR_KS (30, 64, 96, 120, 128), f32 at k = 30 and 120, asym and
+asym_rows at k = 30, Q = 21,904 normal queries (and their int8 codes)
+against 87,616 and 1,024,000 unit rows (and their global and per-row int8
+codes); K2 bf16 and asym_rows (the slabs' per-row codes)
 at k = 30 on a tree the package builds of each bank (512 leaves, 32 probed
 per 256-query tile). It prints one JSON line.
 Two trees are compared in one run on one card, each in its own
@@ -240,6 +259,7 @@ process, in turns: parent, change, change, parent.
 """
 
 import argparse
+import hashlib
 import json
 import pathlib
 import random
@@ -304,10 +324,16 @@ WGMMA_KERNELS = {"knn_topk.cu": "topk_wgmma", "ivf_topk.cu": "topk_wgmma",
 # Every k of the K1 card checks: each S (keys a lane) and its edges.
 CHECK_KS = (30, 33, 64, 96, 97, 120, 128)
 TF32_KERNEL = "flash_f32"  # K3 f32: 3xTF32 on mma.sync (HMMA, no wgmma)
+# K1's instances of the template's forms F32 (3xTF32 on wgmma) and Asym, as
+# mangled in their names: each form has one instance for each select size S
+# (1-4) and epilogue (two each), and none may spill.
+K1_NEW_FORMS = ("3F32E", "4AsymE")
+K1_NEW_INSTANCES = 4 * 2
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 LAYERSCALE = 0.05  # the flash path's LayerScale (see flash_path)
-# The quantized and L2 engine runs: nn_method, nn_params, the engine's
-# bf16_bank flag, and the kernel and form that must launch once per eval batch.
+# The quantized, L2 and f32-bank engine runs: nn_method, nn_params, the
+# engine's bf16_bank flag, and the kernel and form that must launch once per
+# eval batch. 'faiss' is the command line's default run (no --bf16-bank).
 QUANT_RUNS = {
     "int8_rows": ("scann", {"quantization": "int8_rows"}, False, ("knn_topk", "int8_rows")),
     "scann-literal": ("ivf", {"quantization": "int8_asym", "dimensions_per_block": 4,
@@ -316,6 +342,8 @@ QUANT_RUNS = {
     "int8+rerank": ("faiss", {"use_int8": True, "num_reordering_candidates": 120}, False,
                     ("knn_topk", "int8")),
     "l2": ("faiss", {"distance_measure": "l2"}, True, ("knn_topk", "l2")),
+    "faiss": ("faiss", {}, False, ("knn_topk", "f32")),
+    "faiss int8_asym": ("faiss", {"quantization": "int8_asym"}, False, ("knn_topk", "asym_rows")),
 }
 ANISO_CODE_FLIPS = 0.02  # rows whose anisotropic codes may differ between devices (near-tied losses)
 MESH_SHARDS = 4  # phase 9: bank shards of the mesh (stacked on one card, or distinct cards)
@@ -641,12 +669,13 @@ def quantized_kernel_cases(gen):
 
 
 def select_cases(gen):
-    """Phase 2: the wgmma forms (bf16 dot and l2, int8, int8_rows) at every
-    k of CHECK_KS (each S of the batched select and its edges): on the
-    stated shape (Q=4,096 over two bank splits) against the plain version,
-    and on tie-dense integer entries in {-1, 0, 1} (Q=10,000 queries, so
-    items of several splits are in flight; scores, l2 biases and scaled
-    int8 scores exact) bit for bit, values and indices."""
+    """Phase 2: the wgmma forms (bf16 dot and l2, f32 dot and l2, int8,
+    int8_rows, asym, asym_rows) at every k of CHECK_KS (each S of the
+    batched select and its edges): on the stated shape (Q=4,096 over two
+    bank splits) against the plain version, and on tie-dense integer
+    entries in {-1, 0, 1} (Q=10,000 queries, so items of several splits are
+    in flight; scores, l2 biases and scaled scores exact, 3xTF32 and
+    widened codes included) bit for bit, values and indices."""
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
     shape = f"Q={CASE_Q} M={CASE_M} D={DEPTH} valid={CASE_VALID}"
@@ -656,8 +685,8 @@ def select_cases(gen):
     qb, bb = q.bfloat16().contiguous(), b.bfloat16().contiguous()
     q8 = quantize_queries_int8(q)[0]
     codes, scale = quantize_bank_int8(b, per_row=True)
+    codes_g = quantize_bank_int8(b, per_row=False)[0]
     rs = scale.reshape(-1)
-    del q, b
     n_q, m = min(CASE_Q * 5 // 2, 10000), min(CASE_M, 40960)
     tq = torch.randint(-1, 2, (n_q, 96), generator=gen, device=DEVICE)
     tb = torch.randint(-1, 2, (m, 96), generator=gen, device=DEVICE)
@@ -668,6 +697,11 @@ def select_cases(gen):
         "int8": ((q8, codes, {}), (tq.to(torch.int8), tb.to(torch.int8), {}), True),
         "int8_rows": ((q8, codes, {"row_scale": rs}), (tq.to(torch.int8), tb.to(torch.int8), {"row_scale": t_rs}),
                       True),
+        "f32": ((q, b, {}), (tq.float(), tb.float(), {}), False),
+        "f32_l2": ((q, b, {"distance": "l2"}), (tq.float(), tb.float(), {"distance": "l2"}), False),
+        "asym": ((qb, codes_g, {}), (tq.bfloat16(), tb.to(torch.int8), {}), False),
+        "asym_rows": ((qb, codes, {"row_scale": rs}), (tq.bfloat16(), tb.to(torch.int8), {"row_scale": t_rs}),
+                      False),
     }
     errs = []
     for form, ((qq, bank, kw), (tqq, tbank, tkw), exact) in forms.items():
@@ -943,6 +977,18 @@ def build_report(libs):
               + f"; {len(r['wgmma_notes'])} wgmma notes ({', '.join(WGMMA_NOTES)})", flush=True)
         for note in r["wgmma_notes"]:
             print(f"    {note}", flush=True)
+        if src == "knn_topk.cu":
+            for form in K1_NEW_FORMS:
+                n = sum(form in a for a in spills)
+                if n != K1_NEW_INSTANCES:
+                    fail(f"ptxas reported {n} K1 wgmma instances of {form}, not {K1_NEW_INSTANCES}")
+            spilled = {a: n for a, n in spills.items() if n and any(f in a for f in K1_NEW_FORMS)}
+            if spilled:
+                fail(f"K1's F32 / Asym wgmma instances spill: {spilled}")
+            tf32 = {a: (regs[a], spills[a]) for a in regs if K1_NEW_FORMS[0] in a}
+            report["knn_topk.cu:F32"] = tf32
+            print(f"  ptxas, K1 F32 (3xTF32 on wgmma, {len(tf32)} instances): (registers, spill bytes) "
+                  f"{json.dumps(tf32)}", flush=True)
     if "flash_attn.cu" in cuda_build.LOGS:
         r = report[TF32_KERNEL] = ptxas_report(cuda_build.LOGS["flash_attn.cu"], TF32_KERNEL)
         print(f"  ptxas, {TF32_KERNEL} (3xTF32, {r['instances']} instances): registers "
@@ -954,7 +1000,8 @@ def build_report(libs):
     k1.knn_topk_wgmma_smem.argtypes, k1.knn_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
     k2.ivf_topk_wgmma_smem.argtypes, k2.ivf_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
     k3.flash_attn_wgmma_smem.argtypes, k3.flash_attn_wgmma_smem.restype = (), ctypes.c_int
-    smem = {"K1 bf16": k1.knn_topk_wgmma_smem(DEPTH, 1), "K1 int8": k1.knn_topk_wgmma_smem(DEPTH, 2),
+    smem = {"K1 f32": k1.knn_topk_wgmma_smem(DEPTH, 0), "K1 bf16": k1.knn_topk_wgmma_smem(DEPTH, 1),
+            "K1 int8": k1.knn_topk_wgmma_smem(DEPTH, 2), "K1 asym": k1.knn_topk_wgmma_smem(DEPTH, 3),
             "K2 bf16": k2.ivf_topk_wgmma_smem(DEPTH, 1), "K2 int8": k2.ivf_topk_wgmma_smem(DEPTH, 2),
             "K2 asym": k2.ivf_topk_wgmma_smem(DEPTH, 3), "flash_bf16_wgmma": k3.flash_attn_wgmma_smem()}
     print(f"  dynamic shared memory at D={DEPTH}: {json.dumps(smem)} B", flush=True)
@@ -974,15 +1021,19 @@ def build_report(libs):
         wg_fns = {f: c for f, c in per_fn.items() if name and name in f}
         print(f"  SASS of {path.name}: {json.dumps(total)}; wgmma kernels ({', '.join(SASS_OPS)}): "
               f"{json.dumps(sorted({tuple(c.values()) for c in wg_fns.values()}))}", flush=True)
-        tf32 = {f: c for f, c in per_fn.items() if TF32_KERNEL in f}
+        tf32 = {f: c for f, c in per_fn.items() if TF32_KERNEL in f or f"{name}INS_{K1_NEW_FORMS[0]}" in f}
         if tf32:
-            print(f"  SASS of the {TF32_KERNEL} kernels ({', '.join(SASS_OPS)}): "
+            print(f"  SASS of the 3xTF32 kernels ({TF32_KERNEL}, K1's F32 instances; {', '.join(SASS_OPS)}): "
                   f"{json.dumps(sorted({tuple(c.values()) for c in tf32.values()}))}", flush=True)
         for f, c in wg_fns.items():
             if c["HGMMA"] + c["IGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] or c["IMMA"]:
                 fail(f"{f}: {c} (a wgmma kernel must issue HGMMA or IGMMA and UTMALDG, and no HMMA or IMMA)")
         if name and not wg_fns:
             fail(f"{path.name}: no {name} kernel in the SASS")
+        for form in K1_NEW_FORMS if src == "knn_topk.cu" else ():
+            n = sum(f"{name}INS_{form}" in f for f in wg_fns)
+            if n != K1_NEW_INSTANCES:
+                fail(f"{path.name}: {n} wgmma kernels of {form} in the SASS, not {K1_NEW_INSTANCES}")
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
     return report
 
@@ -1142,7 +1193,8 @@ def main_path(gen_seed):
         del nn
     ev.NN_algorithm = None
     main_tree = (qp, lids, tree.bank, tree.leaf_valid, tree._cap)
-    return runs, launches, {"K1": err_k1, "K2": err_k2}, tree_info, q, bank, main_tree
+    f32 = (qf, ev.feature_memory)  # the f32 queries and bank of the default 'faiss' run
+    return runs, launches, {"K1": err_k1, "K2": err_k2}, tree_info, q, bank, main_tree, f32
 
 
 def _cli(label, argv, counters, kernel, idle, n_eval, runs, per_batch=1):
@@ -1570,7 +1622,7 @@ def card_vs_cpu():
     # flips that move a near-tied neighbour.
     for label, (method, params, bf16_bank, _) in QUANT_RUNS.items():
         params = dict(params, **full_probe) if method == "ivf" else params
-        cases[label] = (method, vit, params, bf16_bank, False)
+        cases.setdefault(label, (method, vit, params, bf16_bank, False))  # 'faiss' holds its labels
     with tempfile.TemporaryDirectory() as root:
         make_voc_fixture(root, seed=3, colorize=True, class_pool=[1, 2, 3, 4, 5], **SMALL_FIXTURE)
         for label, (nn_method, model, params, bf16_bank, hold_labels) in cases.items():
@@ -1722,14 +1774,29 @@ def int8_library(q8, codes, k, rs=None, chunk=2048):
         torch.topk(x if rs is None else x.float() * rs, k, dim=1)
 
 
-def k1_form_rows(q, bb, label, k, reps, rows, errs):
-    """Phase 7: K1's forms (b)-(e) and f32 on the bank `bb` (bf16) and the
-    queries `q` (bf16; f32: both widened): each timed beside its plain
+def asym_library(q, widened, k, rs=None, chunk=2048):
+    """K1 asym's library yardstick, chunked over the queries: a bf16 matmul
+    against the codes widened to bf16 once, times the row scales `rs` when
+    given, then torch.topk."""
+    for s in range(0, q.shape[0], chunk):
+        x = q[s:s + chunk] @ widened.T
+        torch.topk(x if rs is None else x.float() * rs, k, dim=1)
+
+
+def k1_form_rows(q, bb, q32, b32, label, k, reps, rows, errs):
+    """Phase 7: K1's forms (b)-(e) on the bank `bb` (bf16) and the queries
+    `q` (bf16), and f32 on `q32` and `b32` (f32 values that are not TF32
+    values, so the small parts of the split are not 0): each timed beside its plain
     version, its bound and a library yardstick (int8: torch._int_mm + topk;
     row scales applied to its f32 result; asymmetric: a bf16 matmul against
     the codes widened to bf16 once; l2: torch.addmm with the bias; f32: an
-    f32 matmul, TF32 off). The int8 forms at each k of INT8_KS (the
-    engine's k and `faiss` int8 + reorder's scan), the others at `k`."""
+    f32 matmul, TF32 off, and f32 l2 with the bias). The int8 forms and f32
+    at each k of INT8_KS (the engine's k and `faiss` int8 + reorder's
+    scan), the others at `k`. Each row names the kernel its call ran
+    (`route`); f32's bound is 3 TF32 passes at the TF32 peak, its f32 FMA
+    bound beside it. At the engine's k, a single TF32 pass must miss the
+    f32 tolerance on these inputs (one_tf32_pass_misses)."""
+    from hbird_tpu_torch.ops import cuda_build, knn_cuda
     from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -1742,13 +1809,8 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
     rs = scale.reshape(-1)
     wide, wide_g = codes_r.to(torch.bfloat16), codes_g.to(torch.bfloat16)
     neg_bias = (-l2_bias(bb)).to(torch.bfloat16)
-    q32, b32 = q.float(), bb.float()
+    neg_bias32 = -l2_bias(b32)
     chunk = 2048
-
-    def asym_mm(widened, scale_rows):
-        for s in range(0, n_q, chunk):
-            x = q[s:s + chunk] @ widened.T
-            torch.topk(x if scale_rows is None else x.float() * scale_rows, k, dim=1)
 
     forms = {
         # form: (queries, bank, row_scale, distance, exact, library, bytes of q / bank row, peak, ks)
@@ -1756,17 +1818,21 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
                  1, 1, 0, PEAK_INT8_OPS, INT8_KS),
         "int8_rows": (q8, codes_r, rs, "dot_product", True, lambda: int8_library(q8, codes_r, k, rs, chunk),
                       1, 1, 4, PEAK_INT8_OPS, INT8_KS),
-        "asym_rows": (q, codes_r, rs, "dot_product", False, lambda: asym_mm(wide, rs), 2, 1, 4,
+        "asym_rows": (q, codes_r, rs, "dot_product", False, lambda: asym_library(q, wide, k, rs, chunk), 2, 1, 4,
                       PEAK_BF16_FLOPS, (k,)),
-        "asym": (q, codes_g, None, "dot_product", False, lambda: asym_mm(wide_g, None), 2, 1, 0,
+        "asym": (q, codes_g, None, "dot_product", False, lambda: asym_library(q, wide_g, k, None, chunk), 2, 1, 0,
                  PEAK_BF16_FLOPS, (k,)),
         "l2": (q, bb, None, "l2", False, lambda: k1_library(q, bb, k, neg_bias, chunk), 2, 2, 0,
                PEAK_BF16_FLOPS, (k,)),
         "f32": (q32, b32, None, "dot_product", False, lambda: k1_library(q32, b32, k, None, chunk), 4, 4, 0,
-                PEAK_F32_FLOPS, (k,)),
+                PEAK_TF32_FLOPS / TF32_PASSES, INT8_KS),
+        "f32_l2": (q32, b32, None, "l2", False, lambda: k1_library(q32, b32, k, neg_bias32, chunk), 4, 4, 0,
+                   PEAK_TF32_FLOPS / TF32_PASSES, (k,)),
     }
     base_k = k
+    lib_k1 = None if DEVICE != "cuda" else cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
     for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak, ks) in forms.items():
+        route = "plain" if lib_k1 is None else knn_cuda.route(lib_k1, qq, b)
         for k in ks:
             kw = dict(distance=dist, row_scale=r)
             name = form if k == base_k else f"{form} k={k}"
@@ -1778,12 +1844,47 @@ def k1_form_rows(q, bb, label, k, reps, rows, errs):
                 f"K1 timing shape {name} {label}", qq, b, k, m, out, box.pop("out"), exact=exact, **kw))
             lib_ms = library_ms(lib, reps, f"K1 {name} {label}")
             b_ms, b_by = bound_ms(n_q, m, d, k, qbytes, peak, bank_bytes=bbytes, row_bytes=rbytes)
-            rows[f"{name} {label}"] = {"form": form, "Q": n_q, "M": m, "D": d, "k": k, "ms": ms,
-                                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                       "library_ms": lib_ms}
-            print(f"  K1 {name} {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
-                  f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})"
-                  + (f": {shares(ms, b_ms, lib_ms)}" if not form.startswith("asym") else ""), flush=True)
+            row = rows[f"{name} {label}"] = {"form": form, "route": route, "Q": n_q, "M": m, "D": d, "k": k,
+                                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                             "library_ms": lib_ms}
+            extra = ""
+            if form.startswith("f32"):
+                row["fma_bound_ms"] = bound_ms(n_q, m, d, k, 4, PEAK_F32_FLOPS)[0]
+                extra = f", 3xTF32; f32 FMA bound {row['fma_bound_ms']:.3f} ms"
+                if k == base_k:
+                    row["one_tf32_pass_misses"] = one_tf32_pass_misses(f"K1 {name} {label}", qq, b, k, dist)
+            print(f"  K1 {name} {label} ({route}): Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                  f"(k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by}{extra}): "
+                  f"{shares(ms, b_ms, lib_ms)}", flush=True)
+
+
+def tf32_rna(x):
+    """x (f32) rounded to TF32 as cvt.rna.tf32.f32 rounds (ops/csrc/tf32.cuh)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def one_tf32_pass_misses(name, q, b, k, distance, n=2048):
+    """Phase 7: fails unless a single TF32 pass (tf32(q)·tf32(b) alone)
+    misses K1's f32 tolerance at the plain top-k of the first `n` queries
+    of `q` against `b`, so that the 3xTF32 check on these inputs can tell
+    the three passes from one. Returns the share of top-k values missed."""
+    from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
+
+    qs = q[:n]
+    pv, pi = exact_knn(qs, b, k, distance=distance)
+    one = torch.einsum("qd,qkd->qk", tf32_rna(qs), tf32_rna(b[pi]))
+    if distance != "dot_product":
+        one = one - l2_bias(b)[pi]
+    tol = RTOL * qs.norm(dim=1) * b.norm(dim=1).max()
+    err = (one - pv).abs()
+    share = (err > tol[:, None]).float().mean().item()
+    if share == 0.0:
+        fail(f"{name}: one TF32 pass stays within the f32 tolerance (max |err| {err.max().item():.3g}): "
+             "the check cannot tell 3xTF32 from one pass")
+    print(f"  {name}: one TF32 pass misses the f32 tolerance at {share:.4f} of the top-{k} values of "
+          f"{qs.shape[0]} queries (max |err| {err.max().item():.3g}, {(err / tol[:, None]).max().item():.2f}x tol)",
+          flush=True)
+    return share
 
 
 def select_load(scores, k, groups):
@@ -1941,8 +2042,10 @@ def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
               flush=True)
 
 
-def timing(q, bank, main_tree, gen):
-    """Phase 7: K1 and K2 vs plain vs the library yardsticks at two sizes."""
+def timing(q, bank, main_tree, f32, gen):
+    """Phase 7: K1 and K2 vs plain vs the library yardsticks at two sizes.
+    K1's f32 forms take `f32`, the main path's f32 queries and bank, and
+    the f32 rows of the large bank before their rounding to bf16."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
     from hbird_tpu_torch.ops.ivf import ivf_search_plain, tile_probe_inputs
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
@@ -1952,10 +2055,10 @@ def timing(q, bank, main_tree, gen):
     k = 30
     n_q, d = q.shape
     k1_rows, k2_rows, errs = {}, {}, {"K1": 0.0, "K2": 0.0}
-    big = torch.nn.functional.normalize(
-        torch.randn(BIG_M, bank.shape[1], generator=gen, device=DEVICE), dim=1
-    ).to(torch.bfloat16)
-    for label, bb, reps in (("main", bank, 5), (f"bank_{BIG_M}", big, 2)):
+    big32 = torch.nn.functional.normalize(torch.randn(BIG_M, bank.shape[1], generator=gen, device=DEVICE), dim=1)
+    big = big32.to(torch.bfloat16)
+    q32 = f32[0]
+    for label, bb, b32, reps in (("main", bank, f32[1], 5), (f"bank_{BIG_M}", big, big32, 2)):
         m = bb.shape[0]
         ms = cuda_ms(lambda: knn_topk(q, bb, k), reps)
         out = knn_topk(q, bb, k)
@@ -1972,7 +2075,8 @@ def timing(q, bank, main_tree, gen):
         print(f"  K1 {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
               f"(k+1), library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}): "
               f"{shares(ms, b_ms, lib_ms)}", flush=True)
-        k1_form_rows(q, bb, label, k, reps, k1_rows, errs)
+        k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs)
+    del big32
 
     t0 = time.perf_counter()
     big_tree = NearestNeighborSearchApprox(big, n_neighbors=k, use_tree=True, device=DEVICE)
@@ -2069,9 +2173,9 @@ def forward_timing(gen_seed, gen):
 
 def pairs(tree):
     """--pairs: the Hopper-redesigned kernels of the imported package (K3
-    bf16 and f32, K1 bf16 dot and l2, int8 and int8_rows, K2 bf16 and
-    asym_rows) timed alone by CUDA events, each beside its bound and its
-    library call; returns the JSON-ready result."""
+    bf16 and f32, K1 bf16 dot and l2, int8, int8_rows, f32, asym and
+    asym_rows, K2 bf16 and asym_rows) timed alone by CUDA events, each
+    beside its bound and its library call; returns the JSON-ready result."""
     import hbird_tpu_torch
     from hbird_tpu_torch.ops import cuda_build
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
@@ -2086,11 +2190,12 @@ def pairs(tree):
            "build_s": time.perf_counter() - t0, "k3": {}, "k1": {}, "k2": {}}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
 
-    def record(kernel, label, ms, shape_bound, library):
+    def record(kernel, label, ms, shape_bound, library, **extra):
         b_ms, b_by = shape_bound
-        out[kernel][label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+        out[kernel][label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library, **extra}
         print(f"  [{tree}] {kernel.upper()} {label}: {ms:.4f} ms, library {fmt_ms(library)}, bound "
-              f"{b_ms:.4f} ms: {shares(ms, b_ms, library)}", flush=True)
+              f"{b_ms:.4f} ms: {shares(ms, b_ms, library)}"
+              + "".join(f", {name} {value}" for name, value in extra.items()), flush=True)
 
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (FLASH_MAIN, FLASH_LONG):
@@ -2098,7 +2203,10 @@ def pairs(tree):
             scale = shape[-1] ** -0.5
             ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 20)
             lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 20)
-            record("k3", f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}", ms, k3_bound(shape, dtype), lib)
+            # the output's bytes: two trees' kernels agree bit for bit when their digests do
+            digest = hashlib.sha256(flash_attention(q, k, v, scale).float().cpu().numpy().tobytes()).hexdigest()
+            record("k3", f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}", ms, k3_bound(shape, dtype), lib,
+                   digest=digest[:16])
             del q, k, v
     q = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE).bfloat16()
     q8 = quantize_queries_int8(q.float())[0]
@@ -2121,6 +2229,24 @@ def pairs(tree):
                 ms = cuda_ms(lambda: knn_topk(q8, codes, k, row_scale=r), reps)
                 lib = library_ms(lambda: int8_library(q8, codes, k, r), reps, f"K1 {form}")
                 record("k1", f"{form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
+        # f32 (3xTF32) at the engine's k and the reorder's scan; asym and
+        # asym_rows at the engine's k
+        q32, bank32 = q.float(), bank.float()
+        for k in INT8_KS:
+            ms = cuda_ms(lambda: knn_topk(q32, bank32, k), reps)
+            lib = cuda_ms(lambda: k1_library(q32, bank32, k), reps)
+            record("k1", f"f32 Q={PAIR_Q} M={m} k={k}", ms,
+                   bound_ms(PAIR_Q, m, DEPTH, k, 4, PEAK_TF32_FLOPS / TF32_PASSES), lib)
+        del q32, bank32
+        k = PAIR_KS[0]
+        for form, codes, r in (("asym", codes_g, None), ("asym_rows", codes_r, rs)):
+            wide = codes.bfloat16()
+            ms = cuda_ms(lambda: knn_topk(q, codes, k, row_scale=r), reps)
+            lib = cuda_ms(lambda: asym_library(q, wide, k, r), reps)
+            record("k1", f"{form} Q={PAIR_Q} M={m} k={k}", ms,
+                   bound_ms(PAIR_Q, m, DEPTH, k, 2, PEAK_BF16_FLOPS, bank_bytes=1, row_bytes=0 if r is None else 4),
+                   lib)
+            del wide
         del codes_g, codes_r, rs, neg_bias
         pairs_k2(q, bank, f"M={m}", record, 5 if m < 200_000 else 3)
         del bank
@@ -2858,7 +2984,7 @@ def main(argv=()):
     err_k3 = flash_cases(gen)
 
     phase(f"[5] main paths ({card})")
-    runs, launches, err_main, tree_info, q, bank, main_tree = main_path(gen_seed=0)
+    runs, launches, err_main, tree_info, q, bank, main_tree, f32 = main_path(gen_seed=0)
     flash_runs, flash_launches, token_err, err_k3_main = flash_path(gen_seed=0)
     runs.update(flash_runs)
     launches["knn_topk"] += sum(n["knn_topk"] for n in flash_launches.values())
@@ -2868,7 +2994,8 @@ def main(argv=()):
     backends = backends_card_vs_cpu()
 
     phase(f"[7] K1, K2 and K3 timing; the forward ({card})")
-    k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, gen)
+    k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, f32, gen)
+    del f32
     select = k1_select_rows(q, bank)
     k3_rows, err_k3_timing = flash_timing(gen)
     forward = forward_timing(0, gen)

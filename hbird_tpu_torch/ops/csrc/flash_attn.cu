@@ -18,15 +18,11 @@
 // at which the card stops being memory bound. So both products go on the
 // tensor cores, and the scores, the softmax and p never leave registers.
 //
-// f32 (`f32::flash_f32<HD>`, every hd): 3xTF32 on mma.sync m16n8k8. Each f32
-// operand x is split into big = tf32(x) and small = tf32(x - big), both
-// rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero; the
-// rounding is held fixed: tests/test_torch_flash_tf32.py emulates it), and a
-// product is big·small + small·big + big·big with f32 accumulation: about
-// 21 bits of each operand. The tensor cores' accumulation rounds toward
-// zero, so each chain of products into one accumulator is kept short and
-// the chains are summed in f32 registers: within 1e-5 of the f32 plain
-// version (~1e-6 measured). The split
+// f32 (`f32::flash_f32<HD>`, every hd): 3xTF32 on mma.sync m16n8k8, each
+// f32 operand split into TF32 big and small parts by tf32.cuh (its comment
+// has the rounding; tests/test_torch_flash_tf32.py emulates it), each chain
+// of products into one accumulator kept short and the chains summed in f32
+// registers: within 1e-5 of the f32 plain version (~1e-6 measured). The split
 // of a fragment is computed once, when a warp loads it, for its three
 // products: q once per CTA (its A fragments stay in registers), each K and
 // V word once per warp and tile, p once per tile in registers. That costs
@@ -76,6 +72,7 @@
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 #include "topk_common.cuh"  // cp_async16, ldmatrix_x4, mma_bf16, allow_smem, neg_inf
 
 namespace {
@@ -584,21 +581,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return 2 * FK * (ldk<HD>() + ldv<HD>()) * sizeof(float);  // two stages of (K, V)
 }
 
-// x rounded to TF32 (10 stored mantissa bits) to nearest, ties away from
-// zero: cvt.rna.tf32.f32's rounding, as two integer operations (the
-// magnitude bits gain half the dropped unit, then the 13 low bits go);
-// the instruction itself compiles to a longer sequence. Equal to cvt.rna
-// on every input but NaN, which still leaves the output non-finite.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// big = tf32(x) and small = tf32(x - big), both rounded by tf32_rna; x - big
-// is exact in f32.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
-}
+using tf32::split;  // big = tf32(x), small = tf32(x - big)
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {

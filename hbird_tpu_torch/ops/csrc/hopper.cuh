@@ -12,13 +12,14 @@
 //   layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes in
 //   1,024-byte atoms of 8 rows), fence / commit / wait, and the shapes the
 //   kernels issue: m64n128k16 bf16 and m64n128k32 s8 with both operands in
-//   shared memory, and m64n64k16 bf16 with A in registers and B transposed
-//   (MN-major);
+//   shared memory, m64n128k8 tf32 with A in registers, and m64n64k16 bf16
+//   with A in registers and B transposed (MN-major);
 // - setmaxnreg, which moves registers from the producer warpgroup to the
 //   consumer warpgroups.
 //
-// Descriptors: a K-major operand (the depth contiguous, 64 bf16 or 128 int8
-// = one 128-byte row) advances 32 bytes per k-step (k16 bf16, k32 s8)
+// Descriptors: a K-major operand (the depth contiguous, 64 bf16, 128 int8 or
+// 32 f32 = one 128-byte row) advances 32 bytes per k-step (k16 bf16, k32 s8,
+// k8 tf32)
 // inside its rows; an MN-major operand (K3's V: keys are rows, head dims
 // contiguous) advances 16 rows (2,048 bytes) per k16 step. Either way 8-row
 // groups are 1,024 bytes apart (the stride byte offset); the leading byte
@@ -227,6 +228,36 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64×128 f32) += A (64×8 tf32 in registers, the m16n8k8 A fragment of
+// each warp's 16 rows: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4)) · B (128×8 tf32, descriptor, K-major: 32 bytes of depth
+// per step, as bf16's k16); scale_d = 0 overwrites d instead. TF32 operands
+// are 32-bit words whose 13 low mantissa bits the tensor cores ignore.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // Warp specialisation.
 // ---------------------------------------------------------------------------
@@ -291,9 +322,9 @@ inline EncodeTiledFn tensor_map_encoder() {
 }
 
 // A tensor map of `rank` dimensions (dims innermost first, strides in bytes
-// of dims 1.., box in elements) of bf16 elements, or of bytes (UINT8: int8
-// codes), 128-byte swizzle (or none: int8 codes that the threads widen),
-// zeros out of bounds. Returns 0, ERR_NO_ENCODER or ERR_ENCODE.
+// of dims 1.., box in elements) of bf16 elements, of f32 (FLOAT32) or of
+// bytes (UINT8: int8 codes), 128-byte swizzle (or none: int8 codes that the
+// threads widen), zeros out of bounds. Returns 0, ERR_NO_ENCODER or ERR_ENCODE.
 inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
                              const uint64_t* strides, const uint32_t* box,
                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,

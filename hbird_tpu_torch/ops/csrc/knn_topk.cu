@@ -10,36 +10,42 @@
 //     f32 per bank row, computed by the wrapper) subtracted in the epilogue;
 // (c) int8 × int8 codes with int32 accumulation, converted once to f32;
 // (d) row_scale: each score times its int8 row's f32 scale in the epilogue;
-// (e) asymmetric: bf16 queries against int8 codes, widened in registers.
+// (e) asymmetric: bf16 queries against int8 codes, widened to bf16.
 //
 // What bounds it on an H100: operations. One call does 2·Q·M·D multiply-adds
 // on Q·D + M·D input elements; at the engine's shapes (Q = 21,904, D = 768)
 // that is ~1,600 operations per byte in bf16 and ~3,200 in int8, far above
 // the ~295 (bf16) and ~590 (int8) at which the card stops being memory bound.
-// So the score tile belongs on the tensor cores. f32 inputs keep exact f32
-// FMAs (the tensor cores would round them to TF32).
+// So the score tile belongs on the tensor cores. f32 inputs take f32
+// accuracy there in three TF32 passes (3xTF32, tf32.cuh): 3 x 2·Q·M·D at
+// 495 TFLOP/s is 17.9 ms at Q = 21,904, M = 87,616, against 44.0 ms for
+// the FMAs alone at 67 TFLOP/s.
 //
-// bf16, forms (a) and (b), and int8 codes, forms (c) and (c)+(d), at every
-// k: wgmma_topk.cuh's persistent kernel (topk_wgmma<F, S, E, Flat>: wgmma on
-// TMA rings with a producer warp, and the batched select) over (bank split,
-// 64-query tile) items, split-major, so the CTAs in flight read the same
-// ~1/splits of the bank and find it in L2. The wrapper picks the fewest
+// Every form runs wgmma_topk.cuh's persistent kernel (topk_wgmma<F, S, E,
+// Flat>: wgmma on TMA rings with a producer warp, and the batched select) at
+// every k, over (bank split, 64-query tile) items, split-major, so the CTAs
+// in flight read the same ~1/splits of the bank and find it in L2: bf16
+// (a)/(b) as Bf16, int8 (c)/(c)+(d) as S8, (e)/(e)+(d) as Asym (the codes
+// widened in shared memory, as K2 does), f32 (a)/(b) as F32 (3xTF32, the
+// query chunks streamed with the bank chunks). The wrapper picks the fewest
 // splits whose rounds of items keep at least 90% of the SMs busy
 // (ops/knn_cuda.py, plan_splits: 3 at Q = 21,904 on 132 SMs); the splits
 // cover only the valid rows. At D = 768 the queries take 96 KB in bf16 and
 // 48 KB in int8, the rings 2 x 4 x 16 KB; wider bf16 banks get fewer stages
 // (one each at D = 1536, dinov2_vitg14's width), and wider still (a
 // converted checkpoint of width 1,664, say) leave no room for one stage and
-// take mma_scan<FormBf16>. int8 codes are at most 1,024 wide (exact
-// scores), so their queries always fit. int8 scores are the plain
-// version's bit for bit (exact integers, one f32 rounding for the row
-// scale), so are the keys, and the split merge keeps the single-pass tie
-// order. The batched select holds no set in registers, so every k runs
-// this kernel (PERF.md has the designs measured against it).
-// The other forms (f32, and bf16 queries on int8 codes) and bf16 wider than
-// D = 1536 keep topk_common.cuh's mma_scan: one CTA (256 threads) per BQ =
-// 64 queries walking the bank in tiles of BM = 128 rows; bf16 queries on
-// int8 codes go through mma.sync m16n8k16 with the codes widened in
+// take mma_scan<FormBf16>; Asym keeps two widened tiles per consumer, so
+// its queries fit up to D = 1152 and wider ones take mma_scan<FormAsym>.
+// int8 codes are at most 1,024 wide (exact scores), so their queries
+// always fit, and F32 keeps no queries resident, so every depth fits.
+// int8 scores are the plain version's bit for bit (exact integers, one f32
+// rounding for the row scale), so are the keys, and the split merge keeps
+// the single-pass tie order. The batched select holds no set in registers,
+// so every k runs this kernel (PERF.md has the designs measured against
+// it). The choice is made by shape before the launch (knn_topk_wgmma_smem).
+// The shapes left to topk_common.cuh's mma_scan: one CTA (256 threads) per
+// BQ = 64 queries walking the bank in tiles of BM = 128 rows; bf16 queries
+// on int8 codes go through mma.sync m16n8k16 with the codes widened in
 // registers, fed by a two-stage cp.async ring. Tiles at or past
 // `valid_rows` are never visited: their columns would all score -inf. The
 // epilogue and the running top-k merge (ties resolve by lowest index, as
@@ -63,33 +69,6 @@ struct BankWalk {
   __device__ __forceinline__ int n_cols() const { return valid - m0; }
 };
 
-template <int S>
-__global__ void __launch_bounds__(THREADS)
-    knn_topk_f32(const float* __restrict__ q, const float* __restrict__ bank,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 float* __restrict__ out_vals, long long* __restrict__ out_idx, int nq, int m,
-                 int d, int valid_rows, int k) {
-  extern __shared__ __align__(16) float smem[];
-  float* st = smem;  // [BQ][LDS], aliases the staging buffers
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-
-  TopK<S> top;
-  top.init();
-  for (BankWalk w{0, valid_rows}; !w.done(); w.next()) {
-    float acc[TM][TN];
-    fma_score_tile(q, bank, q0, nq, w.row0(), w.row_end(), d, smem, acc);
-    __syncthreads();  // all reads of the staged chunks are done before st overwrites them
-    store_fma_tile(st, acc, w.n_cols(), w.row0(), scale, bias);
-    __syncthreads();
-    top.merge_tile(st, q0, nq, w.row0(), warp, lane);
-  }
-  top.emit(out_vals, out_idx, q0, nq, k, warp, lane);
-}
-
 template <class F, int S>
 __global__ void __launch_bounds__(THREADS)
     knn_topk_mma(const typename F::TQ* __restrict__ q, const typename F::TB* __restrict__ bank,
@@ -103,8 +82,8 @@ __global__ void __launch_bounds__(THREADS)
   top.emit(out_vals, out_idx, q0, nq, k, threadIdx.x >> 5, threadIdx.x & 31);
 }
 
-// bf16 dot and l2, int8 and int8_rows: wgmma_topk.cuh's kernel over
-// (bank split, 64-query tile) items.
+// Every form: wgmma_topk.cuh's kernel over (bank split, 64-query tile)
+// items.
 // The splits cut the valid rows into ranges of split_rows (a multiple of
 // 128); an item walks its range's 128-row tiles.
 struct Flat {
@@ -141,27 +120,18 @@ int launch_wgmma(const void* q, const void* bank, const float* cvec, void* out_v
 // Launch.
 // ---------------------------------------------------------------------------
 
-template <typename TQ, typename TB, typename Kernel>
-cudaError_t launch_one(Kernel kernel, size_t smem, const void* q, const void* bank,
-                       const float* scale, const float* bias, void* out_vals, void* out_idx,
-                       int nq, int m, int d, int valid_rows, int k, cudaStream_t stream) {
-  const cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((nq + BQ - 1) / BQ);
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const TQ*>(q), static_cast<const TB*>(bank),
-                                          scale, bias, static_cast<float*>(out_vals),
-                                          static_cast<long long*>(out_idx), nq, m, d,
-                                          valid_rows, k);
-  return cudaGetLastError();
-}
-
+// The shapes whose queries do not fit the wgmma kernel: mma_scan.
 template <class F, int S>
 cudaError_t launch_mma(const void* q, const void* bank, const float* scale, const float* bias,
                        void* out_vals, void* out_idx, int nq, int m, int d, int valid_rows, int k,
                        cudaStream_t stream) {
-  return launch_one<typename F::TQ, typename F::TB>(knn_topk_mma<F, S>, Ring<F>::SMEM, q, bank,
-                                                    scale, bias, out_vals, out_idx, nq, m, d,
-                                                    valid_rows, k, stream);
+  const cudaError_t e = allow_smem(knn_topk_mma<F, S>, Ring<F>::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((nq + BQ - 1) / BQ);
+  knn_topk_mma<F, S><<<grid, THREADS, Ring<F>::SMEM, stream>>>(
+      static_cast<const typename F::TQ*>(q), static_cast<const typename F::TB*>(bank), scale, bias,
+      static_cast<float*>(out_vals), static_cast<long long*>(out_idx), nq, m, d, valid_rows, k);
+  return cudaGetLastError();
 }
 
 template <int S>
@@ -170,9 +140,14 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
            int nq, int m, int d, int valid_rows, int k, int form, int split_rows,
            cudaStream_t stream) {
   switch (form) {
-    case 0:
-      return launch_one<float, float>(knn_topk_f32<S>, FMA_SMEM, q, bank, scale, bias, out_vals,
-                                      out_idx, nq, m, d, valid_rows, k, stream);
+    case 0:  // no queries resident: every depth fits
+      if (bias != nullptr)
+        return launch_wgmma<wg::F32, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr,
+                                                  work, work_ctas, nq, m, d, valid_rows, k,
+                                                  split_rows, stream);
+      return launch_wgmma<wg::F32, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
+                                                 work, work_ctas, nq, m, d, valid_rows, k,
+                                                 split_rows, stream);
     case 1:
       if (wg::smem_at<wg::Bf16>(d) == 0)  // the queries do not fit: mma_scan
         return launch_mma<FormBf16, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
@@ -193,8 +168,16 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
                                                 work, work_ctas, nq, m, d, valid_rows, k,
                                                 split_rows, stream);
     default:
-      return launch_mma<FormAsym, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
-                                     valid_rows, k, stream);
+      if (wg::smem_at<wg::Asym>(d) == 0)  // the queries do not fit: mma_scan
+        return launch_mma<FormAsym, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
+                                       valid_rows, k, stream);
+      if (scale != nullptr)
+        return launch_wgmma<wg::Asym, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
+                                                    work, work_ctas, nq, m, d, valid_rows, k,
+                                                    split_rows, stream);
+      return launch_wgmma<wg::Asym, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
+                                                  work, work_ctas, nq, m, d, valid_rows, k,
+                                                  split_rows, stream);
   }
 }
 
@@ -207,12 +190,13 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
 // (m,) f32 is subtracted from it, each when not null. Writes out_vals
 // (nq, k) f32 and out_idx (nq, k) int64. 1 <= k <= 128,
 // 0 <= valid_rows <= m, nq >= 1. Where knn_topk_wgmma_smem(d, form) > 0
-// (forms 1 and 2, the queries fit in shared memory) the call runs the
-// wgmma kernel: it splits the valid rows into ceil(valid_rows / split_rows)
-// splits (split_rows a multiple of 128) and needs the scratch `parts`, (nq,
-// 2 · splits, 32 · ceil(k / 32)) 64-bit keys, `thr`, nq 64-bit keys set to
-// 0, and `work`, work_ctas · knn_topk_work_keys(k) 64-bit keys (it runs on
-// at most work_ctas CTAs); the other calls ignore them. Returns
+// (form 0 always; forms 1-3 where the queries fit in shared memory) the
+// call runs the wgmma kernel: it splits the valid rows into
+// ceil(valid_rows / split_rows) splits (split_rows a multiple of 128) and
+// needs the scratch `parts`, (nq, 2 · splits, 32 · ceil(k / 32)) 64-bit
+// keys, `thr`, nq 64-bit keys set to 0, and `work`, work_ctas ·
+// knn_topk_work_keys(k) 64-bit keys (it runs on at most work_ctas CTAs);
+// the other calls ignore them. Returns
 // cudaGetLastError() after the launch (0 = launched), or 9001 / 9002 when
 // the wgmma forms' tensor maps cannot be encoded.
 extern "C" int knn_topk_launch(const void* q, const void* bank, const float* scale,
@@ -231,12 +215,17 @@ extern "C" int knn_topk_launch(const void* q, const void* bank, const float* sca
   }
 }
 
-// Dynamic shared memory the wgmma kernel of `form` (1 bf16, 2 int8) asks
-// for at depth d; 0: that call runs mma_scan, without scratch (bf16 whose
-// queries do not fit, and the other forms).
+// Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
+// 3 bf16 queries on int8 codes) asks for at depth d; 0: that call runs
+// mma_scan, without scratch (bf16 or asym whose queries do not fit).
 extern "C" int knn_topk_wgmma_smem(int d, int form) {
-  if (form == 1) return wg::smem_at<wg::Bf16>(d);
-  return form == 2 ? wg::smem_at<wg::S8>(d) : 0;
+  switch (form) {
+    case 0: return wg::smem_at<wg::F32>(d);
+    case 1: return wg::smem_at<wg::Bf16>(d);
+    case 2: return wg::smem_at<wg::S8>(d);
+    case 3: return wg::smem_at<wg::Asym>(d);
+    default: return 0;
+  }
 }
 
 // 64-bit keys of the wgmma kernel's `work` scratch per CTA at k.

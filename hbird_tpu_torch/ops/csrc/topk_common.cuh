@@ -1,5 +1,5 @@
 // Device code shared by K1 (knn_topk.cu) and K2 (ivf_topk.cu): the running
-// top-k of 64-bit keys, the f32 FMA score tile, and the mma.sync score
+// top-k of 64-bit keys, the f32 FMA score tile (K2's f32), and the mma.sync score
 // tile (bf16, and bf16 queries on int8 codes) fed by a two-stage
 // cp.async ring, with the score epilogue of the TPU kernels' forms. The
 // keys (make_key) are the one definition of the tie order: the wgmma
@@ -7,9 +7,9 @@
 // keys with its batched select and merges its partial sets with merge_row.
 //
 // The mma_scan kernels give one CTA (256 threads) BQ = 64 queries and walk
-// bank tiles of BM = 128 rows: K1's asym forms and bf16 wider than the
-// wgmma kernel's shared memory walk the whole bank, K2's bf16 and asym forms
-// wider than it the rows of the leaf slabs a query tile probes. A finished 64×128 f32 score tile goes to
+// bank tiles of BM = 128 rows: K1's bf16 and asym forms wider than the
+// wgmma kernel's shared memory walk the whole bank, K2's the rows of the
+// leaf slabs a query tile probes. A finished 64×128 f32 score tile goes to
 // shared memory (columns past the tile's valid rows score -inf) and is merged
 // into the queries' running top sets:
 // - Each warp owns 8 queries. A query's running top-(32·S) lives in

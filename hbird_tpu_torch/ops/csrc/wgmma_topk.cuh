@@ -16,12 +16,28 @@
 //   stages, one 128-byte depth chunk of 128 rows each, which the producer
 //   fills by TMA, the two rings in turn.
 // - Forms: Bf16 (m64n128k16, f32 accumulators), S8 (int8 codes, m64n128k32
-//   s8, s32 accumulators converted once by __int2float_rn) and Asym (bf16
+//   s8, s32 accumulators converted once by __int2float_rn), Asym (bf16
 //   queries, int8 codes: the ring holds the codes, 64 bytes a row, and the
 //   consumer widens each stage exactly (widen_s8x4) into a 128-byte-swizzled
 //   bf16 tile of its own before a bf16 wgmma, so the select's layout is the
-//   other forms'). The epilogue: none, minus the l2 bias, or times the row
-//   scale (Epi), one f32 rounding each.
+//   other forms') and F32 (below). The epilogue: none, minus the l2 bias, or
+//   times the row scale (Epi), one f32 rounding each.
+// - F32, 3xTF32 (tf32.cuh). 64 queries of f32 take 192 KB at D = 768, so
+//   they cannot stay resident: each ring stage holds the item's query chunk
+//   (64 rows x 32 f32) beside the bank chunk (128 rows), both by TMA, and
+//   the query chunk is read again from L2 for every bank tile (half the
+//   tile's bytes again; a bank split ahead of the search would cost two
+//   more banks, 63 GB at 10.24M rows). The consumer splits the query chunk
+//   into big and small A fragments in registers and the bank chunk in place
+//   into big, with small into a 128-row tile of its own at the same offsets
+//   (so the same swizzle), then issues small·big + big·small + big·big per
+//   k8 step (wgmma m64n128k8 tf32, A from registers) into a fresh
+//   accumulator; each chunk's 12 products are added to the tile's sum in
+//   f32 registers rounding to nearest, since the tensor cores' own sums
+//   round toward zero (288 of them at D = 768 would drift by up to ~3e-5 of
+//   a score). While a chunk's products run, the consumer splits the next
+//   chunk's bank rows into its other small tile. Three stages of 24 KB and
+//   two small tiles per consumer fit at any depth.
 //
 // The select (why it is batched). A consumer warp holds the accumulators of
 // 16 queries x 128 bank rows. Keeping the 16 running top-(32·S) sets in
@@ -58,6 +74,7 @@
 #pragma once
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 #include "topk_common.cuh"
 
 namespace wg {
@@ -83,7 +100,7 @@ constexpr int BUF_CHUNKS = BUF / 32;
 struct Bf16 {
   typedef float Acc;
   static constexpr int DK = 64, B_BYTES = 128;
-  static constexpr bool WIDEN = false;
+  static constexpr bool WIDEN = false, SPLIT = false;
   static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
@@ -96,7 +113,7 @@ struct Bf16 {
 struct S8 {
   typedef int Acc;
   static constexpr int DK = 128, B_BYTES = 128;
-  static constexpr bool WIDEN = false;
+  static constexpr bool WIDEN = false, SPLIT = false;
   static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   __device__ __forceinline__ static void mma(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
@@ -111,6 +128,12 @@ struct Asym : Bf16 {  // bf16 queries, int8 codes widened in shared memory
   static constexpr bool WIDEN = true;
   static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 };
+struct F32 : Bf16 {  // f32 queries and bank, split into TF32 parts by the consumers
+  static constexpr int DK = 32;
+  static constexpr bool SPLIT = true;
+  static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
 
 enum Epi { PLAIN = 0, BIAS = 1, SCALE = 2 };
 
@@ -121,23 +144,36 @@ __device__ __forceinline__ float epi(float v, float c) {
   return v;
 }
 
-// Shared memory: the queries, two rings, the widened tiles (Asym: two per
-// consumer), barriers.
+// Shared memory: the queries (not F32's), two rings, the consumers' own
+// tiles (two per consumer: Asym's widened codes, F32's small parts),
+// barriers.
+template <class F>
+__host__ __device__ constexpr int own_tiles_bytes() {
+  return F::WIDEN || F::SPLIT ? 4 * WIDE_TILE : 0;
+}
+
+// One ring stage: a 128-row bank chunk (F32: after the item's query chunk).
+template <class F>
+__host__ __device__ constexpr int stage_bytes() {
+  return BMH * F::B_BYTES + (F::SPLIT ? Q_CHUNK : 0);
+}
+
 template <class F>
 constexpr int fixed_smem(int n_chunks) {
-  return hopper::SMEM_ALIGN + n_chunks * Q_CHUNK + (F::WIDEN ? 4 * WIDE_TILE : 0) + BAR_BYTES;
+  return hopper::SMEM_ALIGN + (F::SPLIT ? 0 : n_chunks * Q_CHUNK) + own_tiles_bytes<F>() +
+         BAR_BYTES;
 }
 
 // Ring stages per consumer for n_chunks depth chunks (0: the queries do not fit).
 template <class F>
 inline int stages_for(int n_chunks) {
-  const int st = (SMEM_LIMIT - fixed_smem<F>(n_chunks)) / (2 * BMH * F::B_BYTES);
+  const int st = (SMEM_LIMIT - fixed_smem<F>(n_chunks)) / (2 * stage_bytes<F>());
   return st < MAX_STAGES ? (st > 0 ? st : 0) : MAX_STAGES;
 }
 
 template <class F>
 inline int smem_bytes(int n_chunks, int stages) {
-  return fixed_smem<F>(n_chunks) + 2 * stages * BMH * F::B_BYTES;
+  return fixed_smem<F>(n_chunks) + 2 * stages * stage_bytes<F>();
 }
 
 // Dynamic shared memory of form F's kernel at depth d (0: the queries do not fit).
@@ -428,6 +464,44 @@ __device__ __forceinline__ void widen_tile(const unsigned char* src, unsigned ch
   }
 }
 
+// Split one ring stage's 128-row chunk of f32 bank rows (128-byte swizzled)
+// in place into its TF32 big parts, and its small parts into `small` at the
+// same offsets; thread tid of the consumer warpgroup takes 16-byte units
+// tid, tid + 128, ...
+__device__ __forceinline__ void split_tile(unsigned char* tile, unsigned char* small, int tid) {
+#pragma unroll
+  for (int j = 0; j < WIDE_TILE / (16 * 128); ++j) {
+    uint4* t = reinterpret_cast<uint4*>(tile) + tid + 128 * j;
+    const uint4 v = *t;
+    uint4 b, s;
+    tf32::split(__uint_as_float(v.x), b.x, s.x);
+    tf32::split(__uint_as_float(v.y), b.y, s.y);
+    tf32::split(__uint_as_float(v.z), b.z, s.z);
+    tf32::split(__uint_as_float(v.w), b.w, s.w);
+    *t = b;
+    reinterpret_cast<uint4*>(small)[tid + 128 * j] = s;
+  }
+}
+
+// Consumer warp `warp`'s A fragments of one f32 query chunk (64 rows x 32,
+// 128-byte swizzled: 16-byte unit u of row r at unit u ^ (r % 8)), split
+// into TF32 big and small parts: k-step kk's a0 (row g, depth 8kk + t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of the warp's 16 rows.
+__device__ __forceinline__ void split_a(const unsigned char* qc, int warp, int lane,
+                                        uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+  const int g = lane >> 2;
+  const unsigned char* r0 = qc + (warp * 16 + g) * CHUNK_BYTES + 4 * (lane & 3);
+  const unsigned char* r1 = r0 + 8 * CHUNK_BYTES;  // row g + 8: the same swizzle
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int u0 = ((2 * kk) ^ g) * 16, u1 = ((2 * kk + 1) ^ g) * 16;
+    tf32::split(*reinterpret_cast<const float*>(r0 + u0), big[kk][0], small[kk][0]);
+    tf32::split(*reinterpret_cast<const float*>(r1 + u0), big[kk][1], small[kk][1]);
+    tf32::split(*reinterpret_cast<const float*>(r0 + u1), big[kk][2], small[kk][2]);
+    tf32::split(*reinterpret_cast<const float*>(r1 + u1), big[kk][3], small[kk][3]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The kernel.
 // ---------------------------------------------------------------------------
@@ -441,12 +515,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     topk_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tb,
                const float* __restrict__ cvec, u64* __restrict__ parts, u64* __restrict__ thr,
                u64* __restrict__ work, const Items items, int nq, int n_chunks, int stages) {
-  constexpr int B_STAGE = BMH * F::B_BYTES;
+  constexpr int B_STAGE = stage_bytes<F>();
+  constexpr int Q_IN_STAGE = F::SPLIT ? Q_CHUNK : 0;  // F32: a stage's query chunk, then bank rows
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* qs = hopper::aligned_smem(smem_raw);  // [n_chunks][64 rows][128 B]
-  unsigned char* ring = qs + n_chunks * Q_CHUNK;        // [2][stages][128 rows][B_BYTES]
-  unsigned char* wide = ring + 2 * stages * B_STAGE;    // Asym: [2][2][128 rows][128 B]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(wide + (F::WIDEN ? 4 * WIDE_TILE : 0));
+  unsigned char* qs = hopper::aligned_smem(smem_raw);  // [n_chunks][64 rows][128 B], not F32's
+  unsigned char* ring = qs + (F::SPLIT ? 0 : n_chunks * Q_CHUNK);  // [2][stages][B_STAGE]
+  // Asym: [2][2][128 rows][128 B] widened; F32: the same, small parts
+  unsigned char* wide = ring + 2 * stages * B_STAGE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(wide + own_tiles_bytes<F>());
   uint64_t* q_empty = q_full + 1;
   uint64_t* full = q_full + 2;  // [2][MAX_STAGES]
   uint64_t* empty = full + 2 * MAX_STAGES;
@@ -475,19 +551,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       int st[2] = {0, 0};
       uint32_t ph[2] = {0, 0}, it = 0;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
-        hopper::mbar_wait(q_empty, (it & 1) ^ 1);
-        hopper::mbar_expect_tx(q_full, n_chunks * Q_CHUNK);
-        for (int c = 0; c < n_chunks; ++c)
-          hopper::tma_load_2d(qs + c * Q_CHUNK, &tq, q_full, c * F::DK, items.q_tile(item) * BQH);
+        const int q_row0 = items.q_tile(item) * BQH;
+        if constexpr (!F::SPLIT) {
+          hopper::mbar_wait(q_empty, (it & 1) ^ 1);
+          hopper::mbar_expect_tx(q_full, n_chunks * Q_CHUNK);
+          for (int c = 0; c < n_chunks; ++c)
+            hopper::tma_load_2d(qs + c * Q_CHUNK, &tq, q_full, c * F::DK, q_row0);
+        }
         for (auto wk = items.walk(item); !wk.done();) {
           int row[2], n = 0;
           for (; n < 2 && !wk.done(); ++n, wk.next()) row[n] = wk.row0();
           for (int c = 0; c < n_chunks; ++c)
             for (int w = 0; w < n; ++w) {
               uint64_t* f = full + w * MAX_STAGES + st[w];
+              unsigned char* dst = ring + (w * stages + st[w]) * B_STAGE;
               hopper::mbar_wait(empty + w * MAX_STAGES + st[w], ph[w] ^ 1);
               hopper::mbar_expect_tx(f, B_STAGE);
-              hopper::tma_load_2d(ring + (w * stages + st[w]) * B_STAGE, &tb, f, c * F::DK, row[w]);
+              if constexpr (F::SPLIT) hopper::tma_load_2d(dst, &tq, f, c * F::DK, q_row0);
+              hopper::tma_load_2d(dst + Q_IN_STAGE, &tb, f, c * F::DK, row[w]);
               if (++st[w] == stages) {
                 st[w] = 0;
                 ph[w] ^= 1;
@@ -501,7 +582,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int w = wgi - 1;
     const int tid = threadIdx.x - 128 * wgi;
     const int warp = tid >> 5, lane = tid & 31;
-    const unsigned char* my_ring = ring + w * stages * B_STAGE;
+    unsigned char* my_ring = ring + w * stages * B_STAGE;
     unsigned char* my_wide = wide + w * 2 * WIDE_TILE;
     uint64_t* my_full = full + w * MAX_STAGES;
     uint64_t* my_empty = empty + w * MAX_STAGES;
@@ -509,11 +590,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     sel.bind(work + (static_cast<size_t>(blockIdx.x) * WARPS_PER_CTA + 4 * w + warp) *
                         SetSize<S>::WARP_KEYS);
     typename F::Acc acc[64];
+    float part[F::SPLIT ? 64 : 1];  // F32: one chunk's products
     int st = 0, wb = 0;
     uint32_t ph = 0, it = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
       const int q_row = items.q_tile(item) * BQH + warp * ROWS;  // the warp's first query
-      hopper::mbar_wait(q_full, it & 1);
+      if constexpr (!F::SPLIT) hopper::mbar_wait(q_full, it & 1);
       sel.init(lane);
       auto wk = items.walk(item);
       if (w == 1 && !wk.done()) wk.next();  // consumer w takes tiles w, w + 2, ...
@@ -521,41 +603,89 @@ __global__ void __launch_bounds__(THREADS, 1)
       while (!wk.done()) {
         const int col0 = wk.row0(), n_cols = wk.n_cols();
         int prev = -1;
-        for (int c = 0; c < n_chunks; ++c) {
+        if constexpr (F::SPLIT) {
+          // Chunk c's products run while the consumer splits chunk c + 1's
+          // bank rows into the other small tile; the A fragments wait for
+          // the products (they are read from registers).
+          unsigned char* stage = my_ring + st * B_STAGE;
+          uint32_t ab[4][4], as[4][4];
           hopper::mbar_wait(my_full + st, ph);
-          const unsigned char* bc = my_ring + st * B_STAGE;
-          if constexpr (F::WIDEN) {
-            // every warp's products of two chunks ago, the last reader of
-            // this widened tile, are done (wgmma_wait<1> below)
-            hopper::named_sync(1 + w, 128);
-            unsigned char* dst = my_wide + wb * WIDE_TILE;
-            widen_tile(bc, dst, tid);
-            hopper::mbar_arrive(my_empty + st);  // the codes are read
+          split_a(stage, warp, lane, ab, as);
+          // every warp's products of the last tile, the small tiles' last
+          // readers, are done (wgmma_wait<0> below)
+          hopper::named_sync(1 + w, 128);
+          split_tile(stage + Q_CHUNK, my_wide + wb * WIDE_TILE, tid);
+          for (int c = 0; c < n_chunks; ++c) {
+            const unsigned char* bc = stage + Q_CHUNK;
+            const unsigned char* sc = my_wide + wb * WIDE_TILE;
             hopper::fence_proxy_async();
-            hopper::named_sync(1 + w, 128);
-            bc = dst;
-            wb ^= 1;
-          }
-          const unsigned char* qc = qs + c * Q_CHUNK;
-          hopper::wgmma_fence();
+            hopper::named_sync(1 + w, 128);  // every warp's split of this chunk is done
+            hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < CHUNK_BYTES / 32; ++kk)
-            F::mma(acc, hopper::sw128_desc(qc + kk * 32), hopper::sw128_desc(bc + kk * 32),
-                   (c | kk) != 0);
-          hopper::wgmma_commit();
-          if constexpr (F::WIDEN) {
-            hopper::wgmma_wait<1>();
-          } else if (stages > 1) {
-            hopper::wgmma_wait<1>();  // the previous chunk's products are done with its stage
-            if (prev >= 0) hopper::mbar_arrive(my_empty + prev);
-            prev = st;
-          } else {  // one stage: it is refilled only once this chunk is done
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint64_t big = hopper::sw128_desc(bc + kk * 32);
+              const uint64_t small = hopper::sw128_desc(sc + kk * 32);
+              hopper::wgmma_m64n128k8_tf32_rs(part, as[kk], big, kk != 0);
+              hopper::wgmma_m64n128k8_tf32_rs(part, ab[kk], small, 1);
+              hopper::wgmma_m64n128k8_tf32_rs(part, ab[kk], big, 1);
+            }
+            hopper::wgmma_commit();
+            const int done = st;
+            if (++st == stages) {
+              st = 0;
+              ph ^= 1;
+            }
+            wb ^= 1;
+            unsigned char* next = my_ring + st * B_STAGE;
+            if (c + 1 < n_chunks) {  // the other small tile's last products were chunk c - 1's
+              hopper::mbar_wait(my_full + st, ph);
+              split_tile(next + Q_CHUNK, my_wide + wb * WIDE_TILE, tid);
+            }
             hopper::wgmma_wait<0>();
-            hopper::mbar_arrive(my_empty + st);
+            hopper::fence_regs(part);
+            hopper::mbar_arrive(my_empty + done);
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[i] = c == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
+            if (c + 1 < n_chunks) split_a(next, warp, lane, ab, as);
+            stage = next;
           }
-          if (++st == stages) {
-            st = 0;
-            ph ^= 1;
+        } else {
+          for (int c = 0; c < n_chunks; ++c) {
+            hopper::mbar_wait(my_full + st, ph);
+            const unsigned char* bc = my_ring + st * B_STAGE;
+            if constexpr (F::WIDEN) {
+              // every warp's products of two chunks ago, the last reader of
+              // this widened tile, are done (wgmma_wait<1> below)
+              hopper::named_sync(1 + w, 128);
+              unsigned char* dst = my_wide + wb * WIDE_TILE;
+              widen_tile(bc, dst, tid);
+              hopper::mbar_arrive(my_empty + st);  // the codes are read
+              hopper::fence_proxy_async();
+              hopper::named_sync(1 + w, 128);
+              bc = dst;
+              wb ^= 1;
+            }
+            const unsigned char* qc = qs + c * Q_CHUNK;
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < CHUNK_BYTES / 32; ++kk)
+              F::mma(acc, hopper::sw128_desc(qc + kk * 32), hopper::sw128_desc(bc + kk * 32),
+                     (c | kk) != 0);
+            hopper::wgmma_commit();
+            if constexpr (F::WIDEN) {
+              hopper::wgmma_wait<1>();
+            } else if (stages > 1) {
+              hopper::wgmma_wait<1>();  // the previous chunk's products are done with its stage
+              if (prev >= 0) hopper::mbar_arrive(my_empty + prev);
+              prev = st;
+            } else {  // one stage: it is refilled only once this chunk is done
+              hopper::wgmma_wait<0>();
+              hopper::mbar_arrive(my_empty + st);
+            }
+            if (++st == stages) {
+              st = 0;
+              ph ^= 1;
+            }
           }
         }
         // Under the last chunk's products: this tile's epilogue values (l2
@@ -576,13 +706,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (!F::WIDEN && prev >= 0) hopper::mbar_arrive(my_empty + prev);
         wk.next();
         if (!wk.done()) wk.next();
-        if (wk.done()) {  // this consumer's last tile: the queries are read
+        if (!F::SPLIT && wk.done()) {  // this consumer's last tile: the queries are read
           hopper::mbar_arrive(q_empty);
           released = true;
         }
         select_tile<F, S, E>(sel, acc, col0, n_cols, cv, pub, thr + q_row, nq - q_row, lane);
       }
-      if (!released) hopper::mbar_arrive(q_empty);
+      if (!F::SPLIT && !released) hopper::mbar_arrive(q_empty);
       const u64 pub = lane < ROWS && q_row + lane < nq ? __ldcg(thr + q_row + lane) : 0;
       sel.finish(pub, thr + q_row, nq - q_row, lane);
       sel.emit_part(parts, q_row, nq, n_parts, 2 * items.split(item) + w, lane);

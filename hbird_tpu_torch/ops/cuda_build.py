@@ -1,8 +1,8 @@
 """Building the port's CUDA kernels: nvcc for sm_90a into ctypes libraries.
 
 Each kernel source in `csrc/` (K1 `knn_topk.cu`, K2 `ivf_topk.cu`, K3
-`flash_attn.cu`, each including `topk_common.cuh` and `hopper.cuh`; K1
-and K2 also `wgmma_topk.cuh`) compiles on its own into
+`flash_attn.cu`, each including `topk_common.cuh`, `hopper.cuh` and
+`tf32.cuh`; K1 and K2 also `wgmma_topk.cuh`) compiles on its own into
 a shared library with a plain C interface, at first use. The libraries go to
 `build/hbird_tpu_torch/` beside the package directory (the repository's
 ignored build tree); a name carries a hash of the source, the headers and

@@ -11,6 +11,8 @@ Counterpart of hbird_tpu/ops/knn_pallas.py::pallas_knn (the TPU kernel
   epilogue before masking;
 - (e) asymmetric: bf16 queries against int8 codes, widened to bf16 inside
   the kernel.
+f32 operands are scored at f32 accuracy on the TF32 tensor cores, in three
+passes (3xTF32: each operand split into TF32 big and small parts).
 The kernel source is ops/csrc/knn_topk.cu; ops/cuda_build.py compiles it
 with `nvcc` for sm_90a into a shared library with a plain C interface at
 first use, and it is loaded with ctypes.
@@ -19,20 +21,22 @@ first use, and it is loaded with ctypes.
 (ops/knn.py::exact_knn) for CPU tensors, and nothing else: a CUDA tensor
 either launches the kernel or raises. Invalid combinations raise
 `ValueError` on every device, as the JAX asserts do. `knn_topk.launches`
-counts kernel launches, `knn_topk.forms` the same launches by form.
+counts kernel launches, `knn_topk.forms` the same launches by form
+(`form_name`).
 
-The bf16 forms (a) and (b) and the int8 forms (c) and (c)+(d) run one
-persistent wgmma kernel over (bank split, 64-query tile) items, at every k,
-and merge the splits' partial top sets in a second pass from the same entry
-point. `plan_splits` picks the split size here, the same plan for both
-element types (the same items and tiles), so the rounds of items fill the
-SMs. The partial sets (`parts_shape`), the per-query minimum keys they
-share and the select's per-CTA scratch (`wgmma_scratch`: each consumer
-warp's running sets and candidate buffers) are allocated here. That kernel
-keeps its queries in shared memory; where they do not fit (bf16 at D >
-1536) the call runs the kernel of the other forms, with no scratch, as the
-library reports (`knn_topk_wgmma_smem`). K2 (ops/ivf_cuda.py) runs the same
-kernel over its probed slabs.
+Every form runs one persistent wgmma kernel over (bank split, 64-query
+tile) items, at every k, and merges the splits' partial top sets in a
+second pass from the same entry point. `plan_splits` picks the split size
+here, the same plan for every element type (the same items and tiles), so
+the rounds of items fill the SMs. The partial sets (`parts_shape`), the
+per-query minimum keys they share and the select's per-CTA scratch
+(`wgmma_scratch`: each consumer warp's running sets and candidate buffers)
+are allocated here. That kernel keeps bf16 and int8 queries in shared
+memory (f32 queries stream with the bank); where they do not fit (bf16 at
+D > 1536, bf16 queries on int8 codes at D > 1152) the call runs the
+mma_scan kernel, with no scratch, as the library reports
+(`knn_topk_wgmma_smem`), chosen by shape before the launch (`route`). K2
+(ops/ivf_cuda.py) runs the same kernel over its probed slabs.
 """
 
 from __future__ import annotations
@@ -66,8 +70,6 @@ _ARGTYPES = (
 # The wgmma kernel's tiling: 64 queries an item, 128 bank rows a tile.
 WGMMA_BLOCK_Q = 64
 WGMMA_BLOCK_M = 128
-# The forms that run it (bf16, int8 x int8), where the queries fit.
-WGMMA_FORMS = (1, 2)
 MIN_FILL = 0.9  # least share of the SMs' rounds of items that do work
 MIN_TILES_PER_SPLIT = 4  # a split's bank tiles, against its item's query load
 MAX_PARTS_BYTES = 512 << 20  # scratch of the partial top sets
@@ -131,12 +133,22 @@ def wgmma_smem(lib, prefix: str, d: int, form: int) -> int:
 
 
 def form_name(queries: torch.Tensor, bank: torch.Tensor, l2: bool, row_scale) -> str:
-    """The K1 form a call runs: 'dot', 'l2', 'int8', 'int8_rows', 'asym'
-    or 'asym_rows'."""
+    """The K1 form a call runs: 'dot', 'l2' (bf16), 'f32', 'f32_l2',
+    'int8', 'int8_rows', 'asym' or 'asym_rows'."""
+    if bank.dtype == torch.float32:
+        return "f32_l2" if l2 else "f32"
     if bank.dtype != torch.int8:
         return "l2" if l2 else "dot"
     base = "int8" if queries.dtype == torch.int8 else "asym"
     return base + ("_rows" if row_scale is not None else "")
+
+
+def route(lib, queries: torch.Tensor, bank: torch.Tensor) -> str:
+    """The kernel a CUDA call of these operands runs, by shape alone:
+    'wgmma' where the form's queries fit the wgmma kernel's shared memory
+    at this depth, else 'mma_scan'."""
+    form = FORMS[(queries.dtype, bank.dtype)]
+    return "wgmma" if wgmma_smem(lib, "knn_topk", queries.shape[1], form) > 0 else "mma_scan"
 
 
 def _check(queries, bank, k, valid_rows, distance, row_scale) -> None:
@@ -212,7 +224,6 @@ def knn_topk(
         raise ValueError(f"the K1 kernel needs a depth divisible by {step} for this form: {d}")
     if queries.data_ptr() % 16 or bank.data_ptr() % 16:
         raise ValueError("the K1 kernel needs 16-byte aligned queries and bank")
-    form = FORMS[(queries.dtype, bank.dtype)]
     l2 = distance in L2_DISTANCES
     bias = l2_bias(bank).contiguous() if l2 else None
     scale = row_scale.reshape(-1).float().contiguous() if row_scale is not None else None
@@ -224,7 +235,7 @@ def knn_topk(
     lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", _ARGTYPES)
     parts = thr = work = None
     split_rows = work_ctas = 0
-    if form in WGMMA_FORMS and wgmma_smem(lib, "knn_topk", d, form) > 0:
+    if route(lib, queries, bank) == "wgmma":
         n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
         split_rows, splits = plan_splits(n_q, valid, n_sm, k)
         parts, thr, work, work_ctas = wgmma_scratch(lib, "knn_topk", n_q, splits, k, queries.device)
@@ -235,7 +246,7 @@ def knn_topk(
             scale.data_ptr() if scale is not None else None,
             bias.data_ptr() if bias is not None else None,
             vals.data_ptr(), idx.data_ptr(),
-            n_q, m, d, valid, k, form,
+            n_q, m, d, valid, k, FORMS[(queries.dtype, bank.dtype)],
             parts.data_ptr() if parts is not None else None,
             thr.data_ptr() if thr is not None else None,
             work.data_ptr() if work is not None else None, work_ctas, split_rows, stream,

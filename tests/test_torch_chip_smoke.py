@@ -83,9 +83,10 @@ def test_phases_rehearse_on_cpu(smoke):
     assert smoke.ivf_cases(gen) == 0.0
     assert smoke.quantized_kernel_cases(gen) == 0.0
     assert smoke.quantized_ivf_cases(gen) == 0.0
-    runs, launches, err, tree, q, bank, main_tree = smoke.main_path(gen_seed=0)
-    # scann x 2, int8_rows, int8+rerank, l2 on K1; ivf x 2, scann-literal on K2
-    assert launches == {"knn_topk": 5, "ivf_topk": 3} and err == {"K1": 0.0, "K2": 0.0}
+    runs, launches, err, tree, q, bank, main_tree, f32 = smoke.main_path(gen_seed=0)
+    # scann x 2, int8_rows, int8+rerank, l2, faiss (f32 bank), faiss int8_asym on K1;
+    # ivf x 2, scann-literal on K2
+    assert launches == {"knn_topk": 7, "ivf_topk": 3} and err == {"K1": 0.0, "K2": 0.0}
     assert set(runs) == {"scann unbounded", "scann bounded 64", "ivf unbounded", "ivf bounded 64",
                          *smoke.QUANT_RUNS}
     for label, run in runs.items():
@@ -106,12 +107,21 @@ def test_phases_rehearse_on_cpu(smoke):
     assert all(0.0 < r <= tree["score_recall_at_30_vs_k1"][m] <= 1.0
                for m, r in tree["recall_at_30_vs_k1"].items())
     assert set(tree["build_s"]) == {"kmeans", "refine", "assign", "layout", "scatter"}
-    k1_rows, k2_rows, err_timing = smoke.timing(q, bank, main_tree, gen)
+    assert f32[0].shape == q.shape and f32[1].shape == bank.shape and f32[1].dtype == torch.float32
+    k1_rows, k2_rows, err_timing = smoke.timing(q, bank, main_tree, f32, gen)
     sizes = ("main", "bank_3000")
-    assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "asym", "l2", "f32")
-                                      for s in sizes),
-                            *(f"{f} k=120 {s}" for f in ("int8", "int8_rows") for s in sizes)}
+    assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "asym", "l2", "f32",
+                                                           "f32_l2") for s in sizes),
+                            *(f"{f} k=120 {s}" for f in ("int8", "int8_rows", "f32") for s in sizes)}
     assert k1_rows["int8 k=120 main"]["k"] == 120 and k1_rows["int8_rows main"]["k"] == 30
+    assert k1_rows["f32 k=120 main"]["k"] == 120 and k1_rows["f32_l2 main"]["k"] == 30
+    for name, row in k1_rows.items():  # the route on the CPU is the plain version's
+        assert row.get("route", "plain") == "plain" and ("fma_bound_ms" in row) == name.startswith("f32")
+        # on the f32 forms' inputs, one TF32 pass misses the tolerance the three passes are held to
+        assert ("one_tf32_pass_misses" in row) == (name.startswith("f32") and row["k"] == 30)
+        assert row.get("one_tf32_pass_misses", 1.0) > 0.0
+    # f32's bound: 3 TF32 passes at the TF32 peak, below its f32 FMA bound
+    assert k1_rows["f32 main"]["bound_ms"] <= k1_rows["f32 main"]["fma_bound_ms"]
     assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows", "int8", "asym", "f32")
                                       for s in sizes)}
     assert k1_rows["int8 main"]["bound_by"] == k1_rows["main"]["bound_by"]
@@ -201,7 +211,7 @@ def test_entry_point_phase_rehearses_on_cpu(smoke, monkeypatch):
     streamed builds equal the in-memory ones."""
     monkeypatch.setattr(smoke, "STREAM_WINDOW", 1000)
     monkeypatch.setattr(smoke, "STREAM_CLUSTERS", 16)
-    runs, _, _, _, q, _, _ = smoke.main_path(gen_seed=0)
+    runs, _, _, _, q, _, _, _ = smoke.main_path(gen_seed=0)
     cli_runs, launches, info = smoke.entry_point_path(0, q, runs["scann unbounded"]["miou"])
     assert launches == {"knn_topk": 2, "ivf_topk": 3}
     assert len(cli_runs) == 5 and all(r["wall_s"] > 0 for r in cli_runs.values())
@@ -230,7 +240,7 @@ def test_mesh_phase_rehearses_on_cpu(smoke):
     (ring) launches a call, the command line on the mesh repeats the
     unsharded mIoU and its reload builds nothing, the process group of one
     passes the confusion matrix through."""
-    runs, _, _, _, q, bank, _ = smoke.main_path(gen_seed=0)
+    runs, _, _, _, q, bank, _, _ = smoke.main_path(gen_seed=0)
     feed_runs, feed = smoke.native_feed(0, runs["scann unbounded"])
     (run,) = feed_runs.values()
     assert run["miou"] == runs["scann unbounded"]["miou"] and run["launches"]["knn_topk"] == 1
@@ -257,7 +267,7 @@ def test_mesh_tree_phase_rehearses_on_cpu(smoke, monkeypatch):
     every-leaf mIoU."""
     monkeypatch.setattr(smoke, "STREAM_WINDOW", 1000)
     monkeypatch.setattr(smoke, "STREAM_CLUSTERS", 16)
-    runs, _, _, _, q, bank, _ = smoke.main_path(gen_seed=0)
+    runs, _, _, _, q, bank, _, _ = smoke.main_path(gen_seed=0)
     four = [torch.device("cpu")] * 4
     info, err = smoke.mesh_tree(q, bank, torch.Generator().manual_seed(1), four)
     assert err < 1e-3 and info["shards"] == 4
@@ -412,9 +422,10 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     """The --pairs timing: K3 bf16 and f32 at the main and long shapes, K1
-    bf16 dot and l2, int8 and int8_rows at each k of PAIR_KS on both banks,
-    and K2 bf16 and asym_rows on a tree of each bank, each with its bound
-    and library time, as one JSON-ready result."""
+    bf16 dot and l2, int8 and int8_rows at each k of PAIR_KS, f32 at k 30
+    and 120, asym and asym_rows at k 30 on both banks, and K2 bf16 and
+    asym_rows on a tree of each bank, each with its bound and library time,
+    as one JSON-ready result."""
     monkeypatch.setattr(smoke, "PAIR_Q", 40)
     monkeypatch.setattr(smoke, "PAIR_M", 500)
     out = smoke.pairs("here")
@@ -424,10 +435,13 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     assert set(out["k1"]) == {*(f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
                                 for k in smoke.PAIR_KS),
                               *(f"{f} Q=40 M={m} k={k}" for f in ("int8", "int8_rows") for m in (500, 3000)
-                                for k in smoke.PAIR_KS)}
+                                for k in smoke.PAIR_KS),
+                              *(f"f32 Q=40 M={m} k={k}" for m in (500, 3000) for k in (30, 120)),
+                              *(f"{f} Q=40 M={m} k=30" for f in ("asym", "asym_rows") for m in (500, 3000))}
     assert len(out["k2"]) == 4
     assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows", "asym_rows", "bf16", "bf16"]
     assert out["k3"]["f32 (2, 2, 40, 32)"]["bound_ms"] == smoke.k3_bound((2, 2, 40, 32), torch.float32)[0]
+    assert all(len(row["digest"]) == 16 for row in out["k3"].values())  # the outputs' bytes, hashed
     for row in [*out["k3"].values(), *out["k1"].values(), *out["k2"].values()]:
         assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert out["k1"]["bf16 dot Q=40 M=500 k=128"]["bound_by"] == "bytes"

@@ -6,8 +6,9 @@ big = tf32(x) and small = tf32(x - big), rounded by cvt.rna.tf32.f32 (to
 nearest, ties away from zero, 10 stored mantissa bits), and a product is
 big·small + small·big + big·big with f32 accumulation. The kernel runs only
 on the card; this file holds the design on the CPU:
-- `tf32_rna` below is that rounding, bit for bit by construction (the
-  magnitude bits rounded at bit 13, half away from zero);
+- `tf32_rna` (tests/tf32_emulation.py, shared with K1 f32's emulation in
+  test_torch_knn_tf32.py) is that rounding, bit for bit by construction
+  (the magnitude bits rounded at bit 13, half away from zero);
 - `flash_3xtf32` is flash_attention_plain's numerics with both products
   taken in 3xTF32. It is within 1e-5 of the f32 plain version and of the
   JAX package's `_flash_attention` (JAX's library Pallas TPU kernel, run
@@ -26,29 +27,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from hbird_tpu.models.vit import _flash_attention
 from hbird_tpu_torch.ops.flash import flash_attention_plain
+from tf32_emulation import matmul_3xtf32, split_tf32, tf32_rna
 
 F32_TOL = 1e-5
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on f32 `x`: the 13 low mantissa bits rounded off,
-    to nearest, ties away from zero (the magnitude bits gain half the
-    dropped unit, then lose the 13 bits), as an f32 tensor."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split_tf32(x: torch.Tensor):
-    big = tf32_rna(x)
-    return big, tf32_rna(x - big)
-
-
-def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernel takes it: the two small cross terms, then
-    big·big, each product of TF32 values exact in f32, sums in f32."""
-    ab, as_ = split_tf32(a)
-    bb, bs = split_tf32(b)
-    return (as_ @ bb + ab @ bs) + ab @ bb
 
 
 def flash_3xtf32(q, k, v, scale, passes=3):

@@ -306,7 +306,9 @@ def test_wrapper_routes_every_form_to_the_plain_version_on_the_cpu():
 def test_form_names():
     f, bf, i8 = torch.zeros(1, 16), torch.zeros(1, 16).bfloat16(), torch.zeros(1, 16, dtype=torch.int8)
     one = torch.ones(1)
-    assert knn_cuda.form_name(f, f, False, None) == "dot"
+    assert knn_cuda.form_name(f, f, False, None) == "f32"
+    assert knn_cuda.form_name(f, f, True, None) == "f32_l2"
+    assert knn_cuda.form_name(bf, bf, False, None) == "dot"
     assert knn_cuda.form_name(bf, bf, True, None) == "l2"
     assert knn_cuda.form_name(i8, i8, False, None) == "int8"
     assert knn_cuda.form_name(i8, i8, False, one) == "int8_rows"

@@ -9,9 +9,11 @@ them, from the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_knn_cuda.py
 
 Tolerance: values within 1e-5 · ||q|| · max_i(||b_i|| · s_i) (the same
-exact products summed in another order; s_i is an int8 row's scale, 1 for
-float banks and global int8 codes), for f32, bf16, l2 and the asymmetric
-forms; index sets equal on tie-free inputs. int8 x int8 scores are exact
+exact products summed in another order, or for f32 the 3xTF32 products,
+~21 bits of each operand; s_i is an int8 row's scale, 1 for float banks
+and global int8 codes), for f32, bf16, l2 and the asymmetric forms; index
+sets equal on tie-free inputs. Every form runs the wgmma kernel where its
+queries fit (f32 at every depth, asym up to D = 1152, bf16 up to 1536). int8 x int8 scores are exact
 integers below 2^24 and the row scale is one f32 multiply, so the int8 and
 int8_rows forms equal the plain version bit for bit, values and indices. On
 a bank of duplicated rows the kernel's order is value descending, then
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from hbird_tpu_torch.ops import knn_cuda
+from hbird_tpu_torch.ops import cuda_build, knn_cuda
 from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
 from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
@@ -176,38 +178,52 @@ def test_l2_matches_plain_version(cuda_device, dtype, k):
     b = (rng.normal(size=(5003, 64)) * rng.uniform(0.2, 3.0, (5003, 1))).astype(np.float32)
     qt = torch.from_numpy(q).to(cuda_device, dtype)
     bt = torch.from_numpy(b).to(cuda_device, dtype)
-    before = knn_cuda.knn_topk.forms["l2"]
+    form = "f32_l2" if dtype == torch.float32 else "l2"
+    before = knn_cuda.knn_topk.forms[form]
     kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=4900, distance="l2")
     pv, pi = exact_knn(qt, bt, k, valid_rows=4900, distance="l2")
     torch.cuda.synchronize()
-    assert knn_cuda.knn_topk.forms["l2"] == before + 1
+    assert knn_cuda.knn_topk.forms[form] == before + 1
     assert (kv - pv).abs().max().item() <= _tol(q, b)
     assert torch.equal(torch.sort(ki, 1).values, torch.sort(pi, 1).values)
 
 
-# The forms of the wgmma kernel: bf16 dot and l2, int8 and int8_rows codes.
-WGMMA_FORMS = ["dot", "l2", "int8", "int8_rows"]
+# The forms of the wgmma kernel: bf16 dot and l2, f32 dot and l2 (3xTF32),
+# int8 and int8_rows codes, bf16 queries on int8 codes (asym, asym_rows).
+WGMMA_FORMS = ["dot", "l2", "f32", "f32_l2", "int8", "int8_rows", "asym", "asym_rows"]
+# Every k of the card checks: each S (keys a lane) and its edges (chip_smoke.py).
+CHECK_KS = (30, 33, 64, 96, 97, 120, 128)
 
 
 def _form_args(form, q, b, dev, seed=0):
-    """(queries, bank, knn_topk keyword arguments, exact) of `form` from
-    float inputs: bf16 for dot and l2; for the int8 forms the int8 codes of
-    q and of b (per row, with its row scales, for int8_rows), exact
-    against the plain version. Integer-valued inputs keep their values as
-    codes (scaled per row by seeded scales for int8_rows)."""
+    """(queries, bank, knn_topk keyword arguments, exact, tol) of `form`
+    from float inputs: bf16 for dot and l2, f32 for f32 and f32_l2; for
+    the int8 forms the int8 codes of q and of b (per row, with its row
+    scales, for *_rows), exact against the plain version; for asym and
+    asym_rows the bf16 queries on those codes. Integer-valued inputs keep
+    their values as codes (scaled per row by seeded scales for *_rows).
+    tol: 1e-5 · ||q|| · max_i(||b_i|| · s_i) of the float inputs, or of
+    the bf16 queries and the codes (times their row scales) for asym."""
     q, b = torch.as_tensor(q).float(), torch.as_tensor(b).float()
-    if form in ("dot", "l2"):
-        kw = {"distance": "l2"} if form == "l2" else {}
-        return q.to(dev, torch.bfloat16), b.to(dev, torch.bfloat16), kw, False
+    if form in ("dot", "l2", "f32", "f32_l2"):
+        kw = {"distance": "l2"} if form.endswith("l2") else {}
+        dtype = torch.float32 if form.startswith("f32") else torch.bfloat16
+        return q.to(dev, dtype), b.to(dev, dtype), kw, False, _tol(q.numpy(), b.numpy())
+    rows = form.endswith("_rows")
     if bool((q == q.round()).all() and (b == b.round()).all()):
         qq, codes = q.to(torch.int8), b.to(torch.int8)
         gen = torch.Generator().manual_seed(seed)
         scale = 0.25 + torch.rand(b.shape[0], generator=gen)
     else:
         qq = quantize_queries_int8(q)[0]
-        codes, scale = quantize_bank_int8(b, per_row=form == "int8_rows")
-    kw = {"row_scale": scale.reshape(-1).to(dev)} if form == "int8_rows" else {}
-    return qq.to(dev), codes.to(dev), kw, True
+        codes, scale = quantize_bank_int8(b, per_row=rows)
+    kw = {"row_scale": scale.reshape(-1).to(dev)} if rows else {}
+    if form.startswith("int8"):
+        return qq.to(dev), codes.to(dev), kw, True, 0.0
+    s = scale.reshape(-1) if rows else torch.ones(b.shape[0])
+    qb = q.bfloat16()
+    tol = RTOL * float(qb.float().norm(dim=1).max() * (codes.float().norm(dim=1) * s).max())
+    return qb.to(dev), codes.to(dev), kw, False, tol
 
 
 def _agree(kv, ki, pv, pi, exact, tol):
@@ -231,13 +247,13 @@ def test_wgmma_ragged_queries_and_bank(cuda_device, n_q, m, k, form):
     rng = np.random.default_rng(n_q + m + k)
     q = rng.normal(size=(n_q, 64)).astype(np.float32)
     b = (rng.normal(size=(m, 64)) * rng.uniform(0.5, 2.0, (m, 1))).astype(np.float32)
-    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    qt, bt, kw, exact, tol = _form_args(form, q, b, cuda_device)
     before = knn_cuda.knn_topk.forms[form]
     kv, ki = knn_cuda.knn_topk(qt, bt, k, **kw)
     pv, pi = exact_knn(qt, bt, k, **kw)
     torch.cuda.synchronize()
     assert knn_cuda.knn_topk.forms[form] == before + 1
-    _agree(kv, ki, pv, pi, exact, _tol(q, b))
+    _agree(kv, ki, pv, pi, exact, tol)
 
 
 def _split_rows(n_q, valid, k):
@@ -251,7 +267,7 @@ def test_wgmma_valid_rows_at_edges(cuda_device, where, form):
     """valid_rows below k, on a 128-row tile edge and next to it, and on the
     edge of the first bank split the wrapper plans (several splits)."""
     q, b = _inputs(200, 20000, 64, seed=31)
-    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    qt, bt, kw, exact, tol = _form_args(form, q, b, cuda_device)
     split_rows, splits = _split_rows(200, 20000, 30)
     assert splits > 1
     valid = {"k-1": 29, "tile": 1280, "tile+1": 1281, "split": split_rows,
@@ -260,7 +276,7 @@ def test_wgmma_valid_rows_at_edges(cuda_device, where, form):
     pv, pi = exact_knn(qt, bt, 30, valid_rows=valid, **kw)
     torch.cuda.synchronize()
     assert bool((ki < valid).all())
-    _agree(kv, ki, pv, pi, exact, _tol(q, b))
+    _agree(kv, ki, pv, pi, exact, tol)
 
 
 @pytest.mark.parametrize("form", WGMMA_FORMS)
@@ -271,7 +287,7 @@ def test_wgmma_copies_in_two_splits_keep_the_lowest_index(cuda_device, form):
     there the order is held to the plain version's bit for bit, and a
     second copy is kept only with its first."""
     q, b = _inputs(64, 3000, 64, seed=8)
-    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    qt, bt, kw, exact, tol = _form_args(form, q, b, cuda_device)
     bank = torch.cat([bt, bt]).contiguous()
     if "row_scale" in kw:
         kw["row_scale"] = torch.cat([kw["row_scale"], kw["row_scale"]])
@@ -297,12 +313,12 @@ def test_wgmma_copies_in_two_splits_keep_the_lowest_index(cuda_device, form):
 @pytest.mark.parametrize("k", [1, 30, 128])
 def test_wgmma_bank_of_one_row(cuda_device, k, form):
     q, b = _inputs(70, 1, 64, seed=k)
-    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    qt, bt, kw, exact, tol = _form_args(form, q, b, cuda_device)
     kv, ki = knn_cuda.knn_topk(qt, bt, k, **kw)
     pv, pi = exact_knn(qt, bt, k, **kw)
     torch.cuda.synchronize()
     assert (ki == 0).all() and torch.isinf(kv[:, 1:]).all()
-    _agree(kv, ki, pv, pi, exact, _tol(q, b))
+    _agree(kv, ki, pv, pi, exact, tol)
 
 
 @pytest.mark.parametrize("distance", ["dot_product", "l2"])
@@ -350,7 +366,7 @@ def test_wgmma_ties_across_splits_bit_for_bit(cuda_device, k, form):
     tile edge."""
     q, b, edge, split_rows, splits = _tie_dense_edge(10000, 40960, 96, k)
     assert -(-10000 // 64) > torch.cuda.get_device_properties(0).multi_processor_count
-    qt, bt, kw, _ = _form_args(form, q, b, cuda_device, seed=k)
+    qt, bt, kw, _, _ = _form_args(form, q, b, cuda_device, seed=k)
     for valid in (edge, edge - 127):
         kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=valid, **kw)
         pv, pi = exact_knn(qt, bt, k, valid_rows=valid, **kw)
@@ -365,7 +381,7 @@ def test_wgmma_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypat
 
     monkeypatch.setattr(knn_cuda, "exact_knn", plain)
     q, b = _inputs(100, 900, 64, seed=13)
-    qt, bt, kw, _ = _form_args(form, q, b, cuda_device)
+    qt, bt, kw, _, _ = _form_args(form, q, b, cuda_device)
     before = knn_cuda.knn_topk.forms[form]
     knn_cuda.knn_topk(qt, bt, 5, **kw)
     torch.cuda.synchronize()
@@ -380,7 +396,7 @@ def test_wgmma_select_at_every_k_bit_for_bit(cuda_device, k, form):
     integer entries in {-1, 0, 1}, valid_rows on a split edge and one row
     past a tile edge, bit for bit against exact_knn."""
     q, b, edge, split_rows, splits = _tie_dense_edge(10000, 40960, 96, k)
-    qt, bt, kw, _ = _form_args(form, q, b, cuda_device, seed=k)
+    qt, bt, kw, _, _ = _form_args(form, q, b, cuda_device, seed=k)
     for valid in (edge, edge - 127):
         kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=valid, **kw)
         pv, pi = exact_knn(qt, bt, k, valid_rows=valid, **kw)
@@ -396,11 +412,11 @@ def test_wgmma_ragged_at_every_k(cuda_device, n_q, m, k, form):
     rng = np.random.default_rng(n_q + m + k)
     q = rng.normal(size=(n_q, 64)).astype(np.float32)
     b = (rng.normal(size=(m, 64)) * rng.uniform(0.5, 2.0, (m, 1))).astype(np.float32)
-    qt, bt, kw, exact = _form_args(form, q, b, cuda_device)
+    qt, bt, kw, exact, tol = _form_args(form, q, b, cuda_device)
     kv, ki = knn_cuda.knn_topk(qt, bt, k, **kw)
     pv, pi = exact_knn(qt, bt, k, **kw)
     torch.cuda.synchronize()
-    _agree(kv, ki, pv, pi, exact, _tol(q, b))
+    _agree(kv, ki, pv, pi, exact, tol)
 
 
 @pytest.mark.parametrize("form", ["dot", "int8_rows"])
@@ -424,3 +440,67 @@ def test_wgmma_every_tile_beats_the_set(cuda_device, k, form):
     pv, pi = exact_knn(q, b, k, **kw)
     torch.cuda.synchronize()
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+NEW_FORMS = ["f32", "f32_l2", "asym", "asym_rows"]
+
+
+def _agree_away_from_ties(kv, ki, pv, pi, k, tol):
+    """The kernel's (kv, ki) against the plain version's run with k + 1:
+    the -inf slots, the values within `tol`, and the index sets equal
+    except where the k-th and (k+1)-th plain scores lie within 2 · tol
+    (K1's card rule, chip_smoke.py): these inputs are random, not tie-free,
+    and at k = 120 of 5,003 rows neighbouring scores come close."""
+    finite = torch.isfinite(pv[:, :k])
+    assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
+    assert (kv - pv[:, :k]).abs().where(finite, torch.zeros_like(kv)).max().item() <= tol
+    same = (torch.sort(ki, 1).values == torch.sort(pi[:, :k], 1).values).all(1)
+    ambiguous = finite[:, -1] & ((pv[:, k - 1] - pv[:, k]) <= 2 * tol)
+    assert bool((same | ambiguous).all())
+
+
+@pytest.mark.parametrize("form", NEW_FORMS)
+@pytest.mark.parametrize("k", CHECK_KS)
+@pytest.mark.parametrize("d", [768, 784])
+def test_f32_and_asym_on_wgmma_at_every_k(cuda_device, d, k, form):
+    """K1 f32 (3xTF32) and asym(_rows) (codes widened in shared memory) on
+    the wgmma kernel at every k of CHECK_KS, at D = 768 and at 784 (half a
+    chunk past a multiple of 32 f32 and of 64 bf16: zero-filled depth
+    scores 0), with valid_rows = 0, 1, M - 1 and a ragged cut, on rows of
+    unequal norm (the l2 and dot orders differ); index sets held away from
+    ties at the k-th score."""
+    rng = np.random.default_rng(k + d)
+    q = rng.normal(size=(300, d)).astype(np.float32)
+    b = (rng.normal(size=(5003, d)) * rng.uniform(0.2, 3.0, (5003, 1)) / np.sqrt(d)).astype(np.float32)
+    qt, bt, kw, _, tol = _form_args(form, q, b, cuda_device)
+    lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
+    assert knn_cuda.route(lib, qt, bt) == "wgmma"
+    for valid in (0, 1, 5002, 4900):
+        before = knn_cuda.knn_topk.forms[form]
+        kv, ki = knn_cuda.knn_topk(qt, bt, k, valid_rows=valid, **kw)
+        pv, pi = exact_knn(qt, bt, k + 1, valid_rows=valid, **kw)
+        torch.cuda.synchronize()
+        assert knn_cuda.knn_topk.forms[form] == before + 1
+        assert bool((ki < max(valid, 1)).all())
+        _agree_away_from_ties(kv, ki, pv, pi, k, tol)
+
+
+@pytest.mark.parametrize("form", ["asym", "asym_rows"])
+@pytest.mark.parametrize("d", [1152, 1168, 1536])
+def test_asym_depth_the_queries_must_fit(cuda_device, d, form):
+    """asym keeps two widened tiles per consumer beside its bf16 queries:
+    D = 1152 is the widest whose queries fit the wgmma kernel; 1,168 and
+    1,536 (dinov2_vitg14's width) run mma_scan, chosen by shape. Both hold
+    against the plain version and count as their form. f32 keeps no
+    queries resident: every depth runs the wgmma kernel."""
+    q, b = _inputs(100, 700, d, seed=d)
+    qt, bt, kw, _, tol = _form_args(form, q, b, cuda_device)
+    lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
+    assert knn_cuda.route(lib, qt, bt) == ("wgmma" if d <= 1152 else "mma_scan")
+    assert knn_cuda.route(lib, qt.float(), qt.float()) == "wgmma"
+    before = knn_cuda.knn_topk.forms[form]
+    kv, ki = knn_cuda.knn_topk(qt, bt, 30, **kw)
+    pv, pi = exact_knn(qt, bt, 30, **kw)
+    torch.cuda.synchronize()
+    assert knn_cuda.knn_topk.forms[form] == before + 1
+    _agree(kv, ki, pv, pi, False, tol)
