@@ -22,7 +22,10 @@ Phases; any failure raises and the script exits non-zero with no result:
    which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's and
    K2's libraries must hold such kernels). K1's F32 and Asym forms must
    each have their 8 instances (select sizes 1-4, two epilogues) in the
-   ptxas report and the SASS, and spill nothing.
+   ptxas report and the SASS, and spill nothing; so must K2's 4 F32
+   instances (topk_wgmma<F32, S, PLAIN, Slabs>) and K3's wgmma kernel at
+   head widths 32 and 64 (flash_bf16_wgmma<32>, <64>); every form that
+   runs the wgmma kernels at D=768 must ask for its shared memory.
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
@@ -37,16 +40,19 @@ Phases; any failure raises and the script exits non-zero with no result:
    of several bank splits are in flight; every score exact) bit for bit.
 3. K2 against its plain version (ops/ivf.py::ivf_search_plain) on an IVF
    tree built by the port over a clustered bank of 300,000 rows at D=768
-   (512 leaves): bf16 and f32; k in {1, 30, 128}; n_probe in {1, 8, 32};
+   (512 leaves; the f32 form on an f32 tree of the same rows): bf16 and
+   f32; k in {1, 30, 128}; n_probe in {1, 8, 32};
    block_q in {64, 128, 256}; probed slabs with leaf_valid < k and = 0; a
    bank of duplicated rows (ties across slabs). Then its int8 forms on an
    int8_rows tree of the same bank (trained, assigned and probed on the
    codes): int8 and int8_rows bit for bit, asym and asym_rows within the
    tolerance; ragged leaf_valid; int8 codes duplicated across slabs probed
-   out of slot order (integer ties). K2's wgmma forms bf16, asym_rows and
-   int8_rows at k in {30, 64, 120, 128}, 32 probes a 256-query tile (items
-   of several probe splits in flight), with probed slabs emptied, cut to 5
-   and to 128 rows, and an id outside [0, n_slabs) in every tile's list.
+   out of slot order (integer ties). K2's wgmma forms bf16, f32, asym_rows
+   and int8_rows at k in {30, 64, 120, 128}, 32 probes a 256-query tile
+   (items of several probe splits in flight), with probed slabs emptied,
+   cut to 5 and to 128 rows, and an id outside [0, n_slabs) in every
+   tile's list; f32 also on slabs of cap 264 (not a multiple of 128) at
+   D=72 and 768, rows of norms 0.2-3.0, k in {30, 128}.
 4. K3 against its plain version (ops/flash.py::flash_attention_plain),
    bf16 and f32, on seeded unit normals at (B, H, N, hd) = (16, 12, 1370,
    64) (the main path: dinov2_vitb14 at input 518, batch 16), (2, 12, 1374,
@@ -77,8 +83,9 @@ Phases; any failure raises and the script exits non-zero with no result:
    K2 asym_rows), 'faiss' with use_int8 and 120 reordering candidates (K1
    int8, then the exact re-score), 'faiss' with distance_measure='l2'
    on a bf16 bank (K1 l2), 'faiss' as the command line runs it by default
-   (no --bf16-bank: an f32 bank, K1 f32 on 3xTF32) and flat 'faiss' with
-   quantization='int8_asym' (K1 asym_rows): each must launch its form once
+   (no --bf16-bank: an f32 bank, K1 f32 on 3xTF32), flat 'faiss' with
+   quantization='int8_asym' (K1 asym_rows) and 'ivf' with use_fp16=False
+   (an f32 tree, K2 f32 on 3xTF32): each must launch its form once
    per eval batch and nothing else; each backend's recall@30 against K1's exact bf16
    neighbours on the eval batch, by ids and by score, is printed (no
    limit: it is what the quantization costs in answers).
@@ -92,10 +99,14 @@ Phases; any failure raises and the script exits non-zero with no result:
    patch tokens of 'flash' and 'xla' agree (f32 within 1e-4; bf16 within
    0.1 max and 1e-2 mean, the port's bf16 tolerance), and K3 holds against
    its plain version on that batch's block-0 q, k, v, the strided views of
-   the qkv projection the ViT hands over, in bf16 and in f32.
+   the qkv projection the ViT hands over, in bf16 and in f32. The same in
+   bf16 with mocov3_vits16 (12 heads of 32: K3 bf16 at hd 32) at input 224
+   (random weights from the seed): K3 launches 12 x 5 = 60 times, the
+   tokens agree at the bf16 tolerance, both mIoUs are printed.
 6. The card against the CPU on a small input: a tiny ViT (depth 2, width
    64) on a 12/6-image fixture through `hbird_evaluation`, 'scann',
-   'faiss' and 'ivf' (every leaf probed), and 'faiss' with a tiny ViT of
+   'faiss', 'ivf' and 'ivf' on an f32 tree (every leaf probed), and
+   'faiss' with a tiny ViT of
    head width 32, no LayerScale and attention_impl='flash', once on the
    card and once with device="cpu" (the plain versions): mIoU within 1e-4
    and the transferred soft labels within 1e-4, the tolerances the CPU
@@ -128,9 +139,16 @@ Phases; any failure raises and the script exits non-zero with no result:
    1,024,000-row bank (cap 2,816, 32 of 512 leaves) (the probed slabs
    gathered per tile, then torch.bmm + torch.topk, chunked over tiles),
    and in its int8_rows and asym_rows forms on the same trees' slabs as
-   per-row codes, int8 and asym as global codes, and f32; K3 at the main shape in bf16 and f32 and in bf16 at
-   (1, 12, 4625, 64), at hd 32 (16, 12, 197, 32) and at hd 80 (16, 16,
-   257, 80) (torch.nn.functional.scaled_dot_product_attention). K3 f32's
+   per-row codes, int8 and asym as global codes; K2 f32 on f32 trees of
+   the main path's f32 bank (probed by its f32 queries) and of the large
+   bank's f32 rows, with its 3xTF32 bound beside the FMA bound, the route,
+   and a single TF32 pass that must miss the f32 tolerance there; K3 at
+   the main shape in bf16 and f32 and in bf16 at (1, 12, 4625, 64), at hd
+   32 (16, 12, 197, 32) and at hd 80 (16, 16, 257, 80)
+   (torch.nn.functional.scaled_dot_product_attention), each with its
+   route; hd 32, a call as short as its host cost, in NARROW_ROUNDS turns
+   with SDPA, each timed host-launched and in one CUDA graph (the device's
+   time), medians with the least and most. K3 f32's
    bound is its work at f32 accuracy on the tensor cores (3 TF32 passes at
    the TF32 peak), printed beside the f32 FMA bound, as K1 f32's. Every
    row prints its share of the bound (bound / ms) and its ratio to the
@@ -247,13 +265,17 @@ and times only the kernels redesigned for Hopper, each beside its bound and
 library call (phase 7's helpers): K3 bf16 and f32 at the main shape and at
 (1, 12, 4625, 64) on unit normals, each with a digest of its output's
 bytes (the same seeded inputs in every tree, so equal digests mean equal
-outputs bit for bit); K1 bf16 dot and l2, int8 and int8_rows
+outputs bit for bit), and K3 bf16 at hd 32 (16, 12, 197, 32) in
+NARROW_ROUNDS turns with SDPA, host-launched and in a CUDA graph, with its
+digest; K1 bf16 dot and l2, int8 and int8_rows
 with k in PAIR_KS (30, 64, 96, 120, 128), f32 at k = 30 and 120, asym and
 asym_rows at k = 30, Q = 21,904 normal queries (and their int8 codes)
 against 87,616 and 1,024,000 unit rows (and their global and per-row int8
 codes); K2 bf16 and asym_rows (the slabs' per-row codes)
 at k = 30 on a tree the package builds of each bank (512 leaves, 32 probed
-per 256-query tile). It prints one JSON line.
+per 256-query tile), and K2 f32 on an f32 tree of each bank's rows before
+their rounding to bf16, probed by the queries before theirs. It prints one
+JSON line.
 Two trees are compared in one run on one card, each in its own
 process, in turns: parent, change, change, parent.
 """
@@ -264,6 +286,7 @@ import json
 import pathlib
 import random
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -312,6 +335,8 @@ FLASH_SHAPES = {
 FLASH_MAIN = (16, 12, 1370, 64)  # the main path's (B, H, N, hd)
 FLASH_LONG = (1, 12, 4625, 64)  # dinov2 at input 952: the longest sequence timed
 FLASH_NARROW = (16, 12, 197, 32)  # mocov3_vits16 at 224, batch 16: K3 bf16 at hd 32
+NARROW_PRESET, NARROW_INPUT = "mocov3_vits16", 224  # phase 5's head-width-32 ViT (K3 bf16 at hd 32)
+NARROW_ROUNDS = 15  # phase 7 and --pairs: K3 bf16 hd 32 and SDPA timed in turns, median and spread
 FLASH_WIDE = (16, 16, 257, 80)  # mae_vith14 at 224, batch 16: K3 bf16 at hd 80
 PAIR_Q, PAIR_M = 21904, 87616  # --pairs: the main path's eval batch and bank
 # --pairs, K1's wgmma forms: the engine's k, S = 2 and 3 keys a lane, faiss int8 + reorder's scan, the most
@@ -329,6 +354,10 @@ TF32_KERNEL = "flash_f32"  # K3 f32: 3xTF32 on mma.sync (HMMA, no wgmma)
 # (1-4) and epilogue (two each), and none may spill.
 K1_NEW_FORMS = ("3F32E", "4AsymE")
 K1_NEW_INSTANCES = 4 * 2
+# K2's F32 instances (one per select size, epilogue PLAIN, items Slabs) and
+# K3's wgmma instances by head width, as mangled; none may spill.
+K2_F32_INSTANCES = 4
+K3_WGMMA_WIDTHS = {"ILi32E": 32, "ILi64E": 64}
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 LAYERSCALE = 0.05  # the flash path's LayerScale (see flash_path)
 # The quantized, L2 and f32-bank engine runs: nn_method, nn_params, the
@@ -344,6 +373,7 @@ QUANT_RUNS = {
     "l2": ("faiss", {"distance_measure": "l2"}, True, ("knn_topk", "l2")),
     "faiss": ("faiss", {}, False, ("knn_topk", "f32")),
     "faiss int8_asym": ("faiss", {"quantization": "int8_asym"}, False, ("knn_topk", "asym_rows")),
+    "ivf f32": ("ivf", {"use_fp16": False}, False, ("ivf_topk", "f32")),
 }
 ANISO_CODE_FLIPS = 0.02  # rows whose anisotropic codes may differ between devices (near-tied losses)
 MESH_SHARDS = 4  # phase 9: bank shards of the mesh (stacked on one card, or distinct cards)
@@ -382,6 +412,48 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean ms of `fn` over `reps` calls captured in one CUDA graph and
+    replayed, by CUDA events: the device's time without the host's cost of
+    each call (Python, ctypes, PyTorch's dispatch), which `cuda_ms` measures
+    instead wherever it exceeds a short kernel's."""
+    if DEVICE != "cuda":
+        return cuda_ms(fn, reps)
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(fns, rounds, reps):
+    """Each of `fns` (name -> callable) timed `rounds` times in turns, by
+    cuda_ms (host-launched) and graph_ms (one graph): per name and way, the
+    median, the least and the most of the rounds."""
+    times = {name: {"ms": [], "graph_ms": []} for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name]["ms"].append(cuda_ms(fn, reps))
+            times[name]["graph_ms"].append(graph_ms(fn, reps))
+    return {name: {way: {"median": statistics.median(t), "min": min(t), "max": max(t)}
+                   for way, t in ways.items()} for name, ways in times.items()}
 
 
 def bound_ms(n_q, m_valid, d, k, elt_bytes, peak_flops, bank_bytes=None, row_bytes=0):
@@ -729,26 +801,33 @@ def ivf_cases(gen):
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
 
     x = clustered_bank(IVF_ROWS, DEPTH, IVF_CLUSTERS, gen)
-    t0 = time.perf_counter()
-    nn = NearestNeighborSearchApprox(x, n_neighbors=30, use_tree=True, device=DEVICE)
-    sync()
-    cap, bank, lv, cent = nn._cap, nn.bank, nn.leaf_valid, nn.centroids
-    print(f"  tree of {IVF_ROWS} rows: {nn._n_leaves} leaves, cap {cap}, built in "
-          f"{time.perf_counter() - t0:.2f}s {json.dumps(rounded(nn.build_seconds))}", flush=True)
+    trees = {}
+    for dtype in (torch.bfloat16, torch.float32):  # the tree's slabs in bf16 (the default) and f32
+        t0 = time.perf_counter()
+        nn = NearestNeighborSearchApprox(x, n_neighbors=30, use_tree=True, use_fp16=dtype == torch.bfloat16,
+                                         device=DEVICE)
+        sync()
+        trees[dtype] = (nn._cap, nn.bank, nn.leaf_valid, nn.centroids)
+        print(f"  {str(dtype)[6:]} tree of {IVF_ROWS} rows: {nn._n_leaves} leaves, cap {nn._cap}, built in "
+              f"{time.perf_counter() - t0:.2f}s {json.dumps(rounded(nn.build_seconds))}", flush=True)
+        del nn
+    cap, bank, lv, cent = trees[torch.bfloat16]
     pick = torch.randint(0, IVF_ROWS, (IVF_Q,), generator=gen, device=DEVICE)
     q = x[pick] + 0.05 / DEPTH ** 0.5 * torch.randn(IVF_Q, DEPTH, generator=gen, device=DEVICE)
-    del x, nn
+    del x
     errs = []
     cases = [(30, n_probe, block_q) for n_probe in (1, 8, 32) for block_q in (64, 128, 256)]
     cases += [(1, 32, 256), (1, 8, 64), (128, 32, 256), (128, 1, 128)]
     for dtype in (torch.bfloat16, torch.float32):
-        b = bank if dtype == torch.bfloat16 else bank.float().contiguous()
+        t_cap, b, t_lv, t_cent = trees[dtype]
         for k, n_probe, block_q in cases if dtype == torch.bfloat16 else [(30, 32, 256), (128, 8, 128), (1, 1, 64)]:
-            qp, lids, _ = tile_probe_inputs(q.to(dtype), cent, n_probe=n_probe, block_q=block_q)
+            qp, lids, _ = tile_probe_inputs(q.to(dtype), t_cent, n_probe=n_probe, block_q=block_q)
             errs.append(check_ivf_against_plain(
                 f"{str(dtype)[6:]} Q={qp.shape[0]} k={k} n_probe={n_probe} block_q={block_q}",
-                qp, b, lids, lv, k, cap, block_q))
-        del b
+                qp, b, lids, t_lv, k, t_cap, block_q))
+    errs.append(ivf_edge_cases("f32", q, *(trees[torch.float32][i] for i in (1, 2, 3, 0)), None, False))
+    del trees
+    errs.append(ragged_f32_cases(gen))
     # probed slabs with fewer valid rows than k, and with none
     qp, lids, _ = tile_probe_inputs(q.to(torch.bfloat16), cent, n_probe=8, block_q=128)
     lv_cut = lv.clone()
@@ -798,6 +877,34 @@ def ivf_edge_cases(form, q, bank, lv, cent, cap, rs, exact):
             f"{form} Q={qp.shape[0]} k={k} n_probe={N_PROBE} block_q={BLOCK_Q}, slabs empty, of 5 and "
             f"128 rows, an id out of range", qp, bank, lids, lv_cut, k, cap, BLOCK_Q, row_scale=rs,
             exact=exact))
+    return max(errs)
+
+
+def ragged_f32_cases(gen):
+    """Phase 3: K2 f32 on slabs no tree lays out: cap 264 (not a multiple
+    of 128, so a slab's second tile box runs into the next slab's rows),
+    D = 72 (a partial 32-deep chunk: TMA's zero fill) and D = 768, rows of
+    norms 0.2-3.0, slabs empty, of 5 rows, cut at 128 and full probed by
+    every tile out of slot order, and (on the card) an id outside [0,
+    n_slabs); k in 30, 128."""
+    n_slabs, cap, block_q, n_tiles, n_probe = 40, 264, BLOCK_Q, 8, 24
+    errs = []
+    for d in (72, DEPTH):
+        rows = n_slabs * cap
+        bank = torch.nn.functional.normalize(torch.randn(rows, d, generator=gen, device=DEVICE), dim=1)
+        bank = bank * (0.2 + 2.8 * torch.rand(rows, 1, generator=gen, device=DEVICE))
+        lv = torch.randint(1, cap + 1, (n_slabs,), generator=gen, device=DEVICE, dtype=torch.int32)
+        lv[:4] = torch.tensor([0, 5, 128, cap], dtype=torch.int32)
+        bank[torch.arange(rows, device=DEVICE) % cap >= lv.long().repeat_interleave(cap)] = 0.0
+        q = torch.randn(n_tiles * block_q, d, generator=gen, device=DEVICE)
+        rest = torch.stack([torch.randperm(n_slabs - 4, generator=gen, device=DEVICE)[:n_probe - 5] + 4
+                            for _ in range(n_tiles)])
+        edge = torch.tensor([3, 0, 2, 1, n_slabs + 5 if DEVICE == "cuda" else 0], device=DEVICE)
+        lids = torch.cat([edge.expand(n_tiles, -1), rest], 1).to(torch.int32).contiguous()
+        for k in (30, 128):
+            errs.append(check_ivf_against_plain(
+                f"f32 cap={cap} D={d} Q={q.shape[0]} k={k} n_probe={n_probe}, slabs empty, of 5, 128 and {cap} "
+                f"rows, an id out of range", q, bank, lids, lv, k, cap, block_q))
     return max(errs)
 
 
@@ -989,6 +1096,19 @@ def build_report(libs):
             report["knn_topk.cu:F32"] = tf32
             print(f"  ptxas, K1 F32 (3xTF32 on wgmma, {len(tf32)} instances): (registers, spill bytes) "
                   f"{json.dumps(tf32)}", flush=True)
+        if src == "ivf_topk.cu":
+            f32 = {a: (regs[a], spills[a]) for a in regs if K1_NEW_FORMS[0] in a}
+            if len(f32) != K2_F32_INSTANCES or any(sp for _, sp in f32.values()):
+                fail(f"ptxas: K2's F32 wgmma instances (want {K2_F32_INSTANCES}, none spilling): {f32}")
+            report["ivf_topk.cu:F32"] = f32
+            print(f"  ptxas, K2 F32 (3xTF32 on wgmma over Slabs, {len(f32)} instances): (registers, spill "
+                  f"bytes) {json.dumps(f32)}", flush=True)
+        if src == "flash_attn.cu":
+            widths = {K3_WGMMA_WIDTHS.get(a): (regs[a], spills[a]) for a in regs}
+            if set(widths) != set(K3_WGMMA_WIDTHS.values()) or any(sp for _, sp in widths.values()):
+                fail(f"ptxas: K3's wgmma instances by head width (want {sorted(K3_WGMMA_WIDTHS.values())}, "
+                     f"none spilling): {widths}")
+            report["flash_attn.cu:widths"] = widths
     if "flash_attn.cu" in cuda_build.LOGS:
         r = report[TF32_KERNEL] = ptxas_report(cuda_build.LOGS["flash_attn.cu"], TF32_KERNEL)
         print(f"  ptxas, {TF32_KERNEL} (3xTF32, {r['instances']} instances): registers "
@@ -999,11 +1119,14 @@ def build_report(libs):
     k3 = ctypes.CDLL(str(libs["flash_attn.cu"]))
     k1.knn_topk_wgmma_smem.argtypes, k1.knn_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
     k2.ivf_topk_wgmma_smem.argtypes, k2.ivf_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
-    k3.flash_attn_wgmma_smem.argtypes, k3.flash_attn_wgmma_smem.restype = (), ctypes.c_int
+    k3.flash_attn_wgmma_smem.argtypes, k3.flash_attn_wgmma_smem.restype = (ctypes.c_int,), ctypes.c_int
     smem = {"K1 f32": k1.knn_topk_wgmma_smem(DEPTH, 0), "K1 bf16": k1.knn_topk_wgmma_smem(DEPTH, 1),
             "K1 int8": k1.knn_topk_wgmma_smem(DEPTH, 2), "K1 asym": k1.knn_topk_wgmma_smem(DEPTH, 3),
-            "K2 bf16": k2.ivf_topk_wgmma_smem(DEPTH, 1), "K2 int8": k2.ivf_topk_wgmma_smem(DEPTH, 2),
-            "K2 asym": k2.ivf_topk_wgmma_smem(DEPTH, 3), "flash_bf16_wgmma": k3.flash_attn_wgmma_smem()}
+            "K2 f32": k2.ivf_topk_wgmma_smem(DEPTH, 0), "K2 bf16": k2.ivf_topk_wgmma_smem(DEPTH, 1),
+            "K2 int8": k2.ivf_topk_wgmma_smem(DEPTH, 2), "K2 asym": k2.ivf_topk_wgmma_smem(DEPTH, 3),
+            **{f"flash_bf16_wgmma hd {hd}": k3.flash_attn_wgmma_smem(hd) for hd in (32, 64)}}
+    if not all(smem.values()):
+        fail(f"a form on the wgmma kernels asks for no shared memory (another route): {smem}")
     print(f"  dynamic shared memory at D={DEPTH}: {json.dumps(smem)} B", flush=True)
     report["smem_bytes"] = smem
     tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
@@ -1034,6 +1157,15 @@ def build_report(libs):
             n = sum(f"{name}INS_{form}" in f for f in wg_fns)
             if n != K1_NEW_INSTANCES:
                 fail(f"{path.name}: {n} wgmma kernels of {form} in the SASS, not {K1_NEW_INSTANCES}")
+        if src == "ivf_topk.cu":
+            n = sum(f"{name}INS_{K1_NEW_FORMS[0]}" in f for f in wg_fns)
+            if n != K2_F32_INSTANCES:
+                fail(f"{path.name}: {n} F32 wgmma kernels in the SASS, not {K2_F32_INSTANCES}")
+        if src == "flash_attn.cu":
+            got = sorted(hd for a, hd in K3_WGMMA_WIDTHS.items() if any(f"{name}{a}" in f for f in wg_fns))
+            if got != sorted(K3_WGMMA_WIDTHS.values()):
+                fail(f"{path.name}: wgmma kernels of head widths {got} in the SASS, not "
+                     f"{sorted(K3_WGMMA_WIDTHS.values())}")
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
     return report
 
@@ -1484,12 +1616,12 @@ def score_recall(idx, q, bank, kth, chunk=4096):
     return hits / idx.numel()
 
 
-def _val_batch(root):
+def _val_batch(root, input_size):
     """The first val batch, normalised as the engine does on the device."""
     from hbird_tpu_torch.data import get_dataset
     from hbird_tpu_torch.data.transforms import get_hbird_val_transforms
 
-    va = get_hbird_val_transforms(INPUT, device_normalize=True)
+    va = get_hbird_val_transforms(input_size, device_normalize=True)
     ds, _ = get_dataset("voc", root, BATCH, 0, va, va)
     x, _ = next(iter(ds.val_dataloader()))
     mean, std = (torch.tensor(v, device=DEVICE).reshape(1, -1, 1, 1) for v in va["device_norm"])
@@ -1497,9 +1629,27 @@ def _val_batch(root):
 
 
 def flash_path(gen_seed):
-    """Phase 5, the flash path: hbird_evaluation with the ViT in bf16 and in
-    f32, each with attention_impl='flash' against 'xla', the tokens of both
-    on one val batch, and K3 on that batch's block-0 q, k, v."""
+    """Phase 5, the flash path: hbird_evaluation with attention_impl='flash'
+    against 'xla', the tokens of both on one val batch, and K3 on that
+    batch's block-0 q, k, v; at PRESET (head width 64) with the ViT in bf16
+    and in f32, and at NARROW_PRESET (head width 32, K3 bf16 at hd 32) in
+    bf16. Returns the runs, the launches by run, the token errors and K3's
+    worst error."""
+    runs, launches, token_err, err = {}, {}, {}, 0.0
+    for preset, input_size, dtypes, prefix in ((PRESET, INPUT, ("bf16", "f32"), ""),
+                                               (NARROW_PRESET, NARROW_INPUT, ("bf16",),
+                                                f"{NARROW_PRESET} at {NARROW_INPUT}, ")):
+        r, n, t, e = _flash_runs(gen_seed, preset, input_size, dtypes, prefix)
+        runs.update(r)
+        launches.update(n)
+        token_err.update(t)
+        err = max(err, e)
+    return runs, launches, token_err, err
+
+
+def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
+    """flash_path at one preset and input size, in `dtypes`; labels begin
+    with `prefix`."""
     import dataclasses
 
     from hbird_tpu_torch import hbird_evaluation
@@ -1512,7 +1662,7 @@ def flash_path(gen_seed):
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
     from hbird_tpu_torch.utils.profiling import PhaseTimer
 
-    cfg = VIT_PRESETS[PRESET]
+    cfg = VIT_PRESETS[preset]
     vits = {impl: ViT(dataclasses.replace(cfg, attention_impl=impl),
                       generator=torch.Generator().manual_seed(gen_seed)) for impl in ("flash", "xla")}
     if cfg.layerscale:
@@ -1531,12 +1681,12 @@ def flash_path(gen_seed):
     runs, launches = {}, {}
     with tempfile.TemporaryDirectory() as root:
         make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
-        common = dict(batch_size=BATCH, input_size=INPUT, n_neighbours=30, num_workers=0,
+        common = dict(batch_size=BATCH, input_size=input_size, n_neighbours=30, num_workers=0,
                       device=DEVICE, nn_method="scann")
-        for dt in ("bf16", "f32"):
+        for dt in dtypes:
             mious = {}
             for impl, vit in vits.items():
-                label = f"scann unbounded, {dt} ViT, attention_impl={impl!r}"
+                label = f"scann unbounded, {prefix}{dt} ViT, attention_impl={impl!r}"
                 timer = PhaseTimer()
                 random.seed(0)
                 reset_counts(counters)
@@ -1554,26 +1704,30 @@ def flash_path(gen_seed):
                     fail(f"{label}: launches {n}")
                 if not (0.0 <= miou <= 1.0):
                     fail(f"{label}: mIoU {miou} not a finite value in [0, 1]")
-                launches[f"{dt} {impl}"] = n
+                launches[f"{prefix}{dt} {impl}"] = n
                 mious[impl] = miou
                 runs[label] = {"miou": miou, "launches": n, "forms": forms, "wall_s": wall,
                                "phases": timer.summary()}
                 print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)} (K3 expected {expected} = "
                       f"{cfg.depth} blocks x {n_batches} forward batches), wall {wall:.2f}s, "
                       f"phases {json.dumps(timer.summary())}", flush=True)
-            print(f"  {dt} ViT: mIoU 'flash' - 'xla' {mious['flash'] - mious['xla']:.3g}", flush=True)
-        imgs = _val_batch(root)
+            print(f"  {prefix}{dt} ViT: mIoU 'flash' {mious['flash']:.6f}, 'xla' {mious['xla']:.6f}, "
+                  f"'flash' - 'xla' {mious['flash'] - mious['xla']:.3g}", flush=True)
+        imgs = _val_batch(root, input_size)
 
     token_err = {}
+    dtypes = [torch.bfloat16 if dt == "bf16" else torch.float32 for dt in dtypes]
     with torch.inference_mode():
-        for dtype, (max_tol, mean_tol) in TOKEN_TOL.items():
+        for dtype in dtypes:
+            max_tol, mean_tol = TOKEN_TOL[dtype]
             tokens = {impl: FeatureExtractor(vit, use_bf16=dtype == torch.bfloat16).forward_features(imgs)[0]
                       for impl, vit in vits.items()}
             err = (tokens["flash"] - tokens["xla"]).abs()
-            token_err[str(dtype)[6:]] = {"max": err.max().item(), "mean": err.mean().item()}
+            name = f"{prefix}{str(dtype)[6:]}"
+            token_err[name] = {"max": err.max().item(), "mean": err.mean().item()}
             if err.max().item() > max_tol or err.mean().item() > mean_tol:
-                fail(f"flash vs xla patch tokens, {dtype}: {token_err[str(dtype)[6:]]}")
-            print(f"  flash vs xla patch tokens on one val batch, {str(dtype)[6:]}: max |err| "
+                fail(f"flash vs xla patch tokens, {prefix}{dtype}: {token_err[name]}")
+            print(f"  flash vs xla patch tokens on one val batch, {name}: max |err| "
                   f"{err.max().item():.3g}, mean {err.mean().item():.3g}", flush=True)
         # K3 on the main path's own inputs: block 0's q, k, v, strided views
         # of its qkv projection, as the ViT hands them over.
@@ -1581,14 +1735,14 @@ def flash_path(gen_seed):
         blk = vit.blocks[0]
         scale = cfg.head_dim**-0.5
         err_k3 = 0.0
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             x = vit._embed(imgs, dtype)
             y = _layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
             b, n, _ = y.shape
             qkv = _linear(y, blk.attn.qkv).reshape(b, n, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]
             err_k3 = max(err_k3, check_flash(
-                f"K3 {str(dtype)[6:]}, main path's block-0 q, k, v {tuple(q.shape)} (strided views)",
+                f"K3 {str(dtype)[6:]}, {prefix}main path's block-0 q, k, v {tuple(q.shape)} (strided views)",
                 flash_attention(q, k, v, scale), flash_attention_plain(q, k, v, scale)))
     return runs, launches, token_err, err_k3
 
@@ -1616,6 +1770,7 @@ def card_vs_cpu():
     # (nn_method, model, nn_params, bf16_bank, soft labels held to SMALL_TOL)
     cases = {"scann": ("scann", vit, None, False, True), "faiss": ("faiss", vit, None, False, True),
              "ivf": ("ivf", vit, full_probe, False, True),
+             "ivf f32": ("ivf", vit, dict(full_probe, use_fp16=False), False, True),
              "faiss, flash ViT": ("faiss", flash_vit, None, False, True)}
     # The quantized and L2 runs are held to the mIoU alone: int8 rounding
     # turns ulp-level feature differences between the devices into code
@@ -1676,7 +1831,7 @@ def backends_card_vs_cpu():
     result = {}
     for label, (method, params, bf16_bank, (_, form)) in QUANT_RUNS.items():
         cls = NearestNeighborSearchExact if method == "faiss" else NearestNeighborSearchApprox
-        kw = dict(params, n_neighbors=30, use_fp16=bf16_bank or cls is NearestNeighborSearchApprox)
+        kw = {"n_neighbors": 30, "use_fp16": bf16_bank or cls is NearestNeighborSearchApprox, **params}
         if method == "ivf":
             kw.update(use_tree=True, num_leaves=SMALL_LEAVES, num_leaves_to_search=SMALL_LEAVES)
         nns = {dev: cls(x.to(dev), device=dev, **kw) for dev in (DEVICE, "cpu")}
@@ -1863,21 +2018,24 @@ def tf32_rna(x):
     return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def one_tf32_pass_misses(name, q, b, k, distance, n=2048):
+def one_tf32_pass_misses(name, q, b, k, distance, n=2048, plain=None):
     """Phase 7: fails unless a single TF32 pass (tf32(q)·tf32(b) alone)
     misses K1's f32 tolerance at the plain top-k of the first `n` queries
-    of `q` against `b`, so that the 3xTF32 check on these inputs can tell
-    the three passes from one. Returns the share of top-k values missed."""
+    of `q` against `b` (K2: `plain`, the plain version's top-k of those
+    queries over their probed slabs), so that the 3xTF32 check on these
+    inputs can tell the three passes from one. Returns the share of top-k
+    values missed."""
     from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
 
     qs = q[:n]
-    pv, pi = exact_knn(qs, b, k, distance=distance)
+    pv, pi = plain if plain is not None else exact_knn(qs, b, k, distance=distance)
     one = torch.einsum("qd,qkd->qk", tf32_rna(qs), tf32_rna(b[pi]))
     if distance != "dot_product":
         one = one - l2_bias(b)[pi]
     tol = RTOL * qs.norm(dim=1) * b.norm(dim=1).max()
-    err = (one - pv).abs()
-    share = (err > tol[:, None]).float().mean().item()
+    finite = torch.isfinite(pv)
+    err = (one - pv).abs().where(finite, torch.zeros_like(pv))
+    share = ((err > tol[:, None]).sum() / finite.sum()).item()
     if share == 0.0:
         fail(f"{name}: one TF32 pass stays within the f32 tolerance (max |err| {err.max().item():.3g}): "
              "the check cannot tell 3xTF32 from one pass")
@@ -1999,11 +2157,10 @@ def k1_select_rows(q, bank, chunk=2048):
 
 
 def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
-    """Phase 7: K2's other forms on the tree's slabs, probed as the bf16
+    """Phase 7: K2's quantized forms on the tree's slabs, probed as the bf16
     tree is: int8_rows and asym_rows on per-row int8 codes (padding slots
-    scale 0), int8 and asym on global-scale codes, f32 on the slabs in f32;
-    each timed beside the plain version, the bound and the library
-    yardstick."""
+    scale 0), int8 and asym on global-scale codes; each timed beside the
+    plain version, the bound and the library yardstick."""
     from hbird_tpu_torch.ops.ivf import ivf_search_plain
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -2019,7 +2176,6 @@ def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
         ("asym_rows", qp, codes, rs, False, 2, 1, 4, PEAK_BF16_FLOPS),
         ("int8", q8, codes_g, None, True, 1, 1, 0, PEAK_INT8_OPS),
         ("asym", qp, codes_g, None, False, 2, 1, 0, PEAK_BF16_FLOPS),
-        ("f32", qp.float(), tb.float(), None, False, 4, 4, 0, PEAK_F32_FLOPS),
     )
     for form, qq, sb, r, exact, qbytes, bbytes, rbytes, peak in forms:
         ms = cuda_ms(lambda: ivf_topk(qq, sb, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r), reps)
@@ -2042,11 +2198,58 @@ def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
               flush=True)
 
 
+def k2_f32_row(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
+    """Phase 7: K2 f32 on an f32 tree's slabs and f32 queries (real f32
+    values, so the split's small parts are not 0), timed beside its plain
+    version, the library yardstick and its 3xTF32 bound (3 TF32 passes at
+    the TF32 peak), its f32 FMA bound beside it, with the kernel it ran
+    (`route`); a single TF32 pass must miss the f32 tolerance here."""
+    from hbird_tpu_torch.ops import cuda_build, ivf_cuda, knn_cuda
+    from hbird_tpu_torch.ops.ivf import ivf_search_plain
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+
+    n_q, d = qp.shape
+    route = "plain" if DEVICE != "cuda" else knn_cuda.route(
+        cuda_build.load("ivf_topk.cu", "ivf_topk_launch", ivf_cuda._ARGTYPES), qp, tb, "ivf_topk")
+    ms = cuda_ms(lambda: ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q), reps)
+    out = ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q)
+    box = {}
+    plain_ms = cuda_ms(lambda: box.update(out=ivf_search_plain(qp, tb, lids, lv, k + 1, cap=cap)), 1)
+    errs["K2"] = max(errs["K2"], check_ivf_against_plain(f"K2 timing shape f32 {label}", qp, tb, lids, lv, k,
+                                                          cap, BLOCK_Q, out, box.pop("out")))
+    lib_ms = library_ms(lambda: ivf_library(qp, tb, lids, lv, k, cap, BLOCK_Q), reps, f"K2 f32 {label}")
+    b_ms, b_by = ivf_bound_ms(n_q, lids, lv, d, k, 4, PEAK_TF32_FLOPS / TF32_PASSES)
+    fma = ivf_bound_ms(n_q, lids, lv, d, k, 4, PEAK_F32_FLOPS)[0]
+    n = min(2048, n_q) // BLOCK_Q * BLOCK_Q
+    misses = one_tf32_pass_misses(f"K2 f32 {label}", qp, tb, k, "dot_product", n=n, plain=ivf_search_plain(
+        qp[:n], tb, lids[:n // BLOCK_Q], lv, k, cap=cap))
+    rows[f"f32 {label}"] = {"form": "f32", "route": route, "Q": n_q, "slots": tb.shape[0], "cap": cap,
+                            "n_probe": lids.shape[1], "block_q": BLOCK_Q, "D": d, "k": k, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "fma_bound_ms": fma,
+                            "library_ms": lib_ms, "one_tf32_pass_misses": misses}
+    print(f"  K2 f32 {label} ({route}): Q={n_q} slots={tb.shape[0]} cap={cap}: {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms (k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by}, 3xTF32; f32 FMA bound {fma:.3f} ms): "
+          f"{shares(ms, b_ms, lib_ms)}", flush=True)
+
+
+def f32_tree(bank32, q32):
+    """An f32 tree of `bank32` (the tree's defaults, slabs in f32) and the
+    probe inputs of `q32` over it: (qp, lids, slabs, leaf_valid, cap)."""
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops.ivf import tile_probe_inputs
+
+    tree = NearestNeighborSearchApprox(bank32, n_neighbors=30, use_tree=True, use_fp16=False, device=DEVICE)
+    qp, lids, _ = tile_probe_inputs(q32, tree.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
+    return qp, lids, tree.bank, tree.leaf_valid, tree._cap
+
+
 def timing(q, bank, main_tree, f32, gen):
     """Phase 7: K1 and K2 vs plain vs the library yardsticks at two sizes.
-    K1's f32 forms take `f32`, the main path's f32 queries and bank, and
-    the f32 rows of the large bank before their rounding to bf16."""
+    K1's and K2's f32 forms take `f32`, the main path's f32 queries and
+    bank (K2: an f32 tree of that bank), and the f32 rows of the large bank
+    before their rounding to bf16."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops import cuda_build, ivf_cuda, knn_cuda
     from hbird_tpu_torch.ops.ivf import ivf_search_plain, tile_probe_inputs
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
     from hbird_tpu_torch.ops.knn import exact_knn
@@ -2076,6 +2279,7 @@ def timing(q, bank, main_tree, f32, gen):
               f"(k+1), library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}): "
               f"{shares(ms, b_ms, lib_ms)}", flush=True)
         k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs)
+    trees32 = {"main": f32_tree(f32[1], q32), f"bank_{BIG_M}": f32_tree(big32, q32)}
     del big32
 
     t0 = time.perf_counter()
@@ -2101,7 +2305,10 @@ def timing(q, bank, main_tree, f32, gen):
         b_ms, b_by = ivf_bound_ms(qp.shape[0], lids, lv, d, k, 2, PEAK_BF16_FLOPS)
         rows = int(lv.long()[lids.long()].sum())
         read = int(lv.long()[torch.unique(lids.long())].sum())
-        k2_rows[label] = {"Q": qp.shape[0], "slots": tb.shape[0], "cap": cap, "n_probe": lids.shape[1],
+        k2_rows[label] = {"route": "plain" if DEVICE != "cuda" else knn_cuda.route(
+                              cuda_build.load("ivf_topk.cu", "ivf_topk_launch", ivf_cuda._ARGTYPES), qp, tb,
+                              "ivf_topk"),
+                          "Q": qp.shape[0], "slots": tb.shape[0], "cap": cap, "n_probe": lids.shape[1],
                           "block_q": BLOCK_Q, "rows_scanned": rows, "rows_probed": read, "D": d, "k": k,
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                           "library_ms": lib_ms}
@@ -2109,14 +2316,22 @@ def timing(q, bank, main_tree, f32, gen):
               f"rows scanned {rows} (distinct {read}): {ms:.3f} ms, plain {plain_ms:.3f} ms (k+1), "
               f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
         k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, k2_rows, errs)
+        k2_f32_row(*trees32.pop(label), label, k, reps, k2_rows, errs)
     return k1_rows, k2_rows, errs
 
 
 def flash_timing(gen):
-    """Phase 7: K3 at the main shape, bf16 and f32, vs its bound, its plain
-    version and scaled_dot_product_attention (a yardstick the port never
-    calls). f32's bound is its work at f32 accuracy on the tensor cores
-    (3 TF32 passes at the TF32 peak); the f32 FMA bound stands beside it."""
+    """Phase 7: K3 at the main shape, bf16 and f32, and in bf16 at the long
+    sequence and at head widths 32 and 80, vs its bound, its plain version
+    and scaled_dot_product_attention (a yardstick the port never calls),
+    each row with the kernel it ran (`route`). f32's bound is its work at
+    f32 accuracy on the tensor cores (3 TF32 passes at the TF32 peak); the
+    f32 FMA bound stands beside it. `ms` and `library_ms` are
+    host-launched, `graph_ms` and `library_graph_ms` the same calls in one
+    CUDA graph (the device's time). At hd 32 (a short call: its host cost
+    rivals the kernel's) the kernel and SDPA take NARROW_ROUNDS turns, each
+    way: the medians, and `spread` the least and most."""
+    from hbird_tpu_torch.ops import flash_cuda
     from hbird_tpu_torch.ops.flash import flash_attention_plain
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
 
@@ -2126,24 +2341,70 @@ def flash_timing(gen):
                                 ("hd80", FLASH_WIDE, torch.bfloat16)):
         scale = shape[-1] ** -0.5
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
-        ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 10)
         box = {}
         plain_ms = cuda_ms(lambda: box.update(out=flash_attention_plain(q, k, v, scale)), 3)
         errs.append(check_flash(f"K3 timing shape {str(dtype)[6:]} {shape}",
                                 flash_attention(q, k, v, scale), box.pop("out")))
-        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 10)
+
+        def kernel():
+            flash_attention(q, k, v, scale)
+
+        def sdpa():
+            torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)
+
+        extra = {}
+        if label == "hd32":
+            turns = in_turns({"kernel": kernel, "sdpa": sdpa}, NARROW_ROUNDS, 20)
+            ms, lib_ms = turns["kernel"]["ms"]["median"], turns["sdpa"]["ms"]["median"]
+            extra = {"graph_ms": turns["kernel"]["graph_ms"]["median"],
+                     "library_graph_ms": turns["sdpa"]["graph_ms"]["median"], "rounds": NARROW_ROUNDS,
+                     "spread": turns, "by_batch": narrow_by_batch(gen)}
+        else:
+            ms = cuda_ms(kernel, 10)
+            lib_ms = cuda_ms(sdpa, 10)
+            extra = {"graph_ms": graph_ms(kernel, 10), "library_graph_ms": graph_ms(sdpa, 10)}
         b_ms, b_by = k3_bound(shape, dtype)
-        rows[label] = {"shape": list(shape), "dtype": str(dtype)[6:], "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        extra = ""
+        rows[label] = {"shape": list(shape), "dtype": str(dtype)[6:], "route": flash_cuda.route(dtype, shape[-1]),
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                       **extra}
+        note = ""
         if dtype == torch.float32:
             rows[label]["fma_bound_ms"] = flash_bound_ms(shape, 4, PEAK_F32_FLOPS)[0]
-            extra = f", f32 FMA bound {rows[label]['fma_bound_ms']:.4f} ms"
-        print(f"  K3 {str(dtype)[6:]} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}{', 3xTF32' if extra else ''}){extra}: "
-              f"{shares(ms, b_ms, lib_ms)}", flush=True)
+            note = f", 3xTF32), f32 FMA bound {rows[label]['fma_bound_ms']:.4f} ms"
+        else:
+            note = ")"
+        if "spread" in extra:
+            t = extra["spread"]
+            note += (f"; in {NARROW_ROUNDS} turns, median [least, most] host-launched {ms:.4f} "
+                     f"[{t['kernel']['ms']['min']:.4f}, {t['kernel']['ms']['max']:.4f}] against SDPA {lib_ms:.4f} "
+                     f"[{t['sdpa']['ms']['min']:.4f}, {t['sdpa']['ms']['max']:.4f}], in a CUDA graph "
+                     f"{extra['graph_ms']:.4f} [{t['kernel']['graph_ms']['min']:.4f}, "
+                     f"{t['kernel']['graph_ms']['max']:.4f}] against SDPA {extra['library_graph_ms']:.4f} "
+                     f"[{t['sdpa']['graph_ms']['min']:.4f}, {t['sdpa']['graph_ms']['max']:.4f}]")
+        else:
+            note += f"; in a CUDA graph {extra['graph_ms']:.4f} ms against SDPA {extra['library_graph_ms']:.4f}"
+        print(f"  K3 {str(dtype)[6:]} {shape} ({rows[label]['route']}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}{note}: {shares(ms, b_ms, lib_ms)}", flush=True)
         del q, k, v
     return rows, max(errs)
+
+
+def narrow_by_batch(gen):
+    """Phase 7: K3 bf16 at hd 32 in a CUDA graph (median of 5) at batches
+    1-4 quarters of FLASH_NARROW's: its items (128-query blocks, two a head
+    at N = 197) in 1, 2, 3 and 3 rounds of the persistent CTAs on an H100,
+    so the time per round and the fixed cost show apart. Returns {batch:
+    ms}."""
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
+    b, h, n, hd = FLASH_NARROW
+    out = {}
+    for batch in sorted({max(1, b * i // 4) for i in range(1, 5)}):
+        q, k, v = (torch.randn((batch, h, n, hd), generator=gen, device=DEVICE).bfloat16() for _ in range(3))
+        out[batch] = statistics.median(graph_ms(lambda: flash_attention(q, k, v, hd**-0.5), 20) for _ in range(5))
+    print(f"  K3 bf16 hd 32 in a CUDA graph by batch (H={h}, N={n}): "
+          + ", ".join(f"B={batch} {ms:.4f} ms" for batch, ms in out.items()), flush=True)
+    return out
 
 
 def forward_timing(gen_seed, gen):
@@ -2208,11 +2469,12 @@ def pairs(tree):
             record("k3", f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}", ms, k3_bound(shape, dtype), lib,
                    digest=digest[:16])
             del q, k, v
-    q = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE).bfloat16()
+    q_f32 = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE)  # K2 f32's queries
+    q = q_f32.bfloat16()
     q8 = quantize_queries_int8(q.float())[0]
     for m in (PAIR_M, BIG_M):
-        bank = torch.nn.functional.normalize(
-            torch.randn(m, DEPTH, generator=gen, device=DEVICE), dim=1).bfloat16()
+        bank_f32 = torch.nn.functional.normalize(torch.randn(m, DEPTH, generator=gen, device=DEVICE), dim=1)
+        bank = bank_f32.bfloat16()
         neg_bias = (-l2_bias(bank)).bfloat16()
         reps = 5 if m < 200_000 else 2
         codes_g = quantize_bank_int8(bank, per_row=False)[0]
@@ -2248,16 +2510,40 @@ def pairs(tree):
                    lib)
             del wide
         del codes_g, codes_r, rs, neg_bias
-        pairs_k2(q, bank, f"M={m}", record, 5 if m < 200_000 else 3)
-        del bank
+        pairs_k2(q, bank, q_f32, bank_f32, f"M={m}", record, 5 if m < 200_000 else 3)
+        del bank, bank_f32
+    pairs_narrow(record)
     return out
 
 
-def pairs_k2(q, bank, label, record, reps):
+def pairs_narrow(record):
+    """--pairs, K3 bf16 at hd 32 (FLASH_NARROW) and SDPA in NARROW_ROUNDS
+    turns, each timed host-launched and in one CUDA graph (the device's
+    time): the host-launched medians as ms and library ms, the graph
+    medians, the least and most of each, and the output's digest."""
+    from hbird_tpu_torch.ops import flash_cuda
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    q, k, v = (torch.randn(FLASH_NARROW, generator=gen, device=DEVICE).bfloat16() for _ in range(3))
+    scale = FLASH_NARROW[-1] ** -0.5
+    turns = in_turns({"kernel": lambda: flash_cuda.flash_attention(q, k, v, scale),
+                      "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)},
+                     NARROW_ROUNDS, 20)
+    digest = hashlib.sha256(flash_cuda.flash_attention(q, k, v, scale).float().cpu().numpy().tobytes()).hexdigest()
+    route = flash_cuda.route(torch.bfloat16, FLASH_NARROW[-1]) if hasattr(flash_cuda, "route") else "unnamed"
+    kt, st = turns["kernel"], turns["sdpa"]
+    record("k3", f"bf16 {FLASH_NARROW}", kt["ms"]["median"], k3_bound(FLASH_NARROW, torch.bfloat16),
+           st["ms"]["median"], digest=digest[:16], route=route, graph_ms=kt["graph_ms"]["median"],
+           library_graph_ms=st["graph_ms"]["median"],
+           spread=" ".join(f"{n}:{w}=[{t[w]['min']:.4f},{t[w]['max']:.4f}]" for n, t in turns.items() for w in t))
+
+
+def pairs_k2(q, bank, q32, bank32, label, record, reps):
     """--pairs, K2: a tree of `bank` (the tree's defaults: 512 leaves),
     `q` grouped into 256-query tiles probing 32 leaves each, k = 30; bf16
     and asym_rows (the slabs as per-row int8 codes, padding slots scale
-    0)."""
+    0); and f32 on an f32 tree of `bank32` (the rows before their rounding
+    to bf16) probed by `q32`."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
     from hbird_tpu_torch.ops.ivf import tile_probe_inputs
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
@@ -2278,6 +2564,12 @@ def pairs_k2(q, bank, label, record, reps):
         ms = cuda_ms(lambda: ivf_topk(qp, b, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r), reps)
         lib = cuda_ms(lambda: ivf_library(qp, b, lids, lv, k, cap, BLOCK_Q, row_scale=r), reps)
         record("k2", f"{form} {label} {shape}", ms, bound, lib)
+    del qp, lids, tb, codes, rs
+    qp, lids, tb, lv, cap = f32_tree(bank32, q32)
+    ms = cuda_ms(lambda: ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q), reps)
+    lib = cuda_ms(lambda: ivf_library(qp, tb, lids, lv, k, cap, BLOCK_Q), reps)
+    record("k2", f"f32 {label} Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={N_PROBE}", ms,
+           ivf_bound_ms(qp.shape[0], lids, lv, DEPTH, k, 4, PEAK_TF32_FLOPS / TF32_PASSES), lib)
 
 
 def native_feed(gen_seed, folder_run):

@@ -17,6 +17,8 @@
 // shape (16, 12, 1370, 64) that is ~685 flops per bf16 byte, above the ~295
 // at which the card stops being memory bound. So both products go on the
 // tensor cores, and the scores, the softmax and p never leave registers.
+// Short sequences fall under that line (mocov3_vits16 at 224, N = 197: ~98
+// flops per byte, bytes bound) and are bound by latency in practice.
 //
 // f32 (`f32::flash_f32<HD>`, every hd): 3xTF32 on mma.sync m16n8k8, each
 // f32 operand split into TF32 big and small parts by tf32.cuh (its comment
@@ -33,7 +35,8 @@
 // the s accumulator is p·v's A fragment in place (see flash_f32).
 //
 // bf16 at hd = 64 (every dinov2, DINO, ViT-B/L and MAE-B/L preset; the main
-// path), `flash_bf16_wgmma`, built from hopper.cuh:
+// path) and hd = 32 (mocov3_vits16), `flash_bf16_wgmma<HD>`, built from
+// hopper.cuh:
 // - Persistent CTAs, one per SM, walk work items (b, h, 128-query block),
 //   the blocks of one head adjacent so that its K and V stay in L2.
 // - A CTA is one producer warp (in a warpgroup that gives its registers
@@ -44,10 +47,12 @@
 //   and rows at or past N arrive as zeros. Q comes once per item; K and V
 //   stream in 128-key tiles through a 4-stage ring with full (K, V) and
 //   empty mbarriers, across item boundaries.
-// - s = q·kᵀ is wgmma m64n128k16 with both operands K-major in 128-byte
-//   swizzled shared memory; p·v is wgmma m64n64k16 with p as the register
-//   A operand (cast to bf16 from the s accumulator, whose layout is the A
-//   fragment's) and V as the MN-major B operand (the transpose bit): no
+// - s = q·kᵀ is wgmma m64n128k16 with both operands K-major in swizzled
+//   shared memory (hd 64: 128-byte rows, the 128-byte swizzle; hd 32:
+//   64-byte rows, the 64-byte swizzle, in TMA and in the descriptors);
+//   p·v is wgmma m64n{HD}k16 with p as the register A operand (cast to bf16
+//   from the s accumulator, whose layout is the A fragment's) and V as the
+//   MN-major B operand (the transpose bit; a k16 step is 16 rows of V): no
 //   ldmatrix, no shared-memory round trip of s or p.
 // - Online softmax in f32 registers with exp2 of s·scale·log2(e), the sum
 //   divided out once at the end; key columns at or past N score -inf.
@@ -56,11 +61,24 @@
 //   in flight; and the two consumer warpgroups take turns issuing products
 //   (ping-pong on named barriers), so one's softmax runs under the other's
 //   products.
-// Other widths (hd 32: mocov3_vits16; hd 80: mae_vith14, whose 160-byte
-// rows do not fit one 128-byte swizzle row) keep `flash_bf16<HD>`: 4 warps
-// per 64-query block on mma.sync m16n8k16, fed by a two-stage cp.async ring
-// of 64-key tiles, p re-packed from registers into the A operand. The
-// choice is made by hd in flash_attn_launch.
+// - hd 32 at N = 197 (mocov3_vits16 at 224) is short work: a head is two
+//   query blocks and two key tiles, 384 items of 128 queries on 132 SMs,
+//   bound by latency, not by the tensor cores. It keeps hd 64's item shape
+//   and double-buffers Q (q_buffers<32>()), so the next item's Q arrives
+//   while this item's last products run. Its time follows the rounds of
+//   items, not the work (chip_smoke.py phase 7 on an H100, in a CUDA graph:
+//   12 heads at B = 4, 8, 12, 16, i.e. 1, 2, 3, 3 rounds, take 5.6, 8.3,
+//   10.9, 10.9 µs: ~2.9 µs fixed and ~2.65 µs a round). An item holding a
+//   whole head (its K and V loaded once, every query block scored against
+//   them), or several heads, halves the items to 192 but doubles each
+//   item's passes: 2 rounds of 2 passes against 3 of one, a loss unless a
+//   pass got 25% cheaper, and the ring already streams K and V from L2 one
+//   item ahead, so kept out. Any N runs (mocov3_vits16 at 512: N = 1,025,
+//   9 key tiles).
+// hd 80 (mae_vith14, whose 160-byte rows fit no swizzle row) keeps
+// `flash_bf16<80>`: 4 warps per 64-query block on mma.sync m16n8k16, fed by
+// a two-stage cp.async ring of 64-key tiles, p re-packed from registers
+// into the A operand. The choice is made by hd in flash_attn_launch.
 //
 // Design of the rest: the TPU grid's sequential key axis becomes the loop
 // over key tiles inside the CTA, with the running max m, the sum l and the
@@ -278,18 +296,41 @@ __global__ void __launch_bounds__(BF16_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd = 64: wgmma on TMA-fed rings with a producer warp.
+// bf16, hd = 32 and 64: wgmma on TMA-fed rings with a producer warp.
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int HD = 64;
 constexpr int BQ = 128;                 // queries per item: two consumer warpgroups of 64
 constexpr int BKV = 128;                // keys per tile
 constexpr int STAGES = 4;               // K/V ring depth
-constexpr int TILE = BKV * HD * 2;      // bytes of a K or V tile, and of the Q tile
 constexpr int THREADS = 384;            // producer warpgroup + two consumer warpgroups
-constexpr int SMEM = hopper::SMEM_ALIGN + TILE * (1 + 2 * STAGES) + 256;
+
+// Q tiles in flight: at hd 32 an item is short (two key tiles at N = 197),
+// so the next item's Q is loaded while this one runs; hd 64 keeps one.
+template <int HD>
+__host__ __device__ constexpr int q_buffers() {
+  return HD == 32 ? 2 : 1;
+}
+
+// A K or V tile, and the Q tile: 128 rows of HD bf16.
+template <int HD>
+__host__ __device__ constexpr int tile_bytes() {
+  return BKV * HD * 2;
+}
+
+template <int HD>
+__host__ __device__ constexpr int smem_bytes() {
+  return hopper::SMEM_ALIGN + tile_bytes<HD>() * (q_buffers<HD>() + 2 * STAGES) + 256;
+}
+
+// A tile's descriptor: 128-byte rows (hd 64) take the 128-byte swizzle,
+// 64-byte rows (hd 32) the 64-byte one.
+template <int HD>
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  if constexpr (HD == 64) return hopper::sw128_desc(p);
+  return hopper::sw64_desc(p);
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -297,24 +338,31 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// s = q·kᵀ for one 128-key tile (A: the warpgroup's 64 query rows).
+// s = q·kᵀ for one 128-key tile (A: the warpgroup's 64 query rows), HD/16
+// k16 steps of 32 bytes inside the rows.
+template <int HD>
 __device__ __forceinline__ void issue_s(float (&s)[64], const unsigned char* qa,
                                         const unsigned char* kt) {
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    hopper::wgmma_m64n128k16_ss(s, hopper::sw128_desc(qa + kk * 32),
-                                hopper::sw128_desc(kt + kk * 32), kk > 0);
+    hopper::wgmma_m64n128k16_ss(s, desc<HD>(qa + kk * 32), desc<HD>(kt + kk * 32), kk > 0);
   hopper::wgmma_commit();
 }
 
-// o += p·v for one 128-key tile: 8 k16 steps of 16 keys (2,048 bytes of V).
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[8][4],
+// o += p·v for one 128-key tile: 8 k16 steps of 16 keys (16 rows of V:
+// 2,048 bytes at hd 64, 1,024 at hd 32).
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&p)[8][4],
                                          const unsigned char* vt) {
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-    hopper::wgmma_m64n64k16_rs_tb(o, p[kk], hopper::sw128_desc(vt + kk * 2048), 1);
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    if constexpr (HD == 64)
+      hopper::wgmma_m64n64k16_rs_tb(o, p[kk], desc<HD>(vt + kk * 16 * HD * 2), 1);
+    else
+      hopper::wgmma_m64n32k16_rs_tb(o, p[kk], desc<HD>(vt + kk * 16 * HD * 2), 1);
+  }
   hopper::wgmma_commit();
 }
 
@@ -354,9 +402,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     }
 }
 
-__device__ __forceinline__ void rescale(float (&o)[32], const float (&alpha)[2]) {
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
 // p as bf16 A fragments of the 8 k16 steps: columns 16kk.. are accumulator
@@ -374,26 +423,31 @@ __device__ __forceinline__ void turn_begin(int cw) { hopper::named_sync(1 + cw, 
 
 __device__ __forceinline__ void turn_end(int cw) { hopper::named_arrive(2 - cw, 256); }
 
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                      int heads, int n, long long ob, long long oh, long long on, float sl2,
                      int n_qblocks, int n_items) {
+  constexpr int TILE = tile_bytes<HD>();
+  constexpr int QBUF = q_buffers<HD>();
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* qs = hopper::aligned_smem(smem_raw);
-  unsigned char* ks = qs + TILE;
+  unsigned char* qs = hopper::aligned_smem(smem_raw);  // [QBUF][TILE]
+  unsigned char* ks = qs + QBUF * TILE;
   unsigned char* vs = ks + STAGES * TILE;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * TILE);
-  uint64_t* q_empty = q_full + 1;
-  uint64_t* k_full = q_full + 2;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * TILE);  // [QBUF]
+  uint64_t* q_empty = q_full + QBUF;                                   // [QBUF]
+  uint64_t* k_full = q_empty + QBUF;
   uint64_t* v_full = k_full + STAGES;
   uint64_t* empty = v_full + STAGES;
   const int n_tiles = (n + BKV - 1) / BKV;
   const int wgi = __shfl_sync(FULL, threadIdx.x / 128, 0);  // warp-uniform to the compiler
 
   if (threadIdx.x == 0) {
-    hopper::mbar_init(q_full, 1);
-    hopper::mbar_init(q_empty, 256);
+    for (int i = 0; i < QBUF; ++i) {
+      hopper::mbar_init(q_full + i, 1);
+      hopper::mbar_init(q_empty + i, 256);
+    }
     for (int s = 0; s < STAGES; ++s) {
       hopper::mbar_init(k_full + s, 1);
       hopper::mbar_init(v_full + s, 1);
@@ -415,9 +469,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
         const int bh = item / n_qblocks, qb = item % n_qblocks;
         const int b = bh / heads, h = bh % heads;
-        hopper::mbar_wait(q_empty, (it & 1) ^ 1);
-        hopper::mbar_expect_tx(q_full, TILE);
-        hopper::tma_load_4d(qs, &tq, q_full, 0, qb * BQ, h, b);
+        const int qi = it % QBUF;
+        hopper::mbar_wait(q_empty + qi, ((it / QBUF) & 1) ^ 1);
+        hopper::mbar_expect_tx(q_full + qi, TILE);
+        hopper::tma_load_4d(qs + qi * TILE, &tq, q_full + qi, 0, qb * BQ, h, b);
         for (int t = 0; t < n_tiles; ++t) {
           hopper::mbar_wait(empty + stage, phase ^ 1);
           hopper::mbar_expect_tx(k_full + stage, TILE);
@@ -437,27 +492,28 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int cw = wgi - 1;
     const int tid = threadIdx.x - 128 * wgi;
     const int warp = tid >> 5, lane = tid & 31;
-    const unsigned char* qa = qs + cw * (TILE / 2);
     if (cw == 1) hopper::named_arrive(1, 256);  // consumer 0 takes the first turn
     int stage = 0;
     uint32_t phase = 0, it = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
       const int bh = item / n_qblocks, qb = item % n_qblocks;
       const int b = bh / heads, h = bh % heads;
-      float acc[32], s[64], m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f}, alpha[2];
+      const int qi = it % QBUF;
+      const unsigned char* qa = qs + qi * TILE + cw * (TILE / 2);
+      float acc[HD / 2], s[64], m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f}, alpha[2];
       uint32_t p[8][4];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-      hopper::mbar_wait(q_full, it & 1);
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+      hopper::mbar_wait(q_full + qi, (it / QBUF) & 1);
 
       // Prologue: s of tile 0 and its softmax.
       turn_begin(cw);
       hopper::mbar_wait(k_full + stage, phase);
-      issue_s(s, qa, ks + stage * TILE);
+      issue_s<HD>(s, qa, ks + stage * TILE);
       turn_end(cw);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(s);
-      if (n_tiles == 1) hopper::mbar_arrive(q_empty);
+      if (n_tiles == 1) hopper::mbar_arrive(q_empty + qi);
       softmax_tile(s, m, l, alpha, 0, n, sl2, lane);
       pack_p(p, s);
       int prev = stage;
@@ -471,14 +527,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         // of tile t runs under p·v.
         turn_begin(cw);
         hopper::mbar_wait(k_full + stage, phase);
-        issue_s(s, qa, ks + stage * TILE);
+        issue_s<HD>(s, qa, ks + stage * TILE);
         rescale(acc, alpha);
         hopper::mbar_wait(v_full + prev, prev_phase);
-        issue_pv(acc, p, vs + prev * TILE);
+        issue_pv<HD>(acc, p, vs + prev * TILE);
         turn_end(cw);
         hopper::wgmma_wait<1>();
         hopper::fence_regs(s);
-        if (t == n_tiles - 1) hopper::mbar_arrive(q_empty);
+        if (t == n_tiles - 1) hopper::mbar_arrive(q_empty + qi);
         softmax_tile(s, m, l, alpha, t * BKV, n, sl2, lane);
         hopper::wgmma_wait<0>();
         hopper::fence_regs(acc);
@@ -494,7 +550,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       turn_begin(cw);
       rescale(acc, alpha);
       hopper::mbar_wait(v_full + prev, prev_phase);
-      issue_pv(acc, p, vs + prev * TILE);
+      issue_pv<HD>(acc, p, vs + prev * TILE);
       turn_end(cw);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -525,8 +581,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// K3 bf16 at hd = 64: the tensor maps of q, k and v (shared strides), then
-// the kernel. Returns 0, a cudaError_t or a hopper::ERR_* code.
+// K3 bf16 at hd = 32 or 64: the tensor maps of q, k and v (shared strides;
+// the 128-byte swizzle for 128-byte rows, the 64-byte one for 64-byte rows),
+// then the kernel. Returns 0, a cudaError_t or a hopper::ERR_* code.
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n,
            const Layout& lay, float scale, cudaStream_t stream) {
   CUtensorMap maps[3];
@@ -537,19 +595,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   const uint32_t box[4] = {HD, BKV, 1, 1};
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int r = hopper::encode_tensor_map(&maps[i], 4, ptrs[i], dims, strides, box);
+    const int r = hopper::encode_tensor_map(
+        &maps[i], 4, ptrs[i], dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
     if (r != 0) return r;
   }
   const int n_qblocks = (n + BQ - 1) / BQ;
   const int n_items = n_qblocks * batch * heads;
   const float sl2 = scale * 1.4426950408889634f;
-  const cudaError_t e = allow_smem(flash_bf16_wgmma, SMEM);
+  constexpr int SMEM = smem_bytes<HD>();
+  const cudaError_t e = allow_smem(flash_bf16_wgmma<HD>, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int sms = hopper::sm_count();
   const int grid = sms > 0 && sms < n_items ? sms : n_items;
-  flash_bf16_wgmma<<<grid, THREADS, SMEM, stream>>>(maps[0], maps[1], maps[2],
-                                                    static_cast<__nv_bfloat16*>(o), heads, n, lay.ob,
-                                                    lay.oh, lay.on, sl2, n_qblocks, n_items);
+  flash_bf16_wgmma<HD><<<grid, THREADS, SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), heads, n, lay.ob, lay.oh,
+      lay.on, sl2, n_qblocks, n_items);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -813,8 +874,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
                    int n, Layout lay, float scale, int is_bf16, cudaStream_t stream) {
   const dim3 grid((n + FQ - 1) / FQ, batch * heads);
   if (is_bf16) {
-    if constexpr (HD == wg::HD) {
-      return cudaErrorInvalidValue;  // wg::launch takes bf16 at hd = 64
+    if constexpr (HD != 80) {
+      return cudaErrorInvalidValue;  // wg::launch takes bf16 at hd = 32 and 64
     } else {
       const size_t smem = 5 * 64 * (HD + 8) * sizeof(__nv_bfloat16);  // q, 2 × (k, v)
       const cudaError_t e = allow_smem(flash_bf16<HD>, smem);
@@ -843,7 +904,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
 // 0) or all bf16 (is_bf16 = 1); hd is 32, 64 or 80; pointers and strides
 // are 16-byte aligned. n >= 1, batch · heads <= 65,535.
 // Returns cudaGetLastError() after the launch (0 = launched), or 9001 / 9002
-// when the tensor maps of the hd = 64 bf16 kernel cannot be encoded.
+// when the tensor maps of the bf16 wgmma kernel cannot be encoded.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int batch,
                                  int heads, int n, int hd, long long sb, long long sh,
                                  long long sn, long long ob, long long oh, long long on,
@@ -852,8 +913,8 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay{sb, sh, sn, ob, oh, on};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && hd == wg::HD)
-    return wg::launch(q, k, v, o, batch, heads, n, lay, scale, s);
+  if (is_bf16 && hd == 64) return wg::launch<64>(q, k, v, o, batch, heads, n, lay, scale, s);
+  if (is_bf16 && hd == 32) return wg::launch<32>(q, k, v, o, batch, heads, n, lay, scale, s);
   cudaError_t e;
   switch (hd) {
     case 32: e = launch<32>(q, k, v, o, batch, heads, n, lay, scale, is_bf16, s); break;
@@ -864,5 +925,9 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
   return static_cast<int>(e);
 }
 
-// Dynamic shared memory the bf16 hd = 64 kernel asks for.
-extern "C" int flash_attn_wgmma_smem() { return wg::SMEM; }
+// Dynamic shared memory the bf16 wgmma kernel asks for at head width hd (0:
+// bf16 at that width runs flash_bf16<HD> on mma.sync).
+extern "C" int flash_attn_wgmma_smem(int hd) {
+  if (hd == 64) return wg::smem_bytes<64>();
+  return hd == 32 ? wg::smem_bytes<32>() : 0;
+}

@@ -22,19 +22,21 @@
 // tile reads n_probe·cap rows of D bf16 and does 2·256 flops per element,
 // 256 flops per byte, under the ~295 at which the card stops being memory
 // bound; the four 64-query items of a tile read the same slabs, mostly from
-// L2.
-// bf16, int8 (with or without row scales) and bf16 queries on int8 codes
-// (asym, asym_rows: the reference's ScaNN searcher) run wgmma_topk.cuh's
-// kernel (topk_wgmma<F, S, E, Slabs>), K1's: persistent CTAs over (probe
-// split, 64-query tile) items, the queries resident, the slab tiles by TMA
-// from one 2-D tensor map over the leaf-contiguous bank (a tile is the box
-// at row s·cap + m0), two consumer warpgroups on wgmma, the batched select
-// in registers and global scratch, the partial sets merged in a second
-// pass. asym's codes are widened to bf16 in shared memory by the consumers
-// (exact), so its wgmma and select are bf16's. f32 stays on exact FMAs
-// (ivf_topk_f32) and bf16 or asym wider than the kernel's shared memory on
-// topk_common.cuh's mma_scan (one CTA of 256 threads per 64 queries, a
-// two-stage cp.async ring whose prefetch runs across slab boundaries).
+// L2. f32 slabs move twice the bytes and take three TF32 passes.
+// f32 (3xTF32: each operand split into TF32 big and small parts,
+// tf32.cuh), bf16, int8 (with or without row scales) and bf16 queries on
+// int8 codes (asym, asym_rows: the reference's ScaNN searcher) run
+// wgmma_topk.cuh's kernel (topk_wgmma<F, S, E, Slabs>), K1's: persistent
+// CTAs over (probe split, 64-query tile) items, the queries resident (f32:
+// the item's query chunk streamed beside each slab chunk), the slab tiles
+// by TMA from one 2-D tensor map over the leaf-contiguous bank (a tile is
+// the box at row s·cap + m0), two consumer warpgroups on wgmma, the batched
+// select in registers and global scratch, the partial sets merged in a
+// second pass. asym's codes are widened to bf16 in shared memory by the
+// consumers (exact), so its wgmma and select are bf16's. bf16 or asym
+// wider than the kernel's shared memory runs topk_common.cuh's mma_scan
+// (one CTA of 256 threads per 64 queries, a two-stage cp.async ring whose
+// prefetch runs across slab boundaries).
 // Returned ids are IVF slot ids, sorted by value descending, then slot
 // ascending; unfilled slots are (-inf, 0). Probed slabs do not arrive in slot
 // order, so an equal score in a later slab may carry a lower slot: the 64-bit
@@ -89,34 +91,6 @@ __device__ __forceinline__ SlabWalk start_walk(const int* leaf_ids, const int* l
   SlabWalk w{leaf_ids + static_cast<size_t>(tile) * n_probe, leaf_valid, n_probe, n_slabs, cap};
   w.seek(0);
   return w;
-}
-
-template <int S>
-__global__ void __launch_bounds__(THREADS)
-    ivf_topk_f32(const float* __restrict__ q, const float* __restrict__ bank,
-                 const float* __restrict__ scale, const int* __restrict__ leaf_ids,
-                 const int* __restrict__ leaf_valid, float* __restrict__ out_vals,
-                 long long* __restrict__ out_idx, int nq, int n_slabs, int cap, int d, int block_q,
-                 int n_probe, int k) {
-  extern __shared__ __align__(16) float smem[];
-  float* st = smem;  // [BQ][LDS], aliases the staging buffers
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * BQ;
-
-  TopK<S> top;
-  top.init();
-  for (SlabWalk w = start_walk(leaf_ids, leaf_valid, n_slabs, cap, block_q, n_probe);
-       !w.done(); w.next()) {
-    float acc[TM][TN];
-    fma_score_tile(q, bank, q0, nq, w.row0(), w.row_end(), d, smem, acc);
-    __syncthreads();  // all reads of the staged chunks are done before st overwrites them
-    store_fma_tile(st, acc, w.n_cols(), w.row0(), scale, nullptr);
-    __syncthreads();
-    top.merge_tile(st, q0, nq, w.row0(), warp, lane);
-  }
-  top.emit(out_vals, out_idx, q0, nq, k, warp, lane);
 }
 
 template <class F, int S>
@@ -191,10 +165,11 @@ int launch(const void* q, const void* bank, const float* scale, const void* leaf
            int d, int block_q, int n_probe, int k, int form, void* parts, void* thr, void* work,
            int work_ctas, int probe_splits, cudaStream_t stream) {
   switch (form) {
-    case 0:
-      return launch_one<float, float>(ivf_topk_f32<S>, FMA_SMEM, q, bank, scale, leaf_ids,
-                                      leaf_valid, out_vals, out_idx, nq, n_slabs, cap, d,
-                                      block_q, n_probe, k, stream);
+    case 0:  // f32 keeps no queries resident: every depth fits
+      return launch_wgmma<wg::F32, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid,
+                                                 out_vals, out_idx, parts, thr, work, work_ctas,
+                                                 nq, n_slabs, cap, d, block_q, n_probe, k,
+                                                 probe_splits, stream);
     case 1:
       if (wg::smem_at<wg::Bf16>(d) == 0)  // the queries do not fit: mma_scan
         return launch_one<__nv_bfloat16, __nv_bfloat16>(
@@ -266,10 +241,11 @@ extern "C" int ivf_topk_launch(const void* q, const void* bank, const float* sca
   }
 }
 
-// Dynamic shared memory the wgmma kernel of `form` (1 bf16, 2 int8, 3 bf16
-// queries on int8 codes) asks for at depth d; 0: that call runs mma_scan
-// (or f32's FMA kernel), without scratch.
+// Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
+// 3 bf16 queries on int8 codes) asks for at depth d; 0: that call runs
+// mma_scan, without scratch.
 extern "C" int ivf_topk_wgmma_smem(int d, int form) {
+  if (form == 0) return wg::smem_at<wg::F32>(d);
   if (form == 1) return wg::smem_at<wg::Bf16>(d);
   if (form == 2) return wg::smem_at<wg::S8>(d);
   return form == 3 ? wg::smem_at<wg::Asym>(d) : 0;

@@ -1,6 +1,6 @@
 // Device code shared by K1 (knn_topk.cu) and K2 (ivf_topk.cu): the running
-// top-k of 64-bit keys, the f32 FMA score tile (K2's f32), and the mma.sync score
-// tile (bf16, and bf16 queries on int8 codes) fed by a two-stage
+// top-k of 64-bit keys, and the mma.sync score tile (bf16, and bf16
+// queries on int8 codes wider than the wgmma kernel takes) fed by a two-stage
 // cp.async ring, with the score epilogue of the TPU kernels' forms. The
 // keys (make_key) are the one definition of the tie order: the wgmma
 // kernel of K1 and K2 (wgmma_topk.cuh, built on hopper.cuh) selects the same
@@ -47,18 +47,6 @@ constexpr int ROWS_PER_WARP = BQ / WARPS;  // 8 queries per warp
 constexpr int LDS = BM + 1;                // score tile [BQ][LDS] (f32)
 constexpr int CAND = BM / 32;              // tile columns per lane
 constexpr unsigned FULL = 0xffffffffu;
-
-// f32 FMA path: depth chunks of BK staged transposed as f32.
-constexpr int BK = 32;
-constexpr int TM = 4;        // micro-tile rows (queries)
-constexpr int TN = 8;        // micro-tile cols (bank rows)
-constexpr int LDQ = BQ + 4;  // staged query chunk [BK][LDQ]
-constexpr int LDB = BM + 4;  // staged bank chunk  [BK][LDB]
-static_assert((BQ / TM) * (BM / TN) == THREADS, "micro-tiles must cover the tile");
-constexpr size_t FMA_SMEM =
-    (BK * LDQ + BK * LDB > BQ * LDS ? BK * LDQ + BK * LDB : BQ * LDS) * sizeof(float);
-
-// Tensor-core path: see the forms below the FMA path.
 
 typedef unsigned long long u64;
 
@@ -208,68 +196,6 @@ struct TopK {
   }
 };
 
-// ---------------------------------------------------------------------------
-// f32 inputs: FMA score tile.
-// ---------------------------------------------------------------------------
-
-// Stage rows [row0, row0 + ROWS) x depth [k0, k0 + BK) of a row-major
-// (n_rows, d) f32 matrix into dst[BK][ld], transposed; zeros outside.
-// d is a multiple of 4, so a float4 is wholly in or out.
-template <int ROWS>
-__device__ __forceinline__ void stage_f32(const float* __restrict__ src, int row0,
-                                          int n_rows, int d, int k0, float* dst, int ld) {
-  constexpr int PER_ROW = BK / 4;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 4;
-    const int gr = row0 + r;
-    const int gk = k0 + c;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (gr < n_rows && gk < d) v = *reinterpret_cast<const float4*>(src + static_cast<size_t>(gr) * d + gk);
-    dst[(c + 0) * ld + r] = v.x;
-    dst[(c + 1) * ld + r] = v.y;
-    dst[(c + 2) * ld + r] = v.z;
-    dst[(c + 3) * ld + r] = v.w;
-  }
-}
-
-// Score queries [q0, q0 + BQ) against bank rows [m0, m0 + BM) over the
-// whole depth into this thread's TM×TN micro-tile; rows at or past m_lim
-// (and queries at or past nq) read as zeros. `smem` holds the staged chunks
-// and doubles as the score tile afterwards: the caller syncs before writing it.
-__device__ __forceinline__ void fma_score_tile(const float* __restrict__ q,
-                                               const float* __restrict__ bank, int q0, int nq,
-                                               int m0, int m_lim, int d, float* smem,
-                                               float (&acc)[TM][TN]) {
-  float* qs = smem;             // [BK][LDQ]
-  float* bs = smem + BK * LDQ;  // [BK][LDB]
-  const int tx = threadIdx.x % (BM / TN);  // bank-column group
-  const int ty = threadIdx.x / (BM / TN);  // query-row group
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    __syncthreads();  // earlier readers of the shared buffers are done
-    stage_f32<BQ>(q, q0, nq, d, k0, qs, LDQ);
-    stage_f32<BM>(bank, m0, m_lim, d, k0, bs, LDB);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&qs[kk * LDQ + ty * TM]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk * LDB + tx * TN]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk * LDB + tx * TN + 4]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
 // The score of an accumulator for bank row `row` (see the header): scale,
 // then bias, when given; __fmul_rn/__fsub_rn keep the two roundings apart.
 __device__ __forceinline__ float epilogue(float v, int row, const float* __restrict__ scale,
@@ -277,23 +203,6 @@ __device__ __forceinline__ float epilogue(float v, int row, const float* __restr
   if (scale != nullptr) v = __fmul_rn(v, scale[row]);
   if (bias != nullptr) v = __fsub_rn(v, bias[row]);
   return v;
-}
-
-// Write the micro-tiles to the score tile st[BQ][LDS] through the epilogue
-// (the tile's first bank row is row0); columns at or past `n_cols` score -inf.
-__device__ __forceinline__ void store_fma_tile(float* st, const float (&acc)[TM][TN],
-                                               int n_cols, int row0, const float* scale,
-                                               const float* bias) {
-  const int tx = threadIdx.x % (BM / TN);
-  const int ty = threadIdx.x / (BM / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx * TN + j;
-      st[(ty * TM + i) * LDS + c] =
-          (c < n_cols) ? epilogue(acc[i][j], row0 + c, scale, bias) : neg_inf();
-    }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 // The Hopper score-and-select tile of K1 (knn_topk.cu) and K2 (ivf_topk.cu):
 // one persistent kernel template, topk_wgmma<Form, S, Epi, Items>, that
-// scores 64 resident queries against 128-row bank tiles with wgmma fed by
-// TMA rings and keeps each query's running top set with a batched select.
+// scores 64 queries (resident; F32's streamed chunk by chunk beside the
+// bank) against 128-row bank tiles with wgmma fed by TMA rings and keeps
+// each query's running top set with a batched select. Every form of K1 and
+// of K2 runs it; only bf16 and asym banks too wide for its shared memory
+// take topk_common.cuh's mma_scan.
 //
 // - Items hand out the work: K1's (bank split, 64-query tile), K2's (probe
 //   split, 64-query tile), split-major, so the CTAs in flight read the same
@@ -27,7 +30,9 @@
 //   (64 rows x 32 f32) beside the bank chunk (128 rows), both by TMA, and
 //   the query chunk is read again from L2 for every bank tile (half the
 //   tile's bytes again; a bank split ahead of the search would cost two
-//   more banks, 63 GB at 10.24M rows). The consumer splits the query chunk
+//   more banks, 63 GB at 10.24M rows). K2's f32 slab tiles go the same
+//   way: a tile that ends at its slab's leaf_valid is loaded whole and its
+//   columns past it never selected; D % 32 != 0 scores TMA's zero fill. The consumer splits the query chunk
 //   into big and small A fragments in registers and the bank chunk in place
 //   into big, with small into a 128-row tile of its own at the same offsets
 //   (so the same swizzle), then issues small·big + big·small + big·big per

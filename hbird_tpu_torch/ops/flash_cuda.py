@@ -5,6 +5,10 @@ Pallas TPU flash attention). The kernel source is ops/csrc/flash_attn.cu;
 ops/cuda_build.py compiles it with `nvcc` for sm_90a into a shared library
 with a plain C interface at first use, and it is loaded with ctypes.
 
+bf16 at head widths 32 and 64 runs the Hopper kernel (`wgmma` on TMA rings
+with a producer warp), bf16 at 80 a `mma.sync` kernel, f32 3xTF32 on
+`mma.sync`; `route` names the one a call runs.
+
 `flash_attention` takes the kernel for CUDA tensors and the plain version
 (ops/flash.py::flash_attention_plain) for CPU tensors, and nothing else: a
 CUDA tensor either launches the kernel or raises. `flash_attention.launches`
@@ -19,7 +23,7 @@ returned as a (B, H, N, hd) view, so `out.transpose(1, 2).reshape(B, N, D)`
 merges the heads without a copy either.
 
 The kernel has no backward (the library TPU kernel's backward, K3-bwd, is
-not ported: ROADMAP queue 2, item 4), so on the card `flash_attention`
+not ported: ROADMAP queue 2, its last item), so on the card `flash_attention`
 raises when autograd would record it (grad mode on and q, k or v requiring
 grad) rather than return an output that looks differentiable and is not.
 Under `torch.no_grad()` or `torch.inference_mode()`, as the engine runs,
@@ -37,6 +41,7 @@ from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.flash import flash_attention_plain
 
 HEAD_DIMS = (32, 64, 80)  # the kernel's widths: every VIT_PRESETS head width
+WGMMA_HEAD_DIMS = (32, 64)  # bf16 widths on the wgmma kernel
 MAX_BATCH_HEADS = 65535  # the grid's second dimension
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -45,6 +50,15 @@ _ARGTYPES = (
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 )
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call at this dtype and head width runs: 'wgmma'
+    (bf16 at hd 32 and 64), 'mma.sync' (bf16 at hd 80) or 'mma.sync 3xTF32'
+    (f32)."""
+    if dtype == torch.float32:
+        return "mma.sync 3xTF32"
+    return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma.sync"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -84,7 +98,7 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
-            "the K3 kernel has no backward (K3-bwd, ROADMAP queue 2, item 4): call it under "
+            "the K3 kernel has no backward (K3-bwd, the last item of ROADMAP queue 2): call it under "
             "torch.no_grad() or torch.inference_mode(), or on CPU tensors for gradients"
         )
     b, h, n, hd = q.shape

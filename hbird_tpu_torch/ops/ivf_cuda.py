@@ -8,12 +8,15 @@ ops/csrc/ivf_topk.cu; ops/cuda_build.py compiles it with `nvcc` for sm_90a
 into a shared library with a plain C interface at first use, and it is
 loaded with ctypes.
 
-bf16, int8 (with or without row scales) and bf16 queries on int8 codes
-(asym, asym_rows) run K1's persistent wgmma kernel over (probe split,
-64-query tile) items (ops/csrc/wgmma_topk.cuh), where the queries fit its
-shared memory; `plan_probe_splits` cuts each tile's probe list so the rounds
-of items fill the SMs, and the partial sets are merged in a second pass.
-f32 runs an FMA kernel, wider bf16 and asym banks the mma.sync kernel.
+Every form runs K1's persistent wgmma kernel over (probe split, 64-query
+tile) items (ops/csrc/wgmma_topk.cuh) where its queries fit the kernel's
+shared memory: f32 (3xTF32, its query chunks streamed beside the slab
+chunks, so every depth fits), bf16, int8 (with or without row scales) and
+bf16 queries on int8 codes (asym, asym_rows). `plan_probe_splits` cuts each
+tile's probe list so the rounds of items fill the SMs, and the partial sets
+are merged in a second pass. bf16 and asym banks wider than the kernel's
+shared memory take the mma.sync kernel (`knn_cuda.route(lib, queries, bank,
+"ivf_topk")` names the one a call runs).
 
 `ivf_topk` takes the kernel for CUDA tensors and the plain version
 (ops/ivf.py::ivf_search_plain) for CPU tensors, and nothing else: a CUDA

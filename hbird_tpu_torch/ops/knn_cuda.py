@@ -143,12 +143,13 @@ def form_name(queries: torch.Tensor, bank: torch.Tensor, l2: bool, row_scale) ->
     return base + ("_rows" if row_scale is not None else "")
 
 
-def route(lib, queries: torch.Tensor, bank: torch.Tensor) -> str:
-    """The kernel a CUDA call of these operands runs, by shape alone:
-    'wgmma' where the form's queries fit the wgmma kernel's shared memory
-    at this depth, else 'mma_scan'."""
+def route(lib, queries: torch.Tensor, bank: torch.Tensor, prefix: str = "knn_topk") -> str:
+    """The kernel a CUDA call of these operands runs in `lib` (K1's, or K2's
+    with prefix 'ivf_topk'), by shape alone: 'wgmma' where the form's
+    queries fit the wgmma kernel's shared memory at this depth (every f32
+    and int8 depth), else 'mma_scan'."""
     form = FORMS[(queries.dtype, bank.dtype)]
-    return "wgmma" if wgmma_smem(lib, "knn_topk", queries.shape[1], form) > 0 else "mma_scan"
+    return "wgmma" if wgmma_smem(lib, prefix, queries.shape[1], form) > 0 else "mma_scan"
 
 
 def _check(queries, bank, k, valid_rows, distance, row_scale) -> None:

@@ -48,6 +48,8 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "FLASH_LONG", (1, 2, 130, 64))
     monkeypatch.setattr(mod, "FLASH_NARROW", (2, 2, 20, 32))
     monkeypatch.setattr(mod, "FLASH_WIDE", (2, 2, 20, 80))
+    monkeypatch.setattr(mod, "NARROW_INPUT", 64)
+    monkeypatch.setattr(mod, "NARROW_ROUNDS", 3)
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
@@ -85,8 +87,9 @@ def test_phases_rehearse_on_cpu(smoke):
     assert smoke.quantized_ivf_cases(gen) == 0.0
     runs, launches, err, tree, q, bank, main_tree, f32 = smoke.main_path(gen_seed=0)
     # scann x 2, int8_rows, int8+rerank, l2, faiss (f32 bank), faiss int8_asym on K1;
-    # ivf x 2, scann-literal on K2
-    assert launches == {"knn_topk": 7, "ivf_topk": 3} and err == {"K1": 0.0, "K2": 0.0}
+    # ivf x 2, scann-literal, ivf f32 (the f32 tree) on K2
+    assert launches == {"knn_topk": 7, "ivf_topk": 4} and err == {"K1": 0.0, "K2": 0.0}
+    assert runs["ivf f32"]["forms"]["ivf_topk"] == {"f32": 1}
     assert set(runs) == {"scann unbounded", "scann bounded 64", "ivf unbounded", "ivf bounded 64",
                          *smoke.QUANT_RUNS}
     for label, run in runs.items():
@@ -127,6 +130,10 @@ def test_phases_rehearse_on_cpu(smoke):
     assert k1_rows["int8 main"]["bound_by"] == k1_rows["main"]["bound_by"]
     assert err_timing == {"K1": 0.0, "K2": 0.0}
     assert k2_rows["bank_3000"]["cap"] == 256 and k2_rows["main"]["block_q"] == 256
+    for size in sizes:  # K2 f32 on f32 trees: 3xTF32 bound below the FMA bound, one pass misses
+        row = k2_rows[f"f32 {size}"]
+        assert row["route"] == "plain" and row["bound_ms"] <= row["fma_bound_ms"]
+        assert row["one_tf32_pass_misses"] > 0.0 and row["form"] == "f32"
     assert json.dumps([k1_rows, k2_rows])
     select = smoke.k1_select_rows(q, bank)
     assert len(select) == 4 and all(0.0 < r["rows_above_kth"] <= 1.0 for r in select.values())
@@ -148,17 +155,29 @@ def test_flash_phases_rehearse_on_cpu(smoke):
     gen = torch.Generator().manual_seed(0)
     assert smoke.flash_cases(gen) == 0.0
     runs, launches, token_err, err = smoke.flash_path(gen_seed=0)
-    # dino_vits16: 12 blocks x (2 train + 1 val batches of 4), in bf16 and in f32
-    for dt in ("bf16", "f32"):
-        assert launches[f"{dt} flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 36}
-        assert launches[f"{dt} xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
-        assert runs[f"scann unbounded, {dt} ViT, attention_impl='flash'"]["forms"]["flash_attention"] == {dt: 36}
-    assert err == 0.0 and len(runs) == 4
+    # dino_vits16: 12 blocks x (2 train + 1 val batches of 4), in bf16 and in f32;
+    # mocov3_vits16 (head width 32): 12 blocks x 3 batches in bf16
+    narrow = "mocov3_vits16 at 64, "
+    for prefix, dt in (("", "bf16"), ("", "f32"), (narrow, "bf16")):
+        assert launches[f"{prefix}{dt} flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 36}
+        assert launches[f"{prefix}{dt} xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
+        label = f"scann unbounded, {prefix}{dt} ViT, attention_impl='flash'"
+        assert runs[label]["forms"]["flash_attention"] == {dt: 36}
+    assert err == 0.0 and len(runs) == 6
     for run in runs.values():
         assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
     assert token_err["float32"]["max"] <= 1e-4 and token_err["bfloat16"]["mean"] <= 1e-2
+    assert token_err[f"{narrow}bfloat16"]["max"] <= 0.1 and set(token_err) == {"float32", "bfloat16",
+                                                                                  f"{narrow}bfloat16"}
     rows, err = smoke.flash_timing(gen)
     assert err == 0.0 and set(rows) == {"main", "f32", "long", "hd32", "hd80"}
+    routes = {label: row["route"] for label, row in rows.items()}
+    assert routes == {"main": "wgmma", "f32": "mma.sync 3xTF32", "long": "wgmma", "hd32": "wgmma",
+                      "hd80": "mma.sync"}
+    hd32 = rows["hd32"]  # timed in turns with SDPA: medians, and the spread of each
+    assert hd32["rounds"] == 3 and hd32["graph_ms"] > 0 and hd32["library_graph_ms"] > 0
+    assert hd32["ms"] == hd32["spread"]["kernel"]["ms"]["median"]
+    assert hd32["spread"]["sdpa"]["graph_ms"]["min"] <= hd32["library_graph_ms"] <= hd32["spread"]["sdpa"]["graph_ms"]["max"]
     assert rows["main"]["bound_by"] == "bytes" and rows["main"]["dtype"] == "bfloat16"
     assert rows["long"]["shape"] == [1, 2, 130, 64] and rows["long"]["dtype"] == "bfloat16"
     assert rows["hd80"]["shape"] == [2, 2, 20, 80] and rows["hd32"]["dtype"] == "bfloat16"
@@ -421,25 +440,31 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 
 def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
-    """The --pairs timing: K3 bf16 and f32 at the main and long shapes, K1
-    bf16 dot and l2, int8 and int8_rows at each k of PAIR_KS, f32 at k 30
-    and 120, asym and asym_rows at k 30 on both banks, and K2 bf16 and
-    asym_rows on a tree of each bank, each with its bound and library time,
-    as one JSON-ready result."""
+    """The --pairs timing: K3 bf16 and f32 at the main and long shapes and
+    bf16 at hd 32 (in turns with SDPA), K1 bf16 dot and l2, int8 and
+    int8_rows at each k of PAIR_KS, f32 at k 30 and 120, asym and asym_rows
+    at k 30 on both banks, and K2 bf16 and asym_rows on a tree of each bank
+    and f32 on an f32 tree of each, each with its bound and library time, as
+    one JSON-ready result."""
     monkeypatch.setattr(smoke, "PAIR_Q", 40)
     monkeypatch.setattr(smoke, "PAIR_M", 500)
     out = smoke.pairs("here")
     assert out["tree"] == "here" and pathlib.Path(out["package"]) == ROOT / "hbird_tpu_torch"
-    assert set(out["k3"]) == {f"{dt} {s}" for dt in ("bf16", "f32")
-                              for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")}
+    assert set(out["k3"]) == {*(f"{dt} {s}" for dt in ("bf16", "f32") for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")),
+                              "bf16 (2, 2, 20, 32)"}
+    narrow = out["k3"]["bf16 (2, 2, 20, 32)"]  # hd 32 in turns with SDPA, host-launched and in a graph
+    assert narrow["route"] == "wgmma" and narrow["graph_ms"] > 0 and narrow["library_graph_ms"] > 0
     assert set(out["k1"]) == {*(f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
                                 for k in smoke.PAIR_KS),
                               *(f"{f} Q=40 M={m} k={k}" for f in ("int8", "int8_rows") for m in (500, 3000)
                                 for k in smoke.PAIR_KS),
                               *(f"f32 Q=40 M={m} k={k}" for m in (500, 3000) for k in (30, 120)),
                               *(f"{f} Q=40 M={m} k=30" for f in ("asym", "asym_rows") for m in (500, 3000))}
-    assert len(out["k2"]) == 4
-    assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows", "asym_rows", "bf16", "bf16"]
+    assert len(out["k2"]) == 6
+    assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows", "asym_rows", "bf16", "bf16", "f32",
+                                                               "f32"]
+    f32 = [row for label, row in out["k2"].items() if label.startswith("f32")]
+    assert all(row["bound_ms"] > 0 and row["library_ms"] > 0 for row in f32)
     assert out["k3"]["f32 (2, 2, 40, 32)"]["bound_ms"] == smoke.k3_bound((2, 2, 40, 32), torch.float32)[0]
     assert all(len(row["digest"]) == 16 for row in out["k3"].values())  # the outputs' bytes, hashed
     for row in [*out["k3"].values(), *out["k1"].values(), *out["k2"].values()]:

@@ -147,9 +147,9 @@ def test_flash_vit_on_the_card_matches_the_cpu(cuda_device, dtype):
 @pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 1370, 4625])
 def test_sequence_edges(cuda_device, n, hd, dtype):
-    """Every edge of the 64-key (f32; bf16 at hd 32, 80) and 128-key (bf16
-    at hd 64) tiles and of the 64- and 128-query blocks, against the plain
-    version."""
+    """Every edge of the 64-key (f32; bf16 at hd 80) and 128-key (bf16 at
+    hd 32 and 64) tiles and of the 64- and 128-query blocks, against the
+    plain version."""
     q, k, v = _qkv((2, 3, n, hd), seed=n + hd, device=cuda_device, dtype=dtype)
     out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
     torch.cuda.synchronize()
@@ -173,6 +173,29 @@ def test_strided_qkv_views_of_every_width(cuda_device, hd, dtype):
     dense = flash_cuda.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), hd**-0.5)
     torch.cuda.synchronize()
     assert torch.equal(out, dense)
+    assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
+
+
+@pytest.mark.parametrize("n", [1, 65, 197, 1025])
+def test_bf16_hd32_runs_the_wgmma_kernel(cuda_device, n):
+    """mocov3_vits16's width (12 heads of 32; N = 197 at its 224 input,
+    1,025 at 512) on the wgmma kernel (64-byte rows, the 64-byte swizzle),
+    dense and as the ViT's strided views of its qkv projection: the views
+    read in place give the dense copies' output bit for bit, and both hold
+    the plain version's tolerance."""
+    assert flash_cuda.route(torch.bfloat16, 32) == "wgmma"
+    b, h, hd = 4, 12, 32
+    rng = np.random.default_rng(n)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * hd), dtype=np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16).reshape(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    assert flash_cuda._kernel_layout(q, k, v)
+    before = flash_cuda.flash_attention.forms["bf16"]
+    out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
+    dense = flash_cuda.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), hd**-0.5)
+    torch.cuda.synchronize()
+    assert flash_cuda.flash_attention.forms["bf16"] == before + 2
+    assert torch.isfinite(out).all() and torch.equal(out, dense)
     assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
 
 

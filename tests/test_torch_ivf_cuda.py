@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from hbird_tpu_torch.ops import ivf, ivf_cuda
+from hbird_tpu_torch.ops import cuda_build, ivf, ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
 pytestmark = pytest.mark.cuda
@@ -309,6 +309,58 @@ def test_wgmma_forms_over_probe_splits(cuda_device, form, k):
         # within twice the tolerance (the sums run in another order)
         same = (torch.sort(ki, 1).values == torch.sort(pi, 1).values).all(1)
         assert (same | (pv[:, -1] - nxt <= 2 * tol)).all()
+
+
+def _f32_tree(k, d, dev):
+    """An f32 tree of 40 slabs of cap 264 (not a multiple of 128: a slab's
+    second tile box runs into the next slab's rows) at depth d, rows of
+    norms 0.2-3.0 (real f32 values: the split's small parts are not 0),
+    ragged leaf_valid with an empty slab, one of 5 rows, one cut at 128 and
+    a full one, and an id out of range in every third tile's probe list;
+    44 tiles of 256 queries, 24 probes each."""
+    cap, n_slabs, block_q, n_probe = 264, 40, 256, 24
+    rng = np.random.default_rng(100 + k + d)
+    fill = rng.integers(1, cap + 1, n_slabs)
+    fill[:4] = [0, 5, 128, cap]
+    q, bank, lids, valid = _tree(n_slabs, cap, d, 44, n_probe, block_q, seed=k + d, fill=fill)
+    bank *= rng.uniform(0.2, 3.0, (n_slabs * cap, 1)).astype(np.float32)
+    lids[::3, 5] = n_slabs + 3  # out of range: contributes nothing
+    for t in range(1, 44, 3):  # the edge slabs, each once
+        lids[t] = np.concatenate([[3, 1, 0, 2], rng.choice(np.arange(4, n_slabs), n_probe - 4, replace=False)])
+    tol = RTOL * float(np.linalg.norm(q, axis=1).max() * np.linalg.norm(bank, axis=1).max())
+    put = lambda x: torch.from_numpy(x).to(dev)
+    return put(q), put(bank), put(lids), put(valid), cap, block_q, tol
+
+
+@pytest.mark.parametrize("d", [768, 72])
+@pytest.mark.parametrize("k", [1, 30, 33, 64, 97, 120, 128])
+def test_f32_runs_the_wgmma_kernel_over_probe_splits(cuda_device, k, d):
+    """K2 f32 (3xTF32 on the wgmma kernel) at every select size and its
+    edges, D = 768 and D = 72 (a partial 32-deep chunk), with empty,
+    5-row, tile-edge and out-of-range slabs and several probe splits in
+    flight: values within the tolerance, slot sets equal away from ties at
+    the k-th score, every slot in its tile's probed valid rows."""
+    q, bank, lids, lv, cap, block_q, tol = _f32_tree(k, d, cuda_device)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ivf_cuda.plan_probe_splits(q.shape[0], lids.shape[1], n_sm, k) > 1
+    lib = cuda_build.load("ivf_topk.cu", "ivf_topk_launch", ivf_cuda._ARGTYPES)
+    assert knn_cuda.route(lib, q, bank, "ivf_topk") == "wgmma"
+    before = ivf_cuda.ivf_topk.forms["f32"]
+    kv, ki = ivf_cuda.ivf_topk(q, bank, lids, lv, k, cap=cap, block_q=block_q)
+    plain_lids = torch.where(lids < lv.shape[0], lids, 0)  # slab 0 is empty
+    pv, pi = ivf.ivf_search_plain(q, bank, plain_lids, lv, k + 1, cap=cap)
+    torch.cuda.synchronize()
+    assert ivf_cuda.ivf_topk.forms["f32"] == before + 1
+    nxt = pv[:, k]
+    pv, pi = pv[:, :k], pi[:, :k]
+    finite = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(kv), finite) and (ki[~finite] == 0).all()
+    assert ((kv - pv).abs()[finite] <= tol).all()
+    same = (torch.sort(ki, 1).values == torch.sort(pi, 1).values).all(1)
+    assert (same | (pv[:, -1] - nxt <= 2 * tol)).all()
+    slab = ki // cap
+    tile_lids = plain_lids.long().repeat_interleave(block_q, 0)
+    assert ((tile_lids[:, :, None] == slab[:, None, :]).any(1) & (ki % cap < lv.long()[slab]) | ~finite).all()
 
 
 @pytest.mark.parametrize("splits", [1, 2, 5])
