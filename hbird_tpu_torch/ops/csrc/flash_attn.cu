@@ -18,7 +18,8 @@
 // at which the card stops being memory bound. So both products go on the
 // tensor cores, and the scores, the softmax and p never leave registers.
 // Short sequences fall under that line (mocov3_vits16 at 224, N = 197: ~98
-// flops per byte, bytes bound) and are bound by latency in practice.
+// flops per byte; mae_vith14 at 224, N = 257: ~128; bytes bound) and are
+// bound by latency in practice.
 //
 // f32 (`f32::flash_f32<HD>`, every hd): 3xTF32 on mma.sync m16n8k8, each
 // f32 operand split into TF32 big and small parts by tf32.cuh (its comment
@@ -30,13 +31,13 @@
 // V word once per warp and tile, p once per tile in registers. That costs
 // three tensor-core passes, but TF32's dense rate is ~7x the f32 FMA rate.
 // 4 warps per 64-query block, 16 rows each, 64-key tiles through a
-// two-stage cp.async ring (flash_bf16's skeleton); the
-// fragments' k order is chosen so that a lane reads q and K as float4s and
-// the s accumulator is p·v's A fragment in place (see flash_f32).
+// two-stage cp.async ring; the fragments' k order is chosen so that a lane
+// reads q and K as float4s and the s accumulator is p·v's A fragment in
+// place (see flash_f32).
 //
-// bf16 at hd = 64 (every dinov2, DINO, ViT-B/L and MAE-B/L preset; the main
-// path) and hd = 32 (mocov3_vits16), `flash_bf16_wgmma<HD>`, built from
-// hopper.cuh:
+// bf16 at every width, `flash_bf16_wgmma<HD>`, built from hopper.cuh: hd 64
+// (every dinov2, DINO, ViT-B/L and MAE-B/L preset; the main path), hd 32
+// (mocov3_vits16) and hd 80 (mae_vith14).
 // - Persistent CTAs, one per SM, walk work items (b, h, 128-query block),
 //   the blocks of one head adjacent so that its K and V stay in L2.
 // - A CTA is one producer warp (in a warpgroup that gives its registers
@@ -48,12 +49,21 @@
 //   stream in 128-key tiles through a 4-stage ring with full (K, V) and
 //   empty mbarriers, across item boundaries.
 // - s = q·kᵀ is wgmma m64n128k16 with both operands K-major in swizzled
-//   shared memory (hd 64: 128-byte rows, the 128-byte swizzle; hd 32:
-//   64-byte rows, the 64-byte swizzle, in TMA and in the descriptors);
-//   p·v is wgmma m64n{HD}k16 with p as the register A operand (cast to bf16
-//   from the s accumulator, whose layout is the A fragment's) and V as the
-//   MN-major B operand (the transpose bit; a k16 step is 16 rows of V): no
-//   ldmatrix, no shared-memory round trip of s or p.
+//   shared memory; p·v is wgmma m64n{HD}k16 with p as the register A operand
+//   (cast to bf16 from the s accumulator, whose layout is the A fragment's)
+//   and V as the MN-major B operand (the transpose bit; a k16 step is 16
+//   rows of V): no ldmatrix, no shared-memory round trip of s or p.
+// - Row layouts, in TMA and in the descriptors alike: hd 64's 128-byte rows
+//   take the 128-byte swizzle, hd 32's 64-byte rows the 64-byte one. hd
+//   80's 160-byte rows fit no swizzle row, so a tile is stored as two: head
+//   dims 0-63 (16 KiB, the 128-byte swizzle, as at hd 64) and head dims
+//   64-79 (4 KiB, 32-byte rows, the 32-byte swizzle), each filled by its
+//   own tensor map (box {64, 128} at column 0, box {16, 128} at column 64)
+//   and both completing on the tile's mbarrier (20,480 bytes). q·kᵀ is then
+//   four k16 steps in the first part and one in the second; p·v is, per
+//   16-key step, m64n64k16 on the first part and m64n16k16 on the second,
+//   into one 40-float accumulator whose last 8 are head dims 64-79. Q plus
+//   the K/V ring take 10 such tiles (Q double-buffered): 201 KiB.
 // - Online softmax in f32 registers with exp2 of s·scale·log2(e), the sum
 //   divided out once at the end; key columns at or past N score -inf.
 // - Overlap, both kept by measurement (PERF.md): the next tile's q·kᵀ is
@@ -75,10 +85,25 @@
 //   pass got 25% cheaper, and the ring already streams K and V from L2 one
 //   item ahead, so kept out. Any N runs (mocov3_vits16 at 512: N = 1,025,
 //   9 key tiles).
-// hd 80 (mae_vith14, whose 160-byte rows fit no swizzle row) keeps
-// `flash_bf16<80>`: 4 warps per 64-query block on mma.sync m16n8k16, fed by
-// a two-stage cp.async ring of 64-key tiles, p re-packed from registers
-// into the A operand. The choice is made by hd in flash_attn_launch.
+// - hd 80 at N = 257 (mae_vith14 at 224) is short work too: 257 = 2·128 + 1,
+//   so a head is three query blocks (the third holding one row) and three
+//   key tiles (the third holding one key): 768 items at batch 16, and
+//   (384/257)² = 2.2x the useful (query, key) pairs. Q is double-buffered
+//   as at hd 32. Its time follows the rounds of items too (phase 7, in a
+//   CUDA graph: ~5.5-6 µs a round, ~3 µs fixed), and the one-key tail cost
+//   0.039 ms at N = 257 against 0.023 at N = 256. Cutting work inside the
+//   tail items alone moved nothing: with 132 CTAs striding over 3 blocks a
+//   head, every CTA keeps one block index, so the third blocks all sit on
+//   a third of the CTAs and the others run 6 full items each. So at hd 80
+//   (tail_cuts), measured together on an H100 (0.0393 -> 0.0348 ms):
+//   (1) the last query block of every head is ordered after all other
+//   blocks (item_coords), so the short items spread over every CTA (4 full
+//   and 2 short items at most, where there were 6 full); (2) a consumer
+//   warpgroup whose 64 rows all lie at or past N issues no products and
+//   only keeps its turns and barrier arrivals; (3) a last key tile of at
+//   most 16 keys takes one p·v step, not 8. Scoring such a tile on
+//   m64n16k16 instead of m64n128k16 made ptxas serialise every wgmma of
+//   the kernel for want of registers (C7511), 20% slower: not kept.
 //
 // Design of the rest: the TPU grid's sequential key axis becomes the loop
 // over key tiles inside the CTA, with the running max m, the sum l and the
@@ -91,25 +116,18 @@
 
 #include "hopper.cuh"
 #include "tf32.cuh"
-#include "topk_common.cuh"  // cp_async16, ldmatrix_x4, mma_bf16, allow_smem, neg_inf
+#include "topk_common.cuh"  // cp_async16, allow_smem, neg_inf, FULL
 
 namespace {
 
-constexpr int FQ = 64;  // queries per CTA
-constexpr int FK = 64;  // keys per tile
-constexpr int BF16_THREADS = 128;
+constexpr int FQ = 64;  // queries per CTA (f32)
+constexpr int FK = 64;  // keys per tile (f32)
 
 // q/k/v (shared) and o strides, in elements.
 struct Layout {
   long long sb, sh, sn;
   long long ob, oh, on;
 };
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -134,169 +152,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.
-// ---------------------------------------------------------------------------
-
-template <int HD>
-__global__ void __launch_bounds__(BF16_THREADS)
-    flash_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int heads,
-               int n, Layout lay, float scale) {
-  constexpr int LD = HD + 8;  // 16-byte pad: ldmatrix's eight rows hit distinct banks
-  constexpr int KSTEPS = HD / 16;
-  constexpr int DT = HD / 8;  // n8 tiles of the output row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [FQ][LD]
-  __nv_bfloat16* ks = qs + FQ * LD;                                 // [2][FK][LD]
-  __nv_bfloat16* vs = ks + 2 * FK * LD;                             // [2][FK][LD]
-
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * FQ;
-  const long long off = b * lay.sb + h * lay.sh;
-  q += off;
-  k += off;
-  v += off;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  load_tile<HD, LD>(qs, q, q0, n, lay.sn, BF16_THREADS);
-  load_tile<HD, LD>(ks, k, 0, n, lay.sn, BF16_THREADS);
-  load_tile<HD, LD>(vs, v, 0, n, lay.sn, BF16_THREADS);
-  asm volatile("cp.async.commit_group;\n" ::);
-
-  unsigned qa[KSTEPS][4];  // the warp's 16 query rows as A fragments
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-  // Rows g = lane/4 (elements 0, 1) and g + 8 (elements 2, 3) of the warp.
-  float m[2] = {neg_inf(), neg_inf()};
-  float l[2] = {0.0f, 0.0f};  // this lane's share of the row sums
-
-  const int n_tiles = (n + FK - 1) / FK;
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {  // prefetch the next K/V tile into the other stage
-      const int st = (t + 1) & 1;
-      load_tile<HD, LD>(ks + st * FK * LD, k, (t + 1) * FK, n, lay.sn, BF16_THREADS);
-      load_tile<HD, LD>(vs + st * FK * LD, v, (t + 1) * FK, n, lay.sn, BF16_THREADS);
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // this tile's copies are visible to every warp
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(qa[kk], qs + row * LD + kk * 16 + (lane >> 4) * 8);
-      }
-    }
-    const __nv_bfloat16* kt = ks + (t & 1) * FK * LD;
-    const __nv_bfloat16* vt = vs + (t & 1) * FK * LD;
-
-    // s = q·kᵀ: 16 rows × 64 keys per warp, 8 n8 tiles.
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        unsigned r[4];
-        const int row = j * 16 + (lane >> 4) * 8 + (lane & 7);
-        ldmatrix_x4(r, kt + row * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j], qa[kk], r[0], r[1]);
-        mma_bf16(s[2 * j + 1], qa[kk], r[2], r[3]);
-      }
-    }
-
-    // Scale, mask the ragged edge, and take the tile's row maxima.
-    const int col0 = t * FK + (lane & 3) * 2;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + j * 8 + (e & 1);
-        s[j][e] = col < n ? s[j][e] * scale : neg_inf();
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      alpha[i] = __expf(m[i] - mx[i]);  // 0 on the first tile (m = -inf)
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // o += p·v: the accumulator layout of two n8 score tiles is the A
-    // fragment of one 16-key step.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const unsigned pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        unsigned r[4];
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(r, vt + key * LD + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pa, r[0], r[1]);
-        mma_bf16(acc[2 * dp + 1], pa, r[2], r[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  // Normalise once and store the rows below n.
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(FULL, l[i], 1);
-    l[i] += __shfl_xor_sync(FULL, l[i], 2);
-    inv[i] = 1.0f / l[i];
-  }
-  o += b * lay.ob + h * lay.oh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + (lane >> 2) + i * 8;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = j * 8 + (lane & 3) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(o + row * lay.on + col) =
-          __floats2bfloat162_rn(acc[j][2 * i] * inv[i], acc[j][2 * i + 1] * inv[i]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16, hd = 32 and 64: wgmma on TMA-fed rings with a producer warp.
+// bf16: wgmma on TMA-fed rings with a producer warp.
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -306,11 +162,34 @@ constexpr int BKV = 128;                // keys per tile
 constexpr int STAGES = 4;               // K/V ring depth
 constexpr int THREADS = 384;            // producer warpgroup + two consumer warpgroups
 
-// Q tiles in flight: at hd 32 an item is short (two key tiles at N = 197),
-// so the next item's Q is loaded while this one runs; hd 64 keeps one.
+// A row's head dims in the tile's first part (128- or 64-byte swizzle) and
+// in its second (hd 80's dims 64-79, the 32-byte swizzle; none otherwise).
+template <int HD>
+__host__ __device__ constexpr int lo_dims() {
+  return HD == 80 ? 64 : HD;
+}
+template <int HD>
+__host__ __device__ constexpr int hi_dims() {
+  return HD - lo_dims<HD>();
+}
+template <int HD>
+__host__ __device__ constexpr int lo_bytes() {
+  return BKV * lo_dims<HD>() * 2;
+}
+
+// The ragged tail's cuts (1)-(3) of the header: hd 80 only, so hd 32 and
+// 64 keep their code and their bits.
+template <int HD>
+__host__ __device__ constexpr bool tail_cuts() {
+  return HD == 80;
+}
+
+// Q tiles in flight: at hd 32 and 80 an item is short (two and three key
+// tiles at N = 197 and 257), so the next item's Q is loaded while this one
+// runs; hd 64 keeps one.
 template <int HD>
 __host__ __device__ constexpr int q_buffers() {
-  return HD == 32 ? 2 : 1;
+  return HD == 64 ? 1 : 2;
 }
 
 // A K or V tile, and the Q tile: 128 rows of HD bf16.
@@ -324,12 +203,52 @@ __host__ __device__ constexpr int smem_bytes() {
   return hopper::SMEM_ALIGN + tile_bytes<HD>() * (q_buffers<HD>() + 2 * STAGES) + 256;
 }
 
-// A tile's descriptor: 128-byte rows (hd 64) take the 128-byte swizzle,
-// 64-byte rows (hd 32) the 64-byte one.
+// The tensor maps of q, k and v (the tiles' first parts), then, at hd 80,
+// of their head dims 64-79.
+template <int HD>
+struct Maps {
+  static constexpr int COUNT = hi_dims<HD>() ? 6 : 3;
+  CUtensorMap m[COUNT];
+};
+
+// The descriptor of a tile's first part: 128-byte rows (hd 64, hd 80's
+// dims 0-63) take the 128-byte swizzle, 64-byte rows (hd 32) the 64-byte
+// one. The second part's 32-byte rows take hopper::sw32_desc.
 template <int HD>
 __device__ __forceinline__ uint64_t desc(const void* p) {
-  if constexpr (HD == 64) return hopper::sw128_desc(p);
-  return hopper::sw64_desc(p);
+  if constexpr (HD == 32) return hopper::sw64_desc(p);
+  return hopper::sw128_desc(p);
+}
+
+// Rows row0.. of (b, h) of tensor i (0 q, 1 k, 2 v) into the tile at dst,
+// completing on bar: one TMA copy a part.
+template <int HD>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const Maps<HD>& maps, int i,
+                                         uint64_t* bar, int row0, int h, int b) {
+  hopper::tma_load_4d(dst, &maps.m[i], bar, 0, row0, h, b);
+  if constexpr (hi_dims<HD>() > 0)
+    hopper::tma_load_4d(dst + lo_bytes<HD>(), &maps.m[3 + i], bar, lo_dims<HD>(), row0, h, b);
+}
+
+// Work item -> (b·heads + h, query block): heads in order, the blocks of
+// one head adjacent; with the tail cuts (1) the last block of every head
+// comes after every other block, so that those short items spread over
+// all CTAs.
+template <int HD>
+__device__ __forceinline__ void item_coords(int item, int n_qblocks, int n_items, int& bh, int& qb) {
+  if constexpr (tail_cuts<HD>()) {
+    const int full = n_items - n_items / n_qblocks;  // items of the blocks before the last
+    if (item >= full) {
+      bh = item - full;
+      qb = n_qblocks - 1;
+      return;
+    }
+    bh = item / (n_qblocks - 1);
+    qb = item % (n_qblocks - 1);
+    return;
+  }
+  bh = item / n_qblocks;
+  qb = item % n_qblocks;
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -338,30 +257,41 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// s = q·kᵀ for one 128-key tile (A: the warpgroup's 64 query rows), HD/16
-// k16 steps of 32 bytes inside the rows.
+// s = q·kᵀ for one 128-key tile (A: consumer warpgroup cw's 64 query rows
+// of the Q tile qt): k16 steps of 32 bytes inside the rows of each part.
 template <int HD>
-__device__ __forceinline__ void issue_s(float (&s)[64], const unsigned char* qa,
+__device__ __forceinline__ void issue_s(float (&s)[64], const unsigned char* qt, int cw,
                                         const unsigned char* kt) {
+  const unsigned char* qa = qt + cw * (64 * lo_dims<HD>() * 2);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+  for (int kk = 0; kk < lo_dims<HD>() / 16; ++kk)
     hopper::wgmma_m64n128k16_ss(s, desc<HD>(qa + kk * 32), desc<HD>(kt + kk * 32), kk > 0);
+  if constexpr (hi_dims<HD>() > 0)
+    hopper::wgmma_m64n128k16_ss(s, hopper::sw32_desc(qt + lo_bytes<HD>() + cw * 64 * 32),
+                                hopper::sw32_desc(kt + lo_bytes<HD>()), 1);
   hopper::wgmma_commit();
 }
 
 // o += p·v for one 128-key tile: 8 k16 steps of 16 keys (16 rows of V:
-// 2,048 bytes at hd 64, 1,024 at hd 32).
-template <int HD>
+// 2,048 bytes at 128-byte rows, 1,024 at 64; at hd 80 also 512 bytes of
+// the 32-byte second part, into o's last 8 floats).
+template <int HD, int STEPS = BKV / 16>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&p)[8][4],
                                          const unsigned char* vt) {
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk) {
-    if constexpr (HD == 64)
-      hopper::wgmma_m64n64k16_rs_tb(o, p[kk], desc<HD>(vt + kk * 16 * HD * 2), 1);
-    else
+  for (int kk = 0; kk < STEPS; ++kk) {
+    if constexpr (HD == 32) {
       hopper::wgmma_m64n32k16_rs_tb(o, p[kk], desc<HD>(vt + kk * 16 * HD * 2), 1);
+    } else if constexpr (HD == 64) {
+      hopper::wgmma_m64n64k16_rs_tb(o, p[kk], desc<HD>(vt + kk * 16 * HD * 2), 1);
+    } else {
+      hopper::wgmma_m64n64k16_rs_tb(*reinterpret_cast<float(*)[32]>(o), p[kk],
+                                    desc<HD>(vt + kk * 16 * 128), 1);
+      hopper::wgmma_m64n16k16_rs_tb(*reinterpret_cast<float(*)[8]>(o + 32), p[kk],
+                                    hopper::sw32_desc(vt + lo_bytes<HD>() + kk * 16 * 32), 1);
+    }
   }
   hopper::wgmma_commit();
 }
@@ -425,8 +355,7 @@ __device__ __forceinline__ void turn_end(int cw) { hopper::named_arrive(2 - cw, 
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_bf16_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    flash_bf16_wgmma(const __grid_constant__ Maps<HD> maps, __nv_bfloat16* __restrict__ o,
                      int heads, int n, long long ob, long long oh, long long on, float sl2,
                      int n_qblocks, int n_items) {
   constexpr int TILE = tile_bytes<HD>();
@@ -441,6 +370,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* v_full = k_full + STAGES;
   uint64_t* empty = v_full + STAGES;
   const int n_tiles = (n + BKV - 1) / BKV;
+  // (3) The last key tile holds at most 16 keys (N = 257 = 2·128 + 1): one
+  // p·v step (the rest of p is 0).
+  const bool short_last = tail_cuts<HD>() && n - (n_tiles - 1) * BKV <= 16;
   const int wgi = __shfl_sync(FULL, threadIdx.x / 128, 0);  // warp-uniform to the compiler
 
   if (threadIdx.x == 0) {
@@ -461,24 +393,24 @@ __global__ void __launch_bounds__(THREADS, 1)
     // Producer: one thread issues every TMA copy.
     hopper::reg_dealloc<40>();
     if (threadIdx.x == 0) {
-      hopper::prefetch_tensor_map(&tq);
-      hopper::prefetch_tensor_map(&tk);
-      hopper::prefetch_tensor_map(&tv);
+#pragma unroll
+      for (int i = 0; i < Maps<HD>::COUNT; ++i) hopper::prefetch_tensor_map(&maps.m[i]);
       int stage = 0;
       uint32_t phase = 0, it = 0;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
-        const int bh = item / n_qblocks, qb = item % n_qblocks;
+        int bh, qb;
+        item_coords<HD>(item, n_qblocks, n_items, bh, qb);
         const int b = bh / heads, h = bh % heads;
         const int qi = it % QBUF;
         hopper::mbar_wait(q_empty + qi, ((it / QBUF) & 1) ^ 1);
         hopper::mbar_expect_tx(q_full + qi, TILE);
-        hopper::tma_load_4d(qs + qi * TILE, &tq, q_full + qi, 0, qb * BQ, h, b);
+        tma_tile<HD>(qs + qi * TILE, maps, 0, q_full + qi, qb * BQ, h, b);
         for (int t = 0; t < n_tiles; ++t) {
           hopper::mbar_wait(empty + stage, phase ^ 1);
           hopper::mbar_expect_tx(k_full + stage, TILE);
-          hopper::tma_load_4d(ks + stage * TILE, &tk, k_full + stage, 0, t * BKV, h, b);
+          tma_tile<HD>(ks + stage * TILE, maps, 1, k_full + stage, t * BKV, h, b);
           hopper::mbar_expect_tx(v_full + stage, TILE);
-          hopper::tma_load_4d(vs + stage * TILE, &tv, v_full + stage, 0, t * BKV, h, b);
+          tma_tile<HD>(vs + stage * TILE, maps, 2, v_full + stage, t * BKV, h, b);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -496,10 +428,33 @@ __global__ void __launch_bounds__(THREADS, 1)
     int stage = 0;
     uint32_t phase = 0, it = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
-      const int bh = item / n_qblocks, qb = item % n_qblocks;
+      int bh, qb;
+      item_coords<HD>(item, n_qblocks, n_items, bh, qb);
       const int b = bh / heads, h = bh % heads;
       const int qi = it % QBUF;
-      const unsigned char* qa = qs + qi * TILE + cw * (TILE / 2);
+      const unsigned char* qt = qs + qi * TILE;
+      if constexpr (tail_cuts<HD>()) {
+        if (qb * BQ + cw * 64 >= n) {
+          // (2) Every row of this warpgroup lies at or past N: no products,
+          // but the turns, waits and arrivals of a working warpgroup.
+          hopper::mbar_wait(q_full + qi, (it / QBUF) & 1);
+          for (int t = 0; t <= n_tiles; ++t) {
+            const int prev = stage == 0 ? STAGES - 1 : stage - 1;
+            const uint32_t prev_phase = stage == 0 ? phase ^ 1 : phase;
+            turn_begin(cw);
+            if (t < n_tiles) hopper::mbar_wait(k_full + stage, phase);
+            if (t > 0) hopper::mbar_wait(v_full + prev, prev_phase);
+            turn_end(cw);
+            if (t == n_tiles - 1) hopper::mbar_arrive(q_empty + qi);
+            if (t > 0) hopper::mbar_arrive(empty + prev);
+            if (t < n_tiles && ++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+          continue;
+        }
+      }
       float acc[HD / 2], s[64], m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f}, alpha[2];
       uint32_t p[8][4];
 #pragma unroll
@@ -509,7 +464,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // Prologue: s of tile 0 and its softmax.
       turn_begin(cw);
       hopper::mbar_wait(k_full + stage, phase);
-      issue_s<HD>(s, qa, ks + stage * TILE);
+      issue_s<HD>(s, qt, cw, ks + stage * TILE);
       turn_end(cw);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(s);
@@ -527,7 +482,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         // of tile t runs under p·v.
         turn_begin(cw);
         hopper::mbar_wait(k_full + stage, phase);
-        issue_s<HD>(s, qa, ks + stage * TILE);
+        issue_s<HD>(s, qt, cw, ks + stage * TILE);
         rescale(acc, alpha);
         hopper::mbar_wait(v_full + prev, prev_phase);
         issue_pv<HD>(acc, p, vs + prev * TILE);
@@ -550,7 +505,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       turn_begin(cw);
       rescale(acc, alpha);
       hopper::mbar_wait(v_full + prev, prev_phase);
-      issue_pv<HD>(acc, p, vs + prev * TILE);
+      if (short_last)
+        issue_pv<HD, 1>(acc, p, vs + prev * TILE);
+      else
+        issue_pv<HD>(acc, p, vs + prev * TILE);
       turn_end(cw);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -581,23 +539,27 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// K3 bf16 at hd = 32 or 64: the tensor maps of q, k and v (shared strides;
-// the 128-byte swizzle for 128-byte rows, the 64-byte one for 64-byte rows),
-// then the kernel. Returns 0, a cudaError_t or a hopper::ERR_* code.
+// K3 bf16: the tensor maps of q, k and v (shared strides; each part's box
+// and swizzle as in the header), then the kernel. Returns 0, a cudaError_t
+// or a hopper::ERR_* code.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n,
            const Layout& lay, float scale, cudaStream_t stream) {
-  CUtensorMap maps[3];
+  Maps<HD> maps;
   const uint64_t dims[4] = {HD, static_cast<uint64_t>(n), static_cast<uint64_t>(heads),
                             static_cast<uint64_t>(batch)};
   const uint64_t strides[3] = {static_cast<uint64_t>(lay.sn) * 2, static_cast<uint64_t>(lay.sh) * 2,
                                static_cast<uint64_t>(lay.sb) * 2};
-  const uint32_t box[4] = {HD, BKV, 1, 1};
+  const uint32_t box[4] = {lo_dims<HD>(), BKV, 1, 1};
+  const uint32_t hi_box[4] = {hi_dims<HD>(), BKV, 1, 1};
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int r = hopper::encode_tensor_map(
-        &maps[i], 4, ptrs[i], dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-        HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+    int r = hopper::encode_tensor_map(
+        &maps.m[i], 4, ptrs[i], dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+    if (r == 0 && hi_dims<HD>() > 0)
+      r = hopper::encode_tensor_map(&maps.m[3 + i], 4, ptrs[i], dims, strides, hi_box,
+                                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_32B);
     if (r != 0) return r;
   }
   const int n_qblocks = (n + BQ - 1) / BQ;
@@ -609,8 +571,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   const int sms = hopper::sm_count();
   const int grid = sms > 0 && sms < n_items ? sms : n_items;
   flash_bf16_wgmma<HD><<<grid, THREADS, SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), heads, n, lay.ob, lay.oh,
-      lay.on, sl2, n_qblocks, n_items);
+      maps, static_cast<__nv_bfloat16*>(o), heads, n, lay.ob, lay.oh, lay.on, sl2, n_qblocks,
+      n_items);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -870,29 +832,15 @@ __global__ void __launch_bounds__(THREADS)
 // ---------------------------------------------------------------------------
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
-                   int n, Layout lay, float scale, int is_bf16, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+                       int n, Layout lay, float scale, cudaStream_t stream) {
   const dim3 grid((n + FQ - 1) / FQ, batch * heads);
-  if (is_bf16) {
-    if constexpr (HD != 80) {
-      return cudaErrorInvalidValue;  // wg::launch takes bf16 at hd = 32 and 64
-    } else {
-      const size_t smem = 5 * 64 * (HD + 8) * sizeof(__nv_bfloat16);  // q, 2 × (k, v)
-      const cudaError_t e = allow_smem(flash_bf16<HD>, smem);
-      if (e != cudaSuccess) return e;
-      flash_bf16<HD><<<grid, BF16_THREADS, smem, stream>>>(
-          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), heads, n, lay,
-          scale);
-    }
-  } else {
-    constexpr size_t smem = f32::smem_bytes<HD>();
-    const cudaError_t e = allow_smem(f32::flash_f32<HD>, smem);
-    if (e != cudaSuccess) return e;
-    f32::flash_f32<HD><<<grid, f32::THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), heads, n, lay, scale * 1.4426950408889634f);
-  }
+  constexpr size_t smem = f32::smem_bytes<HD>();
+  const cudaError_t e = allow_smem(f32::flash_f32<HD>, smem);
+  if (e != cudaSuccess) return e;
+  f32::flash_f32<HD><<<grid, f32::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), heads, n, lay, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -913,21 +861,31 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay{sb, sh, sn, ob, oh, on};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && hd == 64) return wg::launch<64>(q, k, v, o, batch, heads, n, lay, scale, s);
-  if (is_bf16 && hd == 32) return wg::launch<32>(q, k, v, o, batch, heads, n, lay, scale, s);
+  if (is_bf16) {
+    switch (hd) {
+      case 32: return wg::launch<32>(q, k, v, o, batch, heads, n, lay, scale, s);
+      case 64: return wg::launch<64>(q, k, v, o, batch, heads, n, lay, scale, s);
+      case 80: return wg::launch<80>(q, k, v, o, batch, heads, n, lay, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   cudaError_t e;
   switch (hd) {
-    case 32: e = launch<32>(q, k, v, o, batch, heads, n, lay, scale, is_bf16, s); break;
-    case 64: e = launch<64>(q, k, v, o, batch, heads, n, lay, scale, is_bf16, s); break;
-    case 80: e = launch<80>(q, k, v, o, batch, heads, n, lay, scale, is_bf16, s); break;
+    case 32: e = launch_f32<32>(q, k, v, o, batch, heads, n, lay, scale, s); break;
+    case 64: e = launch_f32<64>(q, k, v, o, batch, heads, n, lay, scale, s); break;
+    case 80: e = launch_f32<80>(q, k, v, o, batch, heads, n, lay, scale, s); break;
     default: e = cudaErrorInvalidValue; break;
   }
   return static_cast<int>(e);
 }
 
-// Dynamic shared memory the bf16 wgmma kernel asks for at head width hd (0:
-// bf16 at that width runs flash_bf16<HD> on mma.sync).
+// Dynamic shared memory the bf16 wgmma kernel asks for at head width hd (0
+// at a width the kernel does not take).
 extern "C" int flash_attn_wgmma_smem(int hd) {
-  if (hd == 64) return wg::smem_bytes<64>();
-  return hd == 32 ? wg::smem_bytes<32>() : 0;
+  switch (hd) {
+    case 32: return wg::smem_bytes<32>();
+    case 64: return wg::smem_bytes<64>();
+    case 80: return wg::smem_bytes<80>();
+    default: return 0;
+  }
 }

@@ -10,23 +10,26 @@
 //   libraries need no -lcuda;
 // - wgmma: the shared-memory descriptors of a 128-byte-swizzled tile (the
 //   layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes in
-//   1,024-byte atoms of 8 rows) and of a 64-byte-swizzled one
+//   1,024-byte atoms of 8 rows), of a 64-byte-swizzled one
 //   (CU_TENSOR_MAP_SWIZZLE_64B: rows of 64 bytes in 512-byte atoms of 8
-//   rows; K3's hd-32 tiles), fence / commit / wait, and the shapes the
-//   kernels issue: m64n128k16 bf16 and m64n128k32 s8 with both operands in
-//   shared memory, m64n128k8 tf32 with A in registers, and m64n64k16 and
-//   m64n32k16 bf16 with A in registers and B transposed (MN-major);
+//   rows; K3's hd-32 tiles) and of a 32-byte-swizzled one
+//   (CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes in 256-byte atoms of 8
+//   rows; head dims 64-79 of K3's hd-80 tiles), fence / commit / wait, and
+//   the shapes the kernels issue: m64n128k16 bf16 and m64n128k32 s8 with
+//   both operands in shared memory, m64n128k8 tf32 with A in registers, and
+//   m64n64k16, m64n32k16 and m64n16k16 bf16 with A in registers and B
+//   transposed (MN-major);
 // - setmaxnreg, which moves registers from the producer warpgroup to the
 //   consumer warpgroups.
 //
 // Descriptors: a K-major operand (the depth contiguous, 64 bf16, 128 int8 or
-// 32 f32 = one 128-byte row; 32 bf16 = one 64-byte row) advances 32 bytes
-// per k-step (k16 bf16, k32 s8, k8 tf32) inside its rows; an MN-major
-// operand (K3's V: keys are rows, head dims contiguous) advances 16 rows
-// per k16 step (2,048 bytes at 128-byte rows, 1,024 at 64). Either way
-// 8-row groups are one atom apart (the stride byte offset: 1,024 or 512
-// bytes); the leading byte offset is unused at these widths, whose rows
-// are one swizzle atom wide.
+// 32 f32 = one 128-byte row; 32 bf16 = one 64-byte row; 16 bf16 = one
+// 32-byte row) advances 32 bytes per k-step (k16 bf16, k32 s8, k8 tf32)
+// inside its rows; an MN-major operand (K3's V: keys are rows, head dims
+// contiguous) advances 16 rows per k16 step (2,048 bytes at 128-byte rows,
+// 1,024 at 64, 512 at 32). Either way 8-row groups are one atom apart (the
+// stride byte offset: 1,024, 512 or 256 bytes); the leading byte offset is
+// unused at these widths, whose rows are one swizzle atom wide.
 
 #pragma once
 
@@ -131,6 +134,14 @@ __device__ __forceinline__ uint64_t sw64_desc(const void* p) {
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
 }
 
+// Descriptor of a 32-byte-swizzled tile at `p` (256-byte aligned at the
+// tile, plus the k-step offset): stride byte offset 256 (8 rows of 32
+// bytes), leading byte offset 1 (unused), layout SWIZZLE_32B.
+__device__ __forceinline__ uint64_t sw32_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (16ull << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -224,6 +235,21 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], const uint
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64×16 f32) += A (64×16 bf16 in registers, as above) · B (16×16,
+// descriptor, MN-major: transposed).
+__device__ __forceinline__ void wgmma_m64n16k16_rs_tb(float (&d)[8], const uint32_t (&a)[4],
+                                                      uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
@@ -351,7 +377,8 @@ inline EncodeTiledFn tensor_map_encoder() {
 // A tensor map of `rank` dimensions (dims innermost first, strides in bytes
 // of dims 1.., box in elements) of bf16 elements, of f32 (FLOAT32) or of
 // bytes (UINT8: int8 codes), 128-byte swizzle (64-byte: K3's hd-32 tiles;
-// none: int8 codes that the threads widen), zeros out of bounds. Returns 0,
+// 32-byte: head dims 64-79 of K3's hd-80 tiles; none: int8 codes that the
+// threads widen), zeros out of bounds. Returns 0,
 // ERR_NO_ENCODER or ERR_ENCODE.
 inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
                              const uint64_t* strides, const uint32_t* box,

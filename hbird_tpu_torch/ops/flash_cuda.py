@@ -5,9 +5,11 @@ Pallas TPU flash attention). The kernel source is ops/csrc/flash_attn.cu;
 ops/cuda_build.py compiles it with `nvcc` for sm_90a into a shared library
 with a plain C interface at first use, and it is loaded with ctypes.
 
-bf16 at head widths 32 and 64 runs the Hopper kernel (`wgmma` on TMA rings
-with a producer warp), bf16 at 80 a `mma.sync` kernel, f32 3xTF32 on
-`mma.sync`; `route` names the one a call runs.
+bf16 at every head width (32, 64, 80) runs the Hopper kernel (`wgmma` on
+TMA rings with a producer warp; hd 80's 160-byte rows as a 128-byte- and a
+32-byte-swizzled part), f32 3xTF32 on `mma.sync`; `route` names the one a
+call runs. No other kernel stands behind either: a call the kernel cannot
+take raises.
 
 `flash_attention` takes the kernel for CUDA tensors and the plain version
 (ops/flash.py::flash_attention_plain) for CPU tensors, and nothing else: a
@@ -41,7 +43,6 @@ from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.flash import flash_attention_plain
 
 HEAD_DIMS = (32, 64, 80)  # the kernel's widths: every VIT_PRESETS head width
-WGMMA_HEAD_DIMS = (32, 64)  # bf16 widths on the wgmma kernel
 MAX_BATCH_HEADS = 65535  # the grid's second dimension
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -54,11 +55,10 @@ _ARGTYPES = (
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The kernel a CUDA call at this dtype and head width runs: 'wgmma'
-    (bf16 at hd 32 and 64), 'mma.sync' (bf16 at hd 80) or 'mma.sync 3xTF32'
-    (f32)."""
-    if dtype == torch.float32:
-        return "mma.sync 3xTF32"
-    return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma.sync"
+    (bf16 at hd 32, 64 and 80) or 'mma.sync 3xTF32' (f32)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")
+    return "mma.sync 3xTF32" if dtype == torch.float32 else "wgmma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

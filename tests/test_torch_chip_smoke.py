@@ -15,6 +15,7 @@ import pathlib
 import pytest
 import torch
 
+from hbird_tpu_torch.models import VIT_PRESETS, ViTConfig
 from hbird_tpu_torch.ops import flash_cuda, ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops import flash as flash_mod
 from hbird_tpu_torch.ops import ivf as ivf_mod
@@ -50,6 +51,10 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "FLASH_WIDE", (2, 2, 20, 80))
     monkeypatch.setattr(mod, "NARROW_INPUT", 64)
     monkeypatch.setattr(mod, "NARROW_ROUNDS", 3)
+    # mae_vith14's stand-in: 2 blocks of 2 heads of 80 (K3 at hd 80), no LayerScale
+    monkeypatch.setitem(VIT_PRESETS, "tiny_hd80", ViTConfig(16, 160, 2, 2, img_size=224))
+    monkeypatch.setattr(mod, "WIDE_PRESET", "tiny_hd80")
+    monkeypatch.setattr(mod, "WIDE_INPUT", 64)
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
@@ -156,34 +161,43 @@ def test_flash_phases_rehearse_on_cpu(smoke):
     assert smoke.flash_cases(gen) == 0.0
     runs, launches, token_err, err = smoke.flash_path(gen_seed=0)
     # dino_vits16: 12 blocks x (2 train + 1 val batches of 4), in bf16 and in f32;
-    # mocov3_vits16 (head width 32): 12 blocks x 3 batches in bf16
-    narrow = "mocov3_vits16 at 64, "
-    for prefix, dt in (("", "bf16"), ("", "f32"), (narrow, "bf16")):
-        assert launches[f"{prefix}{dt} flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 36}
+    # mocov3_vits16 (head width 32): 12 blocks x 3 batches in bf16;
+    # mae_vith14's stand-in (head width 80): 2 blocks x 3 batches in bf16
+    narrow, wide = "mocov3_vits16 at 64, ", "tiny_hd80 at 64, "
+    for prefix, dt, n in (("", "bf16", 36), ("", "f32", 36), (narrow, "bf16", 36), (wide, "bf16", 6)):
+        assert launches[f"{prefix}{dt} flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": n}
         assert launches[f"{prefix}{dt} xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
         label = f"scann unbounded, {prefix}{dt} ViT, attention_impl='flash'"
-        assert runs[label]["forms"]["flash_attention"] == {dt: 36}
-    assert err == 0.0 and len(runs) == 6
+        assert runs[label]["forms"]["flash_attention"] == {dt: n}
+    assert err == 0.0 and len(runs) == 8
     for run in runs.values():
         assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
     assert token_err["float32"]["max"] <= 1e-4 and token_err["bfloat16"]["mean"] <= 1e-2
-    assert token_err[f"{narrow}bfloat16"]["max"] <= 0.1 and set(token_err) == {"float32", "bfloat16",
-                                                                                  f"{narrow}bfloat16"}
+    assert token_err[f"{narrow}bfloat16"]["max"] <= 0.1 and token_err[f"{wide}bfloat16"]["mean"] <= 1e-2
+    assert set(token_err) == {"float32", "bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16"}
+    for name in ("bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16"):  # each bf16 forward against the f32 one
+        f32_err = token_err[name]
+        assert f32_err["flash_vs_f32"]["mean"] <= smoke.TOKEN_F32_MARGIN[1] * f32_err["xla_vs_f32"]["mean"]
+        assert 0.0 < f32_err["xla_vs_f32"]["max"] <= 0.2
+    assert "flash_vs_f32" not in token_err["float32"]
     rows, err = smoke.flash_timing(gen)
     assert err == 0.0 and set(rows) == {"main", "f32", "long", "hd32", "hd80"}
     routes = {label: row["route"] for label, row in rows.items()}
     assert routes == {"main": "wgmma", "f32": "mma.sync 3xTF32", "long": "wgmma", "hd32": "wgmma",
-                      "hd80": "mma.sync"}
-    hd32 = rows["hd32"]  # timed in turns with SDPA: medians, and the spread of each
-    assert hd32["rounds"] == 3 and hd32["graph_ms"] > 0 and hd32["library_graph_ms"] > 0
-    assert hd32["ms"] == hd32["spread"]["kernel"]["ms"]["median"]
-    assert hd32["spread"]["sdpa"]["graph_ms"]["min"] <= hd32["library_graph_ms"] <= hd32["spread"]["sdpa"]["graph_ms"]["max"]
+                      "hd80": "wgmma"}
+    for label in ("hd32", "hd80"):  # timed in turns with SDPA: medians, and the spread of each
+        row = rows[label]
+        assert row["rounds"] == 3 and row["graph_ms"] > 0 and row["library_graph_ms"] > 0
+        assert row["ms"] == row["spread"]["kernel"]["ms"]["median"]
+        assert row["spread"]["sdpa"]["graph_ms"]["min"] <= row["library_graph_ms"] <= row["spread"]["sdpa"]["graph_ms"]["max"]
+        assert set(row["by_batch"]) == {1, 2} and all(ms > 0 for ms in row["by_batch"].values())
     assert rows["main"]["bound_by"] == "bytes" and rows["main"]["dtype"] == "bfloat16"
     assert rows["long"]["shape"] == [1, 2, 130, 64] and rows["long"]["dtype"] == "bfloat16"
     assert rows["hd80"]["shape"] == [2, 2, 20, 80] and rows["hd32"]["dtype"] == "bfloat16"
     assert rows["f32"]["fma_bound_ms"] > 0 and "fma_bound_ms" not in rows["main"]
     forward = smoke.forward_timing(0, gen)
-    assert set(forward) == {"xla float32", "xla bfloat16", "flash float32", "flash bfloat16"}
+    assert set(forward) == {"xla float32", "xla bfloat16", "flash float32", "flash bfloat16",
+                            "tiny_hd80 xla bfloat16", "tiny_hd80 flash bfloat16"}
     assert json.dumps([rows, forward])
 
 
@@ -441,7 +455,7 @@ def test_main_without_cuda_prints_no_result(smoke, capsys):
 
 def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     """The --pairs timing: K3 bf16 and f32 at the main and long shapes and
-    bf16 at hd 32 (in turns with SDPA), K1 bf16 dot and l2, int8 and
+    bf16 at hd 32 and 80 (in turns with SDPA), K1 bf16 dot and l2, int8 and
     int8_rows at each k of PAIR_KS, f32 at k 30 and 120, asym and asym_rows
     at k 30 on both banks, and K2 bf16 and asym_rows on a tree of each bank
     and f32 on an f32 tree of each, each with its bound and library time, as
@@ -451,9 +465,10 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     out = smoke.pairs("here")
     assert out["tree"] == "here" and pathlib.Path(out["package"]) == ROOT / "hbird_tpu_torch"
     assert set(out["k3"]) == {*(f"{dt} {s}" for dt in ("bf16", "f32") for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")),
-                              "bf16 (2, 2, 20, 32)"}
-    narrow = out["k3"]["bf16 (2, 2, 20, 32)"]  # hd 32 in turns with SDPA, host-launched and in a graph
-    assert narrow["route"] == "wgmma" and narrow["graph_ms"] > 0 and narrow["library_graph_ms"] > 0
+                              "bf16 (2, 2, 20, 32)", "bf16 (2, 2, 20, 80)"}
+    for shape in ("(2, 2, 20, 32)", "(2, 2, 20, 80)"):  # hd 32 and 80 in turns with SDPA, host-launched and in a graph
+        row = out["k3"][f"bf16 {shape}"]
+        assert row["route"] == "wgmma" and row["graph_ms"] > 0 and row["library_graph_ms"] > 0
     assert set(out["k1"]) == {*(f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
                                 for k in smoke.PAIR_KS),
                               *(f"{f} Q=40 M={m} k={k}" for f in ("int8", "int8_rows") for m in (500, 3000)
@@ -475,7 +490,7 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
 
 def test_card_vs_cpu_rehearses(smoke):
     result = smoke.card_vs_cpu()
-    assert set(result) == {"scann", "faiss", "ivf", "faiss, flash ViT", *smoke.QUANT_RUNS}
+    assert set(result) == {"scann", "faiss", "ivf", "faiss, flash ViT", "faiss, flash ViT hd 80", *smoke.QUANT_RUNS}
     for run in result.values():
         assert run["miou"] == run["cpu_miou"] and run["label_err"] == 0.0
     backends = smoke.backends_card_vs_cpu()
@@ -520,28 +535,32 @@ def test_checks_hold_int8_forms_to_bit_exactness(smoke):
 
 def test_ptxas_report_reads_the_wgmma_kernels(smoke):
     """Registers at entry and spills of each instance of a kernel, and any
-    setmaxnreg-ignored warning, from an nvcc -Xptxas -v log."""
-    log = """ptxas info    : Compiling entry function '_ZN2wg16flash_bf16_wgmmaILb1ELb1EEEv' for 'sm_90a'
-ptxas info    : Function properties for _ZN2wg16flash_bf16_wgmmaILb1ELb1EEEv
+    setmaxnreg-ignored warning, from an nvcc -Xptxas -v log; K3's wgmma
+    instances by head width (hd 80's too)."""
+    wg80 = "_ZN46_GLOBAL__N__c18cd632_13_flash_attn_cu_efb7a86d2wg16flash_bf16_wgmmaILi80EEEvNS0_4MapsIXT_EEEP13__nv_bfloat16iixxxfii"
+    wg64 = wg80.replace("ILi80E", "ILi64E")
+    log = f"""ptxas info    : Compiling entry function '{wg80}' for 'sm_90a'
+ptxas info    : Function properties for {wg80}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers
 ptxas info    : Compiling entry function '_Z9flash_f32ILi64EEvv' for 'sm_90a'
 ptxas info    : Function properties for _Z9flash_f32ILi64EEvv
     0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 80 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN2wg16flash_bf16_wgmmaILb0ELb0EEEv' for 'sm_90a'
-ptxas info    : Function properties for _ZN2wg16flash_bf16_wgmmaILb0ELb0EEEv
+ptxas info    : Compiling entry function '{wg64}' for 'sm_90a'
+ptxas info    : Function properties for {wg64}
     80 bytes stack frame, 1116 bytes spill stores, 1264 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
 """
     r = smoke.ptxas_report(log, "flash_bf16_wgmma")
-    assert r == {"instances": 2, "template_args": ["ILb1ELb1E", "ILb0ELb0E"], "registers": [168, 168],
+    assert r == {"instances": 2, "template_args": ["ILi80E", "ILi64E"], "registers": [168, 168],
                  "spill_store_bytes": [0, 1116], "setmaxnreg_ignored": [], "wgmma_notes": []}
+    assert [smoke.K3_WGMMA_WIDTHS[a] for a in r["template_args"]] == [80, 64]
     warned = log + "ptxas warning : (C7508) Potential Performance Loss: setmaxnreg ignored; unable to determine register count at entry\n"
     assert len(smoke.ptxas_report(warned, "flash_bf16_wgmma")["setmaxnreg_ignored"]) == 1
     noted = log + (
         "ptxas info    : (C7519) warpgroup.arrive is injected in around line 82808 by compiler to allow use "
-        "of registers in GMMA in function '_ZN2wg16flash_bf16_wgmmaILb1ELb1EEEv'\n"
+        f"of registers in GMMA in function '{wg80}'\n"
         "ptxas info    : (C7517) warpgroup.wait is injected in around line 82931 by compiler to allow use "
         "of registers defined by GMMA in function '_Z9flash_f32ILi64EEvv'\n")
     notes = smoke.ptxas_report(noted, "flash_bf16_wgmma")["wgmma_notes"]
@@ -563,8 +582,15 @@ def test_sass_counts_per_function(smoke):
         Function : _Z12knn_topk_mmaI8FormAsymLi1EEvv
         /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         /*0110*/                   IMMA.16832.S8.S8 R4, R8, R12, R4 ;
+        Function : _ZN2wg16flash_bf16_wgmmaILi80EEEvNS0_4MapsIXT_EEE
+        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.4D [UR16], [UR12] ;
+        /*0120*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0130*/                   HGMMA.64x16x16.F32.BF16 R88, R152, gdesc[UR20], R88 ;
 """
     per_fn = smoke.sass_counts(sass)
+    assert per_fn["_ZN2wg16flash_bf16_wgmmaILi80EEEvNS0_4MapsIXT_EEE"] == {"HGMMA": 2, "IGMMA": 0, "UTMALDG": 2,
+                                                                          "HMMA": 0, "IMMA": 0}
     assert per_fn["_ZN2wg14knn_bf16_wgmmaILi1ELb0EEEv"] == {"HGMMA": 2, "IGMMA": 0, "UTMALDG": 1, "HMMA": 0,
                                                             "IMMA": 0}
     assert per_fn["_ZN2wg9knn_wgmmaINS_2S8ELi1ELNS_3EpiE0EEEvv"] == {"HGMMA": 0, "IGMMA": 1, "UTMALDG": 1,

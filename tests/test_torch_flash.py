@@ -51,7 +51,7 @@ def _qkv(shape, seed):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("hd", [32, 64, 80])
-@pytest.mark.parametrize("n", [1, 50, 197, 600])
+@pytest.mark.parametrize("n", [1, 50, 197, 257, 600])
 def test_plain_matches_tpu_kernel_in_interpret_mode(n, hd, dtype):
     jdt, tdt = DTYPES[dtype]
     q, k, v = _qkv((2, 2, n, hd), seed=n * 100 + hd)
@@ -66,6 +66,16 @@ def test_plain_matches_tpu_kernel_in_interpret_mode(n, hd, dtype):
     else:
         assert err.max() <= 2.0**-8 * np.abs(j).max(), err.max()
         assert (err > 0).mean() < 0.01, (err > 0).mean()
+
+
+def test_route_names_the_kernel_of_each_width():
+    """bf16 runs the wgmma kernel at every head width (hd 80 included); f32
+    runs 3xTF32 on mma.sync; a width the kernel does not take has no route."""
+    for hd in (32, 64, 80):
+        assert flash_cuda.route(torch.bfloat16, hd) == "wgmma"
+        assert flash_cuda.route(torch.float32, hd) == "mma.sync 3xTF32"
+    with pytest.raises(ValueError, match="head widths"):
+        flash_cuda.route(torch.bfloat16, 48)
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():

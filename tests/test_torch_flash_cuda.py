@@ -147,9 +147,8 @@ def test_flash_vit_on_the_card_matches_the_cpu(cuda_device, dtype):
 @pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 1370, 4625])
 def test_sequence_edges(cuda_device, n, hd, dtype):
-    """Every edge of the 64-key (f32; bf16 at hd 80) and 128-key (bf16 at
-    hd 32 and 64) tiles and of the 64- and 128-query blocks, against the
-    plain version."""
+    """Every edge of the 64-key (f32) and 128-key (bf16, at every width)
+    tiles and of the 64- and 128-query blocks, against the plain version."""
     q, k, v = _qkv((2, 3, n, hd), seed=n + hd, device=cuda_device, dtype=dtype)
     out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
     torch.cuda.synchronize()
@@ -192,6 +191,30 @@ def test_bf16_hd32_runs_the_wgmma_kernel(cuda_device, n):
     assert flash_cuda._kernel_layout(q, k, v)
     before = flash_cuda.flash_attention.forms["bf16"]
     out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
+    dense = flash_cuda.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), hd**-0.5)
+    torch.cuda.synchronize()
+    assert flash_cuda.flash_attention.forms["bf16"] == before + 2
+    assert torch.isfinite(out).all() and torch.equal(out, dense)
+    assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
+
+
+@pytest.mark.parametrize("n", [1, 65, 128, 129, 256, 257, 1025])
+def test_bf16_hd80_runs_the_wgmma_kernel(cuda_device, n):
+    """mae_vith14's width (16 heads of 80; N = 257 at its 224 input, 1,025
+    at 448) on the wgmma kernel (each 160-byte row as a 128-byte-swizzled
+    and a 32-byte-swizzled part), dense and as the ViT's strided views of
+    its qkv projection: the views read in place give the dense copies'
+    output bit for bit, and both hold the plain version's tolerance."""
+    assert flash_cuda.route(torch.bfloat16, 80) == "wgmma"
+    b, h, hd = 2, 16, 80
+    rng = np.random.default_rng(n + 80)
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * hd), dtype=np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16).reshape(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    assert flash_cuda._kernel_layout(q, k, v)
+    before = flash_cuda.flash_attention.forms["bf16"]
+    out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
+    assert flash_cuda.flash_attention.forms["bf16"] == before + 1
     dense = flash_cuda.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), hd**-0.5)
     torch.cuda.synchronize()
     assert flash_cuda.flash_attention.forms["bf16"] == before + 2
