@@ -195,7 +195,7 @@ Phases; any failure raises and the script exits non-zero with no result:
    the ViT's width as the step, once over the fixture and once over 8
    augmentation epochs (a bank 8x larger beside the same step).
 9. The native tar feed, K1 on a bank mesh, the command line on the mesh,
-   one-process NCCL. 9.1: the native library (utils/native.py) built with
+   one-process NCCL, K1 and the engine over a process group. 9.1: the native library (utils/native.py) built with
    g++ (its time printed); an uncompressed VOC tar of phase 5's fixture;
    the native index against tarfile (member lists equal, every member's
    bytes identical, the index and the full read timed both ways); phase
@@ -216,8 +216,16 @@ Phases; any failure raises and the script exits non-zero with no result:
    onto the mesh: mIoU within 1e-4 of phase 5's unsharded run, K1 launched
    4 times per eval batch, the reload building nothing. 9.4: a process
    group of one over tcp://127.0.0.1 on NCCL: sync_conf_mat returns its
-   input, PredsmIoU(sync_distributed=True) the unsynced result. With more
-   than one card, 9.2 and 9.3 run again over distinct cards.
+   input, PredsmIoU(sync_distributed=True) the unsynced result. 9.5: the
+   flat search over a bank axis that spans such a group of one
+   (`process_mesh`, every cross-shard step a collective): K1 by 'gather'
+   and 'ring' in bf16, f32, int8_rows and int8 + reorder 120 on 9.2's two
+   banks, on the same 4 stacked shards as the process-local mesh: values,
+   ids and labels bit for bit, the same launches, each call timed beside
+   the local one; `hbird_evaluation` with 'scann' on that mesh at phase
+   5's settings: mIoU within 1e-4 of 9.3's, K1 launched once per shard per
+   eval batch. With more than one card, 9.2 and 9.3 run again over
+   distinct cards.
 10. The IVF tree on a ('bank',) mesh of MESH_SHARDS shards stacked on one
    card (parallel/sharded_ivf.py). 10.1: built on phase 5's bank and on
    BIG_M clustered rows (phase 8's stream) unmeshed, meshed with the host
@@ -2863,6 +2871,130 @@ def nccl_one_process():
     return {"backend": backend, "seconds": wall}
 
 
+def mesh_flat_process_group(q, bank, gen, devices, local_rows, mesh_miou):
+    """Phase 9.5: the flat search over a bank axis that spans a process
+    group of one (parallel/distributed.py::process_mesh, NCCL on the card
+    over tcp://127.0.0.1), so every cross-shard step runs as a collective.
+    K1 by 'gather' and 'ring' in bf16, f32, int8_rows and int8 + reorder
+    120 (k = 30) on phase 5's bank and on BIG_M rows, on the same stacked
+    shards as the process-local mesh: values, ids and labels equal the local
+    call's bit for bit, with the same launches; each call timed beside the
+    local one (and phase 9.2's). Then `hbird_evaluation` with 'scann' on
+    that mesh at phase 5's settings: mIoU within 1e-4 of phase 9.3's meshed
+    run, K1 launched once per shard per eval batch."""
+    import socket
+
+    from hbird_tpu_torch import hbird_evaluation
+    from hbird_tpu_torch.data.synthetic import make_voc_fixture
+    from hbird_tpu_torch.models import VIT_PRESETS, ViT
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
+    from hbird_tpu_torch.parallel import distributed, make_mesh, ring_knn_with_labels, sharded_knn_with_labels
+    from hbird_tpu_torch.parallel.sharded_knn import shard_rows
+    from hbird_tpu_torch.utils.profiling import PhaseTimer
+
+    k, c_reorder, n = 30, 120, len(devices)
+    strategies = {"gather": (sharded_knn_with_labels, n), "ring": (ring_knn_with_labels, n * n)}
+    kernel_forms = {"bf16": "dot", "f32": "f32", "int8_rows": "int8_rows", "int8+reorder": "int8"}
+    local_names = {"bf16": "dot", "int8_rows": "int8_rows", "int8+reorder": "int8+reorder"}  # phase 9.2's rows
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    distributed.initialize(f"tcp://127.0.0.1:{port}", num_processes=1, process_id=0, backend=backend)
+    rows, runs = {}, {}
+    try:
+        group = distributed.process_mesh(devices)
+        local = make_mesh((n,), ("bank",), devices)
+        if not group.spans_processes:
+            fail("process_mesh gave a process-local mesh")
+        qc, _ = quantize_queries_int8(q.float())
+        big = torch.nn.functional.normalize(
+            torch.randn(BIG_M, bank.shape[1], generator=gen, device=DEVICE), dim=1).to(torch.bfloat16)
+        for label, bb, reps in (("main", bank, 3), (f"bank_{BIG_M}", big, 2)):
+            m = bb.shape[0]
+            lab_s = shard_rows(torch.rand(m, 21, generator=gen, device=DEVICE), local)
+            codes, _ = quantize_bank_int8(bb.float(), per_row=False)
+            codes_r, r_scale = quantize_bank_int8(bb.float(), per_row=True)
+            forms = {
+                "bf16": ((q, bb), {}),
+                "f32": ((q.float(), bb.float()), {}),
+                "int8_rows": ((qc, codes_r), {"row_scale": shard_rows(r_scale, local)}),
+                "int8+reorder": ((qc, codes), {"rerank_bank": shard_rows(bb, local), "rerank_queries": q,
+                                               "rerank_candidates": c_reorder}),
+            }
+            del codes, codes_r
+            for form, ((qq, b), kw) in forms.items():
+                b_s = shard_rows(b, local)  # views of `b`: both meshes search these shards
+                kf = kernel_forms[form]
+                for strat, (fn, per_call) in strategies.items():
+                    name = f"9.5 {label} {form} {strat}"
+                    calls = {where: (lambda mesh=mesh: fn(qq, b_s, lab_s, k, mesh=mesh, valid_rows=m, **kw))
+                             for where, mesh in (("local", local), ("group", group))}
+                    outs = {}
+                    for where, call in calls.items():
+                        before, before_form = knn_topk.launches, knn_topk.forms[kf]
+                        outs[where] = call()
+                        sync()
+                        if knn_topk.launches - before != per_call or knn_topk.forms[kf] - before_form != per_call:
+                            fail(f"{name} ({where}): {knn_topk.launches - before} launches "
+                                 f"({knn_topk.forms[kf] - before_form} {kf}), not {per_call}")
+                    if not all(torch.equal(a, c) for a, c in zip(outs["local"], outs["group"])):
+                        fail(f"{name}: the process group's values, ids or labels differ from the process-local "
+                             f"mesh's")
+                    del outs
+                    row = {"M": m, "Q": q.shape[0], "k": k, "shards": n, "launches_per_call": per_call,
+                           "local_ms": cuda_ms(calls["local"], reps), "group_ms": cuda_ms(calls["group"], reps)}
+                    row["group_minus_local_ms"] = row["group_ms"] - row["local_ms"]
+                    if form in local_names:
+                        row["phase_9_2_local_ms"] = local_rows[f"{label} {local_names[form]}"][f"{strat}_ms"]
+                    rows[f"{label} {form} {strat}"] = row
+                    print(f"  {name}: bit for bit against the process-local mesh ({per_call} launches a call); "
+                          f"group {row['group_ms']:.3f} ms, local {row['local_ms']:.3f} ms"
+                          + (f", phase 9.2's local {row['phase_9_2_local_ms']:.3f} ms"
+                             if "phase_9_2_local_ms" in row else ""), flush=True)
+                del b_s
+            del forms
+        del big
+
+        # The engine on the process group's mesh, at phase 5's settings
+        cfg = VIT_PRESETS[PRESET]
+        vit = ViT(cfg, generator=torch.Generator().manual_seed(0))
+        counters = {"knn_topk": knn_topk, "ivf_topk": ivf_topk}
+        n_eval = -(-FIXTURE["n_val"] // BATCH)
+        label = f"scann on a process group's mesh of {n}"
+        with tempfile.TemporaryDirectory() as root:
+            make_voc_fixture(root, seed=0, colorize=True, class_pool=list(range(1, 21)), **FIXTURE)
+            timer = PhaseTimer()
+            random.seed(0)
+            reset_counts(counters)
+            t1 = time.perf_counter()
+            miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, nn_method="scann", timer=timer,
+                                    batch_size=BATCH, input_size=INPUT, n_neighbours=30, num_workers=0,
+                                    device=DEVICE, mesh=group)
+            wall = time.perf_counter() - t1
+        launches = {name: fn.launches for name, fn in counters.items()}
+        forms_n = read_forms(counters)
+        want = n_eval * n
+        if launches != {"knn_topk": want, "ivf_topk": 0} or forms_n["knn_topk"] != {"dot": want}:
+            fail(f"{label}: launches by form {forms_n}, not knn_topk dot x {want} ({n} shards x {n_eval} batches)")
+        if abs(miou - mesh_miou) > 1e-4:
+            fail(f"{label}: mIoU {miou}, phase 9.3's meshed run {mesh_miou}")
+        runs[label] = {"miou": miou, "launches": launches, "forms": forms_n, "wall_s": wall,
+                       "phases": timer.summary(), "k1_launches_per_shard_per_batch": launches["knn_topk"] / want}
+        print(f"  9.5 {label}: mIoU {miou:.6f} (phase 9.3's {mesh_miou:.6f}), K1 {launches['knn_topk']} launches "
+              f"= {n} shards x {n_eval} eval batches, wall {wall:.2f}s, phases {json.dumps(timer.summary())}",
+              flush=True)
+    finally:
+        distributed.shutdown()
+    wall = time.perf_counter() - t0
+    print(f"  9.5 {backend} process group of one, bank axis over it: K1 gather and ring bit for bit, the engine's "
+          f"mIoU held ({wall:.2f}s with init)", flush=True)
+    return rows, runs, {"backend": backend, "seconds": wall}
+
+
 def peak_growth(fn):
     """fn()'s result and the card's peak allocated bytes while it ran over
     what was allocated when it started: the call's own peak, whatever
@@ -3346,13 +3478,17 @@ def main(argv=()):
     for name, n in cli_launches.items():
         launches[name] += n
 
-    phase(f"[9] the native tar feed, K1 on a bank mesh, the command line on the mesh, NCCL ({card})")
+    phase(f"[9] the native tar feed, K1 on a bank mesh, the command line on the mesh, NCCL, K1 and the engine "
+          f"over a process group ({card})")
     scann_run = runs["scann unbounded"]
     feed_runs, feed = native_feed(0, scann_run)
     one_card = [torch.device("cuda", torch.cuda.current_device())] * MESH_SHARDS
     mesh_rows, err_mesh = mesh_k1_cases(q, bank, gen, one_card)
     mesh_runs = mesh_cli(0, scann_run["miou"], one_card)
     nccl = nccl_one_process()
+    group_rows, group_runs, nccl["process_group"] = mesh_flat_process_group(
+        q, bank, gen, one_card, mesh_rows,
+        mesh_runs[f"cli scann --mesh-bank {MESH_SHARDS}, save .bankdir"]["miou"])
     distinct = {}
     if torch.cuda.device_count() > 1:  # never taken on a one-card machine
         cards = [torch.device("cuda", i) for i in range(min(MESH_SHARDS, torch.cuda.device_count()))]
@@ -3370,7 +3506,7 @@ def main(argv=()):
         err_tree_mesh = max(err_tree_mesh, err_distinct)
         tree_runs.update(mesh_tree_cli(0, runs["ivf unbounded"]["miou"], cards, label_prefix="distinct cards: "))
     del bank
-    for new_runs in (feed_runs, mesh_runs, tree_runs):
+    for new_runs in (feed_runs, mesh_runs, group_runs, tree_runs):
         runs.update(new_runs)
         for run in new_runs.values():
             for name in launches:
@@ -3394,6 +3530,7 @@ def main(argv=()):
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
         "hopper_build": build, "persistence": persistence, "native_feed": feed, "mesh_k1": mesh_rows,
+        "mesh_k1_process_group": group_rows,
         "mesh_distinct_cards": distinct, "nccl": nccl, "mesh_tree": tree_mesh,
         "seconds": time.perf_counter() - t_start}
     print(json.dumps(kernels), flush=True)

@@ -222,7 +222,8 @@ def load_memory_sharded(dir_path: str, *, mesh=None, bank_axis: str = "bank", dt
     With `mesh`: `(shards, rows)`, the rows zero-padded to
     `pad_rows_for_mesh` and split into one shard per device of the mesh's
     `bank_axis` (parallel/sharded_knn.py's layout), each read from disk
-    straight onto its device; `rows` is the real row count."""
+    straight onto its device (None, and not read, where another process of
+    a process mesh holds it); `rows` is the real row count."""
     manifest = sharded_memory_info(dir_path)
     out_dtype = dtype or _torch_dtype(manifest["dtype"])
     if mesh is not None:
@@ -233,6 +234,9 @@ def load_memory_sharded(dir_path: str, *, mesh=None, bank_axis: str = "bank", dt
         per = pad_rows_for_mesh(rows, len(devices)) // len(devices)
         shards = []
         for j, dev in enumerate(devices):
+            if dev is None:
+                shards.append(None)
+                continue
             shard = torch.zeros((per, dim), dtype=out_dtype, device=dev)
             lo, hi = min(j * per, rows), min((j + 1) * per, rows)
             if hi > lo:

@@ -48,10 +48,22 @@ parallel/sharded_ivf.py; nn_params shard_probe and tree_build_layout), and
 the bank is accumulated padded to equal shards (`pad_rows_for_mesh`), its
 real rows carried as `valid_rows`. Its 'data' axis splits each batch's
 backbone forward over the axis's devices (the batch padded to a multiple of
-the axis), and the rest of each step runs on the engine's device. With
-several processes (parallel/distributed.py) each process feeds its own
-data into its own bank on a process-local mesh, and the confusion
-matrices are summed across them before scoring.
+the axis), and the rest of each step runs on the engine's device.
+
+Several processes (parallel/distributed.py) run the engine in one of two
+ways:
+- data parallel (no mesh, or one within the process): each process feeds its
+  own slice of the val split into its own bank's search, and the
+  confusion matrices are summed across the processes before scoring;
+- a bank axis over the processes (`process_mesh`): every process builds
+  the same bank from the full train split on its card, the backend keeps
+  this process's shards (copies) and the engine drops the whole bank after
+  the index build; every process feeds the same val batches, since the
+  meshed searches need the same queries everywhere, and so scores the same
+  images: its own matrix is the whole count and is not summed (the JAX
+  engine sums it, which scales every entry by the process count and
+  leaves the mIoU as it is).
+`conf_mat` keeps the matrix the last `evaluate` scored.
 """
 
 from __future__ import annotations
@@ -155,6 +167,7 @@ class HbirdEvaluation:
     mesh = None
     _data_devices: Optional[List[torch.device]] = None
     _bank_valid_rows: Optional[int] = None
+    conf_mat: Optional[np.ndarray] = None
 
     def __init__(
         self,
@@ -184,10 +197,6 @@ class HbirdEvaluation:
                 "Only faiss/exact, scann/approx and ivf/tree are supported"
             )
         self.device = resolve_device(device)
-        if mesh is not None and mesh.spans_processes:
-            # Each process feeds and holds its own bank here; a bank axis over
-            # processes assumes one bank that every process sees.
-            raise ValueError("the engine takes a process-local mesh (parallel/distributed.py::global_mesh)")
         self.mesh = mesh
         self._data_devices = (
             mesh.axis_devices("data") if mesh is not None and mesh.shape.get("data", 1) > 1 else None
@@ -244,6 +253,7 @@ class HbirdEvaluation:
                     self._sync()
                 if loaded:
                     logger.info("Memory restored from disk; skipping the train build.")
+                    self._release_bank()
                     return
                 logger.warning(
                     "load_memory=True but no persisted memory found at f_mem_p=%s / "
@@ -261,6 +271,13 @@ class HbirdEvaluation:
                 )
                 self._sync()
             self._save_tree_if_requested()
+            self._release_bank()
+
+    def _release_bank(self) -> None:
+        """On a bank axis over processes the backend holds this process's
+        shards: the engine lets the whole bank go."""
+        if self.mesh is not None and self.mesh.spans_processes:
+            self.feature_memory = self.label_memory = None
 
     def _sync(self) -> None:
         """Wait for the device, so a phase's time covers its work."""
@@ -722,9 +739,13 @@ class HbirdEvaluation:
                 consume(in_flight)
         self.timer.add_items("evaluate", n_imgs)
         with self.timer.phase("metric_compute"):
+            # Data-parallel processes scored their own images: their matrices
+            # add up. On a bank axis over the processes each scored them all.
+            sync = process_count() > 1 and not (self.mesh is not None and self.mesh.spans_processes)
             jac, tp, fp, fn, reordered_preds, matched_bg_clusters = metric.compute(
-                is_global_zero=True, return_reordered=False, sync_distributed=process_count() > 1
+                is_global_zero=True, return_reordered=False, sync_distributed=sync
             )
+            self.conf_mat = metric.computed_conf_mat
         if return_knn_details:
             details_out = {
                 "knns": np.concatenate(knns) if knns else np.zeros((0,)),

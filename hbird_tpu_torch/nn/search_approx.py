@@ -31,7 +31,9 @@ package's format.
 
 A flat bank on a `mesh` with a 'bank' axis is sharded over it and searched
 by K1 once per shard, merged by 'gather' (parallel/sharded_knn.py), as in
-the JAX package. A tree on such a mesh is leaf-sharded
+the JAX package; the axis may span the processes of a torch.distributed
+group (parallel/distributed.py::process_mesh), for the flat bank as for
+the tree. A tree on such a mesh is leaf-sharded
 (parallel/sharded_ivf.py): the bank is row-sharded before any tree work
 and built into whole-leaf shards (`tree_build_layout`: 'host', the
 unmeshed build's slots, or 'device', nothing O(M) gathered), and each
@@ -56,12 +58,6 @@ from hbird_tpu_torch.nn.search_base import FlatSearch, bank_mesh, resolve_quanti
 from hbird_tpu_torch.ops import ivf
 from hbird_tpu_torch.ops.ivf_cuda import MAX_K
 from hbird_tpu_torch.ops.knn import L2_DISTANCES, rerank_exact
-from hbird_tpu_torch.ops.quantize import (
-    block_column_scales,
-    global_scale,
-    quantize_bank_int8,
-    quantize_bank_int8_ah,
-)
 from hbird_tpu_torch.parallel import distributed, sharded_ivf
 from hbird_tpu_torch.parallel.sharded_knn import shard_rows
 from hbird_tpu_torch.utils.logging import get_logger
@@ -298,40 +294,6 @@ class NearestNeighborSearchApprox(FlatSearch):
         self.slots = torch.as_tensor(slots, dtype=torch.int64, device=dev)
         self.leaf_valid = torch.as_tensor(fill, dtype=torch.int32, device=dev)
         self.valid_rows = m
-
-    def _quantize_shards(self, shards, bank_scale):
-        """int8 codes of row shards and their per-row scales (None under a
-        global scale, which goes to `bank_scale`), shard by shard: the global
-        abs-max and the score_ah column scales are taken over every shard,
-        so the codes are the unsharded bank's."""
-        dev, mesh = self.device, self.mesh
-        own = [s for s in shards if s is not None]
-        if own[0].dtype == torch.int8:
-            if bank_scale is None:
-                raise ValueError("int8 bank injection requires bank_scale")
-            if self.int8_rows:
-                raise ValueError("pre-quantized int8 injection is global-scale only")
-            self.bank_scale = torch.tensor(float(bank_scale), dtype=torch.float32, device=dev)
-            return shards, None
-        def group_max(t):  # over this process's shards, then over the processes
-            return distributed.all_max(t) if mesh.spans_processes else t
-
-        if not self.int8_rows:
-            top = group_max(torch.stack([s.float().abs().max().to(dev) for s in own]).max())
-            self.bank_scale = global_scale(top)
-            return [None if s is None else quantize_bank_int8(s, per_row=False, scale=self.bank_scale)[0]
-                    for s in shards], None
-        if self.dims_per_block is None and self.aniso_threshold is None:
-            out = [None if s is None else quantize_bank_int8(s, per_row=True) for s in shards]
-        else:
-            if self.dims_per_block is not None:
-                col_max = group_max(torch.stack([s.float().abs().amax(dim=0).to(dev) for s in own]).amax(dim=0))
-                self.bank_col_scale = block_column_scales(col_max[None], self.dims_per_block)
-            col = self.bank_col_scale
-            out = [None if s is None else quantize_bank_int8_ah(
-                s, aniso_threshold=self.aniso_threshold, col_scale=None if col is None else col.to(s.device))[:2]
-                for s in shards]
-        return [None if o is None else o[0] for o in out], [None if o is None else o[1] for o in out]
 
     def _build_tree_sharded(self, feature_memory, label_memory, bank_scale, valid_rows) -> None:
         """The tree over the mesh's bank axis (parallel/sharded_ivf.py): the

@@ -16,9 +16,11 @@ than 1 (parallel/mesh.py), the stored arrays are lists of row shards, one
 per bank-axis device, and K1 runs once per shard
 (parallel/sharded_knn.py: 'gather', or the exact backend's 'ring'). The
 approx backend's IVF tree (`use_tree=True`) overrides the storage and the
-search (parallel/sharded_ivf.py on a mesh). Row shards held by another
-process (a mesh over a process group) are None here: only the tree takes
-such a mesh, and its row gathers sum over the group.
+search (parallel/sharded_ivf.py on a mesh). On a mesh whose bank axis
+spans the processes of a torch.distributed group
+(parallel/distributed.py::process_mesh) the row shards held by another
+process are None here; every process passes the same queries and gets the
+same answers, and row gathers sum over the group.
 """
 
 from __future__ import annotations
@@ -31,15 +33,19 @@ import torch
 from hbird_tpu_torch.device import resolve_device
 from hbird_tpu_torch.ops.knn import L2_DISTANCES, knn_with_labels
 from hbird_tpu_torch.ops.quantize import (
+    block_column_scales,
+    global_scale,
     quantize_bank_int8,
     quantize_bank_int8_ah,
     quantize_queries_int8,
 )
+from hbird_tpu_torch.parallel import distributed
 from hbird_tpu_torch.parallel.sharded_knn import (
+    first_shard,
     ring_knn_with_labels,
     shard_rows,
     sharded_knn_with_labels,
-    take_rows,
+    take,
 )
 
 QUANTIZATIONS = ("int8", "int8_rows", "int8_asym")
@@ -82,8 +88,11 @@ class FlatSearch:
     with all the queries, then the merge) or 'ring' (query blocks visit the
     shards). `feature_memory` / `label_memory` may then also arrive as
     lists of shards already (bank/io.py::load_memory_sharded), with
-    `valid_rows` their real rows; a quantized bank joins them first, since
-    its scales span the whole bank.
+    `valid_rows` their real rows; a quantized bank is quantized shard by
+    shard with its global and column scales taken over every shard, so its
+    codes are the joined bank's. On a mesh over a process group the shard
+    lists hold None for the other processes' shards; a whole bank given to
+    every process is stored (quantized) whole, then sharded.
     """
 
     dims_per_block: Optional[int] = None
@@ -111,8 +120,6 @@ class FlatSearch:
         if shard_strategy not in ("gather", "ring"):
             raise ValueError(f"shard_strategy must be 'gather' or 'ring': {shard_strategy!r}")
         self.mesh = bank_mesh(mesh)
-        if self.mesh is not None and self.mesh.spans_processes:
-            raise ValueError("the flat search shards over a process-local mesh (parallel/distributed.py::global_mesh)")
         self.shard_strategy = shard_strategy
         sharded_in = isinstance(feature_memory, (list, tuple))
         if sharded_in and self.mesh is None:
@@ -125,11 +132,15 @@ class FlatSearch:
         self._set_quantization(quantization, num_reordering_candidates)
         self.rerank_bank = None
         store = torch.bfloat16 if self.use_fp16 else torch.float32
-        if sharded_in and self.quantization is None:
-            self.bank = [s.to(store).contiguous() for s in feature_memory]
-            n_rows = sum(s.shape[0] for s in self.bank)
+        if sharded_in:
+            shards = [None if s is None else s.to(d) for s, d in zip(feature_memory, self.mesh.axis_devices("bank"))]
+            n_rows = len(shards) * first_shard(shards).shape[0]
+            if self.quantization is not None:
+                self.bank = self._quantized_shards(shards, bank_scale)
+            else:
+                self.bank = [None if s is None else s.to(store).contiguous() for s in shards]
         else:
-            x = self._as_tensor(torch.cat([s.to(self.device) for s in feature_memory]) if sharded_in else feature_memory)
+            x = self._as_tensor(feature_memory)
             if self.quantization is not None:
                 self.bank = self._quantized_state(x, bank_scale)
             else:
@@ -138,7 +149,7 @@ class FlatSearch:
         if label_memory is None:
             label_memory = torch.zeros((n_rows, 1), dtype=torch.float32)
         if isinstance(label_memory, (list, tuple)):
-            self.labels = [s.float() for s in label_memory]
+            self.labels = [None if s is None else s.float() for s in label_memory]
         else:
             self.labels = torch.as_tensor(label_memory, dtype=torch.float32, device=self.device)
         self.valid_rows = n_rows if valid_rows is None else int(valid_rows)
@@ -203,6 +214,50 @@ class FlatSearch:
         codes, self.bank_row_scale = self._take_codes(x, bank_scale)
         return codes.contiguous()
 
+    def _quantized_shards(self, shards, bank_scale: Optional[float]):
+        """`_quantized_state` of a bank given as row shards: codes (and the
+        rerank copy) shard by shard."""
+        if first_shard(shards).dtype != torch.int8 and self.num_reordering_candidates > self.n_neighbors:
+            self.rerank_bank = [None if s is None else s.float().to(torch.bfloat16) for s in shards]
+        codes, self.bank_row_scale = self._quantize_shards(shards, bank_scale)
+        return [None if c is None else c.contiguous() for c in codes]
+
+    def _quantize_shards(self, shards, bank_scale):
+        """int8 codes of row shards and their per-row scales (None under a
+        global scale, which goes to `bank_scale`), shard by shard: the global
+        abs-max and the score_ah column scales are taken over every shard
+        (and over the processes of a mesh that spans several), so the codes
+        are the unsharded bank's."""
+        dev, mesh = self.device, self.mesh
+        own = [s for s in shards if s is not None]
+        if own[0].dtype == torch.int8:
+            if bank_scale is None:
+                raise ValueError("int8 bank injection requires bank_scale")
+            if self.int8_rows:
+                raise ValueError("pre-quantized int8 injection is global-scale only")
+            self.bank_scale = torch.tensor(float(bank_scale), dtype=torch.float32, device=dev)
+            return shards, None
+
+        def group_max(t):  # over this process's shards, then over the processes
+            return distributed.all_max(t) if mesh.spans_processes else t
+
+        if not self.int8_rows:
+            top = group_max(torch.stack([s.float().abs().max().to(dev) for s in own]).max())
+            self.bank_scale = global_scale(top)
+            return [None if s is None else quantize_bank_int8(s, per_row=False, scale=self.bank_scale)[0]
+                    for s in shards], None
+        if self.dims_per_block is None and self.aniso_threshold is None:
+            out = [None if s is None else quantize_bank_int8(s, per_row=True) for s in shards]
+        else:
+            if self.dims_per_block is not None:
+                col_max = group_max(torch.stack([s.float().abs().amax(dim=0).to(dev) for s in own]).amax(dim=0))
+                self.bank_col_scale = block_column_scales(col_max[None], self.dims_per_block)
+            col = self.bank_col_scale
+            out = [None if s is None else quantize_bank_int8_ah(
+                s, aniso_threshold=self.aniso_threshold, col_scale=None if col is None else col.to(s.device))[:2]
+                for s in shards]
+        return [None if o is None else o[0] for o in out], [None if o is None else o[1] for o in out]
+
     @property
     def device_state(self):
         """The searched arrays, passed explicitly to the pure search: the
@@ -224,11 +279,7 @@ class FlatSearch:
         owning shard; on a mesh over several processes, summed over them)."""
         if not isinstance(x, list):
             return x[idx]
-        if self.mesh is not None and self.mesh.spans_processes:
-            from hbird_tpu_torch.parallel.sharded_ivf import take
-
-            return take(x, idx, self.mesh)
-        return take_rows(x, idx)
+        return take(x, idx, self.mesh)
 
     def _dequantize(self, state, rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
         """Stored rows taken at positions `sel` of the bank, as features:
@@ -256,7 +307,7 @@ class FlatSearch:
         queries."""
         bank = state["bank"]
         if isinstance(bank, list):  # a shard this process holds
-            bank = next(s for s in bank if s is not None)
+            bank = first_shard(bank)
         if bank.dtype != torch.int8:
             return q.to(bank.dtype).contiguous(), None
         col = state.get("bank_col_scale")

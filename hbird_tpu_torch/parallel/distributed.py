@@ -15,12 +15,18 @@ hbird/utils/eval_metrics.py:246-252); this makes it real:
   only the confusion matrix crosses processes (`sync_conf_mat`).
 - `sync_conf_mat()`: the cross-process confusion-matrix sum (the
   reference's dormant all_reduce hook), exact in int64.
-- `process_mesh()`: a ('bank',) mesh over every process's devices, for the
-  leaf-sharded tree (parallel/sharded_ivf.py), whose shard lists hold None
-  for the other processes' shards; and the collectives its functions use
-  where the JAX package's shard_maps do (all-gathers of per-shard results
-  in shard order, sums and maxima, paired sends and receives of the
-  scatter ring, barriers around the multi-process .treedir writer).
+- `process_mesh()`: a ('bank',) mesh over every process's devices. Rank r
+  owns a contiguous run of the axis's shards and a shard list holds None
+  at the other processes' positions. The convention of every function that
+  takes such a mesh (the flat search, parallel/sharded_knn.py; the
+  leaf-sharded tree, parallel/sharded_ivf.py; the engine, hbird_eval.py):
+  every process passes the same queries and gets the same results, what
+  one process holding every shard would return.
+- the collectives those functions use where the JAX package's shard_maps
+  do: all-gathers of per-shard results in shard order (`gather_shards`),
+  sums and maxima (`all_sum`, `all_max`), paired sends and receives of the
+  tree's scatter ring (`send_rows`, `recv_rows`), barriers around the
+  multi-process .bankdir and .treedir writers.
 """
 
 from __future__ import annotations

@@ -72,45 +72,28 @@ from hbird_tpu_torch.ops.ivf import (
     slab_rows,
 )
 from hbird_tpu_torch.parallel import distributed
-from hbird_tpu_torch.parallel.sharded_knn import local_valid_rows, merge_topk, shard_rows, take_rows
+from hbird_tpu_torch.parallel.sharded_knn import (
+    first_shard,
+    gather_parts,
+    local_valid_rows,
+    merge_topk,
+    shard_rows,
+    spans_processes,
+    take,
+)
 
 Shards = List[Optional[torch.Tensor]]  # None: another process's shard
 SHARD_PROBES = ("split", "full")
 LAYOUTS = ("host", "device")
 
 
-def _spans(mesh) -> bool:
-    return mesh is not None and mesh.spans_processes
-
-
-def _first(shards: Shards) -> torch.Tensor:
-    """A shard this process holds."""
-    return next(s for s in shards if s is not None)
-
-
-def _gather(parts: Sequence[Optional[torch.Tensor]], home, mesh) -> List[torch.Tensor]:
-    """Every shard's tensor on `home`, in shard order (gathered from the
-    other processes on a mesh over several)."""
-    if _spans(mesh):
-        return distributed.gather_shards(parts, home)
-    return [t.to(home) for t in parts]
-
-
 def _total(parts: Sequence[Optional[torch.Tensor]], home, mesh=None) -> torch.Tensor:
     """Sum of per-shard tensors on `home`, added in shard order (the JAX
     package's psum, in one order on every process)."""
     out = None
-    for t in _gather(parts, home, mesh):
+    for t in gather_parts(parts, home, mesh):
         out = t.clone() if out is None else out + t
     return out
-
-
-def take(shards: Shards, idx: torch.Tensor, mesh=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Rows of global ids `idx` from their shards (parallel/sharded_knn.py::
-    take_rows), summed over the processes of a mesh that spans several:
-    the masked psum, exact since one process holds each row."""
-    out = take_rows(shards, idx, out)
-    return distributed.all_sum(out) if _spans(mesh) else out
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -138,7 +121,7 @@ def shard_ivf_state(ivf_bank, ivf_labels, mesh, bank_axis: str = "bank", *, cap:
     devices = mesh.axis_devices(bank_axis)
     p = len(devices)
     if isinstance(ivf_bank, (list, tuple)):
-        n_slots = len(ivf_bank) * _first(ivf_bank).shape[0]
+        n_slots = len(ivf_bank) * first_shard(ivf_bank).shape[0]
     else:
         n_slots = ivf_bank.shape[0]
     if n_slots % cap or (n_slots // cap) % p:
@@ -214,7 +197,7 @@ def sharded_ivf_knn_with_labels(
 
     p = len(ivf_bank)
     n_leaves = centroids.shape[0]
-    local_slots = _first(ivf_bank).shape[0]
+    local_slots = first_shard(ivf_bank).shape[0]
     if mesh is not None and mesh.shape.get(bank_axis, p) != p:
         raise ValueError(f"{p} shards for a bank axis of {mesh.shape[bank_axis]}")
     if n_leaves % p or local_slots != n_leaves // p * cap:
@@ -253,13 +236,13 @@ def sharded_ivf_knn_with_labels(
         vals = torch.full((0, k), NEG_INF, dtype=torch.float32, device=home)
         idx = torch.zeros((0, k), dtype=torch.int64, device=home)
     else:
-        cand_v = torch.cat(_gather(vals_s, home, mesh), dim=1)
-        cand_i = torch.cat(_gather(idx_s, home, mesh), dim=1)
+        cand_v = torch.cat(gather_parts(vals_s, home, mesh), dim=1)
+        cand_i = torch.cat(gather_parts(idx_s, home, mesh), dim=1)
         vals, idx = merge_topk(cand_v, cand_i, k, index_ordered=True)
     vals, idx = vals[:q_n], idx[:q_n]
     if inv is not None:
         vals, idx = vals[inv], idx[inv]
-    labels = torch.zeros(idx.shape + (_first(ivf_labels).shape[1],), dtype=torch.float32, device=home)
+    labels = torch.zeros(idx.shape + (first_shard(ivf_labels).shape[1],), dtype=torch.float32, device=home)
     return vals, idx, take(ivf_labels, idx, mesh, out=labels)
 
 
@@ -279,7 +262,7 @@ def sharded_kmeans(
     """Lloyd's k-means over the full row-sharded bank: each shard's sums and
     counts of its real rows (padding rows carry no weight), added in shard
     order on the centroids' device. Returns (n_leaves, D) f32 centroids."""
-    rows = _first(bank).shape[0]
+    rows = first_shard(bank).shape[0]
     m = len(bank) * rows if valid_rows is None else int(valid_rows)
     home = init_centroids.device
     c = init_centroids.float()
@@ -320,8 +303,8 @@ def sharded_assign_leaves(
     if not replicate_out:
         return ids, scores
     cpu = torch.device("cpu")
-    return (torch.cat(_gather(ids, cpu, mesh)).numpy().astype(np.int32),
-            torch.cat(_gather(scores, cpu, mesh)).numpy().astype(np.float32))
+    return (torch.cat(gather_parts(ids, cpu, mesh)).numpy().astype(np.int32),
+            torch.cat(gather_parts(scores, cpu, mesh)).numpy().astype(np.float32))
 
 
 def _f32_sortkey(x: torch.Tensor) -> torch.Tensor:
@@ -379,12 +362,12 @@ def sharded_balanced_layout(
     (n_leaves,) int64 numpy).
     """
     p = len(choices)
-    local = _first(choices).shape[0]
-    a = _first(choices).shape[1]
+    local = first_shard(choices).shape[0]
+    a = first_shard(choices).shape[1]
     m = int(valid_rows)
     if n_leaves * cap < m:
         raise ValueError(f"{n_leaves} leaves of {cap} slots cannot hold {m} rows")
-    home = _first(choices).device
+    home = first_shard(choices).device
     mine = [j for j in range(p) if choices[j] is not None]
     devs = {j: choices[j].device for j in mine}
     grow = {j: j * local + torch.arange(local, device=devs[j]) for j in mine}
@@ -426,7 +409,7 @@ def sharded_balanced_layout(
             lo, hi = torch.where(ok, lo, mid + 1), torch.where(ok, mid, hi)
         acc = {j: above[j] | (tie[j] & (grow[j] < at(lo, j, leaf[j]))) for j in mine}
         # Slots: the fill, the earlier shards' admissions, the local rank.
-        per_shard = _gather(count(acc, leaf), home, mesh)
+        per_shard = gather_parts(count(acc, leaf), home, mesh)
         base = fill.clone()
         for j in range(p):
             if j in acc:
@@ -439,7 +422,7 @@ def sharded_balanced_layout(
     # Spill: the rows left go to leaves with room, in global row order.
     room = torch.clamp(cap - fill, min=0)
     rc = torch.cumsum(room, 0)
-    left = _gather([(~placed[j]).sum().reshape(1) if j in placed else None for j in range(p)], home, mesh)
+    left = gather_parts([(~placed[j]).sum().reshape(1) if j in placed else None for j in range(p)], home, mesh)
     spilled = [None] * p
     start = 0
     for j in range(p):
@@ -482,14 +465,14 @@ def ring_scatter_build(
     if n_slots % p:
         raise ValueError(f"{n_slots} slots do not split over {p} shards")
     local = n_slots // p
-    first, first_lab = _first(bank), _first(labels)
+    first, first_lab = first_shard(bank), first_shard(labels)
     r, d, c = first.shape[0], first.shape[1], first_lab.shape[1]
     if not isinstance(slots, (list, tuple)):
         s = np.full(p * r, -1, np.int64)
         s[: len(slots)] = np.asarray(slots, np.int64)
         slots = [None if x is None else torch.as_tensor(s[j * r : (j + 1) * r], device=x.device)
                  for j, x in enumerate(bank)]
-    owner = (lambda j: int(mesh.ranks[j])) if _spans(mesh) else (lambda j: 0)
+    owner = (lambda j: int(mesh.ranks[j])) if spans_processes(mesh) else (lambda j: 0)
     slabs = [None if x is None else torch.zeros((local, d), dtype=x.dtype, device=x.device) for x in bank]
     lslabs = [None if x is None else torch.zeros((local, c), dtype=torch.float32, device=x.device) for x in bank]
     perm = [None if x is None else torch.full((local,), -1, dtype=torch.int64, device=x.device) for x in bank]
@@ -560,14 +543,14 @@ def build_ivf_sharded(
         raise ValueError(f"{n_leaves} leaves do not split over the mesh's {bank_axis!r} axis ({p})")
     if isinstance(bank, (list, tuple)):
         bank_s = list(bank)
-        rows = len(bank_s) * _first(bank_s).shape[0]
+        rows = len(bank_s) * first_shard(bank_s).shape[0]
         m = rows if valid_rows is None else int(valid_rows)
     else:
         m = bank.shape[0] if valid_rows is None else int(valid_rows)
         bank_s = shard_rows(bank, mesh, bank_axis, block=1)
-        rows = len(bank_s) * _first(bank_s).shape[0]
+        rows = len(bank_s) * first_shard(bank_s).shape[0]
     if labels is None:
-        labels = torch.zeros((m, 1), dtype=torch.float32, device=_first(bank_s).device)
+        labels = torch.zeros((m, 1), dtype=torch.float32, device=first_shard(bank_s).device)
     labels_s = row_shards(labels, mesh, rows, bank_axis)
     home = centroids.device
     n_slots = n_leaves * cap

@@ -12,7 +12,8 @@ Hungarian (default) or greedy many-to-one pred->gt matching, plus the
   solver, else numpy).
 - `compute(sync_distributed=True)` sums the confusion matrix over the
   torch.distributed process group first (parallel/distributed.py), and
-  keeps the local matrix as it was.
+  keeps the local matrix as it was; `computed_conf_mat` is the matrix the
+  last `compute` scored.
 """
 
 from __future__ import annotations
@@ -225,6 +226,7 @@ class PredsmIoU:
             # a second compute() does not sum already-summed matrices.
             local_conf = self._conf_mat
             self._conf_mat = np.asarray(sync_conf_mat(local_conf), np.int64)
+        self.computed_conf_mat = self._conf_mat.copy()
         try:
             return self._compute_from_conf_mat(
                 is_global_zero,

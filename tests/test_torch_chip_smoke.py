@@ -272,7 +272,9 @@ def test_mesh_phase_rehearses_on_cpu(smoke):
     mIoU, K1 on 4 stacked shards passes its checks with 4 (gather) and 16
     (ring) launches a call, the command line on the mesh repeats the
     unsharded mIoU and its reload builds nothing, the process group of one
-    passes the confusion matrix through."""
+    passes the confusion matrix through, and on a bank axis over it K1's
+    gather and ring equal the process-local mesh's in every form and the
+    engine repeats the meshed command line's mIoU with K1 once per shard."""
     runs, _, _, _, q, bank, _, _ = smoke.main_path(gen_seed=0)
     feed_runs, feed = smoke.native_feed(0, runs["scann unbounded"])
     (run,) = feed_runs.values()
@@ -287,6 +289,18 @@ def test_mesh_phase_rehearses_on_cpu(smoke):
     for r in mesh_runs.values():
         assert r["launches"]["knn_topk"] == 4 and abs(r["miou"] - runs["scann unbounded"]["miou"]) <= 1e-4
     assert smoke.nccl_one_process()["backend"] == "gloo"
+    mesh_miou = mesh_runs["cli scann --mesh-bank 4, save .bankdir"]["miou"]
+    group_rows, group_runs, info = smoke.mesh_flat_process_group(q, bank, torch.Generator().manual_seed(2),
+                                                                 [torch.device("cpu")] * 4, rows, mesh_miou)
+    assert info["backend"] == "gloo"
+    assert set(group_rows) == {f"{b} {f} {s}" for b in ("main", "bank_3000")
+                               for f in ("bf16", "f32", "int8_rows", "int8+reorder") for s in ("gather", "ring")}
+    assert all(r["launches_per_call"] == (4 if name.endswith("gather") else 16) for name, r in group_rows.items())
+    assert ("phase_9_2_local_ms" in group_rows["main int8_rows ring"]) and "phase_9_2_local_ms" not in group_rows[
+        "main f32 gather"]
+    (run,) = group_runs.values()
+    assert run["launches"] == {"knn_topk": 4, "ivf_topk": 0} and run["forms"]["knn_topk"] == {"dot": 4}
+    assert abs(run["miou"] - mesh_miou) <= 1e-4
 
 
 def test_mesh_tree_phase_rehearses_on_cpu(smoke, monkeypatch):

@@ -13,8 +13,9 @@ The leaf-sharded tree on a bank axis over the two processes
 (`process_mesh`, 2 CPU shards each, 4 in all), in both layouts: each
 process holds its own shards; the build, the search (values, ids,
 labels) and the gathered features equal one process building the same
-tree on 4 shards of its own, bit for bit; the flat search and the engine
-(each process its own bank) refuse such a mesh. The multi-process .treedir writer: each process writes its shards,
+tree on 4 shards of its own, bit for bit, and so does the flat search on
+the same mesh (tests/test_torch_distributed_flat.py holds the flat search
+and the engine there in every form). The multi-process .treedir writer: each process writes its shards,
 process 0 the manifests and meta; the slab and label files and tree_meta.json
 are byte for byte those of the one-process writer (meta.npz, a zip whose
 entries carry their write time, holds equal arrays), and
@@ -30,7 +31,6 @@ import torch
 import torch.multiprocessing as mp
 
 from hbird_tpu.bank.io import load_tree_state as j_load_tree_state
-from hbird_tpu_torch.hbird_eval import HbirdEvaluation
 from hbird_tpu_torch.nn import NearestNeighborSearchApprox, NearestNeighborSearchExact
 from hbird_tpu_torch.parallel import distributed as D
 from hbird_tpu_torch.parallel import make_mesh
@@ -118,11 +118,10 @@ def _tree_worker(rank, port, out_dir):
     D.initialize(f"tcp://127.0.0.1:{port}", num_processes=N_PROC, process_id=rank, backend="gloo")
     mesh = D.process_mesh(["cpu", "cpu"])
     assert mesh.shape == {"bank": 4} and mesh.spans_processes and mesh.ranks.tolist() == [0, 0, 1, 1]
-    with pytest.raises(ValueError, match="process-local"):
-        NearestNeighborSearchExact(np.zeros((8, 4), np.float32), device="cpu", mesh=mesh)
-    with pytest.raises(ValueError, match="process-local"):
-        HbirdEvaluation(None, [], 3, device="cpu", mesh=mesh)
     x, labels, q = _tree_data()
+    flat = NearestNeighborSearchExact(x, n_neighbors=8, label_memory=labels, device="cpu", mesh=mesh)
+    assert [b is None for b in flat.bank] == [rank == 1, rank == 1, rank == 0, rank == 0]
+    np.savez(os.path.join(out_dir, f"flat_rank{rank}.npz"), **_tree_answers(flat, q))
     for layout, kw in LAYOUTS.items():
         nn = NearestNeighborSearchApprox(x, label_memory=labels, mesh=mesh, tree_build_layout=layout, **TREE_KW, **kw)
         assert [b is None for b in nn.bank] == [rank == 1, rank == 1, rank == 0, rank == 0]
@@ -142,6 +141,11 @@ def test_tree_over_two_processes(tmp_path):
     mp.spawn(_tree_worker, args=(_free_port(), str(tmp_path)), nprocs=N_PROC, join=True)
     x, labels, q = _tree_data()
     mesh = make_mesh((4,), ("bank",), ["cpu"] * 4)
+    flat = _tree_answers(NearestNeighborSearchExact(x, n_neighbors=8, label_memory=labels, device="cpu", mesh=mesh), q)
+    for rank in range(N_PROC):
+        got = np.load(tmp_path / f"flat_rank{rank}.npz")
+        for name, v in flat.items():
+            np.testing.assert_array_equal(got[name], v, err_msg=f"flat rank {rank} {name}")
     for layout, kw in LAYOUTS.items():
         one = NearestNeighborSearchApprox(x, label_memory=labels, mesh=mesh, tree_build_layout=layout, **TREE_KW,
                                           **kw)
