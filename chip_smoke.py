@@ -39,6 +39,14 @@ Phases; any failure raises and the script exits non-zero with no result:
    64, 96, 97, 120, 128: each size of the batched select and its edges) at
    that shape, and on tie-dense entries in {-1, 0, 1} (Q=10,000, so items
    of several bank splits are in flight; every score exact) bit for bit.
+   Then int8 and int8_rows on the wide banks, D in WIDE_DEPTHS (1,040:
+   a partial last 128-byte chunk; mae_vith14's 1,280; dinov2_vitg14's
+   1,536), k in 30 and 120, Q=4,096 against 65,537 rows, on sharp codes
+   (magnitudes 120-127, every 7th column negated: every exact score at
+   D >= 1,280 passes 2^24, and a running f32 sum is shown to miss some),
+   on the wgmma kernel (`route`), bit for bit; int8 x int8 at D = 3,088
+   (S8_MAX_DEPTH + 16) must raise ValueError before any launch, the
+   library reporting shared memory at 3,072 and none at 3,088.
 3. K2 against its plain version (ops/ivf.py::ivf_search_plain) on an IVF
    tree built by the port over a clustered bank of 300,000 rows at D=768
    (512 leaves; the f32 form on an f32 tree of the same rows): bf16 and
@@ -53,7 +61,11 @@ Phases; any failure raises and the script exits non-zero with no result:
    (items of several probe splits in flight), with probed slabs emptied,
    cut to 5 and to 128 rows, and an id outside [0, n_slabs) in every
    tile's list; f32 also on slabs of cap 264 (not a multiple of 128) at
-   D=72 and 768, rows of norms 0.2-3.0, k in {30, 128}.
+   D=72 and 768, rows of norms 0.2-3.0, k in {30, 128}. Then int8 and
+   int8_rows at each depth of WIDE_DEPTHS on sharp codes in 48 ragged
+   slabs of cap 256 (one empty), 4,096 queries in tiles of 256 probing 32
+   slabs each (one id out of range), k in 30 and 120, on the wgmma kernel,
+   bit for bit; D = 3,088 raises before any launch.
 4. K3 against its plain version (ops/flash.py::flash_attention_plain),
    bf16 and f32, on seeded unit normals at (B, H, N, hd) = (16, 12, 1370,
    64) (the main path: dinov2_vitb14 at input 518, batch 16), (2, 12, 1374,
@@ -110,8 +122,21 @@ Phases; any failure raises and the script exits non-zero with no result:
    mae_vith14 (1,280 wide, 32 blocks of 16 heads of 80, no LayerScale: K3
    bf16 at hd 80, N = 257; K1 bf16 dot at D = 1,280) at input 224: K3
    launches 32 x 5 = 160 times, the same checks but the 12-block bound on
-   'flash' against 'xla' (printed); the host's time to initialise its two
-   ViTs (631M parameters each) is printed.
+   'flash' against 'xla' (printed); the host's time to initialise its ViT
+   (631M parameters) is printed. Each preset initialises one ViT and
+   switches its blocks between the two attentions. On mae_vith14's
+   1,280-wide bank, with the bf16 'flash' ViT, the int8 runs of
+   WIDE_QUANT_RUNS: 'faiss' use_int8 + reorder 120 (K1 int8), 'scann'
+   int8_rows (K1 int8_rows), 'ivf' int8_rows at N_PROBE probes (K2
+   int8_rows) and flat 'faiss' int8_asym (K1 asym_rows); and dinov2_vitg14
+   (1,536 wide, 40 blocks of 24 heads of 64, SwiGLU, LayerScale 0.05) at
+   input 518, its one ViT of 1.1B parameters initialised on the host (the
+   seconds printed), 'scann' bf16 with 'flash' (K3 200 launches, K1 dot at
+   D = 1,536) and GIANT_QUANT_RUNS ('scann' int8_rows, 'faiss' use_int8 +
+   reorder 120), its tokens held as mae_vith14's. Each int8 run launches
+   its K1 or K2 form once per eval batch and K3 as the flash run, nothing
+   else, and prints its mIoU and recall@30 against K1's exact bf16
+   neighbours on the run's bank.
 6. The card against the CPU on a small input: a tiny ViT (depth 2, width
    64) on a 12/6-image fixture through `hbird_evaluation`, 'scann',
    'faiss', 'ivf' and 'ivf' on an f32 tree (every leaf probed), and
@@ -127,7 +152,7 @@ Phases; any failure raises and the script exits non-zero with no result:
    card and on the CPU from the same float bank (6,000 rows, D=64): the
    same codes and scales (anisotropic codes: at most ANISO_CODE_FLIPS of
    the rows may differ, near-tied losses) and the same neighbours (exact
-   int8 forms bit for bit; the others within RTOL).
+   int8 forms bit for bit; the others within RTOL); again at D = 1,536.
 7. K1, K2 and K3 timed with CUDA events, each beside its bound, its plain
    version and a library yardstick the port never calls: K1 at the main
    path's shape (Q=21,904, M=87,616) and against a 1,024,000-row bank
@@ -170,7 +195,13 @@ Phases; any failure raises and the script exits non-zero with no result:
    merges and 32-score chunks merged per query and set. Then the
    ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and
    bf16; and the MAE-H/14 (mae_vith14) forward per batch of 16 at 224,
-   'xla' and 'flash' in bf16.
+   'xla' and 'flash' in bf16. Then every K1 and K2 form on the wide banks
+   (wide_timing), at D = 1,280 and 1,536: Q=21,904 normal queries against
+   87,616 unit rows (their f32 values for the f32 forms), K1 bf16 dot, l2,
+   int8 and int8_rows (k 30 and 120), asym, asym_rows, f32 (k 30 and 120)
+   and f32 l2; K2 bf16, int8, int8_rows, asym, asym_rows on a tree of that
+   bank (32 of 512 leaves) and f32 on an f32 tree; each row with its
+   route, bound, plain and library times and its check.
 8. The entry point and persistence, at phase 5's width and fixture:
    `hbird_tpu_torch.eval_cli.main` (what `python -m hbird_tpu_torch.eval_cli`
    runs) with --model dinov2_vitb14 --random-init --seed 0, 'scann', saving
@@ -260,11 +291,12 @@ takes 3xTF32 products, ~21 bits of each operand); index
 sets equal except where the k-th and (k+1)-th plain scores are within
 twice that; every returned index re-scored gives its returned value; K2's
 ids lie in the valid rows of the slabs their query tile probes. With row
-scales the bound is 1e-5 * ||q|| * max_i(||b_i|| * s_i). int8 x int8
-scores are integers below 2^24 (D <= 1024) and a row scale is one f32
-multiply, so those forms must equal the plain version bit for bit, values
-and indices (the plain version's f32 matmul of the widened codes is exact
-with TF32 off).
+scales the bound is 1e-5 * ||q|| * max_i(||b_i|| * s_i). An int8 x int8
+score is the exact integer sum converted to f32 once (the kernel's s32
+accumulators; the plain version's f64 product of the codes, exact below
+2^53, then one rounding) and a row scale is one f32 multiply, so those
+forms must equal the plain version bit for bit, values and indices, at
+every depth.
 
 Tolerance of the K3 checks: f32 within 1e-5 absolute at unit-normal
 inputs (3xTF32 products, about 21 bits of each operand, and exps summed
@@ -358,10 +390,21 @@ NARROW_PRESET, NARROW_INPUT = "mocov3_vits16", 224  # phase 5's head-width-32 Vi
 NARROW_ROUNDS = 15  # phase 7 and --pairs: K3 bf16 hd 32 and SDPA timed in turns, median and spread
 FLASH_WIDE = (16, 16, 257, 80)  # mae_vith14 at 224, batch 16: K3 bf16 at hd 80
 WIDE_PRESET, WIDE_INPUT = "mae_vith14", 224  # phase 5's head-width-80 ViT (K3 bf16 at hd 80)
+GIANT_PRESET, GIANT_INPUT = "dinov2_vitg14", 518  # phase 5's 1,536-wide ViT (40 blocks, SwiGLU; K3 at hd 64)
 PAIR_Q, PAIR_M = 21904, 87616  # --pairs: the main path's eval batch and bank
 # --pairs, K1's wgmma forms: the engine's k, S = 2 and 3 keys a lane, faiss int8 + reorder's scan, the most
 PAIR_KS = (30, 64, 96, 120, 128)
 INT8_KS = (30, 120)  # phase 7's K1 int8 forms: the engine's k and faiss int8 + reorder's scan
+# Phases 2 and 3: int8 x int8 on the wide banks (mae_vith14's D = 1,280,
+# dinov2_vitg14's 1,536; 1,040 ends in a partial 128-byte chunk), Q queries
+# against M rows (M not a multiple of 128), on codes whose exact sums pass
+# 2^24 (sharp_codes); S8_MAX_DEPTH is the deepest int8 x int8 whose 64
+# queries and one ring stage per consumer fit the wgmma kernel's shared
+# memory: 16 more must raise before any launch.
+WIDE_DEPTHS = (1040, 1280, 1536)
+WIDE_TIMING_DEPTHS = (1280, 1536)  # phase 7: every K1 and K2 form at PAIR_Q x PAIR_M on the wide banks
+WIDE_CASE_Q, WIDE_CASE_M = 4096, 65_537
+S8_MAX_DEPTH = 3072
 # The Hopper kernels: source -> the name their wgmma kernels carry (K1 and
 # K2 instantiate one template, wgmma_topk.cuh's topk_wgmma).
 WGMMA_KERNELS = {"knn_topk.cu": "topk_wgmma", "ivf_topk.cu": "topk_wgmma",
@@ -403,6 +446,18 @@ QUANT_RUNS = {
     "faiss int8_asym": ("faiss", {"quantization": "int8_asym"}, False, ("knn_topk", "asym_rows")),
     "ivf f32": ("ivf", {"use_fp16": False}, False, ("ivf_topk", "f32")),
 }
+# Phase 5's int8 runs on the wide banks, with the bf16 'flash' ViT:
+# nn_method, nn_params, and the kernel and form that must launch once per
+# eval batch (the tree probes N_PROBE leaves, as phase 5's 'ivf').
+WIDE_QUANT_RUNS = {
+    "faiss int8 + reorder 120": ("faiss", {"use_int8": True, "num_reordering_candidates": 120},
+                                 ("knn_topk", "int8")),
+    "scann int8_rows": ("scann", {"quantization": "int8_rows"}, ("knn_topk", "int8_rows")),
+    "ivf int8_rows": ("ivf", {"quantization": "int8_rows", "num_leaves_to_search": N_PROBE},
+                      ("ivf_topk", "int8_rows")),
+    "faiss int8_asym": ("faiss", {"quantization": "int8_asym"}, ("knn_topk", "asym_rows")),
+}
+GIANT_QUANT_RUNS = {name: WIDE_QUANT_RUNS[name] for name in ("scann int8_rows", "faiss int8 + reorder 120")}
 ANISO_CODE_FLIPS = 0.02  # rows whose anisotropic codes may differ between devices (near-tied losses)
 MESH_SHARDS = 4  # phase 9: bank shards of the mesh (stacked on one card, or distinct cards)
 
@@ -811,6 +866,136 @@ def select_cases(gen):
             errs.append(check_against_plain(f"{form} tie-dense Q={n_q} M={tbank.shape[0]} valid={valid} k={k}",
                                             tqq, tbank, k, valid, exact=True, **tkw))
     return max(errs)
+
+
+def sharp_codes(n, d, gen):
+    """(n, d) int8 codes of magnitude 120-127 with every 7th column negated
+    (the same columns in queries and bank, so every product is positive):
+    at D >= 1,280 every exact q·b passes 2^24 within the first 1,152
+    columns, half of them odd, so a running f32 sum rounds on the way and
+    only one conversion of the exact integer gives the TPU kernel's value
+    (tests/test_torch_int8_wide.py holds the plain versions to it)."""
+    sign = torch.where(torch.arange(d, device=DEVICE) % 7 == 0, -1, 1)
+    return (torch.randint(120, 128, (n, d), generator=gen, device=DEVICE) * sign).to(torch.int8).contiguous()
+
+
+def assert_sharp(name, q, b, chunk=128):
+    """Fails unless the codes can tell one rounding from several: at D >=
+    1,280 a `chunk`-deep running f32 sum of q·b must miss the once-rounded
+    exact sum somewhere (at 1,040 no int8 sum reaches 2^24). Returns the
+    share missed."""
+    q, b = q[:256].double(), b[:2048].double()
+    exact = q @ b.T
+    if q.shape[1] * 127**2 < 2**24:
+        return 0.0
+    acc = torch.zeros(exact.shape, dtype=torch.float32, device=exact.device)
+    for c in range(0, q.shape[1], chunk):
+        acc = acc + (q[:, c:c + chunk] @ b[:, c:c + chunk].T).float()
+    share = (acc != exact.float()).float().mean().item()
+    if not (exact.min().item() > 2**24 and share > 0.0):
+        fail(f"{name}: the codes cannot tell one rounding from a running f32 sum")
+    return share
+
+
+def deep_int8_refused(lib, prefix, counter, call, d):
+    """Phases 2 and 3: int8 x int8 at depth d = S8_MAX_DEPTH + 16: the
+    library `lib` reports shared memory for form 2 at S8_MAX_DEPTH and none
+    at d, and `call(d)` (the wrapper on CUDA codes) raises ValueError,
+    naming shared memory, with `counter`'s launches unchanged."""
+    from hbird_tpu_torch.ops import knn_cuda
+
+    smem = {depth: knn_cuda.wgmma_smem(lib, prefix, depth, 2) for depth in (S8_MAX_DEPTH, d)}
+    if not (smem[S8_MAX_DEPTH] > 0 and smem[d] == 0):
+        fail(f"{prefix}: the S8 kernel's shared memory by depth {smem}, not fitting up to {S8_MAX_DEPTH} alone")
+    before = counter.launches
+    try:
+        call(d)
+    except ValueError as e:
+        if "shared memory" not in str(e):
+            raise
+    else:
+        fail(f"{prefix}: int8 x int8 at D = {d} ran instead of raising")
+    if counter.launches != before:
+        fail(f"{prefix}: int8 x int8 at D = {d} launched")
+    print(f"  {prefix} int8 x int8 at D = {d}: raises before any launch (shared memory by depth "
+          f"{json.dumps(smem)} B)", flush=True)
+    return smem
+
+
+def wide_int8_knn_cases(gen):
+    """Phase 2: K1 int8 and int8_rows at each depth of WIDE_DEPTHS on sharp
+    codes (WIDE_CASE_Q queries, WIDE_CASE_M rows, the last 537 invalid), k
+    in INT8_KS, on the wgmma kernel (`route`), bit for bit, values and
+    indices; then D = S8_MAX_DEPTH + 16 refused before any launch."""
+    from hbird_tpu_torch.ops import cuda_build, knn_cuda
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    valid = WIDE_CASE_M - 537
+    errs, info = [], {}
+    for d in WIDE_DEPTHS:
+        q8, codes = sharp_codes(WIDE_CASE_Q, d, gen), sharp_codes(WIDE_CASE_M, d, gen)
+        rs = 0.25 + torch.rand(WIDE_CASE_M, generator=gen, device=DEVICE)
+        route = _route("knn_topk.cu", "knn_topk", q8, codes)
+        if route not in ("wgmma", "plain"):
+            fail(f"K1 int8 at D = {d} routed to {route}")
+        info[d] = {"route": route, "sharp_share": assert_sharp(f"K1 D={d}", q8, codes)}
+        for form, r in (("int8", None), ("int8_rows", rs)):
+            for k in INT8_KS:
+                errs.append(check_against_plain(
+                    f"{form} sharp codes Q={WIDE_CASE_Q} M={WIDE_CASE_M} D={d} valid={valid} k={k} ({route})",
+                    q8, codes, k, valid, row_scale=r, exact=True))
+        del q8, codes
+    if DEVICE == "cuda":
+        lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
+        info["refused"] = deep_int8_refused(lib, "knn_topk", knn_topk, lambda d: knn_topk(
+            sharp_codes(64, d, gen), sharp_codes(256, d, gen), 30), S8_MAX_DEPTH + 16)
+    return max(errs), info
+
+
+def wide_int8_ivf_cases(gen):
+    """Phase 3: K2 int8 and int8_rows at each depth of WIDE_DEPTHS on sharp
+    codes: 48 slabs of cap 256 (ragged, one empty), WIDE_CASE_Q queries in
+    tiles of 256 each probing 32 slabs (on the card one id out of range),
+    k in INT8_KS, on the wgmma kernel, bit for bit; then D = S8_MAX_DEPTH +
+    16 refused before any launch."""
+    from hbird_tpu_torch.ops import cuda_build, ivf_cuda
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+
+    n_slabs, cap, n_probe = 48, 256, 32
+    n_tiles = WIDE_CASE_Q // BLOCK_Q
+    errs, info = [], {}
+    for d in WIDE_DEPTHS:
+        lv = torch.randint(1, cap + 1, (n_slabs,), generator=gen, device=DEVICE, dtype=torch.int32)
+        lv[:3] = torch.tensor([0, 5, cap], dtype=torch.int32)
+        slot = torch.arange(n_slabs * cap, device=DEVICE)
+        bank = sharp_codes(n_slabs * cap, d, gen)
+        bank[slot % cap >= lv.long().repeat_interleave(cap)] = 0
+        rs = torch.where(slot % cap < lv.long().repeat_interleave(cap),
+                         0.25 + torch.rand(n_slabs * cap, generator=gen, device=DEVICE), 0.0)
+        q8 = sharp_codes(n_tiles * BLOCK_Q, d, gen)
+        lids = torch.stack([torch.randperm(n_slabs, generator=gen, device=DEVICE)[:n_probe]
+                            for _ in range(n_tiles)]).to(torch.int32)
+        if DEVICE == "cuda":
+            lids[:, 5] = n_slabs + 3
+        route = _route("ivf_topk.cu", "ivf_topk", q8, bank)
+        if route not in ("wgmma", "plain"):
+            fail(f"K2 int8 at D = {d} routed to {route}")
+        info[d] = {"route": route, "sharp_share": assert_sharp(f"K2 D={d}", q8, bank[lv.long().repeat_interleave(
+            cap) > slot % cap])}
+        for form, r in (("int8", None), ("int8_rows", rs)):
+            for k in INT8_KS:
+                errs.append(check_ivf_against_plain(
+                    f"{form} sharp codes Q={q8.shape[0]} {n_slabs} slabs of cap {cap} D={d} k={k} "
+                    f"n_probe={n_probe} ({route})", q8, bank, lids, lv, k, cap, BLOCK_Q, row_scale=r, exact=True))
+        del q8, bank
+    if DEVICE == "cuda":
+        lib = cuda_build.load("ivf_topk.cu", "ivf_topk_launch", ivf_cuda._ARGTYPES)
+        one = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
+        full = torch.full((1,), cap, dtype=torch.int32, device=DEVICE)
+        info["refused"] = deep_int8_refused(lib, "ivf_topk", ivf_topk, lambda d: ivf_topk(
+            sharp_codes(BLOCK_Q, d, gen), sharp_codes(cap, d, gen), one, full, 30, cap=cap, block_q=BLOCK_Q),
+            S8_MAX_DEPTH + 16)
+    return max(errs), info
 
 
 def clustered_bank(n, d, n_clusters, gen, noise=0.3, device=None):
@@ -1656,20 +1841,34 @@ def _val_batch(root, input_size):
     return (torch.from_numpy(x).to(DEVICE).float() / 255.0 - mean) / std
 
 
+def _set_attention(vit, impl):
+    """`vit` with every block on attention `impl` (the same weights)."""
+    import dataclasses
+
+    vit.config = dataclasses.replace(vit.config, attention_impl=impl)
+    for blk in vit.blocks:
+        blk.attn.cfg = vit.config
+    return vit
+
+
 def flash_path(gen_seed):
     """Phase 5, the flash path: hbird_evaluation with attention_impl='flash'
     against 'xla', the tokens of both on one val batch, and K3 on that
     batch's block-0 q, k, v; at PRESET (head width 64) with the ViT in bf16
     and in f32, and in bf16 at NARROW_PRESET (head width 32, K3 bf16 at hd
-    32) and WIDE_PRESET (head width 80, K3 bf16 at hd 80). Returns the
-    runs, the launches by run, the token errors and K3's worst error."""
+    32), WIDE_PRESET (head width 80, K3 bf16 at hd 80, with the int8 runs
+    of WIDE_QUANT_RUNS on its 1,280-wide bank) and GIANT_PRESET ('flash'
+    alone, with GIANT_QUANT_RUNS on its 1,536-wide bank). Returns the runs,
+    the launches by run, the token errors and K3's worst error."""
     runs, launches, token_err, err = {}, {}, {}, 0.0
-    for preset, input_size, dtypes, prefix in ((PRESET, INPUT, ("bf16", "f32"), ""),
-                                               (NARROW_PRESET, NARROW_INPUT, ("bf16",),
-                                                f"{NARROW_PRESET} at {NARROW_INPUT}, "),
-                                               (WIDE_PRESET, WIDE_INPUT, ("bf16",),
-                                                f"{WIDE_PRESET} at {WIDE_INPUT}, ")):
-        r, n, t, e = _flash_runs(gen_seed, preset, input_size, dtypes, prefix)
+    for preset, input_size, dtypes, prefix, impls, quant_runs in (
+            (PRESET, INPUT, ("bf16", "f32"), "", ("flash", "xla"), {}),
+            (NARROW_PRESET, NARROW_INPUT, ("bf16",), f"{NARROW_PRESET} at {NARROW_INPUT}, ", ("flash", "xla"), {}),
+            (WIDE_PRESET, WIDE_INPUT, ("bf16",), f"{WIDE_PRESET} at {WIDE_INPUT}, ", ("flash", "xla"),
+             WIDE_QUANT_RUNS),
+            (GIANT_PRESET, GIANT_INPUT, ("bf16",), f"{GIANT_PRESET} at {GIANT_INPUT}, ", ("flash",),
+             GIANT_QUANT_RUNS)):
+        r, n, t, e = _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs)
         runs.update(r)
         launches.update(n)
         token_err.update(t)
@@ -1677,11 +1876,12 @@ def flash_path(gen_seed):
     return runs, launches, token_err, err
 
 
-def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
-    """flash_path at one preset and input size, in `dtypes`; labels begin
-    with `prefix`."""
-    import dataclasses
-
+def _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs):
+    """flash_path at one preset and input size, in `dtypes`, the engine run
+    with each attention of `impls`; labels begin with `prefix`. One ViT is
+    initialised on the host (its seconds printed) and switched between
+    attentions. Then, in bf16 on 'flash', each run of `quant_runs` and its
+    recall (_quant_engine_runs)."""
     from hbird_tpu_torch import hbird_evaluation
     from hbird_tpu_torch.data.synthetic import make_voc_fixture
     from hbird_tpu_torch.models import VIT_PRESETS, FeatureExtractor, ViT
@@ -1694,20 +1894,18 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
 
     cfg = VIT_PRESETS[preset]
     t0 = time.perf_counter()
-    vits = {impl: ViT(dataclasses.replace(cfg, attention_impl=impl),
-                      generator=torch.Generator().manual_seed(gen_seed)) for impl in ("flash", "xla")}
-    n_params = sum(p.numel() for p in vits["flash"].parameters())
-    print(f"  {prefix}two ViTs of {n_params / 1e6:.1f}M parameters initialised on the host in "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    vit = ViT(cfg, generator=torch.Generator().manual_seed(gen_seed))
+    n_params = sum(p.numel() for p in vit.parameters())
+    print(f"  {prefix}a ViT of {n_params / 1e6:.1f}M parameters ({cfg.depth} blocks, width {cfg.width}) "
+          f"initialised on the host in {time.perf_counter() - t0:.2f}s", flush=True)
     if cfg.layerscale:
         # At its 1e-5 init LayerScale leaves the blocks almost silent: the
         # tokens of any attention would then agree to 1e-10. At 0.05 the
         # attention moves the tokens and the mIoU.
         with torch.no_grad():
-            for vit in vits.values():
-                for blk in vit.blocks:
-                    blk.ls1.fill_(LAYERSCALE)
-                    blk.ls2.fill_(LAYERSCALE)
+            for blk in vit.blocks:
+                blk.ls1.fill_(LAYERSCALE)
+                blk.ls2.fill_(LAYERSCALE)
     counters = {"knn_topk": knn_topk, "ivf_topk": ivf_topk, "flash_attention": flash_attention}
     # One forward per train batch (one augmentation epoch) and per val batch.
     n_batches = -(-FIXTURE["n_train"] // BATCH) + -(-FIXTURE["n_val"] // BATCH)
@@ -1719,7 +1917,8 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
                       device=DEVICE, nn_method="scann")
         for dt in dtypes:
             mious = {}
-            for impl, vit in vits.items():
+            for impl in impls:
+                _set_attention(vit, impl)
                 label = f"scann unbounded, {prefix}{dt} ViT, attention_impl={impl!r}"
                 timer = PhaseTimer()
                 random.seed(0)
@@ -1745,8 +1944,14 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
                 print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)} (K3 expected {expected} = "
                       f"{cfg.depth} blocks x {n_batches} forward batches), wall {wall:.2f}s, "
                       f"phases {json.dumps(timer.summary())}", flush=True)
-            print(f"  {prefix}{dt} ViT: mIoU 'flash' {mious['flash']:.6f}, 'xla' {mious['xla']:.6f}, "
-                  f"'flash' - 'xla' {mious['flash'] - mious['xla']:.3g}", flush=True)
+            print(f"  {prefix}{dt} ViT: mIoU " + ", ".join(f"{impl!r} {m:.6f}" for impl, m in mious.items())
+                  + (f", 'flash' - 'xla' {mious['flash'] - mious['xla']:.3g}" if len(mious) > 1 else ""),
+                  flush=True)
+        _set_attention(vit, "flash")
+        if quant_runs:
+            r, n = _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters, expected)
+            runs.update(r)
+            launches.update(n)
         imgs = _val_batch(root, input_size)
 
     token_err = {}
@@ -1754,8 +1959,8 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
     with torch.inference_mode():
         for dtype in dtypes:
             max_tol, mean_tol = TOKEN_TOL[dtype]
-            tokens = {impl: FeatureExtractor(vit, use_bf16=dtype == torch.bfloat16).forward_features(imgs)[0]
-                      for impl, vit in vits.items()}
+            tokens = {impl: FeatureExtractor(_set_attention(vit, impl), use_bf16=dtype == torch.bfloat16)
+                      .forward_features(imgs)[0] for impl in ("flash", "xla")}
             err = (tokens["flash"] - tokens["xla"]).abs()
             name = f"{prefix}{str(dtype)[6:]}"
             token_err[name] = {"max": err.max().item(), "mean": err.mean().item()}
@@ -1766,8 +1971,9 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
             if dtype == torch.bfloat16:
                 # Each bf16 forward against the f32 'xla' forward of the same
                 # weights: 'flash' may lie no further from it than 'xla' does.
-                truth = FeatureExtractor(vits["xla"], use_bf16=False).forward_features(imgs)[0]
+                truth = FeatureExtractor(vit, use_bf16=False).forward_features(imgs)[0]
                 off = {impl: (t.float() - truth).abs() for impl, t in tokens.items()}
+                del truth
                 for impl, e in off.items():
                     token_err[name][f"{impl}_vs_f32"] = {"max": e.max().item(), "mean": e.mean().item()}
                 f, x = token_err[name]["flash_vs_f32"], token_err[name]["xla_vs_f32"]
@@ -1775,9 +1981,10 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
                       f"mean {f['mean']:.4g}; 'xla' max {x['max']:.4g}, mean {x['mean']:.4g}", flush=True)
                 if f["max"] > TOKEN_F32_MARGIN[0] * x["max"] or f["mean"] > TOKEN_F32_MARGIN[1] * x["mean"]:
                     fail(f"bf16 'flash' tokens further from the f32 forward than 'xla''s, {prefix}: {token_err[name]}")
+            del tokens
         # K3 on the main path's own inputs: block 0's q, k, v, strided views
         # of its qkv projection, as the ViT hands them over.
-        vit = vits["flash"]
+        _set_attention(vit, "flash")
         blk = vit.blocks[0]
         scale = cfg.head_dim**-0.5
         err_k3 = 0.0
@@ -1790,7 +1997,75 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix):
             err_k3 = max(err_k3, check_flash(
                 f"K3 {str(dtype)[6:]}, {prefix}main path's block-0 q, k, v {tuple(q.shape)} (strided views)",
                 flash_attention(q, k, v, scale), flash_attention_plain(q, k, v, scale)))
+    del vit
     return runs, launches, token_err, err_k3
+
+
+def _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters, expected):
+    """Phase 5 on a wide bank: hbird_evaluation with the bf16 'flash' ViT
+    `vit` and each run of `quant_runs` (nn_method, nn_params, (kernel,
+    form)), K3 launching `expected` times and the run's K1 or K2 form once
+    per eval batch, nothing else; then each backend, built on the run's
+    bank, and its recall@30 against K1's exact bf16 neighbours for one eval
+    batch, by ids and by score. Returns (runs, launches by run)."""
+    from hbird_tpu_torch import HbirdEvaluation, hbird_evaluation
+    from hbird_tpu_torch.data import get_dataset
+    from hbird_tpu_torch.data.transforms import get_hbird_train_transforms
+    from hbird_tpu_torch.models import FeatureExtractor
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.utils.profiling import PhaseTimer
+
+    n_eval = -(-FIXTURE["n_val"] // BATCH)
+    common = dict(batch_size=BATCH, input_size=input_size, n_neighbours=30, num_workers=0, device=DEVICE,
+                  bf16_model=True)
+    runs, launches = {}, {}
+    for name, (method, params, (kernel, form)) in quant_runs.items():
+        label = f"{name}, {prefix}bf16 ViT, attention_impl='flash'"
+        timer = PhaseTimer()
+        random.seed(0)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, nn_method=method,
+                                nn_params=dict(params), timer=timer, **common)
+        wall = time.perf_counter() - t0
+        n = {c: fn.launches for c, fn in counters.items()}
+        forms = read_forms(counters)
+        others = sum(v for c, v in n.items() if c not in (kernel, "flash_attention"))
+        if forms[kernel] != {form: n_eval} or others or forms["flash_attention"] != {"bf16": expected}:
+            fail(f"{label}: launches by form {forms}, not {kernel} {form} x {n_eval} and K3 bf16 x {expected}")
+        if not (0.0 <= miou <= 1.0):
+            fail(f"{label}: mIoU {miou} not a finite value in [0, 1]")
+        launches[f"{prefix}bf16 {name}"] = n
+        runs[label] = {"nn_method": method, "nn_params": params, "miou": miou, "launches": n, "forms": forms,
+                       "wall_s": wall, "phases": timer.summary(), "D": cfg.width}
+        print(f"  {label} ({method}, {json.dumps(params)}): mIoU {miou:.6f}, launches by form "
+              f"{json.dumps(forms)}, wall {wall:.2f}s, phases {json.dumps(timer.summary())}", flush=True)
+    # The runs' bank and one eval batch of queries, as the engine builds them.
+    tr = get_hbird_train_transforms(input_size, device_normalize=True)
+    ds, _ = get_dataset("voc", root, BATCH, 0, tr, tr)
+    random.seed(0)
+    fe = FeatureExtractor(vit, eval_spatial_resolution=input_size // cfg.patch_size, d_model=cfg.width,
+                          use_bf16=True)
+    ev = HbirdEvaluation(fe, ds.train_dataloader(), num_classes=ds.get_num_classes(), device=DEVICE,
+                         nn_method="faiss", dataset_size=ds.get_train_dataset_size(), device_norm=tr["device_norm"])
+    with torch.inference_mode():
+        qf = fe.forward_features(_val_batch(root, input_size))[0].reshape(-1, cfg.width).float().contiguous()
+    bank = ev.feature_memory.to(torch.bfloat16).contiguous()
+    q = qf.to(torch.bfloat16).contiguous()
+    flat_vals, flat_idx = knn_topk(q, bank, 30)
+    for name, (method, params, _) in quant_runs.items():
+        ev._create_nn(30, method, **params)
+        nn = ev.NN_algorithm
+        _, idx, _ = nn.search_with_labels_pure(nn.device_state, qf, 30, **ev._search_opts)
+        r = (idx[:, :, None] == flat_idx[:, None, :]).any(2).float().mean().item()
+        rs = score_recall(idx, q, bank, flat_vals[:, -1])
+        run = runs[f"{name}, {prefix}bf16 ViT, attention_impl='flash'"]
+        run.update(recall_at_30_vs_k1_bf16=r, score_recall_at_30_vs_k1_bf16=rs)
+        print(f"  recall@30 of {name} ({prefix}bank {tuple(bank.shape)}) against K1's exact bf16 neighbours: "
+              f"{r:.4f} by ids, {rs:.4f} by score", flush=True)
+        del nn
+    del ev, bank
+    return runs, launches
 
 
 def card_vs_cpu():
@@ -1854,19 +2129,21 @@ def card_vs_cpu():
 
 
 def _topk_agree(va, ia, vb, ib, tol):
-    """Per query: values (sorted) within `tol` and the same ids strictly
-    above the k-th value + tol on both sides (ties at the k-th may swap)."""
+    """Per query: values (sorted) within `tol`, and every id whose value on
+    one side lies above the larger of the two k-th values + tol among the
+    other side's ids (ties at the k-th may swap; a row near that line on
+    both sides, its two values a rounding apart, may count on one side
+    alone, so each side's rows are sought in the other's whole set)."""
     close = ((va - vb).abs() <= tol[:, None]) | (torch.isinf(va) & torch.isinf(vb))
-    sets = []
-    for v, i in ((va, ia), (vb, ib)):
-        above = v > v[:, -1:] + tol[:, None]
-        sets.append(torch.sort(torch.where(above, i, -1), 1).values)
-    return close.all(1) & (sets[0] == sets[1]).all(1)
+    thr = torch.maximum(va[:, -1:], vb[:, -1:]) + tol[:, None]
+    a_in_b = (ia[:, :, None] == ib[:, None, :]).any(2)
+    b_in_a = (ib[:, :, None] == ia[:, None, :]).any(2)
+    return close.all(1) & ((va <= thr) | a_in_b).all(1) & ((vb <= thr) | b_in_a).all(1)
 
 
-def backends_card_vs_cpu():
+def backends_card_vs_cpu(d=64):
     """Phase 6: each quantized or L2 backend, built on the card and on the
-    CPU from the same float bank, stores the same codes and scales and
+    CPU from the same float bank (6,000 rows of depth d), stores the same codes and scales and
     returns the same neighbours for the same queries. int8 x int8 searches
     are exact, so their values and ids must be equal; asymmetric, reranked
     and l2 scores are f32 sums in another order, held to RTOL. Anisotropic
@@ -1875,8 +2152,8 @@ def backends_card_vs_cpu():
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox, NearestNeighborSearchExact
 
     gen = torch.Generator().manual_seed(7)
-    x = clustered_bank(6000, 64, 8, gen, device="cpu")
-    q = x[:700] + 0.05 / 8 * torch.randn(700, 64, generator=gen)
+    x = clustered_bank(6000, d, 8, gen, device="cpu")
+    q = x[:700] + 0.05 / d ** 0.5 * torch.randn(700, d, generator=gen)
     result = {}
     for label, (method, params, bf16_bank, (_, form)) in QUANT_RUNS.items():
         cls = NearestNeighborSearchExact if method == "faiss" else NearestNeighborSearchApprox
@@ -1914,10 +2191,20 @@ def backends_card_vs_cpu():
             agree = _topk_agree(cv, ci, hv, hi, tol)
             n_bad, n_left = int((keep & ~agree).sum()), int((~keep).sum())
             if n_bad:
-                fail(f"backends, {label}: {n_bad} queries with other neighbours or values")
+                for r in (keep & ~agree).nonzero().flatten()[:3].tolist():
+                    only = {"card": sorted(set(ci[r].tolist()) - set(hi[r].tolist())),
+                            "cpu": sorted(set(hi[r].tolist()) - set(ci[r].tolist()))}
+                    print(f"  backend {label}, D={d}, query {r}: tol {tol[r].item():.3g}, max |value diff| "
+                          f"{(cv[r] - hv[r]).abs().max().item():.3g}, k-th {cv[r, -1].item():.7g} | "
+                          f"{hv[r, -1].item():.7g}; ids on one side only {only}, their values "
+                          f"{[round(v, 7) for v in cv[r][torch.isin(ci[r], torch.tensor(only['card'], dtype=torch.long))].tolist()]} | "
+                          f"{[round(v, 7) for v in hv[r][torch.isin(hi[r], torch.tensor(only['cpu'], dtype=torch.long))].tolist()]}",
+                          flush=True)
+                fail(f"backends, {label}: {n_bad} queries with other neighbours or values "
+                     f"({int(flipped.sum())} rows with other codes)")
         result[label] = {"code_rows_differ": int(flipped.sum()), "exact": exact,
                          "queries_left_out": n_left}
-        print(f"  backend {label}: codes and scales match ({int(flipped.sum())} of {x.shape[0]} rows "
+        print(f"  backend {label}, D={d}: codes and scales match ({int(flipped.sum())} of {x.shape[0]} rows "
               f"differ), neighbours {'bit-exact' if exact else 'agree'} "
               f"({n_left} queries left out)", flush=True)
     return result
@@ -2000,7 +2287,6 @@ def k1_form_rows(q, bb, q32, b32, label, k, reps, rows, errs):
     (`route`); f32's bound is 3 TF32 passes at the TF32 peak, its f32 FMA
     bound beside it. At the engine's k, a single TF32 pass must miss the
     f32 tolerance on these inputs (one_tf32_pass_misses)."""
-    from hbird_tpu_torch.ops import cuda_build, knn_cuda
     from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -2034,9 +2320,8 @@ def k1_form_rows(q, bb, q32, b32, label, k, reps, rows, errs):
                    PEAK_TF32_FLOPS / TF32_PASSES, (k,)),
     }
     base_k = k
-    lib_k1 = None if DEVICE != "cuda" else cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
     for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak, ks) in forms.items():
-        route = "plain" if lib_k1 is None else knn_cuda.route(lib_k1, qq, b)
+        route = _route("knn_topk.cu", "knn_topk", qq, b)
         for k in ks:
             kw = dict(distance=dist, row_scale=r)
             name = form if k == base_k else f"{form} k={k}"
@@ -2238,13 +2523,14 @@ def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
         lib_ms = library_ms(lambda: ivf_library(qq, sb, lids, lv, k, cap, BLOCK_Q, row_scale=r),
                             reps, f"K2 {form} {label}")
         b_ms, b_by = ivf_bound_ms(qq.shape[0], lids, lv, d, k, qbytes, peak, bank_bytes=bbytes, row_bytes=rbytes)
-        rows[f"{form} {label}"] = {"form": form, "Q": qq.shape[0], "slots": codes.shape[0], "cap": cap,
-                                   "n_probe": lids.shape[1], "block_q": BLOCK_Q, "D": d, "k": k, "ms": ms,
-                                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        route = _route("ivf_topk.cu", "ivf_topk", qq, sb)
+        rows[f"{form} {label}"] = {"form": form, "route": route, "Q": qq.shape[0], "slots": codes.shape[0],
+                                   "cap": cap, "n_probe": lids.shape[1], "block_q": BLOCK_Q, "D": d, "k": k,
+                                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                                    "library_ms": lib_ms}
-        print(f"  K2 {form} {label}: Q={qq.shape[0]} slots={codes.shape[0]} cap={cap}: {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms (k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by})",
-              flush=True)
+        print(f"  K2 {form} {label} ({route}): Q={qq.shape[0]} slots={codes.shape[0]} cap={cap}: {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms (k+1), library {fmt_ms(lib_ms)}, bound {b_ms:.3f} ms ({b_by}): "
+              f"{shares(ms, b_ms, lib_ms)}", flush=True)
 
 
 def k2_f32_row(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
@@ -2253,13 +2539,11 @@ def k2_f32_row(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
     version, the library yardstick and its 3xTF32 bound (3 TF32 passes at
     the TF32 peak), its f32 FMA bound beside it, with the kernel it ran
     (`route`); a single TF32 pass must miss the f32 tolerance here."""
-    from hbird_tpu_torch.ops import cuda_build, ivf_cuda, knn_cuda
     from hbird_tpu_torch.ops.ivf import ivf_search_plain
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
 
     n_q, d = qp.shape
-    route = "plain" if DEVICE != "cuda" else knn_cuda.route(
-        cuda_build.load("ivf_topk.cu", "ivf_topk_launch", ivf_cuda._ARGTYPES), qp, tb, "ivf_topk")
+    route = _route("ivf_topk.cu", "ivf_topk", qp, tb)
     ms = cuda_ms(lambda: ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q), reps)
     out = ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q)
     box = {}
@@ -2292,41 +2576,83 @@ def f32_tree(bank32, q32):
     return qp, lids, tree.bank, tree.leaf_valid, tree._cap
 
 
+def _route(source, prefix, q, b):
+    """The kernel a CUDA call of (q, b) runs in K1's or K2's library
+    (`knn_cuda.route`), or 'plain' on the CPU rehearsal."""
+    from hbird_tpu_torch.ops import cuda_build, ivf_cuda, knn_cuda
+
+    if DEVICE != "cuda":
+        return "plain"
+    argtypes = knn_cuda._ARGTYPES if prefix == "knn_topk" else ivf_cuda._ARGTYPES
+    return knn_cuda.route(cuda_build.load(source, f"{prefix}_launch", argtypes), q, b, prefix)
+
+
+def k1_dot_row(q, bb, label, k, reps, rows, errs):
+    """Phase 7: K1 bf16 dot of `q` on `bb`, timed beside its plain version,
+    its bound and the library yardstick (query-chunked bf16 matmul + topk)."""
+    from hbird_tpu_torch.ops.knn import exact_knn
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    n_q, d = q.shape
+    m = bb.shape[0]
+    ms = cuda_ms(lambda: knn_topk(q, bb, k), reps)
+    out = knn_topk(q, bb, k)
+    box = {}
+    plain_ms = cuda_ms(lambda: box.update(out=exact_knn(q, bb, k + 1)), 1)
+    errs["K1"] = max(errs["K1"], check_against_plain(f"K1 timing shape {label}", q, bb, k, m, out, box.pop("out")))
+    lib_ms = cuda_ms(lambda: k1_library(q, bb, k), reps)
+    b_ms, b_by = bound_ms(n_q, m, d, k, 2, PEAK_BF16_FLOPS)
+    route = _route("knn_topk.cu", "knn_topk", q, bb)
+    rows[label] = {"form": "dot", "route": route, "Q": n_q, "M": m, "D": d, "k": k, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    print(f"  K1 {label} ({route}): Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"(k+1), library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}): "
+          f"{shares(ms, b_ms, lib_ms)}", flush=True)
+
+
+def k2_dot_row(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
+    """Phase 7: K2 bf16 on a tree's slabs `tb`, probed by `qp` in tiles of
+    BLOCK_Q (`lids`), timed beside its plain version, its bound and the
+    library yardstick (ivf_library)."""
+    from hbird_tpu_torch.ops.ivf import ivf_search_plain
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+
+    d = qp.shape[1]
+    ms = cuda_ms(lambda: ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q), reps)
+    out = ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q)
+    box = {}
+    plain_ms = cuda_ms(lambda: box.update(out=ivf_search_plain(qp, tb, lids, lv, k + 1, cap=cap)), 1)
+    errs["K2"] = max(errs["K2"], check_ivf_against_plain(f"K2 timing shape {label}", qp, tb, lids, lv, k, cap,
+                                                          BLOCK_Q, out, box.pop("out")))
+    lib_ms = cuda_ms(lambda: ivf_library(qp, tb, lids, lv, k, cap, BLOCK_Q), reps)
+    b_ms, b_by = ivf_bound_ms(qp.shape[0], lids, lv, d, k, 2, PEAK_BF16_FLOPS)
+    scanned = int(lv.long()[lids.long()].sum())
+    read = int(lv.long()[torch.unique(lids.long())].sum())
+    route = _route("ivf_topk.cu", "ivf_topk", qp, tb)
+    rows[label] = {"form": "dot", "route": route, "Q": qp.shape[0], "slots": tb.shape[0], "cap": cap,
+                   "n_probe": lids.shape[1], "block_q": BLOCK_Q, "rows_scanned": scanned, "rows_probed": read,
+                   "D": d, "k": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms}
+    print(f"  K2 {label} ({route}): Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={lids.shape[1]} "
+          f"rows scanned {scanned} (distinct {read}): {ms:.3f} ms, plain {plain_ms:.3f} ms (k+1), "
+          f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}): {shares(ms, b_ms, lib_ms)}", flush=True)
+
+
 def timing(q, bank, main_tree, f32, gen):
     """Phase 7: K1 and K2 vs plain vs the library yardsticks at two sizes.
     K1's and K2's f32 forms take `f32`, the main path's f32 queries and
     bank (K2: an f32 tree of that bank), and the f32 rows of the large bank
     before their rounding to bf16."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
-    from hbird_tpu_torch.ops import cuda_build, ivf_cuda, knn_cuda
-    from hbird_tpu_torch.ops.ivf import ivf_search_plain, tile_probe_inputs
-    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
-    from hbird_tpu_torch.ops.knn import exact_knn
-    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+    from hbird_tpu_torch.ops.ivf import tile_probe_inputs
 
     k = 30
-    n_q, d = q.shape
     k1_rows, k2_rows, errs = {}, {}, {"K1": 0.0, "K2": 0.0}
     big32 = torch.nn.functional.normalize(torch.randn(BIG_M, bank.shape[1], generator=gen, device=DEVICE), dim=1)
     big = big32.to(torch.bfloat16)
     q32 = f32[0]
     for label, bb, b32, reps in (("main", bank, f32[1], 5), (f"bank_{BIG_M}", big, big32, 2)):
-        m = bb.shape[0]
-        ms = cuda_ms(lambda: knn_topk(q, bb, k), reps)
-        out = knn_topk(q, bb, k)
-        box = {}
-        plain_ms = cuda_ms(lambda: box.update(out=exact_knn(q, bb, k + 1)), 1)
-        plain = box.pop("out")
-        errs["K1"] = max(errs["K1"], check_against_plain(f"K1 timing shape {label}", q, bb, k, m,
-                                                          out, plain))
-        del plain
-        lib_ms = cuda_ms(lambda: k1_library(q, bb, k), reps)
-        b_ms, b_by = bound_ms(n_q, m, d, k, 2, PEAK_BF16_FLOPS)
-        k1_rows[label] = {"Q": n_q, "M": m, "D": d, "k": k, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        print(f"  K1 {label}: Q={n_q} M={m} D={d} k={k}: {ms:.3f} ms, plain {plain_ms:.3f} ms "
-              f"(k+1), library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}): "
-              f"{shares(ms, b_ms, lib_ms)}", flush=True)
+        k1_dot_row(q, bb, label, k, reps, k1_rows, errs)
         k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs)
     trees32 = {"main": f32_tree(f32[1], q32), f"bank_{BIG_M}": f32_tree(big32, q32)}
     del big32
@@ -2342,30 +2668,45 @@ def timing(q, bank, main_tree, f32, gen):
         ("main", main_tree, 5),
         (f"bank_{BIG_M}", (qp_big, lids_big, big_tree.bank, big_tree.leaf_valid, big_tree._cap), 3),
     ):
-        ms = cuda_ms(lambda: ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q), reps)
-        out = ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q)
-        box = {}
-        plain_ms = cuda_ms(lambda: box.update(out=ivf_search_plain(qp, tb, lids, lv, k + 1, cap=cap)), 1)
-        plain = box.pop("out")
-        errs["K2"] = max(errs["K2"], check_ivf_against_plain(f"K2 timing shape {label}", qp, tb, lids,
-                                                              lv, k, cap, BLOCK_Q, out, plain))
-        del plain
-        lib_ms = cuda_ms(lambda: ivf_library(qp, tb, lids, lv, k, cap, BLOCK_Q), reps)
-        b_ms, b_by = ivf_bound_ms(qp.shape[0], lids, lv, d, k, 2, PEAK_BF16_FLOPS)
-        rows = int(lv.long()[lids.long()].sum())
-        read = int(lv.long()[torch.unique(lids.long())].sum())
-        k2_rows[label] = {"route": "plain" if DEVICE != "cuda" else knn_cuda.route(
-                              cuda_build.load("ivf_topk.cu", "ivf_topk_launch", ivf_cuda._ARGTYPES), qp, tb,
-                              "ivf_topk"),
-                          "Q": qp.shape[0], "slots": tb.shape[0], "cap": cap, "n_probe": lids.shape[1],
-                          "block_q": BLOCK_Q, "rows_scanned": rows, "rows_probed": read, "D": d, "k": k,
-                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": lib_ms}
-        print(f"  K2 {label}: Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={lids.shape[1]} "
-              f"rows scanned {rows} (distinct {read}): {ms:.3f} ms, plain {plain_ms:.3f} ms (k+1), "
-              f"library {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+        k2_dot_row(qp, lids, tb, lv, cap, label, k, reps, k2_rows, errs)
         k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, k2_rows, errs)
         k2_f32_row(*trees32.pop(label), label, k, reps, k2_rows, errs)
+    return k1_rows, k2_rows, errs
+
+
+def wide_timing(gen):
+    """Phase 7 on the wide banks: at each depth of WIDE_TIMING_DEPTHS,
+    PAIR_Q normal queries against PAIR_M unit rows (bf16, and their f32
+    values before the rounding for the f32 forms): K1 bf16 dot and every
+    form of k1_form_rows (int8 and int8_rows at k 30 and 120, f32 at k 30
+    and 120 on 3xTF32, f32 l2, asym, asym_rows, l2); K2 bf16 on a tree of
+    the bank (its defaults: 512 leaves, N_PROBE probed a 256-query tile),
+    its int8, int8_rows, asym and asym_rows forms on that tree's slabs and
+    f32 on an f32 tree of the f32 rows. Each row with its route, bound,
+    plain and library times, and its check against the plain version."""
+    from hbird_tpu_torch.nn import NearestNeighborSearchApprox
+    from hbird_tpu_torch.ops.ivf import tile_probe_inputs
+
+    k, reps = 30, 3
+    k1_rows, k2_rows, errs = {}, {}, {"K1": 0.0, "K2": 0.0}
+    for d in WIDE_TIMING_DEPTHS:
+        label = f"D={d}"
+        q32 = torch.randn(PAIR_Q, d, generator=gen, device=DEVICE)
+        b32 = torch.nn.functional.normalize(torch.randn(PAIR_M, d, generator=gen, device=DEVICE), dim=1)
+        q, bb = q32.to(torch.bfloat16), b32.to(torch.bfloat16)
+        k1_dot_row(q, bb, label, k, reps, k1_rows, errs)
+        k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs)
+        t0 = time.perf_counter()
+        tree = NearestNeighborSearchApprox(bb, n_neighbors=k, use_tree=True, device=DEVICE)
+        sync()
+        print(f"  tree of the {label} bank: {tree._n_leaves} leaves, cap {tree._cap}, built in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        qp, lids, _ = tile_probe_inputs(q, tree.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
+        k2_dot_row(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs)
+        k2_form_rows(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs)
+        del tree, qp, lids, q, bb
+        k2_f32_row(*f32_tree(b32, q32), label, k, reps, k2_rows, errs)
+        del q32, b32
     return k1_rows, k2_rows, errs
 
 
@@ -2461,8 +2802,6 @@ def forward_timing(gen_seed, gen):
     """Phase 7: the ViT forward per batch (BATCH images) with 'xla' and
     'flash' attention: PRESET at INPUT in f32 and bf16, WIDE_PRESET at
     WIDE_INPUT in bf16; ms by CUDA events."""
-    import dataclasses
-
     from hbird_tpu_torch.models import VIT_PRESETS, FeatureExtractor, ViT
 
     rows = {}
@@ -2470,9 +2809,9 @@ def forward_timing(gen_seed, gen):
                                          (WIDE_PRESET, WIDE_INPUT, (torch.bfloat16,), f"{WIDE_PRESET} ")):
         cfg = VIT_PRESETS[preset]
         imgs = torch.randn(BATCH, 3, size, size, generator=gen, device=DEVICE)
+        vit = ViT(cfg, generator=torch.Generator().manual_seed(gen_seed)).to(DEVICE).prepare(size)
         for impl in ("xla", "flash"):
-            vit = ViT(dataclasses.replace(cfg, attention_impl=impl),
-                      generator=torch.Generator().manual_seed(gen_seed)).to(DEVICE).prepare(size)
+            _set_attention(vit, impl)
             for dtype in dtypes:
                 fe = FeatureExtractor(vit, use_bf16=dtype == torch.bfloat16)
                 with torch.inference_mode():
@@ -2481,7 +2820,7 @@ def forward_timing(gen_seed, gen):
                 rows[label] = {"ms": ms, "images_per_s": BATCH / ms * 1e3}
                 print(f"  forward {preset} at {size}, batch {BATCH}, {impl} {str(dtype)[6:]}: {ms:.3f} ms "
                       f"({BATCH / ms * 1e3:.1f} img/s)", flush=True)
-            del vit
+        del vit
     return rows
 
 
@@ -3446,10 +3785,12 @@ def main(argv=()):
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phase("[2] K1 vs plain version")
-    err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen))
+    err_wide_k1, wide_k1 = wide_int8_knn_cases(gen)
+    err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen), err_wide_k1)
 
     phase("[3] K2 vs plain version")
-    err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen))
+    err_wide_k2, wide_k2 = wide_int8_ivf_cases(gen)
+    err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen), err_wide_k2)
 
     phase("[4] K3 vs plain version")
     err_k3 = flash_cases(gen)
@@ -3458,15 +3799,20 @@ def main(argv=()):
     runs, launches, err_main, tree_info, q, bank, main_tree, f32 = main_path(gen_seed=0)
     flash_runs, flash_launches, token_err, err_k3_main = flash_path(gen_seed=0)
     runs.update(flash_runs)
-    launches["knn_topk"] += sum(n["knn_topk"] for n in flash_launches.values())
+    for name in launches:
+        launches[name] += sum(n[name] for n in flash_launches.values())
 
     phase("[6] the card against the CPU, small input")
     small = card_vs_cpu()
-    backends = backends_card_vs_cpu()
+    backends = {f"D={d}": backends_card_vs_cpu(d) for d in (64, WIDE_DEPTHS[-1])}
 
     phase(f"[7] K1, K2 and K3 timing; the forward ({card})")
     k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, f32, gen)
     del f32
+    wide_rows = wide_timing(gen)
+    k1_rows.update(wide_rows[0])
+    k2_rows.update(wide_rows[1])
+    err_timing = {name: max(err, wide_rows[2][name]) for name, err in err_timing.items()}
     select = k1_select_rows(q, bank)
     k3_rows, err_k3_timing = flash_timing(gen)
     forward = forward_timing(0, gen)
@@ -3529,6 +3875,7 @@ def main(argv=()):
                      max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
+        "wide_int8_checks": {"K1": wide_k1, "K2": wide_k2},
         "hopper_build": build, "persistence": persistence, "native_feed": feed, "mesh_k1": mesh_rows,
         "mesh_k1_process_group": group_rows,
         "mesh_distinct_cards": distinct, "nccl": nccl, "mesh_tree": tree_mesh,

@@ -179,7 +179,11 @@ int launch(const void* q, const void* bank, const float* scale, const void* leaf
                                                   out_vals, out_idx, parts, thr, work, work_ctas,
                                                   nq, n_slabs, cap, d, block_q, n_probe, k,
                                                   probe_splits, stream);
-    case 2:  // D <= 1024: the queries always fit
+    case 2:
+      // int8 x int8 runs only here (s32 accumulators, one conversion to
+      // f32): queries too deep for its shared memory (D > 3072) are refused
+      // before any launch, since mma_scan has no s32 form.
+      if (wg::smem_at<wg::S8>(d) == 0) return static_cast<int>(cudaErrorInvalidValue);
       if (scale != nullptr)
         return launch_wgmma<wg::S8, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid, out_vals,
                                                   out_idx, parts, thr, work, work_ctas, nq,
@@ -243,7 +247,7 @@ extern "C" int ivf_topk_launch(const void* q, const void* bank, const float* sca
 
 // Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
 // 3 bf16 queries on int8 codes) asks for at depth d; 0: that call runs
-// mma_scan, without scratch.
+// mma_scan, without scratch, or, for int8 (D > 3072), is refused.
 extern "C" int ivf_topk_wgmma_smem(int d, int form) {
   if (form == 0) return wg::smem_at<wg::F32>(d);
   if (form == 1) return wg::smem_at<wg::Bf16>(d);

@@ -159,7 +159,11 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
       return launch_wgmma<wg::Bf16, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
                                                   work, work_ctas, nq, m, d, valid_rows, k,
                                                   split_rows, stream);
-    case 2:  // D <= 1024: the queries always fit
+    case 2:
+      // int8 x int8 runs only here (s32 accumulators, one conversion to
+      // f32): queries too deep for its shared memory (D > 3072) are refused
+      // before any launch, since mma_scan has no s32 form.
+      if (wg::smem_at<wg::S8>(d) == 0) return static_cast<int>(cudaErrorInvalidValue);
       if (scale != nullptr)
         return launch_wgmma<wg::S8, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
                                                   work, work_ctas, nq, m, d, valid_rows, k,
@@ -190,9 +194,9 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
 // (m,) f32 is subtracted from it, each when not null. Writes out_vals
 // (nq, k) f32 and out_idx (nq, k) int64. 1 <= k <= 128,
 // 0 <= valid_rows <= m, nq >= 1. Where knn_topk_wgmma_smem(d, form) > 0
-// (form 0 always; forms 1-3 where the queries fit in shared memory) the
-// call runs the wgmma kernel: it splits the valid rows into
-// ceil(valid_rows / split_rows) splits (split_rows a multiple of 128) and
+// (form 0 always; forms 1-3 where the queries fit in shared memory; form
+// 2 where they do not is an error, with no launch) the call runs the wgmma
+// kernel: it splits the valid rows into ceil(valid_rows / split_rows) splits (split_rows a multiple of 128) and
 // needs the scratch `parts`, (nq, 2 · splits, 32 · ceil(k / 32)) 64-bit
 // keys, `thr`, nq 64-bit keys set to 0, and `work`, work_ctas ·
 // knn_topk_work_keys(k) 64-bit keys (it runs on at most work_ctas CTAs);
@@ -217,7 +221,8 @@ extern "C" int knn_topk_launch(const void* q, const void* bank, const float* sca
 
 // Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
 // 3 bf16 queries on int8 codes) asks for at depth d; 0: that call runs
-// mma_scan, without scratch (bf16 or asym whose queries do not fit).
+// mma_scan, without scratch (bf16 or asym whose queries do not fit), or,
+// for int8 (D > 3072), is refused.
 extern "C" int knn_topk_wgmma_smem(int d, int form) {
   switch (form) {
     case 0: return wg::smem_at<wg::F32>(d);

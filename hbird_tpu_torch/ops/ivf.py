@@ -40,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from hbird_tpu_torch.ops.knn import dot_scores
 from hbird_tpu_torch.utils.logging import get_logger
 
 NEG_INF = float("-inf")
@@ -559,11 +560,13 @@ def ivf_search_plain(
     row_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K2 (counterpart of ivf_search_xla): per query
-    tile, gather the valid rows of the probed slabs in slot order, take f32
-    products (bf16 and int8 inputs widened; int8 x int8 sums are exact
-    integers), multiply each by its slot's `row_scale` when given, and keep
-    the top k by a stable sort (value descending, then slot ascending).
-    queries rows must be a multiple of the leaf_ids tile count.
+    tile, gather the valid rows of the probed slabs in slot order, score
+    them as K1's plain version does (ops/knn.py::dot_scores: f32 sums of
+    widened bf16 and int8 inputs; int8 x int8 the exact integer sum,
+    rounded to f32 once), multiply each by its slot's `row_scale` when
+    given, and keep the top k by a stable sort (value descending, then
+    slot ascending). queries rows must be a multiple of the leaf_ids tile
+    count.
 
     Returns (values (Q, k) f32, IVF slot ids (Q, k) int64); unfilled slots
     are (-inf, 0).
@@ -582,8 +585,7 @@ def ivf_search_plain(
         slabs = lids[t]
         cols = (slabs[:, None] * cap + col_local)[col_local < lv[slabs][:, None]]
         cols = torch.sort(cols).values
-        q_t = queries[t * block_q : (t + 1) * block_q].float()
-        scores = q_t @ ivf_bank[cols].float().T
+        scores = dot_scores(queries[t * block_q : (t + 1) * block_q], ivf_bank[cols])
         if scale is not None:
             scores = scores * scale[cols]
         sv, order = torch.sort(scores, dim=1, descending=True, stable=True)

@@ -11,12 +11,14 @@ loaded with ctypes.
 Every form runs K1's persistent wgmma kernel over (probe split, 64-query
 tile) items (ops/csrc/wgmma_topk.cuh) where its queries fit the kernel's
 shared memory: f32 (3xTF32, its query chunks streamed beside the slab
-chunks, so every depth fits), bf16, int8 (with or without row scales) and
-bf16 queries on int8 codes (asym, asym_rows). `plan_probe_splits` cuts each
-tile's probe list so the rounds of items fill the SMs, and the partial sets
-are merged in a second pass. bf16 and asym banks wider than the kernel's
-shared memory take the mma.sync kernel (`knn_cuda.route(lib, queries, bank,
-"ivf_topk")` names the one a call runs).
+chunks, so every depth fits), bf16, int8 (with or without row scales; the
+exact integer sum converted to f32 once, at every depth up to D = 3072)
+and bf16 queries on int8 codes (asym, asym_rows). `plan_probe_splits` cuts
+each tile's probe list so the rounds of items fill the SMs, and the
+partial sets are merged in a second pass. bf16 and asym banks wider than
+the kernel's shared memory take the mma.sync kernel, and int8 x int8 wider
+than it raises `ValueError` (`knn_cuda.route(lib, queries, bank,
+"ivf_topk")` names the one a call runs, or raises).
 
 `ivf_topk` takes the kernel for CUDA tensors and the plain version
 (ops/ivf.py::ivf_search_plain) for CPU tensors, and nothing else: a CUDA
@@ -36,8 +38,7 @@ import torch
 from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.ivf import ivf_search_plain
 from hbird_tpu_torch.ops.knn_cuda import (
-    FORMS, MAX_INT8_DEPTH, MAX_PARTS_BYTES, MIN_FILL, form_name, wgmma_scratch,
-    wgmma_smem,
+    FORMS, MAX_PARTS_BYTES, MIN_FILL, form_name, route, wgmma_scratch,
 )
 
 MAX_K = 128
@@ -85,11 +86,6 @@ def _check(queries, ivf_bank, leaf_ids, leaf_valid, k, cap, block_q, row_scale) 
         raise ValueError(
             "queries and bank must be f32/f32, bf16/bf16, int8/int8 or bf16/int8: "
             f"{queries.dtype}, {ivf_bank.dtype}"
-        )
-    if queries.dtype == torch.int8 and queries.shape[1] > MAX_INT8_DEPTH:
-        raise ValueError(
-            f"int8 x int8 scores are exact in f32 only up to D = {MAX_INT8_DEPTH}: "
-            f"{queries.shape[1]}"
         )
     if row_scale is not None:
         if ivf_bank.dtype != torch.int8:
@@ -179,7 +175,7 @@ def ivf_topk(
     n_probe = lids.shape[1]
     parts = thr = work = None
     work_ctas = splits = 0
-    if wgmma_smem(lib, "ivf_topk", d, form) > 0:
+    if route(lib, queries, ivf_bank, "ivf_topk") == "wgmma":
         n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
         splits = plan_probe_splits(n_q, n_probe, n_sm, k)
         parts, thr, work, work_ctas = wgmma_scratch(lib, "ivf_topk", n_q, splits, k, queries.device)

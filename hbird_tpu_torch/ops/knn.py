@@ -3,19 +3,21 @@
 Counterpart of hbird_tpu/ops/knn.py::exact_knn and of the single-device
 branch of hbird_tpu/parallel/sharded_knn.py::sharded_knn_with_labels.
 
-`exact_knn` is a blockwise `torch.matmul` over bank tiles with f32
-accumulation and a running top-k merge, so the (Q, M) score matrix is
-never materialised. It is what the CPU tests compare with the JAX package
-and what `chip_smoke.py` holds the CUDA kernel (ops/knn_cuda.py) against;
-on the engine's path it runs only for CPU tensors.
+`exact_knn` is a blockwise `torch.matmul` over bank tiles (`dot_scores`)
+and a running top-k merge, so the (Q, M) score matrix is never
+materialised. It is what the CPU tests compare with the JAX package and
+what `chip_smoke.py` holds the CUDA kernel (ops/knn_cuda.py) against; on
+the engine's path it runs only for CPU tensors.
 
 Semantics shared with the kernel (the forms of hbird_tpu/ops/knn_pallas.py
 `_knn_kernel`):
-- scores are q·b in f32: bf16 inputs are widened, and so are int8 codes
-  (an int8 bank under bf16 queries is the asymmetric form); their products
-  are exact in f32. int8 x int8 scores are integers below 2^24 for
-  D <= 1024, so every partial sum is exact and the order of summation
-  cannot matter;
+- scores are q·b in f32 (`dot_scores`): bf16 inputs are widened, and so
+  are int8 codes under bf16 queries (the asymmetric form); their products
+  are exact in f32. An int8 x int8 score is the exact integer sum of the
+  code products (int32 on the card, the TPU kernel's int32 accumulation),
+  converted to f32 once, round to nearest even, at every depth: past
+  2^24 (127^2 * D reaches it at D = 1,041) an f32 running sum would round
+  at each step, differently in each order of summation;
 - `row_scale` multiplies each score by its bank row's f32 scale, after
   the conversion and before masking (one rounding);
 - `distance='l2'` subtracts the bias ||b||^2 / 2 (`l2_bias`, f32 from the
@@ -39,6 +41,15 @@ def l2_bias(bank: torch.Tensor) -> torch.Tensor:
     """(M,) f32 ||b||^2 / 2 of each bank row as stored."""
     b32 = bank.float()
     return 0.5 * (b32 * b32).sum(dim=1)
+
+
+def dot_scores(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(Q, R) f32 scores q·r of every query against every row. int8 x int8:
+    the exact integer sums (f64 products of integers, exact below 2^53),
+    rounded to f32 once; other inputs widened to f32 and summed in f32."""
+    if queries.dtype == torch.int8 and rows.dtype == torch.int8:
+        return (queries.double() @ rows.double().T).float()
+    return queries.float() @ rows.float().T
 
 
 def exact_knn(
@@ -84,14 +95,14 @@ def exact_knn(
     out_v = torch.empty((n_q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_q, k), dtype=torch.int64, device=dev)
     for q0 in range(0, n_q, query_block):
-        qb = queries[q0 : q0 + query_block].float()
+        qb = queries[q0 : q0 + query_block]
         n = qb.shape[0]
         vals = torch.full((n, k), NEG_INF, dtype=torch.float32, device=dev)
         idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
         # Tiles past valid_rows would only hold -inf columns.
         for b0 in range(0, valid, bank_block):
             b1 = min(b0 + bank_block, valid)
-            scores = qb @ bank[b0:b1].float().T
+            scores = dot_scores(qb, bank[b0:b1])
             if scale is not None:
                 scores = scores * scale[b0:b1]
             if bias is not None:

@@ -6,7 +6,8 @@ Counterpart of hbird_tpu/ops/knn_pallas.py::pallas_knn (the TPU kernel
 - (b) expanded-norm L2 (`distance='l2'`/'euclidean') on a float bank: the
   bias ||b||^2/2 is computed here in f32 on each call (`l2_bias`) and
   subtracted in the kernel's epilogue;
-- (c) int8 x int8 codes, int32 accumulation converted once to f32;
+- (c) int8 x int8 codes: the exact integer sum (s32 accumulators),
+  converted to f32 once, round to nearest even, at every depth;
 - (d) `row_scale`: each score times its int8 row's f32 scale, in the
   epilogue before masking;
 - (e) asymmetric: bf16 queries against int8 codes, widened to bf16 inside
@@ -32,11 +33,13 @@ the rounds of items fill the SMs. The partial sets (`parts_shape`), the
 per-query minimum keys they share and the select's per-CTA scratch
 (`wgmma_scratch`: each consumer warp's running sets and candidate buffers)
 are allocated here. That kernel keeps bf16 and int8 queries in shared
-memory (f32 queries stream with the bank); where they do not fit (bf16 at
-D > 1536, bf16 queries on int8 codes at D > 1152) the call runs the
-mma_scan kernel, with no scratch, as the library reports
-(`knn_topk_wgmma_smem`), chosen by shape before the launch (`route`). K2
-(ops/ivf_cuda.py) runs the same kernel over its probed slabs.
+memory (f32 queries stream with the bank); where they do not fit, as the
+library reports (`knn_topk_wgmma_smem`), bf16 (D > 1536) and bf16 queries
+on int8 codes (D > 1152) run the mma_scan kernel, with no scratch, and
+int8 x int8 (D > 3072: 64 queries of D bytes and one ring stage per
+consumer no longer fit a block's 227 KB) raises `ValueError`, since
+mma_scan has no s32 form. `route` makes that choice by shape before the
+launch. K2 (ops/ivf_cuda.py) runs the same kernel over its probed slabs.
 """
 
 from __future__ import annotations
@@ -51,8 +54,6 @@ from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.knn import L2_DISTANCES, exact_knn, l2_bias
 
 MAX_K = 128
-# int8 x int8 scores stay exact in f32 only while 127^2 * D < 2^24.
-MAX_INT8_DEPTH = 1024
 # (queries, bank) dtypes the kernel takes, and the form code it is passed.
 FORMS = {
     (torch.float32, torch.float32): 0,
@@ -147,9 +148,19 @@ def route(lib, queries: torch.Tensor, bank: torch.Tensor, prefix: str = "knn_top
     """The kernel a CUDA call of these operands runs in `lib` (K1's, or K2's
     with prefix 'ivf_topk'), by shape alone: 'wgmma' where the form's
     queries fit the wgmma kernel's shared memory at this depth (every f32
-    and int8 depth), else 'mma_scan'."""
+    depth, int8 x int8 up to D = 3072), else 'mma_scan'; int8 x int8 whose
+    queries do not fit raises ValueError (mma_scan has no s32 form)."""
     form = FORMS[(queries.dtype, bank.dtype)]
-    return "wgmma" if wgmma_smem(lib, prefix, queries.shape[1], form) > 0 else "mma_scan"
+    d = queries.shape[1]
+    if wgmma_smem(lib, prefix, d, form) > 0:
+        return "wgmma"
+    if form == FORMS[(torch.int8, torch.int8)]:
+        raise ValueError(
+            f"int8 x int8 at D = {d}: the wgmma kernel's 64 resident int8 queries and one "
+            "ring stage per consumer do not fit a block's shared memory (232,448 bytes on an "
+            "H100; up to D = 3072 they do)"
+        )
+    return "mma_scan"
 
 
 def _check(queries, bank, k, valid_rows, distance, row_scale) -> None:
@@ -161,11 +172,6 @@ def _check(queries, bank, k, valid_rows, distance, row_scale) -> None:
         raise ValueError(
             "queries and bank must be f32/f32, bf16/bf16, int8/int8 or bf16/int8: "
             f"{queries.dtype}, {bank.dtype}"
-        )
-    if queries.dtype == torch.int8 and queries.shape[1] > MAX_INT8_DEPTH:
-        raise ValueError(
-            f"int8 x int8 scores are exact in f32 only up to D = {MAX_INT8_DEPTH}: "
-            f"{queries.shape[1]}"
         )
     if distance not in ("dot_product", *L2_DISTANCES):
         raise ValueError(f"distance must be 'dot_product', 'l2' or 'euclidean': {distance!r}")

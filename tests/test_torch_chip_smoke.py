@@ -55,6 +55,13 @@ def smoke(monkeypatch):
     monkeypatch.setitem(VIT_PRESETS, "tiny_hd80", ViTConfig(16, 160, 2, 2, img_size=224))
     monkeypatch.setattr(mod, "WIDE_PRESET", "tiny_hd80")
     monkeypatch.setattr(mod, "WIDE_INPUT", 64)
+    # dinov2_vitg14's stand-in: 2 blocks of 2 heads of 64, LayerScale, SwiGLU
+    monkeypatch.setitem(VIT_PRESETS, "tiny_giant", ViTConfig(16, 128, 2, 2, img_size=224, layerscale=True,
+                                                             swiglu=True))
+    monkeypatch.setattr(mod, "GIANT_PRESET", "tiny_giant")
+    monkeypatch.setattr(mod, "GIANT_INPUT", 64)
+    monkeypatch.setattr(mod, "WIDE_CASE_Q", 256)
+    monkeypatch.setattr(mod, "WIDE_CASE_M", 700)
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
@@ -162,20 +169,32 @@ def test_flash_phases_rehearse_on_cpu(smoke):
     runs, launches, token_err, err = smoke.flash_path(gen_seed=0)
     # dino_vits16: 12 blocks x (2 train + 1 val batches of 4), in bf16 and in f32;
     # mocov3_vits16 (head width 32): 12 blocks x 3 batches in bf16;
-    # mae_vith14's stand-in (head width 80): 2 blocks x 3 batches in bf16
-    narrow, wide = "mocov3_vits16 at 64, ", "tiny_hd80 at 64, "
-    for prefix, dt, n in (("", "bf16", 36), ("", "f32", 36), (narrow, "bf16", 36), (wide, "bf16", 6)):
+    # mae_vith14's stand-in (head width 80): 2 blocks x 3 batches in bf16;
+    # dinov2_vitg14's stand-in: 'flash' alone, 2 blocks x 3 batches in bf16
+    narrow, wide, giant = "mocov3_vits16 at 64, ", "tiny_hd80 at 64, ", "tiny_giant at 64, "
+    for prefix, dt, n in (("", "bf16", 36), ("", "f32", 36), (narrow, "bf16", 36), (wide, "bf16", 6),
+                          (giant, "bf16", 6)):
         assert launches[f"{prefix}{dt} flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": n}
-        assert launches[f"{prefix}{dt} xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
+        if prefix != giant:
+            assert launches[f"{prefix}{dt} xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
         label = f"scann unbounded, {prefix}{dt} ViT, attention_impl='flash'"
         assert runs[label]["forms"]["flash_attention"] == {dt: n}
-    assert err == 0.0 and len(runs) == 8
+    assert f"{giant}bf16 xla" not in launches
+    # the int8 runs on the wide banks: their K1 or K2 form once per eval batch, K3 as the flash run
+    for prefix, quant in ((wide, smoke.WIDE_QUANT_RUNS), (giant, smoke.GIANT_QUANT_RUNS)):
+        for name, (_, _, (kernel, form)) in quant.items():
+            run = runs[f"{name}, {prefix}bf16 ViT, attention_impl='flash'"]
+            assert run["forms"] == {"knn_topk": {}, "ivf_topk": {}, "flash_attention": {"bf16": 6}, kernel: {form: 1}}
+            assert 0.0 < run["recall_at_30_vs_k1_bf16"] <= run["score_recall_at_30_vs_k1_bf16"] <= 1.0
+            assert launches[f"{prefix}bf16 {name}"][kernel] == 1
+    assert set(smoke.GIANT_QUANT_RUNS) == {"scann int8_rows", "faiss int8 + reorder 120"}
+    assert err == 0.0 and len(runs) == 9 + len(smoke.WIDE_QUANT_RUNS) + len(smoke.GIANT_QUANT_RUNS)
     for run in runs.values():
         assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
     assert token_err["float32"]["max"] <= 1e-4 and token_err["bfloat16"]["mean"] <= 1e-2
     assert token_err[f"{narrow}bfloat16"]["max"] <= 0.1 and token_err[f"{wide}bfloat16"]["mean"] <= 1e-2
-    assert set(token_err) == {"float32", "bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16"}
-    for name in ("bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16"):  # each bf16 forward against the f32 one
+    assert set(token_err) == {"float32", "bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16", f"{giant}bfloat16"}
+    for name in ("bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16", f"{giant}bfloat16"):  # against the f32 one
         f32_err = token_err[name]
         assert f32_err["flash_vs_f32"]["mean"] <= smoke.TOKEN_F32_MARGIN[1] * f32_err["xla_vs_f32"]["mean"]
         assert 0.0 < f32_err["xla_vs_f32"]["max"] <= 0.2
@@ -611,3 +630,82 @@ def test_sass_counts_per_function(smoke):
                                                                      "HMMA": 0, "IMMA": 0}
     assert per_fn["_Z12knn_topk_mmaI8FormAsymLi1EEvv"] == {"HGMMA": 0, "IGMMA": 0, "UTMALDG": 0, "HMMA": 1,
                                                            "IMMA": 1}
+
+
+def test_wide_int8_phases_rehearse_on_cpu(smoke):
+    """Phases 2 and 3 on the wide banks: K1 and K2 int8 and int8_rows at D =
+    1,040, 1,280 and 1,536 on sharp codes, bit for bit (here the plain
+    version against itself: the control flow and the checks); the codes
+    can tell one rounding from a running f32 sum at 1,280 and 1,536."""
+    gen = torch.Generator().manual_seed(0)
+    err, info = smoke.wide_int8_knn_cases(gen)
+    err2, info2 = smoke.wide_int8_ivf_cases(gen)
+    assert err == err2 == 0.0
+    for i in (info, info2):
+        assert set(i) == set(smoke.WIDE_DEPTHS)  # no card: no shared-memory refusal to show
+        assert i[1040]["sharp_share"] == 0.0 and i[1280]["sharp_share"] > 0.0 and i[1536]["sharp_share"] > 0.0
+        assert all(row["route"] == "plain" for row in i.values())
+
+
+def test_sharp_codes_catch_a_running_f32_sum(smoke):
+    """An int8 kernel that summed its products in f32, 128 columns at a
+    time, fails the bit-exact check on the sharp codes at D = 1,536; codes
+    too small to pass 2^24 fail the sharpness check itself."""
+    gen = torch.Generator().manual_seed(3)
+    q8, codes = smoke.sharp_codes(64, 1536, gen), smoke.sharp_codes(600, 1536, gen)
+    assert smoke.assert_sharp("sharp", q8, codes) > 0.01
+    running = torch.zeros(64, 600)
+    for c in range(0, 1536, 128):
+        running = running + (q8[:, c:c + 128].double() @ codes[:, c:c + 128].double().T).float()
+    vals, idx = torch.sort(running, dim=1, descending=True, stable=True)
+    with pytest.raises(RuntimeError, match="bit-exact"):
+        smoke.check_against_plain("running f32 sum", q8, codes, 30, 600, (vals[:, :30], idx[:, :30]), exact=True)
+    with pytest.raises(RuntimeError, match="cannot tell"):
+        smoke.assert_sharp("small codes", (q8 // 4).contiguous(), (codes // 4).contiguous())
+
+
+def test_wide_timing_rehearses_on_cpu(smoke, monkeypatch):
+    """Phase 7 on the wide banks: every K1 form and K2 form at D = 1,280 and
+    1,536, each row with its route, bound, plain and library times."""
+    monkeypatch.setattr(smoke, "PAIR_Q", 256)
+    monkeypatch.setattr(smoke, "PAIR_M", 900)
+    k1_rows, k2_rows, errs = smoke.wide_timing(torch.Generator().manual_seed(0))
+    sizes = [f"D={d}" for d in smoke.WIDE_TIMING_DEPTHS]
+    assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "asym", "l2", "f32",
+                                                           "f32_l2") for s in sizes),
+                            *(f"{f} k=120 {s}" for f in ("int8", "int8_rows", "f32") for s in sizes)}
+    assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows", "int8", "asym", "f32")
+                                      for s in sizes)}
+    assert errs["K2"] == 0.0 and errs["K1"] < 1e-3
+    for row in [*k1_rows.values(), *k2_rows.values()]:
+        assert row["route"] == "plain" and row["D"] in smoke.WIDE_TIMING_DEPTHS
+        assert row["ms"] > 0 and row["plain_ms"] > 0 and row["bound_ms"] > 0
+    assert k1_rows["int8 k=120 D=1536"]["k"] == 120 and k1_rows["D=1280"]["form"] == "dot"
+    assert json.dumps([k1_rows, k2_rows])
+
+
+def test_backends_card_vs_cpu_at_width_rehearses(smoke):
+    """Phase 6's backends at D = 1,536: the same codes and scales, int8 and
+    int8_rows neighbours bit for bit (on the CPU twice: the control flow)."""
+    backends = smoke.backends_card_vs_cpu(smoke.WIDE_DEPTHS[-1])
+    assert set(backends) == set(smoke.QUANT_RUNS)
+    assert backends["int8_rows"]["exact"] and backends["int8+rerank"]["exact"] is False
+    assert all(b["code_rows_differ"] == 0 for b in backends.values())
+
+
+def test_topk_agree_takes_one_threshold_for_both_sides(smoke):
+    """Phase 6's comparison: the same ids, k-th values apart by less than
+    the tolerance, a row between the two sides' own thresholds, or a row a
+    rounding either side of the common one, agree; a row well above the
+    k-th on one side and missing on the other does not."""
+    tol = torch.tensor([1e-5])
+    ids = torch.tensor([[4, 7, 2]])
+    card = torch.tensor([[0.91927, 0.919263, 0.919252]])  # row 7 above card's k-th + tol, not the CPU's
+    cpu = torch.tensor([[0.91927, 0.919263, 0.919254]])
+    assert smoke._topk_agree(card, ids, cpu, ids, tol).all()
+    straddle = torch.tensor([[0.91927, 0.919264 + 2e-7, 0.919252]])  # row 7 just above 0.919264 on one side
+    assert smoke._topk_agree(straddle, ids, cpu, ids, tol).all()
+    other = torch.tensor([[9, 7, 2]])
+    assert not smoke._topk_agree(card, ids, cpu, other, tol).any()
+    assert not smoke._topk_agree(cpu, other, card, ids, tol).any()
+    assert not smoke._topk_agree(card, ids, cpu + 1e-4, ids, tol).any()

@@ -25,8 +25,9 @@ import jax.numpy as jnp
 
 from hbird_tpu.ops import ivf as jivf
 from hbird_tpu.ops.knn import rerank_exact as jax_rerank_exact
-from hbird_tpu_torch.ops import ivf, ivf_cuda
+from hbird_tpu_torch.ops import ivf, ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops.knn import rerank_exact
+from wgmma_smem import S8Library
 
 RTOL = 1e-5
 
@@ -404,15 +405,19 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     [({"int8": True}, ValueError), ({"row_scale": torch.ones(1280)}, ValueError),
      ({"k": 129}, ValueError), ({"cap": 300}, ValueError), ({"block_q": 32}, ValueError),
      ({"mixed": True}, ValueError), ({"codes": True, "row_scale": torch.ones(1279)}, ValueError),
-     ({"codes": True, "depth": 1040}, ValueError)],
+     ({"codes": True, "depth": 3088, "route": True}, ValueError)],
     ids=["int8", "row_scale", "k_too_large", "cap_not_slabs", "tiles_mismatch", "mixed_dtype",
          "row_scale_length", "int8_too_deep"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     """As `pallas_ivf_knn` asserts: dtype pairs outside f32/f32, bf16/bf16,
     int8/int8 and bf16/int8 (here int8 queries on f32 slabs), row scales on
-    float slabs or of the wrong length, int8 x int8 past D = 1024."""
+    float slabs or of the wrong length. On CUDA tensors, int8 x int8 deeper
+    than the wgmma kernel's shared memory (D = 3088): `route`, which the
+    wrapper asks before any launch, raises (held to the kernel's formula,
+    tests/wgmma_smem.py; the CPU takes the plain version at every depth)."""
     kwargs = dict(kwargs)
+    cuda_route = kwargs.pop("route", False)
     _, _, (qt, bt, lids, lv) = _k2_inputs(torch.float32, 64, 2, seed=1)
     if "depth" in kwargs:
         d = kwargs.pop("depth")
@@ -426,6 +431,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     k = kwargs.pop("k", 3)
     kwargs.setdefault("cap", 256)
     kwargs.setdefault("block_q", 64)
+    if cuda_route:
+        with pytest.raises(error, match="shared memory"):
+            knn_cuda.route(S8Library("ivf_topk"), qt, bt, "ivf_topk")
+        return
     with pytest.raises(error):
         ivf_cuda.ivf_topk(qt, bt, lids, lv, k, **kwargs)
 

@@ -28,6 +28,7 @@ import torch
 
 from hbird_tpu.ops import ivf as jivf
 from hbird_tpu_torch.ops import ivf, ivf_cuda
+from hbird_tpu_torch.ops.knn import dot_scores
 from hbird_tpu_torch.ops.knn_cuda import MIN_FILL
 
 from test_torch_ivf import Tree, _assert_same_topk, _tol
@@ -69,7 +70,7 @@ def split_walk(q, bank, leaf_ids, leaf_valid, k, cap, splits, row_scale=None):
                 if step < len(walk):
                     row0, n_cols = walk[step]
                     rows = torch.arange(row0, row0 + min(128, n_cols))
-                    sc = qt.float() @ bank[rows].float().T
+                    sc = dot_scores(qt, bank[rows])
                     if row_scale is not None:
                         sc = sc * row_scale[rows]
                     st.add_tile(make_keys(sc, rows.expand(block_q, -1)), pub)

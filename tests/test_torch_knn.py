@@ -10,8 +10,10 @@ int8, (d) row_scale, (e) bf16 queries on int8 codes.
 Tolerance: values within 1e-5 · ||q|| · max_i(||b_i|| · s_i) (f32 sums of
 the same exact products in another order; bf16 and int8 inputs are widened
 first, so their products are exact too; s_i is a row's scale, 1 for float
-banks). int8 x int8 scores are exact integers below 2^24 and the row scale
-one f32 multiply, so those values are equal bit for bit. Index sets are
+banks). An int8 x int8 score is the exact integer sum rounded to f32 once
+(the TPU kernel's int32 accumulation) and the row scale one f32
+multiply, so those values are equal bit for bit (past D = 1,024 in
+test_torch_int8_wide.py). Index sets are
 compared on tie-free inputs; where scores tie (duplicate rows, integer
 scores) the port's tie rule (value descending, then lowest index) is
 checked exactly against a stable sort, and the kernel's results as value
@@ -30,6 +32,7 @@ from hbird_tpu.ops.quantize import quantize_bank_int8, quantize_queries_int8
 from hbird_tpu.parallel.sharded_knn import sharded_knn_with_labels
 from hbird_tpu_torch.ops import knn_cuda
 from hbird_tpu_torch.ops.knn import exact_knn, knn_with_labels
+from wgmma_smem import S8Library
 
 RTOL = 1e-5
 
@@ -134,7 +137,7 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
         ({"int8": True, "row_scale": torch.ones(9)}, ValueError),
         ({"int8": True, "distance": "l2", "row_scale": torch.ones(10)}, ValueError),
         ({"f32_on_int8": True}, ValueError),
-        ({"int8": True, "depth": 1040}, ValueError),
+        ({"int8": True, "depth": 3088, "route": True}, ValueError),
         ({"distance": "cosine"}, ValueError),
     ],
     ids=["l2", "row_scale", "int8", "k_too_large", "valid_rows_too_large", "mixed_dtype",
@@ -144,9 +147,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     """The combinations `pallas_knn` asserts against raise ValueError: l2
     on an int8 bank or with row scales, row scales on a float bank or of
     the wrong length, a dtype pair outside f32/f32, bf16/bf16, int8/int8 and
-    bf16/int8, int8 x int8 past D = 1024 (f32 would round the scores)."""
+    bf16/int8. On CUDA tensors, int8 x int8 deeper than the wgmma kernel's
+    shared memory (D = 3088: 64 query rows and a ring stage per consumer
+    past 227 KB): `route`, which the wrapper asks before any launch, raises
+    (held here to the kernel's own formula, tests/wgmma_smem.py; at every
+    depth the CPU takes the plain version, test_torch_int8_wide.py)."""
     kwargs = dict(kwargs)
     d = kwargs.pop("depth", 8)
+    cuda_route = kwargs.pop("route", False)
     q = torch.zeros(4, d)
     b = torch.zeros(10, d)
     if kwargs.pop("int8", False):
@@ -158,6 +166,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     if kwargs.pop("mixed", False):
         b = b.to(torch.bfloat16)
     k = kwargs.pop("k", 3)
+    if cuda_route:
+        with pytest.raises(error, match="shared memory"):
+            knn_cuda.route(S8Library("knn_topk"), q, b)
+        return
     with pytest.raises(error):
         knn_cuda.knn_topk(q, b, k, **kwargs)
 

@@ -17,7 +17,9 @@ Held here, at k in {33, 64, 96, 97, 120, 128} (S = 2, 3 and 4):
 - bit for bit to `exact_knn` on tie-dense integer inputs (every score
   exact), for bf16 dot and l2, int8 and int8_rows, with the partial sets
   pruning by each other's published minimum in one order of timing and
-  without it, at several split sizes and valid_rows;
+  without it, at several split sizes and valid_rows; and on int8 codes at
+  D = 1,536 whose exact sums pass 2^24 and round to f32 once (the
+  kernel's s32 accumulators), so equal f32 values are dense;
 - to the TPU kernel (`pallas_knn`, interpret mode) as value multisets on
   tie-dense int8 codes (the TPU kernel may order tied rows otherwise);
 - the network itself: a merge keeps exactly the top P of the set and the
@@ -32,7 +34,7 @@ import torch
 import jax.numpy as jnp
 
 from hbird_tpu.ops.knn_pallas import pallas_knn
-from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
+from hbird_tpu_torch.ops.knn import dot_scores, exact_knn, l2_bias
 
 FLUSH_AT = 32
 KS = [33, 64, 96, 97, 120, 128]
@@ -98,9 +100,10 @@ def merge_chunk(t, x):
 
 
 def tile_scores(q, b, rows, distance, row_scale):
-    """Scores of `rows` as the kernel's epilogue gives them (f32 products,
+    """Scores of `rows` as the kernel's epilogue gives them (f32 sums of
+    float products; int8 x int8 the exact integer sum rounded to f32 once;
     then one f32 rounding for the row scale or the l2 bias)."""
-    s = q.float() @ b[rows].float().T
+    s = dot_scores(q, b[rows])
     if row_scale is not None:
         s = s * row_scale[rows]
     if distance == "l2":
@@ -215,6 +218,32 @@ def test_batched_select_equals_exact_knn_on_ties(form, k):
         kv, ki = batched_select(q, b, k, split_rows, valid_rows=valid, share=share, **kw)
         pv, pi = exact_knn(q, b, k, valid_rows=valid, **kw)
         assert torch.equal(kv, pv) and torch.equal(ki, pi), (valid, split_rows, share)
+
+
+def wide_codes(n, d, gen, low=126):
+    """int8 codes of magnitude low..127, every 7th column negated: at D =
+    1,536 each exact score lies above 2^24 (so half of them are odd and
+    round to f32), and a few thousand f32 values hold every score."""
+    sign = torch.where(torch.arange(d) % 7 == 0, -1, 1)
+    return (torch.randint(low, 128, (n, d), generator=gen) * sign).to(torch.int8)
+
+
+@pytest.mark.parametrize("k", [33, 120])
+@pytest.mark.parametrize("form", ["int8", "int8_rows"])
+def test_batched_select_equals_exact_knn_on_wide_int8(form, k):
+    """D = 1,536 (12 of the kernel's 128-deep chunks), scores that round
+    once from past 2^24, so f32 ties are dense: exactly exact_knn's values
+    and indices, over two splits, the sets sharing their minimum."""
+    gen = torch.Generator().manual_seed(k)
+    q, b = wide_codes(24, 1536, gen), wide_codes(1100, 1536, gen)
+    kw = {"row_scale": 0.25 + torch.rand(1100, generator=gen)} if form == "int8_rows" else {}
+    exact = q.long() @ b.long().T
+    assert int(exact.min()) > 2**24 and (exact % 2 == 1).any()
+    # tie-dense, and the rounding to f32 merges distinct sums
+    assert len(torch.unique(exact.float())) < len(torch.unique(exact)) < exact.numel() // 4
+    kv, ki = batched_select(q, b, k, 640, valid_rows=1037, **kw)
+    pv, pi = exact_knn(q, b, k, valid_rows=1037, **kw)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
 @pytest.mark.parametrize("k", KS)
