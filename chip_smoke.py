@@ -20,13 +20,15 @@ Phases; any failure raises and the script exits non-zero with no result:
    warpgroup MMAs (HGMMA, IGMMA for int8), UTMALDG and mma.sync (HMMA,
    IMMA for int8) instructions of each library and of each wgmma kernel,
    which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's and
-   K2's libraries must hold such kernels). K1's F32 and Asym forms must
-   each have their 8 instances (select sizes 1-4, two epilogues) in the
-   ptxas report and the SASS, and spill nothing; so must K2's 4 F32
-   instances (topk_wgmma<F32, S, PLAIN, Slabs>) and K3's wgmma kernel at
-   head widths 32, 64 and 80 (flash_bf16_wgmma<32>, <64>, <80>); every
-   form that runs the wgmma kernels at D=768, and K3's at each width, must
-   ask for its shared memory.
+   K2's libraries must hold such kernels). The forms of WGMMA_FORMS must
+   each have their instances (select sizes 1-4, one or two epilogues) in
+   the ptxas report and the SASS, and spill nothing: K1's F32, Asym and
+   the streamed forms Streamed<Asym> and Streamed<S8>, K2's F32 and
+   streamed forms; so must K3's wgmma kernel at head widths 32, 64 and 80
+   (flash_bf16_wgmma<32>, <64>, <80>); every form that runs the wgmma
+   kernels at D=768, and K3's at each width, must ask for its shared
+   memory, and so must asym at D = 1,152 (resident queries) and 1,168,
+   1,280 and 1,536 (streamed) and int8 at 3,072 and at 3,088 and 3,200.
 2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
@@ -44,9 +46,13 @@ Phases; any failure raises and the script exits non-zero with no result:
    1,536), k in 30 and 120, Q=4,096 against 65,537 rows, on sharp codes
    (magnitudes 120-127, every 7th column negated: every exact score at
    D >= 1,280 passes 2^24, and a running f32 sum is shown to miss some),
-   on the wgmma kernel (`route`), bit for bit; int8 x int8 at D = 3,088
-   (S8_MAX_DEPTH + 16) must raise ValueError before any launch, the
-   library reporting shared memory at 3,072 and none at 3,088.
+   on the wgmma kernel (`route`), bit for bit; the same at D = 3,088 and
+   3,200 (DEEP_INT8_DEPTHS), where the queries stream in the ring (the
+   library reporting the resident size at 3,072 and the streamed one
+   past it). Then asym and asym_rows at D = 1,168, 1,280 and 1,536
+   (ASYM_DEPTHS: the queries streamed), Q=4,096 normal queries against
+   the global and per-row codes of 65,537 unit rows, on the wgmma kernel,
+   at every k of CHECK_KS, and on tie-dense entries bit for bit.
 3. K2 against its plain version (ops/ivf.py::ivf_search_plain) on an IVF
    tree built by the port over a clustered bank of 300,000 rows at D=768
    (512 leaves; the f32 form on an f32 tree of the same rows): bf16 and
@@ -65,7 +71,10 @@ Phases; any failure raises and the script exits non-zero with no result:
    int8_rows at each depth of WIDE_DEPTHS on sharp codes in 48 ragged
    slabs of cap 256 (one empty), 4,096 queries in tiles of 256 probing 32
    slabs each (one id out of range), k in 30 and 120, on the wgmma kernel,
-   bit for bit; D = 3,088 raises before any launch.
+   bit for bit, and so at D = 3,088 and 3,200 (streamed queries); asym
+   and asym_rows at each depth of ASYM_DEPTHS in such slabs, normal
+   queries on unit rows' codes and tie-dense entries (bit for bit), at
+   every k of CHECK_KS.
 4. K3 against its plain version (ops/flash.py::flash_attention_plain),
    bf16 and f32, on seeded unit normals at (B, H, N, hd) = (16, 12, 1370,
    64) (the main path: dinov2_vitb14 at input 518, batch 16), (2, 12, 1374,
@@ -128,12 +137,14 @@ Phases; any failure raises and the script exits non-zero with no result:
    1,280-wide bank, with the bf16 'flash' ViT, the int8 runs of
    WIDE_QUANT_RUNS: 'faiss' use_int8 + reorder 120 (K1 int8), 'scann'
    int8_rows (K1 int8_rows), 'ivf' int8_rows at N_PROBE probes (K2
-   int8_rows) and flat 'faiss' int8_asym (K1 asym_rows); and dinov2_vitg14
+   int8_rows), flat 'faiss' int8_asym (K1 asym_rows, streamed queries) and
+   the ScaNN searcher (K2 asym_rows, streamed); and dinov2_vitg14
    (1,536 wide, 40 blocks of 24 heads of 64, SwiGLU, LayerScale 0.05) at
    input 518, its one ViT of 1.1B parameters initialised on the host (the
    seconds printed), 'scann' bf16 with 'flash' (K3 200 launches, K1 dot at
    D = 1,536) and GIANT_QUANT_RUNS ('scann' int8_rows, 'faiss' use_int8 +
-   reorder 120), its tokens held as mae_vith14's. Each int8 run launches
+   reorder 120, flat 'faiss' int8_asym: K1 asym_rows at D = 1,536), its
+   tokens held as mae_vith14's. Each int8 run launches
    its K1 or K2 form once per eval batch and K3 as the flash run, nothing
    else, and prints its mIoU and recall@30 against K1's exact bf16
    neighbours on the run's bank.
@@ -200,8 +211,10 @@ Phases; any failure raises and the script exits non-zero with no result:
    87,616 unit rows (their f32 values for the f32 forms), K1 bf16 dot, l2,
    int8 and int8_rows (k 30 and 120), asym, asym_rows, f32 (k 30 and 120)
    and f32 l2; K2 bf16, int8, int8_rows, asym, asym_rows on a tree of that
-   bank (32 of 512 leaves) and f32 on an f32 tree; each row with its
-   route, bound, plain and library times and its check.
+   bank (32 of 512 leaves) and f32 on an f32 tree; then at D = 3,200
+   (DEEP_INT8_TIMING_DEPTH, streamed queries) K1 int8 and int8_rows (k 30
+   and 120) and K2 int8 and int8_rows; each row with its route, bound,
+   plain and library times and its check.
 8. The entry point and persistence, at phase 5's width and fixture:
    `hbird_tpu_torch.eval_cli.main` (what `python -m hbird_tpu_torch.eval_cli`
    runs) with --model dinov2_vitb14 --random-init --seed 0, 'scann', saving
@@ -325,8 +338,10 @@ against 87,616 and 1,024,000 unit rows (and their global and per-row int8
 codes); K2 bf16 and asym_rows (the slabs' per-row codes)
 at k = 30 on a tree the package builds of each bank (512 leaves, 32 probed
 per 256-query tile), and K2 f32 on an f32 tree of each bank's rows before
-their rounding to bf16, probed by the queries before theirs. It prints one
-JSON line.
+their rounding to bf16, probed by the queries before theirs; then at D =
+1,280 and 1,536 (87,616 rows) K1 asym and asym_rows and K2 asym_rows.
+Every K1 and K2 row carries its output's digest too. It prints one JSON
+line.
 Two trees are compared in one run on one card, each in its own
 process, in turns: parent, change, change, parent.
 """
@@ -398,13 +413,17 @@ INT8_KS = (30, 120)  # phase 7's K1 int8 forms: the engine's k and faiss int8 + 
 # Phases 2 and 3: int8 x int8 on the wide banks (mae_vith14's D = 1,280,
 # dinov2_vitg14's 1,536; 1,040 ends in a partial 128-byte chunk), Q queries
 # against M rows (M not a multiple of 128), on codes whose exact sums pass
-# 2^24 (sharp_codes); S8_MAX_DEPTH is the deepest int8 x int8 whose 64
-# queries and one ring stage per consumer fit the wgmma kernel's shared
-# memory: 16 more must raise before any launch.
+# 2^24 (sharp_codes); and past S8_MAX_RESIDENT, the deepest int8 x int8
+# whose 64 queries stay resident in the wgmma kernel's shared memory, at
+# DEEP_INT8_DEPTHS, where they stream in the ring. bf16 queries on int8
+# codes (asym) stay resident up to ASYM_MAX_RESIDENT and stream at
+# ASYM_DEPTHS.
 WIDE_DEPTHS = (1040, 1280, 1536)
 WIDE_TIMING_DEPTHS = (1280, 1536)  # phase 7: every K1 and K2 form at PAIR_Q x PAIR_M on the wide banks
+DEEP_INT8_TIMING_DEPTH = 3200  # phase 7: K1 and K2 int8 with streamed queries at PAIR_Q x PAIR_M
 WIDE_CASE_Q, WIDE_CASE_M = 4096, 65_537
-S8_MAX_DEPTH = 3072
+S8_MAX_RESIDENT, DEEP_INT8_DEPTHS = 3072, (3088, 3200)
+ASYM_MAX_RESIDENT, ASYM_DEPTHS = 1152, (1168, 1280, 1536)
 # The Hopper kernels: source -> the name their wgmma kernels carry (K1 and
 # K2 instantiate one template, wgmma_topk.cuh's topk_wgmma).
 WGMMA_KERNELS = {"knn_topk.cu": "topk_wgmma", "ivf_topk.cu": "topk_wgmma",
@@ -412,14 +431,17 @@ WGMMA_KERNELS = {"knn_topk.cu": "topk_wgmma", "ivf_topk.cu": "topk_wgmma",
 # Every k of the K1 card checks: each S (keys a lane) and its edges.
 CHECK_KS = (30, 33, 64, 96, 97, 120, 128)
 TF32_KERNEL = "flash_f32"  # K3 f32: 3xTF32 on mma.sync (HMMA, no wgmma)
-# K1's instances of the template's forms F32 (3xTF32 on wgmma) and Asym, as
-# mangled in their names: each form has one instance for each select size S
-# (1-4) and epilogue (two each), and none may spill.
-K1_NEW_FORMS = ("3F32E", "4AsymE")
-K1_NEW_INSTANCES = 4 * 2
-# K2's F32 instances (one per select size, epilogue PLAIN, items Slabs) and
+# The wgmma template's forms held in phase 1 by the start of their mangled
+# template arguments (F32: 3xTF32; Asym; the forms with streamed queries)
+# and their instances, one for each select size S (1-4) and epilogue (K1:
+# two each; K2: F32 and Bf16 one, the int8 forms two); none may spill.
+WGMMA_FORMS = {
+    "knn_topk.cu": {"INS_3F32E": 8, "INS_4AsymE": 8, "INS_8StreamedINS_4AsymEE": 8,
+                    "INS_8StreamedINS_2S8EE": 8},
+    "ivf_topk.cu": {"INS_3F32E": 4, "INS_8StreamedINS_4AsymEE": 8, "INS_8StreamedINS_2S8EE": 8},
+}
+F32_FORM = "INS_3F32E"
 # K3's wgmma instances by head width, as mangled; none may spill.
-K2_F32_INSTANCES = 4
 K3_WGMMA_WIDTHS = {"ILi32E": 32, "ILi64E": 64, "ILi80E": 80}
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 # TOKEN_TOL holds 'flash' to 'xla' in ViTs of up to 12 blocks. Deeper, two
@@ -456,8 +478,10 @@ WIDE_QUANT_RUNS = {
     "ivf int8_rows": ("ivf", {"quantization": "int8_rows", "num_leaves_to_search": N_PROBE},
                       ("ivf_topk", "int8_rows")),
     "faiss int8_asym": ("faiss", {"quantization": "int8_asym"}, ("knn_topk", "asym_rows")),
+    "scann-literal": ("ivf", QUANT_RUNS["scann-literal"][1], ("ivf_topk", "asym_rows")),
 }
-GIANT_QUANT_RUNS = {name: WIDE_QUANT_RUNS[name] for name in ("scann int8_rows", "faiss int8 + reorder 120")}
+GIANT_QUANT_RUNS = {name: WIDE_QUANT_RUNS[name]
+                    for name in ("scann int8_rows", "faiss int8 + reorder 120", "faiss int8_asym")}
 ANISO_CODE_FLIPS = 0.02  # rows whose anisotropic codes may differ between devices (near-tied losses)
 MESH_SHARDS = 4  # phase 9: bank shards of the mesh (stacked on one card, or distinct cards)
 
@@ -897,42 +921,35 @@ def assert_sharp(name, q, b, chunk=128):
     return share
 
 
-def deep_int8_refused(lib, prefix, counter, call, d):
-    """Phases 2 and 3: int8 x int8 at depth d = S8_MAX_DEPTH + 16: the
-    library `lib` reports shared memory for form 2 at S8_MAX_DEPTH and none
-    at d, and `call(d)` (the wrapper on CUDA codes) raises ValueError,
-    naming shared memory, with `counter`'s launches unchanged."""
-    from hbird_tpu_torch.ops import knn_cuda
+def streamed_smem(source, prefix, form, edge, depths):
+    """Phases 2 and 3: the shared memory the library of `source` reports
+    for `form` at `edge` (the deepest whose queries stay resident) and at
+    each of `depths` past it, where they stream in the ring: a size at
+    every depth, the streamed one not the resident edge's (None on the CPU
+    rehearsal)."""
+    from hbird_tpu_torch.ops import cuda_build, ivf_cuda, knn_cuda
 
-    smem = {depth: knn_cuda.wgmma_smem(lib, prefix, depth, 2) for depth in (S8_MAX_DEPTH, d)}
-    if not (smem[S8_MAX_DEPTH] > 0 and smem[d] == 0):
-        fail(f"{prefix}: the S8 kernel's shared memory by depth {smem}, not fitting up to {S8_MAX_DEPTH} alone")
-    before = counter.launches
-    try:
-        call(d)
-    except ValueError as e:
-        if "shared memory" not in str(e):
-            raise
-    else:
-        fail(f"{prefix}: int8 x int8 at D = {d} ran instead of raising")
-    if counter.launches != before:
-        fail(f"{prefix}: int8 x int8 at D = {d} launched")
-    print(f"  {prefix} int8 x int8 at D = {d}: raises before any launch (shared memory by depth "
-          f"{json.dumps(smem)} B)", flush=True)
+    if DEVICE != "cuda":
+        return None
+    argtypes = knn_cuda._ARGTYPES if prefix == "knn_topk" else ivf_cuda._ARGTYPES
+    lib = cuda_build.load(source, f"{prefix}_launch", argtypes)
+    smem = {d: knn_cuda.wgmma_smem(lib, prefix, d, form) for d in (edge, *depths)}
+    if not all(smem.values()) or any(smem[d] == smem[edge] for d in depths):
+        fail(f"{prefix} form {form}: shared memory by depth {smem}, not resident to {edge} and streamed past it")
+    print(f"  {prefix} form {form}: shared memory by depth {json.dumps(smem)} B (resident queries to D = {edge}, "
+          "streamed past it)", flush=True)
     return smem
 
 
 def wide_int8_knn_cases(gen):
-    """Phase 2: K1 int8 and int8_rows at each depth of WIDE_DEPTHS on sharp
-    codes (WIDE_CASE_Q queries, WIDE_CASE_M rows, the last 537 invalid), k
-    in INT8_KS, on the wgmma kernel (`route`), bit for bit, values and
-    indices; then D = S8_MAX_DEPTH + 16 refused before any launch."""
-    from hbird_tpu_torch.ops import cuda_build, knn_cuda
-    from hbird_tpu_torch.ops.knn_cuda import knn_topk
-
+    """Phase 2: K1 int8 and int8_rows at each depth of WIDE_DEPTHS and of
+    DEEP_INT8_DEPTHS (the queries streamed in the ring) on sharp codes
+    (WIDE_CASE_Q queries, WIDE_CASE_M rows, the last 537 invalid), k in
+    INT8_KS, on the wgmma kernel (`route`), bit for bit, values and
+    indices."""
     valid = WIDE_CASE_M - 537
     errs, info = [], {}
-    for d in WIDE_DEPTHS:
+    for d in WIDE_DEPTHS + DEEP_INT8_DEPTHS:
         q8, codes = sharp_codes(WIDE_CASE_Q, d, gen), sharp_codes(WIDE_CASE_M, d, gen)
         rs = 0.25 + torch.rand(WIDE_CASE_M, generator=gen, device=DEVICE)
         route = _route("knn_topk.cu", "knn_topk", q8, codes)
@@ -945,56 +962,130 @@ def wide_int8_knn_cases(gen):
                     f"{form} sharp codes Q={WIDE_CASE_Q} M={WIDE_CASE_M} D={d} valid={valid} k={k} ({route})",
                     q8, codes, k, valid, row_scale=r, exact=True))
         del q8, codes
-    if DEVICE == "cuda":
-        lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
-        info["refused"] = deep_int8_refused(lib, "knn_topk", knn_topk, lambda d: knn_topk(
-            sharp_codes(64, d, gen), sharp_codes(256, d, gen), 30), S8_MAX_DEPTH + 16)
+    info["smem"] = streamed_smem("knn_topk.cu", "knn_topk", 2, S8_MAX_RESIDENT, DEEP_INT8_DEPTHS)
     return max(errs), info
 
 
-def wide_int8_ivf_cases(gen):
-    """Phase 3: K2 int8 and int8_rows at each depth of WIDE_DEPTHS on sharp
-    codes: 48 slabs of cap 256 (ragged, one empty), WIDE_CASE_Q queries in
-    tiles of 256 each probing 32 slabs (on the card one id out of range),
-    k in INT8_KS, on the wgmma kernel, bit for bit; then D = S8_MAX_DEPTH +
-    16 refused before any launch."""
-    from hbird_tpu_torch.ops import cuda_build, ivf_cuda
-    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+def tie_dense(n, d, dtype, gen):
+    """(n, d) entries in {-1, 0, 1} of `dtype`: every score exact, ties dense."""
+    return torch.randint(-1, 2, (n, d), generator=gen, device=DEVICE).to(dtype).contiguous()
 
-    n_slabs, cap, n_probe = 48, 256, 32
-    n_tiles = WIDE_CASE_Q // BLOCK_Q
+
+def wide_asym_knn_cases(gen):
+    """Phase 2: K1 asym and asym_rows at each depth of ASYM_DEPTHS (past
+    ASYM_MAX_RESIDENT: the queries streamed in the ring), on the wgmma
+    kernel (`route`), at every k of CHECK_KS: WIDE_CASE_Q normal bf16
+    queries against the global and per-row int8 codes of WIDE_CASE_M unit
+    rows (the last 537 invalid) at the stated tolerance, and tie-dense
+    entries in {-1, 0, 1} (row scales 0.25-1.25) bit for bit."""
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8
+
+    valid = WIDE_CASE_M - 537
     errs, info = [], {}
-    for d in WIDE_DEPTHS:
-        lv = torch.randint(1, cap + 1, (n_slabs,), generator=gen, device=DEVICE, dtype=torch.int32)
-        lv[:3] = torch.tensor([0, 5, cap], dtype=torch.int32)
-        slot = torch.arange(n_slabs * cap, device=DEVICE)
-        bank = sharp_codes(n_slabs * cap, d, gen)
-        bank[slot % cap >= lv.long().repeat_interleave(cap)] = 0
-        rs = torch.where(slot % cap < lv.long().repeat_interleave(cap),
-                         0.25 + torch.rand(n_slabs * cap, generator=gen, device=DEVICE), 0.0)
-        q8 = sharp_codes(n_tiles * BLOCK_Q, d, gen)
-        lids = torch.stack([torch.randperm(n_slabs, generator=gen, device=DEVICE)[:n_probe]
-                            for _ in range(n_tiles)]).to(torch.int32)
-        if DEVICE == "cuda":
-            lids[:, 5] = n_slabs + 3
+    for d in ASYM_DEPTHS:
+        q = torch.randn(WIDE_CASE_Q, d, generator=gen, device=DEVICE).bfloat16().contiguous()
+        b = torch.nn.functional.normalize(torch.randn(WIDE_CASE_M, d, generator=gen, device=DEVICE), dim=1)
+        codes, scale = quantize_bank_int8(b, per_row=True)
+        codes_g = quantize_bank_int8(b, per_row=False)[0]
+        del b
+        tq, tb = tie_dense(WIDE_CASE_Q, d, torch.bfloat16, gen), tie_dense(WIDE_CASE_M, d, torch.int8, gen)
+        t_rs = 0.25 + torch.rand(WIDE_CASE_M, generator=gen, device=DEVICE)
+        route = _route("knn_topk.cu", "knn_topk", q, codes)
+        if route not in ("wgmma", "plain"):
+            fail(f"K1 asym at D = {d} routed to {route}")
+        info[d] = {"route": route}
+        for form, bank, r, t_r in (("asym", codes_g, None, None), ("asym_rows", codes, scale.reshape(-1), t_rs)):
+            for k in CHECK_KS:
+                errs.append(check_against_plain(
+                    f"{form} Q={WIDE_CASE_Q} M={WIDE_CASE_M} D={d} valid={valid} k={k} ({route})",
+                    q, bank, k, valid, row_scale=r))
+                errs.append(check_against_plain(
+                    f"{form} tie-dense Q={WIDE_CASE_Q} M={WIDE_CASE_M} D={d} valid={valid} k={k} ({route})",
+                    tq, tb, k, valid, row_scale=t_r, exact=True))
+        del q, codes, codes_g, tq, tb
+    info["smem"] = streamed_smem("knn_topk.cu", "knn_topk", 3, ASYM_MAX_RESIDENT, ASYM_DEPTHS)
+    return max(errs), info
+
+
+def wide_slabs(d, rows_fn, gen, n_slabs=48, cap=256, n_probe=32):
+    """Phase 3's ragged slabs at depth d: `n_slabs` slabs of `cap` rows
+    (leaf_valid random, the first three 0, 5 and cap) filled by
+    `rows_fn(n, d)`, padding slots 0; row scales 0.25-1.25 (0 on padding);
+    for WIDE_CASE_Q queries in tiles of BLOCK_Q a random list of `n_probe`
+    slabs a tile (on the card one id out of range). Returns (bank, row
+    scales, lids, leaf_valid)."""
+    lv = torch.randint(1, cap + 1, (n_slabs,), generator=gen, device=DEVICE, dtype=torch.int32)
+    lv[:3] = torch.tensor([0, 5, cap], dtype=torch.int32)
+    slot = torch.arange(n_slabs * cap, device=DEVICE)
+    real = slot % cap < lv.long().repeat_interleave(cap)
+    bank = rows_fn(n_slabs * cap, d)
+    bank[~real] = 0
+    rs = torch.where(real, 0.25 + torch.rand(n_slabs * cap, generator=gen, device=DEVICE), 0.0)
+    lids = torch.stack([torch.randperm(n_slabs, generator=gen, device=DEVICE)[:n_probe]
+                        for _ in range(WIDE_CASE_Q // BLOCK_Q)]).to(torch.int32)
+    if DEVICE == "cuda":
+        lids[:, 5] = n_slabs + 3
+    return bank, rs, lids, lv
+
+
+def wide_int8_ivf_cases(gen):
+    """Phase 3: K2 int8 and int8_rows at each depth of WIDE_DEPTHS and of
+    DEEP_INT8_DEPTHS (the queries streamed in the ring) on sharp codes in
+    `wide_slabs`, k in INT8_KS, on the wgmma kernel, bit for bit."""
+    cap = 256
+    errs, info = [], {}
+    for d in WIDE_DEPTHS + DEEP_INT8_DEPTHS:
+        bank, rs, lids, lv = wide_slabs(d, lambda n, dd: sharp_codes(n, dd, gen), gen, cap=cap)
+        q8 = sharp_codes(WIDE_CASE_Q, d, gen)
         route = _route("ivf_topk.cu", "ivf_topk", q8, bank)
         if route not in ("wgmma", "plain"):
             fail(f"K2 int8 at D = {d} routed to {route}")
+        slot = torch.arange(bank.shape[0], device=DEVICE)
         info[d] = {"route": route, "sharp_share": assert_sharp(f"K2 D={d}", q8, bank[lv.long().repeat_interleave(
             cap) > slot % cap])}
         for form, r in (("int8", None), ("int8_rows", rs)):
             for k in INT8_KS:
                 errs.append(check_ivf_against_plain(
-                    f"{form} sharp codes Q={q8.shape[0]} {n_slabs} slabs of cap {cap} D={d} k={k} "
-                    f"n_probe={n_probe} ({route})", q8, bank, lids, lv, k, cap, BLOCK_Q, row_scale=r, exact=True))
+                    f"{form} sharp codes Q={q8.shape[0]} {lv.shape[0]} slabs of cap {cap} D={d} k={k} "
+                    f"n_probe={lids.shape[1]} ({route})", q8, bank, lids, lv, k, cap, BLOCK_Q, row_scale=r,
+                    exact=True))
         del q8, bank
-    if DEVICE == "cuda":
-        lib = cuda_build.load("ivf_topk.cu", "ivf_topk_launch", ivf_cuda._ARGTYPES)
-        one = torch.zeros((1, 1), dtype=torch.int32, device=DEVICE)
-        full = torch.full((1,), cap, dtype=torch.int32, device=DEVICE)
-        info["refused"] = deep_int8_refused(lib, "ivf_topk", ivf_topk, lambda d: ivf_topk(
-            sharp_codes(BLOCK_Q, d, gen), sharp_codes(cap, d, gen), one, full, 30, cap=cap, block_q=BLOCK_Q),
-            S8_MAX_DEPTH + 16)
+    info["smem"] = streamed_smem("ivf_topk.cu", "ivf_topk", 2, S8_MAX_RESIDENT, DEEP_INT8_DEPTHS)
+    return max(errs), info
+
+
+def wide_asym_ivf_cases(gen):
+    """Phase 3: K2 asym and asym_rows at each depth of ASYM_DEPTHS (the
+    queries streamed in the ring) in `wide_slabs`, on the wgmma kernel, at
+    every k of CHECK_KS: normal bf16 queries on the global int8 codes of
+    unit rows (row scales 0.25-1.25 for asym_rows) at the stated tolerance,
+    and tie-dense entries bit for bit."""
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8
+
+    def unit_codes(n, d):
+        rows = torch.nn.functional.normalize(torch.randn(n, d, generator=gen, device=DEVICE), dim=1)
+        return quantize_bank_int8(rows, per_row=False)[0]
+
+    cap = 256
+    errs, info = [], {}
+    for d in ASYM_DEPTHS:
+        cases = (("", wide_slabs(d, unit_codes, gen, cap=cap),
+                  torch.randn(WIDE_CASE_Q, d, generator=gen, device=DEVICE).bfloat16().contiguous(), False),
+                 ("tie-dense ", wide_slabs(d, lambda n, dd: tie_dense(n, dd, torch.int8, gen), gen, cap=cap),
+                  tie_dense(WIDE_CASE_Q, d, torch.bfloat16, gen), True))
+        route = _route("ivf_topk.cu", "ivf_topk", cases[0][2], cases[0][1][0])
+        if route not in ("wgmma", "plain"):
+            fail(f"K2 asym at D = {d} routed to {route}")
+        info[d] = {"route": route}
+        for kind, (bank, rs, lids, lv), q, exact in cases:
+            for form, r in (("asym", None), ("asym_rows", rs)):
+                for k in CHECK_KS:
+                    errs.append(check_ivf_against_plain(
+                        f"{form} {kind}Q={q.shape[0]} {lv.shape[0]} slabs of cap {cap} D={d} k={k} "
+                        f"n_probe={lids.shape[1]} ({route})", q, bank, lids, lv, k, cap, BLOCK_Q, row_scale=r,
+                        exact=exact))
+        del cases
+    info["smem"] = streamed_smem("ivf_topk.cu", "ivf_topk", 3, ASYM_MAX_RESIDENT, ASYM_DEPTHS)
     return max(errs), info
 
 
@@ -1241,7 +1332,7 @@ def ptxas_report(log, name):
     args, regs, spills = [], [], []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and name in line:
-            targs = re.search(re.escape(name) + r"(I\w*?E)E", line)
+            targs = re.search(re.escape(name) + r"(I\w*?(?:FlatE|SlabsE|Li\d+E))E", line)
             args.append(targs.group(1) if targs else "")
             for nxt in lines[i + 1:i + 5]:
                 if "spill stores" in nxt:
@@ -1297,25 +1388,13 @@ def build_report(libs):
               + f"; {len(r['wgmma_notes'])} wgmma notes ({', '.join(WGMMA_NOTES)})", flush=True)
         for note in r["wgmma_notes"]:
             print(f"    {note}", flush=True)
-        if src == "knn_topk.cu":
-            for form in K1_NEW_FORMS:
-                n = sum(form in a for a in spills)
-                if n != K1_NEW_INSTANCES:
-                    fail(f"ptxas reported {n} K1 wgmma instances of {form}, not {K1_NEW_INSTANCES}")
-            spilled = {a: n for a, n in spills.items() if n and any(f in a for f in K1_NEW_FORMS)}
-            if spilled:
-                fail(f"K1's F32 / Asym wgmma instances spill: {spilled}")
-            tf32 = {a: (regs[a], spills[a]) for a in regs if K1_NEW_FORMS[0] in a}
-            report["knn_topk.cu:F32"] = tf32
-            print(f"  ptxas, K1 F32 (3xTF32 on wgmma, {len(tf32)} instances): (registers, spill bytes) "
-                  f"{json.dumps(tf32)}", flush=True)
-        if src == "ivf_topk.cu":
-            f32 = {a: (regs[a], spills[a]) for a in regs if K1_NEW_FORMS[0] in a}
-            if len(f32) != K2_F32_INSTANCES or any(sp for _, sp in f32.values()):
-                fail(f"ptxas: K2's F32 wgmma instances (want {K2_F32_INSTANCES}, none spilling): {f32}")
-            report["ivf_topk.cu:F32"] = f32
-            print(f"  ptxas, K2 F32 (3xTF32 on wgmma over Slabs, {len(f32)} instances): (registers, spill "
-                  f"bytes) {json.dumps(f32)}", flush=True)
+        for form, want in WGMMA_FORMS.get(src, {}).items():
+            got = {a: (regs[a], spills[a]) for a in regs if a.startswith(form)}
+            if len(got) != want or any(sp for _, sp in got.values()):
+                fail(f"ptxas: {src}'s wgmma instances of {form} (want {want}, none spilling): {got}")
+            report[f"{src}:{form}"] = got
+            print(f"  ptxas, {src} {form} ({len(got)} instances): (registers, spill bytes) {json.dumps(got)}",
+                  flush=True)
         if src == "flash_attn.cu":
             widths = {K3_WGMMA_WIDTHS.get(a): (regs[a], spills[a]) for a in regs}
             if set(widths) != set(K3_WGMMA_WIDTHS.values()) or any(sp for _, sp in widths.values()):
@@ -1342,6 +1421,17 @@ def build_report(libs):
         fail(f"a form on the wgmma kernels asks for no shared memory (another route): {smem}")
     print(f"  dynamic shared memory at D={DEPTH}: {json.dumps(smem)} B", flush=True)
     report["smem_bytes"] = smem
+    # past the resident queries' edge, asym and int8 stream theirs: a size at every depth
+    deep = {f"{name} {form_name} D={d}": fn(d, form)
+            for name, fn in (("K1", k1.knn_topk_wgmma_smem), ("K2", k2.ivf_topk_wgmma_smem))
+            for form, form_name, depths in ((3, "asym", (ASYM_MAX_RESIDENT,) + ASYM_DEPTHS),
+                                            (2, "int8", (S8_MAX_RESIDENT,) + DEEP_INT8_DEPTHS))
+            for d in depths}
+    if not all(deep.values()):
+        fail(f"asym or int8 asks for no shared memory at a depth: {deep}")
+    print(f"  dynamic shared memory of asym and int8 past their resident queries' edge: {json.dumps(deep)} B",
+          flush=True)
+    report["smem_bytes_deep"] = deep
     tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
     if tool is None:
         print("  cuobjdump not found: SASS not counted", flush=True)
@@ -1357,7 +1447,7 @@ def build_report(libs):
         wg_fns = {f: c for f, c in per_fn.items() if name and name in f}
         print(f"  SASS of {path.name}: {json.dumps(total)}; wgmma kernels ({', '.join(SASS_OPS)}): "
               f"{json.dumps(sorted({tuple(c.values()) for c in wg_fns.values()}))}", flush=True)
-        tf32 = {f: c for f, c in per_fn.items() if TF32_KERNEL in f or f"{name}INS_{K1_NEW_FORMS[0]}" in f}
+        tf32 = {f: c for f, c in per_fn.items() if TF32_KERNEL in f or f"{name}{F32_FORM}" in f}
         if tf32:
             print(f"  SASS of the 3xTF32 kernels ({TF32_KERNEL}, K1's F32 instances; {', '.join(SASS_OPS)}): "
                   f"{json.dumps(sorted({tuple(c.values()) for c in tf32.values()}))}", flush=True)
@@ -1366,14 +1456,10 @@ def build_report(libs):
                 fail(f"{f}: {c} (a wgmma kernel must issue HGMMA or IGMMA and UTMALDG, and no HMMA or IMMA)")
         if name and not wg_fns:
             fail(f"{path.name}: no {name} kernel in the SASS")
-        for form in K1_NEW_FORMS if src == "knn_topk.cu" else ():
-            n = sum(f"{name}INS_{form}" in f for f in wg_fns)
-            if n != K1_NEW_INSTANCES:
-                fail(f"{path.name}: {n} wgmma kernels of {form} in the SASS, not {K1_NEW_INSTANCES}")
-        if src == "ivf_topk.cu":
-            n = sum(f"{name}INS_{K1_NEW_FORMS[0]}" in f for f in wg_fns)
-            if n != K2_F32_INSTANCES:
-                fail(f"{path.name}: {n} F32 wgmma kernels in the SASS, not {K2_F32_INSTANCES}")
+        for form, want in WGMMA_FORMS.get(src, {}).items():
+            n = sum(f"{name}{form}" in f for f in wg_fns)
+            if n != want:
+                fail(f"{path.name}: {n} wgmma kernels of {form} in the SASS, not {want}")
         if src == "flash_attn.cu":
             got = sorted(hd for a, hd in K3_WGMMA_WIDTHS.items() if any(f"{name}{a}" in f for f in wg_fns))
             if got != sorted(K3_WGMMA_WIDTHS.values()):
@@ -2274,7 +2360,7 @@ def asym_library(q, widened, k, rs=None, chunk=2048):
         torch.topk(x if rs is None else x.float() * rs, k, dim=1)
 
 
-def k1_form_rows(q, bb, q32, b32, label, k, reps, rows, errs):
+def k1_form_rows(q, bb, q32, b32, label, k, reps, rows, errs, only=None):
     """Phase 7: K1's forms (b)-(e) on the bank `bb` (bf16) and the queries
     `q` (bf16), and f32 on `q32` and `b32` (f32 values that are not TF32
     values, so the small parts of the split are not 0): each timed beside its plain
@@ -2286,7 +2372,8 @@ def k1_form_rows(q, bb, q32, b32, label, k, reps, rows, errs):
     scan), the others at `k`. Each row names the kernel its call ran
     (`route`); f32's bound is 3 TF32 passes at the TF32 peak, its f32 FMA
     bound beside it. At the engine's k, a single TF32 pass must miss the
-    f32 tolerance on these inputs (one_tf32_pass_misses)."""
+    f32 tolerance on these inputs (one_tf32_pass_misses). `only` names the
+    forms to time (default all)."""
     from hbird_tpu_torch.ops.knn import exact_knn, l2_bias
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -2321,6 +2408,8 @@ def k1_form_rows(q, bb, q32, b32, label, k, reps, rows, errs):
     }
     base_k = k
     for form, (qq, b, r, dist, exact, lib, qbytes, bbytes, rbytes, peak, ks) in forms.items():
+        if only is not None and form not in only:
+            continue
         route = _route("knn_topk.cu", "knn_topk", qq, b)
         for k in ks:
             kw = dict(distance=dist, row_scale=r)
@@ -2490,11 +2579,12 @@ def k1_select_rows(q, bank, chunk=2048):
     return rows
 
 
-def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
+def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs, only=None):
     """Phase 7: K2's quantized forms on the tree's slabs, probed as the bf16
     tree is: int8_rows and asym_rows on per-row int8 codes (padding slots
     scale 0), int8 and asym on global-scale codes; each timed beside the
-    plain version, the bound and the library yardstick."""
+    plain version, the bound and the library yardstick. `only` names the
+    forms to time (default all)."""
     from hbird_tpu_torch.ops.ivf import ivf_search_plain
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
@@ -2512,6 +2602,8 @@ def k2_form_rows(qp, lids, tb, lv, cap, label, k, reps, rows, errs):
         ("asym", qp, codes_g, None, False, 2, 1, 0, PEAK_BF16_FLOPS),
     )
     for form, qq, sb, r, exact, qbytes, bbytes, rbytes, peak in forms:
+        if only is not None and form not in only:
+            continue
         ms = cuda_ms(lambda: ivf_topk(qq, sb, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r), reps)
         out = ivf_topk(qq, sb, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r)
         box = {}
@@ -2682,30 +2774,37 @@ def wide_timing(gen):
     and 120 on 3xTF32, f32 l2, asym, asym_rows, l2); K2 bf16 on a tree of
     the bank (its defaults: 512 leaves, N_PROBE probed a 256-query tile),
     its int8, int8_rows, asym and asym_rows forms on that tree's slabs and
-    f32 on an f32 tree of the f32 rows. Each row with its route, bound,
-    plain and library times, and its check against the plain version."""
+    f32 on an f32 tree of the f32 rows. Then at DEEP_INT8_TIMING_DEPTH (the
+    int8 queries streamed in the ring) K1 and K2 int8 and int8_rows alone.
+    Each row with its route, bound, plain and library times, and its check
+    against the plain version."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
     from hbird_tpu_torch.ops.ivf import tile_probe_inputs
 
     k, reps = 30, 3
     k1_rows, k2_rows, errs = {}, {}, {"K1": 0.0, "K2": 0.0}
-    for d in WIDE_TIMING_DEPTHS:
-        label = f"D={d}"
+    int8_forms = ("int8", "int8_rows")
+    for d in WIDE_TIMING_DEPTHS + (DEEP_INT8_TIMING_DEPTH,):
+        label, deep = f"D={d}", d == DEEP_INT8_TIMING_DEPTH
         q32 = torch.randn(PAIR_Q, d, generator=gen, device=DEVICE)
         b32 = torch.nn.functional.normalize(torch.randn(PAIR_M, d, generator=gen, device=DEVICE), dim=1)
         q, bb = q32.to(torch.bfloat16), b32.to(torch.bfloat16)
-        k1_dot_row(q, bb, label, k, reps, k1_rows, errs)
-        k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs)
+        if not deep:
+            k1_dot_row(q, bb, label, k, reps, k1_rows, errs)
+        k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs, only=int8_forms if deep else None)
         t0 = time.perf_counter()
         tree = NearestNeighborSearchApprox(bb, n_neighbors=k, use_tree=True, device=DEVICE)
         sync()
         print(f"  tree of the {label} bank: {tree._n_leaves} leaves, cap {tree._cap}, built in "
               f"{time.perf_counter() - t0:.2f}s", flush=True)
         qp, lids, _ = tile_probe_inputs(q, tree.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
-        k2_dot_row(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs)
-        k2_form_rows(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs)
+        if not deep:
+            k2_dot_row(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs)
+        k2_form_rows(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs,
+                     only=int8_forms if deep else None)
         del tree, qp, lids, q, bb
-        k2_f32_row(*f32_tree(b32, q32), label, k, reps, k2_rows, errs)
+        if not deep:
+            k2_f32_row(*f32_tree(b32, q32), label, k, reps, k2_rows, errs)
         del q32, b32
     return k1_rows, k2_rows, errs
 
@@ -2824,11 +2923,23 @@ def forward_timing(gen_seed, gen):
     return rows
 
 
+def digest(out):
+    """The first 16 hex digits of a SHA-256 of an output's bytes (a tensor,
+    or K1's and K2's (values, indices)): two trees' kernels agree bit for
+    bit on the same seeded inputs when their digests do."""
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, tuple) else (out,)):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def pairs(tree):
     """--pairs: the Hopper-redesigned kernels of the imported package (K3
     bf16 and f32, K1 bf16 dot and l2, int8, int8_rows, f32, asym and
-    asym_rows, K2 bf16 and asym_rows) timed alone by CUDA events, each
-    beside its bound and its library call; returns the JSON-ready result."""
+    asym_rows, K2 bf16, asym_rows and f32; K1 asym and asym_rows and K2
+    asym_rows on the wide banks) timed alone by CUDA events, each beside
+    its bound and its library call, with its output's digest; returns the
+    JSON-ready result."""
     import hbird_tpu_torch
     from hbird_tpu_torch.ops import cuda_build
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
@@ -2856,10 +2967,8 @@ def pairs(tree):
             scale = shape[-1] ** -0.5
             ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 20)
             lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 20)
-            # the output's bytes: two trees' kernels agree bit for bit when their digests do
-            digest = hashlib.sha256(flash_attention(q, k, v, scale).float().cpu().numpy().tobytes()).hexdigest()
             record("k3", f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}", ms, k3_bound(shape, dtype), lib,
-                   digest=digest[:16])
+                   digest=digest(flash_attention(q, k, v, scale).float()))
             del q, k, v
     q_f32 = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE)  # K2 f32's queries
     q = q_f32.bfloat16()
@@ -2877,12 +2986,14 @@ def pairs(tree):
             for form, kw, nb in (("dot", {}, None), ("l2", {"distance": "l2"}, neg_bias)):
                 ms = cuda_ms(lambda: knn_topk(q, bank, k, **kw), reps)
                 lib = cuda_ms(lambda: k1_library(q, bank, k, nb), reps)
-                record("k1", f"bf16 {form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
+                record("k1", f"bf16 {form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib,
+                       digest=digest(knn_topk(q, bank, k, **kw)))
             for form, codes, r in (("int8", codes_g, None), ("int8_rows", codes_r, rs)):
                 bound = bound_ms(PAIR_Q, m, DEPTH, k, 1, PEAK_INT8_OPS, row_bytes=0 if r is None else 4)
                 ms = cuda_ms(lambda: knn_topk(q8, codes, k, row_scale=r), reps)
                 lib = library_ms(lambda: int8_library(q8, codes, k, r), reps, f"K1 {form}")
-                record("k1", f"{form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib)
+                record("k1", f"{form} Q={PAIR_Q} M={m} k={k}", ms, bound, lib,
+                       digest=digest(knn_topk(q8, codes, k, row_scale=r)))
         # f32 (3xTF32) at the engine's k and the reorder's scan; asym and
         # asym_rows at the engine's k
         q32, bank32 = q.float(), bank.float()
@@ -2890,23 +3001,56 @@ def pairs(tree):
             ms = cuda_ms(lambda: knn_topk(q32, bank32, k), reps)
             lib = cuda_ms(lambda: k1_library(q32, bank32, k), reps)
             record("k1", f"f32 Q={PAIR_Q} M={m} k={k}", ms,
-                   bound_ms(PAIR_Q, m, DEPTH, k, 4, PEAK_TF32_FLOPS / TF32_PASSES), lib)
+                   bound_ms(PAIR_Q, m, DEPTH, k, 4, PEAK_TF32_FLOPS / TF32_PASSES), lib,
+                   digest=digest(knn_topk(q32, bank32, k)))
         del q32, bank32
-        k = PAIR_KS[0]
-        for form, codes, r in (("asym", codes_g, None), ("asym_rows", codes_r, rs)):
-            wide = codes.bfloat16()
-            ms = cuda_ms(lambda: knn_topk(q, codes, k, row_scale=r), reps)
-            lib = cuda_ms(lambda: asym_library(q, wide, k, r), reps)
-            record("k1", f"{form} Q={PAIR_Q} M={m} k={k}", ms,
-                   bound_ms(PAIR_Q, m, DEPTH, k, 2, PEAK_BF16_FLOPS, bank_bytes=1, row_bytes=0 if r is None else 4),
-                   lib)
-            del wide
+        pairs_asym(q, codes_g, codes_r, rs, f"Q={PAIR_Q} M={m}", record, reps)
         del codes_g, codes_r, rs, neg_bias
         pairs_k2(q, bank, q_f32, bank_f32, f"M={m}", record, 5 if m < 200_000 else 3)
         del bank, bank_f32
+    del q, q_f32, q8
+    pairs_wide(record)
     pairs_turns(record, FLASH_NARROW)
     pairs_turns(record, FLASH_WIDE)
     return out
+
+
+def pairs_asym(q, codes_g, codes_r, rs, label, record, reps, k=PAIR_KS[0]):
+    """--pairs, K1 asym (global codes `codes_g`) and asym_rows (`codes_r`,
+    row scales `rs`) of the bf16 queries `q` at k = 30, each with its bound,
+    its library call (a bf16 matmul on the codes widened once) and its
+    digest."""
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    n_q, d = q.shape
+    for form, codes, r in (("asym", codes_g, None), ("asym_rows", codes_r, rs)):
+        wide = codes.bfloat16()
+        ms = cuda_ms(lambda: knn_topk(q, codes, k, row_scale=r), reps)
+        lib = cuda_ms(lambda: asym_library(q, wide, k, r), reps)
+        record("k1", f"{form} {label} k={k}", ms,
+               bound_ms(n_q, codes.shape[0], d, k, 2, PEAK_BF16_FLOPS, bank_bytes=1, row_bytes=0 if r is None else 4),
+               lib, digest=digest(knn_topk(q, codes, k, row_scale=r)))
+        del wide
+
+
+def pairs_wide(record, reps=3):
+    """--pairs on the wide banks: at each depth of WIDE_TIMING_DEPTHS,
+    PAIR_Q normal queries against PAIR_M unit rows, K1 asym and asym_rows
+    on their int8 codes (pairs_asym) and K2 asym_rows on a tree of the rows
+    (pairs_k2's), each with its digest."""
+    from hbird_tpu_torch.ops.quantize import quantize_bank_int8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    for d in WIDE_TIMING_DEPTHS:
+        q = torch.randn(PAIR_Q, d, generator=gen, device=DEVICE).bfloat16()
+        bank = torch.nn.functional.normalize(torch.randn(PAIR_M, d, generator=gen, device=DEVICE), dim=1).bfloat16()
+        codes_g = quantize_bank_int8(bank, per_row=False)[0]
+        codes_r, scale = quantize_bank_int8(bank, per_row=True)
+        pairs_asym(q, codes_g, codes_r, scale.reshape(-1).float().contiguous(), f"Q={PAIR_Q} M={PAIR_M} D={d}",
+                   record, reps)
+        del codes_g, codes_r, scale
+        pairs_k2(q, bank, None, None, f"M={PAIR_M} D={d}", record, reps, forms=("asym_rows",))
+        del q, bank
 
 
 def pairs_turns(record, shape):
@@ -2923,27 +3067,27 @@ def pairs_turns(record, shape):
     turns = in_turns({"kernel": lambda: flash_cuda.flash_attention(q, k, v, scale),
                       "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale)},
                      NARROW_ROUNDS, 20)
-    digest = hashlib.sha256(flash_cuda.flash_attention(q, k, v, scale).float().cpu().numpy().tobytes()).hexdigest()
     route = flash_cuda.route(torch.bfloat16, shape[-1]) if hasattr(flash_cuda, "route") else "unnamed"
     kt, st = turns["kernel"], turns["sdpa"]
     record("k3", f"bf16 {shape}", kt["ms"]["median"], k3_bound(shape, torch.bfloat16),
-           st["ms"]["median"], digest=digest[:16], route=route, graph_ms=kt["graph_ms"]["median"],
+           st["ms"]["median"], digest=digest(flash_cuda.flash_attention(q, k, v, scale).float()), route=route,
+           graph_ms=kt["graph_ms"]["median"],
            library_graph_ms=st["graph_ms"]["median"],
            spread=" ".join(f"{n}:{w}=[{t[w]['min']:.4f},{t[w]['max']:.4f}]" for n, t in turns.items() for w in t))
 
 
-def pairs_k2(q, bank, q32, bank32, label, record, reps):
+def pairs_k2(q, bank, q32, bank32, label, record, reps, forms=("bf16", "asym_rows", "f32")):
     """--pairs, K2: a tree of `bank` (the tree's defaults: 512 leaves),
-    `q` grouped into 256-query tiles probing 32 leaves each, k = 30; bf16
-    and asym_rows (the slabs as per-row int8 codes, padding slots scale
-    0); and f32 on an f32 tree of `bank32` (the rows before their rounding
-    to bf16) probed by `q32`."""
+    `q` grouped into 256-query tiles probing 32 leaves each, k = 30, in
+    `forms`: bf16 and asym_rows (the slabs as per-row int8 codes, padding
+    slots scale 0); and f32 on an f32 tree of `bank32` (the rows before
+    their rounding to bf16) probed by `q32`. Each with its digest."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
     from hbird_tpu_torch.ops.ivf import tile_probe_inputs
     from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8
 
-    k = 30
+    k, d = 30, q.shape[1]
     tree = NearestNeighborSearchApprox(bank, n_neighbors=k, use_tree=True, device=DEVICE)
     tb, lv, cap = tree.bank, tree.leaf_valid, tree._cap
     qp, lids, _ = tile_probe_inputs(q, tree.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
@@ -2953,17 +3097,23 @@ def pairs_k2(q, bank, q32, bank32, label, record, reps):
     rs = torch.where(slot % cap < lv.long().repeat_interleave(cap), scale.reshape(-1), 0.0)
     shape = f"Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={N_PROBE}"
     for form, b, r, bank_bytes in (("bf16", tb, None, 2), ("asym_rows", codes, rs, 1)):
-        bound = ivf_bound_ms(qp.shape[0], lids, lv, DEPTH, k, 2, PEAK_BF16_FLOPS,
+        if form not in forms:
+            continue
+        bound = ivf_bound_ms(qp.shape[0], lids, lv, d, k, 2, PEAK_BF16_FLOPS,
                              bank_bytes=bank_bytes, row_bytes=0 if r is None else 4)
         ms = cuda_ms(lambda: ivf_topk(qp, b, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r), reps)
         lib = cuda_ms(lambda: ivf_library(qp, b, lids, lv, k, cap, BLOCK_Q, row_scale=r), reps)
-        record("k2", f"{form} {label} {shape}", ms, bound, lib)
+        record("k2", f"{form} {label} {shape}", ms, bound, lib,
+               digest=digest(ivf_topk(qp, b, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r)))
     del qp, lids, tb, codes, rs
+    if "f32" not in forms:
+        return
     qp, lids, tb, lv, cap = f32_tree(bank32, q32)
     ms = cuda_ms(lambda: ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q), reps)
     lib = cuda_ms(lambda: ivf_library(qp, tb, lids, lv, k, cap, BLOCK_Q), reps)
     record("k2", f"f32 {label} Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={N_PROBE}", ms,
-           ivf_bound_ms(qp.shape[0], lids, lv, DEPTH, k, 4, PEAK_TF32_FLOPS / TF32_PASSES), lib)
+           ivf_bound_ms(qp.shape[0], lids, lv, d, k, 4, PEAK_TF32_FLOPS / TF32_PASSES), lib,
+           digest=digest(ivf_topk(qp, tb, lids, lv, k, cap=cap, block_q=BLOCK_Q)))
 
 
 def native_feed(gen_seed, folder_run):
@@ -3786,11 +3936,13 @@ def main(argv=()):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phase("[2] K1 vs plain version")
     err_wide_k1, wide_k1 = wide_int8_knn_cases(gen)
-    err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen), err_wide_k1)
+    err_asym_k1, asym_k1 = wide_asym_knn_cases(gen)
+    err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen), err_wide_k1, err_asym_k1)
 
     phase("[3] K2 vs plain version")
     err_wide_k2, wide_k2 = wide_int8_ivf_cases(gen)
-    err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen), err_wide_k2)
+    err_asym_k2, asym_k2 = wide_asym_ivf_cases(gen)
+    err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen), err_wide_k2, err_asym_k2)
 
     phase("[4] K3 vs plain version")
     err_k3 = flash_cases(gen)
@@ -3875,7 +4027,7 @@ def main(argv=()):
                      max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
-        "wide_int8_checks": {"K1": wide_k1, "K2": wide_k2},
+        "wide_int8_checks": {"K1": wide_k1, "K2": wide_k2}, "wide_asym_checks": {"K1": asym_k1, "K2": asym_k2},
         "hopper_build": build, "persistence": persistence, "native_feed": feed, "mesh_k1": mesh_rows,
         "mesh_k1_process_group": group_rows,
         "mesh_distinct_cards": distinct, "nccl": nccl, "mesh_tree": tree_mesh,

@@ -5,9 +5,9 @@
 // Replaces the TPU kernel hbird_tpu/ops/ivf.py::_ivf_kernel (launched by
 // pallas_ivf_knn), k <= 128, in each of its forms: f32 or bf16 slabs; int8
 // codes under int8 queries (int32 accumulation, converted once to f32); int8
-// codes under bf16 queries (asymmetric: the codes widened in registers); and
-// the row_scale epilogue on int8 slabs, one f32 scale per slot, read in the
-// slab layout.
+// codes under bf16 queries (asymmetric: the codes widened to bf16 in shared
+// memory); and the row_scale epilogue on int8 slabs, one f32 scale per slot,
+// read in the slab layout.
 //
 // The IVF bank is leaf-contiguous: slab s holds rows [s·cap, (s+1)·cap), of
 // which the first leaf_valid[s] are real. Queries come in tiles of block_q
@@ -27,16 +27,17 @@
 // tf32.cuh), bf16, int8 (with or without row scales) and bf16 queries on
 // int8 codes (asym, asym_rows: the reference's ScaNN searcher) run
 // wgmma_topk.cuh's kernel (topk_wgmma<F, S, E, Slabs>), K1's: persistent
-// CTAs over (probe split, 64-query tile) items, the queries resident (f32:
-// the item's query chunk streamed beside each slab chunk), the slab tiles
-// by TMA from one 2-D tensor map over the leaf-contiguous bank (a tile is
-// the box at row s·cap + m0), two consumer warpgroups on wgmma, the batched
-// select in registers and global scratch, the partial sets merged in a
-// second pass. asym's codes are widened to bf16 in shared memory by the
-// consumers (exact), so its wgmma and select are bf16's. bf16 or asym
-// wider than the kernel's shared memory runs topk_common.cuh's mma_scan
-// (one CTA of 256 threads per 64 queries, a two-stage cp.async ring whose
-// prefetch runs across slab boundaries).
+// CTAs over (probe split, 64-query tile) items, the queries resident where
+// they fit and else streamed beside each slab chunk (f32 always; int8 past
+// D = 3,072, asym past 1,152: every depth fits), the slab tiles by TMA from
+// one 2-D tensor map over the leaf-contiguous bank (a tile is the box at
+// row s·cap + m0), two consumer warpgroups on wgmma, the batched select in
+// registers and global scratch, the partial sets merged in a second pass.
+// asym's codes are widened to bf16 in shared memory by the consumers
+// (exact), so its wgmma and select are bf16's. bf16 wider than the kernel's
+// shared memory (D > 1,536) runs topk_common.cuh's mma_scan (one CTA of 256
+// threads per 64 queries, a two-stage cp.async ring whose prefetch runs
+// across slab boundaries).
 // Returned ids are IVF slot ids, sorted by value descending, then slot
 // ascending; unfilled slots are (-inf, 0). Probed slabs do not arrive in slot
 // order, so an equal score in a later slab may carry a lower slot: the 64-bit
@@ -139,24 +140,27 @@ int launch_wgmma(const void* q, const void* bank, const float* scale, const void
   const int splits = n_probe > 0 ? (n_probe + per_split - 1) / per_split : 1;
   const Slabs items{static_cast<const int*>(leaf_ids), static_cast<const int*>(leaf_valid),
                     n_slabs, cap, n_probe, block_q, nq / wg::BQH, splits, per_split};
+  if (scale == nullptr)
+    return wg::launch<F, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr, work,
+                                       work_ctas, nq, n_slabs * cap, d, k, items, stream);
   return wg::launch<F, S, E>(q, bank, scale, out_vals, out_idx, parts, thr, work, work_ctas, nq,
                              n_slabs * cap, d, k, items, stream);
 }
 
-template <typename TQ, typename TB, typename Kernel>
-cudaError_t launch_one(Kernel kernel, size_t smem, const void* q, const void* bank,
-                       const float* scale, const void* leaf_ids, const void* leaf_valid,
-                       void* out_vals, void* out_idx, int nq, int n_slabs, int cap, int d,
-                       int block_q, int n_probe, int k, cudaStream_t stream) {
-  const cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(nq / BQ);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TB*>(bank), scale,
-      static_cast<const int*>(leaf_ids), static_cast<const int*>(leaf_valid),
-      static_cast<float*>(out_vals), static_cast<long long*>(out_idx), nq, n_slabs, cap, d,
-      block_q, n_probe, k);
-  return cudaGetLastError();
+// Int8 form F (row scales when `scale` is given) with its queries resident
+// where they fit, else streamed.
+template <class F, int S>
+int launch_fit(const void* q, const void* bank, const float* scale, const void* leaf_ids,
+               const void* leaf_valid, void* out_vals, void* out_idx, void* parts, void* thr,
+               void* work, int work_ctas, int nq, int n_slabs, int cap, int d, int block_q,
+               int n_probe, int k, int probe_splits, cudaStream_t stream) {
+  if (wg::smem_at<F>(d) > 0)
+    return launch_wgmma<F, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx,
+                                         parts, thr, work, work_ctas, nq, n_slabs, cap, d,
+                                         block_q, n_probe, k, probe_splits, stream);
+  return launch_wgmma<wg::Streamed<F>, S, wg::SCALE>(
+      q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, parts, thr, work, work_ctas, nq,
+      n_slabs, cap, d, block_q, n_probe, k, probe_splits, stream);
 }
 
 template <int S>
@@ -171,42 +175,28 @@ int launch(const void* q, const void* bank, const float* scale, const void* leaf
                                                  nq, n_slabs, cap, d, block_q, n_probe, k,
                                                  probe_splits, stream);
     case 1:
-      if (wg::smem_at<wg::Bf16>(d) == 0)  // the queries do not fit: mma_scan
-        return launch_one<__nv_bfloat16, __nv_bfloat16>(
-            ivf_topk_mma<FormBf16, S>, Ring<FormBf16>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
-            out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
+      if (wg::smem_at<wg::Bf16>(d) == 0) {  // the queries do not fit: mma_scan
+        const cudaError_t e = allow_smem(ivf_topk_mma<FormBf16, S>, Ring<FormBf16>::SMEM);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        ivf_topk_mma<FormBf16, S><<<nq / BQ, THREADS, Ring<FormBf16>::SMEM, stream>>>(
+            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(bank), scale,
+            static_cast<const int*>(leaf_ids), static_cast<const int*>(leaf_valid),
+            static_cast<float*>(out_vals), static_cast<long long*>(out_idx), nq, n_slabs, cap, d,
+            block_q, n_probe, k);
+        return static_cast<int>(cudaGetLastError());
+      }
       return launch_wgmma<wg::Bf16, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid,
                                                   out_vals, out_idx, parts, thr, work, work_ctas,
                                                   nq, n_slabs, cap, d, block_q, n_probe, k,
                                                   probe_splits, stream);
-    case 2:
-      // int8 x int8 runs only here (s32 accumulators, one conversion to
-      // f32): queries too deep for its shared memory (D > 3072) are refused
-      // before any launch, since mma_scan has no s32 form.
-      if (wg::smem_at<wg::S8>(d) == 0) return static_cast<int>(cudaErrorInvalidValue);
-      if (scale != nullptr)
-        return launch_wgmma<wg::S8, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid, out_vals,
-                                                  out_idx, parts, thr, work, work_ctas, nq,
-                                                  n_slabs, cap, d, block_q, n_probe, k,
-                                                  probe_splits, stream);
-      return launch_wgmma<wg::S8, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid, out_vals,
-                                                out_idx, parts, thr, work, work_ctas, nq, n_slabs,
-                                                cap, d, block_q, n_probe, k, probe_splits,
-                                                stream);
+    case 2:  // int8 x int8: s32 accumulators, one conversion to f32
+      return launch_fit<wg::S8, S>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, parts,
+                                   thr, work, work_ctas, nq, n_slabs, cap, d, block_q, n_probe, k,
+                                   probe_splits, stream);
     default:
-      if (wg::smem_at<wg::Asym>(d) == 0)
-        return launch_one<__nv_bfloat16, int8_t>(
-            ivf_topk_mma<FormAsym, S>, Ring<FormAsym>::SMEM, q, bank, scale, leaf_ids, leaf_valid,
-            out_vals, out_idx, nq, n_slabs, cap, d, block_q, n_probe, k, stream);
-      if (scale != nullptr)
-        return launch_wgmma<wg::Asym, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid,
-                                                    out_vals, out_idx, parts, thr, work,
-                                                    work_ctas, nq, n_slabs, cap, d, block_q,
-                                                    n_probe, k, probe_splits, stream);
-      return launch_wgmma<wg::Asym, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid,
-                                                  out_vals, out_idx, parts, thr, work, work_ctas,
-                                                  nq, n_slabs, cap, d, block_q, n_probe, k,
-                                                  probe_splits, stream);
+      return launch_fit<wg::Asym, S>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx,
+                                     parts, thr, work, work_ctas, nq, n_slabs, cap, d, block_q,
+                                     n_probe, k, probe_splits, stream);
   }
 }
 
@@ -246,13 +236,14 @@ extern "C" int ivf_topk_launch(const void* q, const void* bank, const float* sca
 }
 
 // Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
-// 3 bf16 queries on int8 codes) asks for at depth d; 0: that call runs
-// mma_scan, without scratch, or, for int8 (D > 3072), is refused.
+// 3 bf16 queries on int8 codes) asks for at depth d (int8 and asym: the
+// resident form's where it fits, else the streamed one's); 0: that call
+// runs mma_scan, without scratch (bf16 whose queries do not fit).
 extern "C" int ivf_topk_wgmma_smem(int d, int form) {
   if (form == 0) return wg::smem_at<wg::F32>(d);
   if (form == 1) return wg::smem_at<wg::Bf16>(d);
-  if (form == 2) return wg::smem_at<wg::S8>(d);
-  return form == 3 ? wg::smem_at<wg::Asym>(d) : 0;
+  if (form == 2) return wg::smem_fit<wg::S8>(d);
+  return form == 3 ? wg::smem_fit<wg::Asym>(d) : 0;
 }
 
 // 64-bit keys of the wgmma kernel's `work` scratch per CTA at k.

@@ -26,28 +26,28 @@
 // every k, over (bank split, 64-query tile) items, split-major, so the CTAs
 // in flight read the same ~1/splits of the bank and find it in L2: bf16
 // (a)/(b) as Bf16, int8 (c)/(c)+(d) as S8, (e)/(e)+(d) as Asym (the codes
-// widened in shared memory, as K2 does), f32 (a)/(b) as F32 (3xTF32, the
-// query chunks streamed with the bank chunks). The wrapper picks the fewest
-// splits whose rounds of items keep at least 90% of the SMs busy
-// (ops/knn_cuda.py, plan_splits: 3 at Q = 21,904 on 132 SMs); the splits
-// cover only the valid rows. At D = 768 the queries take 96 KB in bf16 and
-// 48 KB in int8, the rings 2 x 4 x 16 KB; wider bf16 banks get fewer stages
-// (one each at D = 1536, dinov2_vitg14's width), and wider still (a
-// converted checkpoint of width 1,664, say) leave no room for one stage and
-// take mma_scan<FormBf16>; Asym keeps two widened tiles per consumer, so
-// its queries fit up to D = 1152 and wider ones take mma_scan<FormAsym>.
-// int8 codes are at most 1,024 wide (exact scores), so their queries
-// always fit, and F32 keeps no queries resident, so every depth fits.
-// int8 scores are the plain version's bit for bit (exact integers, one f32
-// rounding for the row scale), so are the keys, and the split merge keeps
-// the single-pass tie order. The batched select holds no set in registers,
-// so every k runs this kernel (PERF.md has the designs measured against
-// it). The choice is made by shape before the launch (knn_topk_wgmma_smem).
-// The shapes left to topk_common.cuh's mma_scan: one CTA (256 threads) per
-// BQ = 64 queries walking the bank in tiles of BM = 128 rows; bf16 queries
-// on int8 codes go through mma.sync m16n8k16 with the codes widened in
-// registers, fed by a two-stage cp.async ring. Tiles at or past
-// `valid_rows` are never visited: their columns would all score -inf. The
+// widened in shared memory, as K2 does), f32 (a)/(b) as F32 (3xTF32). The
+// wrapper picks the fewest splits whose rounds of items keep at least 90%
+// of the SMs busy (ops/knn_cuda.py, plan_splits: 3 at Q = 21,904 on 132
+// SMs); the splits cover only the valid rows. The queries stay resident in
+// shared memory where they fit and are streamed in the ring beside the bank
+// chunks past that (wg::Streamed): at D = 768 they take 96 KB in bf16 and
+// 48 KB in int8, the rings 2 x 4 x 16 KB; Asym keeps two widened tiles per
+// consumer beside them, so its queries fit up to D = 1,152 and stream past
+// it (mae_vith14's 1,280, dinov2_vitg14's 1,536); int8's fit up to D =
+// 3,072 and stream past it; F32's always stream. A streamed form fits at
+// every depth. Wider bf16 banks get fewer stages (one each at D = 1536,
+// dinov2_vitg14's width), and wider still (a converted checkpoint of width
+// 1,664, say) leave no room for one stage and take topk_common.cuh's
+// mma_scan<FormBf16>: one CTA (256 threads) per BQ = 64 queries walking the
+// bank in tiles of BM = 128 rows through mma.sync m16n8k16, fed by a
+// two-stage cp.async ring; tiles at or past `valid_rows` are never visited.
+// int8 scores are the plain version's bit for bit at every depth (exact
+// integers, one f32 rounding for the row scale; 127² · D stays below 2^31
+// up to D = 133,143), so are the keys, and the split merge keeps the
+// single-pass tie order. The batched select holds no set in registers, so
+// every k runs this kernel (PERF.md has the designs measured against it).
+// The choice is made by shape before the launch (knn_topk_wgmma_smem). The
 // epilogue and the running top-k merge (ties resolve by lowest index, as
 // ops/knn.py::exact_knn does) are shared with K2, in topk_common.cuh.
 //
@@ -112,8 +112,25 @@ int launch_wgmma(const void* q, const void* bank, const float* cvec, void* out_v
     return static_cast<int>(cudaErrorInvalidValue);
   const int splits = valid_rows > 0 ? (valid_rows + split_rows - 1) / split_rows : 1;
   const Flat items{(nq + wg::BQH - 1) / wg::BQH, splits, split_rows, valid_rows};
+  if (cvec == nullptr)
+    return wg::launch<F, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr, work,
+                                       work_ctas, nq, m, d, k, items, stream);
   return wg::launch<F, S, E>(q, bank, cvec, out_vals, out_idx, parts, thr, work, work_ctas, nq, m,
                              d, k, items, stream);
+}
+
+// Int8 form F (row scales when `scale` is given) with its queries resident
+// where they fit, else streamed.
+template <class F, int S>
+int launch_fit(const void* q, const void* bank, const float* scale, void* out_vals, void* out_idx,
+               void* parts, void* thr, void* work, int work_ctas, int nq, int m, int d,
+               int valid_rows, int k, int split_rows, cudaStream_t stream) {
+  if (wg::smem_at<F>(d) > 0)
+    return launch_wgmma<F, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr, work,
+                                         work_ctas, nq, m, d, valid_rows, k, split_rows, stream);
+  return launch_wgmma<wg::Streamed<F>, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
+                                                     work, work_ctas, nq, m, d, valid_rows, k,
+                                                     split_rows, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -141,47 +158,22 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
            cudaStream_t stream) {
   switch (form) {
     case 0:  // no queries resident: every depth fits
-      if (bias != nullptr)
-        return launch_wgmma<wg::F32, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr,
-                                                  work, work_ctas, nq, m, d, valid_rows, k,
-                                                  split_rows, stream);
-      return launch_wgmma<wg::F32, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
-                                                 work, work_ctas, nq, m, d, valid_rows, k,
-                                                 split_rows, stream);
+      return launch_wgmma<wg::F32, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr, work,
+                                                work_ctas, nq, m, d, valid_rows, k, split_rows,
+                                                stream);
     case 1:
       if (wg::smem_at<wg::Bf16>(d) == 0)  // the queries do not fit: mma_scan
         return launch_mma<FormBf16, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
                                        valid_rows, k, stream);
-      if (bias != nullptr)
-        return launch_wgmma<wg::Bf16, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr,
-                                                   work, work_ctas, nq, m, d, valid_rows, k,
-                                                   split_rows, stream);
-      return launch_wgmma<wg::Bf16, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
-                                                  work, work_ctas, nq, m, d, valid_rows, k,
-                                                  split_rows, stream);
-    case 2:
-      // int8 x int8 runs only here (s32 accumulators, one conversion to
-      // f32): queries too deep for its shared memory (D > 3072) are refused
-      // before any launch, since mma_scan has no s32 form.
-      if (wg::smem_at<wg::S8>(d) == 0) return static_cast<int>(cudaErrorInvalidValue);
-      if (scale != nullptr)
-        return launch_wgmma<wg::S8, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
-                                                  work, work_ctas, nq, m, d, valid_rows, k,
-                                                  split_rows, stream);
-      return launch_wgmma<wg::S8, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
-                                                work, work_ctas, nq, m, d, valid_rows, k,
-                                                split_rows, stream);
+      return launch_wgmma<wg::Bf16, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr,
+                                                 work, work_ctas, nq, m, d, valid_rows, k,
+                                                 split_rows, stream);
+    case 2:  // int8 x int8: s32 accumulators, one conversion to f32
+      return launch_fit<wg::S8, S>(q, bank, scale, out_vals, out_idx, parts, thr, work, work_ctas,
+                                   nq, m, d, valid_rows, k, split_rows, stream);
     default:
-      if (wg::smem_at<wg::Asym>(d) == 0)  // the queries do not fit: mma_scan
-        return launch_mma<FormAsym, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
-                                       valid_rows, k, stream);
-      if (scale != nullptr)
-        return launch_wgmma<wg::Asym, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
-                                                    work, work_ctas, nq, m, d, valid_rows, k,
-                                                    split_rows, stream);
-      return launch_wgmma<wg::Asym, S, wg::PLAIN>(q, bank, nullptr, out_vals, out_idx, parts, thr,
-                                                  work, work_ctas, nq, m, d, valid_rows, k,
-                                                  split_rows, stream);
+      return launch_fit<wg::Asym, S>(q, bank, scale, out_vals, out_idx, parts, thr, work,
+                                     work_ctas, nq, m, d, valid_rows, k, split_rows, stream);
   }
 }
 
@@ -194,9 +186,9 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
 // (m,) f32 is subtracted from it, each when not null. Writes out_vals
 // (nq, k) f32 and out_idx (nq, k) int64. 1 <= k <= 128,
 // 0 <= valid_rows <= m, nq >= 1. Where knn_topk_wgmma_smem(d, form) > 0
-// (form 0 always; forms 1-3 where the queries fit in shared memory; form
-// 2 where they do not is an error, with no launch) the call runs the wgmma
-// kernel: it splits the valid rows into ceil(valid_rows / split_rows) splits (split_rows a multiple of 128) and
+// (forms 0, 2 and 3 at every depth, form 1 where its queries fit in shared
+// memory) the call runs the wgmma kernel: it splits the valid rows into
+// ceil(valid_rows / split_rows) splits (split_rows a multiple of 128) and
 // needs the scratch `parts`, (nq, 2 · splits, 32 · ceil(k / 32)) 64-bit
 // keys, `thr`, nq 64-bit keys set to 0, and `work`, work_ctas ·
 // knn_topk_work_keys(k) 64-bit keys (it runs on at most work_ctas CTAs);
@@ -220,15 +212,15 @@ extern "C" int knn_topk_launch(const void* q, const void* bank, const float* sca
 }
 
 // Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
-// 3 bf16 queries on int8 codes) asks for at depth d; 0: that call runs
-// mma_scan, without scratch (bf16 or asym whose queries do not fit), or,
-// for int8 (D > 3072), is refused.
+// 3 bf16 queries on int8 codes) asks for at depth d (int8 and asym: the
+// resident form's where it fits, else the streamed one's); 0: that call
+// runs mma_scan, without scratch (bf16 whose queries do not fit).
 extern "C" int knn_topk_wgmma_smem(int d, int form) {
   switch (form) {
     case 0: return wg::smem_at<wg::F32>(d);
     case 1: return wg::smem_at<wg::Bf16>(d);
-    case 2: return wg::smem_at<wg::S8>(d);
-    case 3: return wg::smem_at<wg::Asym>(d);
+    case 2: return wg::smem_fit<wg::S8>(d);
+    case 3: return wg::smem_fit<wg::Asym>(d);
     default: return 0;
   }
 }

@@ -1,15 +1,15 @@
 // Device code shared by K1 (knn_topk.cu) and K2 (ivf_topk.cu): the running
-// top-k of 64-bit keys, and the mma.sync score tile (bf16, and bf16
-// queries on int8 codes wider than the wgmma kernel takes) fed by a two-stage
-// cp.async ring, with the score epilogue of the TPU kernels' forms. The
+// top-k of 64-bit keys, and the mma.sync score tile (bf16 wider than the
+// wgmma kernel takes) fed by a two-stage cp.async ring, with the score
+// epilogue of the TPU kernels' forms. The
 // keys (make_key) are the one definition of the tie order: the wgmma
 // kernel of K1 and K2 (wgmma_topk.cuh, built on hopper.cuh) selects the same
 // keys with its batched select and merges its partial sets with merge_row.
 //
 // The mma_scan kernels give one CTA (256 threads) BQ = 64 queries and walk
-// bank tiles of BM = 128 rows: K1's bf16 and asym forms wider than the
-// wgmma kernel's shared memory walk the whole bank, K2's the rows of the
-// leaf slabs a query tile probes. A finished 64×128 f32 score tile goes to
+// bank tiles of BM = 128 rows: K1's bf16 form wider than the wgmma kernel's
+// shared memory walks the whole bank, K2's the rows of the leaf slabs a
+// query tile probes. A finished 64×128 f32 score tile goes to
 // shared memory (columns past the tile's valid rows score -inf) and is merged
 // into the queries' running top sets:
 // - Each warp owns 8 queries. A query's running top-(32·S) lives in
@@ -234,40 +234,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four int8 codes (one 32-bit word) widened to two bf16 pairs, exactly:
-// 0x4B0000uu is the f32 2^23 + uu, and uu = code + 128.
-__device__ __forceinline__ void widen_s8x4(unsigned r, unsigned& lo, unsigned& hi) {
-  const unsigned u = r ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | e)) - 8388736.0f;
-  __nv_bfloat162 l = __floats2bfloat162_rn(f[0], f[1]);
-  __nv_bfloat162 h = __floats2bfloat162_rn(f[2], f[3]);
-  lo = *reinterpret_cast<unsigned*>(&l);
-  hi = *reinterpret_cast<unsigned*>(&h);
-}
-
-// The forms of the tensor-core tile. A depth chunk of DEPTH elements is
-// staged as QBYTES bytes of each query row and BBYTES of each bank row, the
-// rows padded by 16 bytes so ldmatrix's eight 16-byte rows hit distinct
-// banks. Warps tile the 64×128 score tile as 2 (queries) × 4 (bank rows),
-// 32×32 each: 2 m16 × 4 n8 mma tiles.
-// - Bf16: bf16 × bf16, mma.sync m16n8k16, f32 accumulators.
-// - Asym: bf16 queries × int8 codes, mma.sync m16n8k16. The codes stay int8
-//   in the ring (half the bytes of a bf16 bank) and are widened to bf16 in
-//   registers while the B fragments are built (widen_s8x4).
+// The form of the tensor-core tile: bf16 × bf16, mma.sync m16n8k16, f32
+// accumulators. A depth chunk of DEPTH elements is staged as QBYTES bytes of
+// each query row and BBYTES of each bank row, the rows padded by 16 bytes so
+// ldmatrix's eight 16-byte rows hit distinct banks. Warps tile the 64×128
+// score tile as 2 (queries) × 4 (bank rows), 32×32 each: 2 m16 × 4 n8 mma
+// tiles.
 struct FormBf16 {
   typedef __nv_bfloat16 TQ;
   typedef __nv_bfloat16 TB;
   typedef float Acc;
   static constexpr int DEPTH = 64, QBYTES = 128, BBYTES = 128;
-};
-struct FormAsym {
-  typedef __nv_bfloat16 TQ;
-  typedef int8_t TB;
-  typedef float Acc;
-  static constexpr int DEPTH = 64, QBYTES = 128, BBYTES = 64;
 };
 
 template <class F>
@@ -324,69 +301,31 @@ __device__ __forceinline__ void mma_chunk(typename F::Acc (&acc)[2][4][4],
   constexpr int LQ = Ring<F>::LQ, LB = Ring<F>::LB;
   const unsigned char* qs = stage;
   const unsigned char* bs = stage + BQ * LQ;
-  if constexpr (F::BBYTES == F::QBYTES) {  // Bf16: one k-step per 32 bytes
 #pragma unroll
-    for (int kb = 0; kb < F::QBYTES; kb += 32) {
-      unsigned a[2][4];
-      unsigned b[4][2];
+  for (int kb = 0; kb < F::QBYTES; kb += 32) {  // one k-step per 32 bytes
+    unsigned a[2][4];
+    unsigned b[4][2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // matrices: rows 0-7 | 8-15 of the m16 tile × bytes 0-15 | 16-31
-        const int row = wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(a[i], qs + row * LQ + kb + (lane >> 4) * 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // matrices: (n8 tile 2j, bytes 0-15 | 16-31), (n8 tile 2j+1, ...)
-        unsigned r[4];
-        const int row = wn + j * 16 + (lane >> 4) * 8 + (lane & 7);
-        ldmatrix_x4(r, bs + row * LB + kb + ((lane >> 3) & 1) * 16);
-        b[2 * j][0] = r[0];
-        b[2 * j][1] = r[1];
-        b[2 * j + 1][0] = r[2];
-        b[2 * j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-        }
+    for (int i = 0; i < 2; ++i) {
+      // matrices: rows 0-7 | 8-15 of the m16 tile × bytes 0-15 | 16-31
+      const int row = wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(a[i], qs + row * LQ + kb + (lane >> 4) * 16);
     }
-  } else {  // Asym: 32 codes (64 query bytes) per step, two k16 mmas
-    const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-    for (int kb = 0; kb < F::BBYTES; kb += 32) {
-      // A thread's ldmatrix word of a bank row holds codes 4·t4..4·t4+3 of a
-      // 16-code half; mma h takes half h. Its b0 holds codes (4t4, 4t4+1)
-      // and b1 (4t4+2, 4t4+3), i.e. the mma's k (2t4, 2t4+1) and
-      // (8+2t4, 9+2t4) stand for depths 4t4.. of the half; the A fragments
-      // take the query depths in the same order: (a0, a2) are the 8 bytes
-      // at depth 16h + 4t4 of row g, (a1, a3) those of row g + 8.
-      unsigned b[4][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        unsigned r[4];
-        const int row = wn + j * 16 + (lane >> 4) * 8 + (lane & 7);
-        ldmatrix_x4(r, bs + row * LB + kb + ((lane >> 3) & 1) * 16);
-        widen_s8x4(r[0], b[2 * j][0], b[2 * j][1]);
-        widen_s8x4(r[1], b[2 * j][2], b[2 * j][3]);
-        widen_s8x4(r[2], b[2 * j + 1][0], b[2 * j + 1][1]);
-        widen_s8x4(r[3], b[2 * j + 1][2], b[2 * j + 1][3]);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = wm + i * 16 + g;
-          const int off = 2 * kb + 32 * h + 8 * t4;
-          const uint2 lo = *reinterpret_cast<const uint2*>(qs + row * LQ + off);
-          const uint2 hi = *reinterpret_cast<const uint2*>(qs + (row + 8) * LQ + off);
-          const unsigned a[4] = {lo.x, hi.x, lo.y, hi.y};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a, b[j][2 * h], b[j][2 * h + 1]);
-        }
+    for (int j = 0; j < 2; ++j) {
+      // matrices: (n8 tile 2j, bytes 0-15 | 16-31), (n8 tile 2j+1, ...)
+      unsigned r[4];
+      const int row = wn + j * 16 + (lane >> 4) * 8 + (lane & 7);
+      ldmatrix_x4(r, bs + row * LB + kb + ((lane >> 3) & 1) * 16);
+      b[2 * j][0] = r[0];
+      b[2 * j][1] = r[1];
+      b[2 * j + 1][0] = r[2];
+      b[2 * j + 1][1] = r[3];
     }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
   }
 }
 

@@ -1,10 +1,9 @@
 // The Hopper score-and-select tile of K1 (knn_topk.cu) and K2 (ivf_topk.cu):
 // one persistent kernel template, topk_wgmma<Form, S, Epi, Items>, that
-// scores 64 queries (resident; F32's streamed chunk by chunk beside the
-// bank) against 128-row bank tiles with wgmma fed by TMA rings and keeps
-// each query's running top set with a batched select. Every form of K1 and
-// of K2 runs it; only bf16 and asym banks too wide for its shared memory
-// take topk_common.cuh's mma_scan.
+// scores 64 queries against 128-row bank tiles with wgmma fed by TMA rings
+// and keeps each query's running top set with a batched select. Every form
+// of K1 and of K2 runs it; only bf16 banks too wide for its shared memory
+// (D > 1,536) take topk_common.cuh's mma_scan.
 //
 // - Items hand out the work: K1's (bank split, 64-query tile), K2's (probe
 //   split, 64-query tile), split-major, so the CTAs in flight read the same
@@ -13,24 +12,31 @@
 //   first row, and the valid columns (K1: up to the split's end; K2: up to
 //   the slab's leaf_valid; the rest of the box is loaded but never selected).
 // - A CTA is one producer warp (its warpgroup gives registers away with
-//   setmaxnreg) and two consumer warpgroups. The item's 64 queries are loaded
-//   once by TMA and stay in shared memory for the whole depth; consumer w
-//   scores the item's tiles w, w + 2, ... from its own ring of up to 4
-//   stages, one 128-byte depth chunk of 128 rows each, which the producer
-//   fills by TMA, the two rings in turn.
+//   setmaxnreg) and two consumer warpgroups. Consumer w scores the item's
+//   tiles w, w + 2, ... from its own ring of up to 4 stages, one 128-byte
+//   depth chunk of 128 rows each, which the producer fills by TMA, the two
+//   rings in turn.
+// - The item's queries, 64 rows of 128-byte chunks, either stay resident
+//   (loaded once by TMA for the whole depth) or are streamed (STREAM_Q): each
+//   ring stage holds the item's query chunk (8 KB, 128-byte swizzled, at the
+//   stage's 1,024-aligned start) beside the bank chunk, so no query stays in
+//   shared memory and every depth fits; the query chunk is read again from
+//   L2 for every bank tile (half a bf16 tile's bytes again). The launchers
+//   keep a form's queries resident where they fit (smem_at > 0) and stream
+//   them past that (Streamed<F>): bf16 queries on int8 codes past D = 1,152,
+//   int8 x int8 past 3,072; F32's never fit and always stream. The chunks'
+//   products are the same, in the same order, either way.
 // - Forms: Bf16 (m64n128k16, f32 accumulators), S8 (int8 codes, m64n128k32
 //   s8, s32 accumulators converted once by __int2float_rn), Asym (bf16
 //   queries, int8 codes: the ring holds the codes, 64 bytes a row, and the
 //   consumer widens each stage exactly (widen_s8x4) into a 128-byte-swizzled
 //   bf16 tile of its own before a bf16 wgmma, so the select's layout is the
 //   other forms') and F32 (below). The epilogue: none, minus the l2 bias, or
-//   times the row scale (Epi), one f32 rounding each.
-// - F32, 3xTF32 (tf32.cuh). 64 queries of f32 take 192 KB at D = 768, so
-//   they cannot stay resident: each ring stage holds the item's query chunk
-//   (64 rows x 32 f32) beside the bank chunk (128 rows), both by TMA, and
-//   the query chunk is read again from L2 for every bank tile (half the
-//   tile's bytes again; a bank split ahead of the search would cost two
-//   more banks, 63 GB at 10.24M rows). K2's f32 slab tiles go the same
+//   times the row scale (Epi), one f32 rounding each. Asym widens chunk
+//   c + 1's codes into its other tile while chunk c's products run, with one
+//   named barrier a chunk (every warp's widening done before the products).
+// - F32, 3xTF32 (tf32.cuh), always streamed (64 queries of f32 take 192 KB
+//   at D = 768). K2's f32 slab tiles go the same
 //   way: a tile that ends at its slab's leaf_valid is loaded whole and its
 //   columns past it never selected; D % 32 != 0 scores TMA's zero fill. The consumer splits the query chunk
 //   into big and small A fragments in registers and the bank chunk in place
@@ -84,7 +90,7 @@
 
 namespace wg {
 
-constexpr int BQH = 64;                     // queries per item, resident for the whole depth
+constexpr int BQH = 64;                     // queries per item
 constexpr int BMH = 128;                    // bank rows per tile: one consumer warpgroup's N
 constexpr int CHUNK_BYTES = 128;            // query depth per chunk: one 128-byte swizzled row
 constexpr int Q_CHUNK = BQH * CHUNK_BYTES;  // 8 KB
@@ -101,11 +107,12 @@ constexpr int BUF = 160;                    // a row's buffer: FLUSH_AT - 1 + on
 constexpr int BUF_CHUNKS = BUF / 32;
 
 // The forms: element types (TMA map types, bytes per element), the depth
-// DK of one chunk, the bank bytes of a chunk's row, and the wgmma.
+// DK of one chunk, the bank bytes of a chunk's row, whether the queries are
+// streamed in the ring (STREAM_Q) and the wgmma.
 struct Bf16 {
   typedef float Acc;
   static constexpr int DK = 64, B_BYTES = 128;
-  static constexpr bool WIDEN = false, SPLIT = false;
+  static constexpr bool WIDEN = false, SPLIT = false, STREAM_Q = false;
   static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
@@ -118,7 +125,7 @@ struct Bf16 {
 struct S8 {
   typedef int Acc;
   static constexpr int DK = 128, B_BYTES = 128;
-  static constexpr bool WIDEN = false, SPLIT = false;
+  static constexpr bool WIDEN = false, SPLIT = false, STREAM_Q = false;
   static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   __device__ __forceinline__ static void mma(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
@@ -135,9 +142,14 @@ struct Asym : Bf16 {  // bf16 queries, int8 codes widened in shared memory
 };
 struct F32 : Bf16 {  // f32 queries and bank, split into TF32 parts by the consumers
   static constexpr int DK = 32;
-  static constexpr bool SPLIT = true;
+  static constexpr bool SPLIT = true, STREAM_Q = true;
   static constexpr CUtensorMapDataType Q_TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   static constexpr CUtensorMapDataType B_TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+// Form F with the item's query chunk streamed in each ring stage.
+template <class F>
+struct Streamed : F {
+  static constexpr bool STREAM_Q = true;
 };
 
 enum Epi { PLAIN = 0, BIAS = 1, SCALE = 2 };
@@ -149,31 +161,35 @@ __device__ __forceinline__ float epi(float v, float c) {
   return v;
 }
 
-// Shared memory: the queries (not F32's), two rings, the consumers' own
-// tiles (two per consumer: Asym's widened codes, F32's small parts),
-// barriers.
+// Shared memory: the resident queries (none where STREAM_Q), two rings, the
+// consumers' own tiles (two per consumer: Asym's widened codes, F32's small
+// parts), barriers.
 template <class F>
 __host__ __device__ constexpr int own_tiles_bytes() {
   return F::WIDEN || F::SPLIT ? 4 * WIDE_TILE : 0;
 }
 
-// One ring stage: a 128-row bank chunk (F32: after the item's query chunk).
+// One ring stage: a 128-row bank chunk (STREAM_Q: after the item's query
+// chunk, so the stage's start keeps the 1,024-byte alignment that the query
+// chunk's 128-byte swizzle needs, and so does the bank chunk's).
 template <class F>
 __host__ __device__ constexpr int stage_bytes() {
-  return BMH * F::B_BYTES + (F::SPLIT ? Q_CHUNK : 0);
+  return BMH * F::B_BYTES + (F::STREAM_Q ? Q_CHUNK : 0);
 }
 
 template <class F>
 constexpr int fixed_smem(int n_chunks) {
-  return hopper::SMEM_ALIGN + (F::SPLIT ? 0 : n_chunks * Q_CHUNK) + own_tiles_bytes<F>() +
+  return hopper::SMEM_ALIGN + (F::STREAM_Q ? 0 : n_chunks * Q_CHUNK) + own_tiles_bytes<F>() +
          BAR_BYTES;
 }
 
-// Ring stages per consumer for n_chunks depth chunks (0: the queries do not fit).
+// Ring stages per consumer for n_chunks depth chunks (0: the queries do not
+// fit). A streamed form holds a chunk's stage until its products are done
+// and waits for the next one meanwhile, so it needs two.
 template <class F>
 inline int stages_for(int n_chunks) {
   const int st = (SMEM_LIMIT - fixed_smem<F>(n_chunks)) / (2 * stage_bytes<F>());
-  return st < MAX_STAGES ? (st > 0 ? st : 0) : MAX_STAGES;
+  return st < MAX_STAGES ? (st >= (F::STREAM_Q ? 2 : 1) ? st : 0) : MAX_STAGES;
 }
 
 template <class F>
@@ -187,6 +203,22 @@ inline int smem_at(int d) {
   const int n_chunks = (d + F::DK - 1) / F::DK;
   const int stages = stages_for<F>(n_chunks);
   return stages < 1 ? 0 : smem_bytes<F>(n_chunks, stages);
+}
+
+// The streamed forms fit at every depth with full rings: 197,888 bytes for
+// Streamed<Asym> (8 KB of queries and 8 KB of codes a stage, four widened
+// tiles) and for Streamed<S8> (8 KB and 16 KB a stage).
+static_assert(fixed_smem<Streamed<S8>>(0) + 2 * MAX_STAGES * stage_bytes<Streamed<S8>>() <=
+                  SMEM_LIMIT, "");
+static_assert(fixed_smem<Streamed<Asym>>(0) + 2 * MAX_STAGES * stage_bytes<Streamed<Asym>>() <=
+                  SMEM_LIMIT, "");
+
+// Shared memory of form F at depth d with its queries resident where they
+// fit, else of Streamed<F>: the kernel the launchers run.
+template <class F>
+inline int smem_fit(int d) {
+  const int resident = smem_at<F>(d);
+  return resident > 0 ? resident : smem_at<Streamed<F>>(d);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,6 +482,20 @@ __device__ __forceinline__ void select_tile(Select<S>& sel, typename F::Acc (&ac
   sel.flush_rows(FLUSH_AT, pub, thr_out, n_rows, lane);
 }
 
+// Four int8 codes (one 32-bit word) widened to two bf16 pairs, exactly:
+// 0x4B0000uu is the f32 2^23 + uu, and uu = code + 128.
+__device__ __forceinline__ void widen_s8x4(unsigned r, unsigned& lo, unsigned& hi) {
+  const unsigned u = r ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | e)) - 8388736.0f;
+  __nv_bfloat162 l = __floats2bfloat162_rn(f[0], f[1]);
+  __nv_bfloat162 h = __floats2bfloat162_rn(f[2], f[3]);
+  lo = *reinterpret_cast<unsigned*>(&l);
+  hi = *reinterpret_cast<unsigned*>(&h);
+}
+
 // Widen one ring stage of int8 codes (128 rows x 64 bytes, row-major) into
 // a bf16 tile (128 rows x 128 bytes, 128-byte swizzle: 16-byte unit u of row
 // r at unit u ^ (r % 8)); thread tid of the consumer warpgroup takes row tid.
@@ -521,10 +567,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                const float* __restrict__ cvec, u64* __restrict__ parts, u64* __restrict__ thr,
                u64* __restrict__ work, const Items items, int nq, int n_chunks, int stages) {
   constexpr int B_STAGE = stage_bytes<F>();
-  constexpr int Q_IN_STAGE = F::SPLIT ? Q_CHUNK : 0;  // F32: a stage's query chunk, then bank rows
+  constexpr int Q_IN_STAGE = F::STREAM_Q ? Q_CHUNK : 0;  // a stage's query chunk, then bank rows
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* qs = hopper::aligned_smem(smem_raw);  // [n_chunks][64 rows][128 B], not F32's
-  unsigned char* ring = qs + (F::SPLIT ? 0 : n_chunks * Q_CHUNK);  // [2][stages][B_STAGE]
+  unsigned char* qs = hopper::aligned_smem(smem_raw);  // [n_chunks][64 rows][128 B], if resident
+  unsigned char* ring = qs + (F::STREAM_Q ? 0 : n_chunks * Q_CHUNK);  // [2][stages][B_STAGE]
   // Asym: [2][2][128 rows][128 B] widened; F32: the same, small parts
   unsigned char* wide = ring + 2 * stages * B_STAGE;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(wide + own_tiles_bytes<F>());
@@ -557,7 +603,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       uint32_t ph[2] = {0, 0}, it = 0;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
         const int q_row0 = items.q_tile(item) * BQH;
-        if constexpr (!F::SPLIT) {
+        if constexpr (!F::STREAM_Q) {
           hopper::mbar_wait(q_empty, (it & 1) ^ 1);
           hopper::mbar_expect_tx(q_full, n_chunks * Q_CHUNK);
           for (int c = 0; c < n_chunks; ++c)
@@ -572,7 +618,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               unsigned char* dst = ring + (w * stages + st[w]) * B_STAGE;
               hopper::mbar_wait(empty + w * MAX_STAGES + st[w], ph[w] ^ 1);
               hopper::mbar_expect_tx(f, B_STAGE);
-              if constexpr (F::SPLIT) hopper::tma_load_2d(dst, &tq, f, c * F::DK, q_row0);
+              if constexpr (F::STREAM_Q) hopper::tma_load_2d(dst, &tq, f, c * F::DK, q_row0);
               hopper::tma_load_2d(dst + Q_IN_STAGE, &tb, f, c * F::DK, row[w]);
               if (++st[w] == stages) {
                 st[w] = 0;
@@ -600,14 +646,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint32_t ph = 0, it = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
       const int q_row = items.q_tile(item) * BQH + warp * ROWS;  // the warp's first query
-      if constexpr (!F::SPLIT) hopper::mbar_wait(q_full, it & 1);
+      if constexpr (!F::STREAM_Q) hopper::mbar_wait(q_full, it & 1);
       sel.init(lane);
       auto wk = items.walk(item);
       if (w == 1 && !wk.done()) wk.next();  // consumer w takes tiles w, w + 2, ...
       bool released = false;
       while (!wk.done()) {
         const int col0 = wk.row0(), n_cols = wk.n_cols();
-        int prev = -1;
+        int prev = -1;  // the stage whose chunk's products are the last in flight
         if constexpr (F::SPLIT) {
           // Chunk c's products run while the consumer splits chunk c + 1's
           // bank rows into the other small tile; the A fragments wait for
@@ -619,9 +665,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           // every warp's products of the last tile, the small tiles' last
           // readers, are done (wgmma_wait<0> below)
           hopper::named_sync(1 + w, 128);
-          split_tile(stage + Q_CHUNK, my_wide + wb * WIDE_TILE, tid);
+          split_tile(stage + Q_IN_STAGE, my_wide + wb * WIDE_TILE, tid);
           for (int c = 0; c < n_chunks; ++c) {
-            const unsigned char* bc = stage + Q_CHUNK;
+            const unsigned char* bc = stage + Q_IN_STAGE;
             const unsigned char* sc = my_wide + wb * WIDE_TILE;
             hopper::fence_proxy_async();
             hopper::named_sync(1 + w, 128);  // every warp's split of this chunk is done
@@ -644,7 +690,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             unsigned char* next = my_ring + st * B_STAGE;
             if (c + 1 < n_chunks) {  // the other small tile's last products were chunk c - 1's
               hopper::mbar_wait(my_full + st, ph);
-              split_tile(next + Q_CHUNK, my_wide + wb * WIDE_TILE, tid);
+              split_tile(next + Q_IN_STAGE, my_wide + wb * WIDE_TILE, tid);
             }
             hopper::wgmma_wait<0>();
             hopper::fence_regs(part);
@@ -654,32 +700,53 @@ __global__ void __launch_bounds__(THREADS, 1)
             if (c + 1 < n_chunks) split_a(next, warp, lane, ab, as);
             stage = next;
           }
-        } else {
+        } else if constexpr (F::WIDEN) {
+          // Chunk c's products run while the consumer widens chunk c + 1's
+          // codes into its other tile, whose last readers, chunk c - 1's
+          // products, every warp waited for (wgmma_wait<0>) before chunk c's
+          // barrier: one barrier a chunk. Resident queries: a stage is
+          // released once widened; streamed: once its products are done.
+          hopper::mbar_wait(my_full + st, ph);
+          widen_tile(my_ring + st * B_STAGE + Q_IN_STAGE, my_wide + wb * WIDE_TILE, tid);
+          if constexpr (!F::STREAM_Q) hopper::mbar_arrive(my_empty + st);  // the codes are read
           for (int c = 0; c < n_chunks; ++c) {
-            hopper::mbar_wait(my_full + st, ph);
-            const unsigned char* bc = my_ring + st * B_STAGE;
-            if constexpr (F::WIDEN) {
-              // every warp's products of two chunks ago, the last reader of
-              // this widened tile, are done (wgmma_wait<1> below)
-              hopper::named_sync(1 + w, 128);
-              unsigned char* dst = my_wide + wb * WIDE_TILE;
-              widen_tile(bc, dst, tid);
-              hopper::mbar_arrive(my_empty + st);  // the codes are read
-              hopper::fence_proxy_async();
-              hopper::named_sync(1 + w, 128);
-              bc = dst;
-              wb ^= 1;
-            }
-            const unsigned char* qc = qs + c * Q_CHUNK;
+            const unsigned char* qc = F::STREAM_Q ? my_ring + st * B_STAGE : qs + c * Q_CHUNK;
+            const unsigned char* bc = my_wide + wb * WIDE_TILE;
+            hopper::fence_proxy_async();
+            hopper::named_sync(1 + w, 128);  // every warp's widening of this chunk is done
             hopper::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < CHUNK_BYTES / 32; ++kk)
               F::mma(acc, hopper::sw128_desc(qc + kk * 32), hopper::sw128_desc(bc + kk * 32),
                      (c | kk) != 0);
             hopper::wgmma_commit();
-            if constexpr (F::WIDEN) {
-              hopper::wgmma_wait<1>();
-            } else if (stages > 1) {
+            if constexpr (F::STREAM_Q) prev = st;
+            if (++st == stages) {
+              st = 0;
+              ph ^= 1;
+            }
+            wb ^= 1;
+            if (c + 1 < n_chunks) {
+              hopper::mbar_wait(my_full + st, ph);
+              widen_tile(my_ring + st * B_STAGE + Q_IN_STAGE, my_wide + wb * WIDE_TILE, tid);
+              if constexpr (!F::STREAM_Q) hopper::mbar_arrive(my_empty + st);
+              hopper::wgmma_wait<0>();
+              if constexpr (F::STREAM_Q) hopper::mbar_arrive(my_empty + prev);
+            }
+          }
+        } else {
+          for (int c = 0; c < n_chunks; ++c) {
+            hopper::mbar_wait(my_full + st, ph);
+            const unsigned char* stage = my_ring + st * B_STAGE;
+            const unsigned char* qc = F::STREAM_Q ? stage : qs + c * Q_CHUNK;
+            const unsigned char* bc = stage + Q_IN_STAGE;
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < CHUNK_BYTES / 32; ++kk)
+              F::mma(acc, hopper::sw128_desc(qc + kk * 32), hopper::sw128_desc(bc + kk * 32),
+                     (c | kk) != 0);
+            hopper::wgmma_commit();
+            if (stages > 1) {
               hopper::wgmma_wait<1>();  // the previous chunk's products are done with its stage
               if (prev >= 0) hopper::mbar_arrive(my_empty + prev);
               prev = st;
@@ -708,16 +775,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         const u64 pub = lane < ROWS && q_row + lane < nq ? __ldcg(thr + q_row + lane) : 0;
         hopper::wgmma_wait<0>();
         hopper::fence_regs(acc);
-        if (!F::WIDEN && prev >= 0) hopper::mbar_arrive(my_empty + prev);
+        if (prev >= 0) hopper::mbar_arrive(my_empty + prev);
         wk.next();
         if (!wk.done()) wk.next();
-        if (!F::SPLIT && wk.done()) {  // this consumer's last tile: the queries are read
+        if (!F::STREAM_Q && wk.done()) {  // this consumer's last tile: the queries are read
           hopper::mbar_arrive(q_empty);
           released = true;
         }
         select_tile<F, S, E>(sel, acc, col0, n_cols, cv, pub, thr + q_row, nq - q_row, lane);
       }
-      if (!F::SPLIT && !released) hopper::mbar_arrive(q_empty);
+      if (!F::STREAM_Q && !released) hopper::mbar_arrive(q_empty);
       const u64 pub = lane < ROWS && q_row + lane < nq ? __ldcg(thr + q_row + lane) : 0;
       sel.finish(pub, thr + q_row, nq - q_row, lane);
       sel.emit_part(parts, q_row, nq, n_parts, 2 * items.split(item) + w, lane);
@@ -752,9 +819,10 @@ __global__ void __launch_bounds__(MERGE_THREADS)
 }
 
 // Launch form F over `items`: tensor maps of the queries (nq, d) (box one
-// chunk x 64 rows) and the bank (m, d) (one chunk x 128 rows; Asym's int8
-// codes unswizzled, the consumers widen them), the persistent kernel on
-// min(work_ctas, items) CTAs, then the merge of the 2 · splits partial sets.
+// chunk x 64 rows, resident or in the ring alike) and the bank (m, d) (one
+// chunk x 128 rows; Asym's int8 codes unswizzled, the consumers widen them),
+// the persistent kernel on min(work_ctas, items) CTAs, then the merge of the
+// 2 · splits partial sets.
 template <class F, int S, Epi E, class Items>
 int launch(const void* q, const void* bank, const float* cvec, void* out_vals, void* out_idx,
            void* parts, void* thr, void* work, int work_ctas, int nq, int m, int d, int k,

@@ -9,16 +9,16 @@ into a shared library with a plain C interface at first use, and it is
 loaded with ctypes.
 
 Every form runs K1's persistent wgmma kernel over (probe split, 64-query
-tile) items (ops/csrc/wgmma_topk.cuh) where its queries fit the kernel's
-shared memory: f32 (3xTF32, its query chunks streamed beside the slab
-chunks, so every depth fits), bf16, int8 (with or without row scales; the
-exact integer sum converted to f32 once, at every depth up to D = 3072)
-and bf16 queries on int8 codes (asym, asym_rows). `plan_probe_splits` cuts
-each tile's probe list so the rounds of items fill the SMs, and the
-partial sets are merged in a second pass. bf16 and asym banks wider than
-the kernel's shared memory take the mma.sync kernel, and int8 x int8 wider
-than it raises `ValueError` (`knn_cuda.route(lib, queries, bank,
-"ivf_topk")` names the one a call runs, or raises).
+tile) items (ops/csrc/wgmma_topk.cuh): f32 (3xTF32), bf16, int8 (with or
+without row scales; the exact integer sum converted to f32 once, at every
+depth) and bf16 queries on int8 codes (asym, asym_rows). The kernel keeps
+the queries in shared memory where they fit and streams each query chunk
+beside its slab chunk past that (f32 always, int8 past D = 3,072, asym
+past 1,152), so only bf16 slabs wider than its shared memory (D > 1,536)
+take the mma.sync kernel (`knn_cuda.route(lib, queries, bank,
+"ivf_topk")` names the one a call runs). `plan_probe_splits` cuts each
+tile's probe list so the rounds of items fill the SMs, and the partial
+sets are merged in a second pass.
 
 `ivf_topk` takes the kernel for CUDA tensors and the plain version
 (ops/ivf.py::ivf_search_plain) for CPU tensors, and nothing else: a CUDA

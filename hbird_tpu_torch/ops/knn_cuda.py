@@ -32,14 +32,14 @@ here, the same plan for every element type (the same items and tiles), so
 the rounds of items fill the SMs. The partial sets (`parts_shape`), the
 per-query minimum keys they share and the select's per-CTA scratch
 (`wgmma_scratch`: each consumer warp's running sets and candidate buffers)
-are allocated here. That kernel keeps bf16 and int8 queries in shared
-memory (f32 queries stream with the bank); where they do not fit, as the
-library reports (`knn_topk_wgmma_smem`), bf16 (D > 1536) and bf16 queries
-on int8 codes (D > 1152) run the mma_scan kernel, with no scratch, and
-int8 x int8 (D > 3072: 64 queries of D bytes and one ring stage per
-consumer no longer fit a block's 227 KB) raises `ValueError`, since
-mma_scan has no s32 form. `route` makes that choice by shape before the
-launch. K2 (ops/ivf_cuda.py) runs the same kernel over its probed slabs.
+are allocated here. That kernel keeps bf16, int8 and asym queries in shared
+memory where they fit and streams each query chunk beside its bank chunk
+past that (int8 past D = 3,072, bf16 queries on int8 codes past 1,152;
+f32 queries always stream), so those forms run it at every depth; bf16
+queries too deep to stay resident (D > 1,536, as the library reports:
+`knn_topk_wgmma_smem`) run the mma_scan kernel, with no scratch. `route`
+makes that choice by shape before the launch. K2 (ops/ivf_cuda.py) runs
+the same kernel over its probed slabs.
 """
 
 from __future__ import annotations
@@ -146,21 +146,12 @@ def form_name(queries: torch.Tensor, bank: torch.Tensor, l2: bool, row_scale) ->
 
 def route(lib, queries: torch.Tensor, bank: torch.Tensor, prefix: str = "knn_topk") -> str:
     """The kernel a CUDA call of these operands runs in `lib` (K1's, or K2's
-    with prefix 'ivf_topk'), by shape alone: 'wgmma' where the form's
-    queries fit the wgmma kernel's shared memory at this depth (every f32
-    depth, int8 x int8 up to D = 3072), else 'mma_scan'; int8 x int8 whose
-    queries do not fit raises ValueError (mma_scan has no s32 form)."""
+    with prefix 'ivf_topk'), by shape alone: 'wgmma' where the library
+    reports shared memory for the form at this depth (every depth of f32,
+    int8 x int8 and bf16 queries on int8 codes), else 'mma_scan' (bf16
+    deeper than its resident queries fit)."""
     form = FORMS[(queries.dtype, bank.dtype)]
-    d = queries.shape[1]
-    if wgmma_smem(lib, prefix, d, form) > 0:
-        return "wgmma"
-    if form == FORMS[(torch.int8, torch.int8)]:
-        raise ValueError(
-            f"int8 x int8 at D = {d}: the wgmma kernel's 64 resident int8 queries and one "
-            "ring stage per consumer do not fit a block's shared memory (232,448 bytes on an "
-            "H100; up to D = 3072 they do)"
-        )
-    return "mma_scan"
+    return "wgmma" if wgmma_smem(lib, prefix, queries.shape[1], form) > 0 else "mma_scan"
 
 
 def _check(queries, bank, k, valid_rows, distance, row_scale) -> None:

@@ -187,7 +187,8 @@ def test_flash_phases_rehearse_on_cpu(smoke):
             assert run["forms"] == {"knn_topk": {}, "ivf_topk": {}, "flash_attention": {"bf16": 6}, kernel: {form: 1}}
             assert 0.0 < run["recall_at_30_vs_k1_bf16"] <= run["score_recall_at_30_vs_k1_bf16"] <= 1.0
             assert launches[f"{prefix}bf16 {name}"][kernel] == 1
-    assert set(smoke.GIANT_QUANT_RUNS) == {"scann int8_rows", "faiss int8 + reorder 120"}
+    assert set(smoke.GIANT_QUANT_RUNS) == {"scann int8_rows", "faiss int8 + reorder 120", "faiss int8_asym"}
+    assert smoke.WIDE_QUANT_RUNS["scann-literal"][2] == ("ivf_topk", "asym_rows")
     assert err == 0.0 and len(runs) == 9 + len(smoke.WIDE_QUANT_RUNS) + len(smoke.GIANT_QUANT_RUNS)
     for run in runs.values():
         assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
@@ -491,8 +492,9 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     bf16 at hd 32 and 80 (in turns with SDPA), K1 bf16 dot and l2, int8 and
     int8_rows at each k of PAIR_KS, f32 at k 30 and 120, asym and asym_rows
     at k 30 on both banks, and K2 bf16 and asym_rows on a tree of each bank
-    and f32 on an f32 tree of each, each with its bound and library time, as
-    one JSON-ready result."""
+    and f32 on an f32 tree of each; K1 asym and asym_rows and K2 asym_rows
+    at D = 1,280 and 1,536; each with its bound, library time and output
+    digest, as one JSON-ready result."""
     monkeypatch.setattr(smoke, "PAIR_Q", 40)
     monkeypatch.setattr(smoke, "PAIR_M", 500)
     out = smoke.pairs("here")
@@ -507,14 +509,17 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
                               *(f"{f} Q=40 M={m} k={k}" for f in ("int8", "int8_rows") for m in (500, 3000)
                                 for k in smoke.PAIR_KS),
                               *(f"f32 Q=40 M={m} k={k}" for m in (500, 3000) for k in (30, 120)),
-                              *(f"{f} Q=40 M={m} k=30" for f in ("asym", "asym_rows") for m in (500, 3000))}
-    assert len(out["k2"]) == 6
-    assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows", "asym_rows", "bf16", "bf16", "f32",
-                                                               "f32"]
+                              *(f"{f} Q=40 M={m} k=30" for f in ("asym", "asym_rows") for m in (500, 3000)),
+                              *(f"{f} Q=40 M=500 D={d} k=30" for f in ("asym", "asym_rows")
+                                for d in smoke.WIDE_TIMING_DEPTHS)}
+    assert len(out["k2"]) == 8
+    assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows"] * 4 + ["bf16"] * 2 + ["f32"] * 2
+    assert sum(f"D={d} " in label for label in out["k2"] for d in smoke.WIDE_TIMING_DEPTHS) == 2
     f32 = [row for label, row in out["k2"].items() if label.startswith("f32")]
     assert all(row["bound_ms"] > 0 and row["library_ms"] > 0 for row in f32)
     assert out["k3"]["f32 (2, 2, 40, 32)"]["bound_ms"] == smoke.k3_bound((2, 2, 40, 32), torch.float32)[0]
-    assert all(len(row["digest"]) == 16 for row in out["k3"].values())  # the outputs' bytes, hashed
+    for kernel in ("k3", "k1", "k2"):  # the outputs' bytes, hashed
+        assert all(len(row["digest"]) == 16 for row in out[kernel].values())
     for row in [*out["k3"].values(), *out["k1"].values(), *out["k2"].values()]:
         assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert out["k1"]["bf16 dot Q=40 M=500 k=128"]["bound_by"] == "bytes"
@@ -598,6 +603,18 @@ ptxas info    : Used 168 registers, used 1 barriers
         "of registers defined by GMMA in function '_Z9flash_f32ILi64EEvv'\n")
     notes = smoke.ptxas_report(noted, "flash_bf16_wgmma")["wgmma_notes"]
     assert len(notes) == 1 and notes[0].startswith("ptxas info    : (C7519)")
+    # K1's and K2's template: a form (streamed forms nest theirs), S, the epilogue, the items
+    topk = [f"_ZN2wg10topk_wgmmaI{a}N44_GLOBAL__N__a6f7a300_11_ivf_topk_cu_1f1607da5SlabsEEEv14CUtensorMap_st"
+            for a in ("NS_8StreamedINS_4AsymEEELi2ELNS_3EpiE2E", "NS_4AsymELi2ELNS_3EpiE2E")]
+    log = "".join(f"""ptxas info    : Compiling entry function '{f}' for 'sm_90a'
+ptxas info    : Function properties for {f}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+""" for f in topk)
+    args = smoke.ptxas_report(log, "topk_wgmma")["template_args"]
+    assert [a.startswith(form) for a in args for form in ("INS_8StreamedINS_4AsymEE", "INS_4AsymE")] == [
+        True, False, False, True]
+    assert args[0].endswith("SlabsE") and args[0] != args[1]
 
 
 def test_sass_counts_per_function(smoke):
@@ -612,7 +629,7 @@ def test_sass_counts_per_function(smoke):
         Function : _ZN2wg9knn_wgmmaINS_2S8ELi1ELNS_3EpiE0EEEvv
         /*0100*/                   UTMALDG.2D [UR8], [UR4] ;
         /*0110*/                   IGMMA.64x128x32.S32.S8.S8 R24, gdesc[UR8], RZ, !UPT ;
-        Function : _Z12knn_topk_mmaI8FormAsymLi1EEvv
+        Function : _Z12knn_topk_mmaI8FormBf16Li1EEvv
         /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         /*0110*/                   IMMA.16832.S8.S8 R4, R8, R12, R4 ;
         Function : _ZN2wg16flash_bf16_wgmmaILi80EEEvNS0_4MapsIXT_EEE
@@ -628,23 +645,33 @@ def test_sass_counts_per_function(smoke):
                                                             "IMMA": 0}
     assert per_fn["_ZN2wg9knn_wgmmaINS_2S8ELi1ELNS_3EpiE0EEEvv"] == {"HGMMA": 0, "IGMMA": 1, "UTMALDG": 1,
                                                                      "HMMA": 0, "IMMA": 0}
-    assert per_fn["_Z12knn_topk_mmaI8FormAsymLi1EEvv"] == {"HGMMA": 0, "IGMMA": 0, "UTMALDG": 0, "HMMA": 1,
+    assert per_fn["_Z12knn_topk_mmaI8FormBf16Li1EEvv"] == {"HGMMA": 0, "IGMMA": 0, "UTMALDG": 0, "HMMA": 1,
                                                            "IMMA": 1}
 
 
 def test_wide_int8_phases_rehearse_on_cpu(smoke):
     """Phases 2 and 3 on the wide banks: K1 and K2 int8 and int8_rows at D =
-    1,040, 1,280 and 1,536 on sharp codes, bit for bit (here the plain
-    version against itself: the control flow and the checks); the codes
-    can tell one rounding from a running f32 sum at 1,280 and 1,536."""
+    1,040, 1,280 and 1,536, and at 3,088 and 3,200 (the queries streamed
+    on the card), on sharp codes, bit for bit (here the plain version
+    against itself: the control flow and the checks); the codes can tell
+    one rounding from a running f32 sum from 1,280 on. Then K1 and K2 asym
+    and asym_rows at D = 1,168, 1,280 and 1,536 (streamed on the card)."""
     gen = torch.Generator().manual_seed(0)
     err, info = smoke.wide_int8_knn_cases(gen)
     err2, info2 = smoke.wide_int8_ivf_cases(gen)
     assert err == err2 == 0.0
     for i in (info, info2):
-        assert set(i) == set(smoke.WIDE_DEPTHS)  # no card: no shared-memory refusal to show
+        assert set(i) == {*smoke.WIDE_DEPTHS, *smoke.DEEP_INT8_DEPTHS, "smem"}
+        assert i.pop("smem") is None  # no card: no library to report its shared memory
         assert i[1040]["sharp_share"] == 0.0 and i[1280]["sharp_share"] > 0.0 and i[1536]["sharp_share"] > 0.0
+        assert all(i[d]["sharp_share"] > 0.0 for d in smoke.DEEP_INT8_DEPTHS)
         assert all(row["route"] == "plain" for row in i.values())
+    err, info = smoke.wide_asym_knn_cases(gen)
+    err2, info2 = smoke.wide_asym_ivf_cases(gen)
+    assert err < 1e-3 and err2 < 1e-3
+    for i in (info, info2):
+        assert set(i) == {*smoke.ASYM_DEPTHS, "smem"} and i["smem"] is None
+        assert all(i[d]["route"] == "plain" for d in smoke.ASYM_DEPTHS)
 
 
 def test_sharp_codes_catch_a_running_f32_sum(smoke):
@@ -666,19 +693,22 @@ def test_sharp_codes_catch_a_running_f32_sum(smoke):
 
 def test_wide_timing_rehearses_on_cpu(smoke, monkeypatch):
     """Phase 7 on the wide banks: every K1 form and K2 form at D = 1,280 and
-    1,536, each row with its route, bound, plain and library times."""
+    1,536, and K1 and K2 int8 and int8_rows at 3,200, each row with its
+    route, bound, plain and library times."""
     monkeypatch.setattr(smoke, "PAIR_Q", 256)
     monkeypatch.setattr(smoke, "PAIR_M", 900)
     k1_rows, k2_rows, errs = smoke.wide_timing(torch.Generator().manual_seed(0))
     sizes = [f"D={d}" for d in smoke.WIDE_TIMING_DEPTHS]
+    deep = f"D={smoke.DEEP_INT8_TIMING_DEPTH}"
     assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "asym", "l2", "f32",
                                                            "f32_l2") for s in sizes),
-                            *(f"{f} k=120 {s}" for f in ("int8", "int8_rows", "f32") for s in sizes)}
+                            *(f"{f} k=120 {s}" for f in ("int8", "int8_rows", "f32") for s in sizes),
+                            *(f"{f}{k} {deep}" for f in ("int8", "int8_rows") for k in ("", " k=120"))}
     assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows", "int8", "asym", "f32")
-                                      for s in sizes)}
+                                      for s in sizes), f"int8_rows {deep}", f"int8 {deep}"}
     assert errs["K2"] == 0.0 and errs["K1"] < 1e-3
     for row in [*k1_rows.values(), *k2_rows.values()]:
-        assert row["route"] == "plain" and row["D"] in smoke.WIDE_TIMING_DEPTHS
+        assert row["route"] == "plain" and row["D"] in (*smoke.WIDE_TIMING_DEPTHS, smoke.DEEP_INT8_TIMING_DEPTH)
         assert row["ms"] > 0 and row["plain_ms"] > 0 and row["bound_ms"] > 0
     assert k1_rows["int8 k=120 D=1536"]["k"] == 120 and k1_rows["D=1280"]["form"] == "dot"
     assert json.dumps([k1_rows, k2_rows])

@@ -1,5 +1,8 @@
-"""int8 x int8 search on the wide banks (D = 1,040, 1,280 and 1,536): the port
-against the JAX package.
+"""int8 x int8 search on the wide banks (D = 1,040, 1,280 and 1,536, and
+3,200, past the depth at which the card's kernel keeps its int8 queries
+resident), and bf16 queries on int8 codes at D = 1,280 (mae_vith14's
+width, where the card's kernel streams its query chunks): the port against
+the JAX package.
 
 The TPU kernels (`_knn_kernel`, `_ivf_kernel`) accumulate int8 x int8 in
 int32 and convert to f32 once, at every depth; so do the port's CUDA
@@ -22,9 +25,14 @@ Held here, numpy inputs from a seed:
   distinct, and elsewhere the ids strictly above the k-th value as sets;
   and exactly a stable sort (value descending, then index) of the int64
   scores rounded once;
+- the plain K1 asym and asym_rows (bf16 queries on int8 codes widened
+  exactly) against `pallas_knn` in interpret mode at D = 1,280: values
+  within 1e-5 · max ||q|| · max_i(||b_i|| · s_i), the ids above the k-th
+  value (+ that) as sets;
 - the wrappers (`knn_topk`, `ivf_topk`) take these depths on CPU tensors
   (the plain version, no launch), and `route` sends them to the wgmma
-  kernel up to D = 3,072 (tests/wgmma_smem.py);
+  kernel at every depth: its queries resident up to D = 3,072, streamed
+  past it (tests/wgmma_smem.py);
 - K1 over a 2-shard bank mesh (gather, ring) equals the unsharded search
   bit for bit at D = 1,536;
 - `hbird_evaluation` with a tiny ViT 1,280 wide (one block of 16 heads of
@@ -54,9 +62,10 @@ from hbird_tpu_torch.ops import ivf, ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops.knn import exact_knn, knn_with_labels
 from hbird_tpu_torch.parallel import make_mesh, ring_knn_with_labels, shard_bank, sharded_knn_with_labels
 from hbird_tpu_torch.parallel.sharded_knn import shard_rows
-from wgmma_smem import S8Library
+import wgmma_smem
+from wgmma_smem import WgmmaLibrary
 
-DEPTHS = [1040, 1280, 1536]
+DEPTHS = [1040, 1280, 1536, 3200]
 KS = [30, 120]
 FORMS = ["int8", "int8_rows"]
 CHUNK = 128  # the kernel's depth chunk of int8 codes
@@ -165,7 +174,8 @@ def test_plain_k2_matches_pallas_ivf_knn(d, form, k):
 def test_wrappers_take_wide_int8(d):
     """On CPU tensors the K1 and K2 wrappers run the plain version at these
     depths (no launch); on CUDA tensors `route` sends them to the wgmma
-    kernel, whose shared memory holds int8 queries up to D = 3,072."""
+    kernel at every depth: its shared memory holds int8 queries up to
+    D = 3,072, and past that they stream in the ring (3,088, 3,200)."""
     rng = np.random.default_rng(d)
     q = torch.from_numpy(sharp_codes(rng, 64, d))
     bank, cap, fill, lids = _slabs(rng, d)
@@ -181,10 +191,43 @@ def test_wrappers_take_wide_int8(d):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (knn_cuda.knn_topk.launches, ivf_cuda.ivf_topk.launches) == before
     for prefix in ("knn_topk", "ivf_topk"):
-        lib = S8Library(prefix)
+        lib = WgmmaLibrary(prefix)
         assert knn_cuda.route(lib, q, bank, prefix) == "wgmma"
-        edge = torch.zeros(1, 3072, dtype=torch.int8)
-        assert knn_cuda.route(lib, edge, edge, prefix) == "wgmma"
+        for depth in (3072, 3088, 3200):
+            edge = torch.zeros(1, depth, dtype=torch.int8)
+            assert knn_cuda.route(lib, edge, edge, prefix) == "wgmma"
+    resident = wgmma_smem.smem_at(wgmma_smem.S8_FORM, d)
+    assert (resident > 0) == (d <= 3072) and wgmma_smem.smem(wgmma_smem.S8_FORM, d) > 0
+
+
+ASYM_DEPTH = 1280
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("form", ["asym", "asym_rows"])
+def test_plain_asym_matches_pallas_knn(form, k):
+    """K1 (e) and (e)+(d) at D = 1,280, where the card streams the queries:
+    the plain version (bf16 queries on int8 codes widened exactly, f32
+    sums) against `pallas_knn` in interpret mode on the same inputs, at
+    K1's tolerance; and the exact f64 scores' order away from ties."""
+    rng = np.random.default_rng(ASYM_DEPTH + k)
+    q = torch.from_numpy(rng.normal(size=(64, ASYM_DEPTH)).astype(np.float32)).bfloat16()
+    b = rng.integers(-127, 128, size=(1024, ASYM_DEPTH)).astype(np.int8)
+    rs = (0.25 + rng.random(1024)).astype(np.float32) if form == "asym_rows" else None
+    tv, ti = exact_knn(q, torch.from_numpy(b), k, valid_rows=1000,
+                       row_scale=None if rs is None else torch.from_numpy(rs))
+    jv, ji = pallas_knn(jnp.asarray(q.float().numpy()).astype(jnp.bfloat16), jnp.asarray(b), k, valid_rows=1000,
+                        block_q=64, block_m=512, interpret=True,
+                        row_scale=None if rs is None else jnp.asarray(rs[:, None]))
+    s = np.ones(1024, np.float32) if rs is None else rs
+    tol = 1e-5 * float(np.linalg.norm(q.float().numpy(), axis=1).max()
+                       * (np.linalg.norm(b.astype(np.float32), axis=1) * s).max())
+    tv, ti, jv, ji = tv.numpy(), ti.numpy(), np.asarray(jv), np.asarray(ji)
+    np.testing.assert_allclose(np.sort(tv, 1), np.sort(jv, 1), rtol=0, atol=tol)
+    exact = q.double().numpy() @ b[:1000].astype(np.float64).T * s[:1000].astype(np.float64)
+    for r in range(tv.shape[0]):
+        assert set(ti[r][tv[r] > tv[r, -1] + tol]) == set(ji[r][jv[r] > jv[r, -1] + tol]), r
+        np.testing.assert_allclose(tv[r], exact[r, ti[r]], rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("strategy", ["gather", "ring"])

@@ -27,7 +27,8 @@ from hbird_tpu.ops import ivf as jivf
 from hbird_tpu.ops.knn import rerank_exact as jax_rerank_exact
 from hbird_tpu_torch.ops import ivf, ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops.knn import rerank_exact
-from wgmma_smem import S8Library
+import wgmma_smem
+from wgmma_smem import WgmmaLibrary
 
 RTOL = 1e-5
 
@@ -404,24 +405,16 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     "kwargs, error",
     [({"int8": True}, ValueError), ({"row_scale": torch.ones(1280)}, ValueError),
      ({"k": 129}, ValueError), ({"cap": 300}, ValueError), ({"block_q": 32}, ValueError),
-     ({"mixed": True}, ValueError), ({"codes": True, "row_scale": torch.ones(1279)}, ValueError),
-     ({"codes": True, "depth": 3088, "route": True}, ValueError)],
+     ({"mixed": True}, ValueError), ({"codes": True, "row_scale": torch.ones(1279)}, ValueError)],
     ids=["int8", "row_scale", "k_too_large", "cap_not_slabs", "tiles_mismatch", "mixed_dtype",
-         "row_scale_length", "int8_too_deep"],
+         "row_scale_length"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     """As `pallas_ivf_knn` asserts: dtype pairs outside f32/f32, bf16/bf16,
     int8/int8 and bf16/int8 (here int8 queries on f32 slabs), row scales on
-    float slabs or of the wrong length. On CUDA tensors, int8 x int8 deeper
-    than the wgmma kernel's shared memory (D = 3088): `route`, which the
-    wrapper asks before any launch, raises (held to the kernel's formula,
-    tests/wgmma_smem.py; the CPU takes the plain version at every depth)."""
+    float slabs or of the wrong length."""
     kwargs = dict(kwargs)
-    cuda_route = kwargs.pop("route", False)
     _, _, (qt, bt, lids, lv) = _k2_inputs(torch.float32, 64, 2, seed=1)
-    if "depth" in kwargs:
-        d = kwargs.pop("depth")
-        qt, bt = torch.zeros(qt.shape[0], d), torch.zeros(bt.shape[0], d)
     if kwargs.pop("int8", False):
         qt = qt.to(torch.int8)
     if kwargs.pop("codes", False):
@@ -431,12 +424,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     k = kwargs.pop("k", 3)
     kwargs.setdefault("cap", 256)
     kwargs.setdefault("block_q", 64)
-    if cuda_route:
-        with pytest.raises(error, match="shared memory"):
-            knn_cuda.route(S8Library("ivf_topk"), qt, bt, "ivf_topk")
-        return
     with pytest.raises(error):
         ivf_cuda.ivf_topk(qt, bt, lids, lv, k, **kwargs)
+
+
+@pytest.mark.parametrize("d", [3088, 3200])
+def test_route_takes_int8_at_every_depth(d):
+    """int8 x int8 slabs deeper than the wgmma kernel's resident queries fit
+    (D > 3,072) stream each query chunk beside the slab chunk: on CUDA
+    tensors `route` sends K2 to the wgmma kernel (held to the kernel's
+    formula, tests/wgmma_smem.py), and on the CPU the wrapper runs the
+    plain version, as at every depth."""
+    assert wgmma_smem.smem_at(wgmma_smem.S8_FORM, d) == 0 < wgmma_smem.smem(wgmma_smem.S8_FORM, d)
+    rng = np.random.default_rng(d)
+    qt = torch.from_numpy(rng.integers(-127, 128, (64, d)).astype(np.int8))
+    bt = torch.from_numpy(rng.integers(-127, 128, (512, d)).astype(np.int8))
+    lids, lv = torch.tensor([[1, 0]], dtype=torch.int32), torch.tensor([256, 100], dtype=torch.int32)
+    assert knn_cuda.route(WgmmaLibrary("ivf_topk"), qt, bt, "ivf_topk") == "wgmma"
+    kv, ki = ivf_cuda.ivf_topk(qt, bt, lids, lv, 30, cap=256, block_q=64)
+    pv, pi = ivf.ivf_search_plain(qt, bt, lids, lv, 30, cap=256)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
 # ----------------------------------------------------------------------

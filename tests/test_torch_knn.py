@@ -32,7 +32,8 @@ from hbird_tpu.ops.quantize import quantize_bank_int8, quantize_queries_int8
 from hbird_tpu.parallel.sharded_knn import sharded_knn_with_labels
 from hbird_tpu_torch.ops import knn_cuda
 from hbird_tpu_torch.ops.knn import exact_knn, knn_with_labels
-from wgmma_smem import S8Library
+import wgmma_smem
+from wgmma_smem import WgmmaLibrary
 
 RTOL = 1e-5
 
@@ -137,26 +138,19 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
         ({"int8": True, "row_scale": torch.ones(9)}, ValueError),
         ({"int8": True, "distance": "l2", "row_scale": torch.ones(10)}, ValueError),
         ({"f32_on_int8": True}, ValueError),
-        ({"int8": True, "depth": 3088, "route": True}, ValueError),
         ({"distance": "cosine"}, ValueError),
     ],
     ids=["l2", "row_scale", "int8", "k_too_large", "valid_rows_too_large", "mixed_dtype",
-         "row_scale_length", "l2_row_scale", "f32_on_int8", "int8_too_deep", "unknown_distance"],
+         "row_scale_length", "l2_row_scale", "f32_on_int8", "unknown_distance"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     """The combinations `pallas_knn` asserts against raise ValueError: l2
     on an int8 bank or with row scales, row scales on a float bank or of
     the wrong length, a dtype pair outside f32/f32, bf16/bf16, int8/int8 and
-    bf16/int8. On CUDA tensors, int8 x int8 deeper than the wgmma kernel's
-    shared memory (D = 3088: 64 query rows and a ring stage per consumer
-    past 227 KB): `route`, which the wrapper asks before any launch, raises
-    (held here to the kernel's own formula, tests/wgmma_smem.py; at every
-    depth the CPU takes the plain version, test_torch_int8_wide.py)."""
+    bf16/int8."""
     kwargs = dict(kwargs)
-    d = kwargs.pop("depth", 8)
-    cuda_route = kwargs.pop("route", False)
-    q = torch.zeros(4, d)
-    b = torch.zeros(10, d)
+    q = torch.zeros(4, 8)
+    b = torch.zeros(10, 8)
     if kwargs.pop("int8", False):
         q, b = q.to(torch.int8), b.to(torch.int8)
     if kwargs.pop("int8_queries", False):
@@ -166,12 +160,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(kwargs, error):
     if kwargs.pop("mixed", False):
         b = b.to(torch.bfloat16)
     k = kwargs.pop("k", 3)
-    if cuda_route:
-        with pytest.raises(error, match="shared memory"):
-            knn_cuda.route(S8Library("knn_topk"), q, b)
-        return
     with pytest.raises(error):
         knn_cuda.knn_topk(q, b, k, **kwargs)
+
+
+@pytest.mark.parametrize("d", [3088, 3200])
+def test_route_takes_int8_at_every_depth(d):
+    """int8 x int8 deeper than the wgmma kernel's resident queries fit (D >
+    3,072: 64 query rows and a ring stage per consumer past 227 KB) streams
+    each query chunk beside its codes: on CUDA tensors `route` sends it to
+    the wgmma kernel (held here to the kernel's own formula,
+    tests/wgmma_smem.py), and on the CPU the wrapper runs the plain
+    version, as at every depth."""
+    assert wgmma_smem.smem_at(wgmma_smem.S8_FORM, d) == 0
+    assert wgmma_smem.smem(wgmma_smem.S8_FORM, d) == wgmma_smem.smem_at(wgmma_smem.S8_FORM, d, streamed=True) > 0
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.integers(-127, 128, (4, d)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (10, d)).astype(np.int8))
+    assert knn_cuda.route(WgmmaLibrary("knn_topk"), q, b) == "wgmma"
+    kv, ki = knn_cuda.knn_topk(q, b, 3)
+    pv, pi = exact_knn(q, b, 3)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
 def _mixed_range(m, d, seed):

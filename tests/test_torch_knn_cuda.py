@@ -12,8 +12,9 @@ Tolerance: values within 1e-5 · ||q|| · max_i(||b_i|| · s_i) (the same
 exact products summed in another order, or for f32 the 3xTF32 products,
 ~21 bits of each operand; s_i is an int8 row's scale, 1 for float banks
 and global int8 codes), for f32, bf16, l2 and the asymmetric forms; index
-sets equal on tie-free inputs. Every form runs the wgmma kernel where its
-queries fit (f32 at every depth, asym up to D = 1152, bf16 up to 1536). int8 x int8 scores are exact
+sets equal on tie-free inputs. Every form runs the wgmma kernel, f32, int8
+and asym at every depth (their query chunks streamed in the ring where the
+queries do not stay resident: asym past D = 1152), bf16 up to 1536. int8 x int8 scores are exact
 integers below 2^24 and the row scale is one f32 multiply, so the int8 and
 int8_rows forms equal the plain version bit for bit, values and indices. On
 a bank of duplicated rows the kernel's order is value descending, then
@@ -489,14 +490,18 @@ def test_f32_and_asym_on_wgmma_at_every_k(cuda_device, d, k, form):
 @pytest.mark.parametrize("d", [1152, 1168, 1536])
 def test_asym_depth_the_queries_must_fit(cuda_device, d, form):
     """asym keeps two widened tiles per consumer beside its bf16 queries:
-    D = 1152 is the widest whose queries fit the wgmma kernel; 1,168 and
-    1,536 (dinov2_vitg14's width) run mma_scan, chosen by shape. Both hold
-    against the plain version and count as their form. f32 keeps no
-    queries resident: every depth runs the wgmma kernel."""
+    D = 1152 is the widest whose queries stay resident in the wgmma
+    kernel's shared memory; at 1,168 and 1,536 (dinov2_vitg14's width) the
+    same kernel streams each query chunk beside its codes (a smaller
+    request, chosen by shape). Both hold against the plain version and
+    count as their form. f32 keeps no queries resident: every depth runs
+    the wgmma kernel."""
     q, b = _inputs(100, 700, d, seed=d)
     qt, bt, kw, _, tol = _form_args(form, q, b, cuda_device)
     lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
-    assert knn_cuda.route(lib, qt, bt) == ("wgmma" if d <= 1152 else "mma_scan")
+    assert knn_cuda.route(lib, qt, bt) == "wgmma"
+    resident = knn_cuda.wgmma_smem(lib, "knn_topk", 1152, 3)
+    assert (knn_cuda.wgmma_smem(lib, "knn_topk", d, 3) == resident) == (d <= 1152)
     assert knn_cuda.route(lib, qt.float(), qt.float()) == "wgmma"
     before = knn_cuda.knn_topk.forms[form]
     kv, ki = knn_cuda.knn_topk(qt, bt, 30, **kw)

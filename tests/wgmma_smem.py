@@ -1,50 +1,83 @@
-"""The shared memory of K1's and K2's wgmma kernel for int8 x int8, in
-Python: `wg::smem_at<wg::S8>` of hbird_tpu_torch/ops/csrc/wgmma_topk.cuh,
-with its constants read from that header and hopper.cuh.
+"""The shared memory of K1's and K2's wgmma kernel for int8 x int8 and for
+bf16 queries on int8 codes (asym), in Python: `wg::smem_at` and
+`wg::smem_fit` of hbird_tpu_torch/ops/csrc/wgmma_topk.cuh, with their
+constants read from that header and hopper.cuh.
 
-The 64 resident query rows take one 8 KB chunk per 128 bytes of depth, and
-each of the two consumers' rings needs at least one 16 KB stage, all under
-a block's SMEM_LIMIT: D = 3072 fits (one stage a ring), D = 3088 does not.
-`S8Library(prefix)` answers `<prefix>_wgmma_smem(d, form)` for form 2 as the
-compiled library does, so the CPU tests can hold `knn_cuda.route` to the
-kernel's limit without nvcc; chip_smoke.py holds the compiled library's own
-report to the same edge on the card.
+Resident queries take one 8 KB chunk per 128 bytes of depth (64 rows);
+asym adds four widened 16 KB tiles; each of the two consumers' rings needs
+at least one stage (int8: 16 KB of codes, asym: 8 KB), all under a block's
+SMEM_LIMIT: int8 fits up to D = 3,072, asym up to 1,152. Past that the
+queries stream: a stage holds the item's 8 KB query chunk beside the
+codes, nothing grows with depth, and four stages a ring fit (197,888 bytes
+in either form; a streamed form needs two). `WgmmaLibrary(prefix)`
+answers `<prefix>_wgmma_smem(d, form)` for forms 2 and 3 as the compiled
+library does, so the CPU tests can hold `knn_cuda.route` to the kernel's
+formula without nvcc; chip_smoke.py holds the compiled library's own
+report to the same edges on the card.
 """
 
 import pathlib
 import re
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "hbird_tpu_torch" / "ops" / "csrc"
+HEADER = (CSRC / "wgmma_topk.cuh").read_text()
 
 
-def _const(header, name):
-    text = (CSRC / header).read_text()
+def _const(name, text=HEADER):
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
-SMEM_LIMIT = _const("wgmma_topk.cuh", "SMEM_LIMIT")
-BAR_BYTES = _const("wgmma_topk.cuh", "BAR_BYTES")
-MAX_STAGES = _const("wgmma_topk.cuh", "MAX_STAGES")
-BQH = _const("wgmma_topk.cuh", "BQH")
-BMH = _const("wgmma_topk.cuh", "BMH")
-CHUNK_BYTES = _const("wgmma_topk.cuh", "CHUNK_BYTES")
-SMEM_ALIGN = _const("hopper.cuh", "SMEM_ALIGN")
-S8_FORM = 2
+def _form(name, field):
+    """A form's `static constexpr int` field, from its struct (or the one it
+    derives from)."""
+    body = re.search(rf"struct {name}\b(?: : (\w+))? \{{(.*?)\n\}};", HEADER, re.S)
+    found = re.search(rf"\b{field} = (\d+)", body.group(2))
+    return int(found.group(1)) if found else _form(body.group(1), field)
 
 
-def s8_smem(d):
-    """Dynamic shared memory of the S8 kernel at depth d; 0: it does not fit."""
-    n_chunks = -(-d // CHUNK_BYTES)  # S8's chunk: 128 int8 columns
-    fixed = SMEM_ALIGN + n_chunks * BQH * CHUNK_BYTES + BAR_BYTES
-    stage = BMH * CHUNK_BYTES
-    stages = min(MAX_STAGES, max(0, (SMEM_LIMIT - fixed) // (2 * stage)))
+SMEM_LIMIT = _const("SMEM_LIMIT")
+BAR_BYTES = _const("BAR_BYTES")
+MAX_STAGES = _const("MAX_STAGES")
+BQH = _const("BQH")
+BMH = _const("BMH")
+CHUNK_BYTES = _const("CHUNK_BYTES")
+SMEM_ALIGN = _const("SMEM_ALIGN", (CSRC / "hopper.cuh").read_text())
+Q_CHUNK = BQH * CHUNK_BYTES
+WIDE_TILE = BMH * CHUNK_BYTES
+S8_FORM, ASYM_FORM = 2, 3
+# form: (depth a chunk, codes of a ring stage, the consumers' own tiles)
+FORMS = {
+    S8_FORM: (_form("S8", "DK"), BMH * _form("S8", "B_BYTES"), 0),
+    ASYM_FORM: (_form("Asym", "DK"), BMH * _form("Asym", "B_BYTES"), 4 * WIDE_TILE),
+}
+
+
+def smem_at(form, d, streamed=False):
+    """Dynamic shared memory of `form` at depth d with its queries resident
+    or streamed; 0: it does not fit."""
+    dk, codes, own = FORMS[form]
+    fixed = SMEM_ALIGN + (0 if streamed else -(-d // dk) * Q_CHUNK) + own + BAR_BYTES
+    stage = codes + (Q_CHUNK if streamed else 0)
+    fit = (SMEM_LIMIT - fixed) // (2 * stage)
+    stages = MAX_STAGES if fit >= MAX_STAGES else (fit if fit >= (2 if streamed else 1) else 0)
     return fixed + 2 * stages * stage if stages else 0
 
 
-class S8Library:
+# The header's launchers stream a form's queries where they do not fit
+# (`wg::Streamed<F>`, `smem_fit`); a header without them streams nothing.
+STREAMS = "struct Streamed" in HEADER and "smem_fit" in HEADER
+
+
+def smem(form, d):
+    """What the library reports: the resident form's size where it fits,
+    else the streamed one's."""
+    return smem_at(form, d) or (smem_at(form, d, streamed=True) if STREAMS else 0)
+
+
+class WgmmaLibrary:
     """A stand-in for K1's or K2's compiled library in `knn_cuda.route`: its
-    `<prefix>_wgmma_smem(d, form)` reports `s8_smem(d)` for int8 x int8 and
-    a fit for every other form."""
+    `<prefix>_wgmma_smem(d, form)` reports `smem(form, d)` for int8 x int8
+    and asym and a fit for every other form."""
 
     def __init__(self, prefix):
-        setattr(self, f"{prefix}_wgmma_smem", lambda d, form: s8_smem(d) if form == S8_FORM else 1)
+        setattr(self, f"{prefix}_wgmma_smem", lambda d, form: smem(form, d) if form in FORMS else 1)
