@@ -20,16 +20,29 @@ Phases; any failure raises and the script exits non-zero with no result:
    warpgroup MMAs (HGMMA, IGMMA for int8), UTMALDG and mma.sync (HMMA,
    IMMA for int8) instructions of each library and of each wgmma kernel,
    which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's and
-   K2's libraries must hold such kernels). The forms of WGMMA_FORMS must
-   each have their instances (select sizes 1-4, one or two epilogues) in
-   the ptxas report and the SASS, and spill nothing: K1's F32, Asym and
-   the streamed forms Streamed<Asym> and Streamed<S8>, K2's F32 and
-   streamed forms; so must K3's wgmma kernel at head widths 32, 64 and 80
-   (flash_bf16_wgmma<32>, <64>, <80>); every form that runs the wgmma
-   kernels at D=768, and K3's at each width, must ask for its shared
-   memory, and so must asym at D = 1,152 (resident queries) and 1,168,
-   1,280 and 1,536 (streamed) and int8 at 3,072 and at 3,088 and 3,200.
-2. K1 against its plain PyTorch version on the same CUDA tensors: bf16 and
+   K2's libraries must hold such kernels, and no HMMA or IMMA at all:
+   every K1 and K2 form runs the wgmma kernel; cuobjdump must exist). The
+   forms of WGMMA_FORMS must each have their instances (select sizes 1-4,
+   one or two epilogues) in the ptxas report and the SASS, and spill
+   nothing: K1's F32, Asym and the streamed forms Streamed<Bf16>,
+   Streamed<Asym> and Streamed<S8>, K2's F32 and streamed forms; so must
+   K3's wgmma kernel at head widths 32, 64 and 80 (flash_bf16_wgmma<32>,
+   <64>, <80>); every form that runs the wgmma kernels at D=768, and K3's
+   at each width, must ask for its shared memory, and so must bf16 at
+   BF16_MAX_RESIDENT (resident queries), one chunk past it and at
+   BF16_DEPTHS (streamed), asym at D = 1,152 (resident) and 1,168, 1,280
+   and 1,536 (streamed) and int8 at 3,072 and at 3,088 and 3,200; and K1
+   and K2 must report a size for every form at every depth from 8 to
+   4,096 (a multiple of 8, of 16 with int8 codes).
+2. K1 against its plain PyTorch version on the same CUDA tensors: first
+   bf16 dot and l2 on both sides of the bf16 edge and past it (D =
+   BF16_MAX_RESIDENT, one 64-element chunk past it, and BF16_DEPTHS:
+   1,544, a partial chunk; 1,664, vit_gigantic_patch14_clip_224's width;
+   2,048 and 3,200; the queries streamed past the edge), Q=4,096 normal
+   queries against 65,537 rows of norms 0.5-2.0 (the last 537 invalid), at
+   every k of CHECK_KS, on the wgmma kernel (`route`), the library
+   reporting the resident size at the edge and the streamed one past it;
+   and at 1,664 a bank of duplicated rows (the tie order). Then bf16 and
    f32 at Q=4,096, M=300,001, D=768, k=30, valid_rows=299,000; k in
    {1, 8, 128}; valid_rows < k; a bank of duplicated rows (ties). Then its
    forms (b)-(e) at the same shape: l2 (bf16 and f32, rows of unequal
@@ -53,7 +66,12 @@ Phases; any failure raises and the script exits non-zero with no result:
    (ASYM_DEPTHS: the queries streamed), Q=4,096 normal queries against
    the global and per-row codes of 65,537 unit rows, on the wgmma kernel,
    at every k of CHECK_KS, and on tie-dense entries bit for bit.
-3. K2 against its plain version (ops/ivf.py::ivf_search_plain) on an IVF
+3. K2 against its plain version (ops/ivf.py::ivf_search_plain): first
+   bf16 at phase 2's bf16 depths in 48 ragged slabs of cap 256 (one empty;
+   4,096 normal queries on unit rows in tiles of 256 probing 32 slabs
+   each, one id out of range) at every k of CHECK_KS, on the wgmma kernel,
+   and at 1,664 4 slabs of the same rows probed out of slot order (the tie
+   order). Then on an IVF
    tree built by the port over a clustered bank of 300,000 rows at D=768
    (512 leaves; the f32 form on an f32 tree of the same rows): bf16 and
    f32; k in {1, 30, 128}; n_probe in {1, 8, 32};
@@ -147,7 +165,18 @@ Phases; any failure raises and the script exits non-zero with no result:
    tokens held as mae_vith14's. Each int8 run launches
    its K1 or K2 form once per eval batch and K3 as the flash run, nothing
    else, and prints its mIoU and recall@30 against K1's exact bf16
-   neighbours on the run's bank.
+   neighbours on the run's bank. Then the 1,664-wide ViT that the port's
+   converter reads from the shapes of timm's vit_gigantic_patch14_clip_224
+   (patch 14, 48 blocks of 26 heads of 64, an MLP of 8,192, qkv bias, no
+   LayerScale; ~1.84B parameters initialised on the host from the seed,
+   the seconds printed) in bf16 at input 224: 'scann' with 'flash' (K3
+   bf16 at hd 64 48 x 5 = 240 times, K1 dot at D = 1,664 once per eval
+   batch, the queries streamed) and with 'xla', then GIGANTIC_RUNS with
+   'flash': 'ivf' on a bf16 tree at N_PROBE probes (K2 bf16 at 1,664) and
+   'faiss' l2 on a bf16 bank (K1 l2); each launches its form once per
+   eval batch and nothing else and prints its mIoU and recall@30 against
+   K1's exact bf16 neighbours ('scann' too); its tokens held as
+   mae_vith14's.
 6. The card against the CPU on a small input: a tiny ViT (depth 2, width
    64) on a 12/6-image fixture through `hbird_evaluation`, 'scann',
    'faiss', 'ivf' and 'ivf' on an f32 tree (every leaf probed), and
@@ -163,7 +192,8 @@ Phases; any failure raises and the script exits non-zero with no result:
    card and on the CPU from the same float bank (6,000 rows, D=64): the
    same codes and scales (anisotropic codes: at most ANISO_CODE_FLIPS of
    the rows may differ, near-tied losses) and the same neighbours (exact
-   int8 forms bit for bit; the others within RTOL); again at D = 1,536.
+   int8 forms bit for bit; the others within RTOL); again at D = 1,536 and
+   1,664.
 7. K1, K2 and K3 timed with CUDA events, each beside its bound, its plain
    version and a library yardstick the port never calls: K1 at the main
    path's shape (Q=21,904, M=87,616) and against a 1,024,000-row bank
@@ -172,8 +202,8 @@ Phases; any failure raises and the script exits non-zero with no result:
    int8 + reorder path's scan), asym_rows and asym (a bf16 matmul against
    the per-row or global codes widened once), l2 (torch.addmm with the
    bias), f32 (an f32 matmul, TF32 off; at k = 30 and 120) and f32 l2 on
-   both banks, each row with the kernel it ran (`route`: wgmma or
-   mma_scan) and f32's with its 3xTF32 bound (3 TF32 passes at the TF32
+   both banks, each row with the kernel it ran (`route`: wgmma at every
+   form and depth) and f32's with its 3xTF32 bound (3 TF32 passes at the TF32
    peak) beside its f32 FMA bound. The f32 forms take real f32 operands:
    the main path's f32 queries and f32 bank (the default 'faiss' run's),
    and the large bank's f32 rows, so the split's small parts are not 0 and
@@ -200,8 +230,8 @@ Phases; any failure raises and the script exits non-zero with no result:
    row prints its share of the bound (bound / ms) and its ratio to the
    library call. The select's load on the main path's bank: for K1
    int8 at k = 30 and 120, the share of (query, 128-row tile) pairs in
-   which the running top-k receives a score, walking the tiles in
-   mma_scan's order and in the wgmma kernel's partial sets, and for the
+   which the running top-k receives a score, walking the tiles in one
+   pass over the bank and in the wgmma kernel's partial sets, and for the
    partial sets what the batched select does: scores buffered per pair,
    merges and 32-score chunks merged per query and set. Then the
    ViT-B/14 forward per batch of 16 at 518: 'xla' and 'flash', f32 and
@@ -211,10 +241,12 @@ Phases; any failure raises and the script exits non-zero with no result:
    87,616 unit rows (their f32 values for the f32 forms), K1 bf16 dot, l2,
    int8 and int8_rows (k 30 and 120), asym, asym_rows, f32 (k 30 and 120)
    and f32 l2; K2 bf16, int8, int8_rows, asym, asym_rows on a tree of that
-   bank (32 of 512 leaves) and f32 on an f32 tree; then at D = 3,200
-   (DEEP_INT8_TIMING_DEPTH, streamed queries) K1 int8 and int8_rows (k 30
-   and 120) and K2 int8 and int8_rows; each row with its route, bound,
-   plain and library times and its check.
+   bank (32 of 512 leaves) and f32 on an f32 tree; then at D = 1,664,
+   2,048 and 3,200 (BF16_TIMING_DEPTHS, the bf16 queries streamed) K1 bf16
+   dot and l2 (query-chunked bf16 matmul + topk; addmm + topk) and K2 bf16
+   on such a tree, and at 3,200 (DEEP_INT8_TIMING_DEPTH, streamed queries)
+   K1 int8 and int8_rows (k 30 and 120) and K2 int8 and int8_rows; each row
+   with its route, bound, plain and library times and its check.
 8. The entry point and persistence, at phase 5's width and fixture:
    `hbird_tpu_torch.eval_cli.main` (what `python -m hbird_tpu_torch.eval_cli`
    runs) with --model dinov2_vitb14 --random-init --seed 0, 'scann', saving
@@ -339,7 +371,10 @@ codes); K2 bf16 and asym_rows (the slabs' per-row codes)
 at k = 30 on a tree the package builds of each bank (512 leaves, 32 probed
 per 256-query tile), and K2 f32 on an f32 tree of each bank's rows before
 their rounding to bf16, probed by the queries before theirs; then at D =
-1,280 and 1,536 (87,616 rows) K1 asym and asym_rows and K2 asym_rows.
+1,280 and 1,536 (87,616 rows) K1 asym and asym_rows and K2 asym_rows; then
+at each depth of BF16_PAIR_DEPTHS (1,024-3,200: both sides of the bf16
+edge and past it) K1 bf16 dot and l2 at k = 30 on 87,616 and 1,024,000 unit rows and
+K2 bf16 on a tree of each.
 Every K1 and K2 row carries its output's digest too. It prints one JSON
 line.
 Two trees are compared in one run on one card, each in its own
@@ -406,6 +441,11 @@ NARROW_ROUNDS = 15  # phase 7 and --pairs: K3 bf16 hd 32 and SDPA timed in turns
 FLASH_WIDE = (16, 16, 257, 80)  # mae_vith14 at 224, batch 16: K3 bf16 at hd 80
 WIDE_PRESET, WIDE_INPUT = "mae_vith14", 224  # phase 5's head-width-80 ViT (K3 bf16 at hd 80)
 GIANT_PRESET, GIANT_INPUT = "dinov2_vitg14", 518  # phase 5's 1,536-wide ViT (40 blocks, SwiGLU; K3 at hd 64)
+# Phase 5's 1,664-wide ViT: the configuration the port's converter reads
+# from the shapes of timm's vit_gigantic_patch14_clip_224 (patch 14, 48
+# blocks, an MLP of 8,192, input 224; 26 heads of 64), random weights.
+GIGANTIC_NAME, GIGANTIC_INPUT = "vit_gigantic_patch14_clip_224", 224
+GIGANTIC_SHAPE = {"patch": 14, "width": 1664, "depth": 48, "hidden": 8192, "img": 224}
 PAIR_Q, PAIR_M = 21904, 87616  # --pairs: the main path's eval batch and bank
 # --pairs, K1's wgmma forms: the engine's k, S = 2 and 3 keys a lane, faiss int8 + reorder's scan, the most
 PAIR_KS = (30, 64, 96, 120, 128)
@@ -424,6 +464,16 @@ DEEP_INT8_TIMING_DEPTH = 3200  # phase 7: K1 and K2 int8 with streamed queries a
 WIDE_CASE_Q, WIDE_CASE_M = 4096, 65_537
 S8_MAX_RESIDENT, DEEP_INT8_DEPTHS = 3072, (3088, 3200)
 ASYM_MAX_RESIDENT, ASYM_DEPTHS = 1152, (1168, 1280, 1536)
+# bf16 (K1 dot and l2, K2) keeps its queries resident up to
+# BF16_MAX_RESIDENT, the deepest where they fit, and streams them past it:
+# phases 2 and 3 check it at BF16_DEPTHS (1,544: a partial 64-element
+# chunk; 1,664: vit_gigantic_patch14_clip_224's width) and on both sides of
+# the edge; phase 7 times it at BF16_TIMING_DEPTHS; --pairs at
+# BF16_PAIR_DEPTHS on both banks (D = 768 is --pairs' main depth).
+BF16_MAX_RESIDENT = 1536
+BF16_DEPTHS = (1544, 1664, 2048, 3200)
+BF16_TIMING_DEPTHS = (1664, 2048, 3200)
+BF16_PAIR_DEPTHS = (1024, 1280, 1536, 1664, 2048, 3200)
 # The Hopper kernels: source -> the name their wgmma kernels carry (K1 and
 # K2 instantiate one template, wgmma_topk.cuh's topk_wgmma).
 WGMMA_KERNELS = {"knn_topk.cu": "topk_wgmma", "ivf_topk.cu": "topk_wgmma",
@@ -437,9 +487,14 @@ TF32_KERNEL = "flash_f32"  # K3 f32: 3xTF32 on mma.sync (HMMA, no wgmma)
 # two each; K2: F32 and Bf16 one, the int8 forms two); none may spill.
 WGMMA_FORMS = {
     "knn_topk.cu": {"INS_3F32E": 8, "INS_4AsymE": 8, "INS_8StreamedINS_4AsymEE": 8,
-                    "INS_8StreamedINS_2S8EE": 8},
-    "ivf_topk.cu": {"INS_3F32E": 4, "INS_8StreamedINS_4AsymEE": 8, "INS_8StreamedINS_2S8EE": 8},
+                    "INS_8StreamedINS_2S8EE": 8, "INS_8StreamedINS_4Bf16EE": 8},
+    "ivf_topk.cu": {"INS_3F32E": 4, "INS_8StreamedINS_4AsymEE": 8, "INS_8StreamedINS_2S8EE": 8,
+                    "INS_8StreamedINS_4Bf16EE": 4},
 }
+# Libraries with no mma.sync at all (HMMA, IMMA in their SASS): every K1 and
+# K2 form runs the wgmma kernel.
+NO_MMA_SYNC = ("knn_topk.cu", "ivf_topk.cu")
+SMEM_DEPTHS = range(8, 4097, 8)  # phase 1: K1 and K2 report shared memory for every form at each
 F32_FORM = "INS_3F32E"
 # K3's wgmma instances by head width, as mangled; none may spill.
 K3_WGMMA_WIDTHS = {"ILi32E": 32, "ILi64E": 64, "ILi80E": 80}
@@ -472,16 +527,22 @@ QUANT_RUNS = {
 # nn_method, nn_params, and the kernel and form that must launch once per
 # eval batch (the tree probes N_PROBE leaves, as phase 5's 'ivf').
 WIDE_QUANT_RUNS = {
-    "faiss int8 + reorder 120": ("faiss", {"use_int8": True, "num_reordering_candidates": 120},
+    "faiss int8 + reorder 120": ("faiss", {"use_int8": True, "num_reordering_candidates": 120}, False,
                                  ("knn_topk", "int8")),
-    "scann int8_rows": ("scann", {"quantization": "int8_rows"}, ("knn_topk", "int8_rows")),
-    "ivf int8_rows": ("ivf", {"quantization": "int8_rows", "num_leaves_to_search": N_PROBE},
+    "scann int8_rows": ("scann", {"quantization": "int8_rows"}, False, ("knn_topk", "int8_rows")),
+    "ivf int8_rows": ("ivf", {"quantization": "int8_rows", "num_leaves_to_search": N_PROBE}, False,
                       ("ivf_topk", "int8_rows")),
-    "faiss int8_asym": ("faiss", {"quantization": "int8_asym"}, ("knn_topk", "asym_rows")),
-    "scann-literal": ("ivf", QUANT_RUNS["scann-literal"][1], ("ivf_topk", "asym_rows")),
+    "faiss int8_asym": ("faiss", {"quantization": "int8_asym"}, False, ("knn_topk", "asym_rows")),
+    "scann-literal": ("ivf", QUANT_RUNS["scann-literal"][1], False, ("ivf_topk", "asym_rows")),
 }
 GIANT_QUANT_RUNS = {name: WIDE_QUANT_RUNS[name]
                     for name in ("scann int8_rows", "faiss int8 + reorder 120", "faiss int8_asym")}
+# The 1,664-wide ViT's bf16 runs beside its 'scann': K2 bf16 on a bf16 tree
+# at N_PROBE probes, K1 l2 on a bf16 bank.
+GIGANTIC_RUNS = {
+    "ivf": ("ivf", {"num_leaves_to_search": N_PROBE}, False, ("ivf_topk", "dot")),
+    "faiss l2": ("faiss", {"distance_measure": "l2"}, True, ("knn_topk", "l2")),
+}
 ANISO_CODE_FLIPS = 0.02  # rows whose anisotropic codes may differ between devices (near-tied losses)
 MESH_SHARDS = 4  # phase 9: bank shards of the mesh (stacked on one card, or distinct cards)
 
@@ -779,10 +840,7 @@ def kernel_cases(gen):
     q, b = data(1000, 4000, DEPTH, torch.bfloat16)
     errs.append(check_against_plain("bf16 valid_rows=20 < k=30", q, b, 30, 20))
     errs.append(check_against_plain("bf16 valid_rows=0", q, b, 8, 0))
-    # duplicated rows: 4 copies of 2,048 rows, queries are base rows
-    base = torch.nn.functional.normalize(torch.randn(2048, DEPTH, generator=gen, device=DEVICE), dim=1)
-    bank = base.repeat(4, 1).to(torch.bfloat16).contiguous()
-    qd = base[:1024].to(torch.bfloat16).contiguous()
+    bank, qd = duplicated_rows(DEPTH, gen)
     kv, ki = knn_topk(qd, bank, 30)
     errs.append(check_against_plain("bf16 duplicated rows (ties)", qd, bank, 30, bank.shape[0], (kv, ki)))
     check_tie_order(kv, ki, 2048, "duplicated rows")
@@ -953,8 +1011,6 @@ def wide_int8_knn_cases(gen):
         q8, codes = sharp_codes(WIDE_CASE_Q, d, gen), sharp_codes(WIDE_CASE_M, d, gen)
         rs = 0.25 + torch.rand(WIDE_CASE_M, generator=gen, device=DEVICE)
         route = _route("knn_topk.cu", "knn_topk", q8, codes)
-        if route not in ("wgmma", "plain"):
-            fail(f"K1 int8 at D = {d} routed to {route}")
         info[d] = {"route": route, "sharp_share": assert_sharp(f"K1 D={d}", q8, codes)}
         for form, r in (("int8", None), ("int8_rows", rs)):
             for k in INT8_KS:
@@ -991,8 +1047,6 @@ def wide_asym_knn_cases(gen):
         tq, tb = tie_dense(WIDE_CASE_Q, d, torch.bfloat16, gen), tie_dense(WIDE_CASE_M, d, torch.int8, gen)
         t_rs = 0.25 + torch.rand(WIDE_CASE_M, generator=gen, device=DEVICE)
         route = _route("knn_topk.cu", "knn_topk", q, codes)
-        if route not in ("wgmma", "plain"):
-            fail(f"K1 asym at D = {d} routed to {route}")
         info[d] = {"route": route}
         for form, bank, r, t_r in (("asym", codes_g, None, None), ("asym_rows", codes, scale.reshape(-1), t_rs)):
             for k in CHECK_KS:
@@ -1038,8 +1092,6 @@ def wide_int8_ivf_cases(gen):
         bank, rs, lids, lv = wide_slabs(d, lambda n, dd: sharp_codes(n, dd, gen), gen, cap=cap)
         q8 = sharp_codes(WIDE_CASE_Q, d, gen)
         route = _route("ivf_topk.cu", "ivf_topk", q8, bank)
-        if route not in ("wgmma", "plain"):
-            fail(f"K2 int8 at D = {d} routed to {route}")
         slot = torch.arange(bank.shape[0], device=DEVICE)
         info[d] = {"route": route, "sharp_share": assert_sharp(f"K2 D={d}", q8, bank[lv.long().repeat_interleave(
             cap) > slot % cap])}
@@ -1074,8 +1126,6 @@ def wide_asym_ivf_cases(gen):
                  ("tie-dense ", wide_slabs(d, lambda n, dd: tie_dense(n, dd, torch.int8, gen), gen, cap=cap),
                   tie_dense(WIDE_CASE_Q, d, torch.bfloat16, gen), True))
         route = _route("ivf_topk.cu", "ivf_topk", cases[0][2], cases[0][1][0])
-        if route not in ("wgmma", "plain"):
-            fail(f"K2 asym at D = {d} routed to {route}")
         info[d] = {"route": route}
         for kind, (bank, rs, lids, lv), q, exact in cases:
             for form, r in (("asym", None), ("asym_rows", rs)):
@@ -1086,6 +1136,87 @@ def wide_asym_ivf_cases(gen):
                         exact=exact))
         del cases
     info["smem"] = streamed_smem("ivf_topk.cu", "ivf_topk", 3, ASYM_MAX_RESIDENT, ASYM_DEPTHS)
+    return max(errs), info
+
+
+def bf16_edge_depths():
+    """Phases 2 and 3's bf16 depths: the last whose queries stay resident,
+    one 64-element chunk past it, and BF16_DEPTHS (all streamed)."""
+    return tuple(sorted({BF16_MAX_RESIDENT, BF16_MAX_RESIDENT + 64, *BF16_DEPTHS}))
+
+
+def duplicated_rows(d, gen):
+    """4 copies of 2,048 unit rows at depth d in bf16, and the first 1,024
+    rows as queries: every score tied 4 ways."""
+    base = torch.nn.functional.normalize(torch.randn(2048, d, generator=gen, device=DEVICE), dim=1)
+    return base.repeat(4, 1).to(torch.bfloat16).contiguous(), base[:1024].to(torch.bfloat16).contiguous()
+
+
+def wide_bf16_knn_cases(gen):
+    """Phase 2: K1 bf16 dot and l2 on both sides of the resident edge and
+    past it (bf16_edge_depths: the queries streamed in the ring past
+    BF16_MAX_RESIDENT), on the wgmma kernel (`route`), at every k of
+    CHECK_KS: WIDE_CASE_Q normal queries against WIDE_CASE_M rows of norms
+    0.5-2.0 (the last 537 invalid) at the stated tolerance; and at 1,664
+    the tie order on duplicated rows."""
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    valid = WIDE_CASE_M - 537
+    errs, info = [], {}
+    for d in bf16_edge_depths():
+        q = torch.randn(WIDE_CASE_Q, d, generator=gen, device=DEVICE).bfloat16().contiguous()
+        b = torch.nn.functional.normalize(torch.randn(WIDE_CASE_M, d, generator=gen, device=DEVICE), dim=1)
+        b = (b * (0.5 + 1.5 * torch.rand(WIDE_CASE_M, 1, generator=gen, device=DEVICE))).bfloat16().contiguous()
+        route = _route("knn_topk.cu", "knn_topk", q, b)
+        info[d] = {"route": route}
+        for form, distance in (("dot", "dot_product"), ("l2", "l2")):
+            for k in CHECK_KS:
+                errs.append(check_against_plain(f"bf16 {form} Q={WIDE_CASE_Q} M={WIDE_CASE_M} D={d} valid={valid} "
+                                                f"k={k} ({route})", q, b, k, valid, distance=distance))
+        del q, b
+    d = BF16_DEPTHS[1]
+    bank, qd = duplicated_rows(d, gen)
+    kv, ki = knn_topk(qd, bank, 30)
+    errs.append(check_against_plain(f"bf16 duplicated rows (ties) D={d}", qd, bank, 30, bank.shape[0], (kv, ki)))
+    check_tie_order(kv, ki, 2048, f"bf16 duplicated rows D={d}")
+    info["smem"] = streamed_smem("knn_topk.cu", "knn_topk", 1, BF16_MAX_RESIDENT,
+                                 tuple(d for d in bf16_edge_depths() if d > BF16_MAX_RESIDENT))
+    return max(errs), info
+
+
+def wide_bf16_ivf_cases(gen):
+    """Phase 3: K2 bf16 at bf16_edge_depths in `wide_slabs` (ragged, one
+    empty, one id out of range) on the wgmma kernel, at every k of
+    CHECK_KS: normal queries on unit rows at the stated tolerance; and at
+    1,664 the tie order on 4 slabs of the same rows probed out of slot
+    order."""
+    from hbird_tpu_torch.ops.ivf_cuda import ivf_topk
+
+    def unit_rows(n, d):
+        return torch.nn.functional.normalize(torch.randn(n, d, generator=gen, device=DEVICE), dim=1).bfloat16()
+
+    cap = 256
+    errs, info = [], {}
+    for d in bf16_edge_depths():
+        bank, _, lids, lv = wide_slabs(d, unit_rows, gen, cap=cap)
+        q = torch.randn(WIDE_CASE_Q, d, generator=gen, device=DEVICE).bfloat16().contiguous()
+        route = _route("ivf_topk.cu", "ivf_topk", q, bank)
+        info[d] = {"route": route}
+        for k in CHECK_KS:
+            errs.append(check_ivf_against_plain(
+                f"bf16 Q={q.shape[0]} {lv.shape[0]} slabs of cap {cap} D={d} k={k} n_probe={lids.shape[1]} "
+                f"({route})", q, bank, lids, lv, k, cap, BLOCK_Q))
+        del bank, q
+    d = BF16_DEPTHS[1]
+    dup, qd = duplicated_rows(d, gen)
+    dl = torch.tensor([[3, 1, 0, 2]] * 4, dtype=torch.int32, device=DEVICE)
+    dv = torch.full((4,), 2048, dtype=torch.int32, device=DEVICE)
+    kv, ki = ivf_topk(qd, dup, dl, dv, 30, cap=2048, block_q=256)
+    errs.append(check_ivf_against_plain(f"bf16 duplicated rows across slabs (ties) D={d}", qd, dup, dl, dv, 30, 2048,
+                                        256, (kv, ki)))
+    check_tie_order(kv, ki, 2048, f"bf16 duplicated slabs D={d}")
+    info["smem"] = streamed_smem("ivf_topk.cu", "ivf_topk", 1, BF16_MAX_RESIDENT,
+                                 tuple(d for d in bf16_edge_depths() if d > BF16_MAX_RESIDENT))
     return max(errs), info
 
 
@@ -1147,9 +1278,7 @@ def ivf_cases(gen):
                                         torch.zeros_like(lv), 8, cap, 128))
     errs.append(ivf_edge_cases("bf16", q.to(torch.bfloat16), bank, lv, cent, cap, None, False))
     # duplicated rows: 4 slabs holding the same 2,048 rows, every slab probed
-    base = torch.nn.functional.normalize(torch.randn(2048, DEPTH, generator=gen, device=DEVICE), dim=1)
-    dup = base.repeat(4, 1).to(torch.bfloat16).contiguous()
-    qd = base[:1024].to(torch.bfloat16).contiguous()
+    dup, qd = duplicated_rows(DEPTH, gen)
     dl = torch.tensor([[3, 1, 0, 2]] * 4, dtype=torch.int32, device=DEVICE)
     dv = torch.full((4,), 2048, dtype=torch.int32, device=DEVICE)
     kv, ki = ivf_topk(qd, dup, dl, dv, 30, cap=2048, block_q=256)
@@ -1363,6 +1492,14 @@ def sass_counts(sass):
     return per_fn
 
 
+def check_no_mma_sync(src, total):
+    """Phase 1: fails where a library of NO_MMA_SYNC (K1's, K2's) holds an
+    mma.sync instruction (HMMA or IMMA among its SASS counts `total`)."""
+    if src in NO_MMA_SYNC and (total["HMMA"] or total["IMMA"]):
+        fail(f"{src}: {total['HMMA']} HMMA and {total['IMMA']} IMMA instructions: a K1 or K2 form still runs "
+             "mma.sync")
+
+
 def build_report(libs):
     """Phase 1: what ptxas said of the Hopper kernels, the shared memory
     they ask for, and the SASS instructions of each library by cuobjdump
@@ -1421,21 +1558,28 @@ def build_report(libs):
         fail(f"a form on the wgmma kernels asks for no shared memory (another route): {smem}")
     print(f"  dynamic shared memory at D={DEPTH}: {json.dumps(smem)} B", flush=True)
     report["smem_bytes"] = smem
-    # past the resident queries' edge, asym and int8 stream theirs: a size at every depth
+    # past the resident queries' edge, bf16, asym and int8 stream theirs: a size at every depth
     deep = {f"{name} {form_name} D={d}": fn(d, form)
             for name, fn in (("K1", k1.knn_topk_wgmma_smem), ("K2", k2.ivf_topk_wgmma_smem))
-            for form, form_name, depths in ((3, "asym", (ASYM_MAX_RESIDENT,) + ASYM_DEPTHS),
+            for form, form_name, depths in ((1, "bf16", (BF16_MAX_RESIDENT, BF16_MAX_RESIDENT + 64) + BF16_DEPTHS),
+                                            (3, "asym", (ASYM_MAX_RESIDENT,) + ASYM_DEPTHS),
                                             (2, "int8", (S8_MAX_RESIDENT,) + DEEP_INT8_DEPTHS))
             for d in depths}
     if not all(deep.values()):
-        fail(f"asym or int8 asks for no shared memory at a depth: {deep}")
-    print(f"  dynamic shared memory of asym and int8 past their resident queries' edge: {json.dumps(deep)} B",
+        fail(f"bf16, asym or int8 asks for no shared memory at a depth: {deep}")
+    print(f"  dynamic shared memory of bf16, asym and int8 past their resident queries' edge: {json.dumps(deep)} B",
           flush=True)
     report["smem_bytes_deep"] = deep
+    # every form of K1 and K2 at every depth the wrappers take (a multiple of 8, of 16 with int8 codes)
+    none = [(name, form, d) for name, fn in (("K1", k1.knn_topk_wgmma_smem), ("K2", k2.ivf_topk_wgmma_smem))
+            for form in range(4) for d in SMEM_DEPTHS if (form < 2 or d % 16 == 0) and fn(d, form) <= 0]
+    if none:
+        fail(f"K1 or K2 reports no wgmma kernel for (kernel, form, depth): {none[:8]} ({len(none)} in all)")
+    print(f"  K1 and K2 report a wgmma kernel for every form at every depth {SMEM_DEPTHS.start}-"
+          f"{SMEM_DEPTHS.stop - 1} (a multiple of 8, 16 with int8 codes)", flush=True)
     tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path="/usr/local/cuda/bin")
     if tool is None:
-        print("  cuobjdump not found: SASS not counted", flush=True)
-        return report
+        fail("cuobjdump not found: the SASS of the K1 and K2 libraries cannot be checked for mma.sync")
     dumps = {src: subprocess.Popen([tool, "-sass", str(path)], stdout=subprocess.PIPE, text=True)
              for src, path in libs.items()}  # the three listings at once
     with ThreadPoolExecutor(len(dumps)) as pool:
@@ -1465,7 +1609,9 @@ def build_report(libs):
             if got != sorted(K3_WGMMA_WIDTHS.values()):
                 fail(f"{path.name}: wgmma kernels of head widths {got} in the SASS, not "
                      f"{sorted(K3_WGMMA_WIDTHS.values())}")
+        check_no_mma_sync(src, total)
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
+    print(f"  no HMMA or IMMA in {' or '.join(NO_MMA_SYNC)}'s library: every form on the wgmma kernel", flush=True)
     return report
 
 
@@ -1937,24 +2083,57 @@ def _set_attention(vit, impl):
     return vit
 
 
+def gigantic_shapes(g=None):
+    """The shapes of timm's vit_gigantic_patch14_clip_224 state dict that
+    the converters read (`g`, GIGANTIC_SHAPE by default; no weights)."""
+    import types
+
+    g = g or GIGANTIC_SHAPE
+    shape = lambda *dims: types.SimpleNamespace(shape=dims)  # noqa: E731
+    grid = g["img"] // g["patch"]
+    sd = {"patch_embed.proj.weight": shape(g["width"], 3, g["patch"], g["patch"]),
+          "pos_embed": shape(1, grid * grid + 1, g["width"]), "cls_token": shape(1, 1, g["width"])}
+    for i in range(g["depth"]):
+        sd[f"blocks.{i}.attn.qkv.weight"] = shape(3 * g["width"], g["width"])
+        sd[f"blocks.{i}.attn.qkv.bias"] = shape(3 * g["width"])
+        sd[f"blocks.{i}.mlp.fc1.weight"] = shape(g["hidden"], g["width"])
+        sd[f"blocks.{i}.mlp.fc2.weight"] = shape(g["width"], g["hidden"])
+    return sd
+
+
+def gigantic_config():
+    """The ViTConfig the port's converter (`infer_config_from_timm_sd`)
+    reads from gigantic_shapes (no weights, no download)."""
+    from hbird_tpu_torch.models.convert import infer_config_from_timm_sd
+
+    return infer_config_from_timm_sd(gigantic_shapes())
+
+
 def flash_path(gen_seed):
     """Phase 5, the flash path: hbird_evaluation with attention_impl='flash'
     against 'xla', the tokens of both on one val batch, and K3 on that
     batch's block-0 q, k, v; at PRESET (head width 64) with the ViT in bf16
     and in f32, and in bf16 at NARROW_PRESET (head width 32, K3 bf16 at hd
     32), WIDE_PRESET (head width 80, K3 bf16 at hd 80, with the int8 runs
-    of WIDE_QUANT_RUNS on its 1,280-wide bank) and GIANT_PRESET ('flash'
-    alone, with GIANT_QUANT_RUNS on its 1,536-wide bank). Returns the runs,
-    the launches by run, the token errors and K3's worst error."""
+    of WIDE_QUANT_RUNS on its 1,280-wide bank), GIANT_PRESET ('flash'
+    alone, with GIANT_QUANT_RUNS on its 1,536-wide bank) and the 1,664-wide
+    gigantic_config (with GIGANTIC_RUNS: K1 dot, K2 bf16 and K1 l2 with
+    the queries streamed). Returns the runs, the launches by run, the
+    token errors and K3's worst error."""
+    from hbird_tpu_torch.models import VIT_PRESETS
+
     runs, launches, token_err, err = {}, {}, {}, 0.0
-    for preset, input_size, dtypes, prefix, impls, quant_runs in (
-            (PRESET, INPUT, ("bf16", "f32"), "", ("flash", "xla"), {}),
-            (NARROW_PRESET, NARROW_INPUT, ("bf16",), f"{NARROW_PRESET} at {NARROW_INPUT}, ", ("flash", "xla"), {}),
-            (WIDE_PRESET, WIDE_INPUT, ("bf16",), f"{WIDE_PRESET} at {WIDE_INPUT}, ", ("flash", "xla"),
+    for cfg, input_size, dtypes, prefix, impls, quant_runs in (
+            (VIT_PRESETS[PRESET], INPUT, ("bf16", "f32"), "", ("flash", "xla"), {}),
+            (VIT_PRESETS[NARROW_PRESET], NARROW_INPUT, ("bf16",), f"{NARROW_PRESET} at {NARROW_INPUT}, ",
+             ("flash", "xla"), {}),
+            (VIT_PRESETS[WIDE_PRESET], WIDE_INPUT, ("bf16",), f"{WIDE_PRESET} at {WIDE_INPUT}, ", ("flash", "xla"),
              WIDE_QUANT_RUNS),
-            (GIANT_PRESET, GIANT_INPUT, ("bf16",), f"{GIANT_PRESET} at {GIANT_INPUT}, ", ("flash",),
-             GIANT_QUANT_RUNS)):
-        r, n, t, e = _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs)
+            (VIT_PRESETS[GIANT_PRESET], GIANT_INPUT, ("bf16",), f"{GIANT_PRESET} at {GIANT_INPUT}, ", ("flash",),
+             GIANT_QUANT_RUNS),
+            (gigantic_config(), GIGANTIC_INPUT, ("bf16",), f"{GIGANTIC_NAME} at {GIGANTIC_INPUT}, ",
+             ("flash", "xla"), GIGANTIC_RUNS)):
+        r, n, t, e = _flash_runs(gen_seed, cfg, input_size, dtypes, prefix, impls, quant_runs)
         runs.update(r)
         launches.update(n)
         token_err.update(t)
@@ -1962,15 +2141,15 @@ def flash_path(gen_seed):
     return runs, launches, token_err, err
 
 
-def _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs):
-    """flash_path at one preset and input size, in `dtypes`, the engine run
-    with each attention of `impls`; labels begin with `prefix`. One ViT is
-    initialised on the host (its seconds printed) and switched between
-    attentions. Then, in bf16 on 'flash', each run of `quant_runs` and its
-    recall (_quant_engine_runs)."""
+def _flash_runs(gen_seed, cfg, input_size, dtypes, prefix, impls, quant_runs):
+    """flash_path at one ViT configuration and input size, in `dtypes`, the
+    engine run with each attention of `impls`; labels begin with `prefix`.
+    One ViT is initialised on the host (its seconds printed) and switched
+    between attentions. Then, in bf16 on 'flash', each run of `quant_runs`
+    and its recall, and the 'scann' run's (_quant_engine_runs)."""
     from hbird_tpu_torch import hbird_evaluation
     from hbird_tpu_torch.data.synthetic import make_voc_fixture
-    from hbird_tpu_torch.models import VIT_PRESETS, FeatureExtractor, ViT
+    from hbird_tpu_torch.models import FeatureExtractor, ViT
     from hbird_tpu_torch.models.vit import _layer_norm, _linear
     from hbird_tpu_torch.ops.flash import flash_attention_plain
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
@@ -1978,12 +2157,13 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs)
     from hbird_tpu_torch.ops.knn_cuda import knn_topk
     from hbird_tpu_torch.utils.profiling import PhaseTimer
 
-    cfg = VIT_PRESETS[preset]
     t0 = time.perf_counter()
     vit = ViT(cfg, generator=torch.Generator().manual_seed(gen_seed))
     n_params = sum(p.numel() for p in vit.parameters())
-    print(f"  {prefix}a ViT of {n_params / 1e6:.1f}M parameters ({cfg.depth} blocks, width {cfg.width}) "
-          f"initialised on the host in {time.perf_counter() - t0:.2f}s", flush=True)
+    init_s = time.perf_counter() - t0
+    print(f"  {prefix}a ViT of {n_params / 1e6:.1f}M parameters ({cfg.depth} blocks, width {cfg.width}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, MLP {cfg.mlp_hidden}) initialised on the host in {init_s:.2f}s",
+          flush=True)
     if cfg.layerscale:
         # At its 1e-5 init LayerScale leaves the blocks almost silent: the
         # tokens of any attention would then agree to 1e-10. At 0.05 the
@@ -2026,7 +2206,7 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs)
                 launches[f"{prefix}{dt} {impl}"] = n
                 mious[impl] = miou
                 runs[label] = {"miou": miou, "launches": n, "forms": forms, "wall_s": wall,
-                               "phases": timer.summary()}
+                               "phases": timer.summary(), "D": cfg.width, "host_init_s": init_s}
                 print(f"  {label}: mIoU {miou:.6f}, launches {json.dumps(n)} (K3 expected {expected} = "
                       f"{cfg.depth} blocks x {n_batches} forward batches), wall {wall:.2f}s, "
                       f"phases {json.dumps(timer.summary())}", flush=True)
@@ -2035,9 +2215,11 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs)
                   flush=True)
         _set_attention(vit, "flash")
         if quant_runs:
-            r, n = _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters, expected)
+            r, n, scann_recall = _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters,
+                                                    expected)
             runs.update(r)
             launches.update(n)
+            runs[f"scann unbounded, {prefix}bf16 ViT, attention_impl='flash'"].update(scann_recall)
         imgs = _val_batch(root, input_size)
 
     token_err = {}
@@ -2089,11 +2271,12 @@ def _flash_runs(gen_seed, preset, input_size, dtypes, prefix, impls, quant_runs)
 
 def _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters, expected):
     """Phase 5 on a wide bank: hbird_evaluation with the bf16 'flash' ViT
-    `vit` and each run of `quant_runs` (nn_method, nn_params, (kernel,
-    form)), K3 launching `expected` times and the run's K1 or K2 form once
-    per eval batch, nothing else; then each backend, built on the run's
-    bank, and its recall@30 against K1's exact bf16 neighbours for one eval
-    batch, by ids and by score. Returns (runs, launches by run)."""
+    `vit` and each run of `quant_runs` (nn_method, nn_params, bf16_bank,
+    (kernel, form)), K3 launching `expected` times and the run's K1 or K2
+    form once per eval batch, nothing else; then each backend, and the
+    'scann' run's, built on the run's bank, and its recall@30 against K1's
+    exact bf16 neighbours for one eval batch, by ids and by score. Returns
+    (runs, launches by run, the 'scann' backend's recall)."""
     from hbird_tpu_torch import HbirdEvaluation, hbird_evaluation
     from hbird_tpu_torch.data import get_dataset
     from hbird_tpu_torch.data.transforms import get_hbird_train_transforms
@@ -2105,14 +2288,14 @@ def _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters,
     common = dict(batch_size=BATCH, input_size=input_size, n_neighbours=30, num_workers=0, device=DEVICE,
                   bf16_model=True)
     runs, launches = {}, {}
-    for name, (method, params, (kernel, form)) in quant_runs.items():
+    for name, (method, params, bf16_bank, (kernel, form)) in quant_runs.items():
         label = f"{name}, {prefix}bf16 ViT, attention_impl='flash'"
         timer = PhaseTimer()
         random.seed(0)
         reset_counts(counters)
         t0 = time.perf_counter()
         miou = hbird_evaluation(vit, cfg.width, cfg.patch_size, "voc", root, nn_method=method,
-                                nn_params=dict(params), timer=timer, **common)
+                                nn_params=dict(params), bf16_bank=bf16_bank, timer=timer, **common)
         wall = time.perf_counter() - t0
         n = {c: fn.launches for c, fn in counters.items()}
         forms = read_forms(counters)
@@ -2122,10 +2305,11 @@ def _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters,
         if not (0.0 <= miou <= 1.0):
             fail(f"{label}: mIoU {miou} not a finite value in [0, 1]")
         launches[f"{prefix}bf16 {name}"] = n
-        runs[label] = {"nn_method": method, "nn_params": params, "miou": miou, "launches": n, "forms": forms,
-                       "wall_s": wall, "phases": timer.summary(), "D": cfg.width}
-        print(f"  {label} ({method}, {json.dumps(params)}): mIoU {miou:.6f}, launches by form "
-              f"{json.dumps(forms)}, wall {wall:.2f}s, phases {json.dumps(timer.summary())}", flush=True)
+        runs[label] = {"nn_method": method, "nn_params": params, "bf16_bank": bf16_bank, "miou": miou,
+                       "launches": n, "forms": forms, "wall_s": wall, "phases": timer.summary(), "D": cfg.width}
+        print(f"  {label} ({method}, {json.dumps(params)}{', bf16 bank' if bf16_bank else ''}): mIoU {miou:.6f}, "
+              f"launches by form {json.dumps(forms)}, wall {wall:.2f}s, phases {json.dumps(timer.summary())}",
+              flush=True)
     # The runs' bank and one eval batch of queries, as the engine builds them.
     tr = get_hbird_train_transforms(input_size, device_normalize=True)
     ds, _ = get_dataset("voc", root, BATCH, 0, tr, tr)
@@ -2139,19 +2323,21 @@ def _quant_engine_runs(vit, cfg, input_size, root, quant_runs, prefix, counters,
     bank = ev.feature_memory.to(torch.bfloat16).contiguous()
     q = qf.to(torch.bfloat16).contiguous()
     flat_vals, flat_idx = knn_topk(q, bank, 30)
-    for name, (method, params, _) in quant_runs.items():
+    scann_recall = {}
+    for name, (method, params, bf16_bank, _) in {"scann": ("scann", {}, False, None), **quant_runs}.items():
+        ev.bf16_bank = bf16_bank
         ev._create_nn(30, method, **params)
         nn = ev.NN_algorithm
         _, idx, _ = nn.search_with_labels_pure(nn.device_state, qf, 30, **ev._search_opts)
         r = (idx[:, :, None] == flat_idx[:, None, :]).any(2).float().mean().item()
         rs = score_recall(idx, q, bank, flat_vals[:, -1])
-        run = runs[f"{name}, {prefix}bf16 ViT, attention_impl='flash'"]
+        run = scann_recall if name == "scann" else runs[f"{name}, {prefix}bf16 ViT, attention_impl='flash'"]
         run.update(recall_at_30_vs_k1_bf16=r, score_recall_at_30_vs_k1_bf16=rs)
         print(f"  recall@30 of {name} ({prefix}bank {tuple(bank.shape)}) against K1's exact bf16 neighbours: "
               f"{r:.4f} by ids, {rs:.4f} by score", flush=True)
         del nn
     del ev, bank
-    return runs, launches
+    return runs, launches, scann_recall
 
 
 def card_vs_cpu():
@@ -2532,7 +2718,7 @@ def k1_select_rows(q, bank, chunk=2048):
     """Phase 7: the select's load on the main path's bank, K1 int8 (global
     codes) at k = 30 and 120: the share of (query, tile) pairs with a score
     above the running k-th, for one set per query over the whole bank in
-    order (mma_scan) and for the wgmma kernel's partial sets (per bank
+    order (one pass, no splits) and for the wgmma kernel's partial sets (per bank
     split of its plan, consumer w taking tiles w, w + 2, ...; without the
     minimum the sets share, so an upper bound for them)."""
     from hbird_tpu_torch.ops import knn_cuda
@@ -2547,7 +2733,7 @@ def k1_select_rows(q, bank, chunk=2048):
     for k in INT8_KS:
         split_rows, splits = knn_cuda.plan_splits(q8.shape[0], m, n_sm, k)
         per = split_rows // 128
-        orders = {"one set over the bank (mma_scan)": [list(range(tiles))],
+        orders = {"one set over the bank": [list(range(tiles))],
                   f"wgmma partial sets ({splits} splits x 2)": [
                       list(range(s * per + w, min(tiles, (s + 1) * per), 2))
                       for s in range(splits) for w in range(2)]}
@@ -2774,36 +2960,40 @@ def wide_timing(gen):
     and 120 on 3xTF32, f32 l2, asym, asym_rows, l2); K2 bf16 on a tree of
     the bank (its defaults: 512 leaves, N_PROBE probed a 256-query tile),
     its int8, int8_rows, asym and asym_rows forms on that tree's slabs and
-    f32 on an f32 tree of the f32 rows. Then at DEEP_INT8_TIMING_DEPTH (the
-    int8 queries streamed in the ring) K1 and K2 int8 and int8_rows alone.
-    Each row with its route, bound, plain and library times, and its check
-    against the plain version."""
+    f32 on an f32 tree of the f32 rows. At BF16_TIMING_DEPTHS (the bf16
+    queries streamed in the ring) K1 bf16 dot and l2 and K2 bf16, and at
+    DEEP_INT8_TIMING_DEPTH (the int8 queries streamed) K1 and K2 int8 and
+    int8_rows. Each row with its route, bound, plain and library times, and
+    its check against the plain version."""
     from hbird_tpu_torch.nn import NearestNeighborSearchApprox
     from hbird_tpu_torch.ops.ivf import tile_probe_inputs
 
     k, reps = 30, 3
     k1_rows, k2_rows, errs = {}, {}, {"K1": 0.0, "K2": 0.0}
     int8_forms = ("int8", "int8_rows")
-    for d in WIDE_TIMING_DEPTHS + (DEEP_INT8_TIMING_DEPTH,):
-        label, deep = f"D={d}", d == DEEP_INT8_TIMING_DEPTH
+    for d in sorted({*WIDE_TIMING_DEPTHS, *BF16_TIMING_DEPTHS, DEEP_INT8_TIMING_DEPTH}):
+        label, every = f"D={d}", d in WIDE_TIMING_DEPTHS
+        bf16, int8 = every or d in BF16_TIMING_DEPTHS, every or d == DEEP_INT8_TIMING_DEPTH
         q32 = torch.randn(PAIR_Q, d, generator=gen, device=DEVICE)
         b32 = torch.nn.functional.normalize(torch.randn(PAIR_M, d, generator=gen, device=DEVICE), dim=1)
         q, bb = q32.to(torch.bfloat16), b32.to(torch.bfloat16)
-        if not deep:
+        if bf16:
             k1_dot_row(q, bb, label, k, reps, k1_rows, errs)
-        k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs, only=int8_forms if deep else None)
+        k1_forms = None if every else (int8_forms if int8 else ()) + (("l2",) if bf16 else ())
+        k1_form_rows(q, bb, q32, b32, label, k, reps, k1_rows, errs, only=k1_forms)
         t0 = time.perf_counter()
         tree = NearestNeighborSearchApprox(bb, n_neighbors=k, use_tree=True, device=DEVICE)
         sync()
         print(f"  tree of the {label} bank: {tree._n_leaves} leaves, cap {tree._cap}, built in "
               f"{time.perf_counter() - t0:.2f}s", flush=True)
         qp, lids, _ = tile_probe_inputs(q, tree.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
-        if not deep:
+        if bf16:
             k2_dot_row(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs)
-        k2_form_rows(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs,
-                     only=int8_forms if deep else None)
+        if int8:
+            k2_form_rows(qp, lids, tree.bank, tree.leaf_valid, tree._cap, label, k, reps, k2_rows, errs,
+                         only=None if every else int8_forms)
         del tree, qp, lids, q, bb
-        if not deep:
+        if every:
             k2_f32_row(*f32_tree(b32, q32), label, k, reps, k2_rows, errs)
         del q32, b32
     return k1_rows, k2_rows, errs
@@ -2937,7 +3127,8 @@ def pairs(tree):
     """--pairs: the Hopper-redesigned kernels of the imported package (K3
     bf16 and f32, K1 bf16 dot and l2, int8, int8_rows, f32, asym and
     asym_rows, K2 bf16, asym_rows and f32; K1 asym and asym_rows and K2
-    asym_rows on the wide banks) timed alone by CUDA events, each beside
+    asym_rows on the wide banks; K1 bf16 dot and l2 and K2 bf16 at
+    BF16_PAIR_DEPTHS on both banks) timed alone by CUDA events, each beside
     its bound and its library call, with its output's digest; returns the
     JSON-ready result."""
     import hbird_tpu_torch
@@ -3010,6 +3201,7 @@ def pairs(tree):
         del bank, bank_f32
     del q, q_f32, q8
     pairs_wide(record)
+    pairs_bf16_wide(record)
     pairs_turns(record, FLASH_NARROW)
     pairs_turns(record, FLASH_WIDE)
     return out
@@ -3053,6 +3245,34 @@ def pairs_wide(record, reps=3):
         del q, bank
 
 
+def pairs_bf16_wide(record, reps=3):
+    """--pairs, bf16 past D = 768: at each depth of BF16_PAIR_DEPTHS (both
+    sides of BF16_MAX_RESIDENT, and past the depth whose queries fit at
+    all), PAIR_Q normal queries against PAIR_M and BIG_M unit rows, K1 bf16
+    dot and l2 at k = 30 and K2 bf16 on a tree of each bank (pairs_k2's),
+    each with its bound, library call and digest."""
+    from hbird_tpu_torch.ops.knn import l2_bias
+    from hbird_tpu_torch.ops.knn_cuda import knn_topk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    k = PAIR_KS[0]
+    for d in BF16_PAIR_DEPTHS:
+        q = torch.randn(PAIR_Q, d, generator=gen, device=DEVICE).bfloat16()
+        for m in (PAIR_M, BIG_M):
+            bank = torch.nn.functional.normalize(torch.randn(m, d, generator=gen, device=DEVICE), dim=1).bfloat16()
+            neg_bias = (-l2_bias(bank)).bfloat16()
+            r = reps if m < 200_000 else 2
+            for form, kw, nb in (("dot", {}, None), ("l2", {"distance": "l2"}, neg_bias)):
+                ms = cuda_ms(lambda: knn_topk(q, bank, k, **kw), r)
+                lib = cuda_ms(lambda: k1_library(q, bank, k, nb), r)
+                record("k1", f"bf16 {form} Q={PAIR_Q} M={m} D={d} k={k}", ms,
+                       bound_ms(PAIR_Q, m, d, k, 2, PEAK_BF16_FLOPS), lib, digest=digest(knn_topk(q, bank, k, **kw)))
+            del neg_bias
+            pairs_k2(q, bank, None, None, f"M={m} D={d}", record, r, forms=("bf16",))
+            del bank
+        del q
+
+
 def pairs_turns(record, shape):
     """--pairs, K3 bf16 at a short `shape` (FLASH_NARROW, FLASH_WIDE) and
     SDPA in NARROW_ROUNDS turns, each timed host-launched and in one CUDA
@@ -3092,20 +3312,21 @@ def pairs_k2(q, bank, q32, bank32, label, record, reps, forms=("bf16", "asym_row
     tb, lv, cap = tree.bank, tree.leaf_valid, tree._cap
     qp, lids, _ = tile_probe_inputs(q, tree.centroids, n_probe=N_PROBE, block_q=BLOCK_Q)
     del tree
-    codes, scale = quantize_bank_int8(tb, per_row=True)
-    slot = torch.arange(tb.shape[0], device=tb.device)
-    rs = torch.where(slot % cap < lv.long().repeat_interleave(cap), scale.reshape(-1), 0.0)
+    runs = [("bf16", tb, None, 2)] if "bf16" in forms else []
+    if "asym_rows" in forms:
+        codes, scale = quantize_bank_int8(tb, per_row=True)
+        slot = torch.arange(tb.shape[0], device=tb.device)
+        runs.append(("asym_rows", codes, torch.where(slot % cap < lv.long().repeat_interleave(cap),
+                                                     scale.reshape(-1), 0.0), 1))
     shape = f"Q={qp.shape[0]} slots={tb.shape[0]} cap={cap} n_probe={N_PROBE}"
-    for form, b, r, bank_bytes in (("bf16", tb, None, 2), ("asym_rows", codes, rs, 1)):
-        if form not in forms:
-            continue
+    for form, b, r, bank_bytes in runs:
         bound = ivf_bound_ms(qp.shape[0], lids, lv, d, k, 2, PEAK_BF16_FLOPS,
                              bank_bytes=bank_bytes, row_bytes=0 if r is None else 4)
         ms = cuda_ms(lambda: ivf_topk(qp, b, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r), reps)
         lib = cuda_ms(lambda: ivf_library(qp, b, lids, lv, k, cap, BLOCK_Q, row_scale=r), reps)
         record("k2", f"{form} {label} {shape}", ms, bound, lib,
                digest=digest(ivf_topk(qp, b, lids, lv, k, cap=cap, block_q=BLOCK_Q, row_scale=r)))
-    del qp, lids, tb, codes, rs
+    del qp, lids, tb, runs
     if "f32" not in forms:
         return
     qp, lids, tb, lv, cap = f32_tree(bank32, q32)
@@ -3935,14 +4156,16 @@ def main(argv=()):
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phase("[2] K1 vs plain version")
+    err_bf16_k1, bf16_k1 = wide_bf16_knn_cases(gen)
     err_wide_k1, wide_k1 = wide_int8_knn_cases(gen)
     err_asym_k1, asym_k1 = wide_asym_knn_cases(gen)
-    err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen), err_wide_k1, err_asym_k1)
+    err_k1 = max(kernel_cases(gen), quantized_kernel_cases(gen), err_bf16_k1, err_wide_k1, err_asym_k1)
 
     phase("[3] K2 vs plain version")
+    err_bf16_k2, bf16_k2 = wide_bf16_ivf_cases(gen)
     err_wide_k2, wide_k2 = wide_int8_ivf_cases(gen)
     err_asym_k2, asym_k2 = wide_asym_ivf_cases(gen)
-    err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen), err_wide_k2, err_asym_k2)
+    err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen), err_bf16_k2, err_wide_k2, err_asym_k2)
 
     phase("[4] K3 vs plain version")
     err_k3 = flash_cases(gen)
@@ -3956,7 +4179,7 @@ def main(argv=()):
 
     phase("[6] the card against the CPU, small input")
     small = card_vs_cpu()
-    backends = {f"D={d}": backends_card_vs_cpu(d) for d in (64, WIDE_DEPTHS[-1])}
+    backends = {f"D={d}": backends_card_vs_cpu(d) for d in (64, WIDE_DEPTHS[-1], GIGANTIC_SHAPE["width"])}
 
     phase(f"[7] K1, K2 and K3 timing; the forward ({card})")
     k1_rows, k2_rows, err_timing = timing(q, bank, main_tree, f32, gen)
@@ -4027,6 +4250,7 @@ def main(argv=()):
                      max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
     ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
+        "wide_bf16_checks": {"K1": bf16_k1, "K2": bf16_k2},
         "wide_int8_checks": {"K1": wide_k1, "K2": wide_k2}, "wide_asym_checks": {"K1": asym_k1, "K2": asym_k2},
         "hopper_build": build, "persistence": persistence, "native_feed": feed, "mesh_k1": mesh_rows,
         "mesh_k1_process_group": group_rows,

@@ -116,9 +116,17 @@
 
 #include "hopper.cuh"
 #include "tf32.cuh"
-#include "topk_common.cuh"  // cp_async16, allow_smem, neg_inf, FULL
+#include "topk_common.cuh"  // allow_smem, neg_inf, FULL
 
 namespace {
+
+// 16-byte async copy (K3 f32's cp.async ring); src_bytes = 0 zero-fills the
+// destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes));
+}
 
 constexpr int FQ = 64;  // queries per CTA (f32)
 constexpr int FK = 64;  // keys per tile (f32)

@@ -23,21 +23,19 @@
 // 256 flops per byte, under the ~295 at which the card stops being memory
 // bound; the four 64-query items of a tile read the same slabs, mostly from
 // L2. f32 slabs move twice the bytes and take three TF32 passes.
-// f32 (3xTF32: each operand split into TF32 big and small parts,
-// tf32.cuh), bf16, int8 (with or without row scales) and bf16 queries on
-// int8 codes (asym, asym_rows: the reference's ScaNN searcher) run
-// wgmma_topk.cuh's kernel (topk_wgmma<F, S, E, Slabs>), K1's: persistent
-// CTAs over (probe split, 64-query tile) items, the queries resident where
-// they fit and else streamed beside each slab chunk (f32 always; int8 past
-// D = 3,072, asym past 1,152: every depth fits), the slab tiles by TMA from
-// one 2-D tensor map over the leaf-contiguous bank (a tile is the box at
-// row s·cap + m0), two consumer warpgroups on wgmma, the batched select in
+// Every form, f32 (3xTF32: each operand split into TF32 big and small
+// parts, tf32.cuh), bf16, int8 (with or without row scales) and bf16
+// queries on int8 codes (asym, asym_rows: the reference's ScaNN searcher),
+// runs wgmma_topk.cuh's kernel (topk_wgmma<F, S, E, Slabs>), K1's, at every
+// depth: persistent CTAs over (probe split, 64-query tile) items, the
+// queries resident where they fit and else streamed beside each slab
+// chunk (f32 always; bf16 past D = 1,536, int8 past 3,072, asym past
+// 1,152: every depth fits), the slab tiles by TMA from one
+// 2-D tensor map over the leaf-contiguous bank (a tile is the box at row
+// s·cap + m0), two consumer warpgroups on wgmma, the batched select in
 // registers and global scratch, the partial sets merged in a second pass.
 // asym's codes are widened to bf16 in shared memory by the consumers
-// (exact), so its wgmma and select are bf16's. bf16 wider than the kernel's
-// shared memory (D > 1,536) runs topk_common.cuh's mma_scan (one CTA of 256
-// threads per 64 queries, a two-stage cp.async ring whose prefetch runs
-// across slab boundaries).
+// (exact), so its wgmma and select are bf16's.
 // Returned ids are IVF slot ids, sorted by value descending, then slot
 // ascending; unfilled slots are (-inf, 0). Probed slabs do not arrive in slot
 // order, so an equal score in a later slab may carry a lower slot: the 64-bit
@@ -77,37 +75,12 @@ struct SlabWalk {
   }
   __device__ __forceinline__ bool done() const { return p >= n_probe; }
   __device__ __forceinline__ void next() {
-    m0 += BM;
+    m0 += wg::BMH;
     if (m0 >= valid) seek(p + 1);
   }
-  __device__ __forceinline__ int row0() const { return base + m0; }     // tile's first bank row
-  __device__ __forceinline__ int row_end() const { return base + valid; }  // slab's end
+  __device__ __forceinline__ int row0() const { return base + m0; }  // tile's first bank row
   __device__ __forceinline__ int n_cols() const { return valid - m0; }  // valid columns
 };
-
-__device__ __forceinline__ SlabWalk start_walk(const int* leaf_ids, const int* leaf_valid,
-                                               int n_slabs, int cap, int block_q,
-                                               int n_probe) {
-  const int tile = blockIdx.x * BQ / block_q;
-  SlabWalk w{leaf_ids + static_cast<size_t>(tile) * n_probe, leaf_valid, n_probe, n_slabs, cap};
-  w.seek(0);
-  return w;
-}
-
-template <class F, int S>
-__global__ void __launch_bounds__(THREADS)
-    ivf_topk_mma(const typename F::TQ* __restrict__ q, const typename F::TB* __restrict__ bank,
-                 const float* __restrict__ scale, const int* __restrict__ leaf_ids,
-                 const int* __restrict__ leaf_valid, float* __restrict__ out_vals,
-                 long long* __restrict__ out_idx, int nq, int n_slabs, int cap, int d, int block_q,
-                 int n_probe, int k) {
-  const int q0 = blockIdx.x * BQ;
-  TopK<S> top;
-  top.init();
-  mma_scan<F, S>(q, bank, scale, nullptr, q0, nq, d,
-                 start_walk(leaf_ids, leaf_valid, n_slabs, cap, block_q, n_probe), top);
-  top.emit(out_vals, out_idx, q0, nq, k, threadIdx.x >> 5, threadIdx.x & 31);
-}
 
 // The wgmma kernel's items (wgmma_topk.cuh): (probe split, 64-query tile),
 // split-major, so the four items of a 256-query tile run side by side and
@@ -147,18 +120,18 @@ int launch_wgmma(const void* q, const void* bank, const float* scale, const void
                              n_slabs * cap, d, k, items, stream);
 }
 
-// Int8 form F (row scales when `scale` is given) with its queries resident
-// where they fit, else streamed.
-template <class F, int S>
+// Form F with the epilogue E (its row scales `scale`, when given) and its
+// queries resident where they fit, else streamed.
+template <class F, int S, wg::Epi E>
 int launch_fit(const void* q, const void* bank, const float* scale, const void* leaf_ids,
                const void* leaf_valid, void* out_vals, void* out_idx, void* parts, void* thr,
                void* work, int work_ctas, int nq, int n_slabs, int cap, int d, int block_q,
                int n_probe, int k, int probe_splits, cudaStream_t stream) {
   if (wg::smem_at<F>(d) > 0)
-    return launch_wgmma<F, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx,
-                                         parts, thr, work, work_ctas, nq, n_slabs, cap, d,
-                                         block_q, n_probe, k, probe_splits, stream);
-  return launch_wgmma<wg::Streamed<F>, S, wg::SCALE>(
+    return launch_wgmma<F, S, E>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, parts,
+                                 thr, work, work_ctas, nq, n_slabs, cap, d, block_q, n_probe, k,
+                                 probe_splits, stream);
+  return launch_wgmma<wg::Streamed<F>, S, E>(
       q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, parts, thr, work, work_ctas, nq,
       n_slabs, cap, d, block_q, n_probe, k, probe_splits, stream);
 }
@@ -175,28 +148,17 @@ int launch(const void* q, const void* bank, const float* scale, const void* leaf
                                                  nq, n_slabs, cap, d, block_q, n_probe, k,
                                                  probe_splits, stream);
     case 1:
-      if (wg::smem_at<wg::Bf16>(d) == 0) {  // the queries do not fit: mma_scan
-        const cudaError_t e = allow_smem(ivf_topk_mma<FormBf16, S>, Ring<FormBf16>::SMEM);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        ivf_topk_mma<FormBf16, S><<<nq / BQ, THREADS, Ring<FormBf16>::SMEM, stream>>>(
-            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(bank), scale,
-            static_cast<const int*>(leaf_ids), static_cast<const int*>(leaf_valid),
-            static_cast<float*>(out_vals), static_cast<long long*>(out_idx), nq, n_slabs, cap, d,
-            block_q, n_probe, k);
-        return static_cast<int>(cudaGetLastError());
-      }
-      return launch_wgmma<wg::Bf16, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid,
-                                                  out_vals, out_idx, parts, thr, work, work_ctas,
-                                                  nq, n_slabs, cap, d, block_q, n_probe, k,
-                                                  probe_splits, stream);
+      return launch_fit<wg::Bf16, S, wg::PLAIN>(q, bank, nullptr, leaf_ids, leaf_valid, out_vals,
+                                                out_idx, parts, thr, work, work_ctas, nq, n_slabs,
+                                                cap, d, block_q, n_probe, k, probe_splits, stream);
     case 2:  // int8 x int8: s32 accumulators, one conversion to f32
-      return launch_fit<wg::S8, S>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx, parts,
-                                   thr, work, work_ctas, nq, n_slabs, cap, d, block_q, n_probe, k,
-                                   probe_splits, stream);
+      return launch_fit<wg::S8, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid, out_vals,
+                                              out_idx, parts, thr, work, work_ctas, nq, n_slabs,
+                                              cap, d, block_q, n_probe, k, probe_splits, stream);
     default:
-      return launch_fit<wg::Asym, S>(q, bank, scale, leaf_ids, leaf_valid, out_vals, out_idx,
-                                     parts, thr, work, work_ctas, nq, n_slabs, cap, d, block_q,
-                                     n_probe, k, probe_splits, stream);
+      return launch_fit<wg::Asym, S, wg::SCALE>(q, bank, scale, leaf_ids, leaf_valid, out_vals,
+                                                out_idx, parts, thr, work, work_ctas, nq, n_slabs,
+                                                cap, d, block_q, n_probe, k, probe_splits, stream);
   }
 }
 
@@ -209,21 +171,20 @@ int launch(const void* q, const void* bank, const float* scale, const void* leaf
 // score by its slot's scale. leaf_ids (nq / block_q, n_probe) and leaf_valid
 // (n_slabs,) are int32. block_q is a multiple of 64 that divides nq. Writes
 // out_vals (nq, k) f32 and out_idx (nq, k) int64 IVF slot ids.
-// 1 <= k <= 128, n_probe >= 0, n_slabs·cap < 2^31. Where
-// ivf_topk_wgmma_smem(d, form) > 0 the call runs the wgmma kernel: it cuts
-// each tile's probe list into ceil(n_probe / ceil(n_probe / probe_splits))
-// splits and needs the scratch `parts`, (nq, 2 · splits, 32 · ceil(k /
-// 32)) 64-bit keys, `thr`, nq 64-bit keys set to 0, and `work`, work_ctas ·
-// ivf_topk_work_keys(k) 64-bit keys (it runs on at most work_ctas CTAs);
-// the other calls ignore them. Returns cudaGetLastError() after the launch
-// (0 = launched), or 9001 / 9002 when the tensor maps cannot be encoded.
+// 1 <= k <= 128, n_probe >= 0, n_slabs·cap < 2^31. Every call runs the
+// wgmma kernel: it cuts each tile's probe list into ceil(n_probe /
+// ceil(n_probe / probe_splits)) splits and needs the scratch `parts`, (nq,
+// 2 · splits, 32 · ceil(k / 32)) 64-bit keys, `thr`, nq 64-bit keys set to
+// 0, and `work`, work_ctas · ivf_topk_work_keys(k) 64-bit keys (it runs on
+// at most work_ctas CTAs). Returns cudaGetLastError() after the launch (0 =
+// launched), or 9001 / 9002 when the tensor maps cannot be encoded.
 extern "C" int ivf_topk_launch(const void* q, const void* bank, const float* scale,
                                const void* leaf_ids, const void* leaf_valid, void* out_vals,
                                void* out_idx, int nq, int n_slabs, int cap, int d, int block_q,
                                int n_probe, int k, int form, void* parts, void* thr, void* work,
                                int work_ctas, int probe_splits, void* stream) {
   if (nq < 1 || k < 1 || k > 128 || form < 0 || form > 3 || d % (form >= 2 ? 16 : 8) != 0 ||
-      n_slabs < 1 || cap < 1 || n_probe < 0 || block_q < BQ || block_q % BQ != 0 ||
+      n_slabs < 1 || cap < 1 || n_probe < 0 || block_q < wg::BQH || block_q % wg::BQH != 0 ||
       nq % block_q != 0 || static_cast<long long>(n_slabs) * cap > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -236,12 +197,12 @@ extern "C" int ivf_topk_launch(const void* q, const void* bank, const float* sca
 }
 
 // Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
-// 3 bf16 queries on int8 codes) asks for at depth d (int8 and asym: the
-// resident form's where it fits, else the streamed one's); 0: that call
-// runs mma_scan, without scratch (bf16 whose queries do not fit).
+// 3 bf16 queries on int8 codes) asks for at depth d (bf16, int8 and asym:
+// the resident form's where it fits, else the streamed one's; f32
+// always streams); more than 0 for every form at every depth.
 extern "C" int ivf_topk_wgmma_smem(int d, int form) {
   if (form == 0) return wg::smem_at<wg::F32>(d);
-  if (form == 1) return wg::smem_at<wg::Bf16>(d);
+  if (form == 1) return wg::smem_fit<wg::Bf16>(d);
   if (form == 2) return wg::smem_fit<wg::S8>(d);
   return form == 3 ? wg::smem_fit<wg::Asym>(d) : 0;
 }

@@ -23,33 +23,31 @@
 //
 // Every form runs wgmma_topk.cuh's persistent kernel (topk_wgmma<F, S, E,
 // Flat>: wgmma on TMA rings with a producer warp, and the batched select) at
-// every k, over (bank split, 64-query tile) items, split-major, so the CTAs
-// in flight read the same ~1/splits of the bank and find it in L2: bf16
-// (a)/(b) as Bf16, int8 (c)/(c)+(d) as S8, (e)/(e)+(d) as Asym (the codes
-// widened in shared memory, as K2 does), f32 (a)/(b) as F32 (3xTF32). The
-// wrapper picks the fewest splits whose rounds of items keep at least 90%
-// of the SMs busy (ops/knn_cuda.py, plan_splits: 3 at Q = 21,904 on 132
-// SMs); the splits cover only the valid rows. The queries stay resident in
-// shared memory where they fit and are streamed in the ring beside the bank
-// chunks past that (wg::Streamed): at D = 768 they take 96 KB in bf16 and
-// 48 KB in int8, the rings 2 x 4 x 16 KB; Asym keeps two widened tiles per
-// consumer beside them, so its queries fit up to D = 1,152 and stream past
-// it (mae_vith14's 1,280, dinov2_vitg14's 1,536); int8's fit up to D =
-// 3,072 and stream past it; F32's always stream. A streamed form fits at
-// every depth. Wider bf16 banks get fewer stages (one each at D = 1536,
-// dinov2_vitg14's width), and wider still (a converted checkpoint of width
-// 1,664, say) leave no room for one stage and take topk_common.cuh's
-// mma_scan<FormBf16>: one CTA (256 threads) per BQ = 64 queries walking the
-// bank in tiles of BM = 128 rows through mma.sync m16n8k16, fed by a
-// two-stage cp.async ring; tiles at or past `valid_rows` are never visited.
-// int8 scores are the plain version's bit for bit at every depth (exact
-// integers, one f32 rounding for the row scale; 127² · D stays below 2^31
-// up to D = 133,143), so are the keys, and the split merge keeps the
-// single-pass tie order. The batched select holds no set in registers, so
-// every k runs this kernel (PERF.md has the designs measured against it).
-// The choice is made by shape before the launch (knn_topk_wgmma_smem). The
-// epilogue and the running top-k merge (ties resolve by lowest index, as
-// ops/knn.py::exact_knn does) are shared with K2, in topk_common.cuh.
+// every depth and every k, over (bank split, 64-query tile) items,
+// split-major, so the CTAs in flight read the same ~1/splits of the bank and
+// find it in L2: bf16 (a)/(b) as Bf16, int8 (c)/(c)+(d) as S8, (e)/(e)+(d)
+// as Asym (the codes widened in shared memory, as K2 does), f32 (a)/(b) as
+// F32 (3xTF32). The wrapper picks the fewest splits whose rounds of items
+// keep at least 90% of the SMs busy (ops/knn_cuda.py, plan_splits: 3 at Q =
+// 21,904 on 132 SMs); the splits cover only the valid rows. The queries stay
+// resident in shared memory where they fit and are streamed in the ring
+// beside the bank chunks past that (wg::Streamed): at D =
+// 768 they take 96 KB in bf16 and 48 KB in int8, the rings 2 x 4 x 16 KB.
+// bf16 queries stay resident up to D = 1,536 (fewer stages as
+// they grow: one a consumer at D = 1,536, dinov2_vitg14's width) and stream
+// past it (a converted checkpoint of width 1,664, say); Asym keeps two
+// widened tiles per consumer beside them, so its queries fit up to D = 1,152
+// and stream past it (mae_vith14's 1,280, dinov2_vitg14's 1,536); int8's fit
+// up to D = 3,072 and stream past it; F32's always stream. A streamed form
+// fits at every depth. int8 scores are the plain version's bit for bit at
+// every depth (exact integers, one f32 rounding for the row scale; 127² · D
+// stays below 2^31 up to D = 133,143), so are the keys, and the split merge
+// keeps the single-pass tie order. The batched select holds no set in
+// registers, so every k runs this kernel (PERF.md has the designs measured
+// against it). The layout is chosen by shape before the launch
+// (knn_topk_wgmma_smem). The keys and the merge of the partial sets (ties
+// resolve by lowest index, as ops/knn.py::exact_knn does) are shared with
+// K2, in topk_common.cuh.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
@@ -59,32 +57,8 @@
 
 namespace {
 
-// The bank's tiles in order, up to valid_rows.
-struct BankWalk {
-  int m0, valid;
-  __device__ __forceinline__ bool done() const { return m0 >= valid; }
-  __device__ __forceinline__ void next() { m0 += BM; }
-  __device__ __forceinline__ int row0() const { return m0; }
-  __device__ __forceinline__ int row_end() const { return valid; }
-  __device__ __forceinline__ int n_cols() const { return valid - m0; }
-};
-
-template <class F, int S>
-__global__ void __launch_bounds__(THREADS)
-    knn_topk_mma(const typename F::TQ* __restrict__ q, const typename F::TB* __restrict__ bank,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 float* __restrict__ out_vals, long long* __restrict__ out_idx, int nq, int m,
-                 int d, int valid_rows, int k) {
-  const int q0 = blockIdx.x * BQ;
-  TopK<S> top;
-  top.init();
-  mma_scan<F, S>(q, bank, scale, bias, q0, nq, d, BankWalk{0, valid_rows}, top);
-  top.emit(out_vals, out_idx, q0, nq, k, threadIdx.x >> 5, threadIdx.x & 31);
-}
-
-// Every form: wgmma_topk.cuh's kernel over (bank split, 64-query tile)
-// items.
-// The splits cut the valid rows into ranges of split_rows (a multiple of
+// wgmma_topk.cuh's kernel over (bank split, 64-query tile) items. The
+// splits cut the valid rows into ranges of split_rows (a multiple of
 // 128); an item walks its range's 128-row tiles.
 struct Flat {
   int q_tiles, splits, split_rows, valid;
@@ -119,36 +93,19 @@ int launch_wgmma(const void* q, const void* bank, const float* cvec, void* out_v
                              d, k, items, stream);
 }
 
-// Int8 form F (row scales when `scale` is given) with its queries resident
-// where they fit, else streamed.
-template <class F, int S>
-int launch_fit(const void* q, const void* bank, const float* scale, void* out_vals, void* out_idx,
+// Form F with the epilogue E (its vector `cvec`, when given: K1's l2
+// biases or row scales) and its queries resident where they fit, else
+// streamed.
+template <class F, int S, wg::Epi E>
+int launch_fit(const void* q, const void* bank, const float* cvec, void* out_vals, void* out_idx,
                void* parts, void* thr, void* work, int work_ctas, int nq, int m, int d,
                int valid_rows, int k, int split_rows, cudaStream_t stream) {
   if (wg::smem_at<F>(d) > 0)
-    return launch_wgmma<F, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr, work,
-                                         work_ctas, nq, m, d, valid_rows, k, split_rows, stream);
-  return launch_wgmma<wg::Streamed<F>, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
-                                                     work, work_ctas, nq, m, d, valid_rows, k,
-                                                     split_rows, stream);
-}
-
-// ---------------------------------------------------------------------------
-// Launch.
-// ---------------------------------------------------------------------------
-
-// The shapes whose queries do not fit the wgmma kernel: mma_scan.
-template <class F, int S>
-cudaError_t launch_mma(const void* q, const void* bank, const float* scale, const float* bias,
-                       void* out_vals, void* out_idx, int nq, int m, int d, int valid_rows, int k,
-                       cudaStream_t stream) {
-  const cudaError_t e = allow_smem(knn_topk_mma<F, S>, Ring<F>::SMEM);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((nq + BQ - 1) / BQ);
-  knn_topk_mma<F, S><<<grid, THREADS, Ring<F>::SMEM, stream>>>(
-      static_cast<const typename F::TQ*>(q), static_cast<const typename F::TB*>(bank), scale, bias,
-      static_cast<float*>(out_vals), static_cast<long long*>(out_idx), nq, m, d, valid_rows, k);
-  return cudaGetLastError();
+    return launch_wgmma<F, S, E>(q, bank, cvec, out_vals, out_idx, parts, thr, work, work_ctas, nq,
+                                 m, d, valid_rows, k, split_rows, stream);
+  return launch_wgmma<wg::Streamed<F>, S, E>(q, bank, cvec, out_vals, out_idx, parts, thr, work,
+                                             work_ctas, nq, m, d, valid_rows, k, split_rows,
+                                             stream);
 }
 
 template <int S>
@@ -162,18 +119,17 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
                                                 work_ctas, nq, m, d, valid_rows, k, split_rows,
                                                 stream);
     case 1:
-      if (wg::smem_at<wg::Bf16>(d) == 0)  // the queries do not fit: mma_scan
-        return launch_mma<FormBf16, S>(q, bank, scale, bias, out_vals, out_idx, nq, m, d,
-                                       valid_rows, k, stream);
-      return launch_wgmma<wg::Bf16, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr,
-                                                 work, work_ctas, nq, m, d, valid_rows, k,
-                                                 split_rows, stream);
+      return launch_fit<wg::Bf16, S, wg::BIAS>(q, bank, bias, out_vals, out_idx, parts, thr, work,
+                                               work_ctas, nq, m, d, valid_rows, k, split_rows,
+                                               stream);
     case 2:  // int8 x int8: s32 accumulators, one conversion to f32
-      return launch_fit<wg::S8, S>(q, bank, scale, out_vals, out_idx, parts, thr, work, work_ctas,
-                                   nq, m, d, valid_rows, k, split_rows, stream);
+      return launch_fit<wg::S8, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr, work,
+                                              work_ctas, nq, m, d, valid_rows, k, split_rows,
+                                              stream);
     default:
-      return launch_fit<wg::Asym, S>(q, bank, scale, out_vals, out_idx, parts, thr, work,
-                                     work_ctas, nq, m, d, valid_rows, k, split_rows, stream);
+      return launch_fit<wg::Asym, S, wg::SCALE>(q, bank, scale, out_vals, out_idx, parts, thr,
+                                                work, work_ctas, nq, m, d, valid_rows, k,
+                                                split_rows, stream);
   }
 }
 
@@ -185,16 +141,13 @@ int launch(const void* q, const void* bank, const float* scale, const float* bia
 // aligned. scale (m,) f32 multiplies each score by its row's scale and bias
 // (m,) f32 is subtracted from it, each when not null. Writes out_vals
 // (nq, k) f32 and out_idx (nq, k) int64. 1 <= k <= 128,
-// 0 <= valid_rows <= m, nq >= 1. Where knn_topk_wgmma_smem(d, form) > 0
-// (forms 0, 2 and 3 at every depth, form 1 where its queries fit in shared
-// memory) the call runs the wgmma kernel: it splits the valid rows into
-// ceil(valid_rows / split_rows) splits (split_rows a multiple of 128) and
-// needs the scratch `parts`, (nq, 2 · splits, 32 · ceil(k / 32)) 64-bit
-// keys, `thr`, nq 64-bit keys set to 0, and `work`, work_ctas ·
-// knn_topk_work_keys(k) 64-bit keys (it runs on at most work_ctas CTAs);
-// the other calls ignore them. Returns
-// cudaGetLastError() after the launch (0 = launched), or 9001 / 9002 when
-// the wgmma forms' tensor maps cannot be encoded.
+// 0 <= valid_rows <= m, nq >= 1. Every call runs the wgmma kernel: it
+// splits the valid rows into ceil(valid_rows / split_rows) splits
+// (split_rows a multiple of 128) and needs the scratch `parts`, (nq, 2 ·
+// splits, 32 · ceil(k / 32)) 64-bit keys, `thr`, nq 64-bit keys set to 0,
+// and `work`, work_ctas · knn_topk_work_keys(k) 64-bit keys (it runs on at
+// most work_ctas CTAs). Returns cudaGetLastError() after the launch (0 =
+// launched), or 9001 / 9002 when the tensor maps cannot be encoded.
 extern "C" int knn_topk_launch(const void* q, const void* bank, const float* scale,
                                const float* bias, void* out_vals, void* out_idx, int nq, int m,
                                int d, int valid_rows, int k, int form, void* parts, void* thr,
@@ -212,13 +165,13 @@ extern "C" int knn_topk_launch(const void* q, const void* bank, const float* sca
 }
 
 // Dynamic shared memory the wgmma kernel of `form` (0 f32, 1 bf16, 2 int8,
-// 3 bf16 queries on int8 codes) asks for at depth d (int8 and asym: the
-// resident form's where it fits, else the streamed one's); 0: that call
-// runs mma_scan, without scratch (bf16 whose queries do not fit).
+// 3 bf16 queries on int8 codes) asks for at depth d (bf16, int8 and asym:
+// the resident form's where it fits, else the streamed one's; f32
+// always streams); more than 0 for every form at every depth.
 extern "C" int knn_topk_wgmma_smem(int d, int form) {
   switch (form) {
     case 0: return wg::smem_at<wg::F32>(d);
-    case 1: return wg::smem_at<wg::Bf16>(d);
+    case 1: return wg::smem_fit<wg::Bf16>(d);
     case 2: return wg::smem_fit<wg::S8>(d);
     case 3: return wg::smem_fit<wg::Asym>(d);
     default: return 0;

@@ -2,8 +2,7 @@
 // one persistent kernel template, topk_wgmma<Form, S, Epi, Items>, that
 // scores 64 queries against 128-row bank tiles with wgmma fed by TMA rings
 // and keeps each query's running top set with a batched select. Every form
-// of K1 and of K2 runs it; only bf16 banks too wide for its shared memory
-// (D > 1,536) take topk_common.cuh's mma_scan.
+// of K1 and of K2 runs it at every depth and every k.
 //
 // - Items hand out the work: K1's (bank split, 64-query tile), K2's (probe
 //   split, 64-query tile), split-major, so the CTAs in flight read the same
@@ -23,9 +22,10 @@
 //   shared memory and every depth fits; the query chunk is read again from
 //   L2 for every bank tile (half a bf16 tile's bytes again). The launchers
 //   keep a form's queries resident where they fit (smem_at > 0) and stream
-//   them past that (Streamed<F>): bf16 queries on int8 codes past D = 1,152,
-//   int8 x int8 past 3,072; F32's never fit and always stream. The chunks'
-//   products are the same, in the same order, either way.
+//   them past that (Streamed<F>): bf16 past D = 1,536, bf16 queries on int8
+//   codes past D = 1,152, int8 x int8 past 3,072; F32's never fit and
+//   always stream. The chunks' products are the same, in the same order,
+//   either way, so both layouts give the same bits.
 // - Forms: Bf16 (m64n128k16, f32 accumulators), S8 (int8 codes, m64n128k32
 //   s8, s32 accumulators converted once by __int2float_rn), Asym (bf16
 //   queries, int8 codes: the ring holds the codes, 64 bytes a row, and the
@@ -206,8 +206,11 @@ inline int smem_at(int d) {
 }
 
 // The streamed forms fit at every depth with full rings: 197,888 bytes for
-// Streamed<Asym> (8 KB of queries and 8 KB of codes a stage, four widened
-// tiles) and for Streamed<S8> (8 KB and 16 KB a stage).
+// Streamed<Bf16> (8 KB of queries and 16 KB of bank rows a stage), for
+// Streamed<Asym> (8 KB and 8 KB of codes a stage, four widened tiles) and
+// for Streamed<S8> (8 KB and 16 KB a stage).
+static_assert(fixed_smem<Streamed<Bf16>>(0) + 2 * MAX_STAGES * stage_bytes<Streamed<Bf16>>() <=
+                  SMEM_LIMIT, "");
 static_assert(fixed_smem<Streamed<S8>>(0) + 2 * MAX_STAGES * stage_bytes<Streamed<S8>>() <=
                   SMEM_LIMIT, "");
 static_assert(fixed_smem<Streamed<Asym>>(0) + 2 * MAX_STAGES * stage_bytes<Streamed<Asym>>() <=

@@ -9,16 +9,15 @@ into a shared library with a plain C interface at first use, and it is
 loaded with ctypes.
 
 Every form runs K1's persistent wgmma kernel over (probe split, 64-query
-tile) items (ops/csrc/wgmma_topk.cuh): f32 (3xTF32), bf16, int8 (with or
-without row scales; the exact integer sum converted to f32 once, at every
-depth) and bf16 queries on int8 codes (asym, asym_rows). The kernel keeps
+tile) items (ops/csrc/wgmma_topk.cuh) at every depth: f32 (3xTF32), bf16,
+int8 (with or without row scales; the exact integer sum converted to f32
+once) and bf16 queries on int8 codes (asym, asym_rows). The kernel keeps
 the queries in shared memory where they fit and streams each query chunk
-beside its slab chunk past that (f32 always, int8 past D = 3,072, asym
-past 1,152), so only bf16 slabs wider than its shared memory (D > 1,536)
-take the mma.sync kernel (`knn_cuda.route(lib, queries, bank,
-"ivf_topk")` names the one a call runs). `plan_probe_splits` cuts each
-tile's probe list so the rounds of items fill the SMs, and the partial
-sets are merged in a second pass.
+beside its slab chunk past that (f32 always, bf16 past D = 1,536, int8 past
+3,072, asym past 1,152; `knn_cuda.route(lib, queries, bank, "ivf_topk")`
+names the kernel a call runs). `plan_probe_splits` cuts each tile's probe
+list so the rounds of items fill the SMs, and the partial sets are merged
+in a second pass.
 
 `ivf_topk` takes the kernel for CUDA tensors and the plain version
 (ops/ivf.py::ivf_search_plain) for CPU tensors, and nothing else: a CUDA
@@ -173,12 +172,10 @@ def ivf_topk(
     lib = cuda_build.load("ivf_topk.cu", "ivf_topk_launch", _ARGTYPES)
     form = FORMS[(queries.dtype, ivf_bank.dtype)]
     n_probe = lids.shape[1]
-    parts = thr = work = None
-    work_ctas = splits = 0
-    if route(lib, queries, ivf_bank, "ivf_topk") == "wgmma":
-        n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
-        splits = plan_probe_splits(n_q, n_probe, n_sm, k)
-        parts, thr, work, work_ctas = wgmma_scratch(lib, "ivf_topk", n_q, splits, k, queries.device)
+    route(lib, queries, ivf_bank, "ivf_topk")
+    n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    splits = plan_probe_splits(n_q, n_probe, n_sm, k)
+    parts, thr, work, work_ctas = wgmma_scratch(lib, "ivf_topk", n_q, splits, k, queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ivf_topk_launch(
@@ -186,9 +183,7 @@ def ivf_topk(
             scale.data_ptr() if scale is not None else None,
             lids.data_ptr(), lvalid.data_ptr(), vals.data_ptr(), idx.data_ptr(),
             n_q, lvalid.shape[0], cap, d, block_q, n_probe, k, form,
-            parts.data_ptr() if parts is not None else None,
-            thr.data_ptr() if thr is not None else None,
-            work.data_ptr() if work is not None else None, work_ctas, max(splits, 1), stream,
+            parts.data_ptr(), thr.data_ptr(), work.data_ptr(), work_ctas, splits, stream,
         )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")

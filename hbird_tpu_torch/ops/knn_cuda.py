@@ -26,20 +26,19 @@ counts kernel launches, `knn_topk.forms` the same launches by form
 (`form_name`).
 
 Every form runs one persistent wgmma kernel over (bank split, 64-query
-tile) items, at every k, and merges the splits' partial top sets in a
-second pass from the same entry point. `plan_splits` picks the split size
-here, the same plan for every element type (the same items and tiles), so
-the rounds of items fill the SMs. The partial sets (`parts_shape`), the
-per-query minimum keys they share and the select's per-CTA scratch
-(`wgmma_scratch`: each consumer warp's running sets and candidate buffers)
-are allocated here. That kernel keeps bf16, int8 and asym queries in shared
-memory where they fit and streams each query chunk beside its bank chunk
-past that (int8 past D = 3,072, bf16 queries on int8 codes past 1,152;
-f32 queries always stream), so those forms run it at every depth; bf16
-queries too deep to stay resident (D > 1,536, as the library reports:
-`knn_topk_wgmma_smem`) run the mma_scan kernel, with no scratch. `route`
-makes that choice by shape before the launch. K2 (ops/ivf_cuda.py) runs
-the same kernel over its probed slabs.
+tile) items, at every depth and every k, and merges the splits' partial top
+sets in a second pass from the same entry point. `plan_splits` picks the
+split size here, the same plan for every element type (the same items and
+tiles), so the rounds of items fill the SMs. The partial sets
+(`parts_shape`), the per-query minimum keys they share and the select's
+per-CTA scratch (`wgmma_scratch`: each consumer warp's running sets and
+candidate buffers) are allocated here. That kernel keeps bf16, int8 and
+asym queries in shared memory where they fit and streams each query chunk
+beside its bank chunk past that (bf16 past D = 1,536, int8 past 3,072,
+bf16 queries on int8 codes past 1,152; f32 queries always stream), so
+every form runs it at every depth (`knn_topk_wgmma_smem` reports its
+shared memory). `route` names the kernel a call runs. K2 (ops/ivf_cuda.py)
+runs the same kernel over its probed slabs.
 """
 
 from __future__ import annotations
@@ -126,8 +125,7 @@ def wgmma_scratch(lib, prefix: str, n_q: int, splits: int, k: int, device):
 
 
 def wgmma_smem(lib, prefix: str, d: int, form: int) -> int:
-    """Shared memory of `lib`'s wgmma kernel for `form` at depth d; 0 where
-    the call runs another kernel."""
+    """Shared memory of `lib`'s wgmma kernel for `form` at depth d."""
     fn = getattr(lib, f"{prefix}_wgmma_smem")
     fn.argtypes, fn.restype = (ctypes.c_int, ctypes.c_int), ctypes.c_int
     return fn(d, form)
@@ -146,12 +144,13 @@ def form_name(queries: torch.Tensor, bank: torch.Tensor, l2: bool, row_scale) ->
 
 def route(lib, queries: torch.Tensor, bank: torch.Tensor, prefix: str = "knn_topk") -> str:
     """The kernel a CUDA call of these operands runs in `lib` (K1's, or K2's
-    with prefix 'ivf_topk'), by shape alone: 'wgmma' where the library
-    reports shared memory for the form at this depth (every depth of f32,
-    int8 x int8 and bf16 queries on int8 codes), else 'mma_scan' (bf16
-    deeper than its resident queries fit)."""
+    with prefix 'ivf_topk'): 'wgmma', where the library reports shared
+    memory for the form at this depth, as it does for every form at every
+    depth; raises where it reports none."""
     form = FORMS[(queries.dtype, bank.dtype)]
-    return "wgmma" if wgmma_smem(lib, prefix, queries.shape[1], form) > 0 else "mma_scan"
+    if wgmma_smem(lib, prefix, queries.shape[1], form) <= 0:
+        raise RuntimeError(f"{prefix} reports no kernel for form {form} at depth {queries.shape[1]}")
+    return "wgmma"
 
 
 def _check(queries, bank, k, valid_rows, distance, row_scale) -> None:
@@ -231,12 +230,10 @@ def knn_topk(
     if n_q == 0:
         return vals, idx
     lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", _ARGTYPES)
-    parts = thr = work = None
-    split_rows = work_ctas = 0
-    if route(lib, queries, bank) == "wgmma":
-        n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
-        split_rows, splits = plan_splits(n_q, valid, n_sm, k)
-        parts, thr, work, work_ctas = wgmma_scratch(lib, "knn_topk", n_q, splits, k, queries.device)
+    route(lib, queries, bank)
+    n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    split_rows, splits = plan_splits(n_q, valid, n_sm, k)
+    parts, thr, work, work_ctas = wgmma_scratch(lib, "knn_topk", n_q, splits, k, queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.knn_topk_launch(
@@ -245,9 +242,7 @@ def knn_topk(
             bias.data_ptr() if bias is not None else None,
             vals.data_ptr(), idx.data_ptr(),
             n_q, m, d, valid, k, FORMS[(queries.dtype, bank.dtype)],
-            parts.data_ptr() if parts is not None else None,
-            thr.data_ptr() if thr is not None else None,
-            work.data_ptr() if work is not None else None, work_ctas, split_rows, stream,
+            parts.data_ptr(), thr.data_ptr(), work.data_ptr(), work_ctas, split_rows, stream,
         )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")

@@ -15,6 +15,7 @@ import pathlib
 import pytest
 import torch
 
+import wgmma_smem
 from hbird_tpu_torch.models import VIT_PRESETS, ViTConfig
 from hbird_tpu_torch.ops import flash_cuda, ivf_cuda, knn_cuda
 from hbird_tpu_torch.ops import flash as flash_mod
@@ -60,6 +61,9 @@ def smoke(monkeypatch):
                                                              swiglu=True))
     monkeypatch.setattr(mod, "GIANT_PRESET", "tiny_giant")
     monkeypatch.setattr(mod, "GIANT_INPUT", 64)
+    # vit_gigantic_patch14_clip_224's stand-in, read by the converter from shapes: 1 block of 7 heads of 64
+    monkeypatch.setattr(mod, "GIGANTIC_SHAPE", {"patch": 16, "width": 448, "depth": 1, "hidden": 896, "img": 224})
+    monkeypatch.setattr(mod, "GIGANTIC_INPUT", 64)
     monkeypatch.setattr(mod, "WIDE_CASE_Q", 256)
     monkeypatch.setattr(mod, "WIDE_CASE_M", 700)
 
@@ -170,32 +174,45 @@ def test_flash_phases_rehearse_on_cpu(smoke):
     # dino_vits16: 12 blocks x (2 train + 1 val batches of 4), in bf16 and in f32;
     # mocov3_vits16 (head width 32): 12 blocks x 3 batches in bf16;
     # mae_vith14's stand-in (head width 80): 2 blocks x 3 batches in bf16;
-    # dinov2_vitg14's stand-in: 'flash' alone, 2 blocks x 3 batches in bf16
+    # dinov2_vitg14's stand-in: 'flash' alone, 2 blocks x 3 batches in bf16;
+    # vit_gigantic_patch14_clip_224's stand-in: 1 block x 3 batches in bf16
     narrow, wide, giant = "mocov3_vits16 at 64, ", "tiny_hd80 at 64, ", "tiny_giant at 64, "
+    gigantic = "vit_gigantic_patch14_clip_224 at 64, "
     for prefix, dt, n in (("", "bf16", 36), ("", "f32", 36), (narrow, "bf16", 36), (wide, "bf16", 6),
-                          (giant, "bf16", 6)):
+                          (giant, "bf16", 6), (gigantic, "bf16", 3)):
         assert launches[f"{prefix}{dt} flash"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": n}
         if prefix != giant:
             assert launches[f"{prefix}{dt} xla"] == {"knn_topk": 1, "ivf_topk": 0, "flash_attention": 0}
         label = f"scann unbounded, {prefix}{dt} ViT, attention_impl='flash'"
         assert runs[label]["forms"]["flash_attention"] == {dt: n}
     assert f"{giant}bf16 xla" not in launches
-    # the int8 runs on the wide banks: their K1 or K2 form once per eval batch, K3 as the flash run
-    for prefix, quant in ((wide, smoke.WIDE_QUANT_RUNS), (giant, smoke.GIANT_QUANT_RUNS)):
-        for name, (_, _, (kernel, form)) in quant.items():
+    # the int8 runs on the wide banks and the gigantic ViT's bf16 runs: their K1 or K2 form once per eval
+    # batch, K3 as the flash run; each with its recall, and so the 'scann' flash run beside them
+    for prefix, quant, n in ((wide, smoke.WIDE_QUANT_RUNS, 6), (giant, smoke.GIANT_QUANT_RUNS, 6),
+                             (gigantic, smoke.GIGANTIC_RUNS, 3)):
+        for name, (_, _, _, (kernel, form)) in quant.items():
             run = runs[f"{name}, {prefix}bf16 ViT, attention_impl='flash'"]
-            assert run["forms"] == {"knn_topk": {}, "ivf_topk": {}, "flash_attention": {"bf16": 6}, kernel: {form: 1}}
+            assert run["forms"] == {"knn_topk": {}, "ivf_topk": {}, "flash_attention": {"bf16": n}, kernel: {form: 1}}
             assert 0.0 < run["recall_at_30_vs_k1_bf16"] <= run["score_recall_at_30_vs_k1_bf16"] <= 1.0
             assert launches[f"{prefix}bf16 {name}"][kernel] == 1
+        scann = runs[f"scann unbounded, {prefix}bf16 ViT, attention_impl='flash'"]
+        assert scann["recall_at_30_vs_k1_bf16"] == scann["score_recall_at_30_vs_k1_bf16"] == 1.0
     assert set(smoke.GIANT_QUANT_RUNS) == {"scann int8_rows", "faiss int8 + reorder 120", "faiss int8_asym"}
-    assert smoke.WIDE_QUANT_RUNS["scann-literal"][2] == ("ivf_topk", "asym_rows")
-    assert err == 0.0 and len(runs) == 9 + len(smoke.WIDE_QUANT_RUNS) + len(smoke.GIANT_QUANT_RUNS)
+    assert smoke.WIDE_QUANT_RUNS["scann-literal"][3] == ("ivf_topk", "asym_rows")
+    assert {run[3] for run in smoke.GIGANTIC_RUNS.values()} == {("ivf_topk", "dot"), ("knn_topk", "l2")}
+    assert smoke.GIGANTIC_RUNS["faiss l2"][2] and runs[f"faiss l2, {gigantic}bf16 ViT, attention_impl='flash'"][
+        "bf16_bank"]
+    assert err == 0.0 and len(runs) == 11 + sum(map(len, (smoke.WIDE_QUANT_RUNS, smoke.GIANT_QUANT_RUNS,
+                                                           smoke.GIGANTIC_RUNS)))
+    assert runs[f"scann unbounded, {gigantic}bf16 ViT, attention_impl='xla'"]["D"] == 448
     for run in runs.values():
         assert 0.0 <= run["miou"] <= 1.0 and run["phases"]["evaluate"]["items"] == 4
     assert token_err["float32"]["max"] <= 1e-4 and token_err["bfloat16"]["mean"] <= 1e-2
     assert token_err[f"{narrow}bfloat16"]["max"] <= 0.1 and token_err[f"{wide}bfloat16"]["mean"] <= 1e-2
-    assert set(token_err) == {"float32", "bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16", f"{giant}bfloat16"}
-    for name in ("bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16", f"{giant}bfloat16"):  # against the f32 one
+    assert set(token_err) == {"float32", "bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16", f"{giant}bfloat16",
+                              f"{gigantic}bfloat16"}
+    for name in ("bfloat16", f"{narrow}bfloat16", f"{wide}bfloat16", f"{giant}bfloat16",
+                 f"{gigantic}bfloat16"):  # against the f32 one
         f32_err = token_err[name]
         assert f32_err["flash_vs_f32"]["mean"] <= smoke.TOKEN_F32_MARGIN[1] * f32_err["xla_vs_f32"]["mean"]
         assert 0.0 < f32_err["xla_vs_f32"]["max"] <= 0.2
@@ -493,10 +510,13 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     int8_rows at each k of PAIR_KS, f32 at k 30 and 120, asym and asym_rows
     at k 30 on both banks, and K2 bf16 and asym_rows on a tree of each bank
     and f32 on an f32 tree of each; K1 asym and asym_rows and K2 asym_rows
-    at D = 1,280 and 1,536; each with its bound, library time and output
-    digest, as one JSON-ready result."""
+    at D = 1,280 and 1,536; K1 bf16 dot and l2 and K2 bf16 at the wide bf16
+    depths on both banks (here 1,664 alone); each with its bound, library
+    time and output digest, as one JSON-ready result."""
     monkeypatch.setattr(smoke, "PAIR_Q", 40)
     monkeypatch.setattr(smoke, "PAIR_M", 500)
+    assert smoke.BF16_PAIR_DEPTHS == (1024, 1280, 1536, 1664, 2048, 3200)
+    monkeypatch.setattr(smoke, "BF16_PAIR_DEPTHS", (1664,))
     out = smoke.pairs("here")
     assert out["tree"] == "here" and pathlib.Path(out["package"]) == ROOT / "hbird_tpu_torch"
     assert set(out["k3"]) == {*(f"{dt} {s}" for dt in ("bf16", "f32") for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")),
@@ -511,10 +531,12 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
                               *(f"f32 Q=40 M={m} k={k}" for m in (500, 3000) for k in (30, 120)),
                               *(f"{f} Q=40 M={m} k=30" for f in ("asym", "asym_rows") for m in (500, 3000)),
                               *(f"{f} Q=40 M=500 D={d} k=30" for f in ("asym", "asym_rows")
-                                for d in smoke.WIDE_TIMING_DEPTHS)}
-    assert len(out["k2"]) == 8
-    assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows"] * 4 + ["bf16"] * 2 + ["f32"] * 2
+                                for d in smoke.WIDE_TIMING_DEPTHS),
+                              *(f"bf16 {f} Q=40 M={m} D=1664 k=30" for f in ("dot", "l2") for m in (500, 3000))}
+    assert len(out["k2"]) == 10
+    assert sorted(label.split()[0] for label in out["k2"]) == ["asym_rows"] * 4 + ["bf16"] * 4 + ["f32"] * 2
     assert sum(f"D={d} " in label for label in out["k2"] for d in smoke.WIDE_TIMING_DEPTHS) == 2
+    assert sum("D=1664 " in label and label.startswith("bf16 ") for label in out["k2"]) == 2
     f32 = [row for label, row in out["k2"].items() if label.startswith("f32")]
     assert all(row["bound_ms"] > 0 and row["library_ms"] > 0 for row in f32)
     assert out["k3"]["f32 (2, 2, 40, 32)"]["bound_ms"] == smoke.k3_bound((2, 2, 40, 32), torch.float32)[0]
@@ -605,16 +627,34 @@ ptxas info    : Used 168 registers, used 1 barriers
     assert len(notes) == 1 and notes[0].startswith("ptxas info    : (C7519)")
     # K1's and K2's template: a form (streamed forms nest theirs), S, the epilogue, the items
     topk = [f"_ZN2wg10topk_wgmmaI{a}N44_GLOBAL__N__a6f7a300_11_ivf_topk_cu_1f1607da5SlabsEEEv14CUtensorMap_st"
-            for a in ("NS_8StreamedINS_4AsymEEELi2ELNS_3EpiE2E", "NS_4AsymELi2ELNS_3EpiE2E")]
+            for a in ("NS_8StreamedINS_4AsymEEELi2ELNS_3EpiE2E", "NS_4AsymELi2ELNS_3EpiE2E",
+                      "NS_8StreamedINS_4Bf16EEELi1ELNS_3EpiE0E", "NS_4Bf16ELi1ELNS_3EpiE0E")]
     log = "".join(f"""ptxas info    : Compiling entry function '{f}' for 'sm_90a'
 ptxas info    : Function properties for {f}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers
 """ for f in topk)
     args = smoke.ptxas_report(log, "topk_wgmma")["template_args"]
-    assert [a.startswith(form) for a in args for form in ("INS_8StreamedINS_4AsymEE", "INS_4AsymE")] == [
-        True, False, False, True]
+    forms = ("INS_8StreamedINS_4AsymEE", "INS_4AsymE", "INS_8StreamedINS_4Bf16EE", "INS_4Bf16E")
+    assert [[a.startswith(form) for form in forms] for a in args] == [
+        [True, False, False, False], [False, True, False, False], [False, False, True, False],
+        [False, False, False, True]]
     assert args[0].endswith("SlabsE") and args[0] != args[1]
+    assert smoke.WGMMA_FORMS["knn_topk.cu"]["INS_8StreamedINS_4Bf16EE"] == 8  # S 1-4, plain and l2 epilogues
+    assert smoke.WGMMA_FORMS["ivf_topk.cu"]["INS_8StreamedINS_4Bf16EE"] == 4  # S 1-4, no epilogue
+
+
+def test_no_mma_sync_in_the_search_libraries(smoke):
+    """Phase 1: an HMMA or IMMA in K1's or K2's library fails (every form
+    runs the wgmma kernel); K3's 3xTF32 f32 kernel keeps mma.sync."""
+    clean = {"HGMMA": 40, "IGMMA": 8, "UTMALDG": 60, "HMMA": 0, "IMMA": 0}
+    for src in ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu"):
+        smoke.check_no_mma_sync(src, clean)
+    smoke.check_no_mma_sync("flash_attn.cu", dict(clean, HMMA=24))
+    for src in ("knn_topk.cu", "ivf_topk.cu"):
+        for op in ("HMMA", "IMMA"):
+            with pytest.raises(RuntimeError, match="mma.sync"):
+                smoke.check_no_mma_sync(src, dict(clean, **{op: 1}))
 
 
 def test_sass_counts_per_function(smoke):
@@ -693,25 +733,58 @@ def test_sharp_codes_catch_a_running_f32_sum(smoke):
 
 def test_wide_timing_rehearses_on_cpu(smoke, monkeypatch):
     """Phase 7 on the wide banks: every K1 form and K2 form at D = 1,280 and
-    1,536, and K1 and K2 int8 and int8_rows at 3,200, each row with its
-    route, bound, plain and library times."""
+    1,536, K1 bf16 dot and l2 and K2 bf16 at 1,664, 2,048 and 3,200 (here
+    1,664 and 3,200), and K1 and K2 int8 and int8_rows at 3,200, each row
+    with its route, bound, plain and library times."""
     monkeypatch.setattr(smoke, "PAIR_Q", 256)
     monkeypatch.setattr(smoke, "PAIR_M", 900)
+    assert smoke.BF16_TIMING_DEPTHS == (1664, 2048, 3200)
+    monkeypatch.setattr(smoke, "BF16_TIMING_DEPTHS", (1664, 3200))
     k1_rows, k2_rows, errs = smoke.wide_timing(torch.Generator().manual_seed(0))
     sizes = [f"D={d}" for d in smoke.WIDE_TIMING_DEPTHS]
     deep = f"D={smoke.DEEP_INT8_TIMING_DEPTH}"
+    bf16 = [f"D={d}" for d in smoke.BF16_TIMING_DEPTHS]
+    assert deep in bf16 and not set(bf16) & set(sizes)
     assert set(k1_rows) == {*sizes, *(f"{f} {s}" for f in ("int8", "int8_rows", "asym_rows", "asym", "l2", "f32",
                                                            "f32_l2") for s in sizes),
                             *(f"{f} k=120 {s}" for f in ("int8", "int8_rows", "f32") for s in sizes),
-                            *(f"{f}{k} {deep}" for f in ("int8", "int8_rows") for k in ("", " k=120"))}
+                            *(f"{f}{k} {deep}" for f in ("int8", "int8_rows") for k in ("", " k=120")),
+                            *bf16, *(f"l2 {s}" for s in bf16)}
     assert set(k2_rows) == {*sizes, *(f"{f} {s}" for f in ("int8_rows", "asym_rows", "int8", "asym", "f32")
-                                      for s in sizes), f"int8_rows {deep}", f"int8 {deep}"}
+                                      for s in sizes), f"int8_rows {deep}", f"int8 {deep}", *bf16}
     assert errs["K2"] == 0.0 and errs["K1"] < 1e-3
     for row in [*k1_rows.values(), *k2_rows.values()]:
-        assert row["route"] == "plain" and row["D"] in (*smoke.WIDE_TIMING_DEPTHS, smoke.DEEP_INT8_TIMING_DEPTH)
+        assert row["route"] == "plain" and row["D"] in (*smoke.WIDE_TIMING_DEPTHS, *smoke.BF16_TIMING_DEPTHS)
         assert row["ms"] > 0 and row["plain_ms"] > 0 and row["bound_ms"] > 0
     assert k1_rows["int8 k=120 D=1536"]["k"] == 120 and k1_rows["D=1280"]["form"] == "dot"
+    assert k1_rows["D=1664"]["form"] == "dot" and k1_rows["l2 D=3200"]["form"] == "l2" and k2_rows["D=3200"]["D"] == 3200
     assert json.dumps([k1_rows, k2_rows])
+
+
+def test_wide_bf16_phases_rehearse_on_cpu(smoke, monkeypatch):
+    """Phases 2 and 3 for bf16 past the resident edge: K1 dot and l2 and K2
+    at the last resident depth, one chunk past it, and D = 1,544, 1,664,
+    2,048 and 3,200 (streamed on the card; here the first two), at every k
+    of CHECK_KS (here two), and the tie order of duplicated rows at 1,664
+    (here the plain version against itself: the control flow and the
+    checks). The script's edge is the deepest where the header's formula
+    keeps bf16 queries resident."""
+    edge = smoke.BF16_MAX_RESIDENT
+    assert wgmma_smem.smem_at(1, edge) > 0 == wgmma_smem.smem_at(1, edge + 8)
+    assert smoke.BF16_DEPTHS == (1544, 1664, 2048, 3200)
+    monkeypatch.setattr(smoke, "BF16_DEPTHS", (1544, 1664))
+    monkeypatch.setattr(smoke, "CHECK_KS", (30, 97))
+    depths = smoke.bf16_edge_depths()
+    assert depths[0] == smoke.BF16_MAX_RESIDENT and smoke.BF16_MAX_RESIDENT + 64 in depths
+    assert set(smoke.BF16_DEPTHS) <= set(depths) and all((wgmma_smem.smem_at(1, d) > 0) == (d <= edge)
+                                                         for d in depths)
+    gen = torch.Generator().manual_seed(0)
+    err, info = smoke.wide_bf16_knn_cases(gen)
+    err2, info2 = smoke.wide_bf16_ivf_cases(gen)
+    assert err < 1e-3 and err2 < 1e-3
+    for i in (info, info2):
+        assert set(i) == {*depths, "smem"} and i["smem"] is None
+        assert all(i[d]["route"] == "plain" for d in depths)
 
 
 def test_backends_card_vs_cpu_at_width_rehearses(smoke):

@@ -446,6 +446,41 @@ def test_route_takes_int8_at_every_depth(d):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
+@pytest.mark.parametrize("d", [1544, 1664, 2048, 3200])
+def test_route_takes_bf16_past_the_resident_edge(d):
+    """bf16 slabs deeper than the wgmma kernel keeps its queries resident
+    (64 query rows fit only up to D = 1,536) stream each query chunk beside
+    the slab chunk: on CUDA tensors `route` sends K2 to the wgmma kernel
+    (held to the kernel's formula, tests/wgmma_smem.py)."""
+    form = wgmma_smem.BF16_FORM
+    assert wgmma_smem.smem_at(form, d) == 0 < wgmma_smem.smem(form, d)
+    qt = torch.zeros(64, d, dtype=torch.bfloat16)
+    assert knn_cuda.route(WgmmaLibrary("ivf_topk"), qt, qt, "ivf_topk") == "wgmma"
+
+
+def test_plain_bf16_at_width_1664_matches_pallas_ivf_knn():
+    """K2 bf16 at D = 1,664 (streamed on the card): the plain version
+    against `pallas_ivf_knn` (interpret) and `ivf_search_xla` on 3 slabs of
+    cap 128 (one underfilled, one empty), two 64-query tiles probing them
+    in different orders, at K2's tolerance."""
+    rng = np.random.default_rng(1664)
+    cap, fill = 128, np.array([128, 40, 0], dtype=np.int32)
+    bank = rng.normal(size=(3 * cap, 1664)).astype(np.float32)
+    bank /= np.linalg.norm(bank, axis=1, keepdims=True)
+    bank[(np.arange(3 * cap) % cap) >= np.repeat(fill, cap)] = 0.0
+    q = rng.normal(size=(128, 1664)).astype(np.float32)
+    lids = np.array([[0, 1, 2], [2, 1, 0]], dtype=np.int32)
+    qj, qt = _to_dtype(q, torch.bfloat16)
+    bj, bt = _to_dtype(bank, torch.bfloat16)
+    tv, ti = ivf.ivf_search_plain(qt, bt, torch.from_numpy(lids), torch.from_numpy(fill), 30, cap=cap)
+    tol = _tol(q, bank)
+    jargs = (qj, bj, jnp.asarray(lids), jnp.asarray(fill))
+    xv, xi = jivf.ivf_search_xla(*jargs, 30, cap=cap)
+    _assert_same_topk(tv, ti, xv, xi, tol)
+    pv, pi = jivf.pallas_ivf_knn(*jargs, 30, cap=cap, block_q=64, interpret=True)
+    _assert_same_topk(tv, ti, pv, pi, tol)
+
+
 # ----------------------------------------------------------------------
 # The tree backend
 # ----------------------------------------------------------------------

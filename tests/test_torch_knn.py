@@ -183,6 +183,46 @@ def test_route_takes_int8_at_every_depth(d):
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
+# bf16 depths past the resident edge: a partial 64-element chunk, a
+# converted checkpoint's width (vit_gigantic_patch14_clip_224), and deeper
+BF16_WIDE_DEPTHS = [1544, 1664, 2048, 3200]
+
+
+@pytest.mark.parametrize("d", BF16_WIDE_DEPTHS)
+def test_route_takes_bf16_past_the_resident_edge(d):
+    """bf16 deeper than the wgmma kernel keeps its queries resident (64
+    query rows fit only up to D = 1,536) streams each query chunk beside its
+    bank chunk in 197,888 bytes:
+    on CUDA tensors `route` sends dot and l2 to the wgmma kernel (held to
+    the kernel's formula, tests/wgmma_smem.py)."""
+    form = wgmma_smem.BF16_FORM
+    assert wgmma_smem.smem_at(form, d) == 0
+    assert wgmma_smem.smem(form, d) == wgmma_smem.smem_at(form, d, streamed=True) == 197_888
+    q = torch.zeros(4, d, dtype=torch.bfloat16)
+    assert knn_cuda.route(WgmmaLibrary("knn_topk"), q, torch.zeros(10, d, dtype=torch.bfloat16)) == "wgmma"
+
+
+@pytest.mark.parametrize("distance", ["dot_product", "l2"])
+def test_plain_bf16_at_width_1664_matches_pallas_knn(distance):
+    """K1 (a) and (b) in bf16 at D = 1,664 (the width the card streams
+    bf16 queries at): the plain version against `pallas_knn` (interpret)
+    and JAX `exact_knn` on 300 rows of unequal norm, the last 10 invalid, at
+    K1's tolerance (l2: plus the bias's scale)."""
+    rng = np.random.default_rng(1664)
+    q = rng.normal(size=(64, 1664)).astype(np.float32)
+    b = (rng.normal(size=(300, 1664)) * rng.uniform(0.02, 0.08, (300, 1))).astype(np.float32)
+    qj, qt = _to_dtype(q, torch.bfloat16)
+    bj, bt = _to_dtype(b, torch.bfloat16)
+    tv, ti = exact_knn(qt, bt, 30, distance=distance, valid_rows=290)
+    norms = np.linalg.norm(b, axis=1)
+    tol = RTOL * float(np.linalg.norm(q, axis=1).max() * norms.max() + (norms**2).max())
+    jv, ji = jax_exact_knn(qj, bj, 30, distance=distance, valid_rows=290)
+    _assert_same_topk(tv, ti, jv, ji, tol)
+    pv, pi = pallas_knn(qj, bj, 30, valid_rows=290, distance=distance, block_q=64, block_m=128,
+                        interpret=True)
+    _assert_same_topk(tv, ti, pv, pi, tol)
+
+
 def _mixed_range(m, d, seed):
     """Rows spanning two decades of norm (so row scales change the order)."""
     rng = np.random.default_rng(seed)

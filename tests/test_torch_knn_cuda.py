@@ -327,11 +327,14 @@ def test_wgmma_bank_of_one_row(cuda_device, k, form):
 def test_bf16_depth_the_queries_must_fit(cuda_device, d, distance):
     """D = 1536 (dinov2_vitg14's width) is the widest whose queries fit the
     wgmma kernel's shared memory (one ring stage per consumer); a wider
-    bank (1,664, a converted checkpoint's width) runs the mma_scan kernel.
-    Both hold against the plain version and count as their form."""
+    bank (1,664, a converted checkpoint's width) streams its query chunks
+    beside the bank chunks on the same kernel. Both run the wgmma kernel,
+    hold against the plain version and count as their form."""
     q, b = _inputs(100, 700, d, seed=12)
     qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
     bt = torch.from_numpy(b).to(cuda_device, torch.bfloat16)
+    lib = cuda_build.load("knn_topk.cu", "knn_topk_launch", knn_cuda._ARGTYPES)
+    assert knn_cuda.route(lib, qt, bt) == "wgmma"
     form = "l2" if distance == "l2" else "dot"
     before = knn_cuda.knn_topk.forms[form]
     kv, ki = knn_cuda.knn_topk(qt, bt, 30, distance=distance)

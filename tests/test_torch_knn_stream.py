@@ -1,7 +1,8 @@
 """The streamed query chunks of K1's and K2's wgmma kernel, emulated on the CPU.
 
-Where an item's 64 queries do not stay resident in shared memory (bf16
-queries on int8 codes past D = 1,152, int8 x int8 past 3,072), the kernel
+Where an item's 64 queries do not fit in shared memory (bf16 past D =
+1,536, bf16 queries on int8 codes past 1,152, int8 x int8 past 3,072), the
+kernel
 (hbird_tpu_torch/ops/csrc/wgmma_topk.cuh, `Streamed<F>`) loads the item's
 query chunk c into every ring stage beside chunk c of the bank tile, for
 every tile. `run_item` plays one item in the kernel's order of work, in
@@ -11,22 +12,26 @@ the consumers' tiles in turn (consumer w takes the item's tiles w, w + 2,
 (streamed); each consumer reads its stages in order, checks that a stage
 holds the tile and chunk it scores, widens asym's codes exactly to bf16 and
 adds each chunk's k16 products (int8: k32, exact integers) to the tile's
-sum, chunk after chunk. Held here:
+sum, chunk after chunk. Held here, for bf16 dot and l2, asym(_rows) and
+int8(_rows):
 - streamed and resident give every tile's sums bit for bit, on float
   queries too: the same products in the same order, only the place the
   query chunk is read from differs (D = 1,288: a partial last chunk);
 - on integer inputs both equal the plain versions (`exact_knn`,
   `ivf_search_plain`) bit for bit, values and indices, for K1's bank
-  splits and K2's probed ragged slabs, at D = 1,280 and 3,200;
+  splits and K2's probed ragged slabs, at D = 1,280 and 3,200 (bf16: 1,672,
+  a partial last chunk past the resident edge);
 - the rings: a streamed consumer holds a stage until its chunk's products
   are done while it waits for the next (asym widens chunk c + 1 under
-  chunk c's products), so a ring of one stage deadlocks and two suffice,
+  chunk c's products; bf16 and int8 free chunk c once chunk c + 1's
+  products are issued), so a ring of one stage deadlocks and two suffice,
   which `stages_for` requires; resident asym releases each stage once
-  widened, so one suffices;
+  widened, and bf16 and int8 on one stage take the kernel's one-stage
+  path, so one suffices there;
 - the shared memory (tests/wgmma_smem.py, the header's formula): the
   streamed forms fit at every depth with four stages a ring, the resident
-  ones only up to D = 1,152 (asym) and 3,072 (int8), and every stage keeps
-  the 1,024-byte alignment of the query chunk's swizzle.
+  ones only up to D = 1,536 (bf16), 1,152 (asym) and 3,072 (int8), and every stage keeps the 1,024-byte alignment
+  of the query chunk's swizzle.
 The kernel against the plain version on the card: chip_smoke.py phases 2-3.
 """
 
@@ -42,7 +47,7 @@ from hbird_tpu_torch.ops.knn import exact_knn
 
 BQH, BMH = 64, 128
 # form: (depth elements of a 128-byte chunk, of a wgmma k step)
-CHUNKS = {"asym": (64, 16), "int8": (128, 32)}
+CHUNKS = {"bf16": (64, 16), "asym": (64, 16), "int8": (128, 32)}
 
 
 def box(x, r0, n_rows, c0, n_cols):
@@ -56,8 +61,8 @@ def box(x, r0, n_rows, c0, n_cols):
 
 def chunk_products(acc, qc, bc, base, step):
     """One chunk's wgmma products added to the tile's sums, k step by k
-    step: asym's codes widened to bf16 (exact) and f32 sums; int8 exact
-    integer sums."""
+    step: bf16 rows (asym's codes widened to bf16, exact) and f32 sums;
+    int8 exact integer sums."""
     for k0 in range(0, qc.shape[1], step):
         a, b = qc[:, k0:k0 + step], bc[:, k0:k0 + step]
         if base == "int8":
@@ -109,9 +114,10 @@ def topk(scores, cols, k):
     return v, torch.where(torch.isinf(v), 0, i)
 
 
-def k1_streamed(queries, bank, k, valid, split_rows, base, row_scale=None):
+def k1_streamed(queries, bank, k, valid, split_rows, base, row_scale=None, bias=None):
     """K1 over Flat items (64-query tile, bank split of split_rows), the
-    queries streamed; columns past `valid` never selected."""
+    queries streamed; columns past `valid` never selected. The epilogue:
+    times `row_scale` or minus `bias` (l2), when given."""
     n_q = queries.shape[0]
     scores = torch.full((n_q, valid), float("-inf"))
     for q0 in range(0, n_q, BQH):
@@ -120,6 +126,7 @@ def k1_streamed(queries, bank, k, valid, split_rows, base, row_scale=None):
             for row0, s in run_item(queries, bank, q0, list(range(r0, end, BMH)), base, True).items():
                 n = min(BMH, end - row0)
                 t = s[:, :n] if row_scale is None else s[:, :n] * row_scale[row0:row0 + n]
+                t = t if bias is None else t - bias[row0:row0 + n]
                 scores[q0:q0 + BQH, row0:row0 + n] = t[:n_q - q0]
     return topk(scores, torch.arange(valid).expand(n_q, -1), k)
 
@@ -153,10 +160,14 @@ def k2_streamed(queries, bank, lids, lv, k, cap, block_q, base, row_scale=None):
 
 
 def integer_inputs(base, n_q, m, d, rng):
-    """Queries and codes whose every sum is exact: asym bf16 queries in
-    [-8, 8] on int8 codes (|sum| < 2^24 up to D = 16,000); int8 codes of
-    magnitude 120-127 with every 7th column negated (past 2^24 at D =
-    1,280: one rounding of the exact integer)."""
+    """Queries and bank rows whose every sum is exact: bf16 queries in
+    [-8, 8] on bf16 rows in [-16, 16] or on int8 codes (asym; |sum| < 2^24
+    up to D = 16,000); int8 codes of magnitude 120-127 with every 7th
+    column negated (past 2^24 at D = 1,280: one rounding of the exact
+    integer)."""
+    if base == "bf16":
+        q = torch.from_numpy(rng.integers(-8, 9, size=(n_q, d)).astype(np.float32)).bfloat16()
+        return q, torch.from_numpy(rng.integers(-16, 17, size=(m, d)).astype(np.float32)).bfloat16()
     if base == "int8":
         sign = np.where(np.arange(d) % 7 == 0, -1, 1)
         q, b = (rng.integers(120, 128, size=(n, d)) * sign for n in (n_q, m))
@@ -165,22 +176,32 @@ def integer_inputs(base, n_q, m, d, rng):
     return q, torch.from_numpy(rng.integers(-127, 128, size=(m, d)).astype(np.int8))
 
 
-FORMS = ["asym", "asym_rows", "int8", "int8_rows"]
+# form: the kernel form it runs (bf16 dot and l2 both run Bf16)
+BASE = {"dot": "bf16", "l2": "bf16", "asym": "asym", "asym_rows": "asym", "int8": "int8",
+        "int8_rows": "int8"}
+# (form, depth) of the plain-version checks: asym and int8 at 1,280 and
+# 3,200, bf16 at 1,672 (past the resident edge, a partial last chunk)
+DEPTHS = [(form, d) for form in ("asym", "asym_rows", "int8", "int8_rows") for d in (1280, 3200)]
+BF16_DEPTH = 1672
 
 
-@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("form", ["dot", "asym", "asym_rows", "int8", "int8_rows"])
 def test_streamed_tiles_equal_resident(form):
     """Every tile's sums of one item, streamed against resident, bit for
-    bit: normal bf16 queries (asym; the f32 sums round) and full-range
-    codes, D = 1,288 (a partial last chunk), 5 tiles (the last one short)."""
-    base = form.removesuffix("_rows")
+    bit: normal bf16 queries (bf16 and asym; the f32 sums round) on normal
+    bf16 rows or full-range codes, D = 1,288 (a partial last chunk), 5
+    tiles (the last one short)."""
+    base = BASE[form]
     rng = np.random.default_rng(7)
     d = 1288
     if base == "int8":
         q = torch.from_numpy(rng.integers(-128, 128, size=(BQH, d)).astype(np.int8))
     else:
         q = torch.from_numpy(rng.normal(size=(BQH, d)).astype(np.float32)).bfloat16()
-    bank = torch.from_numpy(rng.integers(-128, 128, size=(600, d)).astype(np.int8))
+    if base == "bf16":
+        bank = torch.from_numpy(rng.normal(size=(600, d)).astype(np.float32)).bfloat16()
+    else:
+        bank = torch.from_numpy(rng.integers(-128, 128, size=(600, d)).astype(np.int8))
     tiles = list(range(0, 600, BMH))
     streamed = run_item(q, bank, 0, tiles, base, True)
     resident = run_item(q, bank, 0, tiles, base, False)
@@ -192,28 +213,31 @@ def test_streamed_tiles_equal_resident(form):
         assert not torch.equal(streamed[0], exact.float()[:, :BMH])
 
 
-@pytest.mark.parametrize("d", [1280, 3200])
-@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("form, d", DEPTHS + [("dot", BF16_DEPTH), ("l2", BF16_DEPTH)])
 def test_streamed_k1_equals_plain(form, d):
     """K1 with streamed queries on integer inputs: 2 query tiles (the last
     partial) over 2 bank splits with invalid rows past 650, k = 30, bit for
-    bit the plain version's values and indices."""
-    base = form.removesuffix("_rows")
+    bit the plain version's values and indices (l2: minus the wrapper's
+    bias, exact on integer rows)."""
+    from hbird_tpu_torch.ops.knn import l2_bias
+
+    base = BASE[form]
     rng = np.random.default_rng(d)
     q, bank = integer_inputs(base, 100, 700, d, rng)
     rs = torch.from_numpy((0.25 + rng.random(700)).astype(np.float32)) if form.endswith("_rows") else None
-    kv, ki = k1_streamed(q, bank, 30, 650, 384, base, rs)
-    pv, pi = exact_knn(q, bank, 30, valid_rows=650, row_scale=rs)
+    bias = l2_bias(bank) if form == "l2" else None
+    distance = "l2" if form == "l2" else "dot_product"
+    kv, ki = k1_streamed(q, bank, 30, 650, 384, base, rs, bias)
+    pv, pi = exact_knn(q, bank, 30, valid_rows=650, row_scale=rs, distance=distance)
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
-@pytest.mark.parametrize("d", [1280, 3200])
-@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("form, d", DEPTHS + [("dot", BF16_DEPTH)])
 def test_streamed_k2_equals_plain(form, d):
     """K2 with streamed queries on integer inputs: 2 query tiles of 64
     probing 4 of 6 ragged slabs of cap 256 (one empty, one id out of
     range), k = 30, bit for bit the plain version's values and slots."""
-    base = form.removesuffix("_rows")
+    base = BASE[form]
     rng = np.random.default_rng(2 * d)
     cap, lv = 256, torch.tensor([256, 131, 0, 200, 5, 256], dtype=torch.int32)
     q, bank = integer_inputs(base, 128, 6 * cap, d, rng)
@@ -235,18 +259,20 @@ def tile_schedule(form, n_chunks, stages):
     - resident asym: a stage is freed once its codes are widened;
     - bf16 and int8 (resident or streamed): chunk c's stage is freed once
       chunk c + 1's products are issued and c's done (wgmma_wait<1>), or
-      at once with one stage."""
+      at once with one stage (the kernel's one-stage path; a form named
+      "pipelined" keeps the wgmma_wait<1> schedule on any ring)."""
+    pipelined = stages > 1 or form.endswith("pipelined")
     ops = []
     for c in range(n_chunks):
         if form == "streamed asym":
             ops += [("take", 0)] if c == 0 else []
             ops += [("take", c + 1)] if c + 1 < n_chunks else []
             ops.append(("free", c))
-        elif form == "resident asym" or stages == 1:
+        elif form == "resident asym" or not pipelined:
             ops += [("take", c), ("free", c)]
         else:
             ops += [("take", c)] + ([("free", c - 1)] if c > 0 else [])
-    if form != "streamed asym" and form != "resident asym" and stages > 1:
+    if form != "streamed asym" and form != "resident asym" and pipelined:
         ops.append(("free", n_chunks - 1))
     return ops
 
@@ -284,28 +310,35 @@ def ring_completes(form, n_tiles, n_chunks, stages):
 @pytest.mark.parametrize("form, stages, completes", [
     ("streamed asym", 1, False), ("streamed asym", 2, True), ("streamed asym", 4, True),
     ("resident asym", 1, True), ("streamed int8", 1, True), ("streamed int8", 2, True),
+    ("streamed bf16, pipelined", 1, False), ("streamed bf16", 1, True), ("streamed bf16", 2, True),
+    ("streamed bf16", 4, True),
 ])
 def test_ring_stages_a_streamed_form_needs(form, stages, completes):
     """A streamed asym consumer holds two stages at once: one ring stage
     deadlocks, two complete (stages_for gives a streamed form at least
-    two, and the streamed forms fit four). Resident asym, and int8 with
-    its one-stage path, complete on one."""
+    two, and the streamed forms fit four). So does a streamed bf16 or int8
+    consumer on its pipelined schedule (chunk c's stage held until chunk c
+    + 1's products are issued); on one stage the kernel takes its one-stage
+    path, which completes. Resident asym completes on one."""
     assert ring_completes(form, 5, 20, stages) == completes
     assert ring_completes(form, 1, 3, stages) == completes
 
 
-@pytest.mark.parametrize("form", [wgmma_smem.ASYM_FORM, wgmma_smem.S8_FORM])
+@pytest.mark.parametrize("form", [wgmma_smem.BF16_FORM, wgmma_smem.ASYM_FORM, wgmma_smem.S8_FORM])
 def test_streamed_forms_fit_every_depth(form):
-    """The header's formula: resident queries fit up to D = 1,152 (asym)
-    and 3,072 (int8); streamed, every depth takes the same 197,888 bytes,
-    four stages a ring; stages and rings keep 1,024-byte alignment, so the
-    query chunk at a stage's start keeps its 128-byte swizzle's."""
-    edge = {wgmma_smem.ASYM_FORM: 1152, wgmma_smem.S8_FORM: 3072}[form]
-    step = wgmma_smem.FORMS[form][0]
-    for d in range(step, 20 * edge, step):
+    """The header's formula: resident queries fit up to D = 1,536 (bf16),
+    1,152 (asym) and 3,072 (int8), and stay resident wherever they fit;
+    streamed, every depth takes the same 197,888 bytes,
+    four stages a ring; so the library reports a size at every depth (each
+    multiple of 8, of 16 with int8 codes, to 4,096 and past); stages and
+    rings keep 1,024-byte alignment, so the query chunk at a stage's start
+    keeps its 128-byte swizzle's."""
+    edge = {wgmma_smem.BF16_FORM: 1536, wgmma_smem.ASYM_FORM: 1152, wgmma_smem.S8_FORM: 3072}[form]
+    step = 16 if form == wgmma_smem.S8_FORM or form == wgmma_smem.ASYM_FORM else 8
+    for d in range(step, max(4097, 20 * edge), step):
         assert (wgmma_smem.smem_at(form, d) > 0) == (d <= edge), d
         assert wgmma_smem.smem_at(form, d, streamed=True) == 197_888
-        assert wgmma_smem.smem(form, d) > 0
+        assert wgmma_smem.smem(form, d) == (wgmma_smem.smem_at(form, d) if d <= edge else 197_888), d
     stage = wgmma_smem.FORMS[form][1] + wgmma_smem.Q_CHUNK
     assert stage % 1024 == 0 and wgmma_smem.Q_CHUNK % 1024 == 0
     assert 197_888 == (wgmma_smem.SMEM_ALIGN + wgmma_smem.FORMS[form][2] + wgmma_smem.BAR_BYTES

@@ -1,19 +1,20 @@
-"""The shared memory of K1's and K2's wgmma kernel for int8 x int8 and for
-bf16 queries on int8 codes (asym), in Python: `wg::smem_at` and
+"""The shared memory of K1's and K2's wgmma kernel for bf16 x bf16, int8 x
+int8 and bf16 queries on int8 codes (asym), in Python: `wg::smem_at` and
 `wg::smem_fit` of hbird_tpu_torch/ops/csrc/wgmma_topk.cuh, with their
 constants read from that header and hopper.cuh.
 
 Resident queries take one 8 KB chunk per 128 bytes of depth (64 rows);
 asym adds four widened 16 KB tiles; each of the two consumers' rings needs
-at least one stage (int8: 16 KB of codes, asym: 8 KB), all under a block's
-SMEM_LIMIT: int8 fits up to D = 3,072, asym up to 1,152. Past that the
-queries stream: a stage holds the item's 8 KB query chunk beside the
-codes, nothing grows with depth, and four stages a ring fit (197,888 bytes
-in either form; a streamed form needs two). `WgmmaLibrary(prefix)`
-answers `<prefix>_wgmma_smem(d, form)` for forms 2 and 3 as the compiled
-library does, so the CPU tests can hold `knn_cuda.route` to the kernel's
-formula without nvcc; chip_smoke.py holds the compiled library's own
-report to the same edges on the card.
+at least one stage (bf16 and int8: 16 KB of bank rows, asym: 8 KB of
+codes), all under a block's SMEM_LIMIT: bf16 fits up to D = 1,536, int8
+up to 3,072, asym up to 1,152. Past that the queries stream: a stage holds
+the item's 8 KB query chunk beside the bank rows, nothing grows with
+depth, and four stages a ring fit (197,888 bytes in every form; a streamed
+form needs two).
+`WgmmaLibrary(prefix)` answers `<prefix>_wgmma_smem(d, form)` for forms
+1-3 as the compiled library does, so the CPU tests can hold
+`knn_cuda.route` to the kernel's formula without nvcc; chip_smoke.py holds
+the compiled library's own report to the same edges on the card.
 """
 
 import pathlib
@@ -44,9 +45,10 @@ CHUNK_BYTES = _const("CHUNK_BYTES")
 SMEM_ALIGN = _const("SMEM_ALIGN", (CSRC / "hopper.cuh").read_text())
 Q_CHUNK = BQH * CHUNK_BYTES
 WIDE_TILE = BMH * CHUNK_BYTES
-S8_FORM, ASYM_FORM = 2, 3
-# form: (depth a chunk, codes of a ring stage, the consumers' own tiles)
+BF16_FORM, S8_FORM, ASYM_FORM = 1, 2, 3
+# form: (depth a chunk, bank bytes of a ring stage, the consumers' own tiles)
 FORMS = {
+    BF16_FORM: (_form("Bf16", "DK"), BMH * _form("Bf16", "B_BYTES"), 0),
     S8_FORM: (_form("S8", "DK"), BMH * _form("S8", "B_BYTES"), 0),
     ASYM_FORM: (_form("Asym", "DK"), BMH * _form("Asym", "B_BYTES"), 4 * WIDE_TILE),
 }
@@ -63,21 +65,16 @@ def smem_at(form, d, streamed=False):
     return fixed + 2 * stages * stage if stages else 0
 
 
-# The header's launchers stream a form's queries where they do not fit
-# (`wg::Streamed<F>`, `smem_fit`); a header without them streams nothing.
-STREAMS = "struct Streamed" in HEADER and "smem_fit" in HEADER
-
-
 def smem(form, d):
     """What the library reports: the resident form's size where it fits,
     else the streamed one's."""
-    return smem_at(form, d) or (smem_at(form, d, streamed=True) if STREAMS else 0)
+    return smem_at(form, d) or smem_at(form, d, streamed=True)
 
 
 class WgmmaLibrary:
     """A stand-in for K1's or K2's compiled library in `knn_cuda.route`: its
-    `<prefix>_wgmma_smem(d, form)` reports `smem(form, d)` for int8 x int8
-    and asym and a fit for every other form."""
+    `<prefix>_wgmma_smem(d, form)` reports `smem(form, d)` for bf16, int8 x
+    int8 and asym, and a fit for f32 (always streamed)."""
 
     def __init__(self, prefix):
         setattr(self, f"{prefix}_wgmma_smem", lambda d, form: smem(form, d) if form in FORMS else 1)
