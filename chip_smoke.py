@@ -14,21 +14,24 @@ Phases; any failure raises and the script exits non-zero with no result:
    wgmma kernel; ops/csrc/hopper.cuh) it prints what ptxas reported
    (registers and spills by instance, that setmaxnreg was not
    ignored, and any warpgroup wait or arrive it injected or wgmma it
-   serialised), the registers and spills of the 3xTF32 kernels (K3 f32
-   on mma.sync, K1's F32 wgmma instances; ops/csrc/tf32.cuh), and the
+   serialised), the registers and spills of the 3xTF32 kernels (K3 f32's
+   and K1's F32 wgmma instances; ops/csrc/tf32.cuh), and the
    dynamic shared memory they ask for; where cuobjdump exists, the
    warpgroup MMAs (HGMMA, IGMMA for int8), UTMALDG and mma.sync (HMMA,
    IMMA for int8) instructions of each library and of each wgmma kernel,
-   which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's and
-   K2's libraries must hold such kernels, and no HMMA or IMMA at all:
-   every K1 and K2 form runs the wgmma kernel; cuobjdump must exist). The
+   which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's,
+   K2's and K3's libraries must hold such kernels, and no HMMA or IMMA at
+   all: every K1, K2 and K3 form runs a wgmma kernel; cuobjdump must
+   exist). The
    forms of WGMMA_FORMS must each have their instances (select sizes 1-4,
    one or two epilogues) in the ptxas report and the SASS, and spill
    nothing: K1's F32, Asym and the streamed forms Streamed<Bf16>,
    Streamed<Asym> and Streamed<S8>, K2's F32 and streamed forms; so must
-   K3's wgmma kernel at head widths 32, 64 and 80 (flash_bf16_wgmma<32>,
-   <64>, <80>); every form that runs the wgmma kernels at D=768, and K3's
-   at each width, must ask for its shared memory, and so must bf16 at
+   K3's wgmma kernels at head widths 32, 64 and 80 (flash_bf16_wgmma and
+   flash_f32_wgmma <32>, <64>, <80>), neither with its wgmma serialised
+   for want of registers (C7511); every form that runs the wgmma kernels
+   at D=768, and K3's at each width in each dtype, must ask for its
+   shared memory, and so must bf16 at
    BF16_MAX_RESIDENT (resident queries), one chunk past it and at
    BF16_DEPTHS (streamed), asym at D = 1,152 (resident) and 1,168, 1,280
    and 1,536 (streamed) and int8 at 3,072 and at 3,088 and 3,200; and K1
@@ -98,9 +101,13 @@ Phases; any failure raises and the script exits non-zero with no result:
    64) (the main path: dinov2_vitb14 at input 518, batch 16), (2, 12, 1374,
    64) (dinov2_vitb14_reg), (4, 12, 197, 32) (mocov3_vits16), (2, 16, 257,
    80) (mae_vith14), (1, 12, 4625, 64) (dinov2 at input 952), (2, 2, 1, 64)
-   and (2, 2, 65, 64). K3 has no backward: under autograd (an input that
-   requires grad) the card's call must raise and launch nothing, and under
-   torch.no_grad() the same inputs hold.
+   and (2, 2, 65, 64). The launcher's cache of tensor maps: calls on views
+   of three buffers (so at three fixed addresses) at one shape, then at
+   other dims and strides, each against the plain version (bf16 and f32
+   at hd 64, f32 at hd 80; a stale map would read the wrong rows). K3 has
+   no backward: under autograd (an input that requires grad) the card's
+   call must raise and launch nothing, and under torch.no_grad() the same
+   inputs hold.
 5. The main paths: `hbird_evaluation` on a generated VOC-layout fixture
    (64 train / 16 val images, 600x450) with dinov2_vitb14 at full width
    (random weights from a seed), input 518, batch 16, k=30, seeded
@@ -218,13 +225,14 @@ Phases; any failure raises and the script exits non-zero with no result:
    the main path's f32 bank (probed by its f32 queries) and of the large
    bank's f32 rows, with its 3xTF32 bound beside the FMA bound, the route,
    and a single TF32 pass that must miss the f32 tolerance there; K3 at
-   the main shape in bf16 and f32 and in bf16 at (1, 12, 4625, 64), at hd
-   32 (16, 12, 197, 32) and at hd 80 (16, 16, 257, 80)
+   the main shape in bf16 and f32, in bf16 at (1, 12, 4625, 64), and in
+   bf16 and f32 at hd 32 (16, 12, 197, 32) and at hd 80 (16, 16, 257, 80)
    (torch.nn.functional.scaled_dot_product_attention), each with its
-   route; hd 32 and hd 80, calls as short as their host cost, in
+   route; bf16 at hd 32 and hd 80, calls as short as their host cost, in
    NARROW_ROUNDS turns with SDPA, each timed host-launched and in one CUDA
    graph (the device's time), medians with the least and most, and in a
-   graph at 1-4 quarters of their batch (the rounds of items). K3 f32's
+   graph at 1-4 quarters of their batch (the rounds of items), then where
+   that host-launched call's host time goes (host_split). K3 f32's
    bound is its work at f32 accuracy on the tensor cores (3 TF32 passes at
    the TF32 peak), printed beside the f32 FMA bound, as K1 f32's. Every
    row prints its share of the bound (bound / ms) and its ratio to the
@@ -359,11 +367,12 @@ Parent against change: `python3 chip_smoke.py --pairs TREE` imports the
 package of the source tree TREE instead of this one's, builds its kernels,
 and times only the kernels redesigned for Hopper, each beside its bound and
 library call (phase 7's helpers): K3 bf16 and f32 at the main shape and at
-(1, 12, 4625, 64) on unit normals, each with a digest of its output's
-bytes (the same seeded inputs in every tree, so equal digests mean equal
-outputs bit for bit), and K3 bf16 at hd 32 (16, 12, 197, 32) and at hd
-80 (16, 16, 257, 80) in NARROW_ROUNDS turns with SDPA, host-launched and
-in a CUDA graph, each with its digest; K1 bf16 dot and l2, int8 and int8_rows
+(1, 12, 4625, 64) and f32 at hd 32 (16, 12, 197, 32) and hd 80 (16, 16,
+257, 80) on unit normals, host-launched and in a CUDA graph, each with a
+digest of its output's bytes (the same seeded inputs in every tree, so
+equal digests mean equal outputs bit for bit), and K3 bf16 at hd 32 and
+hd 80 in NARROW_ROUNDS turns with SDPA, host-launched and in a CUDA
+graph, each with its digest; K1 bf16 dot and l2, int8 and int8_rows
 with k in PAIR_KS (30, 64, 96, 120, 128), f32 at k = 30 and 120, asym and
 asym_rows at k = 30, Q = 21,904 normal queries (and their int8 codes)
 against 87,616 and 1,024,000 unit rows (and their global and per-row int8
@@ -376,7 +385,8 @@ at each depth of BF16_PAIR_DEPTHS (1,024-3,200: both sides of the bf16
 edge and past it) K1 bf16 dot and l2 at k = 30 on 87,616 and 1,024,000 unit rows and
 K2 bf16 on a tree of each.
 Every K1 and K2 row carries its output's digest too. It prints one JSON
-line.
+line. With --k3-only it builds and times K3 alone (a K3 variant tree's
+turns take about a minute each, against many for the whole list).
 Two trees are compared in one run on one card, each in its own
 process, in turns: parent, change, change, parent.
 """
@@ -438,6 +448,8 @@ FLASH_LONG = (1, 12, 4625, 64)  # dinov2 at input 952: the longest sequence time
 FLASH_NARROW = (16, 12, 197, 32)  # mocov3_vits16 at 224, batch 16: K3 bf16 at hd 32
 NARROW_PRESET, NARROW_INPUT = "mocov3_vits16", 224  # phase 5's head-width-32 ViT (K3 bf16 at hd 32)
 NARROW_ROUNDS = 15  # phase 7 and --pairs: K3 bf16 hd 32 and SDPA timed in turns, median and spread
+HOST_CALLS = 10_000  # phase 7: K3 calls (and of each of its pieces) timed for the split of the host cost
+HOST_BATCH = 50  # ... in batches this long, the card synchronised between them
 FLASH_WIDE = (16, 16, 257, 80)  # mae_vith14 at 224, batch 16: K3 bf16 at hd 80
 WIDE_PRESET, WIDE_INPUT = "mae_vith14", 224  # phase 5's head-width-80 ViT (K3 bf16 at hd 80)
 GIANT_PRESET, GIANT_INPUT = "dinov2_vitg14", 518  # phase 5's 1,536-wide ViT (40 blocks, SwiGLU; K3 at hd 64)
@@ -474,13 +486,14 @@ BF16_MAX_RESIDENT = 1536
 BF16_DEPTHS = (1544, 1664, 2048, 3200)
 BF16_TIMING_DEPTHS = (1664, 2048, 3200)
 BF16_PAIR_DEPTHS = (1024, 1280, 1536, 1664, 2048, 3200)
-# The Hopper kernels: source -> the name their wgmma kernels carry (K1 and
-# K2 instantiate one template, wgmma_topk.cuh's topk_wgmma).
-WGMMA_KERNELS = {"knn_topk.cu": "topk_wgmma", "ivf_topk.cu": "topk_wgmma",
-                 "flash_attn.cu": "flash_bf16_wgmma"}
+# The Hopper kernels: source -> the names their wgmma kernels carry (K1 and
+# K2 instantiate one template, wgmma_topk.cuh's topk_wgmma; K3 one kernel a
+# dtype).
+WGMMA_KERNELS = {"knn_topk.cu": ("topk_wgmma",), "ivf_topk.cu": ("topk_wgmma",),
+                 "flash_attn.cu": ("flash_bf16_wgmma", "flash_f32_wgmma")}
 # Every k of the K1 card checks: each S (keys a lane) and its edges.
 CHECK_KS = (30, 33, 64, 96, 97, 120, 128)
-TF32_KERNEL = "flash_f32"  # K3 f32: 3xTF32 on mma.sync (HMMA, no wgmma)
+TF32_KERNEL = "flash_f32_wgmma"  # K3 f32: 3xTF32 on wgmma (HGMMA, UTMALDG)
 # The wgmma template's forms held in phase 1 by the start of their mangled
 # template arguments (F32: 3xTF32; Asym; the forms with streamed queries)
 # and their instances, one for each select size S (1-4) and epilogue (K1:
@@ -491,12 +504,13 @@ WGMMA_FORMS = {
     "ivf_topk.cu": {"INS_3F32E": 4, "INS_8StreamedINS_4AsymEE": 8, "INS_8StreamedINS_2S8EE": 8,
                     "INS_8StreamedINS_4Bf16EE": 4},
 }
-# Libraries with no mma.sync at all (HMMA, IMMA in their SASS): every K1 and
-# K2 form runs the wgmma kernel.
-NO_MMA_SYNC = ("knn_topk.cu", "ivf_topk.cu")
+# Libraries with no mma.sync at all (HMMA, IMMA in their SASS): every K1, K2
+# and K3 form runs a wgmma kernel.
+NO_MMA_SYNC = ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu")
 SMEM_DEPTHS = range(8, 4097, 8)  # phase 1: K1 and K2 report shared memory for every form at each
 F32_FORM = "INS_3F32E"
-# K3's wgmma instances by head width, as mangled; none may spill.
+# K3's wgmma instances (bf16 and f32 each) by head width, as mangled; none
+# may spill or have its wgmma serialised (C7511).
 K3_WGMMA_WIDTHS = {"ILi32E": 32, "ILi64E": 64, "ILi80E": 80}
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 # TOKEN_TOL holds 'flash' to 'xla' in ViTs of up to 12 blocks. Deeper, two
@@ -1408,8 +1422,43 @@ def flash_cases(gen):
             errs.append(check_flash(f"{str(dtype)[6:]} {label} {shape}", out,
                                     flash_attention_plain(q, k, v, scale)))
             del q, k, v, out
+    errs.append(stale_map_check(gen))
     if DEVICE == "cuda":
         grad_check(gen)
+    return max(errs)
+
+
+def stale_map_check(gen):
+    """Phase 4: K3's cache of tensor maps against a stale map. q, k and v
+    are views of three buffers, so every call below reads from the same
+    three addresses: with the strides of (2, 4, 200) at (1, 2, 100), then
+    with one dim grown at a time (B, H, N), then at other dims and strides,
+    other strides (heads inside tokens) and (2, 4, 200) again; each call is
+    held against the plain version. A map kept from a call with a smaller
+    dim would read zeros for the grown one's rows. bf16 and f32 at hd 64,
+    f32 at hd 80 (its two-part rows)."""
+    from hbird_tpu_torch.ops.flash import flash_attention_plain
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
+    errs = []
+    for dtype, hd in ((torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 80)):
+        bufs = [torch.randn(2 * 4 * 200 * hd, generator=gen, device=DEVICE).to(dtype) for _ in range(3)]
+        views = {"(1, 2, 100), the (2, 4, 200) strides": lambda x: x.view(2, 4, 200, hd)[:1, :2, :100],
+                 "(2, 2, 100), B grown": lambda x: x.view(2, 4, 200, hd)[:, :2, :100],
+                 "(2, 4, 100), H grown": lambda x: x.view(2, 4, 200, hd)[:, :, :100],
+                 "(2, 4, 200), N grown": lambda x: x.view(2, 4, 200, hd),
+                 "(4, 2, 200)": lambda x: x.view(4, 2, 200, hd),
+                 "(2, 4, 200), heads inside tokens": lambda x: x.view(2, 200, 4, hd).transpose(1, 2),
+                 "(2, 4, 200) again": lambda x: x.view(2, 4, 200, hd)}
+        for label, view in views.items():
+            q, k, v = (view(buf) for buf in bufs)
+            if [t.data_ptr() for t in (q, k, v)] != [buf.data_ptr() for buf in bufs]:
+                fail(f"stale-map check: {label} is not at its buffers' addresses")
+            out = flash_attention(q, k, v, hd**-0.5)
+            sync()
+            errs.append(check_flash(f"stale-map check {str(dtype)[6:]} hd {hd}, {label}", out,
+                                    flash_attention_plain(q, k, v, hd**-0.5)))
+        del bufs
     return max(errs)
 
 
@@ -1449,8 +1498,8 @@ def shares(ms, bound, library):
 # (HMMA float, IMMA integer).
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
 # ptxas notes on wgmma: a warpgroup.wait (C7517) or warpgroup.arrive (C7519)
-# it injected, or wgmma serialised (C7520).
-WGMMA_NOTES = ("C7517", "C7519", "C7520")
+# it injected, or wgmma serialised (C7520; C7511: for want of registers).
+WGMMA_NOTES = ("C7511", "C7517", "C7519", "C7520")
 
 
 def ptxas_report(log, name):
@@ -1493,11 +1542,12 @@ def sass_counts(sass):
 
 
 def check_no_mma_sync(src, total):
-    """Phase 1: fails where a library of NO_MMA_SYNC (K1's, K2's) holds an
-    mma.sync instruction (HMMA or IMMA among its SASS counts `total`)."""
+    """Phase 1: fails where a library of NO_MMA_SYNC (K1's, K2's, K3's)
+    holds an mma.sync instruction (HMMA or IMMA among its SASS counts
+    `total`)."""
     if src in NO_MMA_SYNC and (total["HMMA"] or total["IMMA"]):
-        fail(f"{src}: {total['HMMA']} HMMA and {total['IMMA']} IMMA instructions: a K1 or K2 form still runs "
-             "mma.sync")
+        fail(f"{src}: {total['HMMA']} HMMA and {total['IMMA']} IMMA instructions: a K1, K2 or K3 form still "
+             "runs mma.sync")
 
 
 def build_report(libs):
@@ -1511,7 +1561,7 @@ def build_report(libs):
     from hbird_tpu_torch.ops import cuda_build
 
     report = {}
-    for src, name in WGMMA_KERNELS.items():
+    for src, name in ((src, name) for src, names in WGMMA_KERNELS.items() for name in names):
         if src not in cuda_build.LOGS:
             print(f"  {src}: built before this run, no ptxas report", flush=True)
             continue
@@ -1535,25 +1585,23 @@ def build_report(libs):
         if src == "flash_attn.cu":
             widths = {K3_WGMMA_WIDTHS.get(a): (regs[a], spills[a]) for a in regs}
             if set(widths) != set(K3_WGMMA_WIDTHS.values()) or any(sp for _, sp in widths.values()):
-                fail(f"ptxas: K3's wgmma instances by head width (want {sorted(K3_WGMMA_WIDTHS.values())}, "
+                fail(f"ptxas: K3's {name} instances by head width (want {sorted(K3_WGMMA_WIDTHS.values())}, "
                      f"none spilling): {widths}")
-            report["flash_attn.cu:widths"] = widths
-    if "flash_attn.cu" in cuda_build.LOGS:
-        r = report[TF32_KERNEL] = ptxas_report(cuda_build.LOGS["flash_attn.cu"], TF32_KERNEL)
-        print(f"  ptxas, {TF32_KERNEL} (3xTF32, {r['instances']} instances): registers "
-              f"{json.dumps(dict(zip(r['template_args'], r['registers'])))}, spill stores by instance "
-              f"{json.dumps(dict(zip(r['template_args'], r['spill_store_bytes'])))} bytes", flush=True)
+            if any("(C7511)" in note for note in r["wgmma_notes"]):
+                fail(f"ptxas serialised the wgmma of {name} for want of registers (C7511)")
+            report[f"flash_attn.cu:{name}:widths"] = widths
     k1 = ctypes.CDLL(str(libs["knn_topk.cu"]))
     k2 = ctypes.CDLL(str(libs["ivf_topk.cu"]))
     k3 = ctypes.CDLL(str(libs["flash_attn.cu"]))
     k1.knn_topk_wgmma_smem.argtypes, k1.knn_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
     k2.ivf_topk_wgmma_smem.argtypes, k2.ivf_topk_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
-    k3.flash_attn_wgmma_smem.argtypes, k3.flash_attn_wgmma_smem.restype = (ctypes.c_int,), ctypes.c_int
+    k3.flash_attn_wgmma_smem.argtypes, k3.flash_attn_wgmma_smem.restype = (ctypes.c_int,) * 2, ctypes.c_int
     smem = {"K1 f32": k1.knn_topk_wgmma_smem(DEPTH, 0), "K1 bf16": k1.knn_topk_wgmma_smem(DEPTH, 1),
             "K1 int8": k1.knn_topk_wgmma_smem(DEPTH, 2), "K1 asym": k1.knn_topk_wgmma_smem(DEPTH, 3),
             "K2 f32": k2.ivf_topk_wgmma_smem(DEPTH, 0), "K2 bf16": k2.ivf_topk_wgmma_smem(DEPTH, 1),
             "K2 int8": k2.ivf_topk_wgmma_smem(DEPTH, 2), "K2 asym": k2.ivf_topk_wgmma_smem(DEPTH, 3),
-            **{f"flash_bf16_wgmma hd {hd}": k3.flash_attn_wgmma_smem(hd) for hd in K3_WGMMA_WIDTHS.values()}}
+            **{f"K3 {dt} hd {hd}": k3.flash_attn_wgmma_smem(hd, bf16) for hd in K3_WGMMA_WIDTHS.values()
+               for dt, bf16 in (("bf16", 1), ("f32", 0))}}
     if not all(smem.values()):
         fail(f"a form on the wgmma kernels asks for no shared memory (another route): {smem}")
     print(f"  dynamic shared memory at D={DEPTH}: {json.dumps(smem)} B", flush=True)
@@ -1587,31 +1635,32 @@ def build_report(libs):
     for src, path in libs.items():
         per_fn = sass_counts(listings[src])
         total = {op: sum(c[op] for c in per_fn.values()) for op in SASS_OPS}
-        name = WGMMA_KERNELS.get(src)
-        wg_fns = {f: c for f, c in per_fn.items() if name and name in f}
+        names = WGMMA_KERNELS.get(src, ())
+        wg_fns = {f: c for f, c in per_fn.items() if any(name in f for name in names)}
         print(f"  SASS of {path.name}: {json.dumps(total)}; wgmma kernels ({', '.join(SASS_OPS)}): "
               f"{json.dumps(sorted({tuple(c.values()) for c in wg_fns.values()}))}", flush=True)
-        tf32 = {f: c for f, c in per_fn.items() if TF32_KERNEL in f or f"{name}{F32_FORM}" in f}
+        tf32 = {f: c for f, c in per_fn.items() if TF32_KERNEL in f or any(f"{n}{F32_FORM}" in f for n in names)}
         if tf32:
             print(f"  SASS of the 3xTF32 kernels ({TF32_KERNEL}, K1's F32 instances; {', '.join(SASS_OPS)}): "
                   f"{json.dumps(sorted({tuple(c.values()) for c in tf32.values()}))}", flush=True)
         for f, c in wg_fns.items():
             if c["HGMMA"] + c["IGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] or c["IMMA"]:
                 fail(f"{f}: {c} (a wgmma kernel must issue HGMMA or IGMMA and UTMALDG, and no HMMA or IMMA)")
-        if name and not wg_fns:
-            fail(f"{path.name}: no {name} kernel in the SASS")
+        for name in names:
+            if not any(name in f for f in wg_fns):
+                fail(f"{path.name}: no {name} kernel in the SASS")
         for form, want in WGMMA_FORMS.get(src, {}).items():
-            n = sum(f"{name}{form}" in f for f in wg_fns)
+            n = sum(f"{names[0]}{form}" in f for f in wg_fns)
             if n != want:
                 fail(f"{path.name}: {n} wgmma kernels of {form} in the SASS, not {want}")
-        if src == "flash_attn.cu":
+        for name in names if src == "flash_attn.cu" else ():
             got = sorted(hd for a, hd in K3_WGMMA_WIDTHS.items() if any(f"{name}{a}" in f for f in wg_fns))
             if got != sorted(K3_WGMMA_WIDTHS.values()):
-                fail(f"{path.name}: wgmma kernels of head widths {got} in the SASS, not "
+                fail(f"{path.name}: {name} kernels of head widths {got} in the SASS, not "
                      f"{sorted(K3_WGMMA_WIDTHS.values())}")
         check_no_mma_sync(src, total)
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
-    print(f"  no HMMA or IMMA in {' or '.join(NO_MMA_SYNC)}'s library: every form on the wgmma kernel", flush=True)
+    print(f"  no HMMA or IMMA in {', '.join(NO_MMA_SYNC)}'s libraries: every form on a wgmma kernel", flush=True)
     return report
 
 
@@ -3000,17 +3049,19 @@ def wide_timing(gen):
 
 
 def flash_timing(gen):
-    """Phase 7: K3 at the main shape, bf16 and f32, and in bf16 at the long
-    sequence and at head widths 32 and 80, vs its bound, its plain version
+    """Phase 7: K3 at the main shape, bf16 and f32, in bf16 at the long
+    sequence, and in bf16 and f32 at head widths 32 and 80 (FLASH_NARROW,
+    FLASH_WIDE), vs its bound, its plain version
     and scaled_dot_product_attention (a yardstick the port never calls),
     each row with the kernel it ran (`route`). f32's bound is its work at
     f32 accuracy on the tensor cores (3 TF32 passes at the TF32 peak); the
     f32 FMA bound stands beside it. `ms` and `library_ms` are
     host-launched, `graph_ms` and `library_graph_ms` the same calls in one
     CUDA graph (the device's time). At hd 32 and 80 (short calls: their
-    host cost rivals the kernel's) the kernel and SDPA take NARROW_ROUNDS
-    turns, each way: the medians, and `spread` the least and most; and the
-    kernel's graph time by batch (`by_batch`)."""
+    host cost rivals the kernel's) bf16's kernel and SDPA take NARROW_ROUNDS
+    turns, each way: the medians, and `spread` the least and most; the
+    kernel's graph time by batch (`by_batch`); and where the host-launched
+    call's host time goes (`host_us`, host_split)."""
     from hbird_tpu_torch.ops import flash_cuda
     from hbird_tpu_torch.ops.flash import flash_attention_plain
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
@@ -3018,7 +3069,8 @@ def flash_timing(gen):
     rows, errs = {}, []
     for label, shape, dtype in (("main", FLASH_MAIN, torch.bfloat16), ("f32", FLASH_MAIN, torch.float32),
                                 ("long", FLASH_LONG, torch.bfloat16), ("hd32", FLASH_NARROW, torch.bfloat16),
-                                ("hd80", FLASH_WIDE, torch.bfloat16)):
+                                ("hd80", FLASH_WIDE, torch.bfloat16), ("f32 hd32", FLASH_NARROW, torch.float32),
+                                ("f32 hd80", FLASH_WIDE, torch.float32)):
         scale = shape[-1] ** -0.5
         q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
         box = {}
@@ -3038,7 +3090,7 @@ def flash_timing(gen):
             ms, lib_ms = turns["kernel"]["ms"]["median"], turns["sdpa"]["ms"]["median"]
             extra = {"graph_ms": turns["kernel"]["graph_ms"]["median"],
                      "library_graph_ms": turns["sdpa"]["graph_ms"]["median"], "rounds": NARROW_ROUNDS,
-                     "spread": turns, "by_batch": by_batch(gen, shape)}
+                     "spread": turns, "by_batch": by_batch(gen, shape), "host_us": host_split(shape)}
         else:
             ms = cuda_ms(kernel, 10)
             lib_ms = cuda_ms(sdpa, 10)
@@ -3067,6 +3119,54 @@ def flash_timing(gen):
               f"SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}{note}: {shares(ms, b_ms, lib_ms)}", flush=True)
         del q, k, v
     return rows, max(errs)
+
+
+def host_split(shape):
+    """Phase 7: where a host-launched K3 bf16 call's host time goes at
+    `shape` (FLASH_NARROW, FLASH_WIDE): time.perf_counter_ns over
+    HOST_CALLS runs of the whole call and of each of its pieces (the input
+    checks, the output's allocation, the layout test, the raw stream, and
+    the C call alone with this call's arguments: its tensor maps, the
+    shared-memory attribute, the SM count and the launch), µs a call. They
+    run in batches of HOST_BATCH with the card synchronised between
+    batches (untimed), so that no launch waits for the card: the device
+    takes ~11 and ~35 µs a call at these shapes, more than the host's
+    launch. A CPU rehearsal times the pieces that run there."""
+    from hbird_tpu_torch.ops import flash_cuda
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).bfloat16() for _ in range(3))
+    b, h, n, hd = shape
+    scale = hd**-0.5
+    out = flash_cuda.flash_attention(q, k, v, scale)
+    pieces = {
+        "call": lambda: flash_cuda.flash_attention(q, k, v, scale),
+        "check": lambda: flash_cuda._check(q, k, v),
+        "output": lambda: torch.empty_strided(out.shape, out.stride(), dtype=q.dtype, device=q.device),
+        "layout": lambda: flash_cuda._kernel_layout(q, k, v),
+    }
+    if DEVICE == "cuda":
+        launch, device = flash_cuda._entry(), q.get_device()
+        stream = torch._C._cuda_getCurrentRawStream(device)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, hd, *q.stride()[:3],
+                *out.stride()[:3], float(scale), 1, device, stream)
+        pieces["stream"] = lambda: torch._C._cuda_getCurrentRawStream(device)
+        pieces["c_call"] = lambda: launch(*args)
+    result = {}
+    for name, fn in pieces.items():
+        fn()
+        sync()
+        total = 0
+        for _ in range(HOST_CALLS // HOST_BATCH):
+            t0 = time.perf_counter_ns()
+            for _ in range(HOST_BATCH):
+                fn()
+            total += time.perf_counter_ns() - t0
+            sync()
+        result[name] = total / (HOST_CALLS // HOST_BATCH * HOST_BATCH) / 1e3
+    print(f"  K3 bf16 {shape} host µs a call (time.perf_counter_ns, {HOST_CALLS} calls each): "
+          + ", ".join(f"{name} {us:.3f}" for name, us in result.items()), flush=True)
+    return result
 
 
 def by_batch(gen, shape):
@@ -3123,14 +3223,14 @@ def digest(out):
     return h.hexdigest()[:16]
 
 
-def pairs(tree):
+def pairs(tree, k3_only=False):
     """--pairs: the Hopper-redesigned kernels of the imported package (K3
     bf16 and f32, K1 bf16 dot and l2, int8, int8_rows, f32, asym and
     asym_rows, K2 bf16, asym_rows and f32; K1 asym and asym_rows and K2
     asym_rows on the wide banks; K1 bf16 dot and l2 and K2 bf16 at
     BF16_PAIR_DEPTHS on both banks) timed alone by CUDA events, each beside
-    its bound and its library call, with its output's digest; returns the
-    JSON-ready result."""
+    its bound and its library call, with its output's digest. `k3_only`
+    (--k3-only): K3 alone. Returns the JSON-ready result."""
     import hbird_tpu_torch
     from hbird_tpu_torch.ops import cuda_build
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
@@ -3140,7 +3240,7 @@ def pairs(tree):
 
     t0 = time.perf_counter()
     if DEVICE == "cuda":
-        cuda_build.build_all()
+        cuda_build.build("flash_attn.cu") if k3_only else cuda_build.build_all()
     out = {"tree": tree, "package": str(pathlib.Path(hbird_tpu_torch.__file__).parent),
            "build_s": time.perf_counter() - t0, "k3": {}, "k1": {}, "k2": {}}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -3152,15 +3252,20 @@ def pairs(tree):
               f"{b_ms:.4f} ms: {shares(ms, b_ms, library)}"
               + "".join(f", {name} {value}" for name, value in extra.items()), flush=True)
 
-    for dtype in (torch.bfloat16, torch.float32):
-        for shape in (FLASH_MAIN, FLASH_LONG):
-            q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
-            scale = shape[-1] ** -0.5
-            ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 20)
-            lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 20)
-            record("k3", f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}", ms, k3_bound(shape, dtype), lib,
-                   digest=digest(flash_attention(q, k, v, scale).float()))
-            del q, k, v
+    for dtype, shape in ((torch.bfloat16, FLASH_MAIN), (torch.bfloat16, FLASH_LONG), (torch.float32, FLASH_MAIN),
+                         (torch.float32, FLASH_LONG), (torch.float32, FLASH_NARROW), (torch.float32, FLASH_WIDE)):
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+        scale = shape[-1] ** -0.5
+        ms = cuda_ms(lambda: flash_attention(q, k, v, scale), 20)
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=scale), 20)
+        record("k3", f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}", ms, k3_bound(shape, dtype), lib,
+               digest=digest(flash_attention(q, k, v, scale).float()),
+               graph_ms=graph_ms(lambda: flash_attention(q, k, v, scale), 20))
+        del q, k, v
+    pairs_turns(record, FLASH_NARROW)
+    pairs_turns(record, FLASH_WIDE)
+    if k3_only:
+        return out
     q_f32 = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE)  # K2 f32's queries
     q = q_f32.bfloat16()
     q8 = quantize_queries_int8(q.float())[0]
@@ -3202,8 +3307,6 @@ def pairs(tree):
     del q, q_f32, q8
     pairs_wide(record)
     pairs_bf16_wide(record)
-    pairs_turns(record, FLASH_NARROW)
-    pairs_turns(record, FLASH_WIDE)
     return out
 
 
@@ -4125,6 +4228,7 @@ def main(argv=()):
     ap = argparse.ArgumentParser(description="Smoke run of hbird_tpu_torch on one CUDA card.")
     ap.add_argument("--pairs", metavar="TREE",
                     help="time only the Hopper-redesigned kernels of TREE's package (see the docstring)")
+    ap.add_argument("--k3-only", action="store_true", help="with --pairs: K3 alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4132,7 +4236,7 @@ def main(argv=()):
     if args.pairs is not None:
         sys.path.insert(0, str(pathlib.Path(args.pairs).resolve()))
         print(card_line(), flush=True)
-        print(json.dumps(pairs(args.pairs)), flush=True)
+        print(json.dumps(pairs(args.pairs, args.k3_only)), flush=True)
         return 0
     from hbird_tpu_torch.device import resolve_device
     from hbird_tpu_torch.ops import cuda_build

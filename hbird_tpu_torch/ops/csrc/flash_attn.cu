@@ -21,19 +21,47 @@
 // flops per byte; mae_vith14 at 224, N = 257: ~128; bytes bound) and are
 // bound by latency in practice.
 //
-// f32 (`f32::flash_f32<HD>`, every hd): 3xTF32 on mma.sync m16n8k8, each
-// f32 operand split into TF32 big and small parts by tf32.cuh (its comment
-// has the rounding; tests/test_torch_flash_tf32.py emulates it), each chain
-// of products into one accumulator kept short and the chains summed in f32
-// registers: within 1e-5 of the f32 plain version (~1e-6 measured). The split
-// of a fragment is computed once, when a warp loads it, for its three
-// products: q once per CTA (its A fragments stay in registers), each K and
-// V word once per warp and tile, p once per tile in registers. That costs
-// three tensor-core passes, but TF32's dense rate is ~7x the f32 FMA rate.
-// 4 warps per 64-query block, 16 rows each, 64-key tiles through a
-// two-stage cp.async ring; the fragments' k order is chosen so that a lane
-// reads q and K as float4s and the s accumulator is p·v's A fragment in
-// place (see flash_f32).
+// f32 at every width, `flash_f32_wgmma<HD>`: 3xTF32 on wgmma, each f32
+// operand split into TF32 big and small parts by tf32.cuh (its comment has
+// the rounding), within 1e-5 of the f32 plain version;
+// tests/test_torch_flash_tf32.py emulates the split and this order of work
+// (`emulate_tiles`).
+// - The bf16 kernel's frame (below): persistent CTAs over (b, h, 128-query
+//   block) items, two consumer warpgroups of 64 query rows, a producer
+//   thread issuing every copy by TMA from (hd, N, H, B) tensor maps built
+//   from the shared strides, an online softmax in exp2 units, one division
+//   at the end, rows past N never stored.
+// - wgmma takes tf32 operands K-major only (the transpose bit is for 16-bit
+//   types), so p·v needs each V tile as Vᵀ, keys contiguous. The producer
+//   warpgroup's other three warps transform each 64-key tile as it lands:
+//   K split in place into its big parts, its small parts beside it, and V
+//   transposed and split into Vᵀ big and small parts. In each 8-key group
+//   of Vᵀ, key 2t goes to k index t and key 2t + 1 to t + 4: that is where
+//   the s accumulator of m64n64k8 holds p, so p's split A fragments are
+//   taken from the registers, one tile at a time.
+// - Tiles: 32-float parts of 128-byte rows under the 128-byte swizzle, and
+//   at hd 80 head dims 64-79 as a 16-float part of 64-byte rows under the
+//   64-byte swizzle (TMA and descriptors alike); Vᵀ is two 32-key chunks of
+//   HD rows. A ring of split tiles (K, K small, Vᵀ, Vᵀ small) and a ring of
+//   raw V tiles sit beside the Q tile (f32_smem_bytes: 165,120, 197,888
+//   and 226,560 bytes at hd 32, 64 and 80).
+// - Registers: s (32 a thread), p's split parts (64), o and a tile's p·v
+//   (HD/2 each). q's split A fragments (HD/4) stay for the whole item up to
+//   hd 64; at hd 80 they are split again from the Q tile for every key tile.
+//   The transform loops are on the critical path: the producer warpgroup
+//   keeps 72 registers (the loops unrolled 4 times) and the consumers 216.
+//   At (16, 12, 1370, 64) on an H100 (PERF.md): 40 / 232 with the
+//   loops unrolled twice spilled 4 bytes (1.07 ms), unrolled once 1.13,
+//   56 / 224 unrolled twice 1.01, this 0.98.
+// - The two consumer warpgroups take turns issuing products, as in bf16:
+//   without the turns 1.14 ms against 1.13 (unrolled once).
+// - Numerics: the tensor cores add into their f32 accumulator rounding
+//   toward zero, about an ulp of the accumulator per instruction. So each
+//   product group issues its small cross terms first, while the
+//   accumulator is still ~2^-11 of the result, and its big·big terms last:
+//   HD/8 such adds for s and 8 for a tile's p·v, which goes into a fresh
+//   accumulator added to o in f32, rounding to nearest.
+//
 //
 // bf16 at every width, `flash_bf16_wgmma<HD>`, built from hopper.cuh: hd 64
 // (every dinov2, DINO, ViT-B/L and MAE-B/L preset; the main path), hd 32
@@ -114,22 +142,12 @@
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
 
+
 #include "hopper.cuh"
 #include "tf32.cuh"
-#include "topk_common.cuh"  // allow_smem, neg_inf, FULL
+#include "topk_common.cuh"  // neg_inf, FULL
 
 namespace {
-
-// 16-byte async copy (K3 f32's cp.async ring); src_bytes = 0 zero-fills the
-// destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(src_bytes));
-}
-
-constexpr int FQ = 64;  // queries per CTA (f32)
-constexpr int FK = 64;  // keys per tile (f32)
 
 // q/k/v (shared) and o strides, in elements.
 struct Layout {
@@ -142,25 +160,8 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// Start the async copies of rows [row0, row0 + 64) of one (b, h) slice
-// into dst[64][LD]; rows at or past n are zero-filled (so a masked key's
-// value row is 0, never garbage times a zero weight).
-template <int HD, int LD, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0, int n,
-                                          long long sn, int threads) {
-  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int VECS = HD / PER;
-  for (int i = threadIdx.x; i < 64 * VECS; i += threads) {
-    const int r = i / VECS;
-    const int c = (i % VECS) * PER;
-    const bool ok = row0 + r < n;
-    const T* s = ok ? src + static_cast<long long>(row0 + r) * sn + c : src;
-    cp_async16(dst + r * LD + c, s, ok ? 16 : 0);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16: wgmma on TMA-fed rings with a producer warp.
+// bf16: wgmma on TMA-fed rings with a producer warp (and what f32 shares).
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -309,13 +310,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&p)
 // masked, the rows' maxima m and partial sums l updated; alpha rescales the
 // output accumulated so far. Accumulator element 4j+e: row g (e < 2) or
 // g + 8, column 8j + 2·(lane%4) + (e&1).
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int c0, int n, float sl2,
                                              int lane) {
+  constexpr int NJ = N / 4;  // 8-column groups: 8·NJ keys (bf16 128, f32 64)
   float mx[2] = {m[0], m[1]};
-  const bool ragged = c0 + BKV > n;
+  const bool ragged = c0 + 8 * NJ > n;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * j + e] * sl2;
@@ -332,7 +335,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     l[i] *= alpha[i];
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[4 * j + e] = ex2(s[4 * j + e] - m[e >> 1]);
@@ -547,353 +550,490 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// K3 bf16: the tensor maps of q, k and v (shared strides; each part's box
-// and swizzle as in the header), then the kernel. Returns 0, a cudaError_t
-// or a hopper::ERR_* code.
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n,
-           const Layout& lay, float scale, cudaStream_t stream) {
-  Maps<HD> maps;
-  const uint64_t dims[4] = {HD, static_cast<uint64_t>(n), static_cast<uint64_t>(heads),
-                            static_cast<uint64_t>(batch)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(lay.sn) * 2, static_cast<uint64_t>(lay.sh) * 2,
-                               static_cast<uint64_t>(lay.sb) * 2};
-  const uint32_t box[4] = {lo_dims<HD>(), BKV, 1, 1};
-  const uint32_t hi_box[4] = {hi_dims<HD>(), BKV, 1, 1};
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    int r = hopper::encode_tensor_map(
-        &maps.m[i], 4, ptrs[i], dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-        HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
-    if (r == 0 && hi_dims<HD>() > 0)
-      r = hopper::encode_tensor_map(&maps.m[3 + i], 4, ptrs[i], dims, strides, hi_box,
-                                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_32B);
-    if (r != 0) return r;
-  }
-  const int n_qblocks = (n + BQ - 1) / BQ;
-  const int n_items = n_qblocks * batch * heads;
-  const float sl2 = scale * 1.4426950408889634f;
-  constexpr int SMEM = smem_bytes<HD>();
-  const cudaError_t e = allow_smem(flash_bf16_wgmma<HD>, SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int sms = hopper::sm_count();
-  const int grid = sms > 0 && sms < n_items ? sms : n_items;
-  flash_bf16_wgmma<HD><<<grid, THREADS, SMEM, stream>>>(
-      maps, static_cast<__nv_bfloat16*>(o), heads, n, lay.ob, lay.oh, lay.on, sl2, n_qblocks,
-      n_items);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace wg
-
 // ---------------------------------------------------------------------------
-// f32: 3xTF32 on the tensor cores.
+// f32: 3xTF32 on wgmma, with the producer warpgroup's other warps
+// transforming the tiles.
 // ---------------------------------------------------------------------------
 
-namespace f32 {
+constexpr int FBK = 64;          // keys per f32 tile
+constexpr int XF_THREADS = 96;   // warps 1-3 of the producer warpgroup
 
-constexpr int THREADS = 128;  // four warps of 16 query rows
-
-// Row strides (floats) of the staged K and V tiles. K is read as float4s at
-// depth 16i + 4t of key g by the lanes (g, t) of a quarter warp: a stride
-// of 16 (mod 32) words puts keys g and g + 1 on the two halves of the
-// banks. V is read as single floats at keys 2t, 2t + 1 and dim g: a stride
-// of 4 (mod 16) words puts the 32 lanes on 32 banks.
+// Split tiles in flight (K, K small, Vᵀ, Vᵀ small) and raw V tiles, at each
+// width, as many as fit beside the Q tile.
 template <int HD>
-__host__ __device__ constexpr int ldk() {
-  return HD + (48 - HD % 32) % 32;
+__host__ __device__ constexpr int xf_stages() {
+  return HD == 32 ? 4 : 2;
 }
 template <int HD>
-__host__ __device__ constexpr int ldv() {
-  return HD + 4;
+__host__ __device__ constexpr int v_stages() {
+  return HD == 80 ? 1 : 2;
 }
+
+// q's split A fragments stay in registers for the whole item up to hd 64;
+// at hd 80 (80 registers beside s, p's parts, o and a tile's p·v) they are
+// split again from the Q tile for every key tile, so the Q tile is held to
+// the item's last key tile.
 template <int HD>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return 2 * FK * (ldk<HD>() + ldv<HD>()) * sizeof(float);  // two stages of (K, V)
+__host__ __device__ constexpr bool q_resident() {
+  return HD <= 64;
 }
 
-using tf32::split;  // big = tf32(x), small = tf32(x - big)
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a·b in 3xTF32: the two small cross terms first, then big·big.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], uint32_t b0b, uint32_t b1b,
-                                           uint32_t b0s, uint32_t b1s) {
-  mma_tf32(c, as, b0b, b1b);
-  mma_tf32(c, ab, b0s, b1s);
-  mma_tf32(c, ab, b0b, b1b);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One CTA per 64 queries of one (b, h); lane (g, t) = (lane / 4, lane % 4)
-// of warp w holds query rows w·16 + g and + 8. The m16n8k8 fragments take
-// their k index in an order of our choosing, as long as A and B agree:
-// - q·kᵀ, k-step 2i + h: k index t is depth 16i + 4t + 2h and t + 4 is the
-//   depth after it, so a lane reads its A and B words as float4s;
-// - p·v, k-step j: k index t is key 8j + 2t and t + 4 is key 8j + 2t + 1,
-//   which is where the s accumulator of n8 tile j holds p: p becomes the A
-//   fragment in place.
+// 64 rows of HD floats: a K, V or split tile; the Q tile is two.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-    flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int heads, int n, Layout lay,
-              float sl2) {
-  constexpr int LDK = ldk<HD>();
-  constexpr int LDV = ldv<HD>();
-  constexpr int DG = HD / 16;  // depth groups of two k-steps
-  constexpr int DT = HD / 8;   // n8 tiles of the output row
-  // The tensor cores add into their f32 accumulator rounding toward zero,
-  // a bias that grows with the length of a chain of mma.sync into one
-  // accumulator (over a whole sequence it reached 1e-5 in o). So every
-  // chain is short: s sums each depth group (6 products) into a fresh
-  // accumulator, and p·v a tile (24) at hd <= 64, a k-step (3) at hd = 80,
-  // whose 40 more registers a tile's sum would not leave; the sums are
-  // added in f32, rounding to nearest.
-  constexpr int SUM_STEPS = HD <= 64 ? 8 : 1;
-  extern __shared__ __align__(16) float fsm[];
-  float* ks = fsm;               // [2][FK][LDK]
-  float* vs = ks + 2 * FK * LDK;  // [2][FK][LDV]
+__host__ __device__ constexpr int f32_tile_bytes() {
+  return FBK * HD * 4;
+}
 
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * FQ;
-  const long long off = b * lay.sb + h * lay.sh;
-  q += off;
-  k += off;
-  v += off;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
+template <int HD>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return hopper::SMEM_ALIGN + f32_tile_bytes<HD>() * (2 + 4 * xf_stages<HD>() + v_stages<HD>()) + 256;
+}
 
-  load_tile<HD, LDK>(ks, k, 0, n, lay.sn, THREADS);
-  load_tile<HD, LDV>(vs, v, 0, n, lay.sn, THREADS);
-  asm volatile("cp.async.commit_group;\n" ::);
+// Byte offset of head dim d of row `row` in an f32 tile of ROWS rows: part
+// d / 32 starts at (d / 32)·ROWS·128; a 32-float part has 128-byte rows
+// whose 16-byte unit u lies at u ^ (row % 8), hd 80's last (16 floats)
+// 64-byte rows whose unit u lies at u ^ (row / 2 % 4).
+template <int HD, int ROWS>
+__device__ __forceinline__ int tile_off(int row, int d) {
+  const int p = d >> 5, c = d & 31;
+  if (HD - 32 * p >= 32) return p * ROWS * 128 + row * 128 + (((c >> 2) ^ (row & 7)) << 4) + ((c & 3) << 2);
+  return p * ROWS * 128 + row * 64 + (((c >> 2) ^ ((row >> 1) & 3)) << 4) + ((c & 3) << 2);
+}
 
-  // The warp's query rows as split A fragments, read once from memory.
-  uint32_t qb[DT][4], qsm[DT][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-#pragma unroll
-    for (int i = 0; i < DG; ++i) {
-      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row < n) x = *reinterpret_cast<const float4*>(q + row * lay.sn + 16 * i + 4 * t4);
-      // A: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
-      split(x.x, qb[2 * i][r], qsm[2 * i][r]);
-      split(x.y, qb[2 * i][2 + r], qsm[2 * i][2 + r]);
-      split(x.z, qb[2 * i + 1][r], qsm[2 * i + 1][r]);
-      split(x.w, qb[2 * i + 1][2 + r], qsm[2 * i + 1][2 + r]);
-    }
-  }
+// The descriptor of k8 step kk (head dims 8kk..8kk+7) of an f32 tile of
+// ROWS rows: 32 bytes a step inside a part's rows.
+template <int HD, int ROWS>
+__device__ __forceinline__ uint64_t kstep_desc(const unsigned char* tile, int kk) {
+  const int p = kk >> 2;
+  const unsigned char* a = tile + p * ROWS * 128 + (kk & 3) * 32;
+  return HD - 32 * p >= 32 ? hopper::sw128_desc(a) : hopper::sw64_desc(a);
+}
 
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-  float m[2] = {neg_inf(), neg_inf()};  // rows g and g + 8, in log2 units
-  float l[2] = {0.0f, 0.0f};           // this lane's share of the row sums
+// The descriptor of k8 step j (keys 8j..8j+7, permuted) of a Vᵀ tile: chunk
+// j / 4 of HD rows of 128 bytes, 32 bytes a step.
+template <int HD>
+__device__ __forceinline__ uint64_t vt_desc(const unsigned char* vt, int j) {
+  return hopper::sw128_desc(vt + (j >> 2) * HD * 128 + (j & 3) * 32);
+}
 
-  const int n_tiles = (n + FK - 1) / FK;
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {  // prefetch the next K/V tile into the other stage
-      const int st = (t + 1) & 1;
-      load_tile<HD, LDK>(ks + st * FK * LDK, k, (t + 1) * FK, n, lay.sn, THREADS);
-      load_tile<HD, LDV>(vs + st * FK * LDV, v, (t + 1) * FK, n, lay.sn, THREADS);
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // this tile's copies are visible to every warp
-    const float* kt = ks + (t & 1) * FK * LDK;
-    const float* vt = vs + (t & 1) * FK * LDV;
+// Rows row0.. of (b, h) of tensor i (0 q, 1 k, 2 v) into an f32 tile of
+// ROWS rows at dst, completing on bar: one TMA copy a part (box {32, ROWS},
+// and at hd 80 {16, ROWS} at head dim 64).
+template <int HD, int ROWS>
+__device__ __forceinline__ void f32_tma(unsigned char* dst, const Maps<HD>& maps, int i, uint64_t* bar,
+                                        int row0, int h, int b) {
+#pragma unroll
+  for (int p = 0; p < HD / 32; ++p) hopper::tma_load_4d(dst + p * ROWS * 128, &maps.m[i], bar, 32 * p, row0, h, b);
+  if constexpr (HD % 32 != 0)
+    hopper::tma_load_4d(dst + (HD / 32) * ROWS * 128, &maps.m[3 + i], bar, HD / 32 * 32, row0, h, b);
+}
 
-    // s = q·kᵀ: 16 rows × 64 keys per warp, 8 n8 tiles; each K word is
-    // split once, for its three products. Each depth group's products go
-    // into a fresh accumulator, added to s in f32 (see SUM_STEPS).
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DG; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 x = *reinterpret_cast<const float4*>(kt + (8 * j + g) * LDK + 16 * i + 4 * t4);
-        uint32_t bb[4], bs[4];
-        split(x.x, bb[0], bs[0]);
-        split(x.y, bb[1], bs[1]);
-        split(x.z, bb[2], bs[2]);
-        split(x.w, bb[3], bs[3]);
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_3xtf32(d, qb[2 * i], qsm[2 * i], bb[0], bb[1], bs[0], bs[1]);
-        mma_3xtf32(d, qb[2 * i + 1], qsm[2 * i + 1], bb[2], bb[3], bs[2], bs[3]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] += d[e];
-      }
+__device__ __forceinline__ void split4(uint4 v, uint4& big, uint4& small) {
+  tf32::split(__uint_as_float(v.x), big.x, small.x);
+  tf32::split(__uint_as_float(v.y), big.y, small.y);
+  tf32::split(__uint_as_float(v.z), big.z, small.z);
+  tf32::split(__uint_as_float(v.w), big.w, small.w);
+}
 
-    // Scale (by scale·log2 e), mask the ragged edge, online softmax in f32.
-    const int col0 = t * FK + 2 * t4;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = col0 + 8 * j + (e & 1) < n ? s[j][e] * sl2 : neg_inf();
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      alpha[i] = ex2(m[i] - mx[i]);  // 0 on the first tile (m = -inf)
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = ex2(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // o += p·v: k-step j is n8 score tile j; p and each V word split once.
-    // The products of SUM_STEPS k-steps go into a fresh accumulator, added
-    // to o in f32.
-    float pv[DT][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j % SUM_STEPS == 0) {
-#pragma unroll
-        for (int nn = 0; nn < DT; ++nn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) pv[nn][e] = 0.0f;
-      }
-      uint32_t pb[4], ps[4];
-      split(s[j][0], pb[0], ps[0]);
-      split(s[j][2], pb[1], ps[1]);
-      split(s[j][1], pb[2], ps[2]);
-      split(s[j][3], pb[3], ps[3]);
-      const float* v0 = vt + (8 * j + 2 * t4) * LDV + g;
-#pragma unroll
-      for (int nn = 0; nn < DT; ++nn) {
-        uint32_t b0b, b0s, b1b, b1s;
-        split(v0[8 * nn], b0b, b0s);
-        split(v0[LDV + 8 * nn], b1b, b1s);
-        mma_3xtf32(pv[nn], pb, ps, b0b, b1b, b0s, b1s);
-      }
-      if (j % SUM_STEPS == SUM_STEPS - 1) {
-#pragma unroll
-        for (int nn = 0; nn < DT; ++nn)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nn][e] += pv[nn][e];
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  // Normalise once and store the rows below n: head dims 8nn + 2t, + 1.
-  o += b * lay.ob + h * lay.oh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(FULL, l[i], 1);
-    l[i] += __shfl_xor_sync(FULL, l[i], 2);
-    const float inv = 1.0f / l[i];
-    const int row = q0 + warp * 16 + g + 8 * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int nn = 0; nn < DT; ++nn)
-      *reinterpret_cast<float2*>(o + row * lay.on + 8 * nn + 2 * t4) =
-          make_float2(acc[nn][2 * i] * inv, acc[nn][2 * i + 1] * inv);
+// Transform warps (thread x of XF_THREADS): a K tile split in place into
+// its big parts, the small parts into ksm at the same offsets.
+template <int HD>
+__device__ __forceinline__ void split_k(unsigned char* kt, unsigned char* ksm, int x) {
+#pragma unroll 4
+  for (int u = x; u < f32_tile_bytes<HD>() / 16; u += XF_THREADS) {
+    uint4* p = reinterpret_cast<uint4*>(kt) + u;
+    uint4 big, small;
+    split4(*p, big, small);
+    *p = big;
+    reinterpret_cast<uint4*>(ksm)[u] = small;
   }
 }
 
-}  // namespace f32
+// Transform warp `warp` (0-2): the raw V tile vr (64 keys x HD) as Vᵀ (HD
+// rows of 64 keys: two 32-key chunks of 128-byte rows, the 128-byte
+// swizzle), split into big (vtb) and small (vts) parts. Lane l takes key
+// 32c + l of chunk c, at position (l & 24) + (l even ? l % 8 / 2 : 4 + l %
+// 8 / 2): keys 2t, 2t + 1 of an 8-key group at k indices t, t + 4. A task is
+// 4 head dims of one chunk: one 16-byte read a lane (8 rows of a quarter
+// warp: 8 distinct units) and 8 four-byte writes (32 distinct banks).
+template <int HD>
+__device__ __forceinline__ void transpose_v(const unsigned char* vr, unsigned char* vtb, unsigned char* vts,
+                                            int warp, int lane) {
+  constexpr int GROUPS = HD / 4;
+  const int r = lane & 7;
+  const int pos = (lane & 24) | ((r & 1) ? 4 + (r >> 1) : (r >> 1));
+#pragma unroll 4
+  for (int task = warp; task < 2 * GROUPS; task += XF_THREADS / 32) {
+    const int c = task / GROUPS, d = (task % GROUPS) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(vr + tile_off<HD, FBK>(32 * c + lane, d));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = d + i;
+      const int off = c * HD * 128 + row * 128 + (((pos >> 2) ^ (row & 7)) << 4) + ((pos & 3) << 2);
+      uint32_t big, small;
+      tf32::split(xs[i], big, small);
+      *reinterpret_cast<uint32_t*>(vtb + off) = big;
+      *reinterpret_cast<uint32_t*>(vts + off) = small;
+    }
+  }
+}
+
+// Consumer warp rows row0 + g and + 8 of the Q tile (128 rows) as split
+// A fragments: k8 step kk's a0 (row g, head dim 8kk + t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4).
+template <int HD>
+__device__ __forceinline__ void load_q(const unsigned char* qt, int row0, int lane, uint32_t (&qb)[HD / 8][4],
+                                       uint32_t (&qs)[HD / 8][4]) {
+  const int r0 = row0 + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const int d = 8 * kk + t;
+    tf32::split(*reinterpret_cast<const float*>(qt + tile_off<HD, BQ>(r0, d)), qb[kk][0], qs[kk][0]);
+    tf32::split(*reinterpret_cast<const float*>(qt + tile_off<HD, BQ>(r0 + 8, d)), qb[kk][1], qs[kk][1]);
+    tf32::split(*reinterpret_cast<const float*>(qt + tile_off<HD, BQ>(r0, d + 4)), qb[kk][2], qs[kk][2]);
+    tf32::split(*reinterpret_cast<const float*>(qt + tile_off<HD, BQ>(r0 + 8, d + 4)), qb[kk][3], qs[kk][3]);
+  }
+}
+
+// s = q·kᵀ for one 64-key tile in 3xTF32: the cross terms (q small · K big,
+// q big · K small) first, then q big · K big (see the header's numerics).
+template <int HD>
+__device__ __forceinline__ void issue_s_f32(float (&s)[32], const uint32_t (&qb)[HD / 8][4],
+                                            const uint32_t (&qs)[HD / 8][4], const unsigned char* kb,
+                                            const unsigned char* ksm) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) hopper::wgmma_m64n64k8_tf32_rs(s, qs[kk], kstep_desc<HD, FBK>(kb, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) hopper::wgmma_m64n64k8_tf32_rs(s, qb[kk], kstep_desc<HD, FBK>(ksm, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) hopper::wgmma_m64n64k8_tf32_rs(s, qb[kk], kstep_desc<HD, FBK>(kb, kk), 1);
+  hopper::wgmma_commit();
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv_f32(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  if constexpr (HD == 32) hopper::wgmma_m64n32k8_tf32_rs(o, a, b, scale_d);
+  if constexpr (HD == 64) hopper::wgmma_m64n64k8_tf32_rs(o, a, b, scale_d);
+  if constexpr (HD == 80) hopper::wgmma_m64n80k8_tf32_rs(o, a, b, scale_d);
+}
+
+// A tile's p·v into the fresh accumulator op, 3xTF32 in the same order as s.
+template <int HD>
+__device__ __forceinline__ void issue_pv_f32(float (&op)[HD / 2], const uint32_t (&pb)[8][4],
+                                             const uint32_t (&ps)[8][4], const unsigned char* vtb,
+                                             const unsigned char* vts) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wgmma_pv_f32<HD>(op, ps[j], vt_desc<HD>(vtb, j), j > 0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wgmma_pv_f32<HD>(op, pb[j], vt_desc<HD>(vts, j), 1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wgmma_pv_f32<HD>(op, pb[j], vt_desc<HD>(vtb, j), 1);
+  hopper::wgmma_commit();
+}
+
+// p (the s accumulator after the softmax) as split A fragments of the 8 k8
+// steps: step j's k index t is key 8j + 2t (accumulator element 4j, and 4j
+// + 2 for row g + 8) and t + 4 is key 8j + 2t + 1 (4j + 1, 4j + 3).
+__device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&pb)[8][4], uint32_t (&ps)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    tf32::split(s[4 * j], pb[j][0], ps[j][0]);
+    tf32::split(s[4 * j + 2], pb[j][1], ps[j][1]);
+    tf32::split(s[4 * j + 1], pb[j][2], ps[j][2]);
+    tf32::split(s[4 * j + 3], pb[j][3], ps[j][3]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_f32_wgmma(const __grid_constant__ Maps<HD> maps, float* __restrict__ o, int heads, int n,
+                    long long ob, long long oh, long long on, float sl2, int n_qblocks, int n_items) {
+  constexpr int TILE = f32_tile_bytes<HD>();
+  constexpr int X = xf_stages<HD>();
+  constexpr int R = v_stages<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs_tile = hopper::aligned_smem(smem_raw);  // [2 TILE]: 128 rows
+  unsigned char* xf = qs_tile + 2 * TILE;                    // [X][K, K small, Vᵀ, Vᵀ small]
+  unsigned char* vraw = xf + 4 * X * TILE;                   // [R][TILE]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vraw + R * TILE);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;   // [X] the K tile landed
+  uint64_t* xf_full = k_full + X;   // [X] the split tile is ready
+  uint64_t* xf_empty = xf_full + X; // [X] both consumers are done with it
+  uint64_t* v_full = xf_empty + X;  // [R]
+  uint64_t* v_empty = v_full + R;   // [R]
+  const int n_tiles = (n + FBK - 1) / FBK;
+  const int wgi = __shfl_sync(FULL, threadIdx.x / 128, 0);  // warp-uniform to the compiler
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 256);
+    for (int s = 0; s < X; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(xf_full + s, XF_THREADS);
+      hopper::mbar_init(xf_empty + s, 256);
+    }
+    for (int s = 0; s < R; ++s) {
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(v_empty + s, XF_THREADS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    hopper::reg_dealloc<72>();
+    const int warp = threadIdx.x >> 5;
+    if (threadIdx.x == 0) {
+      // Producer: one thread issues every TMA copy.
+#pragma unroll
+      for (int i = 0; i < Maps<HD>::COUNT; ++i) hopper::prefetch_tensor_map(&maps.m[i]);
+      int xs = 0, vs = 0;
+      uint32_t xph = 0, vph = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        int bh, qb;
+        item_coords<HD>(item, n_qblocks, n_items, bh, qb);
+        const int b = bh / heads, h = bh % heads;
+        hopper::mbar_wait(q_empty, (it & 1) ^ 1);
+        hopper::mbar_expect_tx(q_full, 2 * TILE);
+        f32_tma<HD, BQ>(qs_tile, maps, 0, q_full, qb * BQ, h, b);
+        for (int t = 0; t < n_tiles; ++t) {
+          hopper::mbar_wait(xf_empty + xs, xph ^ 1);
+          hopper::mbar_expect_tx(k_full + xs, TILE);
+          f32_tma<HD, FBK>(xf + 4 * xs * TILE, maps, 1, k_full + xs, t * FBK, h, b);
+          hopper::mbar_wait(v_empty + vs, vph ^ 1);
+          hopper::mbar_expect_tx(v_full + vs, TILE);
+          f32_tma<HD, FBK>(vraw + vs * TILE, maps, 2, v_full + vs, t * FBK, h, b);
+          if (++xs == X) {
+            xs = 0;
+            xph ^= 1;
+          }
+          if (++vs == R) {
+            vs = 0;
+            vph ^= 1;
+          }
+        }
+      }
+    } else if (warp > 0) {
+      // Transform warps: every tile in the producer's order.
+      const int x = threadIdx.x - 32, lane = threadIdx.x & 31;
+      int xs = 0, vs = 0;
+      uint32_t xph = 0, vph = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        for (int t = 0; t < n_tiles; ++t) {
+          unsigned char* st = xf + 4 * xs * TILE;
+          hopper::mbar_wait(k_full + xs, xph);
+          split_k<HD>(st, st + TILE, x);
+          hopper::mbar_wait(v_full + vs, vph);
+          transpose_v<HD>(vraw + vs * TILE, st + 2 * TILE, st + 3 * TILE, warp - 1, lane);
+          hopper::mbar_arrive(v_empty + vs);  // the raw V is read
+          hopper::fence_proxy_async();        // the split tile, to the tensor cores
+          hopper::mbar_arrive(xf_full + xs);
+          if (++xs == X) {
+            xs = 0;
+            xph ^= 1;
+          }
+          if (++vs == R) {
+            vs = 0;
+            vph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup cw owns query rows [64·cw, 64·cw + 64) of the item.
+    hopper::reg_alloc<216>();
+    const int cw = wgi - 1;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int row0 = cw * 64 + warp * 16;  // the warp's first row in the Q tile
+    if (cw == 1) hopper::named_arrive(1, 256);  // consumer 0 takes the first turn
+    int xs = 0;
+    uint32_t xph = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      int bh, qb;
+      item_coords<HD>(item, n_qblocks, n_items, bh, qb);
+      const int b = bh / heads, h = bh % heads;
+      uint32_t qfb[HD / 8][4], qfs[HD / 8][4];
+      hopper::mbar_wait(q_full, it & 1);
+      if constexpr (q_resident<HD>()) {
+        load_q<HD>(qs_tile, row0, lane, qfb, qfs);
+        hopper::mbar_arrive(q_empty);
+      }
+      float acc[HD / 2], m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f}, alpha[2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+      for (int t = 0; t < n_tiles; ++t) {
+        const unsigned char* st = xf + 4 * xs * TILE;
+        if constexpr (!q_resident<HD>()) {
+          load_q<HD>(qs_tile, row0, lane, qfb, qfs);
+          if (t == n_tiles - 1) hopper::mbar_arrive(q_empty);
+        }
+        float s[32];
+        turn_begin(cw);
+        hopper::mbar_wait(xf_full + xs, xph);
+        issue_s_f32<HD>(s, qfb, qfs, st, st + TILE);
+        turn_end(cw);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        softmax_tile(s, m, l, alpha, t * FBK, n, sl2, lane);
+        uint32_t pb[8][4], ps[8][4];
+        split_p(s, pb, ps);
+        float op[HD / 2];
+        turn_begin(cw);
+        issue_pv_f32<HD>(op, pb, ps, st + 2 * TILE, st + 3 * TILE);
+        turn_end(cw);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(op);
+        hopper::mbar_arrive(xf_empty + xs);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha[(i >> 1) & 1]), op[i]);
+        if (++xs == X) {
+          xs = 0;
+          xph ^= 1;
+        }
+      }
+
+      // Normalise once and store the rows below n: rows g and g + 8 of the
+      // warp's 16, head dims 8j + 2·(lane%4).
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(FULL, l[i], 1);
+        l[i] += __shfl_xor_sync(FULL, l[i], 2);
+        inv[i] = 1.0f / l[i];
+      }
+      float* ob_h = o + b * ob + h * oh;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = qb * BQ + row0 + (lane >> 2) + 8 * i;
+        if (row >= n) continue;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<float2*>(ob_h + row * on + 8 * j + 2 * (lane & 3)) =
+              make_float2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
+      }
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 
-template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int batch, int heads,
-                       int n, Layout lay, float scale, cudaStream_t stream) {
-  const dim3 grid((n + FQ - 1) / FQ, batch * heads);
-  constexpr size_t smem = f32::smem_bytes<HD>();
-  const cudaError_t e = allow_smem(f32::flash_f32<HD>, smem);
-  if (e != cudaSuccess) return e;
-  f32::flash_f32<HD><<<grid, f32::THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), heads, n, lay, scale * 1.4426950408889634f);
-  return cudaGetLastError();
+// The tensor maps of q, k and v (shared strides; each part's box and swizzle
+// as in the header): bf16 tiles of BKV rows; f32 Q tiles of BQ rows and K
+// and V tiles of FBK.
+template <int HD, bool BF16>
+int encode_maps(Maps<HD>* maps, const void* const (&ptrs)[3], const uint64_t (&dims)[4],
+                const uint64_t (&strides)[3]) {
+  const CUtensorMapDataType type = BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle lo_swizzle = BF16 && HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle hi_swizzle = BF16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B;
+  constexpr uint32_t LO = BF16 ? lo_dims<HD>() : 32;  // head dims of a part
+  constexpr uint32_t HI = hi_dims<HD>();               // hd 80's dims 64-79, either type
+  for (int i = 0; i < 3; ++i) {
+    const uint32_t rows = BF16 ? BKV : (i == 0 ? BQ : FBK);
+    const uint32_t box[4] = {LO, rows, 1, 1};
+    int r = hopper::encode_tensor_map(&maps->m[i], 4, ptrs[i], dims, strides, box, type, lo_swizzle);
+    if constexpr (HI > 0) {
+      const uint32_t hi_box[4] = {HI, rows, 1, 1};
+      if (r == 0)
+        r = hopper::encode_tensor_map(&maps->m[3 + i], 4, ptrs[i], dims, strides, hi_box, type, hi_swizzle);
+    }
+    if (r != 0) return r;
+  }
+  return 0;
 }
+
+// K3 at one width and type on `device` (the current device): the tensor
+// maps, the shared-memory attribute (once per device) and a persistent grid
+// of one CTA per SM. Returns 0, a cudaError_t or a hopper::ERR_* code.
+template <int HD, bool BF16>
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n,
+           const Layout& lay, float scale, int device, cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr uint64_t ELT = BF16 ? 2 : 4;
+  const void* const ptrs[3] = {q, k, v};
+  const uint64_t dims[4] = {HD, static_cast<uint64_t>(n), static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(lay.sn) * ELT, static_cast<uint64_t>(lay.sh) * ELT,
+                               static_cast<uint64_t>(lay.sb) * ELT};
+  Maps<HD> maps;
+  const int r = encode_maps<HD, BF16>(&maps, ptrs, dims, strides);
+  if (r != 0) return r;
+  const int n_qblocks = (n + BQ - 1) / BQ;
+  const int n_items = n_qblocks * batch * heads;
+  const float sl2 = scale * 1.4426950408889634f;
+  const int sms = hopper::sm_count(device);
+  const int grid = sms > 0 && sms < n_items ? sms : n_items;
+  cudaError_t e;
+  if constexpr (BF16) {
+    constexpr int SMEM = smem_bytes<HD>();
+    e = hopper::allow_smem_once(flash_bf16_wgmma<HD>, SMEM, device, smem_set);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bf16_wgmma<HD><<<grid, THREADS, SMEM, stream>>>(maps, static_cast<__nv_bfloat16*>(o), heads, n,
+                                                          lay.ob, lay.oh, lay.on, sl2, n_qblocks, n_items);
+  } else {
+    constexpr int SMEM = f32_smem_bytes<HD>();
+    e = hopper::allow_smem_once(flash_f32_wgmma<HD>, SMEM, device, smem_set);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_f32_wgmma<HD><<<grid, THREADS, SMEM, stream>>>(maps, static_cast<float*>(o), heads, n, lay.ob,
+                                                         lay.oh, lay.on, sl2, n_qblocks, n_items);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 }  // namespace
 
-// Launch K3 on `stream`. q, k, v are (batch, heads, n, hd) arrays with one
-// shared set of element strides (sb, sh, sn) and a unit stride along hd; o
-// has strides (ob, oh, on) and a unit stride along hd. All f32 (is_bf16 =
-// 0) or all bf16 (is_bf16 = 1); hd is 32, 64 or 80; pointers and strides
-// are 16-byte aligned. n >= 1, batch · heads <= 65,535.
-// Returns cudaGetLastError() after the launch (0 = launched), or 9001 / 9002
-// when the tensor maps of the bf16 wgmma kernel cannot be encoded.
+// Launch K3 on `stream` of device `device`. q, k, v are (batch, heads, n,
+// hd) arrays with one shared set of element strides (sb, sh, sn) and a unit
+// stride along hd; o has strides (ob, oh, on) and a unit stride along hd.
+// All f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); hd is 32, 64 or 80;
+// pointers and strides are 16-byte aligned. n >= 1, batch · heads <=
+// 65,535. Returns cudaGetLastError() after the launch (0 = launched), or
+// 9001 / 9002 when the tensor maps cannot be encoded.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int batch,
                                  int heads, int n, int hd, long long sb, long long sh,
                                  long long sn, long long ob, long long oh, long long on,
-                                 float scale, int is_bf16, void* stream) {
+                                 float scale, int is_bf16, int device, void* stream) {
   if (batch < 1 || heads < 1 || n < 1 || batch * heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  int current = device;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const Layout lay{sb, sh, sn, ob, oh, on};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    switch (hd) {
-      case 32: return wg::launch<32>(q, k, v, o, batch, heads, n, lay, scale, s);
-      case 64: return wg::launch<64>(q, k, v, o, batch, heads, n, lay, scale, s);
-      case 80: return wg::launch<80>(q, k, v, o, batch, heads, n, lay, scale, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  int r = static_cast<int>(cudaErrorInvalidValue);
+  switch (hd * 2 + (is_bf16 ? 1 : 0)) {
+    case 65: r = wg::launch<32, true>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
+    case 129: r = wg::launch<64, true>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
+    case 161: r = wg::launch<80, true>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
+    case 64: r = wg::launch<32, false>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
+    case 128: r = wg::launch<64, false>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
+    case 160: r = wg::launch<80, false>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
+    default: break;
   }
-  cudaError_t e;
-  switch (hd) {
-    case 32: e = launch_f32<32>(q, k, v, o, batch, heads, n, lay, scale, s); break;
-    case 64: e = launch_f32<64>(q, k, v, o, batch, heads, n, lay, scale, s); break;
-    case 80: e = launch_f32<80>(q, k, v, o, batch, heads, n, lay, scale, s); break;
-    default: e = cudaErrorInvalidValue; break;
-  }
-  return static_cast<int>(e);
+  if (current != device) cudaSetDevice(current);
+  return r;
 }
 
-// Dynamic shared memory the bf16 wgmma kernel asks for at head width hd (0
-// at a width the kernel does not take).
-extern "C" int flash_attn_wgmma_smem(int hd) {
-  switch (hd) {
-    case 32: return wg::smem_bytes<32>();
-    case 64: return wg::smem_bytes<64>();
-    case 80: return wg::smem_bytes<80>();
+// Dynamic shared memory K3 asks for at head width hd in bf16 (is_bf16 = 1)
+// or f32 (0 at a width it does not take).
+extern "C" int flash_attn_wgmma_smem(int hd, int is_bf16) {
+  switch (hd * 2 + (is_bf16 ? 1 : 0)) {
+    case 65: return wg::smem_bytes<32>();
+    case 129: return wg::smem_bytes<64>();
+    case 161: return wg::smem_bytes<80>();
+    case 64: return wg::f32_smem_bytes<32>();
+    case 128: return wg::f32_smem_bytes<64>();
+    case 160: return wg::f32_smem_bytes<80>();
     default: return 0;
   }
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels: K1's and K2's
 // score-and-select tile (wgmma_topk.cuh, for knn_topk.cu and ivf_topk.cu)
-// and K3's bf16 forward (flash_attn.cu).
+// and K3's bf16 and f32 forwards (flash_attn.cu).
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count, and
 //   a wait on a phase parity;
@@ -12,19 +12,23 @@
 //   layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes in
 //   1,024-byte atoms of 8 rows), of a 64-byte-swizzled one
 //   (CU_TENSOR_MAP_SWIZZLE_64B: rows of 64 bytes in 512-byte atoms of 8
-//   rows; K3's hd-32 tiles) and of a 32-byte-swizzled one
+//   rows; K3 bf16's hd-32 tiles, K3 f32's head dims 64-79 at hd 80) and
+//   of a 32-byte-swizzled one
 //   (CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes in 256-byte atoms of 8
 //   rows; head dims 64-79 of K3's hd-80 tiles), fence / commit / wait, and
 //   the shapes the kernels issue: m64n128k16 bf16 and m64n128k32 s8 with
-//   both operands in shared memory, m64n128k8 tf32 with A in registers, and
-//   m64n64k16, m64n32k16 and m64n16k16 bf16 with A in registers and B
-//   transposed (MN-major);
+//   both operands in shared memory, m64n128k8, m64n80k8, m64n64k8 and
+//   m64n32k8 tf32 with A in registers, and m64n64k16, m64n32k16 and
+//   m64n16k16 bf16 with A in registers and B transposed (MN-major);
 // - setmaxnreg, which moves registers from the producer warpgroup to the
-//   consumer warpgroups.
+//   consumer warpgroups;
+// - host: the tensor maps' encoder, and what a launcher keeps per process
+//   (each device's SM count, each kernel's shared-memory attribute) so that
+//   a call asks for neither again.
 //
 // Descriptors: a K-major operand (the depth contiguous, 64 bf16, 128 int8 or
-// 32 f32 = one 128-byte row; 32 bf16 = one 64-byte row; 16 bf16 = one
-// 32-byte row) advances 32 bytes per k-step (k16 bf16, k32 s8, k8 tf32)
+// 32 f32 = one 128-byte row; 32 bf16 or 16 f32 = one 64-byte row; 16 bf16
+// = one 32-byte row) advances 32 bytes per k-step (k16 bf16, k32 s8, k8 tf32)
 // inside its rows; an MN-major operand (K3's V: keys are rows, head dims
 // contiguous) advances 16 rows per k16 step (2,048 bytes at 128-byte rows,
 // 1,024 at 64, 512 at 32). Either way 8-row groups are one atom apart (the
@@ -36,6 +40,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -311,6 +317,62 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d (64×80 f32) += A (64×8 tf32 in registers, as above) · B (80×8 tf32,
+// descriptor, K-major); scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n80k8_tf32_rs(float (&d)[40], const uint32_t (&a)[4],
+                                                       uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64×64 f32) += A (64×8 tf32 in registers, as above) · B (64×8 tf32,
+// descriptor, K-major); scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64×32 f32) += A (64×8 tf32 in registers, as above) · B (32×8 tf32,
+// descriptor, K-major); scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // Warp specialisation.
 // ---------------------------------------------------------------------------
@@ -396,12 +458,33 @@ inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
-// The card's SM count (the persistent grids' size).
-inline int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+// Per-process, per-device state of a launcher: device ordinals below
+// MAX_DEVICES keep it, others ask again on every call.
+constexpr int MAX_DEVICES = 64;
+
+// Device `dev`'s SM count (the persistent grids' size), asked once.
+inline int sm_count(int dev) {
+  static std::atomic<int> known[MAX_DEVICES];
+  if (dev >= 0 && dev < MAX_DEVICES) {
+    const int n = known[dev].load(std::memory_order_relaxed);
+    if (n > 0) return n;
+  }
+  int n = 0;
   if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  if (dev >= 0 && dev < MAX_DEVICES) known[dev].store(n, std::memory_order_relaxed);
   return n;
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, smem) once per
+// device: `done` (one per kernel instance) holds a bit for each device
+// where it was set.
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, int smem, int dev, std::atomic<uint64_t>& done) {
+  const uint64_t bit = dev >= 0 && dev < MAX_DEVICES ? 1ull << dev : 0;
+  if (bit && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace hopper

@@ -5,11 +5,19 @@ Pallas TPU flash attention). The kernel source is ops/csrc/flash_attn.cu;
 ops/cuda_build.py compiles it with `nvcc` for sm_90a into a shared library
 with a plain C interface at first use, and it is loaded with ctypes.
 
-bf16 at every head width (32, 64, 80) runs the Hopper kernel (`wgmma` on
-TMA rings with a producer warp; hd 80's 160-byte rows as a 128-byte- and a
-32-byte-swizzled part), f32 3xTF32 on `mma.sync`; `route` names the one a
-call runs. No other kernel stands behind either: a call the kernel cannot
-take raises.
+Both dtypes at every head width (32, 64, 80) run Hopper kernels (`wgmma`
+on TMA rings with a producer warp): bf16 directly, f32 as 3xTF32 with the
+tiles split (and V transposed) in shared memory by the producer
+warpgroup's other warps; `route` names the kernel a call runs. No other
+kernel stands behind them: a call the kernel cannot take raises.
+
+A call's host work is kept short, since at mocov3_vits16's and
+mae_vith14's shapes it rivals the kernel's time (PERF.md has its split):
+the C entry point is looked up once, the output is one `empty_strided`,
+the stream is read raw, the device is set in C only where it differs, and
+the launcher asks for each device's SM count and sets the shared-memory
+attribute once per process (ops/csrc/hopper.cuh); it encodes the tensor
+maps on every call.
 
 `flash_attention` takes the kernel for CUDA tensors and the plain version
 (ops/flash.py::flash_attention_plain) for CPU tensors, and nothing else: a
@@ -43,44 +51,56 @@ from hbird_tpu_torch.ops import cuda_build
 from hbird_tpu_torch.ops.flash import flash_attention_plain
 
 HEAD_DIMS = (32, 64, 80)  # the kernel's widths: every VIT_PRESETS head width
-MAX_BATCH_HEADS = 65535  # the grid's second dimension
+MAX_BATCH_HEADS = 65535  # (batch, head) pairs the launch takes
+_DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+_launch = None  # flash_attn_launch, once loaded
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The kernel a CUDA call at this dtype and head width runs: 'wgmma'
-    (bf16 at hd 32, 64 and 80) or 'mma.sync 3xTF32' (f32)."""
+    (bf16, and f32 as 3xTF32, at hd 32, 64 and 80)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")
-    return "mma.sync 3xTF32" if dtype == torch.float32 else "wgmma"
+    return "wgmma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
+    shape, dtype, device = q.shape, q.dtype, q.device
+    if len(shape) != 4 or k.shape != shape or v.shape != shape:
         raise ValueError(f"q, k, v must share one (B, H, N, hd) shape: {q.shape}, {k.shape}, {v.shape}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+    if k.dtype != dtype or v.dtype != dtype or dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share dtype float32 or bfloat16: {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
+    if k.device != device or v.device != device:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
 
 
-def _kernel_layout(*xs: torch.Tensor) -> bool:
+def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """One shared set of strides, unit along hd, every pointer and stride a
-    multiple of 16 bytes (the kernel's cp.async and vector loads)."""
-    size = xs[0].element_size()
-    strides = xs[0].stride()
+    multiple of 16 bytes (the kernel's TMA copies). Written out, not as
+    loops: it runs on every call."""
+    sb, sh, sn, sd = q.stride()
+    size = q.element_size()
     return (
-        all(x.stride() == strides for x in xs)
-        and strides[-1] == 1
-        and all((s * size) % 16 == 0 for s in strides[:-1])
-        and all(x.data_ptr() % 16 == 0 for x in xs)
+        k.stride() == v.stride() == (sb, sh, sn, sd)
+        and sd == 1
+        and (sb * size) % 16 == (sh * size) % 16 == (sn * size) % 16 == 0
+        and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0
     )
+
+
+def _entry():
+    """The C entry point, built and loaded at the first CUDA call."""
+    global _launch
+    if _launch is None:
+        _launch = cuda_build.load("flash_attn.cu", "flash_attn_launch", _ARGTYPES).flash_attn_launch
+    return _launch
 
 
 def flash_attention(
@@ -92,9 +112,9 @@ def flash_attention(
     card hd must be 32, 64 or 80. Returns (B, H, N, hd) in q's dtype.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, scale)
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
@@ -107,23 +127,24 @@ def flash_attention(
     if b * h > MAX_BATCH_HEADS:
         raise ValueError(f"the K3 kernel takes at most {MAX_BATCH_HEADS} (batch, head) pairs: {b * h}")
     # (B, N, H, hd) in memory: the heads merge back into (B, N, D) for free.
-    out = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    ob, on = n * h * hd, h * hd
+    out = torch.empty_strided((b, h, n, hd), (ob, hd, on, 1), dtype=q.dtype, device=q.device)
     if n == 0 or b == 0:
         return out
     if not _kernel_layout(q, k, v):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    lib = cuda_build.load("flash_attn.cu", "flash_attn_launch", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, hd,
-            *q.stride()[:3], *out.stride()[:3], float(scale),
-            int(q.dtype == torch.bfloat16), stream,
-        )
+    launch = _entry()
+    device = q.get_device()
+    bf16 = q.dtype == torch.bfloat16
+    sb, sh, sn, _ = q.stride()
+    # The device's current stream as a handle, without building a Stream object.
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, hd, sb, sh, sn,
+                 ob, hd, on, float(scale), bf16, device, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    flash_attention.forms["bf16" if q.dtype == torch.bfloat16 else "f32"] += 1
+    flash_attention.forms["bf16" if bf16 else "f32"] += 1
     return out
 
 

@@ -52,6 +52,8 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "FLASH_WIDE", (2, 2, 20, 80))
     monkeypatch.setattr(mod, "NARROW_INPUT", 64)
     monkeypatch.setattr(mod, "NARROW_ROUNDS", 3)
+    monkeypatch.setattr(mod, "HOST_CALLS", 20)
+    monkeypatch.setattr(mod, "HOST_BATCH", 10)
     # mae_vith14's stand-in: 2 blocks of 2 heads of 80 (K3 at hd 80), no LayerScale
     monkeypatch.setitem(VIT_PRESETS, "tiny_hd80", ViTConfig(16, 160, 2, 2, img_size=224))
     monkeypatch.setattr(mod, "WIDE_PRESET", "tiny_hd80")
@@ -218,16 +220,19 @@ def test_flash_phases_rehearse_on_cpu(smoke):
         assert 0.0 < f32_err["xla_vs_f32"]["max"] <= 0.2
     assert "flash_vs_f32" not in token_err["float32"]
     rows, err = smoke.flash_timing(gen)
-    assert err == 0.0 and set(rows) == {"main", "f32", "long", "hd32", "hd80"}
-    routes = {label: row["route"] for label, row in rows.items()}
-    assert routes == {"main": "wgmma", "f32": "mma.sync 3xTF32", "long": "wgmma", "hd32": "wgmma",
-                      "hd80": "wgmma"}
+    assert err == 0.0 and set(rows) == {"main", "f32", "long", "hd32", "hd80", "f32 hd32", "f32 hd80"}
+    assert all(row["route"] == "wgmma" for row in rows.values())
+    assert rows["f32 hd80"]["dtype"] == "float32" and rows["f32 hd80"]["shape"] == [2, 2, 20, 80]
+    assert rows["f32 hd32"]["fma_bound_ms"] > 0 and rows["f32 hd32"]["graph_ms"] > 0
     for label in ("hd32", "hd80"):  # timed in turns with SDPA: medians, and the spread of each
         row = rows[label]
         assert row["rounds"] == 3 and row["graph_ms"] > 0 and row["library_graph_ms"] > 0
         assert row["ms"] == row["spread"]["kernel"]["ms"]["median"]
         assert row["spread"]["sdpa"]["graph_ms"]["min"] <= row["library_graph_ms"] <= row["spread"]["sdpa"]["graph_ms"]["max"]
         assert set(row["by_batch"]) == {1, 2} and all(ms > 0 for ms in row["by_batch"].values())
+        # the host cost's split (on the CPU, the pieces that run there)
+        assert set(row["host_us"]) == {"call", "check", "output", "layout"}
+        assert all(us > 0 for us in row["host_us"].values())
     assert rows["main"]["bound_by"] == "bytes" and rows["main"]["dtype"] == "bfloat16"
     assert rows["long"]["shape"] == [1, 2, 130, 64] and rows["long"]["dtype"] == "bfloat16"
     assert rows["hd80"]["shape"] == [2, 2, 20, 80] and rows["hd32"]["dtype"] == "bfloat16"
@@ -519,11 +524,12 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "BF16_PAIR_DEPTHS", (1664,))
     out = smoke.pairs("here")
     assert out["tree"] == "here" and pathlib.Path(out["package"]) == ROOT / "hbird_tpu_torch"
-    assert set(out["k3"]) == {*(f"{dt} {s}" for dt in ("bf16", "f32") for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")),
-                              "bf16 (2, 2, 20, 32)", "bf16 (2, 2, 20, 80)"}
+    k3 = {*(f"{dt} {s}" for dt in ("bf16", "f32") for s in ("(2, 2, 40, 32)", "(1, 2, 130, 64)")),
+          *(f"{dt} {s}" for dt in ("bf16", "f32") for s in ("(2, 2, 20, 32)", "(2, 2, 20, 80)"))}
+    assert set(out["k3"]) == k3 and all(row["graph_ms"] > 0 for row in out["k3"].values())
     for shape in ("(2, 2, 20, 32)", "(2, 2, 20, 80)"):  # hd 32 and 80 in turns with SDPA, host-launched and in a graph
         row = out["k3"][f"bf16 {shape}"]
-        assert row["route"] == "wgmma" and row["graph_ms"] > 0 and row["library_graph_ms"] > 0
+        assert row["route"] == "wgmma" and row["library_graph_ms"] > 0
     assert set(out["k1"]) == {*(f"bf16 {f} Q=40 M={m} k={k}" for f in ("dot", "l2") for m in (500, 3000)
                                 for k in smoke.PAIR_KS),
                               *(f"{f} Q=40 M={m} k={k}" for f in ("int8", "int8_rows") for m in (500, 3000)
@@ -546,6 +552,8 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
         assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert out["k1"]["bf16 dot Q=40 M=500 k=128"]["bound_by"] == "bytes"
     assert json.dumps(out)
+    only = smoke.pairs("here", k3_only=True)  # --k3-only: the same K3 rows, no K1 or K2
+    assert set(only["k3"]) == k3 and only["k1"] == only["k2"] == {}
 
 
 def test_card_vs_cpu_rehearses(smoke):
@@ -644,14 +652,34 @@ ptxas info    : Used 168 registers, used 3 barriers
     assert smoke.WGMMA_FORMS["ivf_topk.cu"]["INS_8StreamedINS_4Bf16EE"] == 4  # S 1-4, no epilogue
 
 
+def test_ptxas_report_reads_k3_f32_and_serialised_wgmma(smoke):
+    """K3 f32's wgmma instances (hd 32, 64, 80) read by head width apart
+    from the bf16 kernel's, and a C7511 note (wgmma serialised for want of
+    registers) on one of them among its notes, which phase 1 refuses."""
+    f32 = "_ZN46_GLOBAL__N__c18cd632_13_flash_attn_cu_efb7a86d2wg15flash_f32_wgmmaILi{}EEEvNS0_4MapsIXT_EEEPfiixxxfii"
+    log = "".join(f"""ptxas info    : Compiling entry function '{f32.format(hd)}' for 'sm_90a'
+ptxas info    : Function properties for {f32.format(hd)}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+""" for hd in (32, 64, 80))
+    log += ("ptxas info    : (C7511) Potential Performance Loss: wgmma.mma_async instructions are serialized due "
+            f"to insufficient register resources for the wgmma pipeline in the function '{f32.format(80)}'\n")
+    r = smoke.ptxas_report(log, "flash_f32_wgmma")
+    assert [smoke.K3_WGMMA_WIDTHS[a] for a in r["template_args"]] == [32, 64, 80]
+    assert len(r["wgmma_notes"]) == 1 and "(C7511)" in r["wgmma_notes"][0]
+    assert smoke.ptxas_report(log, "flash_bf16_wgmma")["instances"] == 0
+    assert smoke.TF32_KERNEL in smoke.WGMMA_KERNELS["flash_attn.cu"] and "flash_attn.cu" in smoke.NO_MMA_SYNC
+
+
 def test_no_mma_sync_in_the_search_libraries(smoke):
-    """Phase 1: an HMMA or IMMA in K1's or K2's library fails (every form
-    runs the wgmma kernel); K3's 3xTF32 f32 kernel keeps mma.sync."""
+    """Phase 1: an HMMA or IMMA in K1's, K2's or K3's library fails (every
+    form runs a wgmma kernel, K3 f32 included); a library outside
+    NO_MMA_SYNC is not held to it."""
     clean = {"HGMMA": 40, "IGMMA": 8, "UTMALDG": 60, "HMMA": 0, "IMMA": 0}
     for src in ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu"):
         smoke.check_no_mma_sync(src, clean)
-    smoke.check_no_mma_sync("flash_attn.cu", dict(clean, HMMA=24))
-    for src in ("knn_topk.cu", "ivf_topk.cu"):
+    smoke.check_no_mma_sync("other.cu", dict(clean, HMMA=24))
+    for src in ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu"):
         for op in ("HMMA", "IMMA"):
             with pytest.raises(RuntimeError, match="mma.sync"):
                 smoke.check_no_mma_sync(src, dict(clean, **{op: 1}))

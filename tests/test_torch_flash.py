@@ -69,11 +69,11 @@ def test_plain_matches_tpu_kernel_in_interpret_mode(n, hd, dtype):
 
 
 def test_route_names_the_kernel_of_each_width():
-    """bf16 runs the wgmma kernel at every head width (hd 80 included); f32
-    runs 3xTF32 on mma.sync; a width the kernel does not take has no route."""
+    """bf16 and f32 (3xTF32) run the wgmma kernel at every head width (hd
+    80 included); a width the kernel does not take has no route."""
     for hd in (32, 64, 80):
         assert flash_cuda.route(torch.bfloat16, hd) == "wgmma"
-        assert flash_cuda.route(torch.float32, hd) == "mma.sync 3xTF32"
+        assert flash_cuda.route(torch.float32, hd) == "wgmma"
     with pytest.raises(ValueError, match="head widths"):
         flash_cuda.route(torch.bfloat16, 48)
 

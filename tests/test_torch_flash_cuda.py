@@ -147,8 +147,8 @@ def test_flash_vit_on_the_card_matches_the_cpu(cuda_device, dtype):
 @pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 1370, 4625])
 def test_sequence_edges(cuda_device, n, hd, dtype):
-    """Every edge of the 64-key (f32) and 128-key (bf16, at every width)
-    tiles and of the 64- and 128-query blocks, against the plain version."""
+    """Every edge of the 64-key (f32) and 128-key (bf16) tiles and of the
+    128-query items, at every width, against the plain version."""
     q, k, v = _qkv((2, 3, n, hd), seed=n + hd, device=cuda_device, dtype=dtype)
     out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
     torch.cuda.synchronize()
@@ -220,6 +220,30 @@ def test_bf16_hd80_runs_the_wgmma_kernel(cuda_device, n):
     assert flash_cuda.flash_attention.forms["bf16"] == before + 2
     assert torch.isfinite(out).all() and torch.equal(out, dense)
     assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
+
+
+@pytest.mark.parametrize("dtype, hd", [(torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 80)],
+                         ids=["bf16-64", "f32-64", "f32-80"])
+def test_no_stale_tensor_map_at_a_reused_address(cuda_device, dtype, hd):
+    """The launcher keeps its tensor maps across calls: q, k and v as views
+    of three buffers (so every call reads the same three addresses) with the
+    strides of (2, 4, 200) at (1, 2, 100), then with one dim grown at a time
+    (B, H, N), then other dims and strides, other strides and (2, 4, 200)
+    again; each call against the plain version. A map kept from a call with
+    a smaller dim would read zeros for the grown one's rows."""
+    rng = np.random.default_rng(hd)
+    bufs = [torch.from_numpy(rng.standard_normal(2 * 4 * 200 * hd, dtype=np.float32)).to(cuda_device, dtype)
+            for _ in range(3)]
+    views = (lambda x: x.view(2, 4, 200, hd)[:1, :2, :100], lambda x: x.view(2, 4, 200, hd)[:, :2, :100],
+             lambda x: x.view(2, 4, 200, hd)[:, :, :100], lambda x: x.view(2, 4, 200, hd),
+             lambda x: x.view(4, 2, 200, hd), lambda x: x.view(2, 200, 4, hd).transpose(1, 2),
+             lambda x: x.view(2, 4, 200, hd))
+    for view in views:
+        q, k, v = (view(buf) for buf in bufs)
+        assert [t.data_ptr() for t in (q, k, v)] == [buf.data_ptr() for buf in bufs]
+        out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
+        torch.cuda.synchronize()
+        assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
 
 
 @pytest.mark.parametrize("hd", [32, 64, 80])
