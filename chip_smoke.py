@@ -7,9 +7,12 @@ Run from the repository root on a machine with a CUDA card (an H100):
 
 Phases; any failure raises and the script exits non-zero with no result:
 1. The card (nvidia-smi name and power limit) and versions; K1
-   (hbird_tpu_torch/ops/csrc/knn_topk.cu), K2 (ops/csrc/ivf_topk.cu) and K3
-   (ops/csrc/flash_attn.cu) are built with nvcc for sm_90a, one nvcc each,
-   started together. For the Hopper kernels (K1's and K2's wgmma kernel,
+   (hbird_tpu_torch/ops/csrc/knn_topk.cu), K2 (ops/csrc/ivf_topk.cu), K3
+   (ops/csrc/flash_attn.cu) and K3-bwd (ops/csrc/flash_bwd.cu) are built
+   with nvcc for sm_90a, one nvcc each, started together. K3-bwd's two
+   kernels (flash_bwd_dkv, flash_bwd_dq: mma.sync) must each have their
+   six instances (bf16 and f32 at head widths 32, 64, 80) in the ptxas
+   report, none spilling, ask for shared memory, and issue HMMA. For the Hopper kernels (K1's and K2's wgmma kernel,
    ops/csrc/wgmma_topk.cuh, every instance S = 1-4 of each form; K3's bf16
    wgmma kernel; ops/csrc/hopper.cuh) it prints what ptxas reported
    (registers and spills by instance, that setmaxnreg was not
@@ -104,10 +107,12 @@ Phases; any failure raises and the script exits non-zero with no result:
    and (2, 2, 65, 64). The launcher's cache of tensor maps: calls on views
    of three buffers (so at three fixed addresses) at one shape, then at
    other dims and strides, each against the plain version (bf16 and f32
-   at hd 64, f32 at hd 80; a stale map would read the wrong rows). K3 has
-   no backward: under autograd (an input that requires grad) the card's
-   call must raise and launch nothing, and under torch.no_grad() the same
-   inputs hold.
+   at hd 64, f32 at hd 80; a stale map would read the wrong rows). K3
+   under autograd (an input that requires grad, grad mode on), bf16 and
+   f32: its Function's forward launches K3's LSE instance once, equal bit
+   for bit to the torch.no_grad() call (which takes no Function and launches
+   once), the backward launches K3-bwd's dK/dV and dQ kernels once each and
+   holds against the plain backward; a second derivative raises.
 5. The main paths: `hbird_evaluation` on a generated VOC-layout fixture
    (64 train / 16 val images, 600x450) with dinov2_vitb14 at full width
    (random weights from a seed), input 518, batch 16, k=30, seeded
@@ -337,6 +342,23 @@ Phases; any failure raises and the script exits non-zero with no result:
    one (NCCL over tcp://127.0.0.1; every cross-shard step a collective):
    builds and search equal the process-local mesh's bit for bit. With more
    than one card, 10.1-10.5 run again over distinct cards.
+11. K3-bwd and the gradient path. 11.1: K3-bwd's kernels against the plain
+   backward (ops/flash.py::flash_attention_bwd_plain's halves) at N in
+   FLASH_BWD_NS (1, 50, 129, 197, 257, 1,370), head widths 32, 64 and 80
+   (12, 12 and 16 heads, batch 2), bf16 and f32: q, k, v strided views of
+   one (B, N, 3, H, hd) buffer and do a (B, H, N, hd) view of (B, N, H,
+   hd) memory, as the ViT hands them over; lse from K3's LSE instance,
+   whose output must equal the no-grad call's bit for bit and whose lse
+   the plain one's within 1e-5·max(1, |lse|); each kernel run twice for
+   the same bits. 11.2, the gradient path: dinov2_vitb14 at 518 (N =
+   1,370, 12 blocks of 12 heads of 64), random weights from the seed
+   (LayerScale 0.05), GRAD_BATCH = 4 seeded images, the loss Σ patch tokens
+   · g (g seeded), the gradients of the input and of every parameter with
+   attention_impl='flash' against 'xla' (plain torch autograd), f32 and
+   bf16 (see flash_grad_path for the limits); each 'flash' run launches
+   K3 and each K3-bwd kernel once per block (12), the counts set to 0 just
+   before it and read just after. 11.3: K3-bwd timed at FLASH_MAIN,
+   FLASH_NARROW and FLASH_WIDE in bf16 and f32 (flash_bwd_timing).
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs; K1 f32
@@ -359,6 +381,16 @@ within 4 bf16 ulps at each query row's scale (4 * 2^-8 * the row's largest
 kernel rounds p to bf16 against its running maximum and normalises at the
 end, the plain version rounds the normalised p, so about half the outputs
 differ by about one ulp; the output's own rounding adds at most one.
+
+Tolerance of the K3-bwd checks (check_grads), with S the largest |value|
+of the call's three plain gradients: f32 within 1e-5·S (3xTF32 products
+and another summation order; p from an lse the CUDA forward wrote). bf16
+within 4 bf16 ulps at each row's scale (its largest |plain value|, at
+least 2^-8·S) and a mean error under 2^-7·max(mean |plain|, 2^-8·S): the
+kernels and the plain version round p and ds to bf16 at the same points,
+from values that differ in the last f32 bits, so a rounding may go the
+other way. S and the floor: at N = 1, dq and dk vanish in exact
+arithmetic (p = 1, ds = 0) and both sides return rounding noise.
 
 Output: a {"kernels": [...]} line, the nvidia-smi card line, and last
 {"ok": true, "device": {...}}.
@@ -419,6 +451,9 @@ TPU_KERNELS = {
     "K1": "hbird_tpu/ops/knn_pallas.py:238",  # _knn_kernel
     "K2": "hbird_tpu/ops/ivf.py:668",  # _ivf_kernel
     "K3": "hbird_tpu/models/vit.py:319",  # _flash_attention (JAX's library Pallas kernel)
+    # K3-bwd: the library's backward kernels behind that call's custom_vjp
+    "K3-bwd dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:796",  # _flash_attention_dkv_kernel
+    "K3-bwd dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",  # _flash_attention_dq_kernel
 }
 
 # Sizes of the run (a rehearsal on the CPU may shrink them).
@@ -509,9 +544,23 @@ WGMMA_FORMS = {
 NO_MMA_SYNC = ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu")
 SMEM_DEPTHS = range(8, 4097, 8)  # phase 1: K1 and K2 report shared memory for every form at each
 F32_FORM = "INS_3F32E"
-# K3's wgmma instances (bf16 and f32 each) by head width, as mangled; none
-# may spill or have its wgmma serialised (C7511).
-K3_WGMMA_WIDTHS = {"ILi32E": 32, "ILi64E": 64, "ILi80E": 80}
+# K3's wgmma instances (bf16 and f32 each) by head width and LSE flag (the
+# forward under autograd, which also writes each row's log-sum-exp), as
+# mangled; none may spill or have its wgmma serialised (C7511).
+K3_WGMMA_WIDTHS = {f"ILi{hd}ELb{lse}E": hd for hd in (32, 64, 80) for lse in (0, 1)}
+# K3-bwd's kernels (ops/csrc/flash_bwd.cu, mma.sync): each one instance a
+# dtype and head width (as mangled), none spilling.
+BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
+BWD_INSTANCES = {f"I{t}Li{hd}E": (dt, hd) for t, dt in (("13__nv_bfloat16", "bf16"), ("f", "f32"))
+                 for hd in (32, 64, 80)}
+# Phase 11: K3-bwd against its plain backward at these sequence lengths (every
+# head width, both dtypes), the gradient path at GRAD_BATCH, and its times.
+FLASH_BWD_NS = (1, 50, 129, 197, 257, 1370)
+FLASH_BWD_CASE_B = 2  # batch of each phase 11 check (12 heads; 16 at hd 80)
+GRAD_BATCH = 4  # the gradient path's batch
+# The least work of a backward: s, dp, dv, dk, dq (2·N²·hd flops each a
+# head); the library's split (and K3-bwd's) recomputes s and dp, 14.
+BWD_FLOPS, BWD_SPLIT_FLOPS = 10, 14
 TOKEN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.1, 1e-2)}  # (max, mean) |err|
 # TOKEN_TOL holds 'flash' to 'xla' in ViTs of up to 12 blocks. Deeper, two
 # bf16 forwards drift apart whatever the attention: at mae_vith14's 32
@@ -1423,8 +1472,6 @@ def flash_cases(gen):
                                     flash_attention_plain(q, k, v, scale)))
             del q, k, v, out
     errs.append(stale_map_check(gen))
-    if DEVICE == "cuda":
-        grad_check(gen)
     return max(errs)
 
 
@@ -1463,29 +1510,328 @@ def stale_map_check(gen):
 
 
 def grad_check(gen):
-    """Phase 4: K3 has no backward, so under autograd (an input that
-    requires grad, grad mode on) the card's call must raise and launch
-    nothing; under torch.no_grad() the same inputs run and hold."""
-    from hbird_tpu_torch.ops.flash import flash_attention_plain
-    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+    """Phase 4: K3 under autograd on the card. With an input that requires
+    grad (grad mode on) the call goes through its autograd Function: the
+    forward launches K3's LSE instance once, its output equal bit for bit
+    to the call under torch.no_grad() (which takes no Function: no autograd
+    node, one launch); the backward launches K3-bwd's dK/dV and dQ kernels
+    once each, and its gradients hold against the plain backward on the
+    same q, k, v, output, lse and do (check_grads). A second derivative
+    raises. bf16 and f32 at (2, 4, 100, 64)."""
+    from hbird_tpu_torch.ops import flash_cuda
+    from hbird_tpu_torch.ops.flash import flash_attention_bwd_plain, flash_attention_plain
 
-    q, k, v = (torch.randn((2, 4, 100, 64), generator=gen, device=DEVICE) for _ in range(3))
-    q.requires_grad_(True)
-    before = flash_attention.launches
-    try:
-        flash_attention(q, k, v, 0.125)
-    except RuntimeError as e:
-        if "no backward" not in str(e):
-            raise
-    else:
-        fail("K3 under autograd returned an output instead of raising")
-    if flash_attention.launches != before:
-        fail("K3 under autograd launched")
+    counters = {"flash_attention": flash_cuda.flash_attention, "dkv": flash_cuda.flash_attention_dkv,
+                "dq": flash_cuda.flash_attention_dq}
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.randn((2, 4, 100, 64), generator=gen, device=DEVICE).to(dtype) for _ in range(4))
+        with torch.no_grad():
+            reset_counts(counters)
+            ref_out = flash_cuda.flash_attention(q.requires_grad_(), k, v, 0.125)
+            if ref_out.grad_fn is not None or {n: c.launches for n, c in counters.items()} != {
+                    "flash_attention": 1, "dkv": 0, "dq": 0}:
+                fail("K3 under torch.no_grad() did not launch once with no autograd node")
+        reset_counts(counters)
+        out = flash_cuda.flash_attention(q, k, v, 0.125)
+        if type(out.grad_fn).__name__ != "FlashAttentionBackward" or not torch.equal(out, ref_out):
+            fail(f"K3 under autograd, {dtype}: no Function node, or an output other than the no-grad call's")
+        (dq,) = torch.autograd.grad(out, (q,), do)
+        if {n: c.launches for n, c in counters.items()} != {"flash_attention": 1, "dkv": 1, "dq": 1}:
+            fail(f"K3 under autograd, {dtype}: launches {({n: c.launches for n, c in counters.items()})}, "
+                 "not the forward, dK/dV and dQ once each")
+        _, lse = flash_attention_plain(q.detach(), k, v, 0.125, return_lse=True)
+        ref = flash_attention_bwd_plain(q.detach(), k, v, ref_out, lse, do, 0.125)
+        sync()
+        errs.append(check_grads(f"K3 under autograd, {str(dtype)[6:]} (2, 4, 100, 64), dq", (dq,), ref[:1],
+                                scale_of=ref))
+        try:
+            torch.autograd.grad(flash_cuda.flash_attention(q, k, v, 0.125).sum(), (q,), create_graph=True)
+        except RuntimeError as e:
+            if "Higher-order AD not supported" not in str(e):
+                raise
+        else:
+            fail("K3 under autograd took a second derivative")
+        q.requires_grad_(False)
+    print("  K3 under autograd: the LSE forward (the no-grad output, bit for bit), dK/dV and dQ once each; "
+          "no Function under torch.no_grad(); a second derivative raises", flush=True)
+    return max(errs)
+
+
+def check_grads(name, got, ref, scale_of=None):
+    """K3-bwd's gradients `got` against the plain backward's `ref` (tuples
+    of tensors), at the stated tolerance; S is the largest |value| of
+    `scale_of` (default `ref`), the call's gradient scale. f32: within
+    1e-5·S. bf16: each row within FLASH_BF16_ULPS bf16 ulps of its scale,
+    the larger of its own largest |ref| and 2^-8·S, and a mean error under
+    2^-7 times the larger of the mean |ref| and 2^-8·S. The floor: at N = 1
+    dq and dk vanish in exact arithmetic (p = 1, ds = 0) and both sides
+    return rounding noise. Returns the largest |err|."""
+    s = max(r.float().abs().max().item() for r in (ref if scale_of is None else scale_of))
+    worst = 0.0
+    for out, r in zip(got, ref):
+        if out.shape != r.shape or out.dtype != r.dtype:
+            fail(f"{name}: {tuple(out.shape)} {out.dtype} against {tuple(r.shape)} {r.dtype}")
+        o, r = out.float(), r.float()
+        if not torch.isfinite(o).all():
+            fail(f"{name}: non-finite gradients")
+        err = (o - r).abs()
+        e = err.max().item()
+        worst = max(worst, e)
+        if out.dtype == torch.float32:
+            if e > FLASH_F32_TOL * s:
+                fail(f"{name}: max |err| {e} > {FLASH_F32_TOL} x {s}")
+        else:
+            floor = 2.0**-8 * s
+            ulp = 2.0**-8 * r.abs().amax(dim=-1, keepdim=True).clamp_min(floor)
+            if (err > FLASH_BF16_ULPS * ulp).any():
+                fail(f"{name}: {(err / ulp).max().item():.2f} bf16 ulps at the row's scale > {FLASH_BF16_ULPS}")
+            if err.mean().item() > 2.0**-7 * max(r.abs().mean().item(), floor):
+                fail(f"{name}: mean |err| {err.mean().item()} > 2^-7 * mean |ref|")
+    print(f"  {name}: max |err| {worst:.3g}, {worst / max(s, 1e-30):.3g} of the gradients' largest |value| {s:.3g}",
+          flush=True)
+    return worst
+
+
+def flash_bwd_cases(gen):
+    """Phase 11.1: K3-bwd against its plain backward at every N of
+    FLASH_BWD_NS, head width (32, 64, 80) and dtype: q, k and v strided
+    views of one (B, N, 3, H, hd) buffer and do a (B, H, N, hd) view of
+    (B, N, H, hd) memory, as the ViT hands them over; lse from K3's LSE
+    instance (its output equal bit for bit to the no-grad call's, its lse
+    within 1e-5·max(1, |plain lse|)); each kernel run twice, the same bits.
+    Returns the largest |err|."""
+    from hbird_tpu_torch.ops import flash_cuda
+    from hbird_tpu_torch.ops.flash import (flash_attention_di, flash_attention_dkv_plain,
+                                           flash_attention_dq_plain, flash_attention_plain)
+
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (32, 64, 80):
+            heads = 16 if hd == 80 else 12
+            for n in FLASH_BWD_NS:
+                b, scale = FLASH_BWD_CASE_B, hd**-0.5
+                qkv = torch.randn((b, n, 3, heads, hd), generator=gen, device=DEVICE).to(dtype).permute(2, 0, 3, 1, 4)
+                q, k, v = qkv[0], qkv[1], qkv[2]
+                do = torch.randn((b, n, heads, hd), generator=gen, device=DEVICE).to(dtype).transpose(1, 2)
+                label = f"K3-bwd {str(dtype)[6:]} ({b}, {heads}, {n}, {hd})"
+                with torch.no_grad():
+                    o_ng = flash_cuda.flash_attention(q, k, v, scale)
+                    if DEVICE == "cuda":
+                        lse = torch.empty((b, heads, n), device=DEVICE)
+                        o = flash_cuda._forward(q, k, v, scale, lse)
+                    else:  # a CPU rehearsal: the Function's plain forward
+                        o, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+                    _, lse_ref = flash_attention_plain(q, k, v, scale, return_lse=True)
+                    sync()
+                    if not torch.equal(o, o_ng):
+                        fail(f"{label}: K3's LSE instance's output differs from the no-grad call's")
+                    lse_err = (lse - lse_ref).abs().max().item()
+                    if lse_err > 1e-5 * max(1.0, lse_ref.abs().max().item()):
+                        fail(f"{label}: lse off the plain version's by {lse_err}")
+                    di = flash_attention_di(o, do)
+                    runs = []
+                    for _ in range(2):
+                        dk, dv = flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale)
+                        runs.append((flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale), dk, dv))
+                    sync()
+                    if not all(torch.equal(a, c) for a, c in zip(*runs)):
+                        fail(f"{label}: two runs of K3-bwd differ")
+                    ref = (flash_attention_dq_plain(q, k, v, lse, do, di, scale),
+                           *flash_attention_dkv_plain(q, k, v, lse, do, di, scale))
+                    errs.append(check_grads(f"{label}, lse err {lse_err:.2g}, two runs equal", runs[0], ref))
+                del qkv, q, k, v, do
+    return max(errs)
+
+
+def flash_grad_path(gen_seed):
+    """Phase 11.2, the gradient path: PRESET at INPUT (ViT-B/14 at 518, N =
+    1,370, 12 heads of 64, 12 blocks), random weights from `gen_seed` with
+    LayerScale LAYERSCALE, GRAD_BATCH seeded images; the loss Σ patch
+    tokens · g (g seeded); the gradients of the input and of every
+    parameter under attention_impl='flash' (K3 with K3-bwd) against 'xla'
+    (plain torch autograd), in f32 and bf16. f32: each tensor within 1e-4
+    of its largest |'xla' gradient|. bf16: every tensor's error against
+    the f32 'xla' gradient, over that tensor's largest |value|, pooled: the
+    'flash' run's max and mean no more than TOKEN_F32_MARGIN times the bf16
+    'xla' run's. Each 'flash' run launches K3 and each K3-bwd kernel once
+    per block (the counts set to 0 just before it and read just after).
+    Returns (runs, launches by run)."""
+    from hbird_tpu_torch.models import VIT_PRESETS, ViT
+    from hbird_tpu_torch.ops import flash_cuda
+
+    cfg = VIT_PRESETS[PRESET]
+    t0 = time.perf_counter()
+    vit = ViT(cfg, generator=torch.Generator().manual_seed(gen_seed))
     with torch.no_grad():
-        out = flash_attention(q, k, v, 0.125)
-        check_flash("K3 f32 under torch.no_grad() (its inputs require grad)", out,
-                    flash_attention_plain(q, k, v, 0.125))
-    print("  K3 under autograd: raises (no backward), launches nothing", flush=True)
+        for blk in vit.blocks:
+            if cfg.layerscale:
+                blk.ls1.fill_(LAYERSCALE)
+                blk.ls2.fill_(LAYERSCALE)
+    vit.to(DEVICE)
+    init_s = time.perf_counter() - t0
+    host = torch.Generator().manual_seed(gen_seed)
+    imgs = torch.randn((GRAD_BATCH, 3, INPUT, INPUT), generator=host).to(DEVICE)
+    n_patch = (INPUT // cfg.patch_size) ** 2
+    if vit.pos_embed.shape[1] != 1 + n_patch:  # not the native grid (a rehearsal): a resampled, fixed table
+        vit.prepare(INPUT)
+    g = torch.randn((GRAD_BATCH, n_patch, cfg.width), generator=host).to(DEVICE)
+    counters = {"flash_attention": flash_cuda.flash_attention, "flash_attention_dkv": flash_cuda.flash_attention_dkv,
+                "flash_attention_dq": flash_cuda.flash_attention_dq}
+
+    def grads(impl, dtype):
+        _set_attention(vit, impl)
+        vit.zero_grad(set_to_none=True)
+        x = imgs.clone().requires_grad_()
+        reset_counts(counters)
+        t = time.perf_counter()
+        (vit(x, compute_dtype=dtype)["x_norm_patchtokens"] * g).sum().backward()
+        sync()
+        wall = time.perf_counter() - t
+        n = {name: fn.launches for name, fn in counters.items()}
+        n_forms = read_forms(counters)
+        out = {"input": x.grad, **{name: p.grad for name, p in vit.named_parameters() if p.grad is not None}}
+        vit.zero_grad(set_to_none=True)
+        return out, n, n_forms, wall
+
+    runs, launches = {}, {}
+    truth, _, _, wall_xla = grads("xla", torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        flash, n, forms, wall = grads("flash", dtype)
+        label = f"{PRESET} at {INPUT}, batch {GRAD_BATCH}, {dt}, attention_impl='flash'"
+        want = {"flash_attention": cfg.depth, "flash_attention_dkv": cfg.depth, "flash_attention_dq": cfg.depth}
+        if n != want:
+            fail(f"{label}: launches {n}, not {want} (K3, dK/dV and dQ once per block)")
+        launches[f"grad {dt} flash"] = n
+        if set(flash) != set(truth) or len(truth) < sum(1 for _ in vit.parameters()) - (INPUT != cfg.img_size):
+            fail(f"{label}: a tensor without its gradient")
+        if dtype == torch.float32:
+            worst = max(((flash[k] - truth[k]).abs().max() / truth[k].abs().max().clamp_min(1e-30)).item()
+                        for k in truth)
+            if worst > 1e-4:
+                fail(f"{label}: a gradient off 'xla''s by {worst} of its largest |value| (> 1e-4)")
+            run = {"max_err_over_max": worst, "xla_wall_s": wall_xla}
+            print(f"  {label}: every gradient within {worst:.3g} of its largest |'xla' value| "
+                  f"({len(truth)} tensors); launches {json.dumps(n)}; wall {wall:.3f} s ('xla' {wall_xla:.3f} s)",
+                  flush=True)
+        else:
+            xla, _, _, wall_x = grads("xla", dtype)
+            off = {}
+            for impl, got in (("flash", flash), ("xla", xla)):
+                errs = torch.cat([((got[k].float() - truth[k]).abs() / truth[k].abs().max().clamp_min(1e-30))
+                                  .flatten() for k in truth])
+                off[impl] = {"max": errs.max().item(), "mean": errs.mean().item()}
+            f, x = off["flash"], off["xla"]
+            if f["max"] > TOKEN_F32_MARGIN[0] * x["max"] or f["mean"] > TOKEN_F32_MARGIN[1] * x["mean"]:
+                fail(f"{label}: gradients further from the f32 'xla' ones than bf16 'xla''s: {off}")
+            run = {"vs_f32_xla": off, "xla_wall_s": wall_x}
+            print(f"  {label}: against the f32 'xla' gradients (each over its tensor's largest |value|, pooled) "
+                  f"max {f['max']:.4g}, mean {f['mean']:.4g}; bf16 'xla' max {x['max']:.4g}, mean {x['mean']:.4g}; "
+                  f"launches {json.dumps(n)}; wall {wall:.3f} s ('xla' {wall_x:.3f} s)", flush=True)
+            del xla
+        runs[label] = {**run, "launches": n, "forms": forms, "wall_s": wall,
+                       "host_init_s": init_s, "tensors": len(truth)}
+        del flash
+    del vit, truth
+    return runs, launches
+
+
+def bwd_bound_ms(shape, dtype, flops=BWD_FLOPS, io=8, rows=4):
+    """K3-bwd's least time: `io` (B, H, N, hd) tensors moved once (q, k, v,
+    o, do read and dq, dk, dv written: 8) and `rows` bytes a row (lse), or
+    flops·B·H·N²·hd operations at the card's peak for the type (bf16; f32
+    at f32 accuracy on the tensor cores: TF32_PASSES passes at the TF32
+    peak)."""
+    b, h, n, hd = shape
+    elt = 2 if dtype == torch.bfloat16 else 4
+    t_bytes = (io * b * h * n * hd * elt + rows * b * h * n) / PEAK_BYTES * 1e3
+    ops = flops * b * h * n * n * hd
+    t_ops = (ops / PEAK_BF16_FLOPS if dtype == torch.bfloat16 else TF32_PASSES * ops / PEAK_TF32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_backend(q, k, v, scale):
+    """The backend scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, False, scale=scale)).name
+
+
+def flash_bwd_timing(gen):
+    """Phase 11.3: K3-bwd at the main shape (FLASH_MAIN), hd 32 (FLASH_NARROW)
+    and hd 80 (FLASH_WIDE), bf16 and f32: the whole backward
+    (flash_attention_bwd: di, then the dK/dV and dQ kernels) host-launched
+    (`ms`) and in one CUDA graph (`graph_ms`), each kernel alone
+    host-launched, against the bound (BWD_FLOPS; the library split's
+    BWD_SPLIT_FLOPS beside it; each kernel's own: 8 and 6), the plain
+    backward, and scaled_dot_product_attention's backward (a yardstick the
+    port never calls; host-launched, its backend named). Returns (rows by
+    label, the largest |err|)."""
+    from hbird_tpu_torch.ops import flash_cuda
+    from hbird_tpu_torch.ops.flash import (flash_attention_bwd_plain, flash_attention_di,
+                                           flash_attention_dkv_plain, flash_attention_dq_plain,
+                                           flash_attention_plain)
+
+    rows, errs = {}, []
+    for label, shape in (("main", FLASH_MAIN), ("hd32", FLASH_NARROW), ("hd80", FLASH_WIDE)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype)[6:]
+            scale = shape[-1] ** -0.5
+            q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(4))
+            with torch.no_grad():
+                o, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+                di = flash_attention_di(o, do)
+                box = {}
+                plain_ms = cuda_ms(lambda: box.update(ref=flash_attention_bwd_plain(q, k, v, o, lse, do, scale)), 2)
+                ref = box.pop("ref")
+                errs.append(check_grads(f"K3-bwd timing shape {dt} {shape}",
+                                        flash_cuda.flash_attention_bwd(q, k, v, o, lse, do, scale), ref))
+                del ref
+                plain_dkv = cuda_ms(lambda: flash_attention_dkv_plain(q, k, v, lse, do, di, scale), 2)
+                plain_dq = cuda_ms(lambda: flash_attention_dq_plain(q, k, v, lse, do, di, scale), 2)
+
+                def bwd():
+                    flash_cuda.flash_attention_bwd(q, k, v, o, lse, do, scale)
+
+                ms, g_ms = cuda_ms(bwd, 10), graph_ms(bwd, 10)
+                dkv_ms = cuda_ms(lambda: flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale), 10)
+                dq_ms = cuda_ms(lambda: flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale), 10)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            backend = sdpa_backend(*leaves, scale)
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), 10)
+            del sdpa_out, leaves
+            b_ms, b_by = bwd_bound_ms(shape, dtype)
+            split_ms = bwd_bound_ms(shape, dtype, BWD_SPLIT_FLOPS)[0]
+            dkv_bound = bwd_bound_ms(shape, dtype, 8, io=6, rows=8)
+            dq_bound = bwd_bound_ms(shape, dtype, 6, io=5, rows=8)
+            key = label if dtype == torch.bfloat16 else f"f32 {label}" if label != "main" else "f32"
+            rows[key] = {"shape": list(shape), "dtype": dt, "route": flash_cuda.route(dtype, shape[-1], "dkv"),
+                         "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "split_bound_ms": split_ms, "library_ms": lib_ms, "library": f"SDPA backward ({backend})",
+                         "dkv": {"ms": dkv_ms, "plain_ms": plain_dkv, "bound_ms": dkv_bound[0],
+                                 "bound_by": dkv_bound[1]},
+                         "dq": {"ms": dq_ms, "plain_ms": plain_dq, "bound_ms": dq_bound[0], "bound_by": dq_bound[1]}}
+            print(f"  K3-bwd {dt} {shape} (mma_sync): {ms:.4f} ms host-launched, {g_ms:.4f} in a CUDA graph "
+                  f"(dK/dV {dkv_ms:.4f}, dQ {dq_ms:.4f}); plain {plain_ms:.4f}; SDPA backward ({backend}) "
+                  f"{lib_ms:.4f}; bound {b_ms:.4f} ms ({b_by}; the split's {split_ms:.4f}; dK/dV's "
+                  f"{dkv_bound[0]:.4f}, dQ's {dq_bound[0]:.4f}): {shares(ms, b_ms, lib_ms)}", flush=True)
+            del q, k, v, do, o, lse, di
+    return rows, max(errs)
+
+
+def bwd_entry(name, key, tpu_kernel, launches, err, rows, card, forms):
+    """One K3-bwd kernel (`key`: 'dkv' or 'dq') of the `kernels` line: its
+    own numbers at the main shape in bf16 (no one PyTorch call computes
+    that half alone: `library_ms` null; the whole backward's SDPA time is
+    in `shapes`)."""
+    main = rows["main"][key]
+    return {"name": name, "route": "cuda", "form": rows["main"]["route"],
+            "source": "hbird_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": tpu_kernel, "launches": launches, "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shapes": rows, "card": card, "forms": forms}
 
 
 def shares(ms, bound, library):
@@ -1510,7 +1856,7 @@ def ptxas_report(log, name):
     args, regs, spills = [], [], []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and name in line:
-            targs = re.search(re.escape(name) + r"(I\w*?(?:FlatE|SlabsE|Li\d+E))E", line)
+            targs = re.search(re.escape(name) + r"(I\w*?(?:FlatE|SlabsE|Li\d+E|Lb[01]E))E", line)
             args.append(targs.group(1) if targs else "")
             for nxt in lines[i + 1:i + 5]:
                 if "spill stores" in nxt:
@@ -1583,13 +1929,14 @@ def build_report(libs):
             print(f"  ptxas, {src} {form} ({len(got)} instances): (registers, spill bytes) {json.dumps(got)}",
                   flush=True)
         if src == "flash_attn.cu":
-            widths = {K3_WGMMA_WIDTHS.get(a): (regs[a], spills[a]) for a in regs}
-            if set(widths) != set(K3_WGMMA_WIDTHS.values()) or any(sp for _, sp in widths.values()):
-                fail(f"ptxas: K3's {name} instances by head width (want {sorted(K3_WGMMA_WIDTHS.values())}, "
+            widths = {a: (regs[a], spills[a]) for a in regs}
+            if set(widths) != set(K3_WGMMA_WIDTHS) or any(sp for _, sp in widths.values()):
+                fail(f"ptxas: K3's {name} instances by head width and LSE flag (want {sorted(K3_WGMMA_WIDTHS)}, "
                      f"none spilling): {widths}")
             if any("(C7511)" in note for note in r["wgmma_notes"]):
                 fail(f"ptxas serialised the wgmma of {name} for want of registers (C7511)")
             report[f"flash_attn.cu:{name}:widths"] = widths
+    report.update(bwd_build_report())
     k1 = ctypes.CDLL(str(libs["knn_topk.cu"]))
     k2 = ctypes.CDLL(str(libs["ivf_topk.cu"]))
     k3 = ctypes.CDLL(str(libs["flash_attn.cu"]))
@@ -1659,8 +2006,43 @@ def build_report(libs):
                 fail(f"{path.name}: {name} kernels of head widths {got} in the SASS, not "
                      f"{sorted(K3_WGMMA_WIDTHS.values())}")
         check_no_mma_sync(src, total)
+        if src == "flash_bwd.cu" and not total["HMMA"]:
+            fail(f"{path.name}: no HMMA: K3-bwd's route ('mma_sync') names another kernel than the one built")
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
     print(f"  no HMMA or IMMA in {', '.join(NO_MMA_SYNC)}'s libraries: every form on a wgmma kernel", flush=True)
+    return report
+
+
+def bwd_build_report():
+    """Phase 1: K3-bwd's kernels (flash_bwd.cu) as ptxas reported them: one
+    instance of each kernel a dtype and head width (BWD_INSTANCES), none
+    spilling; and the dynamic shared memory each asks for."""
+    import ctypes
+
+    from hbird_tpu_torch.ops import cuda_build
+
+    if "flash_bwd.cu" not in cuda_build.LOGS:
+        print("  flash_bwd.cu: built before this run, no ptxas report", flush=True)
+        return {}
+    report = {}
+    for name in BWD_KERNELS:
+        r = ptxas_report(cuda_build.LOGS["flash_bwd.cu"], name)
+        got = {a: (reg, sp) for a, reg, sp in zip(r["template_args"], r["registers"], r["spill_store_bytes"])}
+        if set(got) != set(BWD_INSTANCES) or any(sp for _, sp in got.values()):
+            fail(f"ptxas: K3-bwd's {name} instances by dtype and head width (want {sorted(BWD_INSTANCES)}, "
+                 f"none spilling): {got}")
+        report[f"flash_bwd.cu:{name}"] = {f"{BWD_INSTANCES[a][0]} hd {BWD_INSTANCES[a][1]}": v
+                                          for a, v in got.items()}
+        print(f"  ptxas, flash_bwd.cu {name} ({len(got)} instances): (registers, spill bytes) "
+              f"{json.dumps(report[f'flash_bwd.cu:{name}'])}", flush=True)
+    lib = ctypes.CDLL(str(cuda_build.library_path("flash_bwd.cu")))
+    lib.flash_bwd_smem.argtypes, lib.flash_bwd_smem.restype = (ctypes.c_int,) * 3, ctypes.c_int
+    smem = {f"{name} {dt} hd {hd}": lib.flash_bwd_smem(kernel, hd, dt == "bf16")
+            for kernel, name in enumerate(BWD_KERNELS) for dt, hd in BWD_INSTANCES.values()}
+    if not all(smem.values()):
+        fail(f"a K3-bwd kernel asks for no shared memory: {smem}")
+    print(f"  K3-bwd dynamic shared memory: {json.dumps(smem)} B", flush=True)
+    report["flash_bwd.cu:smem_bytes"] = smem
     return report
 
 
@@ -4251,7 +4633,7 @@ def main(argv=()):
     def phase(title):
         print(f"{title} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
 
-    phase("[1] build K1, K2 and K3")
+    phase("[1] build K1, K2, K3 and K3-bwd")
     t0 = time.perf_counter()
     libs = cuda_build.build_all(verbose=True)
     print(f"  built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f}s",
@@ -4271,8 +4653,9 @@ def main(argv=()):
     err_asym_k2, asym_k2 = wide_asym_ivf_cases(gen)
     err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen), err_bf16_k2, err_wide_k2, err_asym_k2)
 
-    phase("[4] K3 vs plain version")
+    phase("[4] K3 vs plain version; K3 under autograd")
     err_k3 = flash_cases(gen)
+    err_k3_grad = grad_check(gen)
 
     phase(f"[5] main paths ({card})")
     runs, launches, err_main, tree_info, q, bank, main_tree, f32 = main_path(gen_seed=0)
@@ -4331,6 +4714,12 @@ def main(argv=()):
         err_tree_mesh = max(err_tree_mesh, err_distinct)
         tree_runs.update(mesh_tree_cli(0, runs["ivf unbounded"]["miou"], cards, label_prefix="distinct cards: "))
     del bank
+
+    phase(f"[11] K3-bwd vs its plain backward; the gradient path; K3-bwd timing ({card})")
+    err_bwd = max(flash_bwd_cases(gen), err_k3_grad)
+    grad_runs, grad_launches = flash_grad_path(gen_seed=0)
+    bwd_rows, err_bwd_timing = flash_bwd_timing(gen)
+    err_bwd = max(err_bwd, err_bwd_timing)
     for new_runs in (feed_runs, mesh_runs, group_runs, tree_runs):
         runs.update(new_runs)
         for run in new_runs.values():
@@ -4338,6 +4727,12 @@ def main(argv=()):
                 launches[name] += run["launches"][name]
 
     forms = {name: {} for name in ("knn_topk", "ivf_topk", "flash_attention")}  # main-path launches by form
+    bwd_forms = {name: {} for name in ("flash_attention_dkv", "flash_attention_dq")}
+    for run in grad_runs.values():  # the gradient path's: K3 (its LSE instances) and K3-bwd
+        for name, counts in run["forms"].items():
+            into = bwd_forms[name] if name in bwd_forms else forms[name]
+            for form, n in counts.items():
+                into[form] = into.get(form, 0) + n
     for run in runs.values():
         for name, counts in run["forms"].items():
             for form, n in counts.items():
@@ -4350,9 +4745,16 @@ def main(argv=()):
                      launches["ivf_topk"], max(err_k2, err_main["K2"], err_timing["K2"], err_tree_mesh), k2_rows,
                      card, forms["ivf_topk"]),
         kernel_entry("flash_attention (K3)", "hbird_tpu_torch/ops/csrc/flash_attn.cu", TPU_KERNELS["K3"],
-                     sum(n["flash_attention"] for n in flash_launches.values()),
+                     sum(n["flash_attention"] for n in (*flash_launches.values(), *grad_launches.values())),
                      max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
-    ], "main_path": runs, "tree": tree_info, "flash_vs_xla_tokens": token_err, "k1_select_load": select,
+        bwd_entry("flash_attention_dkv (K3-bwd)", "dkv", TPU_KERNELS["K3-bwd dkv"],
+                  sum(n["flash_attention_dkv"] for n in grad_launches.values()), err_bwd, bwd_rows, card,
+                  bwd_forms["flash_attention_dkv"]),
+        bwd_entry("flash_attention_dq (K3-bwd)", "dq", TPU_KERNELS["K3-bwd dq"],
+                  sum(n["flash_attention_dq"] for n in grad_launches.values()), err_bwd, bwd_rows, card,
+                  bwd_forms["flash_attention_dq"]),
+    ], "main_path": runs, "gradient_path": grad_runs, "tree": tree_info, "flash_vs_xla_tokens": token_err,
+        "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,
         "wide_bf16_checks": {"K1": bf16_k1, "K2": bf16_k2},
         "wide_int8_checks": {"K1": wide_k1, "K2": wide_k2}, "wide_asym_checks": {"K1": asym_k1, "K2": asym_k2},

@@ -15,7 +15,8 @@ It computes what the JAX forward computes, in the same order:
     normalisation, unless `attn_logits_f32`;
   - 'flash': K3, the flash attention kernel (ops/flash_cuda.py; its plain
     version, ops/flash.py, on the CPU), which never writes the (B, H, N, N)
-    logits;
+    logits; under autograd its backward is K3-bwd on the card (the plain
+    backward on the CPU);
   - 'chunked': the 'xla' math over blocks of `attention_chunk_q` query
     rows, so only a (B, H, chunk, N) logits slice lives at a time;
   a block asked for its attention weights runs 'xla', as in JAX;

@@ -21,7 +21,7 @@
 // flops per byte; mae_vith14 at 224, N = 257: ~128; bytes bound) and are
 // bound by latency in practice.
 //
-// f32 at every width, `flash_f32_wgmma<HD>`: 3xTF32 on wgmma, each f32
+// f32 at every width, `flash_f32_wgmma<HD, LSE>`: 3xTF32 on wgmma, each f32
 // operand split into TF32 big and small parts by tf32.cuh (its comment has
 // the rounding), within 1e-5 of the f32 plain version;
 // tests/test_torch_flash_tf32.py emulates the split and this order of work
@@ -63,7 +63,7 @@
 //   accumulator added to o in f32, rounding to nearest.
 //
 //
-// bf16 at every width, `flash_bf16_wgmma<HD>`, built from hopper.cuh: hd 64
+// bf16 at every width, `flash_bf16_wgmma<HD, LSE>`, built from hopper.cuh: hd 64
 // (every dinov2, DINO, ViT-B/L and MAE-B/L preset; the main path), hd 32
 // (mocov3_vits16) and hd 80 (mae_vith14).
 // - Persistent CTAs, one per SM, walk work items (b, h, 128-query block),
@@ -138,6 +138,13 @@
 // f32 output accumulator kept across it. o is written through its own
 // strides (the wrapper lays it out so that the heads merge back without a
 // copy).
+//
+// The backward's residual: each kernel is a template on LSE too. The LSE
+// instances (flash_attn_launch_lse, the forward under autograd) also write
+// each row's log-sum-exp of s·scale, (m + log2 l)·ln 2 in natural units,
+// one f32 a row, which K3-bwd (flash_bwd.cu) reads; everything else is
+// `if constexpr`-equal, so the no-grad instances (flash_attn_launch) keep
+// their code and their bits, and the LSE instances' output is theirs.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
@@ -364,11 +371,25 @@ __device__ __forceinline__ void turn_begin(int cw) { hopper::named_sync(1 + cw, 
 
 __device__ __forceinline__ void turn_end(int cw) { hopper::named_arrive(2 - cw, 256); }
 
-template <int HD>
+// The `LSE` instances' residual for the backward (flash_bwd.cu): each
+// stored row's log-sum-exp of s·scale, (m + log2 l)·ln 2 in natural units,
+// from the running max m (in exp2 units) and the quad-summed l of rows g
+// and g + 8 of the warp's 16 (first row row0), written by lane 4g.
+__device__ __forceinline__ void store_lse(float* lse, int bh, int n, int row0, const float (&m)[2],
+                                          const float (&l)[2], int lane) {
+  if ((lane & 3) != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + (lane >> 2) + 8 * i;
+    if (row < n) lse[static_cast<long long>(bh) * n + row] = (m[i] + log2f(l[i])) * 0.6931471805599453f;
+  }
+}
+
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bf16_wgmma(const __grid_constant__ Maps<HD> maps, __nv_bfloat16* __restrict__ o,
                      int heads, int n, long long ob, long long oh, long long on, float sl2,
-                     int n_qblocks, int n_items) {
+                     int n_qblocks, int n_items, float* __restrict__ lse) {
   constexpr int TILE = tile_bytes<HD>();
   constexpr int QBUF = q_buffers<HD>();
   extern __shared__ unsigned char smem_raw[];
@@ -546,6 +567,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
         }
       }
+      if constexpr (LSE) store_lse(lse, bh, n, qb * BQ + cw * 64 + warp * 16, m, l, lane);
     }
   }
 }
@@ -747,10 +769,11 @@ __device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&pb)[8][
   }
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_f32_wgmma(const __grid_constant__ Maps<HD> maps, float* __restrict__ o, int heads, int n,
-                    long long ob, long long oh, long long on, float sl2, int n_qblocks, int n_items) {
+                    long long ob, long long oh, long long on, float sl2, int n_qblocks, int n_items,
+                    float* __restrict__ lse) {
   constexpr int TILE = f32_tile_bytes<HD>();
   constexpr int X = xf_stages<HD>();
   constexpr int R = v_stages<HD>();
@@ -916,6 +939,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           *reinterpret_cast<float2*>(ob_h + row * on + 8 * j + 2 * (lane & 3)) =
               make_float2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
       }
+      if constexpr (LSE) store_lse(lse, bh, n, qb * BQ + row0, m, l, lane);
     }
   }
 }
@@ -952,9 +976,9 @@ int encode_maps(Maps<HD>* maps, const void* const (&ptrs)[3], const uint64_t (&d
 // K3 at one width and type on `device` (the current device): the tensor
 // maps, the shared-memory attribute (once per device) and a persistent grid
 // of one CTA per SM. Returns 0, a cudaError_t or a hopper::ERR_* code.
-template <int HD, bool BF16>
+template <int HD, bool BF16, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n,
-           const Layout& lay, float scale, int device, cudaStream_t stream) {
+           const Layout& lay, float scale, int device, cudaStream_t stream, float* lse) {
   static std::atomic<uint64_t> smem_set{0};
   constexpr uint64_t ELT = BF16 ? 2 : 4;
   const void* const ptrs[3] = {q, k, v};
@@ -973,21 +997,50 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   cudaError_t e;
   if constexpr (BF16) {
     constexpr int SMEM = smem_bytes<HD>();
-    e = hopper::allow_smem_once(flash_bf16_wgmma<HD>, SMEM, device, smem_set);
+    e = hopper::allow_smem_once(flash_bf16_wgmma<HD, LSE>, SMEM, device, smem_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bf16_wgmma<HD><<<grid, THREADS, SMEM, stream>>>(maps, static_cast<__nv_bfloat16*>(o), heads, n,
-                                                          lay.ob, lay.oh, lay.on, sl2, n_qblocks, n_items);
+    flash_bf16_wgmma<HD, LSE><<<grid, THREADS, SMEM, stream>>>(maps, static_cast<__nv_bfloat16*>(o), heads, n,
+                                                               lay.ob, lay.oh, lay.on, sl2, n_qblocks, n_items,
+                                                               lse);
   } else {
     constexpr int SMEM = f32_smem_bytes<HD>();
-    e = hopper::allow_smem_once(flash_f32_wgmma<HD>, SMEM, device, smem_set);
+    e = hopper::allow_smem_once(flash_f32_wgmma<HD, LSE>, SMEM, device, smem_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_f32_wgmma<HD><<<grid, THREADS, SMEM, stream>>>(maps, static_cast<float*>(o), heads, n, lay.ob,
-                                                         lay.oh, lay.on, sl2, n_qblocks, n_items);
+    flash_f32_wgmma<HD, LSE><<<grid, THREADS, SMEM, stream>>>(maps, static_cast<float*>(o), heads, n, lay.ob,
+                                                              lay.oh, lay.on, sl2, n_qblocks, n_items, lse);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
+
+// K3 on `stream` of device `device`, writing each row's log-sum-exp to lse
+// where LSE (the backward's residual).
+template <bool LSE>
+int launch_entry(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n, int hd,
+                 long long sb, long long sh, long long sn, long long ob, long long oh, long long on, float scale,
+                 int is_bf16, int device, void* stream, float* lse) {
+  if (batch < 1 || heads < 1 || n < 1 || batch * heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int current = device;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Layout lay{sb, sh, sn, ob, oh, on};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int r = static_cast<int>(cudaErrorInvalidValue);
+  switch (hd * 2 + (is_bf16 ? 1 : 0)) {
+    case 65: r = wg::launch<32, true, LSE>(q, k, v, o, batch, heads, n, lay, scale, device, s, lse); break;
+    case 129: r = wg::launch<64, true, LSE>(q, k, v, o, batch, heads, n, lay, scale, device, s, lse); break;
+    case 161: r = wg::launch<80, true, LSE>(q, k, v, o, batch, heads, n, lay, scale, device, s, lse); break;
+    case 64: r = wg::launch<32, false, LSE>(q, k, v, o, batch, heads, n, lay, scale, device, s, lse); break;
+    case 128: r = wg::launch<64, false, LSE>(q, k, v, o, batch, heads, n, lay, scale, device, s, lse); break;
+    case 160: r = wg::launch<80, false, LSE>(q, k, v, o, batch, heads, n, lay, scale, device, s, lse); break;
+    default: break;
+  }
+  if (current != device) cudaSetDevice(current);
+  return r;
+}
 
 }  // namespace
 
@@ -1002,26 +1055,20 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
                                  int heads, int n, int hd, long long sb, long long sh,
                                  long long sn, long long ob, long long oh, long long on,
                                  float scale, int is_bf16, int device, void* stream) {
-  if (batch < 1 || heads < 1 || n < 1 || batch * heads > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int current = device;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const Layout lay{sb, sh, sn, ob, oh, on};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int r = static_cast<int>(cudaErrorInvalidValue);
-  switch (hd * 2 + (is_bf16 ? 1 : 0)) {
-    case 65: r = wg::launch<32, true>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
-    case 129: r = wg::launch<64, true>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
-    case 161: r = wg::launch<80, true>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
-    case 64: r = wg::launch<32, false>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
-    case 128: r = wg::launch<64, false>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
-    case 160: r = wg::launch<80, false>(q, k, v, o, batch, heads, n, lay, scale, device, s); break;
-    default: break;
-  }
-  if (current != device) cudaSetDevice(current);
-  return r;
+  return launch_entry<false>(q, k, v, o, batch, heads, n, hd, sb, sh, sn, ob, oh, on, scale, is_bf16, device,
+                             stream, nullptr);
+}
+
+// flash_attn_launch, and each row's log-sum-exp of s·scale into lse, a
+// contiguous (batch, heads, n) f32 array: the forward under autograd, whose
+// residual the backward (flash_bwd.cu) reads. The output is the same, bit
+// for bit.
+extern "C" int flash_attn_launch_lse(const void* q, const void* k, const void* v, void* o, int batch,
+                                     int heads, int n, int hd, long long sb, long long sh,
+                                     long long sn, long long ob, long long oh, long long on,
+                                     float scale, int is_bf16, int device, void* stream, void* lse) {
+  return launch_entry<true>(q, k, v, o, batch, heads, n, hd, sb, sh, sn, ob, oh, on, scale, is_bf16, device,
+                            stream, static_cast<float*>(lse));
 }
 
 // Dynamic shared memory K3 asks for at head width hd in bf16 (is_bf16 = 1)

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels: K1's and K2's
 // score-and-select tile (wgmma_topk.cuh, for knn_topk.cu and ivf_topk.cu)
-// and K3's bf16 and f32 forwards (flash_attn.cu).
+// and K3's bf16 and f32 forwards (flash_attn.cu); K3-bwd's launcher
+// (flash_bwd.cu, mma.sync) takes only the shared-memory attribute's setter.
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count, and
 //   a wait on a phase parity;

@@ -2,7 +2,8 @@
 
 Each kernel source in `csrc/` (K1 `knn_topk.cu`, K2 `ivf_topk.cu`, K3
 `flash_attn.cu`, each including `topk_common.cuh`, `hopper.cuh` and
-`tf32.cuh`; K1 and K2 also `wgmma_topk.cuh`) compiles on its own into
+`tf32.cuh`; K1 and K2 also `wgmma_topk.cuh`; K3-bwd `flash_bwd.cu`, with
+`hopper.cuh` and `tf32.cuh`) compiles on its own into
 a shared library with a plain C interface, at first use. The libraries go to
 `build/hbird_tpu_torch/` beside the package directory (the repository's
 ignored build tree); a name carries a hash of the source, the headers and
@@ -26,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu")
+SOURCES = ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu", "flash_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hbird_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

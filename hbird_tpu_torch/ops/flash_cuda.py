@@ -1,4 +1,4 @@
-"""K3 on the GPU: the wrapper of the flash attention CUDA kernel.
+"""K3 and K3-bwd on the GPU: the wrappers of the flash attention CUDA kernels.
 
 Counterpart of hbird_tpu/models/vit.py::_flash_attention (JAX's library
 Pallas TPU flash attention). The kernel source is ops/csrc/flash_attn.cu;
@@ -32,12 +32,22 @@ contiguous first. The output is laid out (B, N, H, hd) in memory and
 returned as a (B, H, N, hd) view, so `out.transpose(1, 2).reshape(B, N, D)`
 merges the heads without a copy either.
 
-The kernel has no backward (the library TPU kernel's backward, K3-bwd, is
-not ported: ROADMAP queue 2, its last item), so on the card `flash_attention`
-raises when autograd would record it (grad mode on and q, k or v requiring
-grad) rather than return an output that looks differentiable and is not.
-Under `torch.no_grad()` or `torch.inference_mode()`, as the engine runs,
-it launches. On the CPU the plain version stays differentiable.
+Gradients (K3-bwd, the library's `_flash_attention_dkv_kernel` and
+`_flash_attention_dq_kernel`): when grad mode is on and q, k or v requires
+grad, `flash_attention` goes through `FlashAttention`, a
+`torch.autograd.Function`. Its forward runs K3's `LSE` instances, which
+also write each row's log-sum-exp (one f32 a row, the residual), and its
+backward `flash_attention_bwd`: di = Σ o·do as a torch op, then the two
+hand-written kernels of ops/csrc/flash_bwd.cu (`flash_attention_dkv`: dk
+and dv, each CTA owning a key tile; `flash_attention_dq`: dq, each CTA
+owning a query tile; no atomics, so two runs give the same bits). On CPU
+tensors the same Function runs the plain forward and backward
+(ops/flash.py). It is once differentiable, like the library's VJP: a
+second derivative raises "Higher-order AD not supported". Under
+`torch.no_grad()` or `torch.inference_mode()`, as the engine runs,
+`flash_attention` launches the forward alone, with no Function and no
+residual. `flash_attention_dkv.launches` and `flash_attention_dq.launches`
+count the backward kernels' launches (`.forms` by dtype).
 """
 
 from __future__ import annotations
@@ -48,7 +58,12 @@ import ctypes
 import torch
 
 from hbird_tpu_torch.ops import cuda_build
-from hbird_tpu_torch.ops.flash import flash_attention_plain
+from hbird_tpu_torch.ops.flash import (
+    flash_attention_di,
+    flash_attention_dkv_plain,
+    flash_attention_dq_plain,
+    flash_attention_plain,
+)
 
 HEAD_DIMS = (32, 64, 80)  # the kernel's widths: every VIT_PRESETS head width
 MAX_BATCH_HEADS = 65535  # (batch, head) pairs the launch takes
@@ -60,15 +75,25 @@ _ARGTYPES = (
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+_BWD_ARGTYPES = (
+    ctypes.c_int, *(ctypes.c_void_p,) * 8, *(ctypes.c_int,) * 4, *(ctypes.c_longlong,) * 6,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
 _launch = None  # flash_attn_launch, once loaded
+_launch_lse = None  # flash_attn_launch_lse
+_launch_bwd = None  # flash_bwd_launch
 
 
-def route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel a CUDA call at this dtype and head width runs: 'wgmma'
-    (bf16, and f32 as 3xTF32, at hd 32, 64 and 80)."""
+def route(dtype: torch.dtype, hd: int, kernel: str = "forward") -> str:
+    """The kernel form a CUDA call at this dtype and head width runs: the
+    forward 'wgmma' (bf16, and f32 as 3xTF32, at hd 32, 64 and 80); the
+    backward's 'dkv' and 'dq' kernels 'mma_sync' (bf16 m16n8k16; f32 as
+    3xTF32 on m16n8k8)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")
-    return "wgmma"
+    if kernel not in ("forward", "dkv", "dq"):
+        raise ValueError(f"K3's kernels are 'forward', 'dkv' and 'dq', not {kernel!r}")
+    return "wgmma" if kernel == "forward" else "mma_sync"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -103,29 +128,57 @@ def _entry():
     return _launch
 
 
+def _entry_lse():
+    """The forward's entry point that also writes the rows' log-sum-exp."""
+    global _launch_lse
+    if _launch_lse is None:
+        fn = cuda_build.load("flash_attn.cu", "flash_attn_launch", _ARGTYPES).flash_attn_launch_lse
+        fn.argtypes, fn.restype = [*_ARGTYPES, ctypes.c_void_p], ctypes.c_int
+        _launch_lse = fn
+    return _launch_lse
+
+
+def _entry_bwd():
+    """The backward kernels' entry point (ops/csrc/flash_bwd.cu)."""
+    global _launch_bwd
+    if _launch_bwd is None:
+        _launch_bwd = cuda_build.load("flash_bwd.cu", "flash_bwd_launch", _BWD_ARGTYPES).flash_bwd_launch
+    return _launch_bwd
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> torch.Tensor:
     """softmax(q·kᵀ·scale)·v over (B, H, N, hd) inputs (K3).
 
     q, k and v share shape, dtype (float32 or bfloat16) and device. On the
-    card hd must be 32, 64 or 80. Returns (B, H, N, hd) in q's dtype.
+    card hd must be 32, 64 or 80. Returns (B, H, N, hd) in q's dtype,
+    differentiable (K3-bwd on the card) when grad mode is on and q, k or v
+    requires grad.
     """
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
     if not q.is_cuda:
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, scale)
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError(
-            "the K3 kernel has no backward (K3-bwd, the last item of ROADMAP queue 2): call it under "
-            "torch.no_grad() or torch.inference_mode(), or on CPU tensors for gradients"
-        )
-    b, h, n, hd = q.shape
+    return _forward(q, k, v, scale)
+
+
+def _check_card(q: torch.Tensor) -> None:
+    b, h, _, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")
     if b * h > MAX_BATCH_HEADS:
         raise ValueError(f"the K3 kernel takes at most {MAX_BATCH_HEADS} (batch, head) pairs: {b * h}")
+
+
+def _forward(q, k, v, scale: float, lse=None) -> torch.Tensor:
+    """K3 on CUDA tensors; with `lse` (a contiguous (B, H, N) f32 tensor)
+    the rows' log-sum-exp is written there too."""
+    _check_card(q)
+    b, h, n, hd = q.shape
     # (B, N, H, hd) in memory: the heads merge back into (B, N, D) for free.
     ob, on = n * h * hd, h * hd
     out = torch.empty_strided((b, h, n, hd), (ob, hd, on, 1), dtype=q.dtype, device=q.device)
@@ -133,14 +186,14 @@ def flash_attention(
         return out
     if not _kernel_layout(q, k, v):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    launch = _entry()
     device = q.get_device()
     bf16 = q.dtype == torch.bfloat16
     sb, sh, sn, _ = q.stride()
     # The device's current stream as a handle, without building a Stream object.
     stream = torch._C._cuda_getCurrentRawStream(device)
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, hd, sb, sh, sn,
-                 ob, hd, on, float(scale), bf16, device, stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, hd, sb, sh, sn,
+            ob, hd, on, float(scale), bf16, device, stream)
+    err = _entry()(*args) if lse is None else _entry_lse()(*args, lse.data_ptr())
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     flash_attention.launches += 1
@@ -148,5 +201,108 @@ def flash_attention(
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """K3 with its backward: the forward saves q, k, v, the output and the
+    rows' log-sum-exp; the backward is `flash_attention_bwd` (the kernels on
+    CUDA tensors, the plain version on CPU tensors). Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.is_cuda:
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+            out = _forward(q, k, v, scale, lse)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+        else:
+            raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        if torch.is_grad_enabled():  # create_graph: a second derivative was asked for
+            raise RuntimeError("Higher-order AD not supported")
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.scale), None)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
+    """(dq, dk, dv) of softmax(q·kᵀ·scale)·v (K3-bwd): q, k, v, its output o
+    and o's gradient do are (B, H, N, hd), lse (B, H, N) f32 the forward's
+    rows' log-sum-exp. di = Σ o·do is a torch op; on CUDA tensors the dK/dV
+    and dQ kernels launch, on CPU tensors their plain versions run."""
+    di = flash_attention_di(o, do)
+    dk, dv = flash_attention_dkv(q, k, v, lse, do, di, scale)
+    return flash_attention_dq(q, k, v, lse, do, di, scale), dk, dv
+
+
+def _bwd_layout(do: torch.Tensor) -> bool:
+    """do's strides as the backward kernels read them: unit along hd, every
+    pointer and stride a multiple of 16 bytes."""
+    sb, sh, sn, sd = do.stride()
+    size = do.element_size()
+    return sd == 1 and (sb * size) % 16 == (sh * size) % 16 == (sn * size) % 16 == do.data_ptr() % 16 == 0
+
+
+def _backward_kernel(kernel: int, q, k, v, lse, do, di, scale: float, outs) -> None:
+    """Launch backward kernel 0 (dk, dv) or 1 (dq) into `outs`."""
+    _check(q, k, v)
+    _check_card(q)
+    b, h, n, hd = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or lse.shape != q.shape[:3] or di.shape != q.shape[:3]:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype}, lse {tuple(lse.shape)} and di {tuple(di.shape)} "
+                         f"do not match q {tuple(q.shape)} {q.dtype}")
+    if lse.dtype != torch.float32 or di.dtype != torch.float32:
+        raise ValueError(f"lse and di must be float32: {lse.dtype}, {di.dtype}")
+    if not all(t.is_cuda and t.device == q.device for t in (do, lse, di)):
+        raise ValueError(f"do, lse and di must lie on {q.device}")
+    if not _kernel_layout(q, k, v):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not _bwd_layout(do):
+        do = do.contiguous()
+    lse, di = lse.contiguous(), di.contiguous()
+    device = q.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    err = _entry_bwd()(kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                       di.data_ptr(), outs[0].data_ptr(), outs[-1].data_ptr(), b, h, n, hd, *q.stride()[:3],
+                       *do.stride()[:3], float(scale), q.dtype == torch.bfloat16, device, stream)
+    if err != 0:
+        raise RuntimeError(f"K3-bwd {('dkv', 'dq')[kernel]} launch failed: CUDA error {err}")
+
+
+def flash_attention_dkv(q, k, v, lse, do, di, scale: float):
+    """(dk, dv) of attention over (B, H, N, hd), given the forward's lse and
+    di = Σ o·do ((B, H, N) f32): the dK/dV kernel on CUDA tensors, its plain
+    version on CPU tensors. Outputs are contiguous, in q's dtype."""
+    if not q.is_cuda:
+        return flash_attention_dkv_plain(q, k, v, lse, do, di, scale)
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    if q.numel() == 0:
+        return dk, dv
+    _backward_kernel(0, q, k, v, lse, do, di, scale, (dk, dv))
+    flash_attention_dkv.launches += 1
+    flash_attention_dkv.forms["bf16" if q.dtype == torch.bfloat16 else "f32"] += 1
+    return dk, dv
+
+
+def flash_attention_dq(q, k, v, lse, do, di, scale: float):
+    """dq of attention over (B, H, N, hd): the dQ kernel on CUDA tensors,
+    its plain version on CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_dq_plain(q, k, v, lse, do, di, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.numel() == 0:
+        return dq
+    _backward_kernel(1, q, k, v, lse, do, di, scale, (dq,))
+    flash_attention_dq.launches += 1
+    flash_attention_dq.forms["bf16" if q.dtype == torch.bfloat16 else "f32"] += 1
+    return dq
+
+
 flash_attention.launches = 0
 flash_attention.forms = collections.Counter()
+flash_attention_dkv.launches = 0
+flash_attention_dkv.forms = collections.Counter()
+flash_attention_dq.launches = 0
+flash_attention_dq.forms = collections.Counter()

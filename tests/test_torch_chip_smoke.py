@@ -68,6 +68,9 @@ def smoke(monkeypatch):
     monkeypatch.setattr(mod, "GIGANTIC_INPUT", 64)
     monkeypatch.setattr(mod, "WIDE_CASE_Q", 256)
     monkeypatch.setattr(mod, "WIDE_CASE_M", 700)
+    monkeypatch.setattr(mod, "FLASH_BWD_NS", (1, 50, 129))
+    monkeypatch.setattr(mod, "FLASH_BWD_CASE_B", 1)
+    monkeypatch.setattr(mod, "GRAD_BATCH", 2)
 
     def counted(*args, **kwargs):
         knn_cuda.knn_topk.launches += 1
@@ -94,6 +97,17 @@ def smoke(monkeypatch):
     monkeypatch.setattr(flash_cuda, "flash_attention_plain", counted_flash)
     monkeypatch.setattr(flash_cuda.flash_attention, "launches", 0)
     monkeypatch.setattr(flash_cuda.flash_attention, "forms", collections.Counter())
+    for name in ("flash_attention_dkv", "flash_attention_dq"):  # K3-bwd's two kernels
+        wrapper, plain = getattr(flash_cuda, name), getattr(flash_mod, f"{name}_plain")
+
+        def counted_bwd(*args, wrapper=wrapper, plain=plain, **kwargs):
+            wrapper.launches += 1
+            wrapper.forms["bf16" if args[0].dtype == torch.bfloat16 else "f32"] += 1
+            return plain(*args, **kwargs)
+
+        monkeypatch.setattr(flash_cuda, f"{name}_plain", counted_bwd)
+        monkeypatch.setattr(wrapper, "launches", 0)
+        monkeypatch.setattr(wrapper, "forms", collections.Counter())
     return mod
 
 
@@ -241,6 +255,68 @@ def test_flash_phases_rehearse_on_cpu(smoke):
     assert set(forward) == {"xla float32", "xla bfloat16", "flash float32", "flash bfloat16",
                             "tiny_hd80 xla bfloat16", "tiny_hd80 flash bfloat16"}
     assert json.dumps([rows, forward])
+
+
+def test_flash_bwd_phase_rehearses_on_cpu(smoke):
+    """Phase 11 on the CPU: K3-bwd's checks at every head width and dtype,
+    the gradient path (the stand-in ViT's 12 blocks: K3 and both K3-bwd
+    kernels once per block in each dtype) and the timing rows."""
+    gen = torch.Generator().manual_seed(0)
+    assert smoke.flash_bwd_cases(gen) >= 0.0
+    assert flash_cuda.flash_attention_dkv.launches == flash_cuda.flash_attention_dq.launches == 2 * 3 * 3 * 2
+    runs, launches = smoke.flash_grad_path(gen_seed=0)
+    for dt in ("bf16", "f32"):
+        assert launches[f"grad {dt} flash"] == {"flash_attention": 12, "flash_attention_dkv": 12,
+                                                "flash_attention_dq": 12}
+        run = runs[f"dino_vits16 at 64, batch 2, {dt}, attention_impl='flash'"]
+        assert run["forms"] == {"flash_attention": {dt: 12}, "flash_attention_dkv": {dt: 12},
+                                "flash_attention_dq": {dt: 12}}
+        assert run["tensors"] > 12 * 8 and run["wall_s"] > 0  # the input and every parameter
+    assert runs["dino_vits16 at 64, batch 2, f32, attention_impl='flash'"]["max_err_over_max"] <= 1e-4
+    rows, err = smoke.flash_bwd_timing(gen)
+    assert set(rows) == {"main", "f32", "hd32", "f32 hd32", "hd80", "f32 hd80"} and err >= 0.0
+    for row in rows.values():
+        assert row["route"] == "mma_sync" and row["library"].startswith("SDPA backward (")
+        assert row["bound_ms"] <= row["split_bound_ms"] and row["graph_ms"] > 0 and row["library_ms"] > 0
+        assert row["dkv"]["ms"] > 0 and row["dq"]["bound_ms"] > 0
+    assert rows["hd80"]["shape"] == [2, 2, 20, 80] and rows["f32"]["dtype"] == "float32"
+    entry = smoke.bwd_entry("flash_attention_dkv (K3-bwd)", "dkv", smoke.TPU_KERNELS["K3-bwd dkv"], 24, err, rows,
+                            "card", {"bf16": 12, "f32": 12})
+    assert entry["route"] == "cuda" and entry["library_ms"] is None and entry["ms"] == rows["main"]["dkv"]["ms"]
+    assert json.dumps(entry)
+
+
+def test_bwd_bound_of_the_main_shape(smoke):
+    """10·B·H·N²·hd = 230.6 GFLOP: 0.2332 ms at 989 TFLOP/s in bf16, 1.398
+    ms in f32 as 3 TF32 passes at 495; the library's split (14) 0.3265 and
+    1.957 ms."""
+    shape = (16, 12, 1370, 64)
+    ms, by = smoke.bwd_bound_ms(shape, torch.bfloat16)
+    assert by == "operations" and ms == pytest.approx(0.2332, abs=1e-4)
+    assert smoke.bwd_bound_ms(shape, torch.float32)[0] == pytest.approx(1.398, abs=1e-3)
+    assert smoke.bwd_bound_ms(shape, torch.bfloat16, smoke.BWD_SPLIT_FLOPS)[0] == pytest.approx(0.3265, abs=1e-4)
+    ms, by = smoke.bwd_bound_ms((16, 12, 8, 64), torch.bfloat16)
+    assert by == "bytes" and ms == pytest.approx((8 * 16 * 12 * 8 * 64 * 2 + 4 * 16 * 12 * 8) / 3.35e9)
+
+
+def test_check_grads_holds_the_stated_tolerance(smoke):
+    """f32 within 1e-5 of the call's largest |gradient|; bf16 within 4 ulps
+    at each row's scale (floored at 2^-8 of the call's scale) and a mean
+    bound; rounding noise where the gradient vanishes passes."""
+    gen = torch.Generator().manual_seed(4)
+    ref = [torch.randn(1, 2, 30, 32, generator=gen) for _ in range(3)]
+    assert smoke.check_grads("itself", ref, ref) == 0.0
+    smoke.check_grads("f32 within", [r + 1e-5 for r in ref], ref)
+    with pytest.raises(RuntimeError, match="max"):
+        smoke.check_grads("f32 off", [ref[0] + 1e-3, *ref[1:]], ref)
+    noise = [ref[0] * 1e-9, ref[1], ref[2]]  # dq vanishing: both sides noise
+    smoke.check_grads("f32 noise", [torch.zeros_like(ref[0]), *ref[1:]], noise)
+    r16 = [r.bfloat16() for r in ref]
+    smoke.check_grads("bf16 one ulp", [(r.float() * (1 + 2.0**-7)).bfloat16() for r in r16], r16)
+    smoke.check_grads("bf16 noise", [torch.zeros_like(r16[0]), *r16[1:]], [(ref[0] * 1e-9).bfloat16(), *r16[1:]])
+    row = r16[0].float().abs().amax(-1, keepdim=True)
+    with pytest.raises(RuntimeError, match="ulps"):
+        smoke.check_grads("bf16 eight ulps", [(r16[0].float() + 8 * 2.0**-8 * row).bfloat16(), *r16[1:]], r16)
 
 
 def test_flash_bound_of_the_main_shape(smoke):
@@ -604,9 +680,10 @@ def test_checks_hold_int8_forms_to_bit_exactness(smoke):
 def test_ptxas_report_reads_the_wgmma_kernels(smoke):
     """Registers at entry and spills of each instance of a kernel, and any
     setmaxnreg-ignored warning, from an nvcc -Xptxas -v log; K3's wgmma
-    instances by head width (hd 80's too)."""
-    wg80 = "_ZN46_GLOBAL__N__c18cd632_13_flash_attn_cu_efb7a86d2wg16flash_bf16_wgmmaILi80EEEvNS0_4MapsIXT_EEEP13__nv_bfloat16iixxxfii"
-    wg64 = wg80.replace("ILi80E", "ILi64E")
+    instances by head width (hd 80's too) and LSE flag."""
+    wg80 = ("_ZN46_GLOBAL__N__c18cd632_13_flash_attn_cu_efb7a86d2wg16flash_bf16_wgmmaILi80ELb0EEEvNS0_4MapsIXT_EEE"
+            "P13__nv_bfloat16iixxxfiiPf")
+    wg64 = wg80.replace("ILi80ELb0E", "ILi64ELb1E")
     log = f"""ptxas info    : Compiling entry function '{wg80}' for 'sm_90a'
 ptxas info    : Function properties for {wg80}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -621,7 +698,7 @@ ptxas info    : Function properties for {wg64}
 ptxas info    : Used 168 registers, used 1 barriers
 """
     r = smoke.ptxas_report(log, "flash_bf16_wgmma")
-    assert r == {"instances": 2, "template_args": ["ILi80E", "ILi64E"], "registers": [168, 168],
+    assert r == {"instances": 2, "template_args": ["ILi80ELb0E", "ILi64ELb1E"], "registers": [168, 168],
                  "spill_store_bytes": [0, 1116], "setmaxnreg_ignored": [], "wgmma_notes": []}
     assert [smoke.K3_WGMMA_WIDTHS[a] for a in r["template_args"]] == [80, 64]
     warned = log + "ptxas warning : (C7508) Potential Performance Loss: setmaxnreg ignored; unable to determine register count at entry\n"
@@ -656,7 +733,8 @@ def test_ptxas_report_reads_k3_f32_and_serialised_wgmma(smoke):
     """K3 f32's wgmma instances (hd 32, 64, 80) read by head width apart
     from the bf16 kernel's, and a C7511 note (wgmma serialised for want of
     registers) on one of them among its notes, which phase 1 refuses."""
-    f32 = "_ZN46_GLOBAL__N__c18cd632_13_flash_attn_cu_efb7a86d2wg15flash_f32_wgmmaILi{}EEEvNS0_4MapsIXT_EEEPfiixxxfii"
+    f32 = ("_ZN46_GLOBAL__N__c18cd632_13_flash_attn_cu_efb7a86d2wg15flash_f32_wgmmaILi{}ELb0EEEvNS0_4MapsIXT_EEE"
+           "PfiixxxfiiS4_")
     log = "".join(f"""ptxas info    : Compiling entry function '{f32.format(hd)}' for 'sm_90a'
 ptxas info    : Function properties for {f32.format(hd)}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -669,6 +747,24 @@ ptxas info    : Used 168 registers, used 3 barriers
     assert len(r["wgmma_notes"]) == 1 and "(C7511)" in r["wgmma_notes"][0]
     assert smoke.ptxas_report(log, "flash_bf16_wgmma")["instances"] == 0
     assert smoke.TF32_KERNEL in smoke.WGMMA_KERNELS["flash_attn.cu"] and "flash_attn.cu" in smoke.NO_MMA_SYNC
+
+
+def test_ptxas_report_reads_the_bwd_kernels(smoke):
+    """K3-bwd's kernels (mma.sync) read by dtype and head width from their
+    mangled names: six instances of each, BWD_INSTANCES's keys."""
+    name = ("_ZN45_GLOBAL__N__b215bf55_12_flash_bwd_cu_5acdb52813flash_bwd_dkvI{}Li{}EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_"
+            "iiNS_7StridesEff")
+    log = "".join(f"""ptxas info    : Compiling entry function '{name.format(t, hd)}' for 'sm_90a'
+ptxas info    : Function properties for {name.format(t, hd)}
+    0 bytes stack frame, {4 * (hd == 80)} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 200 registers, used 1 barriers
+""" for t in ("13__nv_bfloat16", "f") for hd in (32, 64, 80))
+    r = smoke.ptxas_report(log, "flash_bwd_dkv")
+    assert [smoke.BWD_INSTANCES[a] for a in r["template_args"]] == [
+        ("bf16", 32), ("bf16", 64), ("bf16", 80), ("f32", 32), ("f32", 64), ("f32", 80)]
+    assert r["spill_store_bytes"] == [0, 0, 4, 0, 0, 4]
+    assert smoke.ptxas_report(log, "flash_bwd_dq")["instances"] == 0
+    assert "flash_bwd.cu" not in smoke.NO_MMA_SYNC and set(smoke.BWD_KERNELS) == {"flash_bwd_dkv", "flash_bwd_dq"}
 
 
 def test_no_mma_sync_in_the_search_libraries(smoke):

@@ -211,13 +211,15 @@ def test_feature_extractor_attention_methods_match_jax():
 
 
 def test_flash_gradient_on_the_cpu_matches_jax_xla_attention():
-    """The port's 'flash' attention layer on the CPU (K3's plain version) is
-    differentiable, and its gradients equal `jax.grad` through the JAX ViT's
-    attention layer within 1e-5 (N = 50, hd = 64, f32). The reference is the
-    'xla' math: the JAX package calls the library TPU kernel with forward
-    block sizes only, so its backward kernels do not run in interpret mode
-    ("not all backward blocks are specified"). On the card K3 has no
-    backward and raises under autograd (`test_torch_flash_cuda.py`)."""
+    """The port's 'flash' attention layer on the CPU (K3's autograd Function
+    with the plain forward and backward) is differentiable, and its
+    gradients equal `jax.grad` through the JAX ViT's attention layer within
+    1e-5 (N = 50, hd = 64, f32). The reference is the 'xla' math: the JAX
+    package calls the library TPU kernel with forward block sizes only, so
+    its backward kernels do not run through that call ("not all backward
+    blocks are specified"; `test_torch_flash_bwd.py` calls the library
+    with every block). On the card the same Function runs K3-bwd
+    (`test_torch_flash_cuda.py`)."""
     from hbird_tpu.models.vit import _attention
     from hbird_tpu_torch.models.vit import Attention
 

@@ -3,7 +3,9 @@
 Every test here needs a CUDA GPU (marker `cuda`) and skips without one:
 the kernel has no CPU mode, and on the CPU the wrapper takes the plain
 version, which `test_torch_flash.py` compares with the JAX package's TPU
-kernel in interpret mode. The file imports neither JAX nor `hbird_tpu`, so
+kernel in interpret mode (and `test_torch_flash_bwd.py` the plain backward
+with the TPU backward kernels). K3-bwd (ops/csrc/flash_bwd.cu) is held to
+the plain backward here, at the tolerance of `assert_grads_close`. The file imports neither JAX nor `hbird_tpu`, so
 it runs on a GPU machine without them, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_flash_cuda.py
@@ -260,23 +262,115 @@ def test_batch_heads_at_the_grid_limit(cuda_device, hd):
                                    torch.cat([v, v[:, :1]], 1), 0.1)
 
 
+def assert_grads_close(got, ref):
+    """K3-bwd's (dq, dk, dv) against the plain backward's, at chip_smoke's
+    check_grads tolerance: S the largest |value| of the three; f32 within
+    1e-5·S; bf16 within 4 ulps of each row's scale (its largest |ref|, at
+    least 2^-8·S) and a mean error under 2^-7·max(mean |ref|, 2^-8·S). At
+    N = 1 dq and dk vanish in exact arithmetic: both sides are noise."""
+    s = max(r.float().abs().max().item() for r in ref)
+    for out, r in zip(got, ref):
+        assert out.dtype == r.dtype and out.shape == r.shape
+        o, r = out.float(), r.float()
+        assert torch.isfinite(o).all()
+        err = (o - r).abs()
+        if out.dtype == torch.float32:
+            assert err.max().item() <= 1e-5 * s, (err.max().item(), s)
+        else:
+            floor = 2.0**-8 * s
+            ulp = 2.0**-8 * r.abs().amax(dim=-1, keepdim=True).clamp_min(floor)
+            assert (err <= 4 * ulp).all(), (err / ulp).max().item()
+            assert err.mean().item() <= 2.0**-7 * max(r.abs().mean().item(), floor)
+
+
+BWD_SHAPES = {  # (B, H, N, hd): every width, N = 1, ragged tiles, a one-key last tile, the main path's N
+    "one_token": (2, 3, 1, 64),
+    "mocov3_vits16": (2, 12, 197, 32),
+    "mae_vith14": (2, 16, 257, 80),
+    "dinov2_vitb14_518": (2, 12, 1370, 64),
+    "ragged_65": (1, 2, 65, 80),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_kernel_raises_under_autograd_and_runs_without_it(cuda_device, dtype):
-    """K3 has no backward on the card: with grad mode on and an input that
-    requires grad it raises instead of returning an output that looks
-    differentiable; under torch.no_grad() (or with no input requiring grad)
-    it launches as before."""
+@pytest.mark.parametrize("name", list(BWD_SHAPES))
+def test_backward_kernels_match_the_plain_backward(cuda_device, name, dtype):
+    """K3-bwd's dK/dV and dQ kernels against the plain backward on the same
+    q, k, v, output, lse and do (do strided as the ViT hands it over: a
+    (B, H, N, hd) view of (B, N, H, hd) memory); lse from K3's LSE instance,
+    whose output is the no-grad call's bit for bit; two runs, the same
+    bits."""
+    from hbird_tpu_torch.ops.flash import flash_attention_bwd_plain
+
+    shape = BWD_SHAPES[name]
+    b, h, n, hd = shape
+    q, k, v = _qkv(shape, seed=len(name), device=cuda_device, dtype=dtype)
+    rng = np.random.default_rng(hd)
+    do = torch.from_numpy(rng.standard_normal((b, n, h, hd), dtype=np.float32)).to(cuda_device, dtype).transpose(1, 2)
+    scale = hd**-0.5
+    lse = torch.empty((b, h, n), device=cuda_device)
+    o = flash_cuda._forward(q, k, v, scale, lse)
+    with torch.no_grad():
+        assert torch.equal(o, flash_cuda.flash_attention(q, k, v, scale))
+    _, lse_ref = flash_attention_plain(q, k, v, scale, return_lse=True)
+    assert (lse - lse_ref).abs().max().item() <= 1e-5 * max(1.0, lse_ref.abs().max().item())
+    before = (flash_cuda.flash_attention_dkv.launches, flash_cuda.flash_attention_dq.launches)
+    got = flash_cuda.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    again = flash_cuda.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (flash_cuda.flash_attention_dkv.launches, flash_cuda.flash_attention_dq.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert_grads_close(got, flash_attention_bwd_plain(q, k, v, o, lse, do, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_autograd_runs_k3_bwd_and_no_grad_runs_the_forward_alone(cuda_device, dtype):
+    """Under autograd (grad mode on, an input requiring grad) K3 goes
+    through its Function: the LSE forward launches once, with the no-grad
+    call's output bit for bit, and the backward launches the dK/dV and dQ
+    kernels once each, never the plain backward; its gradients hold against
+    the plain backward. Under torch.no_grad() or inference_mode (or with no
+    input requiring grad) the call launches the forward alone, with no
+    autograd node. A second derivative raises."""
+    from hbird_tpu_torch.ops.flash import flash_attention_bwd_plain
+
     q, k, v = _qkv((2, 4, 100, 64), seed=11, device=cuda_device, dtype=dtype)
+    do = torch.randn((2, 4, 100, 64), device=cuda_device).to(dtype)
+    counts = lambda: (flash_cuda.flash_attention.launches, flash_cuda.flash_attention_dkv.launches,  # noqa: E731
+                      flash_cuda.flash_attention_dq.launches)
     for needs in (q, k, v):
         needs.requires_grad_(True)
-        before = flash_cuda.flash_attention.launches
-        with pytest.raises(RuntimeError, match="no backward"):
-            flash_cuda.flash_attention(q, k, v, 0.125)
-        assert flash_cuda.flash_attention.launches == before
-        with torch.no_grad():
-            out = flash_cuda.flash_attention(q, k, v, 0.125)
-        assert flash_cuda.flash_attention.launches == before + 1 and out.grad_fn is None
+        for ctx in (torch.no_grad, torch.inference_mode):
+            before = counts()
+            with ctx():
+                ref_out = flash_cuda.flash_attention(q, k, v, 0.125)
+            assert ref_out.grad_fn is None and counts() == (before[0] + 1, before[1], before[2])
+        before = counts()
+        out = flash_cuda.flash_attention(q, k, v, 0.125)
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward" and torch.equal(out, ref_out)
+        (grad,) = torch.autograd.grad(out, (needs,), do)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+        _, lse = flash_attention_plain(q.detach(), k.detach(), v.detach(), 0.125, return_lse=True)
+        ref = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), ref_out, lse, do, 0.125)
+        i = next(j for j, t in enumerate((q, k, v)) if t is needs)  # the gradient taken, at the scale of all three
+        assert_grads_close([grad if j == i else r for j, r in enumerate(ref)], ref)
+        with pytest.raises(RuntimeError, match="Higher-order AD not supported"):
+            torch.autograd.grad(flash_cuda.flash_attention(q, k, v, 0.125).sum(), (needs,), create_graph=True)
         needs.requires_grad_(False)
-    out = flash_cuda.flash_attention(q, k, v, 0.125)
+    before = counts()
+    out = flash_cuda.flash_attention(q, k, v, 0.125)  # no input requires grad
+    assert out.grad_fn is None and counts() == (before[0] + 1, before[1], before[2])
+
+
+def test_cuda_gradients_never_reach_the_plain_backward(cuda_device, monkeypatch):
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain backward")
+
+    monkeypatch.setattr(flash_cuda, "flash_attention_dkv_plain", plain)
+    monkeypatch.setattr(flash_cuda, "flash_attention_dq_plain", plain)
+    q, k, v = (t.requires_grad_() for t in _qkv((2, 4, 100, 80), seed=3, device=cuda_device, dtype=torch.bfloat16))
+    flash_cuda.flash_attention(q, k, v, 0.2).sum().backward()
     torch.cuda.synchronize()
-    assert_close(out, flash_attention_plain(q, k, v, 0.125))
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
