@@ -10,9 +10,12 @@ Phases; any failure raises and the script exits non-zero with no result:
    (hbird_tpu_torch/ops/csrc/knn_topk.cu), K2 (ops/csrc/ivf_topk.cu), K3
    (ops/csrc/flash_attn.cu) and K3-bwd (ops/csrc/flash_bwd.cu) are built
    with nvcc for sm_90a, one nvcc each, started together. K3-bwd's two
-   kernels (flash_bwd_dkv, flash_bwd_dq: mma.sync) must each have their
-   six instances (bf16 and f32 at head widths 32, 64, 80) in the ptxas
-   report, none spilling, ask for shared memory, and issue HMMA. For the Hopper kernels (K1's and K2's wgmma kernel,
+   kernels (flash_bwd_dkv, flash_bwd_dq) must each have their six
+   instances (bf16 on wgmma, f32 on mma.sync; head widths 32, 64, 80) in
+   the ptxas report, none spilling and no bf16 instance with its wgmma
+   serialised (C7511, C7520), ask for shared memory, and, by function in
+   the SASS, every bf16 instance must issue HGMMA and UTMALDG and no HMMA
+   and every f32 instance HMMA (check_bwd_sass). For the Hopper kernels (K1's and K2's wgmma kernel,
    ops/csrc/wgmma_topk.cuh, every instance S = 1-4 of each form; K3's bf16
    wgmma kernel; ops/csrc/hopper.cuh) it prints what ptxas reported
    (registers and spills by instance, that setmaxnreg was not
@@ -112,7 +115,10 @@ Phases; any failure raises and the script exits non-zero with no result:
    f32: its Function's forward launches K3's LSE instance once, equal bit
    for bit to the torch.no_grad() call (which takes no Function and launches
    once), the backward launches K3-bwd's dK/dV and dQ kernels once each and
-   holds against the plain backward; a second derivative raises.
+   holds against the plain backward; a second derivative raises. Past
+   65,535 (batch, head) pairs (the grid's y limit, which K3 and K3-bwd no
+   longer use): K3 at (B, H, N) in MANY_HEADS, (1, 65,536, 3) and (4,
+   25,000, 3), at hd 32, 64 and 80, bf16 and f32, against the plain version.
 5. The main paths: `hbird_evaluation` on a generated VOC-layout fixture
    (64 train / 16 val images, 600x450) with dinov2_vitb14 at full width
    (random weights from a seed), input 518, batch 16, k=30, seeded
@@ -350,7 +356,8 @@ Phases; any failure raises and the script exits non-zero with no result:
    hd) memory, as the ViT hands them over; lse from K3's LSE instance,
    whose output must equal the no-grad call's bit for bit and whose lse
    the plain one's within 1e-5·max(1, |lse|); each kernel run twice for
-   the same bits. 11.2, the gradient path: dinov2_vitb14 at 518 (N =
+   the same bits; then at phase 4's MANY_HEADS shapes (past 65,535 (batch,
+   head) pairs), every width and dtype. 11.2, the gradient path: dinov2_vitb14 at 518 (N =
    1,370, 12 blocks of 12 heads of 64), random weights from the seed
    (LayerScale 0.05), GRAD_BATCH = 4 seeded images, the loss Σ patch tokens
    · g (g seeded), the gradients of the input and of every parameter with
@@ -358,7 +365,8 @@ Phases; any failure raises and the script exits non-zero with no result:
    bf16 (see flash_grad_path for the limits); each 'flash' run launches
    K3 and each K3-bwd kernel once per block (12), the counts set to 0 just
    before it and read just after. 11.3: K3-bwd timed at FLASH_MAIN,
-   FLASH_NARROW and FLASH_WIDE in bf16 and f32 (flash_bwd_timing).
+   FLASH_NARROW and FLASH_WIDE in bf16 and f32 (flash_bwd_timing), each
+   row with its route (bf16 'wgmma', f32 'mma_sync').
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs; K1 f32
@@ -404,8 +412,11 @@ library call (phase 7's helpers): K3 bf16 and f32 at the main shape and at
 digest of its output's bytes (the same seeded inputs in every tree, so
 equal digests mean equal outputs bit for bit), and K3 bf16 at hd 32 and
 hd 80 in NARROW_ROUNDS turns with SDPA, host-launched and in a CUDA
-graph, each with its digest; K1 bf16 dot and l2, int8 and int8_rows
-with k in PAIR_KS (30, 64, 96, 120, 128), f32 at k = 30 and 120, asym and
+graph, each with its digest; K3-bwd (pairs_bwd) in bf16 and f32 at the
+main shape, hd 32 (16, 12, 197, 32) and hd 80 (16, 16, 257, 80), the
+whole backward host-launched and in a CUDA graph and each kernel alone,
+beside SDPA's backward, with the digest of its three gradients; K1 bf16
+dot and l2, int8 and int8_rows with k in PAIR_KS (30, 64, 96, 120, 128), f32 at k = 30 and 120, asym and
 asym_rows at k = 30, Q = 21,904 normal queries (and their int8 codes)
 against 87,616 and 1,024,000 unit rows (and their global and per-row int8
 codes); K2 bf16 and asym_rows (the slabs' per-row codes)
@@ -417,8 +428,9 @@ at each depth of BF16_PAIR_DEPTHS (1,024-3,200: both sides of the bf16
 edge and past it) K1 bf16 dot and l2 at k = 30 on 87,616 and 1,024,000 unit rows and
 K2 bf16 on a tree of each.
 Every K1 and K2 row carries its output's digest too. It prints one JSON
-line. With --k3-only it builds and times K3 alone (a K3 variant tree's
-turns take about a minute each, against many for the whole list).
+line. With --k3-only it builds and times K3 and K3-bwd alone (a K3 or
+K3-bwd variant tree's turns take about a minute each, against many for
+the whole list).
 Two trees are compared in one run on one card, each in its own
 process, in turns: parent, change, change, parent.
 """
@@ -548,8 +560,8 @@ F32_FORM = "INS_3F32E"
 # forward under autograd, which also writes each row's log-sum-exp), as
 # mangled; none may spill or have its wgmma serialised (C7511).
 K3_WGMMA_WIDTHS = {f"ILi{hd}ELb{lse}E": hd for hd in (32, 64, 80) for lse in (0, 1)}
-# K3-bwd's kernels (ops/csrc/flash_bwd.cu, mma.sync): each one instance a
-# dtype and head width (as mangled), none spilling.
+# K3-bwd's kernels (ops/csrc/flash_bwd.cu; bf16 on wgmma, f32 on mma.sync):
+# each one instance a dtype and head width (as mangled), none spilling.
 BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
 BWD_INSTANCES = {f"I{t}Li{hd}E": (dt, hd) for t, dt in (("13__nv_bfloat16", "bf16"), ("f", "f32"))
                  for hd in (32, 64, 80)}
@@ -558,6 +570,9 @@ BWD_INSTANCES = {f"I{t}Li{hd}E": (dt, hd) for t, dt in (("13__nv_bfloat16", "bf1
 FLASH_BWD_NS = (1, 50, 129, 197, 257, 1370)
 FLASH_BWD_CASE_B = 2  # batch of each phase 11 check (12 heads; 16 at hd 80)
 GRAD_BATCH = 4  # the gradient path's batch
+# Phases 4 and 11.1: K3 and K3-bwd past 65,535 (batch, head) pairs, (B, H, N)
+# at every head width: 2^16 pairs, and 100,000 (not a power of two).
+MANY_HEADS = ((1, 65536, 3), (4, 25000, 3))
 # The least work of a backward: s, dp, dv, dk, dq (2·N²·hd flops each a
 # head); the library's split (and K3-bwd's) recomputes s and dp, 14.
 BWD_FLOPS, BWD_SPLIT_FLOPS = 10, 14
@@ -1509,6 +1524,32 @@ def stale_map_check(gen):
     return max(errs)
 
 
+def many_heads_shapes(sizes=None):
+    """(B, H, N, hd) of the checks past 65,535 (batch, head) pairs: each
+    (B, H, N) of `sizes` (default MANY_HEADS) at hd 32, 64 and 80."""
+    return [(b, h, n, hd) for b, h, n in (MANY_HEADS if sizes is None else sizes) for hd in (32, 64, 80)]
+
+
+def flash_many_heads(gen, sizes=None):
+    """Phase 4: K3 past 65,535 (batch, head) pairs (many_heads_shapes),
+    bf16 and f32, on seeded unit normals against the plain version.
+    Returns the largest |err|."""
+    from hbird_tpu_torch.ops.flash import flash_attention_plain
+    from hbird_tpu_torch.ops.flash_cuda import flash_attention
+
+    errs = []
+    for shape in many_heads_shapes(sizes):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(3))
+            scale = shape[-1] ** -0.5
+            out = flash_attention(q, k, v, scale)
+            sync()
+            errs.append(check_flash(f"{str(dtype)[6:]} {shape}, {shape[0] * shape[1]} (batch, head) pairs", out,
+                                    flash_attention_plain(q, k, v, scale)))
+            del q, k, v, out
+    return max(errs)
+
+
 def grad_check(gen):
     """Phase 4: K3 under autograd on the card. With an input that requires
     grad (grad mode on) the call goes through its autograd Function: the
@@ -1644,6 +1685,38 @@ def flash_bwd_cases(gen):
     return max(errs)
 
 
+def flash_bwd_many_heads(gen, sizes=None):
+    """Phase 11.1: K3-bwd past 65,535 (batch, head) pairs (many_heads_shapes),
+    bf16 and f32: lse from K3's LSE instance (the plain forward's on a CPU
+    rehearsal), both kernels against the plain backward (check_grads).
+    Returns the largest |err|."""
+    from hbird_tpu_torch.ops import flash_cuda
+    from hbird_tpu_torch.ops.flash import (flash_attention_di, flash_attention_dkv_plain,
+                                           flash_attention_dq_plain, flash_attention_plain)
+
+    errs = []
+    for shape in many_heads_shapes(sizes):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(4))
+            scale = shape[-1] ** -0.5
+            with torch.no_grad():
+                if DEVICE == "cuda":
+                    lse = torch.empty(shape[:3], device=DEVICE)
+                    o = flash_cuda._forward(q, k, v, scale, lse)
+                else:
+                    o, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+                di = flash_attention_di(o, do)
+                dk, dv = flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale)
+                got = (flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale), dk, dv)
+                sync()
+                ref = (flash_attention_dq_plain(q, k, v, lse, do, di, scale),
+                       *flash_attention_dkv_plain(q, k, v, lse, do, di, scale))
+                errs.append(check_grads(f"K3-bwd {str(dtype)[6:]} {shape}, {shape[0] * shape[1]} (batch, head) pairs",
+                                        got, ref))
+            del q, k, v, do, o, lse, di, got, ref
+    return max(errs)
+
+
 def flash_grad_path(gen_seed):
     """Phase 11.2, the gradient path: PRESET at INPUT (ViT-B/14 at 518, N =
     1,370, 12 heads of 64, 12 blocks), random weights from `gen_seed` with
@@ -1751,6 +1824,29 @@ def bwd_bound_ms(shape, dtype, flops=BWD_FLOPS, io=8, rows=4):
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def trace_split(fn, reps=5):
+    """Where a call's time goes: torch.profiler over `reps` calls of `fn`
+    (the card's kernels by CUPTI; on a CPU rehearsal the CPU ops), each
+    kernel's or op's self time in ms a call, largest first. Empty where the
+    trace holds no device time (the CUDA-event times stand then)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    cuda = DEVICE == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    split = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)) if cuda \
+            else ev.self_cpu_time_total
+        if us > 0:
+            split[ev.key] = us / reps / 1e3
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
 def sdpa_backend(q, k, v, scale):
     """The backend scaled_dot_product_attention picks for these inputs."""
     from torch.nn.attention import SDPBackend
@@ -1762,7 +1858,8 @@ def flash_bwd_timing(gen):
     """Phase 11.3: K3-bwd at the main shape (FLASH_MAIN), hd 32 (FLASH_NARROW)
     and hd 80 (FLASH_WIDE), bf16 and f32: the whole backward
     (flash_attention_bwd: di, then the dK/dV and dQ kernels) host-launched
-    (`ms`) and in one CUDA graph (`graph_ms`), each kernel alone
+    (`ms`), in one CUDA graph (`graph_ms`) and, at the main shape, traced by
+    kernel (`trace_ms`, trace_split), each kernel alone
     host-launched, against the bound (BWD_FLOPS; the library split's
     BWD_SPLIT_FLOPS beside it; each kernel's own: 8 and 6), the plain
     backward, and scaled_dot_product_attention's backward (a yardstick the
@@ -1795,6 +1892,7 @@ def flash_bwd_timing(gen):
                     flash_cuda.flash_attention_bwd(q, k, v, o, lse, do, scale)
 
                 ms, g_ms = cuda_ms(bwd, 10), graph_ms(bwd, 10)
+                trace = trace_split(bwd) if label == "main" else {}
                 dkv_ms = cuda_ms(lambda: flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale), 10)
                 dq_ms = cuda_ms(lambda: flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale), 10)
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -1812,11 +1910,16 @@ def flash_bwd_timing(gen):
                          "split_bound_ms": split_ms, "library_ms": lib_ms, "library": f"SDPA backward ({backend})",
                          "dkv": {"ms": dkv_ms, "plain_ms": plain_dkv, "bound_ms": dkv_bound[0],
                                  "bound_by": dkv_bound[1]},
-                         "dq": {"ms": dq_ms, "plain_ms": plain_dq, "bound_ms": dq_bound[0], "bound_by": dq_bound[1]}}
-            print(f"  K3-bwd {dt} {shape} (mma_sync): {ms:.4f} ms host-launched, {g_ms:.4f} in a CUDA graph "
+                         "dq": {"ms": dq_ms, "plain_ms": plain_dq, "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
+                         "trace_ms": trace}
+            print(f"  K3-bwd {dt} {shape} ({rows[key]['route']}): {ms:.4f} ms host-launched, {g_ms:.4f} in a "
+                  "CUDA graph "
                   f"(dK/dV {dkv_ms:.4f}, dQ {dq_ms:.4f}); plain {plain_ms:.4f}; SDPA backward ({backend}) "
                   f"{lib_ms:.4f}; bound {b_ms:.4f} ms ({b_by}; the split's {split_ms:.4f}; dK/dV's "
                   f"{dkv_bound[0]:.4f}, dQ's {dq_bound[0]:.4f}): {shares(ms, b_ms, lib_ms)}", flush=True)
+            if label == "main":
+                split = "; ".join(f"{name[:60]} {t:.4f}" for name, t in trace.items())
+                print(f"    trace, ms a backward by kernel: {split or 'no device time in the trace'}", flush=True)
             del q, k, v, do, o, lse, di
     return rows, max(errs)
 
@@ -2006,17 +2109,38 @@ def build_report(libs):
                 fail(f"{path.name}: {name} kernels of head widths {got} in the SASS, not "
                      f"{sorted(K3_WGMMA_WIDTHS.values())}")
         check_no_mma_sync(src, total)
-        if src == "flash_bwd.cu" and not total["HMMA"]:
-            fail(f"{path.name}: no HMMA: K3-bwd's route ('mma_sync') names another kernel than the one built")
+        if src == "flash_bwd.cu":
+            report["flash_bwd.cu:sass"] = check_bwd_sass(per_fn)
+            print(f"  SASS of K3-bwd by instance ({', '.join(SASS_OPS)}): "
+                  f"{json.dumps({f: tuple(c.values()) for f, c in report['flash_bwd.cu:sass'].items()})}", flush=True)
         report[path.name] = {"total": total, "wgmma_kernels": len(wg_fns)}
     print(f"  no HMMA or IMMA in {', '.join(NO_MMA_SYNC)}'s libraries: every form on a wgmma kernel", flush=True)
     return report
 
 
+def check_bwd_sass(per_fn):
+    """Phase 1: K3-bwd's instances by function in flash_bwd.cu's SASS
+    (sass_counts): each of BWD_KERNELS at each of BWD_INSTANCES present;
+    every bf16 instance (wgmma) issues HGMMA and UTMALDG and no HMMA, every
+    f32 instance (mma.sync) HMMA. Returns the counts by instance."""
+    got = {f"{name} {dt} hd {hd}": c for f, c in per_fn.items() for name in BWD_KERNELS
+           for args, (dt, hd) in BWD_INSTANCES.items() if f"{name}{args}" in f}
+    want = {f"{name} {dt} hd {hd}" for name in BWD_KERNELS for dt, hd in BWD_INSTANCES.values()}
+    if set(got) != want:
+        fail(f"flash_bwd.cu's SASS holds K3-bwd instances {sorted(got)}, not {sorted(want)}")
+    for inst, c in got.items():
+        if " bf16 " in inst and (c["HMMA"] or not c["HGMMA"] or not c["UTMALDG"]):
+            fail(f"{inst}: {c} (a bf16 K3-bwd instance runs wgmma: HGMMA and UTMALDG, no HMMA)")
+        if " f32 " in inst and not c["HMMA"]:
+            fail(f"{inst}: {c} (an f32 K3-bwd instance runs mma.sync: HMMA)")
+    return got
+
+
 def bwd_build_report():
     """Phase 1: K3-bwd's kernels (flash_bwd.cu) as ptxas reported them: one
     instance of each kernel a dtype and head width (BWD_INSTANCES), none
-    spilling; and the dynamic shared memory each asks for."""
+    spilling, no bf16 (wgmma) instance with its wgmma serialised (C7511,
+    C7520); and the dynamic shared memory each asks for."""
     import ctypes
 
     from hbird_tpu_torch.ops import cuda_build
@@ -2031,10 +2155,16 @@ def bwd_build_report():
         if set(got) != set(BWD_INSTANCES) or any(sp for _, sp in got.values()):
             fail(f"ptxas: K3-bwd's {name} instances by dtype and head width (want {sorted(BWD_INSTANCES)}, "
                  f"none spilling): {got}")
+        serial = [note for note in r["wgmma_notes"] if any(f"{name}{a}" in note for a, (dt, _) in BWD_INSTANCES.items()
+                                                        if dt == "bf16") and ("(C7511)" in note or "(C7520)" in note)]
+        if serial:
+            fail(f"ptxas serialised the wgmma of a bf16 {name} instance: {serial}")
         report[f"flash_bwd.cu:{name}"] = {f"{BWD_INSTANCES[a][0]} hd {BWD_INSTANCES[a][1]}": v
                                           for a, v in got.items()}
         print(f"  ptxas, flash_bwd.cu {name} ({len(got)} instances): (registers, spill bytes) "
-              f"{json.dumps(report[f'flash_bwd.cu:{name}'])}", flush=True)
+              f"{json.dumps(report[f'flash_bwd.cu:{name}'])}; {len(r['wgmma_notes'])} wgmma notes", flush=True)
+        for note in r["wgmma_notes"]:
+            print(f"    {note}", flush=True)
     lib = ctypes.CDLL(str(cuda_build.library_path("flash_bwd.cu")))
     lib.flash_bwd_smem.argtypes, lib.flash_bwd_smem.restype = (ctypes.c_int,) * 3, ctypes.c_int
     smem = {f"{name} {dt} hd {hd}": lib.flash_bwd_smem(kernel, hd, dt == "bf16")
@@ -3611,8 +3741,9 @@ def pairs(tree, k3_only=False):
     asym_rows, K2 bf16, asym_rows and f32; K1 asym and asym_rows and K2
     asym_rows on the wide banks; K1 bf16 dot and l2 and K2 bf16 at
     BF16_PAIR_DEPTHS on both banks) timed alone by CUDA events, each beside
-    its bound and its library call, with its output's digest. `k3_only`
-    (--k3-only): K3 alone. Returns the JSON-ready result."""
+    its bound and its library call, with its output's digest; and K3-bwd
+    (pairs_bwd). `k3_only` (--k3-only): K3 and K3-bwd alone. Returns the
+    JSON-ready result."""
     import hbird_tpu_torch
     from hbird_tpu_torch.ops import cuda_build
     from hbird_tpu_torch.ops.flash_cuda import flash_attention
@@ -3621,10 +3752,13 @@ def pairs(tree, k3_only=False):
     from hbird_tpu_torch.ops.quantize import quantize_bank_int8, quantize_queries_int8
 
     t0 = time.perf_counter()
-    if DEVICE == "cuda":
-        cuda_build.build("flash_attn.cu") if k3_only else cuda_build.build_all()
+    if DEVICE == "cuda" and k3_only:
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(cuda_build.build, ("flash_attn.cu", "flash_bwd.cu")))
+    elif DEVICE == "cuda":
+        cuda_build.build_all()
     out = {"tree": tree, "package": str(pathlib.Path(hbird_tpu_torch.__file__).parent),
-           "build_s": time.perf_counter() - t0, "k3": {}, "k1": {}, "k2": {}}
+           "build_s": time.perf_counter() - t0, "k3": {}, "k3bwd": {}, "k1": {}, "k2": {}}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
 
     def record(kernel, label, ms, shape_bound, library, **extra):
@@ -3646,6 +3780,7 @@ def pairs(tree, k3_only=False):
         del q, k, v
     pairs_turns(record, FLASH_NARROW)
     pairs_turns(record, FLASH_WIDE)
+    pairs_bwd(record)
     if k3_only:
         return out
     q_f32 = torch.randn(PAIR_Q, DEPTH, generator=gen, device=DEVICE)  # K2 f32's queries
@@ -3756,6 +3891,39 @@ def pairs_bf16_wide(record, reps=3):
             pairs_k2(q, bank, None, None, f"M={m} D={d}", record, r, forms=("bf16",))
             del bank
         del q
+
+
+def pairs_bwd(record):
+    """--pairs, K3-bwd at FLASH_MAIN, FLASH_NARROW and FLASH_WIDE, bf16 and
+    f32 (unit normals, lse from the plain forward): the whole backward
+    (flash_attention_bwd) host-launched and in one CUDA graph, each kernel
+    alone, beside its bound (BWD_FLOPS) and SDPA's backward, with its
+    route and the digest of (dq, dk, dv)."""
+    from hbird_tpu_torch.ops import flash_cuda
+    from hbird_tpu_torch.ops.flash import flash_attention_di, flash_attention_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in (FLASH_MAIN, FLASH_NARROW, FLASH_WIDE):
+            q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype) for _ in range(4))
+            scale = shape[-1] ** -0.5
+            with torch.no_grad():
+                o, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+                di = flash_attention_di(o, do)
+
+                def bwd():
+                    return flash_cuda.flash_attention_bwd(q, k, v, o, lse, do, scale)
+
+                ms, g_ms = cuda_ms(bwd, 10), graph_ms(bwd, 10)
+                dkv_ms = cuda_ms(lambda: flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale), 10)
+                dq_ms = cuda_ms(lambda: flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale), 10)
+                grads = digest(tuple(t.float() for t in bwd()))
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
+            lib = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True), 10)
+            record("k3bwd", f"{str(dtype)[6:]} {shape}", ms, bwd_bound_ms(shape, dtype), lib, digest=grads,
+                   route=flash_cuda.route(dtype, shape[-1], "dkv"), graph_ms=g_ms, dkv_ms=dkv_ms, dq_ms=dq_ms)
+            del q, k, v, do, o, lse, di, leaves, sdpa_out
 
 
 def pairs_turns(record, shape):
@@ -4610,7 +4778,7 @@ def main(argv=()):
     ap = argparse.ArgumentParser(description="Smoke run of hbird_tpu_torch on one CUDA card.")
     ap.add_argument("--pairs", metavar="TREE",
                     help="time only the Hopper-redesigned kernels of TREE's package (see the docstring)")
-    ap.add_argument("--k3-only", action="store_true", help="with --pairs: K3 alone")
+    ap.add_argument("--k3-only", action="store_true", help="with --pairs: K3 and K3-bwd alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4654,7 +4822,7 @@ def main(argv=()):
     err_k2 = max(ivf_cases(gen), quantized_ivf_cases(gen), err_bf16_k2, err_wide_k2, err_asym_k2)
 
     phase("[4] K3 vs plain version; K3 under autograd")
-    err_k3 = flash_cases(gen)
+    err_k3 = max(flash_cases(gen), flash_many_heads(gen))
     err_k3_grad = grad_check(gen)
 
     phase(f"[5] main paths ({card})")
@@ -4716,7 +4884,7 @@ def main(argv=()):
     del bank
 
     phase(f"[11] K3-bwd vs its plain backward; the gradient path; K3-bwd timing ({card})")
-    err_bwd = max(flash_bwd_cases(gen), err_k3_grad)
+    err_bwd = max(flash_bwd_cases(gen), flash_bwd_many_heads(gen), err_k3_grad)
     grad_runs, grad_launches = flash_grad_path(gen_seed=0)
     bwd_rows, err_bwd_timing = flash_bwd_timing(gen)
     err_bwd = max(err_bwd, err_bwd_timing)

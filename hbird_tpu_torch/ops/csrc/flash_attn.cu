@@ -1020,7 +1020,10 @@ template <bool LSE>
 int launch_entry(const void* q, const void* k, const void* v, void* o, int batch, int heads, int n, int hd,
                  long long sb, long long sh, long long sn, long long ob, long long oh, long long on, float scale,
                  int is_bf16, int device, void* stream, float* lse) {
-  if (batch < 1 || heads < 1 || n < 1 || batch * heads > 65535)
+  // Any number of (b, h) pairs: the items, (b, h, 128-query block), are walked by
+  // persistent CTAs and only their count has to fit the kernel's int index.
+  if (batch < 1 || heads < 1 || n < 1 ||
+      static_cast<long long>((n + wg::BQ - 1) / wg::BQ) * batch * heads > hopper::MAX_ITEMS)
     return static_cast<int>(cudaErrorInvalidValue);
   int current = device;
   cudaError_t e = cudaGetDevice(&current);
@@ -1048,9 +1051,10 @@ int launch_entry(const void* q, const void* k, const void* v, void* o, int batch
 // hd) arrays with one shared set of element strides (sb, sh, sn) and a unit
 // stride along hd; o has strides (ob, oh, on) and a unit stride along hd.
 // All f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); hd is 32, 64 or 80;
-// pointers and strides are 16-byte aligned. n >= 1, batch · heads <=
-// 65,535. Returns cudaGetLastError() after the launch (0 = launched), or
-// 9001 / 9002 when the tensor maps cannot be encoded.
+// pointers and strides are 16-byte aligned. n >= 1, and ⌈n / 128⌉ ·
+// batch · heads (the work items) at most hopper::MAX_ITEMS, else
+// cudaErrorInvalidValue. Returns cudaGetLastError() after the launch (0 =
+// launched), or 9001 / 9002 when the tensor maps cannot be encoded.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int batch,
                                  int heads, int n, int hd, long long sb, long long sh,
                                  long long sn, long long ob, long long oh, long long on,

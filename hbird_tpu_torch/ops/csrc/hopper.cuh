@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels: K1's and K2's
-// score-and-select tile (wgmma_topk.cuh, for knn_topk.cu and ivf_topk.cu)
-// and K3's bf16 and f32 forwards (flash_attn.cu); K3-bwd's launcher
-// (flash_bwd.cu, mma.sync) takes only the shared-memory attribute's setter.
+// score-and-select tile (wgmma_topk.cuh, for knn_topk.cu and ivf_topk.cu),
+// K3's bf16 and f32 forwards (flash_attn.cu) and K3-bwd's bf16 kernels
+// (flash_bwd.cu; its f32 kernels, on mma.sync, take only the
+// shared-memory attribute's setter).
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count, and
 //   a wait on a phase parity;
@@ -17,24 +18,27 @@
 //   of a 32-byte-swizzled one
 //   (CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes in 256-byte atoms of 8
 //   rows; head dims 64-79 of K3's hd-80 tiles), fence / commit / wait, and
-//   the shapes the kernels issue: m64n128k16 bf16 and m64n128k32 s8 with
-//   both operands in shared memory, m64n128k8, m64n80k8, m64n64k8 and
-//   m64n32k8 tf32 with A in registers, and m64n64k16, m64n32k16 and
-//   m64n16k16 bf16 with A in registers and B transposed (MN-major);
+//   the shapes the kernels issue: m64n128k16 and m64n64k16 bf16 and
+//   m64n128k32 s8 with both operands in shared memory, m64n128k8,
+//   m64n80k8, m64n64k8 and m64n32k8 tf32 and m64n64k16 bf16 with A in
+//   registers, and m64n64k16, m64n32k16 and m64n16k16 bf16 with A in
+//   registers and B transposed (MN-major);
 // - setmaxnreg, which moves registers from the producer warpgroup to the
 //   consumer warpgroups;
 // - host: the tensor maps' encoder, and what a launcher keeps per process
 //   (each device's SM count, each kernel's shared-memory attribute) so that
-//   a call asks for neither again.
+//   a call asks for neither again; the persistent kernels' item limit
+//   (MAX_ITEMS).
 //
 // Descriptors: a K-major operand (the depth contiguous, 64 bf16, 128 int8 or
 // 32 f32 = one 128-byte row; 32 bf16 or 16 f32 = one 64-byte row; 16 bf16
 // = one 32-byte row) advances 32 bytes per k-step (k16 bf16, k32 s8, k8 tf32)
-// inside its rows; an MN-major operand (K3's V: keys are rows, head dims
-// contiguous) advances 16 rows per k16 step (2,048 bytes at 128-byte rows,
-// 1,024 at 64, 512 at 32). Either way 8-row groups are one atom apart (the
-// stride byte offset: 1,024, 512 or 256 bytes); the leading byte offset is
-// unused at these widths, whose rows are one swizzle atom wide.
+// inside its rows; an MN-major operand (K3's V, K3-bwd's streamed tiles:
+// the reduction runs down the rows, head dims contiguous) advances 16 rows
+// per k16 step (2,048 bytes at 128-byte rows, 1,024 at 64, 512 at 32).
+// Either way 8-row groups are one atom apart (the stride byte offset: 1,024,
+// 512 or 256 bytes); the leading byte offset is unused at these widths,
+// whose rows are one swizzle atom wide.
 
 #pragma once
 
@@ -208,6 +212,44 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64×64 f32) += A (64×16, descriptor) · B (64×16, descriptor), both
+// K-major; scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64×64 f32) += A (64×16 bf16 in registers, the m16n8k16 A fragment of
+// each warp's 16 rows) · B (64×16, descriptor, K-major); scale_d = 0
+// overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // d (64×64 f32) += A (64×16 bf16 in registers, the m16n8k16 A fragment of
@@ -458,6 +500,10 @@ inline int encode_tensor_map(CUtensorMap* map, int rank, const void* base, const
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
+
+// Work items a persistent launch takes: the item index and its next value
+// (item + the grid's CTAs, a few hundred) stay within a 32-bit int.
+constexpr long long MAX_ITEMS = 0x7fffffffLL - 0x10000LL;
 
 // Per-process, per-device state of a launcher: device ordinals below
 // MAX_DEVICES keep it, others ask again on every call.

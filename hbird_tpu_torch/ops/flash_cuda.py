@@ -39,15 +39,29 @@ grad, `flash_attention` goes through `FlashAttention`, a
 also write each row's log-sum-exp (one f32 a row, the residual), and its
 backward `flash_attention_bwd`: di = Σ o·do as a torch op, then the two
 hand-written kernels of ops/csrc/flash_bwd.cu (`flash_attention_dkv`: dk
-and dv, each CTA owning a key tile; `flash_attention_dq`: dq, each CTA
-owning a query tile; no atomics, so two runs give the same bits). On CPU
-tensors the same Function runs the plain forward and backward
-(ops/flash.py). It is once differentiable, like the library's VJP: a
+and dv, each work item owning a block of keys; `flash_attention_dq`: dq,
+each owning a block of queries; no atomics, so two runs give the same
+bits). On CPU tensors the same Function runs the plain forward and
+backward (ops/flash.py). It is once differentiable, like the library's VJP: a
 second derivative raises "Higher-order AD not supported". Under
 `torch.no_grad()` or `torch.inference_mode()`, as the engine runs,
 `flash_attention` launches the forward alone, with no Function and no
 residual. `flash_attention_dkv.launches` and `flash_attention_dq.launches`
 count the backward kernels' launches (`.forms` by dtype).
+
+What bounds the backward on the card: operations (at the ViT-B/14 main
+shape ~1,200 flops a byte moved, against the ~295 where an H100 stops
+being memory bound). Its bf16 kernels run `wgmma` + TMA as the forward
+does: persistent CTAs over (b·h, 128-row block) items, a producer warp
+streaming 64-row tiles through an mbarrier ring, p and ds formed in the
+score accumulators and fed back as register A operands, the streamed
+tile read as the transposed B in place; its f32 kernels are `mma.sync`
+(3xTF32 on m16n8k8) until their redesign. `route` names them.
+
+Any number of (batch, head) pairs runs: K3 and the bf16 backward walk
+their work items with persistent CTAs and the f32 backward puts (b·h,
+tile) on grid x, so the only limit is a 32-bit item index (`_check_card`
+raises past it).
 """
 
 from __future__ import annotations
@@ -66,7 +80,7 @@ from hbird_tpu_torch.ops.flash import (
 )
 
 HEAD_DIMS = (32, 64, 80)  # the kernel's widths: every VIT_PRESETS head width
-MAX_BATCH_HEADS = 65535  # (batch, head) pairs the launch takes
+MAX_ITEMS = 2**31 - 1 - 2**16  # work items a launch takes (hopper.cuh's MAX_ITEMS): a 32-bit index
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -87,13 +101,13 @@ _launch_bwd = None  # flash_bwd_launch
 def route(dtype: torch.dtype, hd: int, kernel: str = "forward") -> str:
     """The kernel form a CUDA call at this dtype and head width runs: the
     forward 'wgmma' (bf16, and f32 as 3xTF32, at hd 32, 64 and 80); the
-    backward's 'dkv' and 'dq' kernels 'mma_sync' (bf16 m16n8k16; f32 as
-    3xTF32 on m16n8k8)."""
+    backward's 'dkv' and 'dq' kernels 'wgmma' in bf16 and 'mma_sync' in f32
+    (3xTF32 on m16n8k8)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")
     if kernel not in ("forward", "dkv", "dq"):
         raise ValueError(f"K3's kernels are 'forward', 'dkv' and 'dq', not {kernel!r}")
-    return "wgmma" if kernel == "forward" else "mma_sync"
+    return "wgmma" if kernel == "forward" or dtype == torch.bfloat16 else "mma_sync"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -166,12 +180,17 @@ def flash_attention(
     return _forward(q, k, v, scale)
 
 
-def _check_card(q: torch.Tensor) -> None:
-    b, h, _, hd = q.shape
+def _check_card(q: torch.Tensor, rows: int = 128) -> None:
+    """What the kernels take: a head width of HEAD_DIMS, and (batch, head)
+    pairs times ⌈N / rows⌉ blocks (K3 and the bf16 backward: 128-row items;
+    the f32 backward: 64-row tiles) within MAX_ITEMS, a 32-bit index."""
+    b, h, n, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")
-    if b * h > MAX_BATCH_HEADS:
-        raise ValueError(f"the K3 kernel takes at most {MAX_BATCH_HEADS} (batch, head) pairs: {b * h}")
+    items = b * h * -(-n // rows)
+    if items > MAX_ITEMS:
+        raise ValueError(f"{b * h} (batch, head) pairs of {n} rows make {items} work items of {rows} rows; "
+                         f"the kernels index at most {MAX_ITEMS} in 32 bits")
 
 
 def _forward(q, k, v, scale: float, lse=None) -> torch.Tensor:
@@ -248,7 +267,7 @@ def _bwd_layout(do: torch.Tensor) -> bool:
 def _backward_kernel(kernel: int, q, k, v, lse, do, di, scale: float, outs) -> None:
     """Launch backward kernel 0 (dk, dv) or 1 (dq) into `outs`."""
     _check(q, k, v)
-    _check_card(q)
+    _check_card(q, 128 if q.dtype == torch.bfloat16 else 64)
     b, h, n, hd = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or lse.shape != q.shape[:3] or di.shape != q.shape[:3]:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype}, lse {tuple(lse.shape)} and di {tuple(di.shape)} "

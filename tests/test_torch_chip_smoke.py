@@ -276,13 +276,16 @@ def test_flash_bwd_phase_rehearses_on_cpu(smoke):
     rows, err = smoke.flash_bwd_timing(gen)
     assert set(rows) == {"main", "f32", "hd32", "f32 hd32", "hd80", "f32 hd80"} and err >= 0.0
     for row in rows.values():
-        assert row["route"] == "mma_sync" and row["library"].startswith("SDPA backward (")
+        assert row["route"] == ("wgmma" if row["dtype"] == "bfloat16" else "mma_sync")
+        assert row["library"].startswith("SDPA backward (")
         assert row["bound_ms"] <= row["split_bound_ms"] and row["graph_ms"] > 0 and row["library_ms"] > 0
         assert row["dkv"]["ms"] > 0 and row["dq"]["bound_ms"] > 0
+        assert all(ms > 0 for ms in row["trace_ms"].values()) and bool(row["trace_ms"]) == (row["shape"][2] == 40)
     assert rows["hd80"]["shape"] == [2, 2, 20, 80] and rows["f32"]["dtype"] == "float32"
     entry = smoke.bwd_entry("flash_attention_dkv (K3-bwd)", "dkv", smoke.TPU_KERNELS["K3-bwd dkv"], 24, err, rows,
                             "card", {"bf16": 12, "f32": 12})
     assert entry["route"] == "cuda" and entry["library_ms"] is None and entry["ms"] == rows["main"]["dkv"]["ms"]
+    assert entry["form"] == "wgmma"
     assert json.dumps(entry)
 
 
@@ -627,9 +630,16 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     for row in [*out["k3"].values(), *out["k1"].values(), *out["k2"].values()]:
         assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert out["k1"]["bf16 dot Q=40 M=500 k=128"]["bound_by"] == "bytes"
+    # K3-bwd: bf16 and f32 at the main shape, hd 32 and hd 80, the whole backward and each kernel
+    bwd = {f"{dt} {s}" for dt in ("bfloat16", "float32") for s in ("(2, 2, 40, 32)", "(2, 2, 20, 32)", "(2, 2, 20, 80)")}
+    assert set(out["k3bwd"]) == bwd
+    for label, row in out["k3bwd"].items():
+        assert row["route"] == ("wgmma" if label.startswith("bfloat16") else "mma_sync")
+        assert len(row["digest"]) == 16 and row["graph_ms"] > 0 and row["dkv_ms"] > 0 and row["dq_ms"] > 0
+        assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert json.dumps(out)
-    only = smoke.pairs("here", k3_only=True)  # --k3-only: the same K3 rows, no K1 or K2
-    assert set(only["k3"]) == k3 and only["k1"] == only["k2"] == {}
+    only = smoke.pairs("here", k3_only=True)  # --k3-only: the same K3 and K3-bwd rows, no K1 or K2
+    assert set(only["k3"]) == k3 and set(only["k3bwd"]) == bwd and only["k1"] == only["k2"] == {}
 
 
 def test_card_vs_cpu_rehearses(smoke):
@@ -750,8 +760,9 @@ ptxas info    : Used 168 registers, used 3 barriers
 
 
 def test_ptxas_report_reads_the_bwd_kernels(smoke):
-    """K3-bwd's kernels (mma.sync) read by dtype and head width from their
-    mangled names: six instances of each, BWD_INSTANCES's keys."""
+    """K3-bwd's kernels (bf16 on wgmma, f32 on mma.sync) read by dtype and
+    head width from their mangled names: six instances of each,
+    BWD_INSTANCES's keys."""
     name = ("_ZN45_GLOBAL__N__b215bf55_12_flash_bwd_cu_5acdb52813flash_bwd_dkvI{}Li{}EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_"
             "iiNS_7StridesEff")
     log = "".join(f"""ptxas info    : Compiling entry function '{name.format(t, hd)}' for 'sm_90a'

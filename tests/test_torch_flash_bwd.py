@@ -208,11 +208,13 @@ def test_flash_vit_gradients_match_jax_grad_of_the_xla_vit():
 
 
 def test_route_names_the_backward_kernels():
-    """The backward's two kernels run mma.sync at every width and dtype;
-    the forward stays on wgmma; other kernels or widths have no route."""
+    """The backward's two kernels run wgmma in bf16 and mma.sync in f32 at
+    every width; the forward stays on wgmma; other kernels or widths have
+    no route."""
     for dtype in (torch.bfloat16, torch.float32):
         for hd in (32, 64, 80):
-            assert flash_cuda.route(dtype, hd, "dkv") == flash_cuda.route(dtype, hd, "dq") == "mma_sync"
+            want = "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+            assert flash_cuda.route(dtype, hd, "dkv") == flash_cuda.route(dtype, hd, "dq") == want
             assert flash_cuda.route(dtype, hd) == "wgmma"
     with pytest.raises(ValueError, match="kernels"):
         flash_cuda.route(torch.bfloat16, 64, "backward")

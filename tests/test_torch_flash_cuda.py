@@ -5,7 +5,8 @@ the kernel has no CPU mode, and on the CPU the wrapper takes the plain
 version, which `test_torch_flash.py` compares with the JAX package's TPU
 kernel in interpret mode (and `test_torch_flash_bwd.py` the plain backward
 with the TPU backward kernels). K3-bwd (ops/csrc/flash_bwd.cu) is held to
-the plain backward here, at the tolerance of `assert_grads_close`. The file imports neither JAX nor `hbird_tpu`, so
+the plain backward here, at the tolerance of `assert_grads_close`, past
+65,535 (batch, head) pairs too. The file imports neither JAX nor `hbird_tpu`, so
 it runs on a GPU machine without them, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_flash_cuda.py
@@ -248,18 +249,29 @@ def test_no_stale_tensor_map_at_a_reused_address(cuda_device, dtype, hd):
         assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd", [32, 64, 80])
-def test_batch_heads_at_the_grid_limit(cuda_device, hd):
-    """B·H = 65,535 (the limit the wrapper keeps for every width) runs;
-    one more pair is refused."""
-    q, k, v = _qkv((5, 13107, 3, hd), seed=hd, device=cuda_device, dtype=torch.bfloat16)
-    out = flash_cuda.flash_attention(q, k, v, hd**-0.5)
-    torch.cuda.synchronize()
-    assert_close(out, flash_attention_plain(q, k, v, hd**-0.5))
-    q, k, v = (x.reshape(1, 65535, 3, hd) for x in (q, k, v))
-    with pytest.raises(ValueError, match="pairs"):
-        flash_cuda.flash_attention(torch.cat([q, q[:, :1]], 1), torch.cat([k, k[:, :1]], 1),
-                                   torch.cat([v, v[:, :1]], 1), 0.1)
+def test_batch_heads_at_the_grid_limit(cuda_device, hd, dtype):
+    """B·H = 65,535 (the grid's y limit, which the kernels no longer use),
+    65,536 and 100,000 (not a power of two) run, forward and backward:
+    K3 against the plain forward, K3-bwd's dK/dV and dQ against the plain
+    backward (lse from K3's LSE instance)."""
+    from hbird_tpu_torch.ops.flash import flash_attention_di, flash_attention_dkv_plain, flash_attention_dq_plain
+
+    for i, shape in enumerate(((5, 13107, 3, hd), (1, 65536, 3, hd), (4, 25000, 3, hd))):
+        q, k, v = _qkv(shape, seed=hd + i, device=cuda_device, dtype=dtype)
+        do = torch.from_numpy(np.random.default_rng(i).standard_normal(shape, dtype=np.float32)).to(cuda_device, dtype)
+        scale = hd**-0.5
+        lse = torch.empty(shape[:3], device=cuda_device)
+        out = flash_cuda._forward(q, k, v, scale, lse)
+        torch.cuda.synchronize()
+        assert_close(out, flash_attention_plain(q, k, v, scale))
+        di = flash_attention_di(out, do)
+        dk, dv = flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale)
+        dq = flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale)
+        torch.cuda.synchronize()
+        assert_grads_close((dq, dk, dv), (flash_attention_dq_plain(q, k, v, lse, do, di, scale),
+                                          *flash_attention_dkv_plain(q, k, v, lse, do, di, scale)))
 
 
 def assert_grads_close(got, ref):
@@ -322,6 +334,25 @@ def test_backward_kernels_match_the_plain_backward(cuda_device, name, dtype):
         before[0] + 2, before[1] + 2)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     assert_grads_close(got, flash_attention_bwd_plain(q, k, v, o, lse, do, scale))
+
+
+@pytest.mark.parametrize("n", [257, 1370])
+def test_bf16_backward_reruns_give_the_same_bits(cuda_device, n):
+    """The bf16 wgmma kernels (persistent CTAs, no atomics) give the same
+    bits on every run: three runs of each at (2, 12, N, 64) and (2, 16, N,
+    80)."""
+    for hd, heads in ((64, 12), (80, 16)):
+        shape = (2, heads, n, hd)
+        assert flash_cuda.route(torch.bfloat16, hd, "dkv") == flash_cuda.route(torch.bfloat16, hd, "dq") == "wgmma"
+        q, k, v = _qkv(shape, seed=n + hd, device=cuda_device, dtype=torch.bfloat16)
+        do = torch.from_numpy(np.random.default_rng(n).standard_normal(shape, dtype=np.float32)).to(
+            cuda_device, torch.bfloat16)
+        scale = hd**-0.5
+        lse = torch.empty(shape[:3], device=cuda_device)
+        o = flash_cuda._forward(q, k, v, scale, lse)
+        runs = [flash_cuda.flash_attention_bwd(q, k, v, o, lse, do, scale) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for run in runs[1:] for a, c in zip(runs[0], run))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
