@@ -11,11 +11,12 @@ Phases; any failure raises and the script exits non-zero with no result:
    (ops/csrc/flash_attn.cu) and K3-bwd (ops/csrc/flash_bwd.cu) are built
    with nvcc for sm_90a, one nvcc each, started together. K3-bwd's two
    kernels (flash_bwd_dkv, flash_bwd_dq) must each have their six
-   instances (bf16 on wgmma, f32 on mma.sync; head widths 32, 64, 80) in
-   the ptxas report, none spilling and no bf16 instance with its wgmma
-   serialised (C7511, C7520), ask for shared memory, and, by function in
-   the SASS, every bf16 instance must issue HGMMA and UTMALDG and no HMMA
-   and every f32 instance HMMA (check_bwd_sass). For the Hopper kernels (K1's and K2's wgmma kernel,
+   instances (bf16 and f32, both on wgmma; head widths 32, 64, 80) in
+   the ptxas report, none spilling and none with its wgmma serialised
+   (C7511, C7520), ask for shared memory, report the f32 tiles'
+   streamed rows of F32_BWD_TILE, and, by function in the SASS, every
+   instance must issue HGMMA and UTMALDG and no HMMA (check_bwd_sass).
+   For the Hopper kernels (K1's and K2's wgmma kernel,
    ops/csrc/wgmma_topk.cuh, every instance S = 1-4 of each form; K3's bf16
    wgmma kernel; ops/csrc/hopper.cuh) it prints what ptxas reported
    (registers and spills by instance, that setmaxnreg was not
@@ -26,9 +27,9 @@ Phases; any failure raises and the script exits non-zero with no result:
    warpgroup MMAs (HGMMA, IGMMA for int8), UTMALDG and mma.sync (HMMA,
    IMMA for int8) instructions of each library and of each wgmma kernel,
    which must issue a warpgroup MMA and UTMALDG and no mma.sync (K1's,
-   K2's and K3's libraries must hold such kernels, and no HMMA or IMMA at
-   all: every K1, K2 and K3 form runs a wgmma kernel; cuobjdump must
-   exist). The
+   K2's, K3's and K3-bwd's libraries must hold such kernels, and no HMMA
+   or IMMA at all: every K1, K2, K3 and K3-bwd form runs a wgmma kernel;
+   cuobjdump must exist). The
    forms of WGMMA_FORMS must each have their instances (select sizes 1-4,
    one or two epilogues) in the ptxas report and the SASS, and spill
    nothing: K1's F32, Asym and the streamed forms Streamed<Bf16>,
@@ -356,8 +357,10 @@ Phases; any failure raises and the script exits non-zero with no result:
    hd) memory, as the ViT hands them over; lse from K3's LSE instance,
    whose output must equal the no-grad call's bit for bit and whose lse
    the plain one's within 1e-5·max(1, |lse|); each kernel run twice for
-   the same bits; then at phase 4's MANY_HEADS shapes (past 65,535 (batch,
-   head) pairs), every width and dtype. 11.2, the gradient path: dinov2_vitb14 at 518 (N =
+   the same bits, the f32 rows with their chain of truncating adds (3 ·
+   rows / 8 a tile, F32_BWD_TILE); then at phase 4's MANY_HEADS shapes
+   (past 65,535 (batch, head) pairs), every width and dtype, two runs bit
+   for bit there too. 11.2, the gradient path: dinov2_vitb14 at 518 (N =
    1,370, 12 blocks of 12 heads of 64), random weights from the seed
    (LayerScale 0.05), GRAD_BATCH = 4 seeded images, the loss Σ patch tokens
    · g (g seeded), the gradients of the input and of every parameter with
@@ -366,7 +369,8 @@ Phases; any failure raises and the script exits non-zero with no result:
    K3 and each K3-bwd kernel once per block (12), the counts set to 0 just
    before it and read just after. 11.3: K3-bwd timed at FLASH_MAIN,
    FLASH_NARROW and FLASH_WIDE in bf16 and f32 (flash_bwd_timing), each
-   row with its route (bf16 'wgmma', f32 'mma_sync').
+   row with its route (both 'wgmma') and each kernel's own bound, the main
+   shape's split by kernel (dK/dV, dQ, di's torch ops) traced in both.
 
 Tolerance of the K1 and K2 checks: values within 1e-5 * ||q|| * max||b||
 (the products are exact in f32, only the summation order differs; K1 f32
@@ -551,20 +555,25 @@ WGMMA_FORMS = {
     "ivf_topk.cu": {"INS_3F32E": 4, "INS_8StreamedINS_4AsymEE": 8, "INS_8StreamedINS_2S8EE": 8,
                     "INS_8StreamedINS_4Bf16EE": 4},
 }
-# Libraries with no mma.sync at all (HMMA, IMMA in their SASS): every K1, K2
-# and K3 form runs a wgmma kernel.
-NO_MMA_SYNC = ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu")
+# Libraries with no mma.sync at all (HMMA, IMMA in their SASS): every K1, K2,
+# K3 and K3-bwd form runs a wgmma kernel.
+NO_MMA_SYNC = ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu", "flash_bwd.cu")
 SMEM_DEPTHS = range(8, 4097, 8)  # phase 1: K1 and K2 report shared memory for every form at each
 F32_FORM = "INS_3F32E"
 # K3's wgmma instances (bf16 and f32 each) by head width and LSE flag (the
 # forward under autograd, which also writes each row's log-sum-exp), as
 # mangled; none may spill or have its wgmma serialised (C7511).
 K3_WGMMA_WIDTHS = {f"ILi{hd}ELb{lse}E": hd for hd in (32, 64, 80) for lse in (0, 1)}
-# K3-bwd's kernels (ops/csrc/flash_bwd.cu; bf16 on wgmma, f32 on mma.sync):
-# each one instance a dtype and head width (as mangled), none spilling.
+# K3-bwd's kernels (ops/csrc/flash_bwd.cu; bf16 and f32 on wgmma): each one
+# instance a dtype and head width (as mangled), none spilling.
 BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
 BWD_INSTANCES = {f"I{t}Li{hd}E": (dt, hd) for t, dt in (("13__nv_bfloat16", "bf16"), ("f", "f32"))
                  for hd in (32, 64, 80)}
+# Streamed rows of an f32 K3-bwd tile by head width (flash_bwd.cu's fbs; phase
+# 1 holds the library to it): each tile's product for dk, dv or dq is a chain
+# of 3 · rows / 8 truncating tensor-core adds, added into an f32 sum rounding
+# to nearest.
+F32_BWD_TILE = {32: 32, 64: 32, 80: 16}
 # Phase 11: K3-bwd against its plain backward at these sequence lengths (every
 # head width, both dtypes), the gradient path at GRAD_BATCH, and its times.
 FLASH_BWD_NS = (1, 50, 129, 197, 257, 1370)
@@ -1640,7 +1649,8 @@ def flash_bwd_cases(gen):
     views of one (B, N, 3, H, hd) buffer and do a (B, H, N, hd) view of
     (B, N, H, hd) memory, as the ViT hands them over; lse from K3's LSE
     instance (its output equal bit for bit to the no-grad call's, its lse
-    within 1e-5·max(1, |plain lse|)); each kernel run twice, the same bits.
+    within 1e-5·max(1, |plain lse|)); each kernel run twice, the same bits;
+    f32's error printed beside its chains of truncating adds (F32_BWD_TILE).
     Returns the largest |err|."""
     from hbird_tpu_torch.ops import flash_cuda
     from hbird_tpu_torch.ops.flash import (flash_attention_di, flash_attention_dkv_plain,
@@ -1680,7 +1690,10 @@ def flash_bwd_cases(gen):
                         fail(f"{label}: two runs of K3-bwd differ")
                     ref = (flash_attention_dq_plain(q, k, v, lse, do, di, scale),
                            *flash_attention_dkv_plain(q, k, v, lse, do, di, scale))
-                    errs.append(check_grads(f"{label}, lse err {lse_err:.2g}, two runs equal", runs[0], ref))
+                    r, tiles = F32_BWD_TILE[hd], -(-n // F32_BWD_TILE[hd])
+                    chain = "" if dtype == torch.bfloat16 else (
+                        f"; chains of {3 * r // 8} truncating adds a tile of {r} rows, {tiles} tile(s)")
+                    errs.append(check_grads(f"{label}, lse err {lse_err:.2g}, two runs equal{chain}", runs[0], ref))
                 del qkv, q, k, v, do
     return max(errs)
 
@@ -1688,8 +1701,8 @@ def flash_bwd_cases(gen):
 def flash_bwd_many_heads(gen, sizes=None):
     """Phase 11.1: K3-bwd past 65,535 (batch, head) pairs (many_heads_shapes),
     bf16 and f32: lse from K3's LSE instance (the plain forward's on a CPU
-    rehearsal), both kernels against the plain backward (check_grads).
-    Returns the largest |err|."""
+    rehearsal), both kernels run twice for the same bits and against the
+    plain backward (check_grads). Returns the largest |err|."""
     from hbird_tpu_torch.ops import flash_cuda
     from hbird_tpu_torch.ops.flash import (flash_attention_di, flash_attention_dkv_plain,
                                            flash_attention_dq_plain, flash_attention_plain)
@@ -1706,14 +1719,18 @@ def flash_bwd_many_heads(gen, sizes=None):
                 else:
                     o, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
                 di = flash_attention_di(o, do)
-                dk, dv = flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale)
-                got = (flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale), dk, dv)
+                runs = []
+                for _ in range(2):
+                    dk, dv = flash_cuda.flash_attention_dkv(q, k, v, lse, do, di, scale)
+                    runs.append((flash_cuda.flash_attention_dq(q, k, v, lse, do, di, scale), dk, dv))
                 sync()
+                label = f"K3-bwd {str(dtype)[6:]} {shape}, {shape[0] * shape[1]} (batch, head) pairs"
+                if not all(torch.equal(a, c) for a, c in zip(*runs)):
+                    fail(f"{label}: two runs of K3-bwd differ")
                 ref = (flash_attention_dq_plain(q, k, v, lse, do, di, scale),
                        *flash_attention_dkv_plain(q, k, v, lse, do, di, scale))
-                errs.append(check_grads(f"K3-bwd {str(dtype)[6:]} {shape}, {shape[0] * shape[1]} (batch, head) pairs",
-                                        got, ref))
-            del q, k, v, do, o, lse, di, got, ref
+                errs.append(check_grads(f"{label}, two runs equal", runs[0], ref))
+            del q, k, v, do, o, lse, di, runs, ref
     return max(errs)
 
 
@@ -1991,12 +2008,12 @@ def sass_counts(sass):
 
 
 def check_no_mma_sync(src, total):
-    """Phase 1: fails where a library of NO_MMA_SYNC (K1's, K2's, K3's)
-    holds an mma.sync instruction (HMMA or IMMA among its SASS counts
-    `total`)."""
+    """Phase 1: fails where a library of NO_MMA_SYNC (K1's, K2's, K3's,
+    K3-bwd's) holds an mma.sync instruction (HMMA or IMMA among its SASS
+    counts `total`)."""
     if src in NO_MMA_SYNC and (total["HMMA"] or total["IMMA"]):
-        fail(f"{src}: {total['HMMA']} HMMA and {total['IMMA']} IMMA instructions: a K1, K2 or K3 form still "
-             "runs mma.sync")
+        fail(f"{src}: {total['HMMA']} HMMA and {total['IMMA']} IMMA instructions: a K1, K2, K3 or K3-bwd form "
+             "still runs mma.sync")
 
 
 def build_report(libs):
@@ -2121,26 +2138,25 @@ def build_report(libs):
 def check_bwd_sass(per_fn):
     """Phase 1: K3-bwd's instances by function in flash_bwd.cu's SASS
     (sass_counts): each of BWD_KERNELS at each of BWD_INSTANCES present;
-    every bf16 instance (wgmma) issues HGMMA and UTMALDG and no HMMA, every
-    f32 instance (mma.sync) HMMA. Returns the counts by instance."""
+    every instance, bf16 and f32 (3xTF32), runs wgmma: HGMMA and UTMALDG
+    and no HMMA. Returns the counts by instance."""
     got = {f"{name} {dt} hd {hd}": c for f, c in per_fn.items() for name in BWD_KERNELS
            for args, (dt, hd) in BWD_INSTANCES.items() if f"{name}{args}" in f}
     want = {f"{name} {dt} hd {hd}" for name in BWD_KERNELS for dt, hd in BWD_INSTANCES.values()}
     if set(got) != want:
         fail(f"flash_bwd.cu's SASS holds K3-bwd instances {sorted(got)}, not {sorted(want)}")
     for inst, c in got.items():
-        if " bf16 " in inst and (c["HMMA"] or not c["HGMMA"] or not c["UTMALDG"]):
-            fail(f"{inst}: {c} (a bf16 K3-bwd instance runs wgmma: HGMMA and UTMALDG, no HMMA)")
-        if " f32 " in inst and not c["HMMA"]:
-            fail(f"{inst}: {c} (an f32 K3-bwd instance runs mma.sync: HMMA)")
+        if c["HMMA"] or not c["HGMMA"] or not c["UTMALDG"]:
+            fail(f"{inst}: {c} (a K3-bwd instance runs wgmma: HGMMA and UTMALDG, no HMMA)")
     return got
 
 
 def bwd_build_report():
     """Phase 1: K3-bwd's kernels (flash_bwd.cu) as ptxas reported them: one
     instance of each kernel a dtype and head width (BWD_INSTANCES), none
-    spilling, no bf16 (wgmma) instance with its wgmma serialised (C7511,
-    C7520); and the dynamic shared memory each asks for."""
+    spilling, none with its wgmma serialised (C7511, C7520); the dynamic
+    shared memory each asks for; the f32 tiles' streamed rows
+    (F32_BWD_TILE)."""
     import ctypes
 
     from hbird_tpu_torch.ops import cuda_build
@@ -2155,10 +2171,10 @@ def bwd_build_report():
         if set(got) != set(BWD_INSTANCES) or any(sp for _, sp in got.values()):
             fail(f"ptxas: K3-bwd's {name} instances by dtype and head width (want {sorted(BWD_INSTANCES)}, "
                  f"none spilling): {got}")
-        serial = [note for note in r["wgmma_notes"] if any(f"{name}{a}" in note for a, (dt, _) in BWD_INSTANCES.items()
-                                                        if dt == "bf16") and ("(C7511)" in note or "(C7520)" in note)]
+        serial = [note for note in r["wgmma_notes"] if any(f"{name}{a}" in note for a in BWD_INSTANCES)
+                  and ("(C7511)" in note or "(C7520)" in note)]
         if serial:
-            fail(f"ptxas serialised the wgmma of a bf16 {name} instance: {serial}")
+            fail(f"ptxas serialised the wgmma of a {name} instance: {serial}")
         report[f"flash_bwd.cu:{name}"] = {f"{BWD_INSTANCES[a][0]} hd {BWD_INSTANCES[a][1]}": v
                                           for a, v in got.items()}
         print(f"  ptxas, flash_bwd.cu {name} ({len(got)} instances): (registers, spill bytes) "
@@ -2173,6 +2189,12 @@ def bwd_build_report():
         fail(f"a K3-bwd kernel asks for no shared memory: {smem}")
     print(f"  K3-bwd dynamic shared memory: {json.dumps(smem)} B", flush=True)
     report["flash_bwd.cu:smem_bytes"] = smem
+    lib.flash_bwd_f32_tile.argtypes, lib.flash_bwd_f32_tile.restype = (ctypes.c_int,), ctypes.c_int
+    tiles = {hd: lib.flash_bwd_f32_tile(hd) for hd in F32_BWD_TILE}
+    if tiles != F32_BWD_TILE:
+        fail(f"the f32 K3-bwd tiles' streamed rows are {tiles}, not {F32_BWD_TILE}")
+    print(f"  K3-bwd f32 tiles' streamed rows by head width: {json.dumps(tiles)}", flush=True)
+    report["flash_bwd.cu:f32_tile_rows"] = tiles
     return report
 
 

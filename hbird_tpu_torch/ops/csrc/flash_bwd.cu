@@ -93,24 +93,61 @@
 //   holds as it is and the registers a separate per-tile accumulator would
 //   take stay free.
 //
-// f32, `flash_bwd_dkv<float, HD>` and `flash_bwd_dq<float, HD>`: mma.sync,
-// simple and right, not fast (its redesign takes wgmma with transform
-// warps, as K3's f32 forward does): a CTA owns a 64-row tile
-// of one (b, h) (grid x walks (b·h, tile), so any B·H runs), four warps of
-// 16 rows, every product an m16n8k8 in TF32 with each operand split by
-// tf32.cuh into big and small parts (3xTF32), a product's cross terms over
-// the whole depth issued before its big·big terms, since the tensor cores
-// add rounding toward zero; the fragments are loaded from padded shared
-// memory a value at a time, which reads the transposed operands of dv, dk
-// and dq in place (wgmma's tf32 form takes K-major operands only). A 64-row
-// tile of dk, dv or dq is added into its f32 accumulator once per streamed
-// tile, rounding to nearest, so no chain of truncating adds runs longer
-// than one tile.
+// f32, `flash_bwd_dkv<float, HD>` and `flash_bwd_dq<float, HD>` at hd 32, 64
+// and 80: 3xTF32 on wgmma + TMA, the frame above with the transform warps
+// of K3's f32 forward (flash_attn.cu); tests/test_torch_flash_bwd_tf32.py
+// emulates this order of work.
+// - Each f32 operand x is split by tf32.cuh into big = rna(x) and small =
+//   rna(x - big); a product is small·big + big·small, then big·big.
+// - wgmma takes tf32 operands K-major only (the transpose bit is for 16-bit
+//   types). sᵀ = K·Qᵀ and dpᵀ = V·dOᵀ (s = Q·Kᵀ, dp = dO·Vᵀ) reduce over
+//   the head dims, so their operands are read as they arrive; dV += pᵀ·dO
+//   and dK += dsᵀ·Q (dQ += ds·K) reduce over the streamed rows, so their B
+//   operands dOᵀ and Qᵀ (Kᵀ) are written transposed. Transform warps take
+//   each streamed tile as TMA lands it: split into its big and small
+//   parts, and Q and dO (K) also transposed and split, streamed row r of
+//   each 8-row group at position r / 2 (r even) or 4 + r / 2 (r odd). That
+//   is where the score accumulator holds row r, so p and ds become split A
+//   fragments straight from the s and dp accumulators, as p does in K3's
+//   f32 forward.
+// - An item owns 64 rows of one (b, h) (keys for dK/dV, queries for dQ),
+//   split once in place in shared memory, and sᵀ and dpᵀ (s and dp) read
+//   their A operand there (m64n32k8 or m64n16k8 with both operands in
+//   shared memory): the split A fragments of both owned tiles would take
+//   2·HD registers beside the sums. Both consumer warpgroups own the
+//   item's rows and take its streamed tiles in turn, even tiles the first
+//   and odd the second, each with its own sums; at the end the second
+//   stores its part and the first adds its own to it (f32, rounding to
+//   nearest), so two runs give the same bits.
+// - A CTA is 512 threads: warp 0 issues the TMA copies (and, for dK/dV,
+//   copies the streamed queries' lse and di with cp.async), warps 1-7
+//   transform, warps 8-15 are the two consumer warpgroups (setmaxnreg 64 /
+//   192). Seven transform warps, not three: the split tiles are written a
+//   float at a time, and with three the consumers waited for them (PERF.md).
+// - Shared memory: the owned tiles (4 × 64 rows), a ring of raw stages
+//   that TMA fills (the streamed pair as it arrives, up to 4 ahead) and a
+//   ring of split stages that the transform warps fill from it (the pair's
+//   big and small parts and the transposed split tiles: dK/dV 8 tiles, dQ
+//   6), at least two (one a consumer warpgroup), as many as fit
+//   (f32_raw_stages, f32_stages). Streamed tiles are 32 rows, 16 at hd 80.
+//   An item's first tiles are copied and split before its owned tiles,
+//   which wait for the last item's consumers. What bounds it on an H100 is
+//   the shared memory's bandwidth: a tile's operand reads (A and B of sᵀ
+//   and dpᵀ, B of the rest) and the transform's writes.
+// - Numerics: the tensor cores add into their accumulator rounding toward
+//   zero, about an ulp of the accumulator an instruction. sᵀ and dpᵀ issue
+//   their cross terms first (HD/8 adds at the full value); each tile's
+//   product for dV, dK or dQ goes into a fresh accumulator (3·BS/8 adds,
+//   BS/8 of them at the full value for a tile of BS rows) that is added
+//   into the warpgroup's f32 sum rounding to nearest, so no chain of
+//   truncating adds runs longer than one tile.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see ../cuda_build.py, which builds it at first use).
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "tf32.cuh"
@@ -564,288 +601,553 @@ __device__ __forceinline__ void bwd_body(const Maps<HD>& maps, const float* __re
   }
 }
 
-// dk and dv of bf16 attention: persistent CTAs over (b·h, 128-key block)
-// items. T is bf16; the f32 kernels of the same names (mma.sync) are below.
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on wgmma, the producer warpgroup's other warps splitting and
+// transposing the tiles.
+// ---------------------------------------------------------------------------
+
+constexpr int FBR = 64;           // rows an f32 item owns: keys (dK/dV) or queries (dQ)
+constexpr int F32_THREADS = 512;  // TMA warp and transform warps (two warpgroups), two consumer warpgroups
+constexpr int XF_THREADS = 224;   // warps 1-7: the transform warps
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may take (227 KB)
+
+// Streamed rows of an f32 tile: 32, and 16 at hd 80, where two split
+// stages and two raw stages of 32 rows would not fit beside the owned tiles.
+template <int HD>
+__host__ __device__ constexpr int fbs() {
+  return HD == 80 ? 16 : 32;
+}
+
+template <int HD, int ROWS>
+__host__ __device__ constexpr int f32_tile_bytes() {
+  return ROWS * HD * 4;
+}
+
+// A split stage: the streamed pair's big parts, their small parts, then the
+// transposed split tiles (dK/dV: Qᵀ and dOᵀ; dQ: Kᵀ), big and small.
+template <int HD, bool DKV>
+__host__ __device__ constexpr int f32_stage_bytes() {
+  return (DKV ? 8 : 6) * f32_tile_bytes<HD, fbs<HD>()>();
+}
+
+// The owned tiles, `split` split stages, `raw` raw stages (the streamed
+// pair as TMA writes it), dK/dV's lse and di rows of each stage of both
+// kinds, and the barriers.
+template <int HD, bool DKV>
+__host__ __device__ constexpr int f32_smem_at(int split, int raw) {
+  return hopper::SMEM_ALIGN + 4 * f32_tile_bytes<HD, FBR>() + split * f32_stage_bytes<HD, DKV>() +
+         raw * 2 * f32_tile_bytes<HD, fbs<HD>()>() + (DKV ? (split + raw) * 2 * fbs<HD>() * 4 : 0) +
+         8 * (3 + 2 * split + 2 * raw);
+}
+
+// Raw stages: as many as fit beside two split stages (one a consumer
+// warpgroup), at most 4: dK/dV 4, 2, 4 at hd 32, 64, 80; dQ 4 at each.
+template <int HD, bool DKV>
+__host__ __device__ constexpr int f32_raw_stages() {
+  int r = 1;
+  while (r < 4 && f32_smem_at<HD, DKV>(2, r + 1) <= MAX_SMEM) ++r;
+  return r;
+}
+
+// Split stages: as many as then fit, at most 8: dK/dV 4, 2, 2; dQ 6, 2, 3.
+template <int HD, bool DKV>
+__host__ __device__ constexpr int f32_stages() {
+  int s = 2;
+  while (s < 8 && f32_smem_at<HD, DKV>(s + 1, f32_raw_stages<HD, DKV>()) <= MAX_SMEM) ++s;
+  return s;
+}
+
+template <int HD, bool DKV>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return f32_smem_at<HD, DKV>(f32_stages<HD, DKV>(), f32_raw_stages<HD, DKV>());
+}
+
+// Byte offset of head dim d of row `row` in an f32 tile of ROWS rows (K3's
+// f32 layout): part d / 32 starts at (d / 32)·ROWS·128; a 32-float part has
+// 128-byte rows whose 16-byte unit u lies at u ^ (row % 8), hd 80's last
+// (16 floats) 64-byte rows whose unit u lies at u ^ (row / 2 % 4).
+template <int HD, int ROWS>
+__device__ __forceinline__ int f32_off(int row, int d) {
+  const int p = d >> 5, c = d & 31;
+  if (HD - 32 * p >= 32) return p * ROWS * 128 + row * 128 + (((c >> 2) ^ (row & 7)) << 4) + ((c & 3) << 2);
+  return p * ROWS * 128 + row * 64 + (((c >> 2) ^ ((row >> 1) & 3)) << 4) + ((c & 3) << 2);
+}
+
+// The descriptor of k8 step kk (head dims 8kk..8kk+7) of an f32 tile of
+// ROWS rows: 32 bytes a step inside a part's rows.
+template <int HD, int ROWS>
+__device__ __forceinline__ uint64_t kdesc(const unsigned char* tile, int kk) {
+  const int p = kk >> 2;
+  const unsigned char* a = tile + p * ROWS * 128 + (kk & 3) * 32;
+  return HD - 32 * p >= 32 ? hopper::sw128_desc(a) : hopper::sw64_desc(a);
+}
+
+// A transposed tile: HD rows (head dims) of BS positions, 128-byte rows
+// under the 128-byte swizzle (BS 32) or 64-byte rows under the 64-byte one
+// (BS 16). Streamed row r of an 8-row group sits at position r / 2 (r even)
+// or 4 + r / 2 (r odd) of its group.
+template <int BS>
+__device__ __forceinline__ int t_off(int d, int pos) {
+  if constexpr (BS == 32) return d * 128 + ((((pos >> 2) ^ d) & 7) << 4) + ((pos & 3) << 2);
+  return d * 64 + ((((pos >> 2) ^ (d >> 1)) & 3) << 4) + ((pos & 3) << 2);
+}
+
+// The descriptor of k8 step j (streamed rows 8j..8j+7) of a transposed tile.
+template <int BS>
+__device__ __forceinline__ uint64_t t_desc(const unsigned char* t, int j) {
+  if constexpr (BS == 32) return hopper::sw128_desc(t + 32 * j);
+  return hopper::sw64_desc(t + 32 * j);
+}
+
+// Rows row0.. of (b, h) of tensor map i into an f32 tile of ROWS rows at
+// dst, completing on bar: one TMA copy a 32-float part (box {32, ROWS}) and
+// at hd 80 one of {16, ROWS} at head dim 64 (map 4 + i).
+template <int HD, int ROWS>
+__device__ __forceinline__ void f32_tma(unsigned char* dst, const Maps<HD>& maps, int i, uint64_t* bar, int row0,
+                                        int h, int b) {
+#pragma unroll
+  for (int p = 0; p < HD / 32; ++p) hopper::tma_load_4d(dst + p * ROWS * 128, &maps.m[i], bar, 32 * p, row0, h, b);
+  if constexpr (HD % 32 != 0)
+    hopper::tma_load_4d(dst + (HD / 32) * ROWS * 128, &maps.m[4 + i], bar, HD / 32 * 32, row0, h, b);
+}
+
+__device__ __forceinline__ void split4(uint4 v, uint4& big, uint4& small) {
+  tf32::split(__uint_as_float(v.x), big.x, small.x);
+  tf32::split(__uint_as_float(v.y), big.y, small.y);
+  tf32::split(__uint_as_float(v.z), big.z, small.z);
+  tf32::split(__uint_as_float(v.w), big.w, small.w);
+}
+
+// Transform threads (x of XF_THREADS): a tile of BYTES at src split into
+// its big parts (at `big`, which may be src) and its small parts, at the
+// same offsets.
+template <int BYTES>
+__device__ __forceinline__ void split_tile(const unsigned char* src, unsigned char* big, unsigned char* small, int x) {
+#pragma unroll 2
+  for (int u = x; u < BYTES / 16; u += XF_THREADS) {
+    uint4 b, sm;
+    split4(reinterpret_cast<const uint4*>(src)[u], b, sm);
+    reinterpret_cast<uint4*>(big)[u] = b;
+    reinterpret_cast<uint4*>(small)[u] = sm;
+  }
+}
+
+// Transform warp `warp` (0-6): a streamed tile at src (BS rows) split into
+// `big` and `small` at the same offsets, and written transposed and split
+// as tb and ts. Lane l takes row l % BS and 4 head dims a task (at BS 16,
+// lanes 16-31 the next 4): one 16-byte read a lane, two 16-byte writes and
+// 8 four-byte writes, a transposed row's BS positions across the lanes.
+// Head dims d..d+3 (d a multiple of 4) of a transposed tile lie at d rows
+// past dims 0-3, their swizzled unit flipped in one bit when d % 8 = 4.
+template <int HD, int BS>
+__device__ __forceinline__ void split_t(const unsigned char* src, unsigned char* big, unsigned char* small,
+                                        unsigned char* tb, unsigned char* ts, int warp, int lane) {
+  constexpr int GROUPS = 32 / BS;  // 4-dim groups a task
+  const int r = lane % BS, q = r & 7;
+  const int pos = (r & ~7) | ((q & 1) ? 4 + (q >> 1) : (q >> 1));
+  int co[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) co[i] = t_off<BS>(i, pos);
+#pragma unroll 2
+  for (int task = warp; task < HD / 4 / GROUPS; task += XF_THREADS / 32) {
+    const int d = (task * GROUPS + lane / BS) * 4;
+    const int off = f32_off<HD, BS>(r, d);
+    const int rows = d * BS * 4, flip = (d & 4) << (BS == 32 ? 4 : 3);
+    uint4 b, sm;
+    split4(*reinterpret_cast<const uint4*>(src + off), b, sm);
+    *reinterpret_cast<uint4*>(big + off) = b;
+    *reinterpret_cast<uint4*>(small + off) = sm;
+    const uint32_t bv[4] = {b.x, b.y, b.z, b.w}, sv[4] = {sm.x, sm.y, sm.z, sm.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = rows + (co[i] ^ flip);
+      *reinterpret_cast<uint32_t*>(tb + o) = bv[i];
+      *reinterpret_cast<uint32_t*>(ts + o) = sv[i];
+    }
+  }
+}
+
+template <int BS>
+__device__ __forceinline__ void wgmma_ss_f32(float (&d)[BS / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (BS == 32) hopper::wgmma_m64n32k8_tf32_ss(d, a, b, scale_d);
+  if constexpr (BS == 16) hopper::wgmma_m64n16k8_tf32_ss(d, a, b, scale_d);
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_f32(float (&d)[HD / 2], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  if constexpr (HD == 32) hopper::wgmma_m64n32k8_tf32_rs(d, a, b, scale_d);
+  if constexpr (HD == 64) hopper::wgmma_m64n64k8_tf32_rs(d, a, b, scale_d);
+  if constexpr (HD == 80) hopper::wgmma_m64n80k8_tf32_rs(d, a, b, scale_d);
+}
+
+// acc (the 64 owned rows by the BS streamed rows) = the owned tile (ob
+// big, os small) times the streamed tile (sb, ss) transposed, over the head
+// dims, in 3xTF32: the cross terms first, then big·big.
+template <int HD, int BS>
+__device__ __forceinline__ void issue_s(float (&acc)[BS / 2], const unsigned char* ob, const unsigned char* os,
+                                        const unsigned char* sb, const unsigned char* ss) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) wgmma_ss_f32<BS>(acc, kdesc<HD, FBR>(os, kk), kdesc<HD, BS>(sb, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) wgmma_ss_f32<BS>(acc, kdesc<HD, FBR>(ob, kk), kdesc<HD, BS>(ss, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) wgmma_ss_f32<BS>(acc, kdesc<HD, FBR>(ob, kk), kdesc<HD, BS>(sb, kk), 1);
+}
+
+// f (64 owned rows × HD) = a (split A fragments: the owned rows by the
+// tile's BS streamed rows) times a transposed tile (tb, ts), in 3xTF32 in
+// the same order, into a fresh accumulator.
+template <int HD, int BS>
+__device__ __forceinline__ void issue_t(float (&f)[HD / 2], const uint32_t (&ab)[BS / 8][4],
+                                        const uint32_t (&as)[BS / 8][4], const unsigned char* tb,
+                                        const unsigned char* ts) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BS / 8; ++j) wgmma_rs_f32<HD>(f, as[j], t_desc<BS>(tb, j), j > 0);
+#pragma unroll
+  for (int j = 0; j < BS / 8; ++j) wgmma_rs_f32<HD>(f, ab[j], t_desc<BS>(ts, j), 1);
+#pragma unroll
+  for (int j = 0; j < BS / 8; ++j) wgmma_rs_f32<HD>(f, ab[j], t_desc<BS>(tb, j), 1);
+  hopper::wgmma_commit();
+}
+
+// An accumulator of BS streamed columns as split A fragments of BS / 8 k8
+// steps: step j's k index t is column 8j + 2t (elements 4j, and 4j + 2 for
+// row g + 8) and t + 4 is column 8j + 2t + 1 (4j + 1, 4j + 3).
+template <int J>
+__device__ __forceinline__ void split_acc(const float (&x)[4 * J], uint32_t (&b)[J][4], uint32_t (&s)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    tf32::split(x[4 * j], b[j][0], s[j][0]);
+    tf32::split(x[4 * j + 2], b[j][1], s[j][1]);
+    tf32::split(x[4 * j + 1], b[j][2], s[j][2]);
+    tf32::split(x[4 * j + 3], b[j][3], s[j][3]);
+  }
+}
+
+// p and ds of one streamed tile of BS rows in place (x becomes p, y ds), in
+// f32 as the plain version: p = exp2(s·scale·log2(e) - lse·log2(e)), ds =
+// p·(dp - di)·scale. Element 4j + e: owned row g (e < 2) or g + 8,
+// streamed row 8j + 2·(lane % 4) + (e & 1) of the tile (first row r0).
+// dK/dV: the streamed queries' lse and di from the stage's rows; dQ: the
+// owned queries' from registers, and key columns at or past n get p = 0.
+template <bool DKV, int BS>
+__device__ __forceinline__ void grads_f32(float (&x)[BS / 2], float (&y)[BS / 2], const float* lse_di,
+                                          const float (&lse2)[2], const float (&dii)[2], int r0, int n, float scale,
+                                          float sl2, int lane) {
+  const int t = lane & 3;
+  const bool ragged = !DKV && r0 + BS > n;
+#pragma unroll
+  for (int j = 0; j < BS / 8; ++j) {
+    float l[2], d[2];
+    if constexpr (DKV) {
+      const float2 lv = *reinterpret_cast<const float2*>(lse_di + 8 * j + 2 * t);
+      const float2 dv = *reinterpret_cast<const float2*>(lse_di + BS + 8 * j + 2 * t);
+      l[0] = lv.x, l[1] = lv.y, d[0] = dv.x, d[1] = dv.y;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float le = DKV ? l[e & 1] : lse2[e >> 1];
+      const float de = DKV ? d[e & 1] : dii[e >> 1];
+      float p = exp2f(fmaf(x[4 * j + e], sl2, -le));
+      if (ragged && r0 + 8 * j + 2 * t + (e & 1) >= n) p = 0.0f;
+      y[4 * j + e] = p * (y[4 * j + e] - de) * scale;
+      x[4 * j + e] = p;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void add_into(float (&sum)[N], const float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) sum[i] = __fadd_rn(sum[i], f[i]);
+}
+
+// The warp's 16 rows of an f32 accumulator (rows row0 + g and + 8) into the
+// contiguous (b, h) matrix out (n rows of HD), rows below n; with `add`,
+// each value added to what out holds there (the other warpgroup's part).
+template <int HD>
+__device__ __forceinline__ void store_f32(float* out, const float (&acc)[HD / 2], int row0, int n, int lane,
+                                          bool add) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + (lane >> 2) + 8 * i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      float2* p = reinterpret_cast<float2*>(out + static_cast<long long>(row) * HD + 8 * j + 2 * (lane & 3));
+      float2 v = make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      if (add) {
+        const float2 o = *p;
+        v = make_float2(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y));
+      }
+      *p = v;
+    }
+  }
+}
+
+// One f32 kernel: DKV, dk (out0) and dv (out1) of items of 64 keys; else dq
+// (out0) of items of 64 queries. Items (b·heads + h, block), the blocks of
+// one head adjacent.
+template <int HD, bool DKV>
+__device__ __forceinline__ void f32_body(const Maps<HD>& maps, const float* __restrict__ lse,
+                                         const float* __restrict__ di, float* __restrict__ out0,
+                                         float* __restrict__ out1, int heads, int n, float scale, float sl2,
+                                         int n_blocks, int n_items) {
+  constexpr int BS = fbs<HD>(), S = f32_stages<HD, DKV>(), R = f32_raw_stages<HD, DKV>();
+  constexpr int OWN = f32_tile_bytes<HD, FBR>(), ST = f32_tile_bytes<HD, BS>(), STAGE = f32_stage_bytes<HD, DKV>();
+  static_assert(f32_smem_bytes<HD, DKV>() <= MAX_SMEM, "the f32 tiles exceed a block's shared memory");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* own = hopper::aligned_smem(smem_raw);        // [A, A small, B, B small]: K, V; Q, dO
+  unsigned char* ring = own + 4 * OWN;                        // [S][A, A small, B, B small, Aᵀ, Aᵀ small(, Bᵀ, Bᵀ small)]
+  unsigned char* raw = ring + S * STAGE;                      // [R][A, B] as TMA writes them
+  float* rows = reinterpret_cast<float*>(raw + R * 2 * ST);   // dK/dV: [S][lse·log2(e), di][BS]
+  float* raw_rows = rows + (DKV ? S * 2 * BS : 0);            // dK/dV: [R][lse, di][BS] as copied
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(raw_rows + (DKV ? R * 2 * BS : 0));
+  uint64_t* own_ready = own_full + 1;  // the owned tiles split
+  uint64_t* own_empty = own_ready + 1;
+  uint64_t* raw_full = own_empty + 1;  // [R] the streamed pair landed
+  uint64_t* raw_empty = raw_full + R;  // [R] the transform warps read it
+  uint64_t* ready = raw_empty + R;     // [S] split (and dK/dV's rows written)
+  uint64_t* empty = ready + S;         // [S] its consumer warpgroup is done with it
+  const int n_tiles = (n + BS - 1) / BS;
+  const int wgi = __shfl_sync(FULL, threadIdx.x / 128, 0);  // warp-uniform to the compiler
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(own_full, 1);
+    hopper::mbar_init(own_ready, XF_THREADS);
+    hopper::mbar_init(own_empty, 256);
+    for (int r = 0; r < R; ++r) {
+      hopper::mbar_init(raw_full + r, DKV ? 1 + 32 : 1);  // dK/dV: the TMA lane and the warp's row copies
+      hopper::mbar_init(raw_empty + r, XF_THREADS);
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(ready + s, XF_THREADS);
+      hopper::mbar_init(empty + s, 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi < 2) {
+    hopper::reg_dealloc<64>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0) {
+      // Producer warp: lane 0 issues every TMA copy; for dK/dV, lanes below
+      // BS copy the streamed queries' lse and di (rows below n) beside each
+      // raw pair with cp.async. An item's first R streamed tiles go before
+      // its owned tiles, which wait for the last item's consumers.
+      if (lane == 0)
+#pragma unroll
+        for (int i = 0; i < Maps<HD>::COUNT; ++i) hopper::prefetch_tensor_map(&maps.m[i]);
+      int stage = 0;
+      uint32_t phase = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int bh = item / n_blocks, blk = item % n_blocks;
+        const int b = bh / heads, h = bh % heads;
+        const int pre = n_tiles < R ? n_tiles : R;
+        for (int t = 0; t < n_tiles; ++t) {
+          if (t == pre && lane == 0) {
+            hopper::mbar_wait(own_empty, (it & 1) ^ 1);
+            hopper::mbar_expect_tx(own_full, 2 * OWN);
+            f32_tma<HD, FBR>(own, maps, 0, own_full, blk * FBR, h, b);
+            f32_tma<HD, FBR>(own + 2 * OWN, maps, 1, own_full, blk * FBR, h, b);
+          }
+          unsigned char* rw = raw + stage * 2 * ST;
+          hopper::mbar_wait(raw_empty + stage, phase ^ 1);
+          if (lane == 0) {
+            hopper::mbar_expect_tx(raw_full + stage, 2 * ST);
+            f32_tma<HD, BS>(rw, maps, 2, raw_full + stage, t * BS, h, b);
+            f32_tma<HD, BS>(rw + ST, maps, 3, raw_full + stage, t * BS, h, b);
+          }
+          if constexpr (DKV) {
+            const int q = t * BS + lane;
+            float* rr = raw_rows + stage * 2 * BS;
+            if (lane < BS && q < n) {
+              const long long row = static_cast<long long>(bh) * n + q;
+              hopper::cp_async4(rr + lane, lse + row);
+              hopper::cp_async4(rr + BS + lane, di + row);
+            }
+            hopper::cp_async_arrive(raw_full + stage);
+          }
+          if (++stage == R) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        if (pre == n_tiles && lane == 0) {
+          hopper::mbar_wait(own_empty, (it & 1) ^ 1);
+          hopper::mbar_expect_tx(own_full, 2 * OWN);
+          f32_tma<HD, FBR>(own, maps, 0, own_full, blk * FBR, h, b);
+          f32_tma<HD, FBR>(own + 2 * OWN, maps, 1, own_full, blk * FBR, h, b);
+        }
+      }
+    } else if (warp > 0) {
+      // Transform warps: every tile in the producer's order, each raw pair
+      // into the next free split stage; dK/dV's streamed queries' lse
+      // (times log2(e), +inf past n) and di (0 past n) beside it. An item's
+      // first S tiles go before its owned tiles.
+      const int x = threadIdx.x - 32;
+      int rs = 0, stage = 0;
+      uint32_t rph = 0, phase = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int pre = n_tiles < S ? n_tiles : S;
+        for (int t = 0; t <= n_tiles; ++t) {
+          if (t == pre) {
+            hopper::mbar_wait(own_full, it & 1);
+            split_tile<OWN>(own, own, own + OWN, x);
+            split_tile<OWN>(own + 2 * OWN, own + 2 * OWN, own + 3 * OWN, x);
+            hopper::fence_proxy_async();  // the split tiles, to the tensor cores
+            hopper::mbar_arrive(own_ready);
+          }
+          if (t == n_tiles) break;
+          const unsigned char* rw = raw + rs * 2 * ST;
+          unsigned char* st = ring + stage * STAGE;
+          hopper::mbar_wait(raw_full + rs, rph);
+          hopper::mbar_wait(empty + stage, phase ^ 1);
+          split_t<HD, BS>(rw, st, st + ST, st + 4 * ST, st + 5 * ST, warp - 1, lane);
+          if constexpr (DKV) {
+            split_t<HD, BS>(rw + ST, st + 2 * ST, st + 3 * ST, st + 6 * ST, st + 7 * ST, warp - 1, lane);
+            if (x < BS) {
+              const float* rr = raw_rows + rs * 2 * BS;
+              const bool in = t * BS + x < n;
+              rows[stage * 2 * BS + x] = in ? rr[x] * LOG2E : pos_inf();
+              rows[stage * 2 * BS + BS + x] = in ? rr[BS + x] : 0.0f;
+            }
+          } else {
+            split_tile<ST>(rw + ST, st + 2 * ST, st + 3 * ST, x);
+          }
+          hopper::mbar_arrive(raw_empty + rs);  // the raw pair is read
+          hopper::fence_proxy_async();          // the split tiles, to the tensor cores
+          hopper::mbar_arrive(ready + stage);
+          if (++rs == R) {
+            rs = 0;
+            rph ^= 1;
+          }
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup cw takes tiles t with t % 2 == cw of every item.
+    hopper::reg_alloc<192>();
+    const int cw = wgi - 2;
+    const int tid = threadIdx.x - 128 * wgi;
+    const int warp = tid >> 5, lane = tid & 31;
+    constexpr int NB = DKV ? HD / 2 : 1;
+    int stage = 0;
+    uint32_t phase = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int bh = item / n_blocks, blk = item % n_blocks;
+      const long long base = static_cast<long long>(bh) * n;  // (b, h)'s first row of lse, di and the outputs
+      const int row0 = blk * FBR + warp * 16;                // the warp's first owned row
+      float lse2[2] = {0.0f, 0.0f}, dii[2] = {0.0f, 0.0f};   // dQ: the warp's rows g and g + 8
+      if constexpr (!DKV) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + (lane >> 2) + 8 * i;
+          lse2[i] = row < n ? lse[base + row] * LOG2E : pos_inf();
+          dii[i] = row < n ? di[base + row] : 0.0f;
+        }
+      }
+      float sa[HD / 2], sb[NB];  // dK and dV; dQ
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) sa[i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) sb[i] = 0.0f;
+      hopper::mbar_wait(own_ready, it & 1);
+      for (int t = 0; t < n_tiles; ++t) {
+        if ((t & 1) == cw) {
+          const unsigned char* st = ring + stage * STAGE;
+          float x[BS / 2], y[BS / 2], f[HD / 2];
+          uint32_t fb[BS / 8][4], fs[BS / 8][4];
+          hopper::mbar_wait(ready + stage, phase);
+          hopper::wgmma_fence();
+          issue_s<HD, BS>(x, own, own + OWN, st, st + ST);                      // sᵀ = K·Qᵀ; s = Q·Kᵀ
+          issue_s<HD, BS>(y, own + 2 * OWN, own + 3 * OWN, st + 2 * ST, st + 3 * ST);  // dpᵀ = V·dOᵀ; dp = dO·Vᵀ
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(x);
+          hopper::fence_regs(y);
+          grads_f32<DKV, BS>(x, y, rows + stage * 2 * BS, lse2, dii, t * BS, n, scale, sl2, lane);
+          if constexpr (DKV) {
+            split_acc<BS / 8>(x, fb, fs);
+            issue_t<HD, BS>(f, fb, fs, st + 6 * ST, st + 7 * ST);  // pᵀ·dO
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(f);
+            add_into(sb, f);
+          }
+          split_acc<BS / 8>(y, fb, fs);
+          issue_t<HD, BS>(f, fb, fs, st + 4 * ST, st + 5 * ST);  // dsᵀ·Q; ds·K
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(f);
+          hopper::mbar_arrive(empty + stage);
+          add_into(sa, f);
+        }
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // The two parts: the second warpgroup's stored, the first's added.
+      if (cw == 1) {
+        store_f32<HD>(out0 + base * HD, sa, row0, n, lane, false);
+        if constexpr (DKV) store_f32<HD>(out1 + base * HD, sb, row0, n, lane, false);
+        __threadfence_block();
+        hopper::named_arrive(1, 256);
+      } else {
+        hopper::named_sync(1, 256);
+        store_f32<HD>(out0 + base * HD, sa, row0, n, lane, true);
+        if constexpr (DKV) store_f32<HD>(out1 + base * HD, sb, row0, n, lane, true);
+      }
+      hopper::mbar_arrive(own_empty);  // the first warpgroup's after its reads: the next item waits for them
+    }
+  }
+}
+
+// Threads of a CTA: bf16 384 (bwd_body), f32 512 (f32_body).
+template <typename T>
+__host__ __device__ constexpr int threads() {
+  return sizeof(T) == 2 ? THREADS : F32_THREADS;
+}
+
+// dk and dv: persistent CTAs over (b·h, key block) items; bf16 blocks of
+// 128 keys (bwd_body), f32 of 64 (f32_body).
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(threads<T>(), 1)
     flash_bwd_dkv(const __grid_constant__ Maps<HD> maps, const float* __restrict__ lse, const float* __restrict__ di,
                   T* __restrict__ dk, T* __restrict__ dv, int heads, int n, float scale, float sl2, int n_blocks,
                   int n_items) {
-  static_assert(sizeof(T) == 2, "the wgmma kernel is bf16's");
-  bwd_body<HD, true>(maps, lse, di, dk, dv, heads, n, scale, sl2, n_blocks, n_items);
+  if constexpr (sizeof(T) == 2)
+    bwd_body<HD, true>(maps, lse, di, dk, dv, heads, n, scale, sl2, n_blocks, n_items);
+  else
+    f32_body<HD, true>(maps, lse, di, dk, dv, heads, n, scale, sl2, n_blocks, n_items);
 }
 
-// dq of bf16 attention: persistent CTAs over (b·h, 128-query block) items.
+// dq: persistent CTAs over (b·h, query block) items (bf16 128 queries, f32 64).
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(threads<T>(), 1)
     flash_bwd_dq(const __grid_constant__ Maps<HD> maps, const float* __restrict__ lse, const float* __restrict__ di,
                  T* __restrict__ dq, int heads, int n, float scale, float sl2, int n_blocks, int n_items) {
-  static_assert(sizeof(T) == 2, "the wgmma kernel is bf16's");
-  bwd_body<HD, false>(maps, lse, di, dq, nullptr, heads, n, scale, sl2, n_blocks, n_items);
+  if constexpr (sizeof(T) == 2)
+    bwd_body<HD, false>(maps, lse, di, dq, nullptr, heads, n, scale, sl2, n_blocks, n_items);
+  else
+    f32_body<HD, false>(maps, lse, di, dq, nullptr, heads, n, scale, sl2, n_blocks, n_items);
 }
 
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// f32: 3xTF32 on mma.sync.
+// Launch.
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;       // rows a CTA owns: keys (dk, dv) or queries (dq)
-constexpr int BN = 64;       // rows of a streamed tile: queries (dk, dv) or keys (dq)
-constexpr int WARPS = 4;     // each owns 16 of the BM rows
-constexpr int THREADS = 32 * WARPS;
-
-// Strides in elements: q, k and v share one set, do has its own; the
-// outputs, lse and di are contiguous.
+// Element strides of a call: q, k and v share one set, do has its own.
 struct Strides {
   long long sb, sh, sn, db, dh, dn;
 };
-
-// Shared-memory row pitch, in floats, of an HD-wide tile and of a warp's
-// 16 x BN tile of p or ds: 16 bytes of padding.
-template <int HD>
-__host__ __device__ constexpr int tile_pitch() {
-  return HD + 4;
-}
-constexpr int SCRATCH_PITCH = BN + 4;
-
-// Dynamic shared memory: four HD-wide tiles (two owned, two streamed), a
-// warp's p and ds tiles (dk, dv) or its ds tile (dq), and the streamed
-// queries' lse and di (dk, dv).
-template <int HD, bool DKV>
-__host__ __device__ constexpr int f32_smem_bytes() {
-  return 4 * BM * tile_pitch<HD>() * 4 + (DKV ? 2 : 1) * WARPS * 16 * SCRATCH_PITCH * 4 + (DKV ? 2 * BN * 4 : 0);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[16][8·NT] += A[16][K] · B[K][8·NT] for one warp in 3xTF32: A row-major
-// (the depth contiguous) at a with pitch pa; B stored transposed as
-// Bt[8·NT][K] (BT, the depth contiguous) or as B[K][8·NT], at b with pitch
-// pb. The cross terms (A small · B big, A big · B small) over the whole
-// depth first, then A big · B big. Fragment element (row g or g + 8,
-// column 8j + 2t or + 1) is c[j][0..3], with g = lane / 4 and t = lane % 4.
-template <int NT, int K, bool BT>
-__device__ __forceinline__ void mma_tile(float (&c)[NT][4], const float* a, int pa, const float* b, int pb,
-                                         int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 8) {
-      uint32_t ab[4], as[4];
-      tf32::split(a[g * pa + k0 + t], ab[0], as[0]);
-      tf32::split(a[(g + 8) * pa + k0 + t], ab[1], as[1]);
-      tf32::split(a[g * pa + k0 + t + 4], ab[2], as[2]);
-      tf32::split(a[(g + 8) * pa + k0 + t + 4], ab[3], as[3]);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float x0 = BT ? b[(8 * j + g) * pb + k0 + t] : b[(k0 + t) * pb + 8 * j + g];
-        const float x1 = BT ? b[(8 * j + g) * pb + k0 + t + 4] : b[(k0 + t + 4) * pb + 8 * j + g];
-        uint32_t bb[2], bs[2];
-        tf32::split(x0, bb[0], bs[0]);
-        tf32::split(x1, bb[1], bs[1]);
-        if (pass == 0) {
-          mma_tf32(c[j], as, bb);
-          mma_tf32(c[j], ab, bs);
-        } else {
-          mma_tf32(c[j], ab, bb);
-        }
-      }
-    }
-  }
-}
-
-// acc += A·B over one streamed tile, B stored as B[K][8·NT]: mma_tile into
-// a fresh accumulator, then one f32 add a value, rounding to nearest.
-template <int NT, int K>
-__device__ __forceinline__ void add_tile(float (&acc)[NT][4], const float* a, int pa, const float* b, int pb,
-                                         int lane) {
-  float part[NT][4] = {};
-  mma_tile<NT, K, false>(part, a, pa, b, pb, lane);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-}
-
-// Rows row0.. of one (b, h) matrix (row stride sn, unit stride along hd) into
-// a BM-row tile of pitch tile_pitch<HD>, rows at or past n as zeros: 16
-// bytes a thread at a time.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn, int row0, int n) {
-  constexpr int CH = HD / 4;  // 16-byte units a row
-  for (int c = threadIdx.x; c < BM * CH; c += THREADS) {
-    const int r = c / CH, u = c % CH;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < n) x = reinterpret_cast<const float4*>(src + (row0 + r) * sn)[u];
-    reinterpret_cast<float4*>(dst + r * tile_pitch<HD>())[u] = x;
-  }
-}
-
-// Two adjacent values.
-__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
-
-// The warp's 16 rows of an accumulator (f32, fragment layout) into the
-// contiguous (b, h) matrix out (n rows of HD), rows row0.. below n.
-template <int HD>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[HD / 8][4], int row0, int n, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + g + 8 * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) store2(out + row * HD + 8 * j + 2 * t, acc[j][2 * i], acc[j][2 * i + 1]);
-  }
-}
-
-// dk and dv of one 64-key tile of one (b, h): blockIdx.x = (b·heads + h) ·
-// n_tiles + tile. T is float (bf16 runs wg::flash_bwd_dkv). Two CTAs an
-// SM (at most two fit beside their shared memory at hd 64 and 80), which
-// leaves each thread up to 255 registers; with no such bound ptxas kept the
-// hd-80 dQ kernel to 168 and spilled.
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 2)
-    flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-                  T* __restrict__ dk, T* __restrict__ dv, int heads, int n, Strides st, float scale, float sl2) {
-  static_assert(sizeof(T) == 4, "the mma.sync kernel is f32's");
-  constexpr int TP = tile_pitch<HD>(), SP = SCRATCH_PITCH;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + BM * TP;
-  T* qs = vs + BM * TP;
-  T* dos = qs + BN * TP;
-  T* ps = dos + BN * TP;             // [WARPS][16][SP] pᵀ
-  T* dss = ps + WARPS * 16 * SP;     // [WARPS][16][SP] dsᵀ
-  float* lse_s = dss + WARPS * 16 * SP;  // [BN] lse·log2(e), +inf past n
-  float* di_s = lse_s + BN;              // [BN] di, 0 past n
-  const int n_tiles = (n + BM - 1) / BM;
-  const int bh = blockIdx.x / n_tiles, b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int key0 = (blockIdx.x % n_tiles) * BM;
-  const long long rows = static_cast<long long>(bh) * n;  // (b, h)'s first row of lse, di and the outputs
-  const T* qh = q + b * st.sb + h * st.sh;
-  const T* doh = dout + b * st.db + h * st.dh;
-  load_tile<HD>(ks, k + b * st.sb + h * st.sh, st.sn, key0, n);
-  load_tile<HD>(vs, v + b * st.sb + h * st.sh, st.sn, key0, n);
-  const T* kw = ks + warp * 16 * TP;
-  const T* vw = vs + warp * 16 * TP;
-  T* pw = ps + warp * 16 * SP;
-  T* dsw = dss + warp * 16 * SP;
-  float dk_acc[HD / 8][4] = {}, dv_acc[HD / 8][4] = {};
-  for (int q0 = 0; q0 < n; q0 += BN) {
-    __syncthreads();  // the last tile is read (and, the first time, K and V are in place)
-    load_tile<HD>(qs, qh, st.sn, q0, n);
-    load_tile<HD>(dos, doh, st.dn, q0, n);
-    for (int i = threadIdx.x; i < BN; i += THREADS) {
-      const bool in = q0 + i < n;
-      lse_s[i] = in ? lse[rows + q0 + i] * LOG2E : pos_inf();
-      di_s[i] = in ? di[rows + q0 + i] : 0.0f;
-    }
-    __syncthreads();
-    // sᵀ = k·qᵀ and dpᵀ = v·doᵀ: the warp's 16 keys by the tile's 64 queries.
-    float s[BN / 8][4] = {}, dp[BN / 8][4] = {};
-    mma_tile<BN / 8, HD, true>(s, kw, TP, qs, TP, lane);
-    mma_tile<BN / 8, HD, true>(dp, vw, TP, dos, TP, lane);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int col = 8 * j + 2 * t;
-        float p[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          p[e] = exp2f(fmaf(s[j][2 * i + e], sl2, -lse_s[col + e]));
-          ds[e] = p[e] * (dp[j][2 * i + e] - di_s[col + e]) * scale;
-        }
-        store2(pw + (g + 8 * i) * SP + col, p[0], p[1]);
-        store2(dsw + (g + 8 * i) * SP + col, ds[0], ds[1]);
-      }
-    __syncwarp();
-    // dv += pᵀ·do and dk += dsᵀ·q over the tile's queries.
-    add_tile<HD / 8, BN>(dv_acc, pw, SP, dos, TP, lane);
-    add_tile<HD / 8, BN>(dk_acc, dsw, SP, qs, TP, lane);
-  }
-  store_rows<HD>(dk + rows * HD, dk_acc, key0 + warp * 16, n, lane);
-  store_rows<HD>(dv + rows * HD, dv_acc, key0 + warp * 16, n, lane);
-}
-
-// dq of one 64-query tile of one (b, h): blockIdx.x = (b·heads + h) ·
-// n_tiles + tile. T is float (bf16 runs wg::flash_bwd_dq).
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 2)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-                 T* __restrict__ dq, int heads, int n, Strides st, float scale, float sl2) {
-  static_assert(sizeof(T) == 4, "the mma.sync kernel is f32's");
-  constexpr int TP = tile_pitch<HD>(), SP = SCRATCH_PITCH;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + BM * TP;
-  T* ks = dos + BM * TP;
-  T* vs = ks + BN * TP;
-  T* dss = vs + BN * TP;  // [WARPS][16][SP] ds
-  const int n_tiles = (n + BM - 1) / BM;
-  const int bh = blockIdx.x / n_tiles, b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int tile0 = (blockIdx.x % n_tiles) * BM;
-  const int row0 = tile0 + warp * 16;  // the warp's first query
-  const long long rows = static_cast<long long>(bh) * n;
-  const T* kh = k + b * st.sb + h * st.sh;
-  const T* vh = v + b * st.sb + h * st.sh;
-  load_tile<HD>(qs, q + b * st.sb + h * st.sh, st.sn, tile0, n);
-  load_tile<HD>(dos, dout + b * st.db + h * st.dh, st.dn, tile0, n);
-  float lse2[2], dii[2];  // rows g and g + 8 of the warp's 16
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + g + 8 * i;
-    lse2[i] = row < n ? lse[rows + row] * LOG2E : pos_inf();
-    dii[i] = row < n ? di[rows + row] : 0.0f;
-  }
-  const T* qw = qs + warp * 16 * TP;
-  const T* dow = dos + warp * 16 * TP;
-  T* dsw = dss + warp * 16 * SP;
-  float dq_acc[HD / 8][4] = {};
-  for (int k0 = 0; k0 < n; k0 += BN) {
-    __syncthreads();  // the last tile is read (and, the first time, Q and dO are in place)
-    load_tile<HD>(ks, kh, st.sn, k0, n);
-    load_tile<HD>(vs, vh, st.sn, k0, n);
-    __syncthreads();
-    // s = q·kᵀ and dp = do·vᵀ: the warp's 16 queries by the tile's 64 keys.
-    float s[BN / 8][4] = {}, dp[BN / 8][4] = {};
-    mma_tile<BN / 8, HD, true>(s, qw, TP, ks, TP, lane);
-    mma_tile<BN / 8, HD, true>(dp, dow, TP, vs, TP, lane);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int col = 8 * j + 2 * t;
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = k0 + col + e < n ? exp2f(fmaf(s[j][2 * i + e], sl2, -lse2[i])) : 0.0f;
-          ds[e] = p * (dp[j][2 * i + e] - dii[i]) * scale;
-        }
-        store2(dsw + (g + 8 * i) * SP + col, ds[0], ds[1]);
-      }
-    __syncwarp();
-    // dq += ds·k over the tile's keys.
-    add_tile<HD / 8, BN>(dq_acc, dsw, SP, ks, TP, lane);
-  }
-  store_rows<HD>(dq + rows * HD, dq_acc, row0, n, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Launch.
-// ---------------------------------------------------------------------------
 
 // One launch's arguments (see flash_bwd_launch).
 struct Call {
@@ -860,94 +1162,72 @@ struct Call {
   cudaStream_t stream;
 };
 
-// Work a launch holds (bf16: persistent items of 128 rows; f32: CTAs on
-// grid x, one a 64-row tile), or -1 past what a 32-bit index holds.
+// Work items a launch holds (persistent items of 128 rows in bf16, 64 in
+// f32), or -1 past what a 32-bit index holds.
 long long work_items(int batch, int heads, int n, bool bf16) {
-  const int rows = bf16 ? wg::BR : BM;
+  const int rows = bf16 ? wg::BR : wg::FBR;
   const long long items = static_cast<long long>((n + rows - 1) / rows) * batch * heads;
   return items <= hopper::MAX_ITEMS ? items : -1;
 }
 
-// The bf16 kernels at one width: the tensor maps (dK/dV owns k, v and
-// streams q, do; dQ the reverse), the shared-memory attribute (once per
+// The kernels at one width and type: the tensor maps (dK/dV owns k, v and
+// streams q, do; dQ the reverse; bf16 tiles in one part, or at hd 80 a
+// 64-dim part under the 128-byte swizzle and a 16-dim part under the 32-byte
+// one; f32 tiles in 32-float parts under the 128-byte swizzle, hd 80's last
+// 16 floats under the 64-byte one), the shared-memory attribute (once per
 // device) and a persistent grid of one CTA per SM. Returns 0, a cudaError_t
 // or a hopper::ERR_* code.
-template <int HD>
-int launch_bf16(const Call& c) {
+template <int HD, bool BF16>
+int launch(const Call& c) {
+  using T = std::conditional_t<BF16, __nv_bfloat16, float>;
   static std::atomic<uint64_t> dkv_set{0}, dq_set{0};
+  constexpr uint64_t ELT = sizeof(T);
   const bool dkv = c.kernel == 0;
   const void* const ptrs[4] = {dkv ? c.k : c.q, dkv ? c.v : c.dout, dkv ? c.q : c.k, dkv ? c.dout : c.v};
   const bool is_do[4] = {false, !dkv, false, dkv};
   const uint64_t dims[4] = {HD, static_cast<uint64_t>(c.n), static_cast<uint64_t>(c.heads),
                             static_cast<uint64_t>(c.batch)};
-  const uint64_t qkv_strides[3] = {static_cast<uint64_t>(c.st.sn) * 2, static_cast<uint64_t>(c.st.sh) * 2,
-                                   static_cast<uint64_t>(c.st.sb) * 2};
-  const uint64_t do_strides[3] = {static_cast<uint64_t>(c.st.dn) * 2, static_cast<uint64_t>(c.st.dh) * 2,
-                                  static_cast<uint64_t>(c.st.db) * 2};
-  const CUtensorMapSwizzle lo_swizzle = HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint64_t qkv_strides[3] = {static_cast<uint64_t>(c.st.sn) * ELT, static_cast<uint64_t>(c.st.sh) * ELT,
+                                   static_cast<uint64_t>(c.st.sb) * ELT};
+  const uint64_t do_strides[3] = {static_cast<uint64_t>(c.st.dn) * ELT, static_cast<uint64_t>(c.st.dh) * ELT,
+                                  static_cast<uint64_t>(c.st.db) * ELT};
+  const CUtensorMapDataType type = BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle lo_swizzle = BF16 && HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle hi_swizzle = BF16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B;
+  constexpr uint32_t LO = BF16 ? wg::lo_dims<HD>() : 32;  // head dims of a part's box
+  const uint32_t own_rows = BF16 ? wg::BR : wg::FBR;
+  const uint32_t st_rows = BF16 ? wg::BS : wg::fbs<HD>();
   wg::Maps<HD> maps;
   for (int i = 0; i < 4; ++i) {
     const uint64_t* strides = is_do[i] ? do_strides : qkv_strides;
-    const uint32_t rows = i < 2 ? wg::BR : wg::BS;
-    const uint32_t box[4] = {static_cast<uint32_t>(wg::lo_dims<HD>()), rows, 1, 1};
-    int r = hopper::encode_tensor_map(&maps.m[i], 4, ptrs[i], dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                      lo_swizzle);
+    const uint32_t rows = i < 2 ? own_rows : st_rows;
+    const uint32_t box[4] = {LO, rows, 1, 1};
+    int r = hopper::encode_tensor_map(&maps.m[i], 4, ptrs[i], dims, strides, box, type, lo_swizzle);
     if constexpr (wg::hi_dims<HD>() > 0) {
       const uint32_t hi_box[4] = {static_cast<uint32_t>(wg::hi_dims<HD>()), rows, 1, 1};
-      if (r == 0)
-        r = hopper::encode_tensor_map(&maps.m[4 + i], 4, ptrs[i], dims, strides, hi_box,
-                                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_32B);
+      if (r == 0) r = hopper::encode_tensor_map(&maps.m[4 + i], 4, ptrs[i], dims, strides, hi_box, type, hi_swizzle);
     }
     if (r != 0) return r;
   }
-  const int n_blocks = (c.n + wg::BR - 1) / wg::BR;
-  const int n_items = static_cast<int>(work_items(c.batch, c.heads, c.n, true));
+  const int n_blocks = (c.n + own_rows - 1) / own_rows;
+  const int n_items = static_cast<int>(work_items(c.batch, c.heads, c.n, BF16));
   const int sms = hopper::sm_count(c.device);
   const int grid = sms > 0 && sms < n_items ? sms : n_items;
   const float sl2 = c.scale * LOG2E;
-  __nv_bfloat16* out0 = static_cast<__nv_bfloat16*>(c.out0);
+  T* out0 = static_cast<T*>(c.out0);
   cudaError_t e;
   if (dkv) {
-    constexpr int SMEM = wg::smem_bytes<HD, true>();
-    e = hopper::allow_smem_once(wg::flash_bwd_dkv<__nv_bfloat16, HD>, SMEM, c.device, dkv_set);
+    constexpr int SMEM = BF16 ? wg::smem_bytes<HD, true>() : wg::f32_smem_bytes<HD, true>();
+    e = hopper::allow_smem_once(wg::flash_bwd_dkv<T, HD>, SMEM, c.device, dkv_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    wg::flash_bwd_dkv<__nv_bfloat16, HD><<<grid, wg::THREADS, SMEM, c.stream>>>(
-        maps, c.lse, c.di, out0, static_cast<__nv_bfloat16*>(c.out1), c.heads, c.n, c.scale, sl2, n_blocks, n_items);
+    wg::flash_bwd_dkv<T, HD><<<grid, wg::threads<T>(), SMEM, c.stream>>>(maps, c.lse, c.di, out0, static_cast<T*>(c.out1),
+                                                                    c.heads, c.n, c.scale, sl2, n_blocks, n_items);
   } else {
-    constexpr int SMEM = wg::smem_bytes<HD, false>();
-    e = hopper::allow_smem_once(wg::flash_bwd_dq<__nv_bfloat16, HD>, SMEM, c.device, dq_set);
+    constexpr int SMEM = BF16 ? wg::smem_bytes<HD, false>() : wg::f32_smem_bytes<HD, false>();
+    e = hopper::allow_smem_once(wg::flash_bwd_dq<T, HD>, SMEM, c.device, dq_set);
     if (e != cudaSuccess) return static_cast<int>(e);
-    wg::flash_bwd_dq<__nv_bfloat16, HD><<<grid, wg::THREADS, SMEM, c.stream>>>(maps, c.lse, c.di, out0, c.heads, c.n,
-                                                                           c.scale, sl2, n_blocks, n_items);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The f32 kernels at one width: one CTA a (b·h, 64-row tile) on grid x;
-// the shared-memory attribute is set once per device.
-template <int HD>
-int launch_f32(const Call& c) {
-  static std::atomic<uint64_t> dkv_set{0}, dq_set{0};
-  const unsigned grid = static_cast<unsigned>(work_items(c.batch, c.heads, c.n, false));
-  const float sl2 = c.scale * LOG2E;
-  const float* q = static_cast<const float*>(c.q);
-  const float* k = static_cast<const float*>(c.k);
-  const float* v = static_cast<const float*>(c.v);
-  const float* dout = static_cast<const float*>(c.dout);
-  cudaError_t e;
-  if (c.kernel == 0) {
-    constexpr int SMEM = f32_smem_bytes<HD, true>();
-    e = hopper::allow_smem_once(flash_bwd_dkv<float, HD>, SMEM, c.device, dkv_set);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_dkv<float, HD><<<grid, THREADS, SMEM, c.stream>>>(q, k, v, dout, c.lse, c.di, static_cast<float*>(c.out0),
-                                                                static_cast<float*>(c.out1), c.heads, c.n, c.st,
-                                                                c.scale, sl2);
-  } else {
-    constexpr int SMEM = f32_smem_bytes<HD, false>();
-    e = hopper::allow_smem_once(flash_bwd_dq<float, HD>, SMEM, c.device, dq_set);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_dq<float, HD><<<grid, THREADS, SMEM, c.stream>>>(q, k, v, dout, c.lse, c.di, static_cast<float*>(c.out0),
-                                                               c.heads, c.n, c.st, c.scale, sl2);
+    wg::flash_bwd_dq<T, HD><<<grid, wg::threads<T>(), SMEM, c.stream>>>(maps, c.lse, c.di, out0, c.heads, c.n, c.scale,
+                                                                   sl2, n_blocks, n_items);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -961,11 +1241,11 @@ int launch_f32(const Call& c) {
 // and stride a multiple of 16 bytes; lse and di are contiguous (batch,
 // heads, n) f32, the outputs contiguous (batch, heads, n, hd). All f32
 // (is_bf16 = 0) or all bf16 (is_bf16 = 1); hd is 32, 64 or 80; n >= 1, and
-// any batch · heads whose work fits a 32-bit index (bf16: ⌈n / 128⌉ ·
-// batch · heads items, f32: ⌈n / 64⌉ · batch · heads CTAs, at most
+// any batch · heads whose items fit a 32-bit index (⌈n / 128⌉ · batch ·
+// heads in bf16, ⌈n / 64⌉ · batch · heads in f32, at most
 // hopper::MAX_ITEMS), else cudaErrorInvalidValue. Returns cudaGetLastError()
-// after the launch (0 = launched), or 9001 / 9002 when the bf16 kernels'
-// tensor maps cannot be encoded.
+// after the launch (0 = launched), or 9001 / 9002 when the tensor maps
+// cannot be encoded.
 extern "C" int flash_bwd_launch(int kernel, const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* di, void* out0, void* out1, int batch, int heads,
                                 int n, int hd, long long sb, long long sh, long long sn, long long db,
@@ -980,12 +1260,12 @@ extern "C" int flash_bwd_launch(int kernel, const void* q, const void* k, const 
                batch, heads, n, Strides{sb, sh, sn, db, dh, dn}, scale, device, static_cast<cudaStream_t>(stream)};
   int r = static_cast<int>(cudaErrorInvalidValue);
   switch (hd * 2 + (is_bf16 ? 1 : 0)) {
-    case 65: r = launch_bf16<32>(c); break;
-    case 129: r = launch_bf16<64>(c); break;
-    case 161: r = launch_bf16<80>(c); break;
-    case 64: r = launch_f32<32>(c); break;
-    case 128: r = launch_f32<64>(c); break;
-    case 160: r = launch_f32<80>(c); break;
+    case 65: r = launch<32, true>(c); break;
+    case 129: r = launch<64, true>(c); break;
+    case 161: r = launch<80, true>(c); break;
+    case 64: r = launch<32, false>(c); break;
+    case 128: r = launch<64, false>(c); break;
+    case 160: r = launch<80, false>(c); break;
     default: break;
   }
   if (current != device) cudaSetDevice(current);
@@ -1000,9 +1280,21 @@ extern "C" int flash_bwd_smem(int kernel, int hd, int is_bf16) {
     case 65: return dkv ? wg::smem_bytes<32, true>() : wg::smem_bytes<32, false>();
     case 129: return dkv ? wg::smem_bytes<64, true>() : wg::smem_bytes<64, false>();
     case 161: return dkv ? wg::smem_bytes<80, true>() : wg::smem_bytes<80, false>();
-    case 64: return dkv ? f32_smem_bytes<32, true>() : f32_smem_bytes<32, false>();
-    case 128: return dkv ? f32_smem_bytes<64, true>() : f32_smem_bytes<64, false>();
-    case 160: return dkv ? f32_smem_bytes<80, true>() : f32_smem_bytes<80, false>();
+    case 64: return dkv ? wg::f32_smem_bytes<32, true>() : wg::f32_smem_bytes<32, false>();
+    case 128: return dkv ? wg::f32_smem_bytes<64, true>() : wg::f32_smem_bytes<64, false>();
+    case 160: return dkv ? wg::f32_smem_bytes<80, true>() : wg::f32_smem_bytes<80, false>();
+    default: return 0;
+  }
+}
+
+// Streamed rows of the f32 K3-bwd kernels' tiles at head width hd, or 0 at
+// a width they do not take: each tile's product for dk, dv or dq is a chain
+// of 3 · rows / 8 truncating tensor-core adds.
+extern "C" int flash_bwd_f32_tile(int hd) {
+  switch (hd) {
+    case 32: return wg::fbs<32>();
+    case 64: return wg::fbs<64>();
+    case 80: return wg::fbs<80>();
     default: return 0;
   }
 }

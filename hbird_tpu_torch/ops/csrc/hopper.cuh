@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels: K1's and K2's
 // score-and-select tile (wgmma_topk.cuh, for knn_topk.cu and ivf_topk.cu),
-// K3's bf16 and f32 forwards (flash_attn.cu) and K3-bwd's bf16 kernels
-// (flash_bwd.cu; its f32 kernels, on mma.sync, take only the
-// shared-memory attribute's setter).
+// K3's bf16 and f32 forwards (flash_attn.cu) and K3-bwd's bf16 and f32
+// kernels (flash_bwd.cu).
 //
-// - mbarriers: init, arrive, arrive with an expected transaction count, and
-//   a wait on a phase parity;
+// - mbarriers: init, arrive, arrive with an expected transaction count, an
+//   arrival once a thread's cp.async copies have landed, and a wait on a
+//   phase parity;
 // - TMA: 2-D and 4-D tile loads into shared memory that complete on an
 //   mbarrier (cp.async.bulk.tensor); the tensor maps are encoded on the host
 //   (encode_tensor_map) through the runtime's driver entry point, so the
@@ -19,10 +19,10 @@
 //   (CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes in 256-byte atoms of 8
 //   rows; head dims 64-79 of K3's hd-80 tiles), fence / commit / wait, and
 //   the shapes the kernels issue: m64n128k16 and m64n64k16 bf16 and
-//   m64n128k32 s8 with both operands in shared memory, m64n128k8,
-//   m64n80k8, m64n64k8 and m64n32k8 tf32 and m64n64k16 bf16 with A in
-//   registers, and m64n64k16, m64n32k16 and m64n16k16 bf16 with A in
-//   registers and B transposed (MN-major);
+//   m64n128k32 s8 and m64n32k8 and m64n16k8 tf32 with both operands in
+//   shared memory, m64n128k8, m64n80k8, m64n64k8 and m64n32k8 tf32 and
+//   m64n64k16 bf16 with A in registers, and m64n64k16, m64n32k16 and
+//   m64n16k16 bf16 with A in registers and B transposed (MN-major);
 // - setmaxnreg, which moves registers from the producer warpgroup to the
 //   consumer warpgroups;
 // - host: the tensor maps' encoder, and what a launcher keeps per process
@@ -66,6 +66,17 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // Makes the initialised barriers visible to the async proxy (TMA).
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// A 4-byte copy from global to shared memory (cp.async), and an arrival on
+// `bar` once this thread's earlier such copies have landed (the barrier's
+// count includes it: noinc).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -414,6 +425,35 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uin
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64×32 f32) += A (64×8 tf32, descriptor, K-major) · B (32×8 tf32,
+// descriptor, K-major); scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64×16 f32) += A (64×8 tf32, descriptor, K-major) · B (16×8 tf32,
+// descriptor, K-major); scale_d = 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------

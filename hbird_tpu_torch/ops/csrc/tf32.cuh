@@ -1,7 +1,7 @@
 // f32 products at f32 accuracy on the TF32 tensor cores (3xTF32), shared by
 // K3 f32 (flash_attn.cu, wgmma m64n64k8 and m64n{32,64,80}k8), K1 and K2
-// f32 (wgmma_topk.cuh, wgmma m64n128k8) and K3-bwd f32 (flash_bwd.cu,
-// mma.sync m16n8k8, the one form still on mma.sync).
+// f32 (wgmma_topk.cuh, wgmma m64n128k8) and K3-bwd f32 (flash_bwd.cu, wgmma
+// m64n{16,32}k8 with both operands in shared memory and m64n{32,64,80}k8).
 //
 // Each f32 operand x is split into big = tf32(x) and small = tf32(x - big),
 // both rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away from zero;

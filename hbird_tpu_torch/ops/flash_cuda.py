@@ -51,17 +51,17 @@ count the backward kernels' launches (`.forms` by dtype).
 
 What bounds the backward on the card: operations (at the ViT-B/14 main
 shape ~1,200 flops a byte moved, against the ~295 where an H100 stops
-being memory bound). Its bf16 kernels run `wgmma` + TMA as the forward
-does: persistent CTAs over (b·h, 128-row block) items, a producer warp
-streaming 64-row tiles through an mbarrier ring, p and ds formed in the
-score accumulators and fed back as register A operands, the streamed
-tile read as the transposed B in place; its f32 kernels are `mma.sync`
-(3xTF32 on m16n8k8) until their redesign. `route` names them.
+being memory bound). Both dtypes run `wgmma` + TMA as the forward does:
+persistent CTAs, a producer warp streaming tiles through an mbarrier
+ring, p and ds formed in the score accumulators and fed back as register
+A operands. bf16 items own 128 rows and read the streamed tile as the
+transposed B in place; f32 items own 64 rows and run 3xTF32, the tiles
+split (and Q, dO or K transposed) in shared memory by the producer
+warpgroup's other warps. `route` names them.
 
-Any number of (batch, head) pairs runs: K3 and the bf16 backward walk
-their work items with persistent CTAs and the f32 backward puts (b·h,
-tile) on grid x, so the only limit is a 32-bit item index (`_check_card`
-raises past it).
+Any number of (batch, head) pairs runs: K3 and the backward walk their
+work items with persistent CTAs, so the only limit is a 32-bit item
+index (`_check_card` raises past it).
 """
 
 from __future__ import annotations
@@ -100,14 +100,13 @@ _launch_bwd = None  # flash_bwd_launch
 
 def route(dtype: torch.dtype, hd: int, kernel: str = "forward") -> str:
     """The kernel form a CUDA call at this dtype and head width runs: the
-    forward 'wgmma' (bf16, and f32 as 3xTF32, at hd 32, 64 and 80); the
-    backward's 'dkv' and 'dq' kernels 'wgmma' in bf16 and 'mma_sync' in f32
-    (3xTF32 on m16n8k8)."""
+    forward and the backward's 'dkv' and 'dq' kernels 'wgmma' (bf16, and
+    f32 as 3xTF32) at hd 32, 64 and 80."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")
     if kernel not in ("forward", "dkv", "dq"):
         raise ValueError(f"K3's kernels are 'forward', 'dkv' and 'dq', not {kernel!r}")
-    return "wgmma" if kernel == "forward" or dtype == torch.bfloat16 else "mma_sync"
+    return "wgmma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -183,7 +182,7 @@ def flash_attention(
 def _check_card(q: torch.Tensor, rows: int = 128) -> None:
     """What the kernels take: a head width of HEAD_DIMS, and (batch, head)
     pairs times ⌈N / rows⌉ blocks (K3 and the bf16 backward: 128-row items;
-    the f32 backward: 64-row tiles) within MAX_ITEMS, a 32-bit index."""
+    the f32 backward: 64-row items) within MAX_ITEMS, a 32-bit index."""
     b, h, n, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"the K3 kernel takes head widths {HEAD_DIMS}, not {hd}")

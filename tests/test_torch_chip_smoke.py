@@ -276,7 +276,7 @@ def test_flash_bwd_phase_rehearses_on_cpu(smoke):
     rows, err = smoke.flash_bwd_timing(gen)
     assert set(rows) == {"main", "f32", "hd32", "f32 hd32", "hd80", "f32 hd80"} and err >= 0.0
     for row in rows.values():
-        assert row["route"] == ("wgmma" if row["dtype"] == "bfloat16" else "mma_sync")
+        assert row["route"] == "wgmma"
         assert row["library"].startswith("SDPA backward (")
         assert row["bound_ms"] <= row["split_bound_ms"] and row["graph_ms"] > 0 and row["library_ms"] > 0
         assert row["dkv"]["ms"] > 0 and row["dq"]["bound_ms"] > 0
@@ -634,7 +634,7 @@ def test_pairs_rehearse_on_cpu(smoke, monkeypatch):
     bwd = {f"{dt} {s}" for dt in ("bfloat16", "float32") for s in ("(2, 2, 40, 32)", "(2, 2, 20, 32)", "(2, 2, 20, 80)")}
     assert set(out["k3bwd"]) == bwd
     for label, row in out["k3bwd"].items():
-        assert row["route"] == ("wgmma" if label.startswith("bfloat16") else "mma_sync")
+        assert row["route"] == "wgmma"
         assert len(row["digest"]) == 16 and row["graph_ms"] > 0 and row["dkv_ms"] > 0 and row["dq_ms"] > 0
         assert row["ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
     assert json.dumps(out)
@@ -760,7 +760,7 @@ ptxas info    : Used 168 registers, used 3 barriers
 
 
 def test_ptxas_report_reads_the_bwd_kernels(smoke):
-    """K3-bwd's kernels (bf16 on wgmma, f32 on mma.sync) read by dtype and
+    """K3-bwd's kernels (bf16 and f32, both on wgmma) read by dtype and
     head width from their mangled names: six instances of each,
     BWD_INSTANCES's keys."""
     name = ("_ZN45_GLOBAL__N__b215bf55_12_flash_bwd_cu_5acdb52813flash_bwd_dkvI{}Li{}EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_"
@@ -775,18 +775,18 @@ ptxas info    : Used 200 registers, used 1 barriers
         ("bf16", 32), ("bf16", 64), ("bf16", 80), ("f32", 32), ("f32", 64), ("f32", 80)]
     assert r["spill_store_bytes"] == [0, 0, 4, 0, 0, 4]
     assert smoke.ptxas_report(log, "flash_bwd_dq")["instances"] == 0
-    assert "flash_bwd.cu" not in smoke.NO_MMA_SYNC and set(smoke.BWD_KERNELS) == {"flash_bwd_dkv", "flash_bwd_dq"}
+    assert "flash_bwd.cu" in smoke.NO_MMA_SYNC and set(smoke.BWD_KERNELS) == {"flash_bwd_dkv", "flash_bwd_dq"}
 
 
 def test_no_mma_sync_in_the_search_libraries(smoke):
-    """Phase 1: an HMMA or IMMA in K1's, K2's or K3's library fails (every
-    form runs a wgmma kernel, K3 f32 included); a library outside
-    NO_MMA_SYNC is not held to it."""
+    """Phase 1: an HMMA or IMMA in K1's, K2's, K3's or K3-bwd's library
+    fails (every form runs a wgmma kernel, K3 f32 and K3-bwd f32 included);
+    a library outside NO_MMA_SYNC is not held to it."""
     clean = {"HGMMA": 40, "IGMMA": 8, "UTMALDG": 60, "HMMA": 0, "IMMA": 0}
-    for src in ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu"):
+    for src in ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu", "flash_bwd.cu"):
         smoke.check_no_mma_sync(src, clean)
     smoke.check_no_mma_sync("other.cu", dict(clean, HMMA=24))
-    for src in ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu"):
+    for src in ("knn_topk.cu", "ivf_topk.cu", "flash_attn.cu", "flash_bwd.cu"):
         for op in ("HMMA", "IMMA"):
             with pytest.raises(RuntimeError, match="mma.sync"):
                 smoke.check_no_mma_sync(src, dict(clean, **{op: 1}))

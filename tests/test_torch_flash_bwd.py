@@ -208,12 +208,12 @@ def test_flash_vit_gradients_match_jax_grad_of_the_xla_vit():
 
 
 def test_route_names_the_backward_kernels():
-    """The backward's two kernels run wgmma in bf16 and mma.sync in f32 at
+    """The backward's two kernels run wgmma in bf16 and in f32 (3xTF32) at
     every width; the forward stays on wgmma; other kernels or widths have
     no route."""
     for dtype in (torch.bfloat16, torch.float32):
         for hd in (32, 64, 80):
-            want = "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+            want = "wgmma"
             assert flash_cuda.route(dtype, hd, "dkv") == flash_cuda.route(dtype, hd, "dq") == want
             assert flash_cuda.route(dtype, hd) == "wgmma"
     with pytest.raises(ValueError, match="kernels"):

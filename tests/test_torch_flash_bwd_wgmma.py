@@ -1,5 +1,5 @@
-"""K3-bwd's bf16 wgmma redesign and `'flash'` past 65,535 (batch, head)
-pairs, on the CPU.
+"""K3-bwd's wgmma kernels (bf16, and f32 as 3xTF32) and `'flash'` past
+65,535 (batch, head) pairs, on the CPU.
 
 The kernels themselves run only on the card (`test_torch_flash_cuda.py`,
 `chip_smoke.py` phases 1, 4 and 11); here: the routes the wrapper names,
@@ -34,11 +34,11 @@ def smoke(monkeypatch):
 
 @pytest.mark.parametrize("hd", [32, 64, 80])
 def test_route_names_wgmma_for_the_bf16_backward(hd):
-    """bf16's dK/dV and dQ kernels are wgmma; f32's stay mma.sync until
-    their redesign; the forward is wgmma in both."""
+    """bf16's dK/dV and dQ kernels are wgmma, and so are f32's (3xTF32);
+    the forward is wgmma in both."""
     for kernel in ("dkv", "dq"):
         assert flash_cuda.route(torch.bfloat16, hd, kernel) == "wgmma"
-        assert flash_cuda.route(torch.float32, hd, kernel) == "mma_sync"
+        assert flash_cuda.route(torch.float32, hd, kernel) == "wgmma"
     assert flash_cuda.route(torch.bfloat16, hd) == flash_cuda.route(torch.float32, hd) == "wgmma"
 
 
@@ -90,13 +90,13 @@ def test_function_past_65535_pairs_matches_two_halves_of_the_heads():
 
 def _sass(clean=True, hmma_in=None, drop=None):
     """A per-function SASS count of flash_bwd.cu (sass_counts' form): every
-    instance of both kernels, bf16 on wgmma, f32 on mma.sync."""
+    instance of both kernels, bf16 and f32, on wgmma."""
     per_fn = {}
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
         for t, hd in ((t, hd) for t in ("13__nv_bfloat16", "f") for hd in (32, 64, 80)):
             fn = f"_ZN45_GLOBAL__N__b215bf55_12_flash_bwd_cu_5acdb528{len(name)}{name}I{t}Li{hd}EEEv"
-            bf16 = t != "f"
-            per_fn[fn] = {"HGMMA": 32 * bf16, "IGMMA": 0, "UTMALDG": 4 * bf16, "HMMA": 0 if bf16 else 144, "IMMA": 0}
+            per_fn[fn] = {"HGMMA": 32 if t != "f" else 96, "IGMMA": 0, "UTMALDG": 4 if t != "f" else 8, "HMMA": 0,
+                          "IMMA": 0}
     if hmma_in is not None:
         per_fn[next(f for f in per_fn if hmma_in in f)]["HMMA"] = 1
     if drop is not None:
@@ -106,18 +106,21 @@ def _sass(clean=True, hmma_in=None, drop=None):
 
 def test_bwd_sass_check_holds_each_instance(smoke):
     """Phase 1's per-instance check of K3-bwd's SASS passes a clean listing
-    (12 instances; bf16 HGMMA + UTMALDG and no HMMA, f32 HMMA) and fails
-    on an HMMA in a bf16 instance, on a missing instance and on an f32
-    instance without HMMA."""
+    (12 instances, bf16 and f32: HGMMA + UTMALDG and no HMMA) and fails on
+    an HMMA in a bf16 or an f32 instance, on a missing instance and on an
+    f32 instance without HGMMA."""
     got = smoke.check_bwd_sass(_sass())
     assert len(got) == 12 and got["flash_bwd_dq bf16 hd 80"]["HGMMA"] == 32
-    with pytest.raises(RuntimeError, match="bf16 K3-bwd instance runs wgmma"):
+    assert got["flash_bwd_dkv f32 hd 32"]["HGMMA"] == 96
+    with pytest.raises(RuntimeError, match="K3-bwd instance runs wgmma"):
         smoke.check_bwd_sass(_sass(hmma_in="flash_bwd_dqI13__nv_bfloat16Li64E"))
+    with pytest.raises(RuntimeError, match="K3-bwd instance runs wgmma"):
+        smoke.check_bwd_sass(_sass(hmma_in="flash_bwd_dkvIfLi80E"))
     with pytest.raises(RuntimeError, match="instances"):
         smoke.check_bwd_sass(_sass(drop="flash_bwd_dkvI13__nv_bfloat16Li80E"))
     f32_without = _sass()
-    f32_without[next(f for f in f32_without if "flash_bwd_dkvIfLi32E" in f)]["HMMA"] = 0
-    with pytest.raises(RuntimeError, match="mma.sync"):
+    f32_without[next(f for f in f32_without if "flash_bwd_dkvIfLi32E" in f)]["HGMMA"] = 0
+    with pytest.raises(RuntimeError, match="runs wgmma"):
         smoke.check_bwd_sass(f32_without)
 
 
