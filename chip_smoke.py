@@ -1941,7 +1941,7 @@ def flash_bwd_timing(gen):
     return rows, max(errs)
 
 
-def bwd_entry(name, key, tpu_kernel, launches, err, rows, card, forms):
+def bwd_entry(name, key, tpu_kernel, launches, err, rows, card):
     """One K3-bwd kernel (`key`: 'dkv' or 'dq') of the `kernels` line: its
     own numbers at the main shape in bf16 (no one PyTorch call computes
     that half alone: `library_ms` null; the whole backward's SDPA time is
@@ -1951,7 +1951,7 @@ def bwd_entry(name, key, tpu_kernel, launches, err, rows, card, forms):
             "source": "hbird_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": tpu_kernel, "launches": launches, "max_abs_err": err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "shapes": rows, "card": card, "forms": forms}
+            "library_ms": None, "shapes": rows, "card": card}
 
 
 def shares(ms, bound, library):
@@ -4916,14 +4916,8 @@ def main(argv=()):
             for name in launches:
                 launches[name] += run["launches"][name]
 
-    forms = {name: {} for name in ("knn_topk", "ivf_topk", "flash_attention")}  # main-path launches by form
-    bwd_forms = {name: {} for name in ("flash_attention_dkv", "flash_attention_dq")}
-    for run in grad_runs.values():  # the gradient path's: K3 (its LSE instances) and K3-bwd
-        for name, counts in run["forms"].items():
-            into = bwd_forms[name] if name in bwd_forms else forms[name]
-            for form, n in counts.items():
-                into[form] = into.get(form, 0) + n
-    for run in runs.values():
+    forms = {name: {} for name in ("knn_topk", "ivf_topk", "flash_attention")}  # launches by form
+    for run in (*grad_runs.values(), *runs.values()):  # the gradient path's K3 (its LSE instances) too
         for name, counts in run["forms"].items():
             for form, n in counts.items():
                 forms[name][form] = forms[name].get(form, 0) + n
@@ -4938,11 +4932,9 @@ def main(argv=()):
                      sum(n["flash_attention"] for n in (*flash_launches.values(), *grad_launches.values())),
                      max(err_k3, err_k3_main, err_k3_timing), k3_rows, card, forms["flash_attention"]),
         bwd_entry("flash_attention_dkv (K3-bwd)", "dkv", TPU_KERNELS["K3-bwd dkv"],
-                  sum(n["flash_attention_dkv"] for n in grad_launches.values()), err_bwd, bwd_rows, card,
-                  bwd_forms["flash_attention_dkv"]),
+                  sum(n["flash_attention_dkv"] for n in grad_launches.values()), err_bwd, bwd_rows, card),
         bwd_entry("flash_attention_dq (K3-bwd)", "dq", TPU_KERNELS["K3-bwd dq"],
-                  sum(n["flash_attention_dq"] for n in grad_launches.values()), err_bwd, bwd_rows, card,
-                  bwd_forms["flash_attention_dq"]),
+                  sum(n["flash_attention_dq"] for n in grad_launches.values()), err_bwd, bwd_rows, card),
     ], "main_path": runs, "gradient_path": grad_runs, "tree": tree_info, "flash_vs_xla_tokens": token_err,
         "k1_select_load": select,
         "forward_ms_per_batch": forward, "card_vs_cpu": small, "backends_card_vs_cpu": backends,

@@ -21,6 +21,11 @@ Dataflow on the device (CUDA unless the caller passes device="cpu"):
 - ragged last batches are zero-padded to the first batch's size; padded
   images carry ignore-labelled GT and their bank rows are dropped. A later
   batch larger than the first fails in `_pad_batch`, as in the JAX engine.
+- the host's part of each batch lies in program spans (utils/profiling.py,
+  recorded only while a torch.profiler runs): `hbird.<phase>.feed` (the
+  loader's next item, padding, the copies to the device), `hbird.<phase>.step`
+  and its pieces, and `hbird.eval.consume` (batch i-1's results copied back
+  and counted once batch i is queued).
 
 Behavioural quirks kept for parity (SURVEY Appendix):
 - the memory build folds ignore label 255 into background 0
@@ -69,6 +74,7 @@ ways:
 from __future__ import annotations
 
 import copy
+import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -97,9 +103,10 @@ from hbird_tpu_torch.parallel.mesh import canonical_device
 from hbird_tpu_torch.parallel.sharded_knn import pad_rows_for_mesh
 from hbird_tpu_torch.utils.eval_metrics import PredsmIoU, confusion_matrix
 from hbird_tpu_torch.utils.logging import get_logger
-from hbird_tpu_torch.utils.profiling import PhaseTimer, maybe_trace
+from hbird_tpu_torch.utils.profiling import PhaseTimer, maybe_trace, span
 
 logger = get_logger(__name__)
+_ENGINES = itertools.count()  # each engine's serial, the `engine` of its spans
 
 _NN_ALIASES = {
     "faiss": "exact",
@@ -168,6 +175,8 @@ class HbirdEvaluation:
     _data_devices: Optional[List[torch.device]] = None
     _bank_valid_rows: Optional[int] = None
     conf_mat: Optional[np.ndarray] = None
+    _serial = -1
+    _batch = -1  # the batch the phase's loop is on, the `batch` of its spans
 
     def __init__(
         self,
@@ -217,6 +226,7 @@ class HbirdEvaluation:
         self._dataset_size = dataset_size
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.timer = timer if timer is not None else PhaseTimer()
+        self._serial = next(_ENGINES)
 
         self.num_sampled_features: Optional[int] = None
         eval_spatial_resolution = feature_extractor.eval_spatial_resolution
@@ -261,11 +271,11 @@ class HbirdEvaluation:
                     self.f_mem_p,
                     self.l_mem_p,
                 )
-            with self.timer.phase("memory_build"), maybe_trace("memory_build"):
+            with maybe_trace("memory_build"), self.timer.phase("memory_build"):
                 self._create_memory(train_loader)
                 self._sync()
             self._save_memory()
-            with self.timer.phase("index_build"):
+            with maybe_trace("index_build"), self.timer.phase("index_build"):
                 self._create_nn(
                     self.n_neighbours, nn_method=self.nn_method, **self.nn_params
                 )
@@ -283,6 +293,25 @@ class HbirdEvaluation:
         """Wait for the device, so a phase's time covers its work."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _span(self, name: str, batch: Optional[int] = None):
+        """The span `name` of `batch`, by default the one the phase's loop
+        is on."""
+        return span(name, engine=self._serial, batch=self._batch if batch is None else batch)
+
+    def _fed(self, loader, phase: str, prepare):
+        """prepare(x, y) of each loader item, the loop's batch index in
+        `_batch`. Taking the item and `prepare` (padding, the copies to the
+        device) are the span `hbird.<phase>.feed`."""
+        items = iter(loader)
+        for i in itertools.count():
+            self._batch = i
+            with self._span(f"hbird.{phase}.feed"):
+                item = next(items, None)
+                if item is None:
+                    return
+                out = prepare(*item)
+            yield out
 
     # ------------------------------------------------------------------
     # Memory construction
@@ -315,12 +344,13 @@ class HbirdEvaluation:
         """(B, N, D) backbone features on the engine's device. With a 'data'
         axis the batch splits evenly over its devices; every slice is
         launched before any result moves back."""
-        if self._data_devices is None:
-            return self.feature_extractor.forward_features(self._prep_images(imgs))[0]
-        parts = []
-        for dev, x in zip(self._data_devices, imgs.chunk(len(self._data_devices))):
-            parts.append(self._replica(dev).forward_features(self._prep_images(x.to(dev)))[0])
-        return torch.cat([f.to(self.device) for f in parts])
+        with self._span("hbird.forward"):
+            if self._data_devices is None:
+                return self.feature_extractor.forward_features(self._prep_images(imgs))[0]
+            parts = []
+            for dev, x in zip(self._data_devices, imgs.chunk(len(self._data_devices))):
+                parts.append(self._replica(dev).forward_features(self._prep_images(x.to(dev)))[0])
+            return torch.cat([f.to(self.device) for f in parts])
 
     def _prep_images(self, imgs: torch.Tensor) -> torch.Tensor:
         """uint8 batches are normalized on the device: (x/255 - mean)/std."""
@@ -347,22 +377,24 @@ class HbirdEvaluation:
     def _memory_step(self, imgs: torch.Tensor, masks: torch.Tensor):
         fe = self.feature_extractor
         c = self.num_classes
-        y = self._mask_ids(masks)
-        y = torch.where(y == 255, torch.zeros_like(y), y)
         feats = self._forward_features(imgs)  # (B, N, D)
-        patch_size = imgs.shape[-1] // fe.eval_spatial_resolution
-        pgt = patchify_gt(y, patch_size)  # (B, S, S, P)
-        label = patch_soft_labels(pgt, c)  # (B, S, S, C)
-        if self.memory_size is None:
-            normed = feats / torch.linalg.vector_norm(feats, dim=2, keepdim=True)
-            return normed.reshape(-1, feats.shape[-1]), label.reshape(-1, c)
-        sampled, idx = sample_patches(
-            feats, pgt, c, self.num_sampled_features, generator=self._generator
-        )
-        normed = sampled / torch.linalg.vector_norm(sampled, dim=2, keepdim=True)
-        lbl = label.reshape(label.shape[0], -1, c)
-        lbl = torch.gather(lbl, 1, idx[..., None].expand(-1, -1, c))
-        return normed.reshape(-1, sampled.shape[-1]), lbl.reshape(-1, c)
+        with self._span("hbird.memory.labels"):
+            y = self._mask_ids(masks)
+            y = torch.where(y == 255, torch.zeros_like(y), y)
+            patch_size = imgs.shape[-1] // fe.eval_spatial_resolution
+            pgt = patchify_gt(y, patch_size)  # (B, S, S, P)
+            label = patch_soft_labels(pgt, c)  # (B, S, S, C)
+        with self._span("hbird.memory.sample"):
+            if self.memory_size is None:
+                normed = feats / torch.linalg.vector_norm(feats, dim=2, keepdim=True)
+                return normed.reshape(-1, feats.shape[-1]), label.reshape(-1, c)
+            sampled, idx = sample_patches(
+                feats, pgt, c, self.num_sampled_features, generator=self._generator
+            )
+            normed = sampled / torch.linalg.vector_norm(sampled, dim=2, keepdim=True)
+            lbl = label.reshape(label.shape[0], -1, c)
+            lbl = torch.gather(lbl, 1, idx[..., None].expand(-1, -1, c))
+            return normed.reshape(-1, sampled.shape[-1]), lbl.reshape(-1, c)
 
     def _create_memory(self, train_loader) -> None:
         """Run the memory step over the loader into the bank (bounded banks
@@ -399,15 +431,25 @@ class HbirdEvaluation:
         rows = 0
         n_imgs = 0
         batch_size: Optional[int] = None
-        for _ in tqdm(range(self.augmentation_epoch), desc="Augmentation loop"):
-            for x, y in tqdm(train_loader, desc="Memory creation loop", leave=False):
-                x = _as_batch(x)
-                y = _as_batch(y)
-                if batch_size is None:
-                    batch_size = self._pad_target(x.shape[0])
-                x, valid = _pad_batch(x, batch_size)
-                y, _ = _pad_batch(y, batch_size)
-                feats, labels = self._memory_step(self._put_batch(x), self._put_batch(y))
+
+        def prepare(x, y):
+            nonlocal batch_size
+            x = _as_batch(x)
+            y = _as_batch(y)
+            if batch_size is None:
+                batch_size = self._pad_target(x.shape[0])
+            x, valid = _pad_batch(x, batch_size)
+            y, _ = _pad_batch(y, batch_size)
+            with self._span("hbird.memory.put"):
+                return self._put_batch(x), self._put_batch(y), valid
+
+        epochs = (
+            tqdm(train_loader, desc="Memory creation loop", leave=False)
+            for _ in tqdm(range(self.augmentation_epoch), desc="Augmentation loop")
+        )
+        for x, y, valid in self._fed(itertools.chain.from_iterable(epochs), "memory", prepare):
+            with self._span("hbird.memory.step"):
+                feats, labels = self._memory_step(x, y)
                 n_rows = valid * (feats.shape[0] // batch_size)
                 if self.memory_size is not None:
                     n_rows = min(n_rows, self.memory_size - rows)
@@ -417,21 +459,22 @@ class HbirdEvaluation:
                     rows += n_rows
                     n_imgs += valid
                     continue
-                n_in = max(0, min(n_rows, alloc - rows))
-                if n_in:
-                    bank[rows : rows + n_in].copy_(feats[:n_in])
-                    labels_bank[rows : rows + n_in].copy_(labels[:n_in])
-                if n_in < n_rows:
-                    if not feature_chunks:
-                        logger.warning(
-                            "Memory overflow: the %d preallocated rows are full but the "
-                            "loader keeps yielding; the excess waits on the host and is "
-                            "joined to the bank after the build. Check "
-                            "dataset_size/augmentation_epoch.",
-                            alloc,
-                        )
-                    feature_chunks.append(feats[n_in:n_rows].cpu())
-                    label_chunks.append(labels[n_in:n_rows].cpu())
+                with self._span("hbird.memory.write"):
+                    n_in = max(0, min(n_rows, alloc - rows))
+                    if n_in:
+                        bank[rows : rows + n_in].copy_(feats[:n_in])
+                        labels_bank[rows : rows + n_in].copy_(labels[:n_in])
+                    if n_in < n_rows:
+                        if not feature_chunks:
+                            logger.warning(
+                                "Memory overflow: the %d preallocated rows are full but the "
+                                "loader keeps yielding; the excess waits on the host and is "
+                                "joined to the bank after the build. Check "
+                                "dataset_size/augmentation_epoch.",
+                                alloc,
+                            )
+                        feature_chunks.append(feats[n_in:n_rows].cpu())
+                        label_chunks.append(labels[n_in:n_rows].cpu())
                 rows += n_rows
                 n_imgs += valid
         self.timer.add_items("memory_build", n_imgs)
@@ -641,22 +684,25 @@ class HbirdEvaluation:
         d = feats.shape[-1]
         q = feats.reshape(-1, d)
         state = nn.device_state
-        vals, idx, labels = nn.search_with_labels_pure(state, q, k, **self._search_opts)
-        q_norm = torch.linalg.vector_norm(q, dim=-1)
-        label_hat = cross_attention_from_scores(
-            vals.reshape(b, -1, k), q_norm.reshape(b, -1), labels.reshape(b, -1, k, c)
-        )  # (B, N, C)
-        lh = label_hat.reshape(b, esr, esr, c).permute(0, 3, 1, 2)
-        resized = F.interpolate(
-            lh, size=(h, w), mode="bilinear", align_corners=False, antialias=False
-        )
-        pred = resized.argmax(dim=1)  # (B, H, W), first maximum on ties
-        y = self._mask_ids(masks).reshape(b, h, w)
-        conf = confusion_matrix(y, pred, c, c, ignore_index)
-        if c <= 255:
-            # Class ids (and the 255 ignore sentinel) fit in uint8.
-            pred = pred.to(torch.uint8)
-            y = torch.clamp(y, 0, 255).to(torch.uint8)
+        with self._span("hbird.search"):
+            vals, idx, labels = nn.search_with_labels_pure(state, q, k, **self._search_opts)
+        with self._span("hbird.eval.label_transfer"):
+            q_norm = torch.linalg.vector_norm(q, dim=-1)
+            label_hat = cross_attention_from_scores(
+                vals.reshape(b, -1, k), q_norm.reshape(b, -1), labels.reshape(b, -1, k, c)
+            )  # (B, N, C)
+            lh = label_hat.reshape(b, esr, esr, c).permute(0, 3, 1, 2)
+            resized = F.interpolate(
+                lh, size=(h, w), mode="bilinear", align_corners=False, antialias=False
+            )
+            pred = resized.argmax(dim=1)  # (B, H, W), first maximum on ties
+        with self._span("hbird.eval.confusion"):
+            y = self._mask_ids(masks).reshape(b, h, w)
+            conf = confusion_matrix(y, pred, c, c, ignore_index)
+            if c <= 255:
+                # Class ids (and the 255 ignore sentinel) fit in uint8.
+                pred = pred.to(torch.uint8)
+                y = torch.clamp(y, 0, 255).to(torch.uint8)
         details = None
         if return_knn_details:
             key_feats = nn.gather_features_pure(state, idx).float()
@@ -686,55 +732,58 @@ class HbirdEvaluation:
 
         def consume(item):
             nonlocal n_imgs
-            conf, pred, y_ids, details, valid = item
-            n_imgs += valid
-            conf_np = conf.cpu().numpy()
-            pred_np = pred.cpu().numpy()[:valid]
-            y_np = y_ids.cpu().numpy()[:valid]
-            # Masked pred stream for reordered_preds (reference parity).
-            mask = (
-                (y_np >= 0)
-                & (y_np < self.num_classes)
-                & (pred_np >= 0)
-                & (pred_np < self.num_classes)
-            )
-            if ignore_index is not None:
-                mask &= y_np != ignore_index
-            metric.update_with_conf_mat(conf_np, pred=pred_np[mask])
-            if return_knn_details and details is not None:
-                kf, kl, ca = details
-                knns.append(kf.cpu().numpy()[:valid])
-                knns_labels.append(kl.cpu().numpy()[:valid])
-                knns_ca_labels.append(ca.cpu().numpy()[:valid])
+            conf, pred, y_ids, details, valid, batch = item
+            with self._span("hbird.eval.consume", batch):
+                n_imgs += valid
+                with self._span("hbird.eval.consume.wait", batch):
+                    conf_np = conf.cpu().numpy()
+                pred_np = pred.cpu().numpy()[:valid]
+                y_np = y_ids.cpu().numpy()[:valid]
+                # Masked pred stream for reordered_preds (reference parity).
+                mask = (
+                    (y_np >= 0)
+                    & (y_np < self.num_classes)
+                    & (pred_np >= 0)
+                    & (pred_np < self.num_classes)
+                )
+                if ignore_index is not None:
+                    mask &= y_np != ignore_index
+                metric.update_with_conf_mat(conf_np, pred=pred_np[mask])
+                if return_knn_details and details is not None:
+                    kf, kl, ca = details
+                    knns.append(kf.cpu().numpy()[:valid])
+                    knns_labels.append(kl.cpu().numpy()[:valid])
+                    knns_ca_labels.append(ca.cpu().numpy()[:valid])
+
+        def prepare(x, y):
+            nonlocal batch_size
+            x = _as_batch(x)
+            y = _as_batch(y)
+            if batch_size is None:
+                batch_size = self._pad_target(x.shape[0])
+            x, valid = _pad_batch(x, batch_size)
+            # Padded images: all-ignore GT so they don't touch the metric.
+            ign = ignore_index if ignore_index is not None else 255
+            if y.dtype == np.uint8:
+                y_pad = np.full((batch_size,) + y.shape[1:], ign, np.uint8)
+            else:
+                y_pad = np.full((batch_size,) + y.shape[1:], ign / 255.0, np.float32)
+            y_pad[:valid] = y
+            with self._span("hbird.eval.put"):
+                return self._put_batch(x), self._put_batch(y_pad), valid
 
         logger.info("Starting evaluation loop...")
         # One-batch lag: batch i+1 is queued on the device before batch i's
         # results are copied to the host.
         in_flight = None
-        with torch.inference_mode(), self.timer.phase("evaluate"), maybe_trace("evaluate"):
-            for x, y in tqdm(val_loader, desc="Evaluation loop"):
-                x = _as_batch(x)
-                y = _as_batch(y)
-                if batch_size is None:
-                    batch_size = self._pad_target(x.shape[0])
-                x, valid = _pad_batch(x, batch_size)
-                # Padded images: all-ignore GT so they don't touch the metric.
-                ign = ignore_index if ignore_index is not None else 255
-                if y.dtype == np.uint8:
-                    y_pad = np.full((batch_size,) + y.shape[1:], ign, np.uint8)
-                else:
-                    y_pad = np.full((batch_size,) + y.shape[1:], ign / 255.0, np.float32)
-                y_pad[:valid] = y
-                out = self._eval_step(
-                    self._put_batch(x),
-                    self._put_batch(y_pad),
-                    eval_spatial_resolution,
-                    ignore_index,
-                    return_knn_details,
-                )
+        with torch.inference_mode(), maybe_trace("evaluate"), self.timer.phase("evaluate"):
+            feed = self._fed(tqdm(val_loader, desc="Evaluation loop"), "eval", prepare)
+            for x, y, valid in feed:
+                with self._span("hbird.eval.step"):
+                    out = self._eval_step(x, y, eval_spatial_resolution, ignore_index, return_knn_details)
                 if in_flight is not None:
                     consume(in_flight)
-                in_flight = (*out, valid)
+                in_flight = (*out, valid, self._batch)
             if in_flight is not None:
                 consume(in_flight)
         self.timer.add_items("evaluate", n_imgs)

@@ -47,7 +47,7 @@ second derivative raises "Higher-order AD not supported". Under
 `torch.no_grad()` or `torch.inference_mode()`, as the engine runs,
 `flash_attention` launches the forward alone, with no Function and no
 residual. `flash_attention_dkv.launches` and `flash_attention_dq.launches`
-count the backward kernels' launches (`.forms` by dtype).
+count the backward kernels' launches.
 
 What bounds the backward on the card: operations (at the ViT-B/14 main
 shape ~1,200 flops a byte moved, against the ~295 where an H100 stops
@@ -300,7 +300,6 @@ def flash_attention_dkv(q, k, v, lse, do, di, scale: float):
         return dk, dv
     _backward_kernel(0, q, k, v, lse, do, di, scale, (dk, dv))
     flash_attention_dkv.launches += 1
-    flash_attention_dkv.forms["bf16" if q.dtype == torch.bfloat16 else "f32"] += 1
     return dk, dv
 
 
@@ -314,13 +313,10 @@ def flash_attention_dq(q, k, v, lse, do, di, scale: float):
         return dq
     _backward_kernel(1, q, k, v, lse, do, di, scale, (dq,))
     flash_attention_dq.launches += 1
-    flash_attention_dq.forms["bf16" if q.dtype == torch.bfloat16 else "f32"] += 1
     return dq
 
 
 flash_attention.launches = 0
 flash_attention.forms = collections.Counter()
 flash_attention_dkv.launches = 0
-flash_attention_dkv.forms = collections.Counter()
 flash_attention_dq.launches = 0
-flash_attention_dq.forms = collections.Counter()

@@ -42,6 +42,7 @@ import torch
 
 from hbird_tpu_torch.ops.knn import dot_scores
 from hbird_tpu_torch.utils.logging import get_logger
+from hbird_tpu_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 _SENTINEL = 2**62  # id of invalid candidates in _dedup_topk; no slot reaches it
@@ -58,14 +59,17 @@ def _sync(device: torch.device) -> None:
 
 @contextmanager
 def phase_seconds(times: Optional[Dict[str, float]], name: str, device: torch.device):
-    """Add the wall time of the block (device work included) to times[name]."""
+    """Add the wall time of the block (device work included) to times[name].
+    The block is also the span `hbird.index.<name>` (utils/profiling.py)."""
     if times is None:
-        yield
+        with span(f"hbird.index.{name}"):
+            yield
         return
     _sync(device)
     t0 = time.perf_counter()
-    yield
-    _sync(device)
+    with span(f"hbird.index.{name}"):
+        yield
+        _sync(device)
     times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 
 

@@ -364,4 +364,4 @@ def test_profile_flag_sets_the_trace_dir(run_inputs, monkeypatch, tmp_path):
     monkeypatch.setenv("HBIRD_PROFILE_DIR", "")  # restored (unset) after the test
     prof = tmp_path / "prof"
     eval_cli.main(_argv(root, ckpt, str(tmp_path / "o.json"), "--device", "cpu", "--profile", str(prof)))
-    assert sorted(p.name for p in prof.iterdir()) == ["evaluate.json", "memory_build.json"]
+    assert sorted(p.name for p in prof.iterdir()) == ["evaluate.json", "index_build.json", "memory_build.json"]

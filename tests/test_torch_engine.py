@@ -175,8 +175,9 @@ def test_profile_dir_writes_phase_traces(voc, tmp_path, monkeypatch):
         n_neighbours=K, ftr_extr_fn=oracle_t, num_workers=0, device="cpu", timer=timer,
     )
     assert sorted(p.name for p in (tmp_path / "prof").iterdir()) == [
-        "evaluate.json", "memory_build.json"
+        "evaluate.json", "index_build.json", "memory_build.json"
     ]
+    assert '"hbird.eval.consume"' in (tmp_path / "prof" / "evaluate.json").read_text()  # the program's spans
     summary = timer.summary()
     assert summary["memory_build"]["items"] == 12 and summary["evaluate"]["items"] == 6
 
